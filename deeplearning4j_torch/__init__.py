@@ -1,0 +1,22 @@
+"""deeplearning4j_torch — the PyTorch/CUDA port of deeplearning4j_tpu.
+
+The same config-builder DSL, JSON and networks as the JAX package, run by
+PyTorch on an NVIDIA GPU, with the JAX package's Pallas kernels rewritten by
+hand for Hopper (``ops/csrc``). Entry points run on CUDA unless the caller
+passes ``device="cpu"``. This package imports neither JAX nor
+``deeplearning4j_tpu``.
+"""
+
+from .nn.conf.builders import (BackpropType, MultiLayerConfiguration,
+                               NeuralNetConfiguration, OptimizationAlgorithm)
+from .nn.conf.inputs import InputType
+from .nn.layers.core import (ActivationLayer, DenseLayer, DropoutLayer,
+                             OutputLayer)
+from .nn.layers.convolution import (ConvolutionLayer, ConvolutionMode,
+                                    LocalResponseNormalization, PoolingType,
+                                    SubsamplingLayer)
+from .nn.multilayer import MultiLayerNetwork
+from .nn.updaters import (Adam, AdaDelta, AdaGrad, AdaMax, GradientNormalization,
+                          Nesterovs, NoOp, RmsProp, Sgd)
+from .nn.weights import Distribution, WeightInit
+from .parallel.inference import InferenceMode, ParallelInference

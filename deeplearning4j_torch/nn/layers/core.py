@@ -1,0 +1,185 @@
+"""Core layer abstraction + feed-forward layers.
+
+Port of `deeplearning4j_tpu/nn/layers/core.py`. As there, one dataclass per
+layer carries both the serializable config (same fields, same registered
+names) and the math:
+
+    params = layer.init_params(gen, dtype)          # dict of named tensors
+    y      = layer.forward(params, x, train=..., generator=...)
+
+Parameters are drawn on the CPU from an explicit `torch.Generator`; the
+network moves them to its device. Layers of this slice hold no state (no
+batch-norm yet), so there is no state tree. Dropout follows the reference:
+inverted, applied to the layer's INPUT, identity at inference.
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Dict, Optional, Tuple
+
+import torch
+
+from ...ops import activations as act_ops
+from ...utils import serde
+from ..conf.inputs import FeedForwardType, InputType
+from ..updaters import GradientNormalization, Updater
+from ..weights import Distribution, WeightInit, init_weights
+
+Tensor = torch.Tensor
+Params = Dict[str, Tensor]
+
+# Parameter-type tags (reference DefaultParamInitializer.WEIGHT_KEY/BIAS_KEY).
+WEIGHT = "W"
+BIAS = "b"
+
+
+def dropout(x: Tensor, rate: Optional[float], train: bool,
+            generator: Optional[torch.Generator]) -> Tensor:
+    """Inverted dropout on layer input (reference util/Dropout.java)."""
+    if not train or rate is None or rate <= 0.0:
+        return x
+    if generator is None:
+        raise ValueError("Dropout requires a generator during training")
+    keep = 1.0 - rate
+    mask = torch.rand(x.shape, generator=generator, device=x.device) < keep
+    return torch.where(mask, x / keep, torch.zeros_like(x))
+
+
+@serde.register
+@dataclass
+class Layer:
+    """Base config for all layers. Fields default to None = 'inherit the
+    global default from NeuralNetConfiguration.Builder'."""
+
+    name: Optional[str] = None
+    activation: Optional[str] = None
+    weight_init: Optional[WeightInit] = None
+    dist: Optional[Distribution] = None
+    bias_init: Optional[float] = None
+    l1: Optional[float] = None
+    l2: Optional[float] = None
+    l1_bias: Optional[float] = None
+    l2_bias: Optional[float] = None
+    dropout_rate: Optional[float] = None
+    updater: Optional[Updater] = None
+    gradient_normalization: Optional[GradientNormalization] = None
+    gradient_normalization_threshold: float = 1.0
+    frozen: bool = False  # transfer-learning freeze (reference FrozenLayer)
+
+    # ---- shape inference -------------------------------------------------
+    def input_kind(self) -> str:
+        """Expected input family: 'ff' | 'cnn' | 'rnn' | 'any'. Drives
+        automatic preprocessor insertion."""
+        return "ff"
+
+    def set_input_type(self, input_type: InputType) -> InputType:
+        """Bind input shape (infer n_in etc.); return this layer's output
+        type."""
+        return input_type
+
+    # ---- params ----------------------------------------------------------
+    def init_params(self, gen: torch.Generator, dtype=torch.float32) -> Params:
+        return {}
+
+    def has_params(self) -> bool:
+        return False
+
+    def param_reg(self, pname: str) -> Tuple[float, float]:
+        """(l1, l2) applied to the named parameter."""
+        if pname == BIAS:
+            return (self.l1_bias or 0.0, self.l2_bias or 0.0)
+        if pname == WEIGHT:
+            return (self.l1 or 0.0, self.l2 or 0.0)
+        return (0.0, 0.0)
+
+    # ---- forward ---------------------------------------------------------
+    def forward(self, params: Params, x: Tensor, *, train: bool = False,
+                generator: Optional[torch.Generator] = None) -> Tensor:
+        raise NotImplementedError
+
+    # ---- helpers ---------------------------------------------------------
+    def _act(self):
+        return act_ops.resolve(self.activation)
+
+    def is_output_layer(self) -> bool:
+        return False
+
+    def _winit(self, gen, shape, fan_in, fan_out, dtype):
+        return init_weights(gen, shape, fan_in, fan_out,
+                            self.weight_init or WeightInit.XAVIER,
+                            self.dist, dtype)
+
+
+@serde.register
+@dataclass
+class DenseLayer(Layer):
+    """Fully connected layer: z = xW + b, a = act(z). W is [n_in, n_out],
+    the JAX package's layout."""
+
+    n_in: int = 0
+    n_out: int = 0
+
+    def set_input_type(self, input_type):
+        if isinstance(input_type, FeedForwardType):
+            if self.n_in == 0:
+                self.n_in = input_type.size
+        else:
+            raise ValueError(f"DenseLayer needs FeedForward input, got {input_type}")
+        return FeedForwardType(size=self.n_out)
+
+    def has_params(self):
+        return True
+
+    def init_params(self, gen, dtype=torch.float32):
+        w = self._winit(gen, (self.n_in, self.n_out), self.n_in, self.n_out, dtype)
+        b = torch.full((self.n_out,), self.bias_init or 0.0, dtype=dtype)
+        return {WEIGHT: w, BIAS: b}
+
+    def preout(self, params, x):
+        return torch.addmm(params[BIAS], x, params[WEIGHT])
+
+    def forward(self, params, x, *, train=False, generator=None):
+        x = dropout(x, self.dropout_rate, train, generator)
+        return self._act()(self.preout(params, x))
+
+
+@serde.register
+@dataclass
+class ActivationLayer(Layer):
+    """Pure activation (reference nn/conf/layers/ActivationLayer)."""
+
+    def input_kind(self):
+        return "any"
+
+    def forward(self, params, x, *, train=False, generator=None):
+        return self._act()(x)
+
+
+@serde.register
+@dataclass
+class DropoutLayer(Layer):
+    """Standalone dropout (reference nn/conf/layers/DropoutLayer)."""
+
+    def input_kind(self):
+        return "any"
+
+    def forward(self, params, x, *, train=False, generator=None):
+        return dropout(x, self.dropout_rate, train, generator)
+
+
+@serde.register
+@dataclass
+class BaseOutputLayer(DenseLayer):
+    """Dense + loss head. Only the forward is ported; the loss and its
+    score come with the training slice."""
+
+    loss: str = "mcxent"
+
+    def is_output_layer(self):
+        return True
+
+
+@serde.register
+@dataclass
+class OutputLayer(BaseOutputLayer):
+    pass

@@ -1,0 +1,405 @@
+"""ParallelInference: multi-client serving with dynamic batching.
+
+Port of `deeplearning4j_tpu/parallel/inference.py` (reference
+parallelism/ParallelInference.java). BATCHED mode is the headline path: a
+collector thread drains the request queue, pads the coalesced batch to a
+power-of-two bucket, runs ONE forward of the network on its device, and
+hands each waiting caller its rows. SEQUENTIAL mode runs each request as its
+own forward under a lock.
+
+Kept from the JAX package: both modes, the typed errors, deadline shedding,
+the finite-output check, batch-failure isolation (a failed batch is retried
+request by request so only the offender fails), warmup over the bucket set,
+and shutdown that serves queued stragglers and fails whatever it cannot.
+Packed admission (segment-masked sequence rows) waits for the attention
+slice; the gateway hooks, device scheduler and flight recorder for the
+serving-plane slice.
+"""
+from __future__ import annotations
+
+import collections
+import enum
+import queue
+import threading
+import time
+from typing import List, Optional
+
+import numpy as np
+
+from ..data.padding import next_pow2_bucket, repeat_tail_rows
+from ..utils import faults
+
+
+class InferenceMode(enum.Enum):
+    """Reference parallelism/inference/InferenceMode.java."""
+    SEQUENTIAL = "sequential"
+    BATCHED = "batched"
+
+
+class ServerClosedError(RuntimeError):
+    """The server was shut down while (or before) this request was
+    queued — the caller gets this instead of hanging forever."""
+
+
+class BatchExecutionError(RuntimeError):
+    """A coalesced forward raised: only the requests riding THAT batch
+    fail (``__cause__`` carries the original exception); batchmates of a
+    poisoned request are retried alone and the collector survives."""
+
+
+class NonFiniteOutputError(BatchExecutionError):
+    """A forward returned NaN/Inf rows with `check_finite` on."""
+
+
+class QueueFullError(RuntimeError):
+    """Admission queue at capacity: the backpressure signal."""
+
+
+class DeadlineExceededError(RuntimeError):
+    """The request's deadline passed before a forward could serve it."""
+
+
+class _Request:
+    __slots__ = ("x", "event", "result", "error", "deadline")
+
+    def __init__(self, x: np.ndarray, deadline: Optional[float] = None):
+        self.x = x
+        self.event = threading.Event()
+        self.result: Optional[np.ndarray] = None
+        self.error: Optional[BaseException] = None
+        # Absolute time.monotonic() seconds; None = no SLO.
+        self.deadline = deadline
+
+    def expired(self, now: Optional[float] = None) -> bool:
+        return self.deadline is not None and \
+            (now if now is not None else time.monotonic()) > self.deadline
+
+
+class ParallelInference:
+    """Thread-safe serving facade over an initialized MultiLayerNetwork,
+    which runs on the device it was initialized on."""
+
+    def __init__(self, model, *, inference_mode: InferenceMode = InferenceMode.BATCHED,
+                 batch_limit: int = 32, queue_limit: int = 64,
+                 batch_timeout_ms: float = 2.0, check_finite: bool = False):
+        if not getattr(model, "_initialized", False):
+            raise RuntimeError("Model must be init()ed before serving")
+        self.model = model
+        self.inference_mode = inference_mode
+        self.batch_limit = int(batch_limit)
+        self.batch_timeout_ms = float(batch_timeout_ms)
+        self.check_finite = bool(check_finite)
+        self._lock = threading.Lock()
+        self._enqueue_lock = threading.Lock()
+        self._queue: "queue.Queue[Optional[_Request]]" = queue.Queue(
+            maxsize=queue_limit)
+        self._shutdown = False
+        self._worker: Optional[threading.Thread] = None
+        # Observability: recent executed batch sizes (bounded) and lifetime
+        # counters, bumped from caller threads and the collector alike.
+        self.executed_batch_sizes = collections.deque(maxlen=1024)
+        self.total_forwards = 0
+        self.total_shed = 0
+        self.total_batch_failures = 0
+        self._stats_lock = threading.Lock()
+        self.warmed_buckets: List[int] = []
+        if inference_mode == InferenceMode.BATCHED:
+            self._worker = threading.Thread(
+                target=self._collector_loop, name="ParallelInference-collector",
+                daemon=True)
+            self._worker.start()
+
+    @staticmethod
+    def builder(model) -> "ParallelInferenceBuilder":
+        return ParallelInferenceBuilder(model)
+
+    # ----------------------------------------------------------------- warmup
+    def warmup(self, *, max_bucket: Optional[int] = None,
+               time_steps: Optional[int] = None) -> "ParallelInference":
+        """Run one forward at every power-of-two bucket this server can
+        coalesce to (1, 2, 4, ... batch_limit's bucket), so the first client
+        request at any bucket finds its kernels built and cuDNN's choice
+        made."""
+        top = next_pow2_bucket(max_bucket or self.batch_limit)
+        b = 1
+        while b <= top:
+            self.model.warmup(b, time_steps=time_steps)
+            if b not in self.warmed_buckets:
+                self.warmed_buckets.append(b)
+            b <<= 1
+        return self
+
+    # ----------------------------------------------------------------- output
+    def output(self, x, *, deadline: Optional[float] = None) -> np.ndarray:
+        """Predict for one request (any leading batch size). Thread-safe;
+        in BATCHED mode blocks until the coalesced forward containing this
+        request completes.
+
+        `deadline` is an absolute time.monotonic() second count: a request
+        still unserved past it fails with :class:`DeadlineExceededError`. A
+        full admission queue raises :class:`QueueFullError`, a closed server
+        :class:`ServerClosedError`."""
+        x = np.asarray(x)
+        if x.ndim == 0:
+            raise ValueError("Request must have a leading batch dimension")
+        if self.inference_mode == InferenceMode.SEQUENTIAL:
+            with self._enqueue_lock:
+                closed = self._shutdown
+            if closed:
+                raise ServerClosedError("ParallelInference has been shut down")
+            with self._lock:
+                req = _Request(x, deadline)
+                if req.expired():
+                    self._shed()
+                    raise DeadlineExceededError("deadline passed before dispatch")
+                try:
+                    out = self._forward(x)
+                    self._require_finite(out)
+                except BaseException as e:
+                    raise self._batch_failure(e, 1)
+                with self._stats_lock:
+                    self.total_forwards += 1
+                return out
+        req = _Request(x, deadline)
+        # Enqueue under the same lock shutdown() uses to place its sentinel,
+        # so no request can ever land BEHIND the sentinel and starve.
+        with self._enqueue_lock:
+            if self._shutdown:
+                raise ServerClosedError("ParallelInference has been shut down")
+            try:
+                self._queue.put_nowait(req)
+            except queue.Full:
+                raise QueueFullError(
+                    f"ParallelInference queue limit ({self._queue.maxsize}) "
+                    "exceeded — server overloaded") from None
+        req.event.wait()
+        if req.error is not None:
+            raise req.error
+        return req.result
+
+    def _shed(self) -> None:
+        with self._stats_lock:
+            self.total_shed += 1
+
+    def _forward(self, x: np.ndarray) -> np.ndarray:
+        # Chaos seam: armed "serve.forward" plans fail or delay this
+        # forward deterministically by call ordinal.
+        faults.fire("serve.forward")
+        return self.model.output(x)
+
+    def _require_finite(self, out) -> None:
+        if self.check_finite and not np.isfinite(out).all():
+            raise NonFiniteOutputError(
+                "forward returned non-finite (NaN/Inf) outputs")
+
+    def _batch_failure(self, e: BaseException,
+                       n_requests: int) -> BatchExecutionError:
+        """Record one failed forward attempt and return the typed error the
+        affected callers see (original exception chained)."""
+        if isinstance(e, BatchExecutionError):
+            err = e
+        else:
+            err = BatchExecutionError(
+                f"forward failed for a {n_requests}-request batch: {e}")
+            err.__cause__ = e
+        with self._stats_lock:
+            self.total_batch_failures += 1
+        return err
+
+    # -------------------------------------------------------------- collector
+    def _collector_loop(self):
+        try:
+            self._collect()
+        except BaseException as e:
+            # Collector must never die silently: mark the server down (under
+            # the enqueue lock so no request can slip in after the drain)
+            # and fail every queued caller so nobody waits forever.
+            with self._enqueue_lock:
+                self._shutdown = True
+                self._fail_pending(e)
+            raise
+
+    def _collect(self):
+        # Coalescing never assembles a batch past the bucket warmup() ran:
+        # a request that would overflow is carried to the next batch.
+        cap = next_pow2_bucket(self.batch_limit)
+        carry: Optional[_Request] = None
+        while True:
+            if carry is not None:
+                first, carry = carry, None
+            else:
+                try:
+                    first = self._queue.get(timeout=0.1)
+                except queue.Empty:
+                    if self._shutdown:
+                        return
+                    continue
+            if first is None:  # shutdown sentinel: serve stragglers, exit
+                self._drain_and_exit()
+                return
+            batch = [first]
+            rows = first.x.shape[0]
+            # Linger briefly for co-arriving requests unless this request
+            # alone already fills the batch, then drain whatever is queued.
+            if rows < self.batch_limit:
+                time.sleep(self.batch_timeout_ms / 1000.0)
+            saw_sentinel = False
+            while rows < self.batch_limit:
+                try:
+                    nxt = self._queue.get_nowait()
+                except queue.Empty:
+                    break
+                if nxt is None:
+                    saw_sentinel = True
+                    break
+                if rows + nxt.x.shape[0] > cap:
+                    carry = nxt
+                    break
+                batch.append(nxt)
+                rows += nxt.x.shape[0]
+            self._run_batch(batch)
+            if saw_sentinel:
+                self._drain_and_exit(carry)
+                return
+
+    def _drain_and_exit(self, carry: Optional[_Request] = None):
+        """Serve every request still queued at shutdown, in cap-sized
+        batches so even the shutdown flush stays on warmed buckets."""
+        leftovers = [] if carry is None else [carry]
+        while True:
+            try:
+                r = self._queue.get_nowait()
+            except queue.Empty:
+                break
+            if r is not None:
+                leftovers.append(r)
+        cap = next_pow2_bucket(self.batch_limit)
+        batch: List[_Request] = []
+        rows = 0
+        for r in leftovers:
+            if batch and rows + r.x.shape[0] > cap:
+                self._run_batch(batch)
+                batch, rows = [], 0
+            batch.append(r)
+            rows += r.x.shape[0]
+        if batch:
+            self._run_batch(batch)
+
+    def _run_batch(self, batch: List[_Request]):
+        # SLO late-shed: a request whose deadline passed while queued is
+        # failed now rather than spending forward rows on it.
+        now = time.monotonic()
+        live = []
+        for r in batch:
+            if r.expired(now):
+                self._shed()
+                r.error = DeadlineExceededError("deadline passed while queued")
+                r.event.set()
+            else:
+                live.append(r)
+        batch = live
+        if not batch:
+            return
+        try:
+            xs = np.concatenate([r.x for r in batch], axis=0)
+            n = xs.shape[0]
+            # Pad to the bucket by repeating the tail row; pad rows are
+            # sliced off before any caller sees them.
+            xs = repeat_tail_rows(xs, next_pow2_bucket(n) - n)
+            with self._lock:
+                out = self._forward(xs)
+            self._require_finite(out[:n])
+            self.executed_batch_sizes.append(n)
+            with self._stats_lock:
+                self.total_forwards += 1
+            ofs = 0
+            for r in batch:
+                k = r.x.shape[0]
+                r.result = out[ofs:ofs + k]
+                r.event.set()
+                ofs += k
+        except BaseException as e:
+            # Batch-failure isolation: the affected callers fail with a
+            # TYPED error and the collector survives. One bad request must
+            # not poison its batchmates, so a failed multi-request batch is
+            # retried request by request.
+            err = self._batch_failure(e, len(batch))
+            if len(batch) == 1:
+                batch[0].error = err
+                batch[0].event.set()
+                return
+            for r in batch:
+                self._run_batch([r])
+
+    # --------------------------------------------------------------- shutdown
+    def _fail_pending(self, exc: BaseException) -> None:
+        """Fail every request still queued so no caller is stranded."""
+        while True:
+            try:
+                r = self._queue.get_nowait()
+            except queue.Empty:
+                return
+            if r is not None:
+                r.error = exc
+                r.event.set()
+
+    def shutdown(self, join_timeout: float = 5.0):
+        """Close the server: stragglers already queued are SERVED by the
+        collector's drain pass; anything it could not serve within the join
+        window is failed with :class:`ServerClosedError`."""
+        with self._enqueue_lock:
+            already = self._shutdown
+            self._shutdown = True
+        if not already and self._worker is not None:
+            # Sentinel goes in OUTSIDE the lock: with a full queue this put
+            # blocks until the collector drains a slot. Admission is already
+            # fenced by _shutdown.
+            self._queue.put(None)
+            self._worker.join(timeout=join_timeout)
+        self._fail_pending(ServerClosedError(
+            "ParallelInference was shut down before this request ran"))
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        self.shutdown()
+
+
+class ParallelInferenceBuilder:
+    """Fluent builder mirroring reference ParallelInference.Builder."""
+
+    def __init__(self, model):
+        self._model = model
+        self._mode = InferenceMode.BATCHED
+        self._batch_limit = 32
+        self._queue_limit = 64
+        self._timeout_ms = 2.0
+        self._check_finite = False
+
+    def inference_mode(self, mode: InferenceMode):
+        self._mode = mode
+        return self
+
+    def batch_limit(self, n: int):
+        self._batch_limit = int(n)
+        return self
+
+    def queue_limit(self, n: int):
+        self._queue_limit = int(n)
+        return self
+
+    def batch_timeout_ms(self, ms: float):
+        self._timeout_ms = float(ms)
+        return self
+
+    def check_finite(self, enabled: bool = True):
+        self._check_finite = bool(enabled)
+        return self
+
+    def build(self) -> ParallelInference:
+        return ParallelInference(
+            self._model, inference_mode=self._mode,
+            batch_limit=self._batch_limit, queue_limit=self._queue_limit,
+            batch_timeout_ms=self._timeout_ms,
+            check_finite=self._check_finite)

@@ -1,0 +1,66 @@
+"""The torch port stands alone: it imports neither JAX nor the JAX package,
+and its entry points never drop quietly to the CPU."""
+import ast
+import json
+import pathlib
+import subprocess
+import sys
+
+import pytest
+import torch
+
+ROOT = pathlib.Path(__file__).resolve().parents[1]
+PKG = ROOT / "deeplearning4j_torch"
+FORBIDDEN = ("jax", "jaxlib", "deeplearning4j_tpu")
+
+_IMPORT_ALL = r"""
+import importlib, json, pkgutil, sys
+for name in %r:
+    sys.modules[name] = None  # any import of it now raises ImportError
+import deeplearning4j_torch
+names = [m.name for m in pkgutil.walk_packages(deeplearning4j_torch.__path__,
+                                               "deeplearning4j_torch.")]
+for n in names:
+    importlib.import_module(n)
+import chip_smoke
+print(json.dumps(sorted(names + ["chip_smoke"])))
+"""
+
+
+def _sources():
+    return sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+
+
+def test_every_module_imports_with_jax_blocked():
+    proc = subprocess.run(
+        [sys.executable, "-c", _IMPORT_ALL % (FORBIDDEN,)], cwd=ROOT,
+        capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    imported = json.loads(proc.stdout.strip().splitlines()[-1])
+    expected = {".".join(p.relative_to(ROOT).with_suffix("").parts)
+                for p in PKG.rglob("*.py") if p.name != "__init__.py"}
+    assert expected <= set(imported)
+
+
+@pytest.mark.parametrize("path", _sources(),
+                         ids=lambda p: str(p.relative_to(ROOT)))
+def test_no_forbidden_import_in_source(path):
+    for node in ast.walk(ast.parse(path.read_text(), str(path))):
+        if isinstance(node, ast.Import):
+            names = [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            names = [node.module or ""]
+        else:
+            continue
+        for name in names:
+            assert name.split(".")[0] not in FORBIDDEN, (path, name)
+
+
+def test_init_without_device_raises_when_there_is_no_gpu(monkeypatch):
+    from deeplearning4j_torch.models.zoo import LeNet
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        LeNet().init()
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        LeNet().init(device="cuda")
+    assert LeNet().init(device="cpu").params_tree[0]["W"].device.type == "cpu"
