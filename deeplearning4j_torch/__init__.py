@@ -10,13 +10,18 @@ passes ``device="cpu"``. This package imports neither JAX nor
 from .nn.conf.builders import (BackpropType, MultiLayerConfiguration,
                                NeuralNetConfiguration, OptimizationAlgorithm)
 from .nn.conf.inputs import InputType
+from .data.dataset import DataSet
+from .data.iterators import (DataSetIterator, ExistingDataSetIterator,
+                             ListDataSetIterator)
 from .nn.layers.core import (ActivationLayer, DenseLayer, DropoutLayer,
-                             OutputLayer)
+                             LossLayer, OutputLayer)
 from .nn.layers.convolution import (ConvolutionLayer, ConvolutionMode,
                                     LocalResponseNormalization, PoolingType,
                                     SubsamplingLayer)
 from .nn.multilayer import MultiLayerNetwork
-from .nn.updaters import (Adam, AdaDelta, AdaGrad, AdaMax, GradientNormalization,
-                          Nesterovs, NoOp, RmsProp, Sgd)
+from .nn.updaters import (Adam, AdaDelta, AdaGrad, AdaMax, ExponentialSchedule,
+                          GradientNormalization, InverseSchedule, MapSchedule,
+                          Nesterovs, NoOp, PolySchedule, RmsProp, Schedule, Sgd,
+                          SigmoidSchedule, StepSchedule)
 from .nn.weights import Distribution, WeightInit
 from .parallel.inference import InferenceMode, ParallelInference

@@ -1,4 +1,4 @@
-"""Convolutional layer family of the serving slice.
+"""Convolutional layer family of the serving and training slices.
 
 Port of `deeplearning4j_tpu/nn/layers/convolution.py`: ConvolutionLayer,
 SubsamplingLayer and LocalResponseNormalization, with the same config
@@ -9,7 +9,7 @@ Inside a layer the tensor is viewed as channels-last NCHW
 (``x.permute(0, 3, 1, 2)``), so cuDNN works on NHWC memory, and the kernels
 are OIHW tensors in channels-last memory (see utils/params.py). Convs stay
 cuDNN, as the JAX package leaves them to XLA; LRN runs the hand-written
-kernel of ops/lrn.py on CUDA tensors.
+kernels of ops/lrn.py on CUDA tensors, K1 forward and K2 backward.
 """
 from __future__ import annotations
 
@@ -162,8 +162,9 @@ class SubsamplingLayer(Layer):
     convolution_mode: Optional[ConvolutionMode] = None  # None -> inherit/Truncate
     pnorm: int = 2
     eps: float = 1e-8
-    # The JAX package's backward-emitter knob; kept so configurations
-    # round-trip. The torch forward has one implementation per type.
+    # The JAX package's backward-emitter knob. For MAX, "auto"/"sns" give
+    # torch's first-maximum backward and "mask" raises (ops/pooling.py);
+    # for the other types it only round-trips.
     pooling_impl: str = "auto"
 
     def input_kind(self):
@@ -194,7 +195,8 @@ class SubsamplingLayer(Layer):
             pads = ((ph, ph), (pw, pw))
         pt = self.pooling_type
         if pt == PoolingType.MAX:
-            return pool_ops.max_pool(x, window, strides, pads)
+            return pool_ops.max_pool(x, window, strides, pads,
+                                     impl=self.pooling_impl)
         if pt == PoolingType.AVG:
             return pool_ops.avg_pool(x, window, strides, pads)
         if pt == PoolingType.SUM:
@@ -210,7 +212,8 @@ class SubsamplingLayer(Layer):
 @dataclass
 class LocalResponseNormalization(Layer):
     """Cross-channel LRN: out = x / (k + alpha * sum_{window} x^2)^beta.
-    On a CUDA tensor it always runs the hand-written kernel (ops/lrn.py)."""
+    On a CUDA tensor it always runs the hand-written kernels (ops/lrn.py):
+    K1 forward and, through `LRNFunction`, K2 for autograd's backward."""
 
     k: float = 2.0
     alpha: float = 1e-4

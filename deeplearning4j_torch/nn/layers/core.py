@@ -8,9 +8,11 @@ names) and the math:
     y      = layer.forward(params, x, train=..., generator=...)
 
 Parameters are drawn on the CPU from an explicit `torch.Generator`; the
-network moves them to its device. Layers of this slice hold no state (no
+network moves them to its device. Layers of these slices hold no state (no
 batch-norm yet), so there is no state tree. Dropout follows the reference:
-inverted, applied to the layer's INPUT, identity at inference.
+inverted, applied to the layer's INPUT, identity at inference; its mask is
+drawn from a generator on the input's device (the network's own dropout
+generator, MultiLayerNetwork.init).
 """
 from __future__ import annotations
 
@@ -20,6 +22,7 @@ from typing import Dict, Optional, Tuple
 import torch
 
 from ...ops import activations as act_ops
+from ...ops import losses as loss_ops
 from ...utils import serde
 from ..conf.inputs import FeedForwardType, InputType
 from ..updaters import GradientNormalization, Updater
@@ -35,11 +38,15 @@ BIAS = "b"
 
 def dropout(x: Tensor, rate: Optional[float], train: bool,
             generator: Optional[torch.Generator]) -> Tensor:
-    """Inverted dropout on layer input (reference util/Dropout.java)."""
+    """Inverted dropout on layer input (reference util/Dropout.java). The
+    generator must live on `x`'s device."""
     if not train or rate is None or rate <= 0.0:
         return x
     if generator is None:
         raise ValueError("Dropout requires a generator during training")
+    if generator.device.type != x.device.type:
+        raise ValueError(f"dropout on a {x.device} tensor needs a generator on "
+                         f"that device, got one on {generator.device}")
     keep = 1.0 - rate
     mask = torch.rand(x.shape, generator=generator, device=x.device) < keep
     return torch.where(mask, x / keep, torch.zeros_like(x))
@@ -170,16 +177,51 @@ class DropoutLayer(Layer):
 @serde.register
 @dataclass
 class BaseOutputLayer(DenseLayer):
-    """Dense + loss head. Only the forward is ported; the loss and its
-    score come with the training slice."""
+    """Dense + loss head (reference nn/conf/layers/BaseOutputLayer).
+    `compute_score_array` is the per-example score; loss gradients come
+    from autograd of `compute_score`."""
 
     loss: str = "mcxent"
 
     def is_output_layer(self):
         return True
 
+    def compute_score(self, params, x, labels, mask=None) -> Tensor:
+        return loss_ops.resolve(self.loss).score(
+            labels, self.preout(params, x), self.activation or "identity", mask)
+
+    def compute_score_array(self, params, x, labels, mask=None) -> Tensor:
+        return loss_ops.resolve(self.loss).score_array(
+            labels, self.preout(params, x), self.activation or "identity", mask)
+
 
 @serde.register
 @dataclass
 class OutputLayer(BaseOutputLayer):
     pass
+
+
+@serde.register
+@dataclass
+class LossLayer(Layer):
+    """Parameterless loss head (reference nn/conf/layers/LossLayer): applies
+    activation + loss to its input without a weight matrix."""
+
+    loss: str = "mse"
+
+    def input_kind(self):
+        return "any"
+
+    def is_output_layer(self):
+        return True
+
+    def forward(self, params, x, *, train=False, generator=None):
+        return self._act()(x)
+
+    def compute_score(self, params, x, labels, mask=None):
+        return loss_ops.resolve(self.loss).score(
+            labels, x, self.activation or "identity", mask)
+
+    def compute_score_array(self, params, x, labels, mask=None):
+        return loss_ops.resolve(self.loss).score_array(
+            labels, x, self.activation or "identity", mask)

@@ -1,29 +1,56 @@
-"""MultiLayerNetwork: sequential-stack network, inference half.
+"""MultiLayerNetwork: sequential-stack network with fit/output/score.
 
 Port of `deeplearning4j_tpu/nn/multilayer.py` (reference
 nn/multilayer/MultiLayerNetwork.java): `init`, `output`, `predict`,
-`feed_forward`, `warmup` and `_feature_struct`. Training (`fit`, `score`,
-the updaters' math) comes with the training slice.
+`feed_forward`, `warmup`, `_feature_struct`, and the training loop: `fit`,
+`score`, `compute_gradient_and_score`.
 
 Where the JAX package jits one pure forward, the port runs the layers
-eagerly under ``torch.inference_mode``. Parameters are a tuple of per-layer
-dicts of tensors on the network's device (``params_tree``), in the port's
-layout (utils/params.py converts from and to the JAX package's).
+eagerly under ``torch.inference_mode``. Where it jits one pure train step,
+the port runs the forward and the loss under autograd, takes one backward,
+and then, per layer under ``torch.no_grad``, normalizes the gradients, runs
+the updater and sets ``p - u`` (frozen layers keep theirs). Parameters and
+optimizer state are tuples of per-layer dicts of tensors on the network's
+device (``params_tree``, ``opt_state``), in the port's layout
+(utils/params.py converts from and to the JAX package's).
+
+Not ported yet: truncated BPTT, ``steps_per_dispatch``, async and device
+prefetch, pad-to-bucket, checkpoints and the divergence sentinel, tracing
+and metrics.
 """
 from __future__ import annotations
 
-from typing import List, Optional, Tuple
+from typing import Any, List, Optional, Tuple
 
 import numpy as np
 import torch
 
+from ..data.dataset import DataSet
+from ..data.iterators import as_iterator
 from ..utils import params as param_utils
 from ..utils.device import DeviceLike, resolve_device
-from .conf.builders import MultiLayerConfiguration
+from .conf.builders import BackpropType, MultiLayerConfiguration
 from .conf.inputs import (ConvolutionalFlatType, ConvolutionalType,
                           FeedForwardType, RecurrentType)
+from .layers.core import dropout
+from .updaters import normalize_layer_gradients
 
 Tensor = torch.Tensor
+
+
+def _regularization_score(layers, params):
+    """L1 + 0.5*L2 penalty over all parameters (reference
+    BaseLayer.calcL1/calcL2, summed into the score): a 0-d tensor on the
+    parameters' device, or 0.0 when no parameter is regularized."""
+    total = 0.0
+    for layer, lp in zip(layers, params):
+        for name, p in lp.items():
+            l1, l2 = layer.param_reg(name)
+            if l1:
+                total = total + l1 * torch.sum(torch.abs(p))
+            if l2:
+                total = total + 0.5 * l2 * torch.sum(p * p)
+    return total
 
 
 class MultiLayerNetwork:
@@ -33,8 +60,16 @@ class MultiLayerNetwork:
         if not self.layers:
             raise ValueError("Configuration has no layers")
         self.params_tree: Optional[Tuple[dict, ...]] = None
+        self.opt_state: Optional[Tuple[Any, ...]] = None
         self.device: Optional[torch.device] = None
+        self.iteration = 0
+        self.epoch = 0
+        self.listeners: List[Any] = []
+        #: loss + regularization of the last training step, a 0-d tensor on
+        #: the network's device (read it with float() or score())
+        self.score_value: Optional[Tensor] = None
         self._dtype = torch.float32
+        self._dropout_gen: Optional[torch.Generator] = None
         self._initialized = False
 
     # ------------------------------------------------------------------ init
@@ -42,15 +77,21 @@ class MultiLayerNetwork:
              device: DeviceLike = None) -> "MultiLayerNetwork":
         """Draw the parameters from a generator seeded with `seed` (default:
         the configuration's) and place them on `device` (default: CUDA,
-        raising when there is none)."""
+        raising when there is none); build each layer's optimizer state and
+        the dropout generator, on the same device and from the same seed."""
         self.device = resolve_device(device)
         self._dtype = dtype
-        gen = torch.Generator().manual_seed(
-            self.conf.seed if seed is None else int(seed))
+        seed = self.conf.seed if seed is None else int(seed)
+        gen = torch.Generator().manual_seed(seed)
         self.params_tree = tuple(
             {name: param_utils.place(t, self.device)
              for name, t in layer.init_params(gen, dtype).items()}
             for layer in self.layers)
+        self.opt_state = tuple(layer.updater.init(p) for layer, p in
+                               zip(self.layers, self.params_tree))
+        self._dropout_gen = torch.Generator(device=self.device).manual_seed(seed)
+        self.iteration = 0
+        self.epoch = 0
         self._initialized = True
         return self
 
@@ -73,8 +114,53 @@ class MultiLayerNetwork:
             activations.append(a)
         return a, activations
 
+    def _loss(self, params, x: Tensor, y: Tensor, lmask: Optional[Tensor],
+              train: bool, generator: Optional[torch.Generator]) -> Tensor:
+        """Score = output-layer loss + regularization (reference
+        computeGradientAndScore): every layer but the last, the output
+        layer's preprocessor, its input dropout when training, then its
+        `compute_score`."""
+        a = x
+        n = len(self.layers)
+        for i, layer in enumerate(self.layers[:-1]):
+            p = self.conf.preprocessor(i)
+            if p is not None:
+                a = p(a)
+            a = layer.forward(params[i], a, train=train, generator=generator)
+        out_layer = self.layers[-1]
+        if not out_layer.is_output_layer():
+            raise ValueError("Last layer must be an output layer to compute score")
+        p = self.conf.preprocessor(n - 1)
+        if p is not None:
+            a = p(a)
+        if train and out_layer.dropout_rate and generator is not None:
+            a = dropout(a, out_layer.dropout_rate, train, generator)
+        loss = out_layer.compute_score(params[n - 1], a, y, lmask)
+        return loss + _regularization_score(self.layers, params)
+
+    def _value_and_grad(self, x: Tensor, y: Tensor, lmask: Optional[Tensor],
+                        train: bool, generator: Optional[torch.Generator]):
+        """(score, gradients) at the current parameters: one autograd
+        backward. A parameter the score does not reach gets zeros, as JAX's
+        grad gives."""
+        tree = tuple({k: t.detach().requires_grad_() for k, t in lp.items()}
+                     for lp in self.params_tree)
+        flat = [t for lp in tree for t in lp.values()]
+        with torch.enable_grad():
+            loss = self._loss(tree, x, y, lmask, train, generator)
+        grads = torch.autograd.grad(loss, flat, allow_unused=True) if flat else ()
+        flat_g = iter([torch.zeros_like(t) if g is None else g
+                       for g, t in zip(grads, flat)])
+        return loss.detach(), tuple({k: next(flat_g) for k in lp} for lp in tree)
+
     def _as_input(self, x) -> Tensor:
         return torch.as_tensor(x, dtype=self._dtype, device=self.device)
+
+    def _as_labels(self, y) -> Tensor:
+        return torch.as_tensor(np.asarray(y), device=self.device).to(self._dtype)
+
+    def _as_mask(self, m) -> Optional[Tensor]:
+        return None if m is None else self._as_labels(m)
 
     def _feature_struct(self, batch_size: int,
                         time_steps: Optional[int] = None) -> Tensor:
@@ -139,6 +225,89 @@ class MultiLayerNetwork:
     def predict(self, x) -> np.ndarray:
         """Argmax class predictions (reference predict())."""
         return np.argmax(self.output(x), axis=-1)
+
+    # ------------------------------------------------------------------- fit
+    def fit(self, data, labels=None, *, epochs: int = 1,
+            batch_size: int = 32) -> "MultiLayerNetwork":
+        """Train (reference fit(DataSetIterator)). Accepts a DataSetIterator,
+        a DataSet, or (features, labels) arrays, cut into `batch_size` rows.
+
+        The ragged last batch runs as it is. The JAX package pads it to the
+        epoch's batch shape with zero-weight rows, which gives the same loss
+        and gradients and buys it one compiled step; eager torch has
+        nothing to compile, so the port does not pad."""
+        self._check_init()
+        it = as_iterator(data, labels, batch_size)
+        for _ in range(int(epochs)):
+            for ds in it:
+                self._fit_batch(ds)
+            self.epoch += 1
+            for lst in self.listeners:
+                if hasattr(lst, "on_epoch_end"):
+                    lst.on_epoch_end(self, self.epoch)
+        return self
+
+    def _fit_batch(self, ds: DataSet):
+        if self.conf.backprop_type == BackpropType.TRUNCATED_BPTT and \
+                np.ndim(ds.features) == 3:
+            raise NotImplementedError(
+                "truncated BPTT comes with the recurrent slice of the port")
+        self._do_step(ds.features, ds.labels, ds.labels_mask)
+
+    def _do_step(self, x, y, lmask):
+        """One optimizer step: forward + loss + one backward, then per layer
+        normalize -> update -> p - u, skipping frozen layers. Features masks
+        are not taken: no layer of the port reads one yet."""
+        loss, grads = self._value_and_grad(
+            self._as_input(x), self._as_labels(y), self._as_mask(lmask),
+            True, self._dropout_gen)
+        new_params, new_opt = [], []
+        with torch.no_grad():
+            for i, layer in enumerate(self.layers):
+                if layer.frozen:
+                    new_params.append(self.params_tree[i])
+                    new_opt.append(self.opt_state[i])
+                    continue
+                g = normalize_layer_gradients(
+                    grads[i], layer.gradient_normalization,
+                    layer.gradient_normalization_threshold)
+                updates, opt_i = layer.updater.update(g, self.opt_state[i],
+                                                      self.iteration)
+                new_params.append({k: p - updates[k].to(p.dtype)
+                                   for k, p in self.params_tree[i].items()})
+                new_opt.append(opt_i)
+        self.params_tree, self.opt_state = tuple(new_params), tuple(new_opt)
+        self.iteration += 1
+        self.score_value = loss
+        for lst in self.listeners:
+            lst.iteration_done(self, self.iteration)
+
+    # ----------------------------------------------------------------- score
+    def score(self, ds: Optional[DataSet] = None, x=None, y=None) -> float:
+        """Mean loss + regularization (reference score()); with no data, the
+        score of the last training step."""
+        self._check_init()
+        lmask = None
+        if ds is not None:
+            x, y, lmask = ds.features, ds.labels, ds.labels_mask
+        if x is None:
+            if self.score_value is None:
+                raise ValueError("No data given and no cached score")
+            return float(self.score_value)
+        with torch.inference_mode():
+            return float(self._loss(self.params_tree, self._as_input(x),
+                                    self._as_labels(y), self._as_mask(lmask),
+                                    False, None))
+
+    def compute_gradient_and_score(self, ds: DataSet):
+        """(gradients, score) without updating the parameters (reference
+        computeGradientAndScore() + gradient()), with train=False: no
+        dropout. The gradients are per-layer dicts in the port's layout."""
+        self._check_init()
+        loss, grads = self._value_and_grad(
+            self._as_input(ds.features), self._as_labels(ds.labels),
+            self._as_mask(ds.labels_mask), False, None)
+        return grads, float(loss)
 
     def num_params(self) -> int:
         self._check_init()

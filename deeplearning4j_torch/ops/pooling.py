@@ -1,13 +1,19 @@
-"""Spatial pooling forward over NHWC tensors with explicit pads.
+"""Spatial pooling over NHWC tensors with explicit pads, and its backward.
 
-Port of the forward half of `deeplearning4j_tpu/ops/pooling.py`. Pads are
-((top, bottom), (left, right)) and may be asymmetric (SAME with a stride),
-which torch's symmetric ``padding=`` cannot express, so every pool pads
-explicitly with ``F.pad`` first: max pools pad with -inf (the JAX package's
-``reduce_window`` init value), sums with 0. The backward-emitter choice of
-the JAX package ("sns"/"mask", "window"/"conv") is a TPU/XLA concern and
-has no counterpart here; the training slice documents the tie rule torch's
-max-pool backward follows.
+Port of `deeplearning4j_tpu/ops/pooling.py`. Pads are ((top, bottom),
+(left, right)) and may be asymmetric (SAME with a stride), which torch's
+symmetric ``padding=`` cannot express, so every pool pads explicitly with
+``F.pad`` first: max pools pad with -inf (the JAX package's ``reduce_window``
+init value), sums with 0. The backward is autograd's.
+
+Max-pool tie rule: the backward of ``F.max_pool2d`` sends a window's whole
+cotangent to its FIRST maximal element (row-major within the window). That
+is the JAX package's ``impl="sns"`` rule (XLA's select-and-scatter, its TPU
+default), NOT its CPU default ``"mask"``, which splits the cotangent equally
+among tied maxima. The two agree wherever window maxima are unique. A layer
+that asks for ``"mask"`` raises NotImplementedError until a later slice
+ports it. Average pools have one backward whatever the JAX package's
+"window"/"conv" emitter choice, which only changes how XLA lowers it.
 """
 from __future__ import annotations
 
@@ -29,8 +35,20 @@ def _nchw_padded(x: Tensor, pads: Pads2D, value: float) -> Tensor:
     return xc
 
 
-def max_pool(x: Tensor, window, strides, pads: Pads2D) -> Tensor:
-    """NHWC max pool; padding cells hold -inf so they never win."""
+MAX_IMPLS = ("auto", "sns")
+
+
+def max_pool(x: Tensor, window, strides, pads: Pads2D, *,
+             impl: str = "auto") -> Tensor:
+    """NHWC max pool; padding cells hold -inf so they never win. The
+    backward follows the "sns" tie rule (module docstring); `impl` "auto"
+    and "sns" both mean that, "mask" raises NotImplementedError."""
+    if impl == "mask":
+        raise NotImplementedError(
+            "max_pool impl 'mask' (ties split equally in the backward) is not "
+            "ported yet; use 'auto' or 'sns' (the first maximum takes all)")
+    if impl not in MAX_IMPLS:
+        raise ValueError(f"max_pool impl {impl!r} not in {MAX_IMPLS + ('mask',)}")
     y = F.max_pool2d(_nchw_padded(x, pads, float("-inf")), tuple(window),
                      tuple(strides))
     return y.permute(0, 2, 3, 1)

@@ -5,8 +5,10 @@ The JAX package keeps a network's parameters as a tuple of per-layer dicts
 weights, NHWC being its layout (docs/design.md §7). The port stores
 convolution kernels as OIHW in channels-last memory, which is what
 ``F.conv2d`` hands to cuDNN for NHWC activations, and keeps dense weights as
-``[n_in, n_out]``. These two functions are the only place that knows the
-difference; the round trip is bitwise (a permutation moves no bits).
+``[n_in, n_out]``. This module is the only place that knows the difference;
+the round trip is bitwise (a permutation moves no bits). Optimizer state
+(``opt_state``: one dict per layer, parameter name -> ``()``, one array, or a
+tuple of arrays shaped like the parameter) follows the same rule.
 """
 from __future__ import annotations
 
@@ -54,6 +56,25 @@ def params_to_numpy(tree: Sequence[Dict[str, torch.Tensor]]
                     ) -> Tuple[Dict[str, np.ndarray], ...]:
     """Inverse of :func:`params_from_numpy`: the reference's layout, numpy."""
     return tuple({name: _to_reference(t) for name, t in layer.items()}
+                 for layer in tree)
+
+
+def _map_state(s, fn):
+    return tuple(fn(a) for a in s) if isinstance(s, (tuple, list)) else fn(s)
+
+
+def opt_state_from_numpy(tree: Sequence[Dict[str, Any]],
+                         device: DeviceLike = None) -> Tuple[Dict[str, Any], ...]:
+    """Reference ``opt_state`` -> the port's, on `device`."""
+    dev = resolve_device(device)
+    return tuple({name: _map_state(s, lambda a: _to_port(np.asarray(a), dev))
+                  for name, s in layer.items()} for layer in tree)
+
+
+def opt_state_to_numpy(tree: Sequence[Dict[str, Any]]
+                       ) -> Tuple[Dict[str, Any], ...]:
+    """Inverse of :func:`opt_state_from_numpy`: the reference's layout."""
+    return tuple({name: _map_state(s, _to_reference) for name, s in layer.items()}
                  for layer in tree)
 
 
