@@ -51,6 +51,7 @@ Phases, each of which fails the script (non-zero exit, no result line):
 Needs one CUDA GPU; exits non-zero without one.
 """
 import json
+import re
 import subprocess
 import sys
 import threading
@@ -155,13 +156,18 @@ def phase_header(torch):
 def phase_build():
     from deeplearning4j_torch.ops import cuda_build
     t0 = time.perf_counter()
-    libs = cuda_build.build(["lrn"])
+    libs = cuda_build.build(["lrn", "flash_attention"])
     secs = time.perf_counter() - t0
     log(f"build: {len(libs)} kernel libraries in {secs:.2f} s")
     for name, text in cuda_build.build_logs.items():
+        kernel = "?"
         for line in text.splitlines():
-            if "registers" in line or "spill" in line or "smem" in line:
-                log(f"  ptxas[{name}]: {line.strip()}")
+            m = re.search(r"entry function .*?([a-z]+(?:_[a-z]+)*_kernel)(I\w*?Li\d+E)?",
+                          line)
+            if m:  # e.g. flash_fwd_kernel IfLi8E: <float, 8>
+                kernel = " ".join(g for g in m.groups() if g)
+            elif "registers" in line or "spill" in line or "smem" in line:
+                log(f"  ptxas[{name}] {kernel}: {line.strip()}")
     return secs
 
 
@@ -706,6 +712,534 @@ def phase_training(torch, card):
             "profile": profile, "card": card}
 
 
+# ---------------------------------------------------------------- attention
+
+BF16_OPS_PER_S = 989e12      # H100 SXM data sheet, dense bfloat16 tensor cores
+# flops per allowed (query, key) pair and head_dim element: K3 two dot
+# products (q.k, p.v), K4 four (q.k, do.v, the dv and dk updates), K5 three
+FLASH_FLOPS_PER_PAIR = {"flash_fwd": 4, "flash_bwd_dkv": 8, "flash_bwd_dq": 6}
+FLASH_REL = {"float32": 1e-5, "bfloat16": 1e-2}  # of max|plain|: f32 sums over up
+# to 8192 keys in another order; bf16 p and ds rounded at other running maxima
+LSE_TOL = dict(rtol=1e-5, atol=1e-5)
+# (label, b, tq, tk, h, d, dtype, causal, options, timed): the char model's
+# shape (4 x 8192, 4 heads of 128, causal) in both types, then edge shapes
+FLASH_CASES = [
+    ("model_f32", 4, 8192, 8192, 4, 128, "float32", True, {}, True),
+    ("model_bf16", 4, 8192, 8192, 4, 128, "bfloat16", True, {}, True),
+    ("noncausal", 2, 512, 512, 4, 128, "float32", False, {}, False),
+    ("key_mask_fully_masked_rows", 2, 300, 300, 2, 64, "float32", True,
+     {"key_mask": True}, False),
+    ("packed_segments", 2, 1024, 1024, 4, 128, "float32", True,
+     {"segments": True}, False),
+    ("position_offsets", 2, 256, 512, 2, 64, "float32", True,
+     {"q_offset": 256}, False),
+    ("d8", 2, 200, 200, 4, 8, "float32", True, {}, False),
+    ("d64_bf16_key_mask", 2, 640, 640, 4, 64, "bfloat16", True,
+     {"key_mask": True}, False),
+    ("t1000", 2, 1000, 1000, 4, 128, "float32", True, {}, False),
+    ("tq1", 4, 1, 777, 4, 128, "float32", False, {"key_mask": True}, False),
+]
+CHAR_VOCAB, CHAR_WIDTH, CHAR_HEADS = 96, 512, 4   # bench.py attention_longctx
+CHAR_T, CHAR_BATCH, CHAR_STEPS = 8192, 4, 4       # 32768 tokens a step
+CHAR_LR = 0.1
+CHAR_SMALL_T = 256   # the card-vs-CPU comparison's sequence length
+DISPATCH_TS = (1024, 2048, 4096, 8192)
+
+
+def attention_pairs(torch, qp, kp, causal, batch, heads, km=None, qs=None,
+                    ks=None):
+    """How many (query, key) pairs the masks allow, over batch and heads:
+    the work the attention kernels must do on these inputs."""
+    keep = torch.ones(1, qp.shape[0], kp.shape[0], dtype=torch.bool,
+                      device=qp.device)
+    if causal:
+        keep = keep & (kp[None, :] <= qp[:, None])[None]
+    if km is not None:
+        keep = keep & (km > 0)[:, None, :]
+    if qs is not None:
+        keep = keep & (qs[:, :, None] == ks[:, None, :])
+    per = int(keep.sum())
+    return per * heads * (batch if keep.shape[0] == 1 else 1)
+
+
+def attention_bound_ms(kernel, pairs, head_dim, dtype, nbytes):
+    """Least time for one attention kernel: its flops on the allowed pairs
+    over the dtype's peak (67 TFLOP/s float32 with TF32 off, 989 TFLOP/s
+    bfloat16), or the bytes it must read and write over 3.35 TB/s, whichever
+    is larger."""
+    peak = FP32_OPS_PER_S if dtype == "float32" else BF16_OPS_PER_S
+    ops_ms = FLASH_FLOPS_PER_PAIR[kernel] * head_dim * pairs / peak * 1e3
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    return max(ops_ms, bytes_ms), ("operations" if ops_ms >= bytes_ms else "bytes")
+
+
+def _nbytes(*ts):
+    return sum(t.numel() * t.element_size() for t in ts if t is not None)
+
+
+def _flash_inputs(torch, gen, b, tq, tk, h, d, dtype, opts):
+    mk = lambda *s: torch.randn(*s, device="cuda", generator=gen).to(dtype)
+    q, k, v, do = mk(b, tq, h, d), mk(b, tk, h, d), mk(b, tk, h, d), mk(b, tq, h, d)
+    km = qs = ks = None
+    if opts.get("key_mask"):
+        km = (torch.rand(b, tk, device="cuda", generator=gen) > 0.3).float()
+        km[:, :5] = 0.0   # causal rows 0-4 see no key
+        km[-1] = 0.0      # and the last batch row none at all
+    if opts.get("segments"):
+        # packed rows: 4 segments of random length each, then 10% padding
+        rng = np.random.default_rng(tq)
+        ids = np.zeros((b, tq), np.int32)
+        for r in range(b):
+            cuts = np.sort(rng.choice(np.arange(1, tq * 9 // 10), 3, replace=False))
+            ids[r, :tq * 9 // 10] = np.searchsorted(cuts, np.arange(tq * 9 // 10),
+                                                    side="right") + 1
+        qs = ks = torch.from_numpy(ids).cuda()
+        km = (qs > 0).float()
+    qp = torch.arange(tq, device="cuda", dtype=torch.int32) + opts.get("q_offset", 0)
+    kp = torch.arange(tk, device="cuda", dtype=torch.int32)
+    return q, k, v, do, km, qs, ks, qp, kp
+
+
+def _rel_err(got, want):
+    """max |got - want| / max |want|, in float32."""
+    got, want = got.float(), want.float()
+    return (got - want).abs().max().item() / max(want.abs().max().item(), 1e-30)
+
+
+def phase_flash(torch, card):
+    """K3, K4 and K5 against their plain versions, on random inputs at the
+    char model's shape and at edge shapes, with a nonzero lse cotangent;
+    warm CUDA-event times of each kernel, its plain version and
+    F.scaled_dot_product_attention (timed as the yardstick only): its forward
+    for K3, and its autograd backward asked for (dk, dv) for K4 and for dq
+    for K5. SDPA's fused backward computes all three gradients in either
+    call, so both backward yardsticks time the same work."""
+    import torch.nn.functional as F
+    from deeplearning4j_torch.ops import flash_attention as fa
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    names = ("flash_fwd", "flash_bwd_dkv", "flash_bwd_dq")
+    worst = dict.fromkeys(names, 0.0)
+    timed_rows = {}
+    for label, b, tq, tk, h, d, dtype, causal, opts, timed in FLASH_CASES:
+        dt = getattr(torch, dtype)
+        q, k, v, do, km, qs, ks, qp, kp = _flash_inputs(torch, gen, b, tq, tk, h,
+                                                        d, dt, opts)
+        scale = d ** -0.5
+        o, lse = fa._launch_fwd(q, k, v, km, qs, ks, qp, kp, scale, causal)
+        torch.cuda.synchronize()
+        ow, lw = fa.flash_fwd_reference(q, k, v, km, qs, ks, qp, kp, scale, causal)
+        live = lw > fa.NEG / 2
+        if not torch.equal(lse <= fa.NEG / 2, ~live):
+            raise RuntimeError(f"flash_fwd {label}: fully masked rows differ")
+        torch.testing.assert_close(lse[live], lw[live], **LSE_TOL)
+        gl = torch.where(live, torch.randn(lw.shape, device="cuda", generator=gen),
+                         0.0).contiguous()
+        di = (ow.float() * do.float()).sum(-1)
+        args = (q, k, v, do, lw, di, gl, km, qs, ks, qp, kp, scale, causal)
+        dk, dv = fa._launch_bwd_dkv(*args)
+        dq = fa._launch_bwd_dq(*args)
+        torch.cuda.synchronize()
+        dkw, dvw = fa.flash_bwd_dkv_reference(*args)
+        dqw = fa.flash_bwd_dq_reference(*args)
+        errs = {"flash_fwd": (o, ow), "flash_bwd_dkv_dk": (dk, dkw),
+                "flash_bwd_dkv_dv": (dv, dvw), "flash_bwd_dq": (dq, dqw)}
+        row = {"case": label, "shape": [b, tq, tk, h, d], "dtype": dtype,
+               "causal": causal, **{k_: bool(v_) for k_, v_ in opts.items()},
+               "fully_masked_rows": int((~live).sum()),
+               "lse_max_abs_err": (lse[live] - lw[live]).abs().max().item()
+               if live.any() else 0.0}
+        for what, (got, want) in errs.items():
+            rel = _rel_err(got, want)
+            if not rel <= FLASH_REL[dtype] or not torch.isfinite(got).all():
+                raise RuntimeError(f"{what} {label}: error {rel} of max|plain| "
+                                   f"(limit {FLASH_REL[dtype]})")
+            if not live.all() and what == "flash_fwd" and \
+                    (got[~live] != 0).any():
+                raise RuntimeError(f"{label}: a fully masked row is not 0")
+            err = (got.float() - want.float()).abs().max().item()
+            kernel = "flash_bwd_dkv" if what.startswith("flash_bwd_dkv") else what
+            worst[kernel] = max(worst[kernel], err)
+            row[f"{what}_rel_err"] = rel
+        if timed:
+            pairs = attention_pairs(torch, qp, kp, causal, b, h, km, qs, ks)
+            qh, kh, vh = (t.transpose(1, 2) for t in (q, k, v))
+            lib = F.scaled_dot_product_attention(qh, kh, vh, is_causal=causal)
+            row["library_fwd_rel_err"] = _rel_err(lib.transpose(1, 2), ow)
+            ql, kl, vl = (t.detach().transpose(1, 2).requires_grad_() for t in (q, k, v))
+            lo = F.scaled_dot_product_attention(ql, kl, vl, is_causal=causal)
+            gh = do.transpose(1, 2)
+            t_ = lambda fn: cuda_time_ms(fn, iters=5, warm=1)
+            times = {
+                "flash_fwd": (t_(lambda: fa._launch_fwd(q, k, v, km, qs, ks, qp, kp,
+                                                        scale, causal)),
+                              t_(lambda: fa.flash_fwd_reference(
+                                  q, k, v, km, qs, ks, qp, kp, scale, causal)),
+                              t_(lambda: F.scaled_dot_product_attention(
+                                  qh, kh, vh, is_causal=causal)),
+                              _nbytes(q, k, v, km, qs, ks, qp, kp, o, lse)),
+                "flash_bwd_dkv": (t_(lambda: fa._launch_bwd_dkv(*args)),
+                                  t_(lambda: fa.flash_bwd_dkv_reference(*args)),
+                                  t_(lambda: torch.autograd.grad(
+                                      lo, (kl, vl), gh, retain_graph=True)),
+                                  _nbytes(q, k, v, do, lw, di, gl, km, qs, ks, qp,
+                                          kp, dk, dv)),
+                "flash_bwd_dq": (t_(lambda: fa._launch_bwd_dq(*args)),
+                                 t_(lambda: fa.flash_bwd_dq_reference(*args)),
+                                 t_(lambda: torch.autograd.grad(
+                                     lo, (ql,), gh, retain_graph=True)),
+                                 _nbytes(q, k, v, do, lw, di, gl, km, qs, ks, qp,
+                                         kp, dq)),
+            }
+            for name, (ms, plain_ms, lib_ms, nbytes) in times.items():
+                bound, by = attention_bound_ms(name, pairs, d, dtype, nbytes)
+                row[name] = {"ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
+                             "bound_ms": bound, "bound_by": by, "pairs": pairs}
+            timed_rows[label] = row
+            del qh, kh, vh, lib, ql, kl, vl, lo, gh
+        log(f"flash {label}: {json.dumps(row)}  [{card}]")
+        del q, k, v, do, o, lse, ow, lw, dk, dv, dq, dkw, dvw, dqw, args
+        torch.cuda.empty_cache()
+    # the kernels line reports the shape and type the char model's main path
+    # gives the kernels: float32 (matmul_any's float32 epilogue)
+    main = timed_rows["model_f32"]
+    replaces = {"flash_fwd": "deeplearning4j_tpu/ops/flash_attention.py:139",
+                "flash_bwd_dkv": "deeplearning4j_tpu/ops/flash_attention.py:193",
+                "flash_bwd_dq": "deeplearning4j_tpu/ops/flash_attention.py:237"}
+    entries = [{"name": n, "route": "cuda",
+                "source": "deeplearning4j_torch/ops/csrc/flash_attention.cu",
+                "replaces": replaces[n], "launches": None,
+                "max_abs_err": worst[n], "ms": main[n]["ms"],
+                "plain_ms": main[n]["plain_ms"], "bound_ms": main[n]["bound_ms"],
+                "bound_by": main[n]["bound_by"],
+                "library_ms": main[n]["library_ms"]} for n in names]
+    return entries, timed_rows
+
+
+def phase_attention_dispatch(torch, card):
+    """Forward + backward of dense, blockwise (block 512) and the flash
+    route at t in DISPATCH_TS, 32768 tokens (batch 32768 / t), 4 heads of
+    128, causal, float32: where the flash route starts to win on this card
+    (the dispatch rule's t >= 2048 was measured on a TPU; it is not changed
+    here)."""
+    from deeplearning4j_torch.ops import attention as att
+    from deeplearning4j_torch.ops import flash_attention as fa
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    impls = {
+        "dense": lambda q, k, v: att.dense_attention(q, k, v, causal=True),
+        "blockwise": lambda q, k, v: att.blockwise_attention(
+            q, k, v, causal=True, q_block=512, kv_block=512),
+        "flash": lambda q, k, v: fa.flash_attention(q, k, v, causal=True),
+    }
+    rows = []
+    for t in DISPATCH_TS:
+        b = 32768 // t
+        q, k, v, g = (torch.randn(b, t, CHAR_HEADS, CHAR_WIDTH // CHAR_HEADS,
+                                  device="cuda", generator=gen).requires_grad_()
+                      for _ in range(4))
+        row = {"t": t, "batch": b}
+        for name, fn in impls.items():
+            def fwd_bwd(fn=fn):
+                torch.autograd.grad(fn(q, k, v), (q, k, v), g)
+            row[f"{name}_ms"] = cuda_time_ms(fwd_bwd, iters=3, warm=1)
+            torch.cuda.empty_cache()
+        row["fastest"] = min(impls, key=lambda n: row[f"{n}_ms"])
+        row["rule_picks"] = att.select_attention_impl(t, CHAR_WIDTH // CHAR_HEADS)
+        rows.append(row)
+        log(f"dispatch t={t}: {json.dumps(row)}  [{card}]")
+        del q, k, v, g
+    return rows
+
+
+def char_conf(impl="auto"):
+    """bench.py's attention_longctx network: two causal SelfAttentionLayers
+    (512 wide, 4 heads, ReLU), an RnnOutputLayer (96-way softmax, MCXENT),
+    Sgd(0.1), one-hot input of 96 characters."""
+    from deeplearning4j_torch import (InputType, NeuralNetConfiguration,
+                                      RnnOutputLayer, SelfAttentionLayer, Sgd)
+    attn = lambda: SelfAttentionLayer(n_out=CHAR_WIDTH, n_heads=CHAR_HEADS,
+                                      causal=True, activation="relu",
+                                      attention_impl=impl)
+    return (NeuralNetConfiguration.builder().seed(0).updater(Sgd(CHAR_LR)).list()
+            .layer(attn()).layer(attn())
+            .layer(RnnOutputLayer(n_out=CHAR_VOCAB, activation="softmax",
+                                  loss="mcxent"))
+            .set_input_type(InputType.recurrent(CHAR_VOCAB))
+            .build())
+
+
+def char_data(rows, t, seed):
+    """A DataSet of one-hot characters and their successors, from a numpy
+    seed, with an all-ones [rows, t] labels mask: every step is present, and
+    the score is the mean over steps (DL4J's masked-score normalization).
+    Without a mask the score sums the 8192 steps of a row (37,391 at
+    initialization) and Sgd(0.1) on that sum diverges within 4 steps."""
+    from deeplearning4j_torch.data.dataset import DataSet
+    rng = np.random.default_rng(seed)
+    idx = rng.integers(0, CHAR_VOCAB, (rows, t))
+    eye = np.eye(CHAR_VOCAB, dtype=np.float32)
+    return DataSet(eye[idx], eye[np.roll(idx, -1, 1)], None,
+                   np.ones((rows, t), np.float32))
+
+
+@contextmanager
+def pinned_relus(torch, net, masks, flips=None):
+    """The kink rule for nets whose only kinks are their layers' ReLUs (the
+    char model). With `flips` None, record each layer's ReLU decisions
+    (z > 0) into `masks` and run ReLU; otherwise replace each ReLU by
+    z * mask with the recorded masks, in call order, so the second run takes
+    the same branch of the piecewise-linear network as the first whatever
+    its rounding, and count in `flips` the entries where its own z would
+    have decided otherwise. A flipped ReLU near zero moves one cotangent
+    (at the char model's width about 1/sqrt(32768 x 512) = 2.4e-4 of a
+    weight gradient's norm); pinned, the two runs compute the same function
+    and their gradients differ by rounding alone."""
+    import torch.nn.functional as F
+    it = iter(masks)
+
+    def act(z):
+        if flips is None:
+            masks.append((z > 0).detach())
+            return F.relu(z)
+        m = next(it).to(z.device)
+        flips.append(int(((z > 0) != m).sum()))
+        return z * m.to(z.dtype)
+
+    with ExitStack() as stack:
+        for layer in net.layers[:-1]:
+            if (layer.activation or "").lower() != "relu":
+                raise ValueError(f"pinned_relus takes ReLU layers, got {layer.activation}")
+            stack.enter_context(patched(layer, "_act", lambda: act))
+        yield
+
+
+#: A parameter whose reference gradient is below this share of its layer's
+#: (Frobenius norms) is left out of `compare_pinned_grads`, and logged: a key
+#: bias's exact gradient is 0 (a shift common to every key leaves the softmax
+#: as it is), so its computed value is rounding, 1e-10 to 1e-11 of the
+#: layer's, and its relative difference is noise (0.19 and 0.89 in a run
+#: whose weights agreed to 1e-6). The smallest gradients the kernels feed,
+#: Wq's and Wk's, are small too at initialization, where the attention is
+#: nearly uniform: in the second layer 4e-5 of the layer's at t 16, 5e-6 at
+#: t 2048, falling as 1/sqrt(t).
+NEGLIGIBLE_GRAD = 1e-8
+
+
+def negligible_grads(param_utils, grads):
+    """{"layer.param": share of the layer's gradient norm} for every
+    parameter whose gradient is below NEGLIGIBLE_GRAD of its layer's."""
+    out = {}
+    for i, lg in enumerate(param_utils.params_to_numpy(grads)):
+        norms = {k: float(np.linalg.norm(g)) for k, g in lg.items()}
+        layer = float(np.sqrt(sum(n * n for n in norms.values())))
+        out.update({f"{i}.{k}": n / layer for k, n in norms.items()
+                    if n < NEGLIGIBLE_GRAD * layer})
+    return out
+
+
+def compare_pinned_grads(label, torch, param_utils, run_got, run_want, ds):
+    """Gradients of two runs of the same function on `ds`, the second with
+    the first's ReLU decisions pinned (`pinned_relus`): every parameter's
+    under GRAD_REL relative norm, but those `negligible_grads` leaves out
+    (logged), and the scores under SCORE_RTOL. Each parameter on its own, so
+    that a fault in one cotangent (dq feeds Wq and bq, dk Wk, dv Wv) is not
+    diluted by the larger gradients of the others."""
+    masks, flips = [], []
+    g_got, s_got = run_got(ds, masks, None)
+    g_want, s_want = run_want(ds, masks, flips)
+    if not abs(s_got - s_want) <= SCORE_RTOL * abs(s_want):
+        raise RuntimeError(f"{label}: score {s_got} vs {s_want}")
+    rel = _layer_rel_errs(param_utils, g_got, g_want)
+    left_out = negligible_grads(param_utils, g_want)
+    worst_at = max((n for n in rel if n not in left_out), key=rel.get)
+    worst = rel[worst_at]
+    if not worst < GRAD_REL:
+        raise RuntimeError(f"{label}: gradient of {worst_at} differs by {worst} "
+                           f"(> {GRAD_REL}) with the ReLU decisions pinned, per "
+                           f"parameter: {rel}, left out: {left_out}")
+    out = {"worst_rel": worst, "worst_at": worst_at, "per_parameter": rel,
+           "left_out_share_of_layer": left_out,
+           "relu_flips_pinned": sum(flips),
+           "relu_entries": sum(int(m.numel()) for m in masks),
+           "score_got": s_got, "score_want": s_want}
+    log(f"char model: {label}: {json.dumps(out)} (limit {GRAD_REL})")
+    return out
+
+
+def _counts(fa):
+    return {"flash_fwd": fa.fwd_launches, "flash_bwd_dkv": fa.bwd_dkv_launches,
+            "flash_bwd_dq": fa.bwd_dq_launches}
+
+
+def _zero_counts(fa):
+    fa.fwd_launches = fa.bwd_dkv_launches = fa.bwd_dq_launches = 0
+
+
+def _fit_char(torch, net, data, label, card):
+    """`fit` over CHAR_STEPS batches with the launch counts reset just before
+    and read just after; every score finite, 2 launches of each kernel a
+    step. Returns (launches, scores, step ms)."""
+    from deeplearning4j_torch.ops import flash_attention as fa
+
+    class Steps:
+        def __init__(self):
+            self.scores, self.ends = [], []
+
+        def iteration_done(self, model, iteration):
+            torch.cuda.synchronize()
+            self.ends.append(time.perf_counter())
+            self.scores.append(float(model.score_value))
+
+    steps = Steps()
+    net.listeners[:] = [steps]
+    torch.cuda.synchronize()
+    _zero_counts(fa)  # the main path's run starts here
+    t0 = time.perf_counter()
+    net.fit(data, epochs=1, batch_size=CHAR_BATCH)
+    launches = _counts(fa)  # ... and ends here
+    net.listeners.clear()
+    want = dict.fromkeys(launches, 2 * CHAR_STEPS)
+    if launches != want or len(steps.scores) != CHAR_STEPS:
+        raise RuntimeError(f"char model {label}: launches {launches} over "
+                           f"{len(steps.scores)} steps, expected {want}")
+    if not all(np.isfinite(steps.scores)):
+        raise RuntimeError(f"char model {label}: scores {steps.scores}")
+    step_ms = (np.diff([t0] + steps.ends) * 1e3).tolist()
+    warm = float(np.median(step_ms[1:]))
+    log(f"char model {label}: launches {launches}, scores {steps.scores}, step ms "
+        f"{step_ms}, median warm {warm:.3f} ms, "
+        f"{CHAR_BATCH * CHAR_T / warm * 1e3:.1f} tokens/s  [{card}]")
+    return launches, steps.scores, step_ms, warm
+
+
+def check_sgd_step(torch, net, ds, lr, need_visible):
+    """One `fit` step on `ds` against `compute_gradient_and_score` on the same
+    batch at the same parameters: with Sgd(lr) every parameter must end at
+    p - (lr * g) in its own type, as the updater computes it, within one
+    rounding of that type (eps |p|) plus 1e-4 of the largest lr |g| (the two
+    gradients agree to rounding). A fit that leaves a parameter where it was
+    fails wherever its update is larger than that tolerance; with
+    `need_visible` some update must be, or the check could not tell. Returns
+    per parameter the worst difference and the share of entries the update
+    visibly moves."""
+    grads, _ = net.compute_gradient_and_score(ds)
+    before = net.params_tree
+    net.fit(ds, batch_size=len(ds.features))
+    out, visible = {}, 0
+    for i, (lb, la, lg) in enumerate(zip(before, net.params_tree, grads)):
+        for k, p in lb.items():
+            step = (lr * lg[k]).to(p.dtype)
+            want = (p - step).float()
+            eps = torch.finfo(p.dtype).eps
+            tol = eps * want.abs() + 1e-4 * step.float().abs().max()
+            diff = (la[k].float() - want).abs()
+            moved = (p.float() - want).abs() > tol
+            if (diff > tol).any():
+                raise RuntimeError(
+                    f"fit step: {i}.{k} is {diff.max().item()} from p - lr g "
+                    f"(moved {int((la[k] != p).sum())} of {p.numel()} entries)")
+            visible += int(moved.sum())
+            out[f"{i}.{k}"] = {"max_abs_diff": diff.max().item(),
+                               "moved_share": moved.float().mean().item()}
+    if need_visible and not visible:
+        raise RuntimeError("fit step: no update is larger than its rounding")
+    log(f"char model: one fit step against p - {lr} g: {json.dumps(out)}")
+    return out
+
+
+def phase_char_model(torch, card):
+    """The long-context char model at full width (512 wide, 4 heads of 128,
+    t 8192, batch 4, 96 characters), through MultiLayerNetwork.fit and
+    output on the card."""
+    from deeplearning4j_torch.data.dataset import DataSet
+    from deeplearning4j_torch.nn.multilayer import MultiLayerNetwork
+    from deeplearning4j_torch.ops import attention as att
+    from deeplearning4j_torch.ops import flash_attention as fa
+    from deeplearning4j_torch.utils import params as param_utils
+    result = {"card": card, "t": CHAR_T, "batch": CHAR_BATCH, "steps": CHAR_STEPS}
+    data = char_data(CHAR_STEPS * CHAR_BATCH, CHAR_T, seed=2028)
+    choice = att.select_attention_impl(CHAR_T, CHAR_WIDTH // CHAR_HEADS)
+    if choice != "pallas":
+        raise RuntimeError(f"the dispatch rule picked {choice} at t={CHAR_T}")
+
+    # 1. the main path: the published bfloat16 net trains, then serves
+    net = MultiLayerNetwork(char_conf()).init(dtype=torch.bfloat16)
+    log(f"char model: {net.num_params()} params, bfloat16")
+    launches, scores, step_ms, warm = _fit_char(torch, net, data, "bf16 fit", card)
+    result["bf16"] = {"launches": launches, "scores": scores, "step_ms": step_ms,
+                      "median_warm_step_ms": warm,
+                      "tokens_per_s": CHAR_BATCH * CHAR_T / warm * 1e3}
+    batch = DataSet(data.features[:CHAR_BATCH], data.labels[:CHAR_BATCH], None,
+                    data.labels_mask[:CHAR_BATCH])
+    result["bf16"]["sgd_step"] = check_sgd_step(torch, net, batch, CHAR_LR,
+                                                need_visible=False)
+    _zero_counts(fa)
+    out = net.output(data.features[:CHAR_BATCH])
+    out_launches = _counts(fa)
+    if out_launches != {"flash_fwd": 2, "flash_bwd_dkv": 0, "flash_bwd_dq": 0}:
+        raise RuntimeError(f"output() launches {out_launches}, expected 2 of K3 only")
+    if out.shape != (CHAR_BATCH, CHAR_T, CHAR_VOCAB) or not np.isfinite(out).all():
+        raise RuntimeError(f"output {out.shape} not finite or misshapen")
+    np.testing.assert_allclose(out.sum(-1), 1.0, rtol=1e-5)
+    result["output_launches"] = out_launches
+
+    def one_step():
+        net.fit(batch, batch_size=CHAR_BATCH)
+        torch.cuda.synchronize()
+
+    result["profile"] = profile_call(torch, "char model step (bf16)", one_step,
+                                     {"batch": CHAR_BATCH, "t": CHAR_T})
+    del net
+    torch.cuda.empty_cache()
+
+    # 2. float32: fit, then gradients with the kernels against the plain versions
+    net = MultiLayerNetwork(char_conf()).init(dtype=torch.float32)
+    launches, scores, step_ms, warm = _fit_char(torch, net, data, "f32 fit", card)
+    result["f32"] = {"launches": launches, "scores": scores, "step_ms": step_ms,
+                     "median_warm_step_ms": warm,
+                     "tokens_per_s": CHAR_BATCH * CHAR_T / warm * 1e3}
+    result["f32"]["sgd_step"] = check_sgd_step(torch, net, batch, CHAR_LR,
+                                               need_visible=True)
+
+    def run(model, plain=False, kernels=2):
+        def grads(ds, masks, flips):
+            before = _counts(fa)
+            with ExitStack() as stack:
+                stack.enter_context(pinned_relus(torch, model, masks, flips))
+                if plain:
+                    stack.enter_context(patched(fa, "flash_fwd", fa.flash_fwd_reference))
+                    stack.enter_context(patched(fa, "flash_bwd", fa.flash_bwd_reference))
+                out = model.compute_gradient_and_score(ds)
+            ran = {k: v - before[k] for k, v in _counts(fa).items()}
+            want = dict.fromkeys(ran, 0 if plain or model.device.type == "cpu"
+                                 else kernels)
+            if ran != want:
+                raise RuntimeError(f"compute_gradient_and_score launched {ran}")
+            return out
+        return grads
+
+    result["grad_rel_vs_plain"] = compare_pinned_grads(
+        f"kernels vs plain attention, f32, t {CHAR_T}, batch {CHAR_BATCH}", torch,
+        param_utils, run(net), run(net, plain=True),
+        char_data(CHAR_BATCH, CHAR_T, seed=2029))
+    del net
+    torch.cuda.empty_cache()
+
+    # 3. the card against the CPU path at a small t, the flash route forced
+    small = char_conf(impl="pallas")
+    card_net = MultiLayerNetwork(small).init(dtype=torch.float32)
+    cpu_net = MultiLayerNetwork(small).init(device="cpu")
+    cpu_net.params_tree = tuple({k: v.cpu() for k, v in layer.items()}
+                                for layer in card_net.params_tree)
+    small_ds = char_data(2, CHAR_SMALL_T, seed=2030)
+    result["grad_rel_vs_cpu"] = compare_pinned_grads(
+        f"card vs CPU path, f32, t {CHAR_SMALL_T}, batch 2", torch, param_utils,
+        run(card_net), run(cpu_net), small_ds)
+    np.testing.assert_allclose(card_net.output(small_ds.features),
+                               cpu_net.output(small_ds.features),
+                               rtol=1e-4, atol=1e-6)
+    return result
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -716,11 +1250,16 @@ def main() -> int:
     phase_build()
     lrn_entry = phase_lrn(torch, card)
     lrn_bwd_entry = phase_lrn_bwd(torch, card)
+    flash_entries, _ = phase_flash(torch, card)
     serving = phase_serving(torch, card)
     training = phase_training(torch, card)
+    phase_attention_dispatch(torch, card)
+    char = phase_char_model(torch, card)
     lrn_entry["launches"] = serving["launches"]["lrn_fwd"]
     lrn_bwd_entry["launches"] = training["launches"]["lrn_bwd"]
-    kernels = {"kernels": [lrn_entry, lrn_bwd_entry]}
+    for entry in flash_entries:
+        entry["launches"] = char["bf16"]["launches"][entry["name"]]
+    kernels = {"kernels": [lrn_entry, lrn_bwd_entry] + flash_entries}
     log(json.dumps(kernels))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

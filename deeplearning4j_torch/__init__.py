@@ -18,6 +18,8 @@ from .nn.layers.core import (ActivationLayer, DenseLayer, DropoutLayer,
 from .nn.layers.convolution import (ConvolutionLayer, ConvolutionMode,
                                     LocalResponseNormalization, PoolingType,
                                     SubsamplingLayer)
+from .nn.layers.attention import SelfAttentionLayer
+from .nn.layers.recurrent import RnnOutputLayer
 from .nn.multilayer import MultiLayerNetwork
 from .nn.updaters import (Adam, AdaDelta, AdaGrad, AdaMax, ExponentialSchedule,
                           GradientNormalization, InverseSchedule, MapSchedule,

@@ -5,7 +5,9 @@ nn/conf/NeuralNetConfiguration.java, MultiLayerConfiguration.java and the
 ListBuilder pattern). The built MultiLayerConfiguration is a pure,
 JSON-round-trippable description with the same fields as the JAX package's,
 so either package reads the other's JSON. Global defaults are merged into
-layers at build() time.
+layers at build() time. A layer's JSON tag resolves once its module is
+imported: the package's ``__init__`` imports every ported layer (core,
+convolution, attention, recurrent).
 """
 from __future__ import annotations
 

@@ -127,7 +127,7 @@ class ConvolutionLayer(Layer):
         ph, pw = _pair(self.padding)
         return ((ph, ph), (pw, pw))
 
-    def forward(self, params, x, *, train=False, generator=None):
+    def forward(self, params, x, *, train=False, generator=None, mask=None):
         x = dropout(x, self.dropout_rate, train, generator)
         w = params[WEIGHT]
         (pt, pb), (pl, pr) = self._pads(x, w)
@@ -183,7 +183,7 @@ class SubsamplingLayer(Layer):
         ow = conv_output_size(input_type.width, kw, sw, pw, self._mode())
         return ConvolutionalType(height=oh, width=ow, channels=input_type.channels)
 
-    def forward(self, params, x, *, train=False, generator=None):
+    def forward(self, params, x, *, train=False, generator=None, mask=None):
         x = dropout(x, self.dropout_rate, train, generator)
         window = _pair(self.kernel_size)
         strides = _pair(self.stride)
@@ -227,6 +227,6 @@ class LocalResponseNormalization(Layer):
     # chooses between its Pallas kernel and XLA. The port has one path.
     use_pallas: bool = False
 
-    def forward(self, params, x, *, train=False, generator=None):
+    def forward(self, params, x, *, train=False, generator=None, mask=None):
         return lrn_ops.lrn(x.contiguous(), self.k, self.alpha, self.beta,
                            self.n)

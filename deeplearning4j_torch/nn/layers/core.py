@@ -5,14 +5,16 @@ layer carries both the serializable config (same fields, same registered
 names) and the math:
 
     params = layer.init_params(gen, dtype)          # dict of named tensors
-    y      = layer.forward(params, x, train=..., generator=...)
+    y      = layer.forward(params, x, train=..., generator=..., mask=...)
 
 Parameters are drawn on the CPU from an explicit `torch.Generator`; the
 network moves them to its device. Layers of these slices hold no state (no
 batch-norm yet), so there is no state tree. Dropout follows the reference:
 inverted, applied to the layer's INPUT, identity at inference; its mask is
 drawn from a generator on the input's device (the network's own dropout
-generator, MultiLayerNetwork.init).
+generator, MultiLayerNetwork.init). Every layer's forward takes the features
+mask ([batch, time]) as `mask`, as in the JAX package; the layers that have
+no use for it ignore it.
 """
 from __future__ import annotations
 
@@ -50,6 +52,18 @@ def dropout(x: Tensor, rate: Optional[float], train: bool,
     keep = 1.0 - rate
     mask = torch.rand(x.shape, generator=generator, device=x.device) < keep
     return torch.where(mask, x / keep, torch.zeros_like(x))
+
+
+def matmul_any(x: Tensor, w: Tensor, b: Optional[Tensor] = None) -> Tensor:
+    """x @ w (+ b), the float arms of the JAX package's
+    `quantize.matmul_any`: bfloat16 weights multiply x cast to bfloat16 and
+    return float32 before the bias (a float32 epilogue); other weights take
+    the plain product. Quantized weights are not ported yet."""
+    if w.dtype == torch.bfloat16:
+        y = torch.matmul(x.to(torch.bfloat16), w).to(torch.float32)
+    else:
+        y = torch.matmul(x, w)
+    return y if b is None else y + b
 
 
 @serde.register
@@ -101,7 +115,8 @@ class Layer:
 
     # ---- forward ---------------------------------------------------------
     def forward(self, params: Params, x: Tensor, *, train: bool = False,
-                generator: Optional[torch.Generator] = None) -> Tensor:
+                generator: Optional[torch.Generator] = None,
+                mask: Optional[Tensor] = None) -> Tensor:
         raise NotImplementedError
 
     # ---- helpers ---------------------------------------------------------
@@ -143,9 +158,9 @@ class DenseLayer(Layer):
         return {WEIGHT: w, BIAS: b}
 
     def preout(self, params, x):
-        return torch.addmm(params[BIAS], x, params[WEIGHT])
+        return matmul_any(x, params[WEIGHT], params[BIAS])
 
-    def forward(self, params, x, *, train=False, generator=None):
+    def forward(self, params, x, *, train=False, generator=None, mask=None):
         x = dropout(x, self.dropout_rate, train, generator)
         return self._act()(self.preout(params, x))
 
@@ -158,7 +173,7 @@ class ActivationLayer(Layer):
     def input_kind(self):
         return "any"
 
-    def forward(self, params, x, *, train=False, generator=None):
+    def forward(self, params, x, *, train=False, generator=None, mask=None):
         return self._act()(x)
 
 
@@ -170,7 +185,7 @@ class DropoutLayer(Layer):
     def input_kind(self):
         return "any"
 
-    def forward(self, params, x, *, train=False, generator=None):
+    def forward(self, params, x, *, train=False, generator=None, mask=None):
         return dropout(x, self.dropout_rate, train, generator)
 
 
@@ -215,7 +230,7 @@ class LossLayer(Layer):
     def is_output_layer(self):
         return True
 
-    def forward(self, params, x, *, train=False, generator=None):
+    def forward(self, params, x, *, train=False, generator=None, mask=None):
         return self._act()(x)
 
     def compute_score(self, params, x, labels, mask=None):

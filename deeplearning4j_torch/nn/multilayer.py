@@ -12,7 +12,12 @@ and then, per layer under ``torch.no_grad``, normalizes the gradients, runs
 the updater and sets ``p - u`` (frozen layers keep theirs). Parameters and
 optimizer state are tuples of per-layer dicts of tensors on the network's
 device (``params_tree``, ``opt_state``), in the port's layout
-(utils/params.py converts from and to the JAX package's).
+(utils/params.py converts from and to the JAX package's). The features
+mask (``DataSet.features_mask``, [batch, time]) reaches every layer's forward
+as ``mask``, as in the JAX package. Labels and masks stay float32 (float64 in
+a float64 network) whatever the parameters' type, as the JAX package keeps
+them: in a bfloat16 network, casting them to bfloat16 would round a masked
+score's step count (1001 present steps count as 1000).
 
 Not ported yet: truncated BPTT, ``steps_per_dispatch``, async and device
 prefetch, pad-to-bucket, checkpoints and the divergence sentinel, tracing
@@ -101,7 +106,8 @@ class MultiLayerNetwork:
 
     # --------------------------------------------------------------- forward
     def _forward(self, params, x: Tensor, train: bool = False,
-                 generator: Optional[torch.Generator] = None
+                 generator: Optional[torch.Generator] = None,
+                 fmask: Optional[Tensor] = None
                  ) -> Tuple[Tensor, List[Tensor]]:
         """Run all layers; returns (final activation, every activation)."""
         a = x
@@ -110,12 +116,14 @@ class MultiLayerNetwork:
             p = self.conf.preprocessor(i)
             if p is not None:
                 a = p(a)
-            a = layer.forward(params[i], a, train=train, generator=generator)
+            a = layer.forward(params[i], a, train=train, generator=generator,
+                              mask=fmask)
             activations.append(a)
         return a, activations
 
-    def _loss(self, params, x: Tensor, y: Tensor, lmask: Optional[Tensor],
-              train: bool, generator: Optional[torch.Generator]) -> Tensor:
+    def _loss(self, params, x: Tensor, y: Tensor, fmask: Optional[Tensor],
+              lmask: Optional[Tensor], train: bool,
+              generator: Optional[torch.Generator]) -> Tensor:
         """Score = output-layer loss + regularization (reference
         computeGradientAndScore): every layer but the last, the output
         layer's preprocessor, its input dropout when training, then its
@@ -126,7 +134,8 @@ class MultiLayerNetwork:
             p = self.conf.preprocessor(i)
             if p is not None:
                 a = p(a)
-            a = layer.forward(params[i], a, train=train, generator=generator)
+            a = layer.forward(params[i], a, train=train, generator=generator,
+                              mask=fmask)
         out_layer = self.layers[-1]
         if not out_layer.is_output_layer():
             raise ValueError("Last layer must be an output layer to compute score")
@@ -138,8 +147,9 @@ class MultiLayerNetwork:
         loss = out_layer.compute_score(params[n - 1], a, y, lmask)
         return loss + _regularization_score(self.layers, params)
 
-    def _value_and_grad(self, x: Tensor, y: Tensor, lmask: Optional[Tensor],
-                        train: bool, generator: Optional[torch.Generator]):
+    def _value_and_grad(self, x: Tensor, y: Tensor, fmask: Optional[Tensor],
+                        lmask: Optional[Tensor], train: bool,
+                        generator: Optional[torch.Generator]):
         """(score, gradients) at the current parameters: one autograd
         backward. A parameter the score does not reach gets zeros, as JAX's
         grad gives."""
@@ -147,7 +157,7 @@ class MultiLayerNetwork:
                      for lp in self.params_tree)
         flat = [t for lp in tree for t in lp.values()]
         with torch.enable_grad():
-            loss = self._loss(tree, x, y, lmask, train, generator)
+            loss = self._loss(tree, x, y, fmask, lmask, train, generator)
         grads = torch.autograd.grad(loss, flat, allow_unused=True) if flat else ()
         flat_g = iter([torch.zeros_like(t) if g is None else g
                        for g, t in zip(grads, flat)])
@@ -157,7 +167,10 @@ class MultiLayerNetwork:
         return torch.as_tensor(x, dtype=self._dtype, device=self.device)
 
     def _as_labels(self, y) -> Tensor:
-        return torch.as_tensor(np.asarray(y), device=self.device).to(self._dtype)
+        """Labels (and masks) on the device, float32, or float64 in a
+        float64 network."""
+        return torch.as_tensor(np.asarray(y), device=self.device).to(
+            torch.promote_types(self._dtype, torch.float32))
 
     def _as_mask(self, m) -> Optional[Tensor]:
         return None if m is None else self._as_labels(m)
@@ -207,11 +220,12 @@ class MultiLayerNetwork:
         return self
 
     # ------------------------------------------------------------- inference
-    def output(self, x) -> np.ndarray:
+    def output(self, x, features_mask=None) -> np.ndarray:
         """Forward pass, inference mode (reference output())."""
         self._check_init()
         with torch.inference_mode():
-            out, _ = self._forward(self.params_tree, self._as_input(x))
+            out, _ = self._forward(self.params_tree, self._as_input(x),
+                                   fmask=self._as_mask(features_mask))
             return out.cpu().numpy()
 
     def feed_forward(self, x) -> List[np.ndarray]:
@@ -252,15 +266,14 @@ class MultiLayerNetwork:
                 np.ndim(ds.features) == 3:
             raise NotImplementedError(
                 "truncated BPTT comes with the recurrent slice of the port")
-        self._do_step(ds.features, ds.labels, ds.labels_mask)
+        self._do_step(ds.features, ds.labels, ds.features_mask, ds.labels_mask)
 
-    def _do_step(self, x, y, lmask):
+    def _do_step(self, x, y, fmask, lmask):
         """One optimizer step: forward + loss + one backward, then per layer
-        normalize -> update -> p - u, skipping frozen layers. Features masks
-        are not taken: no layer of the port reads one yet."""
+        normalize -> update -> p - u, skipping frozen layers."""
         loss, grads = self._value_and_grad(
-            self._as_input(x), self._as_labels(y), self._as_mask(lmask),
-            True, self._dropout_gen)
+            self._as_input(x), self._as_labels(y), self._as_mask(fmask),
+            self._as_mask(lmask), True, self._dropout_gen)
         new_params, new_opt = [], []
         with torch.no_grad():
             for i, layer in enumerate(self.layers):
@@ -287,17 +300,18 @@ class MultiLayerNetwork:
         """Mean loss + regularization (reference score()); with no data, the
         score of the last training step."""
         self._check_init()
-        lmask = None
+        fmask = lmask = None
         if ds is not None:
-            x, y, lmask = ds.features, ds.labels, ds.labels_mask
+            x, y = ds.features, ds.labels
+            fmask, lmask = ds.features_mask, ds.labels_mask
         if x is None:
             if self.score_value is None:
                 raise ValueError("No data given and no cached score")
             return float(self.score_value)
         with torch.inference_mode():
             return float(self._loss(self.params_tree, self._as_input(x),
-                                    self._as_labels(y), self._as_mask(lmask),
-                                    False, None))
+                                    self._as_labels(y), self._as_mask(fmask),
+                                    self._as_mask(lmask), False, None))
 
     def compute_gradient_and_score(self, ds: DataSet):
         """(gradients, score) without updating the parameters (reference
@@ -306,7 +320,8 @@ class MultiLayerNetwork:
         self._check_init()
         loss, grads = self._value_and_grad(
             self._as_input(ds.features), self._as_labels(ds.labels),
-            self._as_mask(ds.labels_mask), False, None)
+            self._as_mask(ds.features_mask), self._as_mask(ds.labels_mask),
+            False, None)
         return grads, float(loss)
 
     def num_params(self) -> int:

@@ -1,0 +1,252 @@
+"""Single-device attention: dense, blockwise, and the flash route, with the
+dispatch rule that picks one.
+
+Port of the single-device half of `deeplearning4j_tpu/ops/attention.py`
+(`pick_block_size`, `select_attention_impl`, `single_device_attention`,
+`dense_attention`, `blockwise_attention`). Dense and blockwise are plain
+torch, as they are plain XLA there; "pallas" names the flash route
+(`ops/flash_attention.py`: the CUDA kernels K3-K5 on a GPU, their plain
+versions on the CPU). The rule is the JAX package's as it runs on a TPU whose
+kernel probe passes: the flash route is ready wherever
+`flash_attention_supported` holds, so the card and the CPU choose alike. The
+sequence-parallel ring path is not ported.
+
+`attention_kernel_selected_total` counts every call's choice per impl (the
+JAX package counts per trace, which under jit is once per compiled shape).
+"""
+from __future__ import annotations
+
+import logging
+import threading
+from typing import Optional
+
+import torch
+from torch.utils.checkpoint import checkpoint
+
+from . import flash_attention as fa
+
+Tensor = torch.Tensor
+
+NEG = -1e30  # finite -inf stand-in: keeps exp() NaN-free in masked rows
+
+ATTENTION_IMPLS = ("pallas", "blockwise", "dense")
+
+#: Choices made by `select_attention_impl` in this process, per impl.
+attention_kernel_selected_total = {impl: 0 for impl in ATTENTION_IMPLS}
+_count_lock = threading.Lock()
+_warned_pallas = False
+
+
+def pick_block_size(t: int, block_size: int = 0) -> int:
+    """Block size for single-device blockwise attention; 0 = dense.
+    block_size: 0 = auto (blockwise once t >= 2048; probe order 512, 1024,
+    256, 128), -1 = always dense, >0 = that block size whenever it divides
+    t (including t == block, a single-block run)."""
+    if block_size == -1:
+        return 0
+    if block_size > 0:
+        return block_size if t % block_size == 0 else 0
+    if t < 2048:
+        return 0
+    for blk in (512, 1024, 256, 128):
+        if t % blk == 0:
+            return blk
+    return 0
+
+
+def _warn_pallas_unavailable_once(t: int, head_dim: int) -> None:
+    global _warned_pallas
+    if _warned_pallas:
+        return
+    logging.getLogger(__name__).warning(
+        "attention impl 'pallas' requested but the flash kernels do not take "
+        "t=%d head_dim=%d; falling back per the dispatch rule", t, head_dim)
+    _warned_pallas = True
+
+
+def select_attention_impl(t_q: int, head_dim: int, *,
+                          requested: Optional[str] = None,
+                          block_size: int = 0,
+                          t_k: Optional[int] = None,
+                          device=None) -> str:
+    """Pick 'pallas' | 'blockwise' | 'dense' for a single-device attention
+    call, count it in `attention_kernel_selected_total`, and return it.
+
+    Rule (the JAX package's): below t=2048 dense; from 2048 up, with
+    t_q == t_k and block_size == 0, the flash route wherever its geometry is
+    supported, else blockwise, else dense. An explicit block_size (> 0)
+    keeps blockwise; -1 forces dense. `requested` overrides ('auto'/None =
+    the rule).
+
+    Where the flash route is requested, or the rule would take it, and the
+    kernels do not take head_dim (> MAX_HEAD_DIM, which the JAX package's
+    kernels do take): on a CUDA `device` this raises NotImplementedError,
+    because plain torch would stand in for kernels not yet ported; elsewhere
+    a requested 'pallas' warns once and falls through the rule, the JAX
+    package's own fallback."""
+    t_k = t_q if t_k is None else t_k
+    req = None if requested in (None, "auto") else requested
+    if req is not None and req not in ATTENTION_IMPLS:
+        raise ValueError(f"attention impl {requested!r} not in "
+                         f"{ATTENTION_IMPLS + ('auto',)}")
+    if req == "dense":
+        choice = "dense"
+    else:
+        blk = pick_block_size(t_q, block_size)
+        ready = fa.flash_attention_supported(t_q, t_k, head_dim)
+        wanted = req == "pallas" or (req is None and block_size == 0
+                                     and t_q >= 2048 and t_q == t_k)
+        if wanted and not ready and device is not None \
+                and torch.device(device).type == "cuda":
+            raise NotImplementedError(
+                f"the flash attention kernels take head_dim 1..{fa.MAX_HEAD_DIM}, "
+                f"got {head_dim} at t={t_q}; wider heads are not ported yet")
+        if req == "pallas" and not ready:
+            _warn_pallas_unavailable_once(t_q, head_dim)
+            req = None
+        if req == "pallas":
+            choice = "pallas"
+        elif req == "blockwise":
+            choice = "blockwise" if blk else "dense"
+        elif block_size == 0 and t_q >= 2048 and t_q == t_k and ready:
+            choice = "pallas"
+        else:
+            choice = "blockwise" if blk else "dense"
+    with _count_lock:
+        attention_kernel_selected_total[choice] += 1
+    return choice
+
+
+def single_device_attention(q: Tensor, k: Tensor, v: Tensor, *,
+                            causal: bool = False,
+                            key_mask: Optional[Tensor] = None,
+                            segment_ids: Optional[Tensor] = None,
+                            impl: Optional[str] = None,
+                            block_size: int = 0) -> Tensor:
+    """Dispatching front door for unsharded attention: the flash route,
+    blockwise or dense per `select_attention_impl`, with dense_attention's
+    signature and semantics. `segment_ids` ([batch, time] int) enables
+    packed-batch attention; every impl applies the same masks."""
+    choice = select_attention_impl(q.shape[1], q.shape[-1], requested=impl,
+                                   block_size=block_size, t_k=k.shape[1],
+                                   device=q.device)
+    if choice == "pallas":
+        return fa.flash_attention(q, k, v, causal=causal, key_mask=key_mask,
+                                  segment_ids=segment_ids)
+    if choice == "blockwise":
+        blk = pick_block_size(q.shape[1], block_size)
+        return blockwise_attention(q, k, v, causal=causal, key_mask=key_mask,
+                                   segment_ids=segment_ids, q_block=blk,
+                                   kv_block=blk)
+    return dense_attention(q, k, v, causal=causal, key_mask=key_mask,
+                           segment_ids=segment_ids)
+
+
+def _acc(q: Tensor) -> torch.dtype:
+    """At least float32, never demoting float64."""
+    return torch.promote_types(q.dtype, torch.float32)
+
+
+def dense_attention(q: Tensor, k: Tensor, v: Tensor, *, causal: bool = False,
+                    key_mask: Optional[Tensor] = None,
+                    segment_ids: Optional[Tensor] = None,
+                    kv_segment_ids: Optional[Tensor] = None) -> Tensor:
+    """Plain softmax attention. q/k/v: [batch, time, heads, head_dim];
+    key_mask: [batch, time_k] (> 0 = real key); segment_ids [batch, time_q]
+    int (pairs with different ids masked; kv_segment_ids defaults to
+    segment_ids). Float32 softmax; a query with no valid key outputs 0."""
+    d = q.shape[-1]
+    acc = _acc(q)
+    scores = torch.einsum("bqhd,bkhd->bhqk", q.to(acc), k.to(acc)) / d ** 0.5
+    if causal:
+        tq, tk = q.shape[1], k.shape[1]
+        mask = (torch.arange(tk, device=q.device)[None, :]
+                <= torch.arange(tq, device=q.device)[:, None])
+        scores = torch.where(mask[None, None], scores, NEG)
+    if key_mask is not None:
+        scores = torch.where(key_mask[:, None, None, :] > 0, scores, NEG)
+    if segment_ids is not None:
+        q_seg = torch.as_tensor(segment_ids, device=q.device).to(torch.int32)
+        k_seg = q_seg if kv_segment_ids is None else \
+            torch.as_tensor(kv_segment_ids, device=q.device).to(torch.int32)
+        scores = torch.where(q_seg[:, None, :, None] == k_seg[:, None, None, :],
+                             scores, NEG)
+    elif kv_segment_ids is not None:
+        raise ValueError("kv_segment_ids requires segment_ids")
+    p = torch.softmax(scores, dim=-1)
+    any_valid = scores.amax(-1, keepdim=True) > NEG / 2
+    p = torch.where(any_valid, p, 0.0)
+    return torch.einsum("bhqk,bkhd->bqhd", p.to(v.dtype), v)
+
+
+def _kv_block_step(qi, k_blk, v_blk, km_blk, ks_blk, qseg_i, m, l, o,
+                   q_pos0, kv_pos0, causal):
+    """One key/value block folded into the (m, l, o) online-softmax state of
+    one query block ([b, h, qb] and [b, h, qb, d])."""
+    acc = qi.dtype
+    scores = torch.einsum("bqhd,bkhd->bhqk", qi, k_blk.to(acc))
+    if causal:
+        q_pos = q_pos0 + torch.arange(qi.shape[1], device=qi.device)
+        kv_pos = kv_pos0 + torch.arange(k_blk.shape[1], device=qi.device)
+        scores = torch.where((kv_pos[None, :] <= q_pos[:, None])[None, None],
+                             scores, NEG)
+    if km_blk is not None:
+        scores = torch.where(km_blk[:, None, None, :] > 0, scores, NEG)
+    if ks_blk is not None:
+        same = qseg_i[:, :, None] == ks_blk[:, None, :]
+        scores = torch.where(same[:, None], scores, NEG)
+    new_m = torch.maximum(m, scores.amax(-1))
+    corr = torch.exp(m - new_m)
+    p = torch.exp(scores - new_m[..., None])
+    p = torch.where(new_m[..., None] <= NEG / 2, torch.zeros_like(p), p)
+    l = l * corr + p.sum(-1)
+    o = o * corr[..., None] + torch.einsum("bhqk,bkhd->bhqd", p, v_blk.to(acc))
+    return new_m, l, o
+
+
+def blockwise_attention(q: Tensor, k: Tensor, v: Tensor, *,
+                        causal: bool = False,
+                        key_mask: Optional[Tensor] = None,
+                        segment_ids: Optional[Tensor] = None,
+                        q_block: int = 1024, kv_block: int = 1024) -> Tensor:
+    """Memory-efficient attention on one device: dense_attention's math as
+    an online softmax over key/value blocks, never holding the [T, T] score
+    matrix. Causal runs visit only the blocks on or below the diagonal. Each
+    block step is checkpointed (`torch.utils.checkpoint`, as the JAX package
+    `jax.checkpoint`s it), so the backward recomputes block scores instead of
+    saving them. Requires time % q_block == 0 and time % kv_block == 0."""
+    b, t, h, d = q.shape
+    if t % q_block or t % kv_block:
+        raise ValueError(f"time {t} must divide q_block={q_block} and "
+                         f"kv_block={kv_block}")
+    nq, nk = t // q_block, t // kv_block
+    acc = _acc(q)
+    qf = (q.to(acc) / d ** 0.5).reshape(b, nq, q_block, h, d)
+    kb = k.reshape(b, nk, kv_block, h, d)
+    vb = v.reshape(b, nk, kv_block, h, d)
+    kmb = None if key_mask is None else key_mask.reshape(b, nk, kv_block)
+    sqb = skb = None
+    if segment_ids is not None:
+        seg = torch.as_tensor(segment_ids, device=q.device).to(torch.int32)
+        if seg.ndim == 1:
+            seg = seg.expand(b, t)
+        sqb = seg.reshape(b, nq, q_block)
+        skb = seg.reshape(b, nk, kv_block)
+    outs = []
+    for i in range(nq):  # causal: only the blocks on or below the diagonal
+        q_pos0 = i * q_block
+        hi = nk if not causal else \
+            min(nk, (q_pos0 + q_block + kv_block - 1) // kv_block)
+        m = torch.full((b, h, q_block), NEG, dtype=acc, device=q.device)
+        l = torch.zeros((b, h, q_block), dtype=acc, device=q.device)
+        o = torch.zeros((b, h, q_block, d), dtype=acc, device=q.device)
+        qseg_i = None if sqb is None else sqb[:, i]
+        for j in range(hi):
+            m, l, o = checkpoint(
+                _kv_block_step, qf[:, i], kb[:, j], vb[:, j],
+                None if kmb is None else kmb[:, j],
+                None if skb is None else skb[:, j], qseg_i, m, l, o,
+                q_pos0, j * kv_block, causal, use_reentrant=False)
+        out = o / torch.clamp(l, min=1e-30)[..., None]
+        outs.append(out.permute(0, 2, 1, 3))
+    return torch.cat(outs, dim=1).to(q.dtype)

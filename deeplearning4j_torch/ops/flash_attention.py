@@ -1,0 +1,402 @@
+"""Fused flash attention, forward and backward.
+
+Port of `deeplearning4j_tpu/ops/flash_attention.py` (`flash_attention` with
+its custom VJP: `_fwd_kernel` forward, `_bwd_dkv_kernel` and `_bwd_dq_kernel`
+backward). Over q [batch, t_q, heads, d] and k, v [batch, t_k, heads, d]:
+
+    s = q k^T / sqrt(d) under the masks,  lse = logsumexp(s),
+    o = softmax(s) v,   ds = p (do v^T - di + g_lse),  di = rowsum(o do)
+    dq = ds k / sqrt(d),  dk = ds^T q / sqrt(d),  dv = p^T do
+
+Masks compose by conjunction: causal (kv_pos <= q_pos, int32 positions
+compared as data), a key mask broadcast over heads, and segment ids. A query
+row that no key may see gives o = 0 and lse = NEG. The lse is [batch, t_q,
+heads] float32 and has a cotangent (`g_lse`), which the backward folds into
+ds as the JAX package's does.
+
+On CUDA tensors `FlashAttentionFunction` launches the hand-written kernels of
+``csrc/flash_attention.cu``: K3 (`dl4j_flash_fwd`) forward, K4
+(`dl4j_flash_bwd_dkv`) and K5 (`dl4j_flash_bwd_dq`) backward, float32 or
+bfloat16 with float32 sums (see the note there for what bounds them and how
+they are laid out). On CPU tensors it runs `flash_fwd_reference` and
+`flash_bwd_reference`. There is no fallback from one to the other: a CUDA
+tensor the kernels do not take raises.
+"""
+from __future__ import annotations
+
+import ctypes
+import math
+import threading
+from typing import Optional
+
+import torch
+from torch.autograd.function import once_differentiable
+
+from . import cuda_build
+
+Tensor = torch.Tensor
+
+NEG = -1e30  # mask sentinel; matches ops/attention.py (finite: -inf NaNs grads)
+
+#: What the kernels take: head_dim up to MAX_HEAD_DIM (they tile by 64 query
+#: or key rows and mask the ragged edge, so any t >= 1).
+MAX_HEAD_DIM = 128
+
+#: Kernel launches made in this process: `fwd_launches` counts K3,
+#: `bwd_dkv_launches` K4 and `bwd_dq_launches` K5. Tests and the chip smoke
+#: reset them to 0 and read them to show a path ran through the kernels.
+fwd_launches = 0
+bwd_dkv_launches = 0
+bwd_dq_launches = 0
+_launches_lock = threading.Lock()
+
+_POINTERS = {"dl4j_flash_fwd": 10, "dl4j_flash_bwd_dkv": 14,
+             "dl4j_flash_bwd_dq": 13}
+_fns = {}
+
+
+def _blocks_divide(t_q: int, t_k: int, q_block: int, kv_block: int) -> bool:
+    """Explicit blocks (> 0) divide the time axes; 0 is always taken."""
+    return not (q_block and t_q % q_block) and not (kv_block and t_k % kv_block)
+
+
+def flash_attention_supported(t_q: int, t_k: int, head_dim: int, *,
+                              q_block: int = 0, kv_block: int = 0) -> bool:
+    """Geometry gate of the port's kernels: head_dim within MAX_HEAD_DIM, and
+    explicit blocks that divide the time axes (the JAX package's contract;
+    the kernels themselves tile by 64 rows and mask the ragged edge)."""
+    return (t_q >= 1 and t_k >= 1 and 1 <= head_dim <= MAX_HEAD_DIM
+            and _blocks_divide(t_q, t_k, q_block, kv_block))
+
+
+# ---------------------------------------------------------------------------
+# Plain versions: dense math, a chunk of (batch * head) slices at a time.
+# ---------------------------------------------------------------------------
+
+def _acc_dtype(t: Tensor) -> torch.dtype:
+    """float32, or float64 for float64 inputs (gradient checks)."""
+    return torch.float64 if t.dtype == torch.float64 else torch.float32
+
+
+def _fold(t: Tensor, acc: torch.dtype) -> Tensor:
+    """[b, t, h, d] -> [b * h, t, d] in `acc`."""
+    b, n, h, d = t.shape
+    return t.permute(0, 2, 1, 3).reshape(b * h, n, d).to(acc)
+
+
+def _unfold(t3: Tensor, b: int, h: int, dtype: torch.dtype) -> Tensor:
+    """[b * h, t, ...] -> contiguous [b, t, h, ...] in `dtype`."""
+    return t3.reshape(b, h, *t3.shape[1:]).transpose(1, 2).to(dtype).contiguous()
+
+
+def _chunks(n: int, per_slice: int):
+    """(lo, hi) ranges over n slices, each holding at most 2**28 scores."""
+    step = max(1, (1 << 28) // max(1, per_slice))
+    return ((lo, min(n, lo + step)) for lo in range(0, n, step))
+
+
+def _allowed(lo, hi, h, km, qs, ks, qp, kp, causal):
+    """Which scores of slices [lo, hi) the masks keep: bool, broadcastable
+    to [hi - lo, t_q, t_k]."""
+    batch = torch.arange(lo, hi, device=qp.device) // h
+    keep = torch.ones(1, qp.shape[0], kp.shape[0], dtype=torch.bool,
+                      device=qp.device)
+    if causal:
+        keep = keep & (kp[None, :] <= qp[:, None])[None]
+    if km is not None:
+        keep = keep & (km[batch] > 0)[:, None, :]
+    if qs is not None:
+        keep = keep & (qs[batch][:, :, None] == ks[batch][:, None, :])
+    return keep
+
+
+def flash_fwd_reference(q, k, v, km, qs, ks, qp, kp, scale, causal):
+    """Plain torch forward: (o [b, t_q, h, d] in q's dtype, lse [b, t_q, h]
+    float32). In bfloat16, p is rounded to v's dtype before the p.v product,
+    as `_fwd_kernel` does; every sum is float32."""
+    b, tq, h, d = q.shape
+    tk = k.shape[1]
+    acc = _acc_dtype(q)
+    q3, k3, v3 = _fold(q, acc), _fold(k, acc), _fold(v, acc)
+    o3 = torch.empty(b * h, tq, d, dtype=acc, device=q.device)
+    lse3 = torch.empty(b * h, tq, dtype=acc, device=q.device)
+    for lo, hi in _chunks(b * h, tq * tk):
+        s = torch.matmul(q3[lo:hi], k3[lo:hi].transpose(1, 2)) * scale
+        s = torch.where(_allowed(lo, hi, h, km, qs, ks, qp, kp, causal), s, NEG)
+        m = s.amax(-1, keepdim=True)
+        p = torch.where(m > NEG / 2, torch.exp(s - m), 0.0)
+        l = p.sum(-1, keepdim=True)
+        pv = torch.matmul(p.to(v.dtype).to(acc), v3[lo:hi])
+        o3[lo:hi] = pv * torch.where(l > 0, 1.0 / torch.where(l > 0, l, 1.0), 0.0)
+        lse3[lo:hi] = torch.where(l > 0, m + torch.log(torch.where(l > 0, l, 1.0)),
+                                  NEG)[..., 0]
+    return _unfold(o3, b, h, q.dtype), _unfold(lse3, b, h, acc)
+
+
+def _bwd_reference(q, k, v, do, lse, di, gl, km, qs, ks, qp, kp, scale, causal,
+                   want_dq, want_dkv):
+    """dq and/or (dk, dv), each recomputing p and ds (as K5 and K4 do)."""
+    b, tq, h, d = q.shape
+    tk = k.shape[1]
+    acc = _acc_dtype(q)
+    q3, k3, v3, do3 = (_fold(t, acc) for t in (q, k, v, do))
+    row = lambda t: t.transpose(1, 2).reshape(b * h, tq, 1).to(acc)
+    lse3, di3, gl3 = row(lse), row(di), row(gl)
+    dq3, dk3, dv3 = (torch.empty_like(t) for t in (q3, k3, v3))
+    for lo, hi in _chunks(b * h, tq * tk):
+        sl = slice(lo, hi)
+        s = torch.matmul(q3[sl], k3[sl].transpose(1, 2)) * scale
+        keep = _allowed(lo, hi, h, km, qs, ks, qp, kp, causal) & (lse3[sl] > NEG / 2)
+        p = torch.where(keep, torch.exp(s - lse3[sl]), 0.0)
+        dp = torch.matmul(do3[sl], v3[sl].transpose(1, 2))
+        ds = p * (dp - di3[sl] + gl3[sl])
+        if want_dkv:
+            dv3[sl] = torch.matmul(p.to(do.dtype).to(acc).transpose(1, 2), do3[sl])
+            dk3[sl] = torch.matmul(ds.to(q.dtype).to(acc).transpose(1, 2),
+                                   q3[sl]) * scale
+        if want_dq:
+            dq3[sl] = torch.matmul(ds.to(k.dtype).to(acc), k3[sl]) * scale
+    out = (_unfold(dq3, b, h, q.dtype),) if want_dq else ()
+    if want_dkv:
+        out += (_unfold(dk3, b, h, k.dtype), _unfold(dv3, b, h, v.dtype))
+    return out
+
+
+def flash_bwd_dkv_reference(*args):
+    """Plain torch (dk, dv), the function of K4: p recomputed from lse,
+    ds = p (dp - di + g_lse), dv = p^T do, dk = scale ds^T q. In bfloat16, p
+    and ds are rounded to the input type before the products, as
+    `_bwd_dkv_kernel` does. Arguments as `flash_bwd_reference`'s."""
+    return _bwd_reference(*args, want_dq=False, want_dkv=True)
+
+
+def flash_bwd_dq_reference(*args):
+    """Plain torch dq = scale ds k, the function of K5 (`_bwd_dq_kernel`)."""
+    dq, = _bwd_reference(*args, want_dq=True, want_dkv=False)
+    return dq
+
+
+def flash_bwd_reference(q, k, v, do, lse, di, gl, km, qs, ks, qp, kp, scale,
+                        causal):
+    """Plain torch backward: (dq, dk, dv) in the inputs' dtypes from p
+    recomputed from lse and ds = p (dp - di + g_lse), dq and dk scaled by
+    `scale`. In bfloat16, p and ds are rounded to the input type before the
+    dv and dk/dq products, as `_bwd_dkv_kernel` and `_bwd_dq_kernel` do."""
+    return _bwd_reference(q, k, v, do, lse, di, gl, km, qs, ks, qp, kp, scale,
+                          causal, want_dq=True, want_dkv=True)
+
+
+# ---------------------------------------------------------------------------
+# The CUDA kernels.
+# ---------------------------------------------------------------------------
+
+def _kernel_fn(name: str):
+    """A C entry point of ``csrc/flash_attention.cu``, built and typed at
+    first use."""
+    fn = _fns.get(name)
+    if fn is None:
+        fn = getattr(cuda_build.load("flash_attention"), name)
+        fn.argtypes = [ctypes.c_void_p] * _POINTERS[name] + [
+            ctypes.c_int] * 5 + [ctypes.c_float, ctypes.c_int, ctypes.c_int,
+                                 ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        _fns[name] = fn
+    return fn
+
+
+def _ptr(t: Optional[Tensor]):
+    return None if t is None else t.data_ptr()
+
+
+def _check_kernel_inputs(q, k, v, km, qs, ks, qp, kp):
+    """Raise on anything the kernels do not take; returns (b, h, tq, tk, d)."""
+    if q.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"flash attention kernels take float32 or bfloat16, "
+                        f"got {q.dtype}")
+    b, tq, h, d = q.shape
+    tk = k.shape[1]
+    if k.dtype != q.dtype or v.dtype != q.dtype:
+        raise TypeError(f"q, k, v dtypes differ: {q.dtype}, {k.dtype}, {v.dtype}")
+    if k.shape != (b, tk, h, d) or v.shape != k.shape:
+        raise ValueError(f"q {tuple(q.shape)}, k {tuple(k.shape)}, v "
+                         f"{tuple(v.shape)} are not [b, t, h, d] alike")
+    if not 1 <= d <= MAX_HEAD_DIM or b * h > 65535:
+        raise ValueError(f"flash attention kernels take head_dim 1..{MAX_HEAD_DIM} "
+                         f"and batch * heads <= 65535, got {d} and {b * h}")
+    want = [(km, torch.float32, (b, tk)), (qs, torch.int32, (b, tq)),
+            (ks, torch.int32, (b, tk)), (qp, torch.int32, (tq,)),
+            (kp, torch.int32, (tk,))]
+    for t in (q, k, v) + tuple(w[0] for w in want):
+        if t is not None and (t.device != q.device or not t.is_contiguous()):
+            raise ValueError("flash attention kernels need contiguous tensors on "
+                             "one CUDA device")
+    for t, dtype, shape in want:
+        if t is not None and (t.dtype != dtype or tuple(t.shape) != shape):
+            raise ValueError(f"mask operand {t.dtype} {tuple(t.shape)}: expected "
+                             f"{dtype} {shape}")
+    return b, h, tq, tk, d
+
+
+def _launch(name: str, ptrs, dims, scale, causal, bf16, device):
+    fn = _kernel_fn(name)
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        err = fn(*ptrs, *dims, float(scale), int(causal), int(bf16), stream)
+    if err != 0:
+        raise RuntimeError(f"{name} launch failed: CUDA error {err}")
+
+
+def _launch_fwd(q, k, v, km, qs, ks, qp, kp, scale, causal):
+    global fwd_launches
+    b, h, tq, tk, d = _check_kernel_inputs(q, k, v, km, qs, ks, qp, kp)
+    o = torch.empty_like(q)
+    lse = torch.empty(b, tq, h, dtype=torch.float32, device=q.device)
+    _launch("dl4j_flash_fwd",
+            [_ptr(t) for t in (q, k, v, km, qs, ks, qp, kp, o, lse)],
+            (b, h, tq, tk, d), scale, causal, q.dtype == torch.bfloat16, q.device)
+    with _launches_lock:
+        fwd_launches += 1
+    return o, lse
+
+
+def _bwd_args(q, k, v, do, lse, di, gl, km, qs, ks, qp, kp):
+    """Check the backward's operands; returns (the pointers both backward
+    kernels take first, (b, h, tq, tk, d))."""
+    dims = _check_kernel_inputs(q, k, v, km, qs, ks, qp, kp)
+    b, h, tq = dims[:3]
+    for t, shape, dtype in ((do, q.shape, q.dtype), (lse, (b, tq, h), torch.float32),
+                            (di, (b, tq, h), torch.float32),
+                            (gl, (b, tq, h), torch.float32)):
+        if (t.shape != shape or t.dtype != dtype or t.device != q.device
+                or not t.is_contiguous()):
+            raise ValueError(f"backward operand {t.dtype} {tuple(t.shape)}: "
+                             f"expected contiguous {dtype} {tuple(shape)}")
+    return [_ptr(t) for t in (q, k, v, do, lse, di, gl, km, qs, ks, qp, kp)], dims
+
+
+def _launch_bwd_dkv(q, k, v, do, lse, di, gl, km, qs, ks, qp, kp, scale, causal):
+    global bwd_dkv_launches
+    ptrs, dims = _bwd_args(q, k, v, do, lse, di, gl, km, qs, ks, qp, kp)
+    dk, dv = torch.empty_like(k), torch.empty_like(v)
+    _launch("dl4j_flash_bwd_dkv", ptrs + [_ptr(dk), _ptr(dv)], dims, scale,
+            causal, q.dtype == torch.bfloat16, q.device)
+    with _launches_lock:
+        bwd_dkv_launches += 1
+    return dk, dv
+
+
+def _launch_bwd_dq(q, k, v, do, lse, di, gl, km, qs, ks, qp, kp, scale, causal):
+    global bwd_dq_launches
+    ptrs, dims = _bwd_args(q, k, v, do, lse, di, gl, km, qs, ks, qp, kp)
+    dq = torch.empty_like(q)
+    _launch("dl4j_flash_bwd_dq", ptrs + [_ptr(dq)], dims, scale, causal,
+            q.dtype == torch.bfloat16, q.device)
+    with _launches_lock:
+        bwd_dq_launches += 1
+    return dq
+
+
+def _check_device(q: Tensor):
+    if q.device.type not in ("cuda", "cpu"):
+        raise ValueError(f"flash attention runs on cuda or cpu tensors, got {q.device}")
+
+
+def flash_fwd(q, k, v, km, qs, ks, qp, kp, scale, causal):
+    """(o, lse) without autograd: K3 for CUDA tensors, `flash_fwd_reference`
+    for CPU tensors."""
+    _check_device(q)
+    if q.device.type == "cuda":
+        return _launch_fwd(q, k, v, km, qs, ks, qp, kp, scale, causal)
+    return flash_fwd_reference(q, k, v, km, qs, ks, qp, kp, scale, causal)
+
+
+def flash_bwd(q, k, v, do, lse, di, gl, km, qs, ks, qp, kp, scale, causal):
+    """(dq, dk, dv): K4 then K5 for CUDA tensors, `flash_bwd_reference` for
+    CPU tensors."""
+    _check_device(q)
+    args = (q, k, v, do, lse, di, gl, km, qs, ks, qp, kp, scale, causal)
+    if q.device.type == "cuda":
+        dk, dv = _launch_bwd_dkv(*args)
+        return _launch_bwd_dq(*args), dk, dv
+    return flash_bwd_reference(*args)
+
+
+class FlashAttentionFunction(torch.autograd.Function):
+    """(o, lse) with their backward. Saves q, k, v, o and lse, as
+    `_flash_fwd` does; the backward takes di = rowsum(o do) in float32 with
+    a torch op, then runs `flash_bwd`. Autograd hands a cotangent of zeros
+    for an output the caller did not use (lse, usually), so g_lse = 0 then.
+    The masks, segment ids and positions get no gradient."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, km, qs, ks, qp, kp, scale, causal):
+        q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+        o, lse = flash_fwd(q, k, v, km, qs, ks, qp, kp, scale, causal)
+        ctx.save_for_backward(q, k, v, o, lse, km, qs, ks, qp, kp)
+        ctx.scale, ctx.causal = scale, causal
+        return o, lse
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, do, g_lse):
+        q, k, v, o, lse, km, qs, ks, qp, kp = ctx.saved_tensors
+        do = do.contiguous()
+        di = (o.to(lse.dtype) * do.to(lse.dtype)).sum(-1)
+        dq, dk, dv = flash_bwd(q, k, v, do, lse, di, g_lse.to(lse.dtype).contiguous(),
+                               km, qs, ks, qp, kp, ctx.scale, ctx.causal)
+        return dq, dk, dv, None, None, None, None, None, None, None
+
+
+def flash_attention(q: Tensor, k: Tensor, v: Tensor, *, causal: bool = False,
+                    key_mask: Optional[Tensor] = None,
+                    segment_ids: Optional[Tensor] = None,
+                    kv_segment_ids: Optional[Tensor] = None,
+                    q_pos: Optional[Tensor] = None,
+                    kv_pos: Optional[Tensor] = None, q_block: int = 0,
+                    kv_block: int = 0, with_lse: bool = False,
+                    bwd_acc_dtype: str = "float32"):
+    """Fused flash attention over [batch, time, heads, head_dim], with the
+    semantics of the JAX package's `flash_attention`.
+
+    `key_mask` [batch, t_k] (> 0 = a real key) is broadcast over heads.
+    `segment_ids` ([batch, t_q] or 1-D [t_q], shared by the batch) mask every
+    pair whose ids differ; `kv_segment_ids` defaults to `segment_ids` and
+    needs it. `q_pos`/`kv_pos` (1-D int) replace the arange positions of the
+    causal mask. The softmax scale is 1/sqrt(head_dim). A query row with no
+    key to see outputs 0 (and lse NEG). `with_lse=True` also returns the lse,
+    [batch, t_q, heads] float32, whose cotangent is taken. `q_block` and
+    `kv_block` keep the JAX package's contract (explicit blocks must divide
+    the time axes, else ValueError); the CUDA kernels tile by 64 rows and
+    mask the ragged edge themselves. `bwd_acc_dtype="bfloat16"` is not ported
+    (NotImplementedError)."""
+    if bwd_acc_dtype != "float32":
+        if str(bwd_acc_dtype) == "bfloat16":
+            raise NotImplementedError(
+                "bwd_acc_dtype='bfloat16' is not ported: the backward kernels "
+                "accumulate in float32")
+        raise ValueError(f"bwd_acc_dtype must be 'float32', got {bwd_acc_dtype!r}")
+    b, tq, hh, d = q.shape
+    tk = k.shape[1]
+    if not _blocks_divide(tq, tk, q_block, kv_block):
+        raise ValueError(f"time ({tq}, {tk}) must divide blocks ({q_block}, "
+                         f"{kv_block})")
+    dev = q.device
+    as_int = lambda t: torch.as_tensor(t, device=dev).to(torch.int32)
+    km = None if key_mask is None else \
+        torch.as_tensor(key_mask, device=dev).to(torch.float32).contiguous()
+    qp = (torch.arange(tq, dtype=torch.int32, device=dev) if q_pos is None
+          else as_int(q_pos).reshape(tq).contiguous())
+    kp = (torch.arange(tk, dtype=torch.int32, device=dev) if kv_pos is None
+          else as_int(kv_pos).reshape(tk).contiguous())
+    if kv_segment_ids is not None and segment_ids is None:
+        raise ValueError("kv_segment_ids requires segment_ids")
+    qs = ks = None
+    if segment_ids is not None:
+        def seg_rows(seg, t):  # -> [b, t] int32
+            seg = as_int(seg)
+            return (seg.expand(b, t) if seg.ndim == 1 else seg).contiguous()
+        qs = seg_rows(segment_ids, tq)
+        ks = seg_rows(segment_ids if kv_segment_ids is None else kv_segment_ids, tk)
+    o, lse = FlashAttentionFunction.apply(q, k, v, km, qs, ks, qp, kp,
+                                          1.0 / math.sqrt(d), bool(causal))
+    return (o, lse) if with_lse else o

@@ -6,6 +6,14 @@ rows where both decide every ReLU zero and max-pool choice alike
 AlexNet at 60x60x3 and batch 2: the same function passes on the first draw;
 parameters moved by 1e-3 flip kinks on every draw and fail; a backward off
 by 1e-3, which flips no kink, fails on the first draw.
+
+For the char model, whose only kinks are its ReLUs, `compare_pinned_grads`
+pins the second run's ReLU decisions to the first's (`pinned_relus`); it is
+held here, on the full-width network at t 16, to the same two outcomes, with
+a fault planted in each of the attention backward's cotangents alone.
+`check_sgd_step` must tell a fit step from one that moves the parameters
+too little. And the attention kernels' work and bound (`attention_pairs`,
+`attention_bound_ms`).
 """
 import numpy as np
 import pytest
@@ -82,3 +90,124 @@ def test_recorded_kinks_cover_every_layer_and_pool(setup):
     assert len(kinks) - len(pools) == len(net.layers) - 1
     assert len(pools) == 3   # AlexNet's three max pools
     assert all((t >= -1).all() for t in pools)
+
+
+def test_attention_pairs_and_bound():
+    """The work chip_smoke counts for the attention kernels: allowed pairs
+    from the masks, and the bound from the pairs."""
+    qp = torch.arange(8, dtype=torch.int32)
+    assert chip_smoke.attention_pairs(torch, qp, qp, False, 2, 3) == 2 * 3 * 64
+    assert chip_smoke.attention_pairs(torch, qp, qp, True, 2, 3) == 2 * 3 * 36
+    km = torch.ones(2, 8)
+    km[1] = 0.0
+    assert chip_smoke.attention_pairs(torch, qp, qp, True, 2, 3, km=km) == 3 * 36
+    seg = torch.tensor([[1, 1, 1, 2, 2, 2, 2, 0]] * 2, dtype=torch.int32)
+    # causal pairs within segments: 6 + 10 + 1 (the padding id 0 matches itself)
+    assert chip_smoke.attention_pairs(torch, qp, qp, True, 2, 1, qs=seg,
+                                      ks=seg) == 2 * 17
+    # the char model's forward: 4 x 4 x 8192 x 8193 / 2 pairs of 4 x 128 flops
+    pairs = 4 * 4 * 8192 * 8193 // 2
+    ms, by = chip_smoke.attention_bound_ms("flash_fwd", pairs, 128, "float32",
+                                           nbytes=4 * 4 * 8192 * 512 * 4)
+    assert by == "operations"
+    assert ms == pytest.approx(4 * 128 * pairs / 67e12 * 1e3)
+    ms16, _ = chip_smoke.attention_bound_ms("flash_bwd_dq", pairs, 128,
+                                            "bfloat16", nbytes=0)
+    assert ms16 == pytest.approx(6 * 128 * pairs / 989e12 * 1e3)
+    # a tiny call is bound by its bytes
+    assert chip_smoke.attention_bound_ms("flash_fwd", 1, 8, "float32",
+                                         nbytes=1 << 20)[1] == "bytes"
+
+
+@pytest.fixture(scope="module")
+def char_setup():
+    conf = chip_smoke.char_conf(impl="pallas")
+    net = MultiLayerNetwork(conf).init(device="cpu")
+    return net, chip_smoke.char_data(2, 16, seed=1)
+
+
+def _char_run(model, bwd_scales=(1.0, 1.0, 1.0)):
+    """compute_gradient_and_score with the attention backward's (dq, dk, dv)
+    scaled by `bwd_scales`."""
+    from deeplearning4j_torch.ops import flash_attention as port_fa
+
+    def grads(ds, masks, flips):
+        with chip_smoke.pinned_relus(torch, model, masks, flips):
+            if bwd_scales == (1.0, 1.0, 1.0):
+                return model.compute_gradient_and_score(ds)
+            ref = port_fa.flash_bwd_reference
+            with chip_smoke.patched(port_fa, "flash_bwd", lambda *a: tuple(
+                    g * s for g, s in zip(ref(*a), bwd_scales))):
+                return model.compute_gradient_and_score(ds)
+    return grads
+
+
+BACKWARD_OFF = {"backward_off": (1.001, 1.001, 1.001), "dq_off": (1.001, 1.0, 1.0),
+                "dk_off": (1.0, 1.001, 1.0), "dv_off": (1.0, 1.0, 1.001)}
+
+
+@pytest.mark.parametrize("case", ["same"] + list(BACKWARD_OFF))
+def test_compare_pinned_grads_on_the_char_model(char_setup, case):
+    """Pinned ReLUs: the same function passes with every decision recorded
+    and none flipped; an attention backward off by 1e-3, in all three
+    cotangents or in any one of them alone, fails."""
+    net, ds = char_setup
+    if case == "same":
+        out = chip_smoke.compare_pinned_grads(case, torch, port_params,
+                                              _char_run(net), _char_run(net), ds)
+        assert out["worst_rel"] == 0.0 and out["relu_flips_pinned"] == 0
+        # both attention layers' ReLUs: 2 x batch 2 x t 16 x width 512
+        assert out["relu_entries"] == 2 * 2 * 16 * 512
+        # only the key biases, whose exact gradient is 0, are left out
+        assert set(out["left_out_share_of_layer"]) == {"0.bk", "1.bk"}
+    else:
+        with pytest.raises(RuntimeError, match="pinned"):
+            chip_smoke.compare_pinned_grads(
+                case, torch, port_params, _char_run(net),
+                _char_run(net, bwd_scales=BACKWARD_OFF[case]), ds)
+
+
+@pytest.mark.parametrize("case", ["float32", "no_update", "half_update"])
+def test_check_sgd_step(char_setup, case):
+    """One fit step must move every parameter by lr x its gradient: a real
+    step passes, a fit that applies no update or half of it fails."""
+    conf, ds = char_setup[0].conf, char_setup[1]
+    net = MultiLayerNetwork(conf).init(device="cpu")
+    if case == "float32":
+        out = chip_smoke.check_sgd_step(torch, net, ds, chip_smoke.CHAR_LR,
+                                        need_visible=True)
+        assert set(out) == {f"{i}.{k}" for i, lp in enumerate(net.params_tree)
+                            for k in lp}
+        assert max(r["moved_share"] for r in out.values()) > 0.5
+        return
+    fit = net.fit
+    scale = 0.0 if case == "no_update" else 0.5
+
+    def partial_fit(data, **kw):
+        before = net.params_tree
+        fit(data, **kw)
+        net.params_tree = tuple({k: b + (a - b) * scale for (k, a), b in
+                                 zip(la.items(), lb.values())}
+                                for la, lb in zip(net.params_tree, before))
+        return net
+
+    with chip_smoke.patched(net, "fit", partial_fit), \
+            pytest.raises(RuntimeError, match="from p - lr g"):
+        chip_smoke.check_sgd_step(torch, net, ds, chip_smoke.CHAR_LR,
+                                  need_visible=True)
+
+
+def test_pinned_relus_take_the_recorded_branch(char_setup):
+    """A second run pinned to the first's decisions takes the first's ReLU
+    branch even where its own input says otherwise, and counts those flips."""
+    net, ds = char_setup
+    masks, flips = [], []
+    with chip_smoke.pinned_relus(torch, net, masks):
+        net.compute_gradient_and_score(ds)
+    flipped = [~m for m in masks]
+    with chip_smoke.pinned_relus(torch, net, flipped, flips):
+        net.compute_gradient_and_score(ds)
+    # the first layer's input is the same, so every decision flipped; the
+    # second layer's input changed with the first layer's output
+    assert flips[0] == int(masks[0].numel()) and 0 < flips[1]
+    assert len(flips) == len(masks) == 2

@@ -1,0 +1,309 @@
+"""Flash attention in the torch port against the JAX package.
+
+The port's `flash_attention`, run through its autograd Function on CPU
+tensors (the plain versions `flash_fwd_reference` / `flash_bwd_reference`),
+is held to the JAX package's `flash_attention` with its Pallas kernels in
+interpret mode (blocks of 16, as tests/test_flash_attention.py runs them) and
+to its `dense_attention`: (o, lse) forward, and (dq, dk, dv) through the
+backward with an output cotangent and an lse cotangent. Inputs come from a
+numpy seed, b = 2, t = 32, 2 heads, head_dim 8.
+
+Tolerance in float32: rtol 1e-5 / atol 1e-6 for o and lse; rtol 1e-5 / atol
+1e-5 for gradients, whose entries are sums of up to 32 products of O(1)
+terms taken in another order (blocked online softmax against dense), so an
+absolute 1e-5 is a few float32 ulps of the largest term. bfloat16 states its
+own below.
+
+The CUDA kernels run only on a GPU: the tests marked `cuda` skip without one
+(``python -m pytest tests/test_torch_flash_attention.py -m cuda``).
+"""
+import numpy as np
+import pytest
+import torch
+
+from deeplearning4j_torch.ops import flash_attention as port_fa
+
+B, T, H, D = 2, 32, 2, 8
+FWD = dict(rtol=1e-5, atol=1e-6)
+GRAD = dict(rtol=1e-5, atol=1e-5)
+
+
+@pytest.fixture(scope="module")
+def ref():
+    """(jax.numpy, the JAX package's attention and flash_attention modules),
+    imported here so the card-only tests also run where JAX is absent."""
+    jax = pytest.importorskip("jax")
+    from deeplearning4j_tpu.ops import attention, flash_attention
+    return jax, jax.numpy, attention, flash_attention
+
+
+def _inputs(seed, t=T, tk=None, d=D):
+    rng = np.random.default_rng(seed)
+    tk = t if tk is None else tk
+    q = rng.standard_normal((B, t, H, d)).astype(np.float32)
+    k = rng.standard_normal((B, tk, H, d)).astype(np.float32)
+    v = rng.standard_normal((B, tk, H, d)).astype(np.float32)
+    g_o = rng.standard_normal((B, t, H, d)).astype(np.float32)
+    g_lse = rng.standard_normal((B, t, H)).astype(np.float32)
+    return q, k, v, g_o, g_lse
+
+
+def _key_mask(seed):
+    km = (np.random.default_rng(seed).random((B, T)) > 0.3).astype(np.float32)
+    km[:, :5] = 0.0   # under the causal mask, rows 0-4 see no key at all
+    km[1, :] = 0.0    # and batch row 1 sees none anywhere
+    return km
+
+
+_SEG_1D = np.repeat([1, 2, 3], [10, 12, 10]).astype(np.int32)
+_SEG_2D = np.stack([np.repeat([1, 2, 0], [14, 12, 6]),
+                    np.repeat([1, 2, 3, 4], [5, 9, 9, 9])]).astype(np.int32)
+
+# name -> flash_attention keywords (numpy), and whether g_lse is nonzero
+CASES = {
+    "noncausal": ({"causal": False}, False),
+    "causal": ({"causal": True}, False),
+    "key_mask_fully_masked_rows": ({"causal": True, "key_mask": _key_mask(3)}, False),
+    "segment_ids_1d": ({"causal": True, "segment_ids": _SEG_1D}, False),
+    "segment_ids_2d": ({"causal": False, "segment_ids": _SEG_2D,
+                        "key_mask": (_SEG_2D > 0).astype(np.float32)}, False),
+    "kv_segment_ids": ({"segment_ids": _SEG_2D,
+                        "kv_segment_ids": _SEG_2D[::-1].copy()}, False),
+    "positions": ({"causal": True, "q_pos": np.arange(T, dtype=np.int32) + 40,
+                   "kv_pos": np.arange(T, dtype=np.int32) * 2 + 10}, False),
+    "g_lse": ({"causal": True, "key_mask": _key_mask(4)}, True),
+}
+
+
+def _port(q, k, v, g_o, g_lse, dtype=torch.float32, **kw):
+    """(o, lse, dq, dk, dv) from the port's flash_attention and autograd."""
+    ts = [torch.from_numpy(a).to(dtype).requires_grad_() for a in (q, k, v)]
+    args = {n: torch.from_numpy(np.asarray(a)) for n, a in kw.items()
+            if isinstance(a, np.ndarray)}
+    o, lse = port_fa.flash_attention(*ts, with_lse=True,
+                                     **{**kw, **args})
+    torch.autograd.backward([o, lse], [torch.from_numpy(g_o).to(dtype),
+                                       torch.from_numpy(g_lse)])
+    return [t.detach().float().numpy() for t in (o, lse)] + \
+        [t.grad.float().numpy() for t in ts]
+
+
+def _jax_flash(ref, q, k, v, g_o, g_lse, dtype=None, **kw):
+    """(o, lse, dq, dk, dv) from the JAX package's Pallas kernels, interpreted."""
+    jax, jnp, _, fa = ref
+    dtype = dtype or jnp.float32
+    args = {n: jnp.asarray(a) if isinstance(a, np.ndarray) else a
+            for n, a in kw.items()}
+    (o, lse), vjp = jax.vjp(
+        lambda a, b, c: fa.flash_attention(a, b, c, interpret=True,
+                                           with_lse=True, q_block=16,
+                                           kv_block=16, **args),
+        *(jnp.asarray(x, dtype) for x in (q, k, v)))
+    grads = vjp((jnp.asarray(g_o, dtype), jnp.asarray(g_lse)))
+    return [np.asarray(x, np.float32) for x in (o, lse) + tuple(grads)]
+
+
+@pytest.mark.parametrize("name", list(CASES))
+def test_matches_jax_flash_interpret(ref, name):
+    kw, with_glse = CASES[name]
+    q, k, v, g_o, g_lse = _inputs(seed=len(name))
+    if not with_glse:
+        g_lse = np.zeros_like(g_lse)
+    got = _port(q, k, v, g_o, g_lse, **kw)
+    want = _jax_flash(ref, q, k, v, g_o, g_lse, **kw)
+    for what, g, w in zip(("o", "lse"), got[:2], want[:2]):
+        np.testing.assert_allclose(g, w, err_msg=what, **FWD)
+    for what, g, w in zip(("dq", "dk", "dv"), got[2:], want[2:]):
+        np.testing.assert_allclose(g, w, err_msg=what, **GRAD)
+    if "key_mask" in kw and kw.get("causal"):
+        # fully masked rows: exact zeros, lse NEG, no gradient through them
+        assert np.all(got[0][:, :5] == 0.0) and np.all(got[0][1] == 0.0)
+        assert np.all(got[1][:, :5] == port_fa.NEG)
+        assert np.all(got[2][1] == 0.0)
+        assert np.isfinite(got[2]).all()
+
+
+@pytest.mark.parametrize("name", ["noncausal", "causal",
+                                  "key_mask_fully_masked_rows",
+                                  "segment_ids_1d", "segment_ids_2d",
+                                  "kv_segment_ids"])
+def test_matches_jax_dense_attention(ref, name):
+    jax, jnp, att, _ = ref
+    kw, _ = CASES[name]
+    q, k, v, g_o, _ = _inputs(seed=7 + len(name))
+    dense_kw = {n: jnp.asarray(a) if isinstance(a, np.ndarray) else a
+                for n, a in kw.items()}
+    for n in ("segment_ids", "kv_segment_ids"):  # dense takes [b, t] only
+        if n in dense_kw and dense_kw[n].ndim == 1:
+            dense_kw[n] = jnp.broadcast_to(dense_kw[n], (B, T))
+    o, vjp = jax.vjp(lambda a, b, c: att.dense_attention(a, b, c, **dense_kw),
+                     *(jnp.asarray(x) for x in (q, k, v)))
+    want = [np.asarray(o)] + [np.asarray(g) for g in vjp(jnp.asarray(g_o))]
+    got = _port(q, k, v, g_o, np.zeros((B, T, H), np.float32), **kw)
+    np.testing.assert_allclose(got[0], want[0], **FWD)
+    for g, w in zip(got[2:], want[1:]):
+        np.testing.assert_allclose(g, w, **GRAD)
+
+
+def test_bfloat16_forward(ref):
+    """Both round p to bfloat16 before the p.v product, the JAX kernel
+    relative to its running maximum and the port's plain version relative
+    to the row maximum, and both round o to bfloat16: o agrees to 2 bfloat16
+    ulps (2 * 2^-8 relative) plus 2^-8 of |o|'s scale absolute; lse, a
+    float32 sum of the same bfloat16 inputs, to float32 rounding."""
+    _, jnp, _, _ = ref
+    q, k, v, g_o, g_lse = _inputs(seed=21)
+    kw = {"causal": True, "key_mask": _key_mask(5)}
+    got = _port(q, k, v, g_o, np.zeros_like(g_lse), dtype=torch.bfloat16, **kw)
+    want = _jax_flash(ref, q, k, v, g_o, np.zeros_like(g_lse),
+                      dtype=jnp.bfloat16, **kw)
+    np.testing.assert_allclose(got[0], want[0], rtol=2 ** -7, atol=2 ** -8)
+    np.testing.assert_allclose(got[1], want[1], **FWD)
+
+
+def test_indivisible_blocks_raise(ref):
+    _, jnp, _, fa = ref
+    q = np.zeros((1, 32, 1, 8), np.float32)
+    with pytest.raises(ValueError, match="must divide"):
+        fa.flash_attention(*(jnp.asarray(q),) * 3, q_block=24, interpret=True)
+    with pytest.raises(ValueError, match="must divide"):
+        port_fa.flash_attention(*(torch.from_numpy(q),) * 3, q_block=24)
+    with pytest.raises(ValueError, match="must divide"):
+        port_fa.flash_attention(*(torch.from_numpy(q),) * 3, kv_block=5)
+    with pytest.raises(NotImplementedError, match="bfloat16"):
+        port_fa.flash_attention(*(torch.from_numpy(q),) * 3,
+                                bwd_acc_dtype="bfloat16")
+    with pytest.raises(ValueError, match="requires segment_ids"):
+        port_fa.flash_attention(*(torch.from_numpy(q),) * 3,
+                                kv_segment_ids=np.zeros(32, np.int32))
+
+
+def test_supported_checks_the_ports_kernel_limits():
+    assert port_fa.flash_attention_supported(8192, 8192, 128)
+    assert port_fa.flash_attention_supported(1, 300, 8)
+    assert not port_fa.flash_attention_supported(64, 64, 129)
+    assert not port_fa.flash_attention_supported(0, 64, 64)
+    assert not port_fa.flash_attention_supported(64, 64, 64, q_block=48)
+    assert not port_fa.flash_attention_supported(64, 64, 64, kv_block=48)
+    assert port_fa.flash_attention_supported(64, 96, 64, q_block=32, kv_block=48)
+    # the kernels tile by 64 rows and mask the ragged edge: any t is taken
+    assert port_fa.flash_attention_supported(1000, 1000, 128)
+    assert port_fa.flash_attention_supported(8191, 1, 1)
+
+
+def test_function_gradcheck_float64():
+    """The autograd Function's backward (the plain version in float64)
+    against finite differences, the lse cotangent included."""
+    q, k, v, _, g_lse = _inputs(seed=2, t=12)
+    ts = [torch.from_numpy(a).double().requires_grad_() for a in (q, k, v)]
+    km = torch.from_numpy(_key_mask(6)[:, :12].astype(np.float64))
+    gl = torch.from_numpy(g_lse[:, :12].astype(np.float64))
+
+    def f(a, b, c):
+        o, lse = port_fa.flash_attention(a, b, c, causal=True, key_mask=km,
+                                         with_lse=True)
+        return o, torch.where(lse > port_fa.NEG / 2, lse, 0.0) * gl
+
+    assert torch.autograd.gradcheck(f, ts, eps=1e-6, atol=1e-6, rtol=1e-5)
+
+
+def test_cpu_tensor_never_reaches_the_kernels(monkeypatch):
+    def boom(*a, **k):
+        raise AssertionError("a CPU tensor was sent to a CUDA kernel")
+
+    for name in ("_launch_fwd", "_launch_bwd_dkv", "_launch_bwd_dq"):
+        monkeypatch.setattr(port_fa, name, boom)
+    monkeypatch.setattr(port_fa.cuda_build, "load", boom)
+    before = (port_fa.fwd_launches, port_fa.bwd_dkv_launches,
+              port_fa.bwd_dq_launches)
+    q, k, v, g_o, _ = _inputs(seed=1)
+    qt = torch.from_numpy(q).requires_grad_()
+    port_fa.flash_attention(qt, torch.from_numpy(k), torch.from_numpy(v),
+                            causal=True).backward(torch.from_numpy(g_o))
+    assert qt.grad.shape == qt.shape
+    assert (port_fa.fwd_launches, port_fa.bwd_dkv_launches,
+            port_fa.bwd_dq_launches) == before
+
+
+def _card_case(gen, b, tq, tk, h, d, dtype, *, key_mask=False, segs=False,
+               offset=0):
+    dev = "cuda"
+    mk = lambda *s: torch.randn(*s, device=dev, generator=gen).to(dtype)
+    q, k, v, do = mk(b, tq, h, d), mk(b, tk, h, d), mk(b, tk, h, d), mk(b, tq, h, d)
+    km = qs = ks = None
+    if key_mask:
+        km = (torch.rand(b, tk, device=dev, generator=gen) > 0.3).float()
+        km[0] = 0.0
+    if segs:
+        qs = (torch.arange(tq, device=dev) * 3 // tq).int().expand(b, tq).contiguous()
+        ks = (torch.arange(tk, device=dev) * 3 // tk).int().expand(b, tk).contiguous()
+    qp = torch.arange(tq, device=dev, dtype=torch.int32) + offset
+    kp = torch.arange(tk, device=dev, dtype=torch.int32)
+    return q, k, v, do, km, qs, ks, qp, kp
+
+
+def _close(got, want, rel):
+    """max |got - want| <= rel * max |want|, on float32 views."""
+    got, want = got.float(), want.float()
+    assert (got - want).abs().max().item() <= rel * want.abs().max().clamp_min(1e-30).item()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_kernels_match_plain_on_card(dtype):
+    """f32: sums over up to 1000 keys in another order, 1e-5 of the largest
+    entry; bf16: p, ds and the outputs rounded to bfloat16 at other running
+    maxima, 1e-2 (a couple of bfloat16 ulps)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    dt = getattr(torch, dtype)
+    rel = 1e-5 if dtype == "float32" else 1e-2
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    cases = [(2, 130, 130, 2, 64, True, dict()),
+             (2, 70, 70, 3, 16, True, dict(key_mask=True)),
+             (2, 150, 150, 2, 32, True, dict(segs=True)),
+             (2, 64, 128, 2, 8, True, dict(offset=64)),
+             (1, 1000, 1000, 2, 128, False, dict()),
+             (3, 1, 300, 2, 64, False, dict(key_mask=True))]
+    for b, tq, tk, h, d, causal, kw in cases:
+        q, k, v, do, km, qs, ks, qp, kp = _card_case(gen, b, tq, tk, h, d, dt, **kw)
+        scale = d ** -0.5
+        before = (port_fa.fwd_launches, port_fa.bwd_dkv_launches,
+                  port_fa.bwd_dq_launches)
+        o, lse = port_fa.flash_fwd(q, k, v, km, qs, ks, qp, kp, scale, causal)
+        ow, lw = port_fa.flash_fwd_reference(q, k, v, km, qs, ks, qp, kp, scale,
+                                             causal)
+        _close(o, ow, rel)
+        assert torch.equal(lse <= port_fa.NEG / 2, lw <= port_fa.NEG / 2)
+        live = lw > port_fa.NEG / 2
+        torch.testing.assert_close(lse[live], lw[live], rtol=1e-5, atol=1e-5)
+        gl = torch.where(live, torch.randn(lw.shape, device="cuda",
+                                           generator=gen), 0.0)
+        di = (ow.float() * do.float()).sum(-1)
+        got = port_fa.flash_bwd(q, k, v, do, lw, di, gl, km, qs, ks, qp, kp,
+                                scale, causal)
+        torch.cuda.synchronize()
+        want = port_fa.flash_bwd_reference(q, k, v, do, lw, di, gl, km, qs, ks,
+                                           qp, kp, scale, causal)
+        for g, w in zip(got, want):
+            _close(g, w, rel)
+        assert (port_fa.fwd_launches, port_fa.bwd_dkv_launches,
+                port_fa.bwd_dq_launches) == tuple(n + 1 for n in before)
+
+
+@pytest.mark.cuda
+def test_autograd_reaches_all_three_kernels_on_card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    q, k, v, g_o, _ = _inputs(seed=9, t=100, d=32)
+    ts = [torch.from_numpy(a).cuda().requires_grad_() for a in (q, k, v)]
+    before = (port_fa.fwd_launches, port_fa.bwd_dkv_launches,
+              port_fa.bwd_dq_launches)
+    port_fa.flash_attention(*ts, causal=True).backward(torch.from_numpy(g_o).cuda())
+    torch.cuda.synchronize()
+    assert (port_fa.fwd_launches, port_fa.bwd_dkv_launches,
+            port_fa.bwd_dq_launches) == tuple(n + 1 for n in before)
+    cpu = [torch.from_numpy(a).requires_grad_() for a in (q, k, v)]
+    port_fa.flash_attention(*cpu, causal=True).backward(torch.from_numpy(g_o))
+    for g, c in zip(ts, cpu):
+        torch.testing.assert_close(g.grad.cpu(), c.grad, rtol=1e-5, atol=1e-5)
