@@ -7,7 +7,8 @@ Phases, each of which fails the script (non-zero exit, no result line):
 
 1. Header: the card's name and power limit (nvidia-smi), the torch and CUDA
    versions, and the TF32 settings, which the script fixes to OFF so the
-   float32 tolerances below mean float32.
+   float32 tolerances below mean float32 (and bfloat16 products to reduce
+   in float32, so a bfloat16 tolerance means one rounding).
 2. Build: every hand-written kernel from the checkout's sources
    (deeplearning4j_torch/ops/csrc), one nvcc per source, all started
    together.
@@ -19,6 +20,12 @@ Phases, each of which fails the script (non-zero exit, no result line):
    data-sheet peaks). K1 is the LRN forward; K2, the LRN backward, is also
    held to an error under 1% of the largest cross-channel term
    (max|2 alpha beta x u|), so a kernel that dropped that term fails.
+   K3-K5 (flash attention) at the char model's shape and edge shapes. K6,
+   the int8 product of quantized serving, bitwise against its plain
+   version at AlexNet's three dense shapes for buckets 1 and 32, the JAX
+   package's test shapes, m beyond 32 and the extreme values, with
+   torch._int_mm as its yardstick and an int8 tensor-core bound of
+   1,979 TOPS.
 4. Serving: zoo AlexNet at full width (224x224x3, 1000 classes, random
    weights from its seed) behind a BATCHED ParallelInference (batch_limit
    32), 4 client threads x 8 requests of 1-8 images. Every answer is held to
@@ -31,6 +38,20 @@ Phases, each of which fails the script (non-zero exit, no result line):
    before the clients start and read just after they finish: each kernel of
    the path must have launched, LRN twice per executed forward. Then one
    forward at bucket 32 is profiled: device time against wall time.
+   Quantized serving: the same net and load with its tree quantized
+   (`quantize_tree`) to int8, then to bf16. The counts are reset just before
+   the clients start: K6 must launch 3 x executed forwards in int8 (fc6,
+   fc7, output) and 0 in bf16, K1 2 x forwards in both, and every K6 call
+   in those forwards is held bitwise to the plain product on its real
+   inputs. Each answer is held to `net.output` of the batch it was served
+   in, and the card to the CPU path layer by layer (the first bfloat16 conv
+   and each bfloat16 product within one ulp of the layer's largest value,
+   each int8 preout bitwise and
+   within its envelope of float32); a sum in another order can tip a
+   bfloat16 or int8 rounding, so the distances from an answer's own rows
+   and from the CPU's answer are reported against quantization's own. Then
+   the drift from the float32 answers on a batch of 32, latencies from a
+   second, unchecked run, and one profiled forward.
 5. Training: zoo AlexNet at full width, `fit` for TRAIN_STEPS steps at
    batch 128 on images and one-hot labels from a numpy seed (Nesterovs,
    L2, per-layer L2 renormalization, dropout 0.5 on the dense inputs). The
@@ -63,6 +84,7 @@ import numpy as np
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM data sheet
 FP32_OPS_PER_S = 67e12      # H100 SXM data sheet, float32 outside tensor cores
 LRN_K, LRN_ALPHA, LRN_BETA, LRN_N = 2.0, 1e-4, 0.75, 5  # AlexNet's LRN
+SLEEP_CYCLES = 20_000_000   # ~10 ms at the H100's clock: longer than 20 launches take the host
 LRN_RTOL, LRN_ATOL = 1e-5, 1e-6       # float32 kernel vs float32 plain
 SERVE_RTOL, SERVE_ATOL = 1e-4, 1e-7   # float32 forwards, cuDNN's choice of algorithm per batch size
 CROSS_SHARE = 0.01   # K2's error must stay under this share of its largest cross-channel term
@@ -109,6 +131,25 @@ def cuda_time_ms(fn, iters=20, warm=3):
     return start.elapsed_time(end) / iters
 
 
+def device_ms(torch, fn, iters=20):
+    """Device time of one call of `fn`, for calls whose launch costs the host
+    more than they cost the device: the calls are queued behind a sleep
+    kernel that holds the device while the host launches them, so the CUDA
+    events around them time back-to-back execution, not the launches."""
+    for _ in range(3):
+        fn()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    torch.cuda._sleep(SLEEP_CYCLES)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
 def lrn_bound_ms(numel, n):
     """Least time for LRN over `numel` float32 elements: read x and write y
     once (8 bytes), or 2n + 3 operations each (n squares, n - 1 adds, the
@@ -146,25 +187,27 @@ def phase_header(torch):
     log(card)
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
     log(f"torch {torch.__version__} cuda {torch.version.cuda} "
         f"device {torch.cuda.get_device_name(0)} count {torch.cuda.device_count()}")
     log("tf32: cudnn.allow_tf32=False (cuDNN's default is True), "
-        "cuda.matmul.allow_tf32=False")
+        "cuda.matmul.allow_tf32=False; bfloat16 products reduce in float32 "
+        "(allow_bf16_reduced_precision_reduction=False)")
     return card
 
 
 def phase_build():
     from deeplearning4j_torch.ops import cuda_build
     t0 = time.perf_counter()
-    libs = cuda_build.build(["lrn", "flash_attention"])
+    libs = cuda_build.build(["lrn", "flash_attention", "int8_matmul"])
     secs = time.perf_counter() - t0
     log(f"build: {len(libs)} kernel libraries in {secs:.2f} s")
     for name, text in cuda_build.build_logs.items():
         kernel = "?"
         for line in text.splitlines():
-            m = re.search(r"entry function .*?([a-z]+(?:_[a-z]+)*_kernel)(I\w*?Li\d+E)?",
-                          line)
-            if m:  # e.g. flash_fwd_kernel IfLi8E: <float, 8>
+            m = re.search(r"entry function .*?([a-z]+(?:_[a-z]+)*_kernel)"
+                          r"(I(?:[a-z]|Li\d+E|Lb[01]E)+)?", line)
+            if m:  # e.g. flash_fwd_kernel IfLi8E: <float, 8>; ILi32ELb1E: <32, true>
                 kernel = " ".join(g for g in m.groups() if g)
             elif "registers" in line or "spill" in line or "smem" in line:
                 log(f"  ptxas[{name}] {kernel}: {line.strip()}")
@@ -313,6 +356,51 @@ def checked_lrn(torch, stats):
         yield
 
 
+def serving_requests(rng, clients=4, per_client=8):
+    """The serving phases' client load: per client, `per_client` requests of
+    1-8 random 224x224x3 images."""
+    return [[rng.standard_normal((int(rng.integers(1, 9)), 224, 224, 3)
+                                 ).astype(np.float32)
+             for _ in range(per_client)] for _ in range(clients)]
+
+
+def run_clients(pi, reqs):
+    """One thread per client list, each sending its requests in turn to
+    `pi`: ({(client, j): answer}, latencies in s, wall s). Raises if a client
+    failed or did not finish."""
+    answers, lat, errors = {}, [], []
+    lat_lock = threading.Lock()
+
+    def client(c):
+        try:
+            for j, x in enumerate(reqs[c]):
+                t = time.perf_counter()
+                answers[(c, j)] = pi.output(x)
+                with lat_lock:
+                    lat.append(time.perf_counter() - t)
+        except BaseException as e:
+            errors.append(e)
+
+    threads = [threading.Thread(target=client, args=(c,)) for c in range(len(reqs))]
+    t0 = time.perf_counter()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=600)
+    wall = time.perf_counter() - t0
+    if errors or any(t.is_alive() for t in threads):
+        raise RuntimeError(f"serving clients failed: {errors!r}")
+    return answers, lat, wall
+
+
+def latency_stats(lat, images, wall):
+    lat_ms = np.asarray(lat) * 1e3
+    return {"requests": len(lat), "images": images, "wall_s": wall,
+            "images_per_s": images / wall,
+            "p50_ms": float(np.percentile(lat_ms, 50)),
+            "p99_ms": float(np.percentile(lat_ms, 99))}
+
+
 def phase_serving(torch, card):
     from deeplearning4j_torch.models.zoo import AlexNet
     from deeplearning4j_torch.nn.multilayer import MultiLayerNetwork
@@ -330,38 +418,16 @@ def phase_serving(torch, card):
     log(f"serving: warmup of buckets {pi.warmed_buckets} in "
         f"{time.perf_counter() - t0:.2f} s")
     rng = np.random.default_rng(2026)
-    clients, per_client = 4, 8
-    reqs = [[rng.standard_normal((int(rng.integers(1, 9)), 224, 224, 3)
-                                 ).astype(np.float32)
-             for _ in range(per_client)] for _ in range(clients)]
-    answers, lat, errors = {}, [], []
-    lat_lock = threading.Lock()
-
-    def client(c):
-        try:
-            for j, x in enumerate(reqs[c]):
-                t = time.perf_counter()
-                answers[(c, j)] = pi.output(x)
-                with lat_lock:
-                    lat.append(time.perf_counter() - t)
-        except BaseException as e:
-            errors.append(e)
-
-    threads = [threading.Thread(target=client, args=(c,)) for c in range(clients)]
+    reqs = serving_requests(rng)
     forwards0 = pi.total_forwards
-    lrn_ops.launches = lrn_ops.bwd_launches = 0  # the serving run starts here
-    t0 = time.perf_counter()
-    for t in threads:
-        t.start()
-    for t in threads:
-        t.join(timeout=600)
-    wall = time.perf_counter() - t0
-    launches = {"lrn_fwd": lrn_ops.launches,
-                "lrn_bwd": lrn_ops.bwd_launches}  # ... and ends here
-    forwards = pi.total_forwards - forwards0
-    pi.shutdown()
-    if errors or any(t.is_alive() for t in threads):
-        raise RuntimeError(f"serving clients failed: {errors!r}")
+    try:
+        lrn_ops.launches = lrn_ops.bwd_launches = 0  # the serving run starts here
+        answers, lat, wall = run_clients(pi, reqs)
+        launches = {"lrn_fwd": lrn_ops.launches,
+                    "lrn_bwd": lrn_ops.bwd_launches}  # ... and ends here
+        forwards = pi.total_forwards - forwards0
+    finally:
+        pi.shutdown()
     if forwards < 1 or launches != {"lrn_fwd": 2 * forwards, "lrn_bwd": 0}:
         raise RuntimeError(f"lrn launches {launches}: expected 2 x {forwards} "
                            f"executed forwards of K1 and no K2")
@@ -413,12 +479,8 @@ def phase_serving(torch, card):
     np.testing.assert_allclose(answers[(0, 0)], cpu_out, rtol=SERVE_RTOL,
                                atol=SERVE_ATOL)
     max_cpu = float(np.abs(answers[(0, 0)] - cpu_out).max())
-    lat_ms = np.asarray(lat) * 1e3
     result = {
-        "requests": len(lat), "images": images, "forwards": forwards,
-        "wall_s": wall, "images_per_s": images / wall,
-        "p50_ms": float(np.percentile(lat_ms, 50)),
-        "p99_ms": float(np.percentile(lat_ms, 99)),
+        **latency_stats(lat, images, wall), "forwards": forwards,
         "max_abs_err_vs_direct": max_direct,
         "max_abs_err_vs_plain_lrn": max_plain,
         "max_abs_err_vs_cpu": max_cpu,
@@ -432,7 +494,7 @@ def phase_serving(torch, card):
         f"{result['images_per_s']:.1f} images/s  [{card}]")
     log(f"serving: max abs err vs direct {max_direct:.3e}, vs plain LRN "
         f"{max_plain:.3e}, vs CPU {max_cpu:.3e} (rtol {SERVE_RTOL}, atol {SERVE_ATOL})")
-    return result
+    return result, net, reqs, answers, cpu_net
 
 
 def profile_call(torch, label, fn, info):
@@ -710,6 +772,387 @@ def phase_training(torch, card):
             "lrn_bwd_in_step": stats,
             "grad_rel_vs_plain_lrn": vs_plain, "grad_rel_vs_cpu": vs_cpu,
             "profile": profile, "card": card}
+
+
+# ------------------------------------------------------- int8 matmul (K6)
+
+INT8_OPS_PER_S = 1979e12   # H100 SXM data sheet, dense int8 tensor cores
+# AlexNet's three dense layers as the int8 product sees them: (K, N)
+ALEXNET_DENSE = {"fc6": (256, 4096), "fc7": (4096, 4096), "output": (4096, 1000)}
+# the JAX package's int8 test shapes (tests/test_quantize.py SHAPES): (B, K, N)
+JAX_INT8_SHAPES = [(1, 1, 1), (3, 5, 7), (8, 64, 16), (7, 127, 13),
+                   (8, 128, 256), (9, 130, 33), (32, 256, 10), (5, 1024, 8)]
+# (label, m, K, N, fill, timed): fill None draws x and w uniformly from
+# [-128, 127]; (a, b) sets every x to a and every w to b, the largest sums
+INT8_CASES = (
+    [(f"alexnet_{name}_m{m}", m, k, n, None, True)
+     for m in (1, 32) for name, (k, n) in ALEXNET_DENSE.items()]
+    + [(f"jax_{b}x{k}x{n}", b, k, n, None, False) for b, k, n in JAX_INT8_SHAPES]
+    + [("m33_output", 33, 4096, 1000, None, False),
+       ("m129_fc6", 129, 256, 4096, None, False),
+       ("m129_k130_bytes", 129, 130, 33, None, False),
+       ("all_-128", 32, 4096, 1000, (-128, -128), False),
+       ("all_127", 32, 4096, 1000, (127, 127), False),
+       ("x_-128_w_127", 32, 4096, 1000, (-128, 127), False)])
+
+
+def int8_bound_ms(m, k, n):
+    """Least time for s8[m, K] x s8[N, K] -> s32[m, N]: read x and w and
+    write the int32 result once, or 2 m N K operations at the int8
+    tensor-core peak, whichever is longer."""
+    bytes_ms = (m * k + n * k + 4 * m * n) / HBM_BYTES_PER_S * 1e3
+    ops_ms = 2.0 * m * n * k / INT8_OPS_PER_S * 1e3
+    return max(bytes_ms, ops_ms), ("bytes" if bytes_ms >= ops_ms else "operations")
+
+
+def phase_int8(torch, card):
+    """K6 against its plain version on the card, bitwise (torch.equal), at
+    AlexNet's three dense shapes for buckets 1 and 32, the JAX package's test
+    shapes, m-tiles beyond 32, a K that takes the byte path, and constant
+    inputs at the extremes; a non-contiguous weight must raise. Timed at
+    AlexNet's shapes, as device time per call (`device_ms`; plain CUDA
+    events around back-to-back calls, `events_ms`, time the host here):
+    K6, the plain version, torch._int_mm (the library yardstick; it refuses
+    m <= 16), and float32 and bfloat16 torch.matmul at the same shape for
+    context."""
+    from deeplearning4j_torch.ops import quant_matmul as qmm
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    rows = []
+    for label, m, k, n, fill, timed in INT8_CASES:
+        if fill is None:
+            x, w = (torch.randint(-128, 128, shape, dtype=torch.int8, device="cuda",
+                                  generator=gen) for shape in ((m, k), (n, k)))
+        else:
+            x = torch.full((m, k), fill[0], dtype=torch.int8, device="cuda")
+            w = torch.full((n, k), fill[1], dtype=torch.int8, device="cuda")
+        got = qmm.int8_matmul(x, w)
+        torch.cuda.synchronize()
+        want = qmm.int8_matmul_reference(x, w)
+        err = (got.long() - want.long()).abs().max().item()
+        if not torch.equal(got, want):
+            raise RuntimeError(f"int8_matmul {label}: {int((got != want).sum())} of "
+                               f"{got.numel()} sums differ from the plain product "
+                               f"(max {err})")
+        row = {"case": label, "m": m, "k": k, "n": n, "max_abs_err": err,
+               "max_abs_sum": want.abs().max().item()}
+        if timed:  # device times: at these sizes a launch costs the host more
+            row["ms"] = device_ms(torch, lambda: qmm.int8_matmul(x, w))
+            row["events_ms"] = cuda_time_ms(lambda: qmm.int8_matmul(x, w))
+            row["plain_ms"] = device_ms(torch, lambda: qmm.int8_matmul_reference(x, w))
+            try:
+                row["library_equal"] = torch.equal(torch._int_mm(x, w.t()), want)
+                row["library_ms"] = device_ms(torch, lambda: torch._int_mm(x, w.t()))
+            except RuntimeError as e:  # the yardstick's own shape rules
+                row["library_ms"] = None
+                row["library_refused"] = str(e).strip().splitlines()[0][:200]
+            xf, wf, xb, wb = x.float(), w.float(), x.bfloat16(), w.bfloat16()
+            row["fp32_matmul_ms"] = device_ms(torch, lambda: xf @ wf.T)
+            row["bf16_matmul_ms"] = device_ms(torch, lambda: xb @ wb.T)
+            row["bound_ms"], row["bound_by"] = int8_bound_ms(m, k, n)
+        rows.append(row)
+        log(f"int8_matmul {label}: {json.dumps(row)}  [{card}]")
+    strided = torch.zeros((256, 8), dtype=torch.int8, device="cuda").t()
+    try:
+        qmm.quant_matmul(torch.zeros((1, 256), dtype=torch.int8, device="cuda"), strided)
+    except ValueError as e:
+        log(f"int8_matmul: a strided weight raises: {e}")
+    else:
+        raise RuntimeError("int8_matmul took a non-contiguous weight")
+    # the kernels line: one bucket-32 forward's three products
+    timed = [r for r in rows if "ms" in r and r["m"] == 32]
+    lib = [r["library_ms"] for r in timed]
+    entry = {"name": "int8_matmul", "route": "cuda",
+             "source": "deeplearning4j_torch/ops/csrc/int8_matmul.cu",
+             "replaces": "deeplearning4j_tpu/ops/pallas_kernels.py:278",
+             "launches": None, "max_abs_err": max(r["max_abs_err"] for r in rows),
+             "ms": sum(r["ms"] for r in timed),
+             "plain_ms": sum(r["plain_ms"] for r in timed),
+             "bound_ms": sum(r["bound_ms"] for r in timed),
+             "bound_by": "bytes" if all(r["bound_by"] == "bytes" for r in timed)
+             else "operations",
+             "library_ms": None if None in lib else sum(lib)}
+    return entry, rows
+
+
+# ------------------------------------------------------- quantized serving
+
+# A quantized answer is not held to a forward of its own rows at the float32
+# tolerances: the served batch's convs and bfloat16 products sum in another
+# order (cuDNN and cuBLAS choose by batch size), and where a value lies close
+# to a rounding boundary the two land on its two sides. An int8 code of a
+# dense input is one step of max|row| / 127, as large as a typical input; a
+# bfloat16 value moves by 2^-8 of itself. On an H100 such flips moved 121 of
+# 7,000 int8-arm probabilities by up to 4.7e-3 of themselves, and a bf16-arm
+# answer by more than its own distance from the float32 one. So each answer
+# is held exactly to the batch it was served in (`check_served_batches`),
+# its distance from its own rows' forward is reported beside the distance
+# quantization puts between it and the float32 answer (`quant_noise_share`),
+# and the card is held to the CPU layer by layer, where the inputs are the
+# same: the first conv and every dense product within one bfloat16 ulp, the
+# int8 preouts bitwise (`check_layers_against_cpu`).
+BF16_ULP = 2.0 ** -7   # the spacing of bfloat16 values, relative, at most
+
+
+def quant_noise_share(got, want, fp32):
+    """max|got - want| / max|want - fp32|: how far two evaluations of one
+    quantized net lie apart, as a share of how far quantization moves it."""
+    noise = float(np.abs(want - fp32).max())
+    return float(np.abs(got - want).max()) / noise if noise else 0.0
+
+
+@contextmanager
+def recorded_outputs(net, records):
+    """Append (input, output) of every `net.output` call in the block."""
+    output = net.output
+
+    def recording(x, *args, **kwargs):
+        y = output(x, *args, **kwargs)
+        records.append((np.array(x), y))
+        return y
+
+    net.output = recording
+    try:
+        yield
+    finally:
+        del net.output
+
+
+def check_served_batches(net, batches, reqs, answers):
+    """Each answer is bitwise the rows of the executed batch that held its
+    request, and `net.output` of each executed batch gives its output again
+    (SERVE tolerances): an answer is net.output of the rows it was served
+    with. Returns the number of batches."""
+    for bx, by in batches:
+        np.testing.assert_allclose(by, net.output(bx), rtol=SERVE_RTOL, atol=SERVE_ATOL)
+    for (c, j), out in answers.items():
+        x = reqs[c][j]
+        for bx, by in batches:
+            hit = next((o for o in range(len(bx) - len(x) + 1)
+                        if np.array_equal(bx[o:o + len(x)], x)), None)
+            if hit is not None:
+                break
+        else:
+            raise RuntimeError(f"request {(c, j)} is in no executed batch")
+        if not np.array_equal(out, by[hit:hit + len(x)]):
+            raise RuntimeError(f"request {(c, j)}: the answer is not its batch's rows")
+    return len(batches)
+
+
+@contextmanager
+def checked_int8(torch, stats):
+    """Run every int8 product of the network through `quant_matmul` (K6 on
+    the card) and, on the same int8 inputs, through the plain version,
+    holding the two bitwise equal. Counts the calls and records the shapes
+    and the largest |sum|."""
+    from deeplearning4j_torch.ops import quant_matmul as qmm
+    kernel = qmm.quant_matmul
+
+    def quant_matmul(x_q, w_q):
+        got = kernel(x_q, w_q)
+        want = qmm.int8_matmul_reference(x_q, w_q)
+        if not torch.equal(got, want):
+            raise RuntimeError(
+                f"int8 product {list(x_q.shape)} x {list(w_q.shape)}: "
+                f"{int((got != want).sum())} sums differ from the plain product")
+        stats["calls"] += 1
+        stats["shapes"].add((x_q.shape[0], x_q.shape[1], w_q.shape[0]))
+        stats["max_abs_sum"] = max(stats["max_abs_sum"], want.abs().max().item())
+        return got
+
+    with patched(qmm, "quant_matmul", quant_matmul):
+        yield
+
+
+def expected_quant_launches(net, mode, forwards):
+    """What `forwards` executed forwards of `net` must launch: K6 once per
+    dense layer (output layers included) in int8 mode and never in bf16
+    mode, K1 once per LRN layer in both."""
+    from deeplearning4j_torch.nn.layers.convolution import LocalResponseNormalization
+    from deeplearning4j_torch.nn.layers.core import DenseLayer
+    dense = sum(isinstance(layer, DenseLayer) for layer in net.layers)
+    lrn = sum(isinstance(layer, LocalResponseNormalization) for layer in net.layers)
+    return {"int8_matmul": dense * forwards if mode == "int8" else 0,
+            "lrn_fwd": lrn * forwards}
+
+
+def check_launches(label, got, want):
+    if got != want:
+        raise RuntimeError(f"{label}: launches {got}, expected {want}")
+
+
+@contextmanager
+def recorded_dense_inputs(records):
+    """Append (layer, input) for every dense preout in the block."""
+    from deeplearning4j_torch.nn.layers.core import DenseLayer
+    preout = DenseLayer.preout
+
+    def recording(self, params, x):
+        records.append((self, x))
+        return preout(self, params, x)
+
+    with patched(DenseLayer, "preout", recording):
+        yield
+
+
+def check_layers_against_cpu(torch, net, cpu_net, fp32_tree, x):
+    """The card against the CPU path on identical inputs, layer by layer.
+    The first layer's output (a bfloat16 conv of the same images) within
+    one bfloat16 ulp of its largest value; then each dense preout of one
+    forward of `x`, recomputed on its real input: an int8 preout bitwise
+    (and within 2 sqrt(n_in) max|x| max W_scale of the float32 preout, the
+    envelope of tests/test_quantize.py), a bfloat16 product within one
+    bfloat16 ulp of its largest value (each value rounds once, to one of two
+    neighbours; where a sum cancels, the two devices' float32 orders differ
+    by far less than that ulp, though by more than the small value's own).
+    Returns the rows and the CPU's answer."""
+    from deeplearning4j_torch.quantize import quantize as quant
+    cpu_acts = cpu_net.feed_forward(x)
+    first = [net.feed_forward(x)[1], cpu_acts[1]]
+    conv_err = float(np.abs(first[0] - first[1]).max())
+    if not conv_err <= BF16_ULP * float(np.abs(first[1]).max()):
+        raise RuntimeError(f"first layer: card and CPU differ by {conv_err}")
+    records = []
+    with recorded_dense_inputs(records):
+        net.output(x)
+    out = [{"layer": 0, "max_abs_card_vs_cpu": conv_err,
+            "max_abs": float(np.abs(first[1]).max())}]
+    for layer, a in records:
+        i = next(j for j, other in enumerate(net.layers) if other is layer)
+        p, cp = net.params_tree[i], cpu_net.params_tree[i]
+        f32 = quant.matmul_any(a, fp32_tree[i]["W"], fp32_tree[i]["b"])
+        row = {"layer": i, "rows": a.shape[0], "n_in": a.shape[1]}
+        if quant.QUANT_WEIGHT in p:
+            card = quant.dense_qforward(p, a)
+            cpu = quant.dense_qforward(cp, a.cpu())
+            diff = (card.cpu() - cpu).abs()
+            if diff.max().item() != 0.0:
+                raise RuntimeError(f"dense_qforward of layer {i}: card and CPU differ "
+                                   f"by {diff.max().item()}")
+            env = 2.0 * a.shape[1] ** 0.5 * a.abs().max().item() * p["W_scale"].max().item()
+            dev = (card - f32).abs().max().item()
+            if not dev <= env:
+                raise RuntimeError(f"int8 preout of layer {i} is {dev} from float32, "
+                                   f"beyond the envelope {env}")
+            row["envelope"] = env
+        else:
+            card = quant.matmul_any(a, p["W"]).cpu()
+            cpu = quant.matmul_any(a.cpu(), cp["W"])
+            diff = (card - cpu).abs()
+            top = max(card.abs().max().item(), cpu.abs().max().item())
+            if not diff.max().item() <= BF16_ULP * top:
+                raise RuntimeError(f"bfloat16 product of layer {i}: card and CPU differ "
+                                   f"by {diff.max().item()}, more than one bfloat16 ulp "
+                                   f"of its largest value {top}")
+            dev = (card.to(f32.device) + p["b"] - f32).abs().max().item()
+        row.update(max_abs_card_vs_cpu=diff.max().item(), max_abs_vs_fp32=dev)
+        out.append(row)
+    return out, cpu_acts[-1]
+
+
+def serve_quantized(torch, card, net, cpu_net, mode, reqs, fp32_answers, x32, ref32,
+                    fp32_tree):
+    """One arm of phase_quant_serving: `net` already holds the `mode` tree."""
+    from deeplearning4j_torch.ops import lrn as lrn_ops
+    from deeplearning4j_torch.ops import quant_matmul as qmm
+    from deeplearning4j_torch.parallel.inference import (InferenceMode,
+                                                          ParallelInference)
+    from deeplearning4j_torch.quantize import quantize as quant
+    if quant.tree_precision(net.params_tree) != mode:
+        raise RuntimeError(f"the {mode} tree reads as "
+                           f"{quant.tree_precision(net.params_tree)}")
+    images = sum(x.shape[0] for xs in reqs for x in xs)
+    pi = ParallelInference(net, inference_mode=InferenceMode.BATCHED, batch_limit=32)
+    stats = {"calls": 0, "shapes": set(), "max_abs_sum": 0}
+    batches = []
+    try:
+        pi.warmup()
+        # 1. the main path, every K6 call held to the plain product
+        with checked_int8(torch, stats), recorded_outputs(net, batches):
+            f0 = pi.total_forwards
+            qmm.launches = lrn_ops.launches = 0  # the main path's run starts here
+            answers, _, _ = run_clients(pi, reqs)
+            launches = {"int8_matmul": qmm.launches,
+                        "lrn_fwd": lrn_ops.launches}  # ... and ends here
+            forwards = pi.total_forwards - f0
+        check_launches(f"{mode} serving", launches,
+                       expected_quant_launches(net, mode, forwards))
+        if forwards < 1 or stats["calls"] != launches["int8_matmul"]:
+            raise RuntimeError(f"{mode}: {forwards} forwards, {stats['calls']} "
+                               f"checked products, {launches}")
+        # 2. the same load again, unchecked, for its latencies
+        f0 = pi.total_forwards
+        qmm.launches = lrn_ops.launches = 0
+        _, lat, wall = run_clients(pi, reqs)
+        timed_forwards = pi.total_forwards - f0
+        check_launches(f"{mode} timed serving",
+                       {"int8_matmul": qmm.launches, "lrn_fwd": lrn_ops.launches},
+                       expected_quant_launches(net, mode, timed_forwards))
+    finally:
+        pi.shutdown()
+    stats["shapes"] = sorted(stats["shapes"])
+    for (c, j), out in answers.items():
+        if out.shape != (reqs[c][j].shape[0], net.layers[-1].n_out) or \
+                not np.isfinite(out).all():
+            raise RuntimeError(f"{mode}: bad answer shape/values {out.shape}")
+        np.testing.assert_allclose(out.sum(-1), 1.0, rtol=1e-5)
+    result = {**latency_stats(lat, images, wall), "forwards": forwards,
+              "launches": launches, "k6_in_forward": stats,
+              "batches_rechecked": check_served_batches(net, batches, reqs, answers)}
+    del batches
+    direct = {key: net.output(reqs[key[0]][key[1]]) for key in answers}
+    result["vs_own_rows"] = {
+        "max_abs": max(float(np.abs(answers[k] - direct[k]).max()) for k in answers),
+        "max_share_of_quant_noise": max(quant_noise_share(
+            answers[k], direct[k], fp32_answers[k]) for k in answers),
+        "top1_equal": float(np.mean(np.concatenate(
+            [answers[k].argmax(-1) == direct[k].argmax(-1) for k in answers])))}
+    layers, cpu_out = check_layers_against_cpu(torch, net, cpu_net, fp32_tree, reqs[0][0])
+    result["vs_cpu"] = {
+        "max_abs": float(np.abs(direct[(0, 0)] - cpu_out).max()),
+        "share_of_quant_noise": quant_noise_share(direct[(0, 0)], cpu_out,
+                                                  fp32_answers[(0, 0)]),
+        "top1_equal": bool(np.array_equal(direct[(0, 0)].argmax(-1), cpu_out.argmax(-1))),
+        "layers": layers}
+    q32 = net.output(x32)
+    result["max_drift"] = float(np.abs(q32 - ref32).max())
+    result["top1_agreement_vs_fp32"] = float((q32.argmax(-1) == ref32.argmax(-1)).mean())
+    result["profile"] = profile_call(torch, f"forward {mode}", lambda: net.output(x32),
+                                     {"batch": 32, "precision": mode})
+    shown = {k: v for k, v in result.items() if k != "profile"}
+    log(f"quantized serving {mode}: {json.dumps(shown)}  [{card}]")
+    return result
+
+
+def phase_quant_serving(torch, card, net, reqs, fp32_answers, cpu_net, fp32):
+    """The fp32 serving net of phase_serving with its tree quantized
+    (quantize_tree) to int8 and then to bf16, each served through
+    ParallelInference to the same client load: launches (K6 3 x forwards in
+    int8, 0 in bf16; K1 2 x forwards), every K6 call in the served forwards
+    held bitwise to the plain product, each answer against `net.output` of
+    the batch it was served in, the card against the CPU path layer by layer
+    (`check_layers_against_cpu`), the drift from the float32 answers on a
+    fixed batch of 32, latencies beside fp32's, and one profiled bucket-32
+    forward. How far an answer lies from its own rows' forward and from the
+    CPU's is reported as a share of its quantization noise (see BF16_ULP)."""
+    from deeplearning4j_torch.quantize import quantize as quant
+    fp32_tree = net.params_tree
+    x32 = np.random.default_rng(2031).standard_normal((32, 224, 224, 3)).astype(np.float32)
+    ref32 = net.output(x32)
+    arms = {}
+    try:
+        for mode in ("int8", "bf16"):
+            net.params_tree = quant.quantize_tree(fp32_tree, mode)
+            cpu_net.params_tree = tuple({k: v.cpu() for k, v in layer.items()}
+                                        for layer in net.params_tree)
+            arms[mode] = serve_quantized(torch, card, net, cpu_net, mode, reqs,
+                                         fp32_answers, x32, ref32, fp32_tree)
+    finally:
+        net.params_tree = fp32_tree
+    for mode, arm in [("fp32", fp32)] + list(arms.items()):
+        log(f"quantized serving: {mode}: p50 {arm['p50_ms']:.3f} ms, p99 "
+            f"{arm['p99_ms']:.3f} ms, {arm['images_per_s']:.1f} images/s, "
+            f"drift {arm.get('max_drift', 0.0):.3e}  [{card}]")
+    return arms
 
 
 # ---------------------------------------------------------------- attention
@@ -1251,7 +1694,12 @@ def main() -> int:
     lrn_entry = phase_lrn(torch, card)
     lrn_bwd_entry = phase_lrn_bwd(torch, card)
     flash_entries, _ = phase_flash(torch, card)
-    serving = phase_serving(torch, card)
+    int8_entry, _ = phase_int8(torch, card)
+    serving, net, reqs, answers, cpu_net = phase_serving(torch, card)
+    quant = phase_quant_serving(torch, card, net, reqs, answers, cpu_net, serving)
+    del answers
+    del net, cpu_net
+    torch.cuda.empty_cache()
     training = phase_training(torch, card)
     phase_attention_dispatch(torch, card)
     char = phase_char_model(torch, card)
@@ -1259,7 +1707,8 @@ def main() -> int:
     lrn_bwd_entry["launches"] = training["launches"]["lrn_bwd"]
     for entry in flash_entries:
         entry["launches"] = char["bf16"]["launches"][entry["name"]]
-    kernels = {"kernels": [lrn_entry, lrn_bwd_entry] + flash_entries}
+    int8_entry["launches"] = quant["int8"]["launches"]["int8_matmul"]
+    kernels = {"kernels": [lrn_entry, lrn_bwd_entry] + flash_entries + [int8_entry]}
     log(json.dumps(kernels))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

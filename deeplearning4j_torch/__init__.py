@@ -14,7 +14,7 @@ from .data.dataset import DataSet
 from .data.iterators import (DataSetIterator, ExistingDataSetIterator,
                              ListDataSetIterator)
 from .nn.layers.core import (ActivationLayer, DenseLayer, DropoutLayer,
-                             LossLayer, OutputLayer)
+                             EmbeddingLayer, LossLayer, OutputLayer)
 from .nn.layers.convolution import (ConvolutionLayer, ConvolutionMode,
                                     LocalResponseNormalization, PoolingType,
                                     SubsamplingLayer)

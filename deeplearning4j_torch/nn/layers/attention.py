@@ -13,8 +13,9 @@ from dataclasses import dataclass
 import torch
 
 from ...ops.attention import pick_block_size, single_device_attention
+from ...quantize.quantize import matmul_any
 from ...utils import serde
-from .core import Layer, dropout, matmul_any
+from .core import Layer, dropout
 
 W_Q, W_K, W_V, W_O = "Wq", "Wk", "Wv", "Wo"
 B_Q, B_K, B_V, B_O = "bq", "bk", "bv", "bo"

@@ -137,9 +137,18 @@ class ConvolutionLayer(Layer):
         else:  # SAME with a stride: asymmetric, so pad explicitly
             xc = F.pad(xc, (pl, pr, pt, pb))
             pad = (0, 0)
-        out = F.conv2d(xc, w, params[BIAS], stride=_pair(self.stride),
-                       padding=pad, dilation=_pair(self.dilation))
-        return self._act()(out.permute(0, 2, 3, 1))
+        conv = dict(stride=_pair(self.stride), padding=pad,
+                    dilation=_pair(self.dilation))
+        if w.dtype == torch.bfloat16:
+            # bfloat16 kernels (quantize.quantize_tree): the conv runs in
+            # bfloat16, its result goes to float32 before the bias, and the
+            # layer returns x's type, as in the JAX package, so a float32
+            # LRN after it still runs K1.
+            out = F.conv2d(xc.to(torch.bfloat16), w, None, **conv)
+            out = (out.permute(0, 2, 3, 1).float() + params[BIAS]).to(x.dtype)
+        else:
+            out = F.conv2d(xc, w, params[BIAS], **conv).permute(0, 2, 3, 1)
+        return self._act()(out)
 
 
 @serde.register

@@ -7,6 +7,9 @@ names) and the math:
     params = layer.init_params(gen, dtype)          # dict of named tensors
     y      = layer.forward(params, x, train=..., generator=..., mask=...)
 
+A dense layer given a quantized dict (`quantize.quantize_tree`) takes the
+int8 forward; an embedding layer, the int8 lookup.
+
 Parameters are drawn on the CPU from an explicit `torch.Generator`; the
 network moves them to its device. Layers of these slices hold no state (no
 batch-norm yet), so there is no state tree. Dropout follows the reference:
@@ -25,6 +28,7 @@ import torch
 
 from ...ops import activations as act_ops
 from ...ops import losses as loss_ops
+from ...quantize import quantize as quantize_mod
 from ...utils import serde
 from ..conf.inputs import FeedForwardType, InputType
 from ..updaters import GradientNormalization, Updater
@@ -52,18 +56,6 @@ def dropout(x: Tensor, rate: Optional[float], train: bool,
     keep = 1.0 - rate
     mask = torch.rand(x.shape, generator=generator, device=x.device) < keep
     return torch.where(mask, x / keep, torch.zeros_like(x))
-
-
-def matmul_any(x: Tensor, w: Tensor, b: Optional[Tensor] = None) -> Tensor:
-    """x @ w (+ b), the float arms of the JAX package's
-    `quantize.matmul_any`: bfloat16 weights multiply x cast to bfloat16 and
-    return float32 before the bias (a float32 epilogue); other weights take
-    the plain product. Quantized weights are not ported yet."""
-    if w.dtype == torch.bfloat16:
-        y = torch.matmul(x.to(torch.bfloat16), w).to(torch.float32)
-    else:
-        y = torch.matmul(x, w)
-    return y if b is None else y + b
 
 
 @serde.register
@@ -158,11 +150,50 @@ class DenseLayer(Layer):
         return {WEIGHT: w, BIAS: b}
 
     def preout(self, params, x):
-        return matmul_any(x, params[WEIGHT], params[BIAS])
+        # A serving tree may hold a quantized dict (W_q/W_scale in W's
+        # place; quantize.quantize_tree): the int8 forward, K6 on CUDA.
+        if quantize_mod.QUANT_WEIGHT in params:
+            return quantize_mod.dense_qforward(params, x)
+        return quantize_mod.matmul_any(x, params[WEIGHT], params[BIAS])
 
     def forward(self, params, x, *, train=False, generator=None, mask=None):
         x = dropout(x, self.dropout_rate, train, generator)
         return self._act()(self.preout(params, x))
+
+
+@serde.register
+@dataclass
+class EmbeddingLayer(Layer):
+    """Lookup layer: integer indices -> rows of W, plus b (reference
+    nn/conf/layers/EmbeddingLayer). Input is [batch] or [batch, 1] indices
+    (any numeric type, truncated to integers). An index outside [0, n_in)
+    raises; the JAX package's gather fills or clamps it instead."""
+
+    n_in: int = 0  # vocabulary size
+    n_out: int = 0
+
+    def set_input_type(self, input_type):
+        if isinstance(input_type, FeedForwardType) and self.n_in == 0:
+            self.n_in = input_type.size
+        return FeedForwardType(size=self.n_out)
+
+    def has_params(self):
+        return True
+
+    def init_params(self, gen, dtype=torch.float32):
+        w = self._winit(gen, (self.n_in, self.n_out), self.n_in, self.n_out, dtype)
+        b = torch.full((self.n_out,), self.bias_init or 0.0, dtype=dtype)
+        return {WEIGHT: w, BIAS: b}
+
+    def forward(self, params, x, *, train=False, generator=None, mask=None):
+        idx = x.to(torch.int64)
+        if idx.ndim == 2 and idx.shape[-1] == 1:
+            idx = idx[:, 0]
+        if quantize_mod.QUANT_WEIGHT in params:
+            out = quantize_mod.embedding_qlookup(params, idx)
+        else:
+            out = params[WEIGHT][idx] + params[BIAS]
+        return self._act()(out)
 
 
 @serde.register

@@ -9,6 +9,15 @@ convolution kernels as OIHW in channels-last memory, which is what
 the round trip is bitwise (a permutation moves no bits). Optimizer state
 (``opt_state``: one dict per layer, parameter name -> ``()``, one array, or a
 tuple of arrays shaped like the parameter) follows the same rule.
+
+Quantized trees (``quantize/quantize.py``) carry across too: int8 ``W_q``
+[n_out, n_in], float32 ``W_scale``, int32 ``W_zp`` (all 1-D or 2-D, so never
+permuted) and bfloat16 leaves, 4-D conv kernels among them. numpy has no
+bfloat16 of its own: the JAX package's arrays arrive with the ``bfloat16``
+dtype of ``ml_dtypes``, which ``torch.from_numpy`` refuses, so their bits are
+carried as uint16 (this module does not import ``ml_dtypes``). On the way
+back bfloat16 leaves become float32 numpy arrays, which holds every bfloat16
+value exactly; a caller casts them back with its own bfloat16 type.
 """
 from __future__ import annotations
 
@@ -30,7 +39,11 @@ def place(t: torch.Tensor, device: torch.device) -> torch.Tensor:
 
 
 def _to_port(a: np.ndarray, device: torch.device) -> torch.Tensor:
-    t = torch.from_numpy(np.array(a, copy=True))
+    if a.dtype.name == "bfloat16":
+        t = torch.from_numpy(np.array(a.view(np.uint16), copy=True)).view(
+            torch.bfloat16)
+    else:
+        t = torch.from_numpy(np.array(a, copy=True))
     if t.ndim == 4:  # HWIO -> OIHW
         t = t.permute(3, 2, 0, 1)
     return place(t, device)
@@ -38,6 +51,8 @@ def _to_port(a: np.ndarray, device: torch.device) -> torch.Tensor:
 
 def _to_reference(t: torch.Tensor) -> np.ndarray:
     t = t.detach().cpu()
+    if t.dtype == torch.bfloat16:
+        t = t.float()
     if t.ndim == 4:  # OIHW -> HWIO
         t = t.permute(2, 3, 1, 0)
     return t.contiguous().numpy().copy()

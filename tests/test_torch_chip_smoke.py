@@ -14,7 +14,17 @@ a fault planted in each of the attention backward's cotangents alone.
 `check_sgd_step` must tell a fit step from one that moves the parameters
 too little. And the attention kernels' work and bound (`attention_pairs`,
 `attention_bound_ms`).
+
+For quantized serving, on the int8 AlexNet at 60x60x3: `checked_int8` must
+fail a product off by one in a single sum, the launch rule
+(`expected_quant_launches`: 3 int8 products and 2 LRNs a forward) must catch
+a dense layer left in float32, `check_layers_against_cpu` must catch an
+int8 preout that strays from the float32 one and a bfloat16 product more than
+one ulp off, and `check_served_batches` must catch an answer that is not its
+batch's rows.
 """
+import copy
+
 import numpy as np
 import pytest
 import torch
@@ -22,8 +32,11 @@ import torch
 import chip_smoke
 from deeplearning4j_torch.data.dataset import DataSet
 from deeplearning4j_torch.models import zoo as port_zoo
+from deeplearning4j_torch.nn.layers.core import DenseLayer
 from deeplearning4j_torch.nn.multilayer import MultiLayerNetwork
 from deeplearning4j_torch.ops import lrn as port_lrn
+from deeplearning4j_torch.ops import quant_matmul as port_qmm
+from deeplearning4j_torch.quantize import quantize as port_quant
 from deeplearning4j_torch.utils import params as port_params
 
 
@@ -211,3 +224,125 @@ def test_pinned_relus_take_the_recorded_branch(char_setup):
     # second layer's input changed with the first layer's output
     assert flips[0] == int(masks[0].numel()) and 0 < flips[1]
     assert len(flips) == len(masks) == 2
+
+
+# ------------------------------------------------------------ quantized serving
+def _quantized(net, mode, float_layers=()):
+    """A shallow copy of `net` serving its tree quantized to `mode`, with the
+    layers in `float_layers` left as they were."""
+    qnet = copy.copy(net)
+    tree = port_quant.quantize_tree(net.params_tree, mode)
+    qnet.params_tree = tuple(net.params_tree[i] if i in float_layers else lp
+                             for i, lp in enumerate(tree))
+    return qnet
+
+
+@pytest.mark.parametrize("case", ["same", "output_layer_off_by_one"])
+def test_checked_int8_holds_every_product_bitwise(setup, monkeypatch, case):
+    net, x, _ = setup
+    qnet = _quantized(net, "int8")
+    if case != "same":
+        plain = port_qmm.quant_matmul
+
+        def stand_in(x_q, w_q):  # one sum of the output layer's product off by one
+            out = plain(x_q, w_q)
+            if w_q.shape[0] == 10:
+                out[0, 3] += 1
+            return out
+
+        monkeypatch.setattr(port_qmm, "quant_matmul", stand_in)
+    stats = {"calls": 0, "shapes": set(), "max_abs_sum": 0}
+    with chip_smoke.checked_int8(torch, stats):
+        if case == "same":
+            qnet.output(x[:2])
+        else:
+            with pytest.raises(RuntimeError, match="1 sums differ"):
+                qnet.output(x[:2])
+    if case == "same":
+        assert stats["calls"] == 3 and len(stats["shapes"]) == 3
+        assert stats["max_abs_sum"] > 0
+
+
+@pytest.mark.parametrize("mode,float_layer,ok", [
+    ("int8", None, True), ("bf16", None, True),
+    ("int8", 0, False), ("int8", 1, False), ("int8", 2, False)],
+    ids=["int8", "bf16", "fc6_missed", "fc7_missed", "output_missed"])
+def test_launch_rule_catches_a_missed_layer(setup, monkeypatch, mode, float_layer, ok):
+    net, x, _ = setup
+    dense = [i for i, layer in enumerate(net.layers) if isinstance(layer, DenseLayer)]
+    qnet = _quantized(net, mode, () if float_layer is None else (dense[float_layer],))
+    counts = {"int8_matmul": 0, "lrn_fwd": 0}
+
+    def counting(name, fn):
+        def wrapped(*a):
+            counts[name] += 1
+            return fn(*a)
+        return wrapped
+
+    monkeypatch.setattr(port_qmm, "quant_matmul",
+                        counting("int8_matmul", port_qmm.quant_matmul))
+    monkeypatch.setattr(port_lrn, "lrn", counting("lrn_fwd", port_lrn.lrn))
+    for rows in (1, 3):
+        qnet.output(x[:rows])
+    want = chip_smoke.expected_quant_launches(qnet, mode, 2)
+    assert want == {"int8_matmul": 6 if mode == "int8" else 0, "lrn_fwd": 4}
+    if ok:
+        chip_smoke.check_launches(mode, counts, want)
+    else:
+        with pytest.raises(RuntimeError, match="launches"):
+            chip_smoke.check_launches(mode, counts, want)
+
+
+@pytest.mark.parametrize("mode,fault", [("int8", None), ("int8", "fp32_scaled"),
+                                        ("bf16", None), ("bf16", "cpu_w_scaled")])
+def test_check_layers_against_cpu(setup, mode, fault):
+    """Card and CPU are both the CPU here, so the same tree passes; an int8
+    preout that strays from the float32 one, or a bfloat16 product that
+    differs by more than one ulp, fails."""
+    net, x, _ = setup
+    qnet, other = _quantized(net, mode), _quantized(net, mode)
+    fp32 = net.params_tree
+    if fault == "fp32_scaled":
+        fp32 = tuple({k: v * 1.1 if k == "W" else v for k, v in lp.items()} for lp in fp32)
+    elif fault == "cpu_w_scaled":
+        other.params_tree = tuple(
+            {k: v * 1.05 if k == "W" and v.ndim == 2 else v for k, v in lp.items()}
+            for lp in other.params_tree)
+    if fault is None:
+        rows, out = chip_smoke.check_layers_against_cpu(torch, qnet, other, fp32, x[:2])
+        np.testing.assert_array_equal(out, other.output(x[:2]))
+        assert [r["layer"] for r in rows] == [0] + [
+            i for i, layer in enumerate(net.layers) if isinstance(layer, DenseLayer)]
+        assert all(r["max_abs_card_vs_cpu"] == 0.0 for r in rows)
+        assert all(0 < r["max_abs_vs_fp32"] <= r.get("envelope", np.inf) for r in rows[1:])
+    else:
+        with pytest.raises(RuntimeError, match="envelope|bfloat16 ulp"):
+            chip_smoke.check_layers_against_cpu(torch, qnet, other, fp32, x[:2])
+
+
+@pytest.mark.parametrize("case", ["served", "rows_swapped", "not_served"])
+def test_check_served_batches(setup, case):
+    net, x, _ = setup
+    reqs = [[x[:2], x[2:3]], [x[3:6]]]
+    bx = np.concatenate([x[:2], x[3:6], x[2:3], x[2:3]])  # padded by its tail row
+    batches = [(bx, net.output(bx))]
+    answers = {(0, 0): batches[0][1][:2], (1, 0): batches[0][1][2:5],
+               (0, 1): batches[0][1][5:6]}
+    if case == "rows_swapped":
+        answers[(0, 0)] = answers[(0, 0)][::-1]
+    elif case == "not_served":
+        reqs[0][1] = x[6:7]
+    if case == "served":
+        assert chip_smoke.check_served_batches(net, batches, reqs, answers) == 1
+    else:
+        with pytest.raises(RuntimeError, match="batch"):
+            chip_smoke.check_served_batches(net, batches, reqs, answers)
+
+
+def test_quant_noise_share():
+    fp32 = np.full((2, 5), 0.2, np.float32)
+    want = fp32 + np.float32(1e-3)  # quantization moved the answer by 1e-3
+    got = want.copy()
+    got[1, 3] += np.float32(5e-4)
+    assert chip_smoke.quant_noise_share(got, want, fp32) == pytest.approx(0.5, rel=1e-3)
+    assert chip_smoke.quant_noise_share(want, want, fp32) == 0.0
