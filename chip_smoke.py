@@ -16,11 +16,17 @@ Phases, each of which fails the script (non-zero exit, no result line):
    AlexNet gives them and at edge shapes, with warm CUDA-event times of the
    kernel, the plain version and one PyTorch library call computing the same
    function, beside the least time the card could take (bytes over 3.35 TB/s
-   or operations over 67 TFLOP/s float32, whichever is larger; the H100 SXM
-   data-sheet peaks). K1 is the LRN forward; K2, the LRN backward, is also
+   or operations over the peak for their type, whichever is larger: 67
+   TFLOP/s for float32 elementwise work, 165 TFLOP/s (TF32 / 3) for float32
+   attention products, 989 TFLOP/s bfloat16; the H100 SXM data-sheet
+   peaks). K1 is the LRN forward; K2, the LRN backward, is also
    held to an error under 1% of the largest cross-channel term
    (max|2 alpha beta x u|), so a kernel that dropped that term fails.
-   K3-K5 (flash attention) at the char model's shape and edge shapes. K6,
+   K3-K5 (flash attention) at the char model's shape and edge shapes (K3
+   on the tensor cores: 3xTF32 in float32, bfloat16 products in bfloat16).
+   Then an embedding net behind a ParallelInference on the card serves a
+   good request after a bad one (an index out of range raises IndexError
+   before the gather, so the CUDA context stays usable). K6,
    the int8 product of quantized serving, bitwise against its plain
    version at AlexNet's three dense shapes for buckets 1 and 32, the JAX
    package's test shapes, m beyond 32 and the extreme values, with
@@ -1155,9 +1161,78 @@ def phase_quant_serving(torch, card, net, reqs, fp32_answers, cpu_net, fp32):
     return arms
 
 
+# ------------------------------------------------------- embedding indices
+
+EMBED_VOCAB = 1000
+
+
+def phase_embedding_guard(torch, card):
+    """An embedding index out of range on the card. `EmbeddingLayer(1000 ->
+    4)` then `OutputLayer(3)` behind a BATCHED ParallelInference: a request
+    holding index 1000 fails with the server's typed error, caused by the
+    IndexError that the layer raises before its gather (a device-side assert
+    in the gather would leave the process's CUDA context unusable); then a
+    good request is served, and its answer matches `net.output` on the same
+    rows. The int8 lookup (`embedding_qlookup`) raises alike on the card and
+    then answers as on the CPU."""
+    from deeplearning4j_torch import (EmbeddingLayer, MultiLayerNetwork,
+                                      NeuralNetConfiguration, OutputLayer)
+    from deeplearning4j_torch.parallel.inference import (BatchExecutionError,
+                                                          InferenceMode,
+                                                          ParallelInference)
+    from deeplearning4j_torch.quantize import embedding_qlookup, quantize_tree
+    conf = (NeuralNetConfiguration.builder().seed(9).list()
+            .layer(EmbeddingLayer(n_in=EMBED_VOCAB, n_out=4))
+            .layer(OutputLayer(n_in=4, n_out=3, activation="softmax", loss="mcxent"))
+            .build())
+    net = MultiLayerNetwork(conf).init(device="cuda")
+    good = np.array([[257], [997], [3], [-EMBED_VOCAB]])
+    pi = ParallelInference(net, inference_mode=InferenceMode.BATCHED, batch_limit=8)
+    try:
+        try:
+            pi.output(np.array([[5], [EMBED_VOCAB]]))
+        except BatchExecutionError as e:
+            if not isinstance(e.__cause__, IndexError):
+                raise RuntimeError(f"embedding guard: {e!r} not caused by IndexError")
+            bad = repr(e.__cause__)
+        else:
+            raise RuntimeError("embedding guard: index 1000 of 1000 was served")
+        served = pi.output(good)
+    finally:
+        pi.shutdown()
+    torch.cuda.synchronize()
+    want = net.output(good)
+    np.testing.assert_allclose(served, want, rtol=1e-6, atol=1e-7)
+    w = torch.randn(EMBED_VOCAB, 4, generator=torch.Generator().manual_seed(9))
+    table = {"W": w, "b": torch.zeros(4)}
+    q_cuda = quantize_tree({k: v.cuda() for k, v in table.items()})
+    try:
+        embedding_qlookup(q_cuda, torch.tensor([1, -EMBED_VOCAB - 1], device="cuda"))
+    except IndexError:
+        pass
+    else:
+        raise RuntimeError("embedding guard: embedding_qlookup took index -1001")
+    idx = torch.tensor([0, 999, 257, -1])
+    got = embedding_qlookup(q_cuda, idx.cuda()).cpu()
+    torch.cuda.synchronize()
+    want_q = embedding_qlookup(quantize_tree(table), idx)
+    torch.testing.assert_close(got, want_q, rtol=1e-6, atol=1e-7)
+    out = {"bad_request_error": bad,
+           "served_max_abs_diff": float(np.abs(served - want).max()),
+           "qlookup_max_abs_diff": (got - want_q).abs().max().item()}
+    log(f"embedding guard: {json.dumps(out)}  [{card}]")
+    return out
+
+
 # ---------------------------------------------------------------- attention
 
 BF16_OPS_PER_S = 989e12      # H100 SXM data sheet, dense bfloat16 tensor cores
+# Float32 matrix products at float32 accuracy on the tensor cores: three TF32
+# products (3xTF32, as K3 takes them) for each float32 one, so a third of the
+# data sheet's 495 TFLOP/s TF32. The card does float32-accurate attention that
+# fast, so a float32 attention bound at 67 TFLOP/s (CUDA cores) would sit
+# above what a kernel on the tensor cores reaches.
+TF32X3_OPS_PER_S = 495e12 / 3
 # flops per allowed (query, key) pair and head_dim element: K3 two dot
 # products (q.k, p.v), K4 four (q.k, do.v, the dv and dk updates), K5 three
 FLASH_FLOPS_PER_PAIR = {"flash_fwd": 4, "flash_bwd_dkv": 8, "flash_bwd_dq": 6}
@@ -1181,6 +1256,12 @@ FLASH_CASES = [
      {"key_mask": True}, False),
     ("t1000", 2, 1000, 1000, 4, 128, "float32", True, {}, False),
     ("tq1", 4, 1, 777, 4, 128, "float32", False, {"key_mask": True}, False),
+    # d * element size not a multiple of 16 bytes: K3's element-wise loads
+    ("d36_bf16", 2, 300, 300, 4, 36, "bfloat16", True, {}, False),
+    ("d19_f32_key_mask", 2, 300, 300, 4, 19, "float32", True, {"key_mask": True},
+     False),
+    # 80-byte rows: 16-byte copies, head_dim padded from 20 to 32
+    ("d20_f32", 2, 300, 300, 4, 20, "float32", True, {}, False),
 ]
 CHAR_VOCAB, CHAR_WIDTH, CHAR_HEADS = 96, 512, 4   # bench.py attention_longctx
 CHAR_T, CHAR_BATCH, CHAR_STEPS = 8192, 4, 4       # 32768 tokens a step
@@ -1207,10 +1288,10 @@ def attention_pairs(torch, qp, kp, causal, batch, heads, km=None, qs=None,
 
 def attention_bound_ms(kernel, pairs, head_dim, dtype, nbytes):
     """Least time for one attention kernel: its flops on the allowed pairs
-    over the dtype's peak (67 TFLOP/s float32 with TF32 off, 989 TFLOP/s
-    bfloat16), or the bytes it must read and write over 3.35 TB/s, whichever
-    is larger."""
-    peak = FP32_OPS_PER_S if dtype == "float32" else BF16_OPS_PER_S
+    over the dtype's peak (165 TFLOP/s float32, TF32X3_OPS_PER_S; 989
+    TFLOP/s bfloat16), or the bytes it must read and write over 3.35 TB/s,
+    whichever is larger."""
+    peak = TF32X3_OPS_PER_S if dtype == "float32" else BF16_OPS_PER_S
     ops_ms = FLASH_FLOPS_PER_PAIR[kernel] * head_dim * pairs / peak * 1e3
     bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
     return max(ops_ms, bytes_ms), ("operations" if ops_ms >= bytes_ms else "bytes")
@@ -1695,6 +1776,7 @@ def main() -> int:
     lrn_bwd_entry = phase_lrn_bwd(torch, card)
     flash_entries, _ = phase_flash(torch, card)
     int8_entry, _ = phase_int8(torch, card)
+    phase_embedding_guard(torch, card)
     serving, net, reqs, answers, cpu_net = phase_serving(torch, card)
     quant = phase_quant_serving(torch, card, net, reqs, answers, cpu_net, serving)
     del answers

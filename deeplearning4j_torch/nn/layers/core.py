@@ -166,8 +166,10 @@ class DenseLayer(Layer):
 class EmbeddingLayer(Layer):
     """Lookup layer: integer indices -> rows of W, plus b (reference
     nn/conf/layers/EmbeddingLayer). Input is [batch] or [batch, 1] indices
-    (any numeric type, truncated to integers). An index outside [0, n_in)
-    raises; the JAX package's gather fills or clamps it instead."""
+    (any numeric type, truncated to integers). A negative index in range
+    wraps; one outside [-n_in, n_in) raises IndexError before the gather,
+    on the CPU and on CUDA alike (`quantize.check_indices`). The JAX
+    package's gather fills such a row with NaN instead."""
 
     n_in: int = 0  # vocabulary size
     n_out: int = 0
@@ -192,6 +194,7 @@ class EmbeddingLayer(Layer):
         if quantize_mod.QUANT_WEIGHT in params:
             out = quantize_mod.embedding_qlookup(params, idx)
         else:
+            quantize_mod.check_indices(idx, params[WEIGHT].shape[0])
             out = params[WEIGHT][idx] + params[BIAS]
         return self._act()(out)
 

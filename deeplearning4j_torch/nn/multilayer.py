@@ -164,7 +164,11 @@ class MultiLayerNetwork:
         return loss.detach(), tuple({k: next(flat_g) for k in lp} for lp in tree)
 
     def _as_input(self, x) -> Tensor:
-        return torch.as_tensor(x, dtype=self._dtype, device=self.device)
+        """Features on the device: floating ones in the network's type,
+        integer ones (embedding indices) as they are, as the JAX package's
+        `_cast_features` does. A bfloat16 cast would round index 257 to 256."""
+        x = torch.as_tensor(x, device=self.device)
+        return x.to(self._dtype) if x.is_floating_point() else x
 
     def _as_labels(self, y) -> Tensor:
         """Labels (and masks) on the device, float32, or float64 in a

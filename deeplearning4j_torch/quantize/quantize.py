@@ -44,7 +44,7 @@ __all__ = [
     "QuantSpec", "AlreadyQuantizedError", "MODES",
     "QUANT_WEIGHT", "QUANT_SCALE", "QUANT_ZERO",
     "quantize_tree", "dequantize_tree", "sidecar_scales",
-    "tree_precision", "dense_qforward", "embedding_qlookup",
+    "tree_precision", "dense_qforward", "embedding_qlookup", "check_indices",
     "matmul_any",
 ]
 
@@ -257,13 +257,27 @@ def dense_qforward(params: Dict[str, Tensor], x: Tensor) -> Tensor:
     return out if b is None else out + b
 
 
+def check_indices(idx: Tensor, n: int) -> None:
+    """Raise IndexError unless every index lies in [-n, n), before a gather
+    of a table of n rows. On a CUDA tensor an index out of range would trip
+    a device-side assert in the gather, which leaves the process's CUDA
+    context unusable: every later call would fail, not only this one."""
+    if idx.numel():
+        lo, hi = torch.stack(torch.aminmax(idx)).tolist()
+        if lo < -n or hi >= n:
+            raise IndexError(f"embedding index out of range [{-n}, {n}): "
+                             f"min {lo}, max {hi}")
+
+
 def embedding_qlookup(params: Dict[str, Tensor], idx: Tensor) -> Tensor:
     """Embedding rows [batch, n_out] from an int8 table for indices
     [batch]: gather columns of W_q [n_out, vocab], dequantize only those
-    (per-channel scale), add the float32 bias."""
+    (per-channel scale), add the float32 bias. An index outside [-vocab,
+    vocab) raises IndexError (`check_indices`)."""
     if idx.ndim != 1:
         raise ValueError(f"embedding_qlookup takes indices [batch], got "
                          f"{tuple(idx.shape)}")
+    check_indices(idx, params[QUANT_WEIGHT].shape[1])
     cols = params[QUANT_WEIGHT][:, idx].to(torch.float32)
     if QUANT_ZERO in params:
         cols = cols + params[QUANT_ZERO].to(torch.float32)[:, None]

@@ -264,7 +264,9 @@ def test_kernels_match_plain_on_card(dtype):
              (2, 150, 150, 2, 32, True, dict(segs=True)),
              (2, 64, 128, 2, 8, True, dict(offset=64)),
              (1, 1000, 1000, 2, 128, False, dict()),
-             (3, 1, 300, 2, 64, False, dict(key_mask=True))]
+             (3, 1, 300, 2, 64, False, dict(key_mask=True)),
+             # rows of 19 elements: K3's element-wise tile loads
+             (2, 90, 90, 2, 19, True, dict(key_mask=True))]
     for b, tq, tk, h, d, causal, kw in cases:
         q, k, v, do, km, qs, ks, qp, kp = _card_case(gen, b, tq, tk, h, d, dt, **kw)
         scale = d ** -0.5
@@ -307,3 +309,85 @@ def test_autograd_reaches_all_three_kernels_on_card():
     port_fa.flash_attention(*cpu, causal=True).backward(torch.from_numpy(g_o))
     for g, c in zip(ts, cpu):
         torch.testing.assert_close(g.grad.cpu(), c.grad, rtol=1e-5, atol=1e-5)
+
+
+# ---------------------------------------------------------------------------
+# Why K3 splits its float32 products (3xTF32): an emulation on the CPU.
+# ---------------------------------------------------------------------------
+
+def _tf32(x):
+    """float32 x rounded to TF32 (10 mantissa bits), to nearest with ties
+    away from zero, as the kernel's cvt.rna.tf32.f32 does: add half of the
+    13 dropped bits to the magnitude, then clear them."""
+    bits = x.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
+def _tf32_truncated(x):
+    """float32 x with its 13 low mantissa bits cleared: how the tensor cores
+    read a TF32 operand that carries them (K3's small parts)."""
+    return (x.contiguous().view(torch.int32) & ~0x1FFF).view(torch.float32)
+
+
+def _mm_tf32(a, b, passes):
+    """a @ b on TF32 operands with float32 sums, as the tensor cores take
+    them: one pass (big big), or K3's 3xTF32 split (big = tf32(x), small =
+    x - big read as TF32; small big + big small + big big, small small
+    dropped)."""
+    ab, bb = _tf32(a), _tf32(b)
+    if passes == 1:
+        return ab @ bb
+    small = lambda x, big: _tf32_truncated(x - big)
+    return small(a, ab) @ bb + ab @ small(b, bb) + ab @ bb
+
+
+def _causal_fwd(q, k, v, mm):
+    """o of causal attention over one head [t, d] with both products by `mm`."""
+    t = q.shape[0]
+    s = mm(q, k.T) * q.shape[1] ** -0.5
+    s = torch.where(torch.ones(t, t, dtype=torch.bool).tril(), s, port_fa.NEG)
+    p = torch.exp(s - s.amax(-1, keepdim=True))
+    return mm(p, v) / p.sum(-1, keepdim=True)
+
+
+def _tf32_errors(t, seed):
+    """o's error relative to max|o| against float64 at d 128, causal: (one
+    TF32 pass, 3xTF32, plain float32 products)."""
+    import chip_smoke
+    rng = np.random.default_rng(seed)
+    q, k, v = (torch.from_numpy(rng.standard_normal((t, 128)).astype(np.float32))
+               for _ in range(3))
+    want = _causal_fwd(q.double(), k.double(), v.double(), torch.matmul)
+    scale = want.abs().max().item()
+    err = lambda o: (o.double() - want).abs().max().item() / scale
+    errs = (err(_causal_fwd(q, k, v, lambda a, b: _mm_tf32(a, b, 1))),
+            err(_causal_fwd(q, k, v, lambda a, b: _mm_tf32(a, b, 3))),
+            err(_causal_fwd(q, k, v, torch.matmul)))
+    return errs, chip_smoke.FLASH_REL["float32"]
+
+
+def test_tf32_rounding_is_to_nearest_ties_away():
+    x = torch.tensor([1 + 2 ** -11, 1 + 2 ** -11 - 2 ** -23, -(1 + 2 ** -11),
+                      1 + 3 * 2 ** -11, 3.0, -0.0], dtype=torch.float32)
+    want = [1 + 2 ** -10, 1.0, -(1 + 2 ** -10), 1 + 2 ** -9, 3.0, -0.0]
+    assert _tf32(x).tolist() == want
+    assert _tf32_truncated(x).tolist() == [1.0, 1.0, -1.0, 1 + 2 ** -10, 3.0, -0.0]
+
+
+@pytest.mark.parametrize("t", [1024, 2048])
+def test_3xtf32_keeps_float32_accuracy(t):
+    """The split product holds o within the card check's float32 limit (1e-5
+    of max|o|) of float64, as close as plain float32 products come (at t
+    1024, 2.6e-7 against float32's 2.9e-7)."""
+    (_, three, plain), limit = _tf32_errors(t, seed=t)
+    assert three <= limit
+    assert three <= 4 * plain
+
+
+@pytest.mark.parametrize("t", [1024, 2048])
+def test_one_tf32_pass_would_fail_the_float32_check(t):
+    """One TF32 pass keeps about 3 digits (4.3e-4 of max|o| at t 1024): a
+    kernel that took it would fail the card's float32 check. This is why K3
+    pays three tensor-core products for each float32 one."""
+    (one, _, _), limit = _tf32_errors(t, seed=t + 1)
+    assert one > 10 * limit
