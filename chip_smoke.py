@@ -11,7 +11,8 @@ Phases, each of which fails the script (non-zero exit, no result line):
    in float32, so a bfloat16 tolerance means one rounding).
 2. Build: every hand-written kernel from the checkout's sources
    (deeplearning4j_torch/ops/csrc), one nvcc per source, all started
-   together.
+   together; one ptxas record per kernel instantiation (registers, spill
+   bytes, stack).
 3. Kernels against their plain PyTorch versions on the card, at the shapes
    AlexNet gives them and at edge shapes, with warm CUDA-event times of the
    kernel, the plain version and one PyTorch library call computing the same
@@ -22,8 +23,8 @@ Phases, each of which fails the script (non-zero exit, no result line):
    peaks). K1 is the LRN forward; K2, the LRN backward, is also
    held to an error under 1% of the largest cross-channel term
    (max|2 alpha beta x u|), so a kernel that dropped that term fails.
-   K3-K5 (flash attention) at the char model's shape and edge shapes (K3
-   on the tensor cores: 3xTF32 in float32, bfloat16 products in bfloat16).
+   K3-K5 (flash attention) at the char model's shape and edge shapes, on
+   the tensor cores: 3xTF32 in float32, bfloat16 products in bfloat16.
    Then an embedding net behind a ParallelInference on the card serves a
    good request after a bad one (an index out of range raises IndexError
    before the gather, so the CUDA context stays usable). K6,
@@ -202,6 +203,49 @@ def phase_header(torch):
     return card
 
 
+_PTXAS_ARGS = {"f": "float", "13__nv_bfloat16": "bf16", "Lb0E": "false", "Lb1E": "true"}
+_PTXAS_ARG = r"f|13__nv_bfloat16|Li-?\d+E|Lb[01]E"   # a mangled template argument
+
+
+def _kernel_name(mangled):
+    """The kernel's name in a mangled symbol, with its template arguments
+    (float, bf16, integers, booleans): the identifier that ends in _kernel
+    and carries its own length in front, past any namespace prefix."""
+    for m in re.finditer(r"(?=(\d+)([a-z]\w*?_kernel)(?:I((?:%s)+)E)?)" % _PTXAS_ARG,
+                         mangled):
+        n, name, args = m.groups()
+        if len(name) == int(n):
+            if args:
+                name += "<" + ", ".join(_PTXAS_ARGS.get(t) or t[2:-1]
+                                        for t in re.findall(_PTXAS_ARG, args)) + ">"
+            return name
+    return mangled
+
+
+def ptxas_report(text):
+    """[{"kernel": "flash_bwd_dq_kernel<bf16, 8>", "registers": 168,
+    "spill_stores": 0, "spill_loads": 0, "stack": 0}, ...] from nvcc's
+    -Xptxas -v output, one entry per kernel."""
+    out, cur = [], None
+    for line in text.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            cur = {"kernel": _kernel_name(m.group(1))}
+            out.append(cur)
+            continue
+        if cur is None:
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                      r"(\d+) bytes spill loads", line)
+        if m:
+            cur.update(stack=int(m.group(1)), spill_stores=int(m.group(2)),
+                       spill_loads=int(m.group(3)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            cur["registers"] = int(m.group(1))
+    return out
+
+
 def phase_build():
     from deeplearning4j_torch.ops import cuda_build
     t0 = time.perf_counter()
@@ -209,14 +253,8 @@ def phase_build():
     secs = time.perf_counter() - t0
     log(f"build: {len(libs)} kernel libraries in {secs:.2f} s")
     for name, text in cuda_build.build_logs.items():
-        kernel = "?"
-        for line in text.splitlines():
-            m = re.search(r"entry function .*?([a-z]+(?:_[a-z]+)*_kernel)"
-                          r"(I(?:[a-z]|Li\d+E|Lb[01]E)+)?", line)
-            if m:  # e.g. flash_fwd_kernel IfLi8E: <float, 8>; ILi32ELb1E: <32, true>
-                kernel = " ".join(g for g in m.groups() if g)
-            elif "registers" in line or "spill" in line or "smem" in line:
-                log(f"  ptxas[{name}] {kernel}: {line.strip()}")
+        for kernel in ptxas_report(text):
+            log(f"  ptxas[{name}] {json.dumps(kernel)}")
     return secs
 
 
@@ -1250,6 +1288,11 @@ FLASH_CASES = [
     ("packed_segments", 2, 1024, 1024, 4, 128, "float32", True,
      {"segments": True}, False),
     ("position_offsets", 2, 256, 512, 2, 64, "float32", True,
+     {"q_offset": 256}, False),
+    # K4's transposed skip scan and per-column lse in bfloat16
+    ("packed_segments_bf16", 2, 1024, 1024, 4, 128, "bfloat16", True,
+     {"segments": True}, False),
+    ("position_offsets_bf16", 2, 256, 512, 2, 64, "bfloat16", True,
      {"q_offset": 256}, False),
     ("d8", 2, 200, 200, 4, 8, "float32", True, {}, False),
     ("d64_bf16_key_mask", 2, 640, 640, 4, 64, "bfloat16", True,

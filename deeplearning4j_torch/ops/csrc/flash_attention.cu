@@ -78,27 +78,51 @@
 // grid's tail. Dynamic shared memory at d = 128: 102,144 bytes float32 (two
 // blocks, 8 warps, an SM), 88,576 bfloat16.
 //
-// K4 and K5 (kept simple: CUDA cores; tensor cores are later work): one
-// block of 256 threads per (batch * head, 64-row tile). K5 holds a query tile
-// and loops over the key tiles (the TPU's sequential grid axis becomes that
-// loop); K4 holds a key tile and loops over the query tiles. Splitting dk/dv
-// from dq keeps every output owned by one block: no atomics, and the results
-// do not depend on the order blocks run in. Tiles are staged in shared memory
-// as float32 with an odd row stride (d | 1), so the 16 threads that read 16
-// different rows of a tile hit 16 different banks. Thread (ty, tx) =
-// (tid / 16, tid % 16) owns tile rows 4ty..4ty+3; in a 64 x 64 score tile it
-// holds columns tx + 16j (j < 4), in a 64 x d output tile columns tx + 16m
-// (m < d/16). Each score tile goes through shared memory once, as p or ds,
-// for the second product.
+// K5 and K4, the backward, are built from K3's pieces and run on the tensor
+// cores in the same two ways (3xTF32 m16n8k8 for float32, m16n8k16 bf16 for
+// bfloat16; every sum float32). Each output is owned by one block, which
+// loops over the other axis (the TPU's sequential grid axis becomes that
+// loop): no atomics, and the results do not depend on the order blocks run
+// in. K5 (dq) is K3's loop without the online softmax: one block of 4 warps
+// per (64-row query tile, batch * head), each warp 16 query rows; the query
+// tile and its dO tile are staged once, and the live key tiles (16 keys in
+// float32, 64 in bfloat16) with their values double-buffered, found by K3's
+// skip scan, longest query tiles first. Per key tile: S = Q K^T and
+// dP = dO V^T (K3's score product twice), p = exp2(s scale log2e - lse
+// log2e) on the fragment (0 where masked or where lse = NEG), ds = p (dp +
+// g - di), and dQ += dS K (K3's P V product with K in V's place: in float32
+// its permuted key order applies to K's rows as to V's; in bfloat16 ds is
+// rounded to bfloat16 as it is packed, as the TPU kernel rounds it).
+//
+// K4 (dk, dv) runs the same four products transposed, on one block per
+// (64-row key tile, batch * head) that stages its K and V once and double-
+// buffers the live query tiles (32 queries in float32, 64 in bfloat16) with
+// their dO, positions, segment ids, lse, g and di. A mirror of the skip scan
+// walks the query tiles against the key tile: dead when the key tile's least
+// position is past the query tile's greatest, or the segment ranges cannot
+// meet; every pair allowed when there is no key mask and no segments, both
+// tiles are whole, and the greatest key position is at most the least query
+// position. Key tile 0, which every query sees under a causal mask, has the
+// longest loop and runs first. The dK and dV accumulators are 2 x 16 x 4 =
+// 128 floats a thread at d 128 for a warp that owns both, and a float32 warp
+// that did (16-query tiles) spilled at ptxas's 255-register ceiling; 8-query
+// tiles fit but ran slower. So K4 pairs its warps (FA2's split): 8 warps, two
+// on each 16 key rows. The first of a pair computes S^T = K Q^T and P^T from
+// each column's (query's) lse, hands P^T to its partner through shared
+// memory (a named barrier of the two warps: the first arrives, the second
+// waits), and adds P^T dO to dV; the second computes dP^T = V dO^T, dS^T =
+// P^T (dP^T + g - di) and adds dS^T Q to dK. Each warp keeps 64
+// accumulators, does two of the four products, and no product is computed
+// twice; the block (256 threads) takes one SM.
 //
 // In all three, unlike the TPU kernels, head_dim is not padded to 128 lanes
 // and the time axes need no exact tiling: rows and columns past t are masked
-// in the kernel. A whole tile is skipped, for every thread of the block
-// alike, when min(kv_pos) > max(q_pos) over its rows (causal) or when its
-// query and key segment-id ranges cannot meet (the TPU's _skip_when, with the
-// minimum and maximum taken over the tile's data). Dynamic shared memory at
-// d = 128 is 149,504 bytes (K5) and 166,656 (K4). Every kernel's shared
-// memory is set with cudaFuncSetAttribute before each launch.
+// in the kernel, and a whole tile that the skip test finds dead is skipped by
+// every warp of the block alike (the TPU's _skip_when, with the minimum and
+// maximum taken over the tile's data). Dynamic shared memory at d = 128:
+// K5 101,760 bytes float32 (two blocks an SM), 105,984 bfloat16; K4 144,640
+// float32, 123,392 bfloat16. Every kernel's shared memory is set with
+// cudaFuncSetAttribute before each launch.
 
 #include <climits>
 #include <cstdint>
@@ -108,24 +132,17 @@
 
 namespace {
 
-constexpr int kTile = 64;       // query rows or key rows per tile
-constexpr int kThreads = 256;   // 16 x 16
+constexpr int kTile = 64;       // the rows of a block's own tile, 16 a warp
+constexpr int kThreads = 128;   // K3, K5: 4 warps of 16 rows
+constexpr int kPairThreads = 256;  // K4: 4 pairs of warps, a pair on 16 key rows
 constexpr int kMaxHeadDim = 128;
-constexpr int kPs = kTile + 1;  // row stride of a score tile in shared memory
 constexpr float kNeg = -1e30f;  // the mask sentinel (finite: -inf NaNs grads)
-
-__device__ __forceinline__ float to_f(float x) { return x; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 x) { return __bfloat162float(x); }
+constexpr float kLog2e = 1.4426950408889634f;
 
 template <typename T> __device__ __forceinline__ T from_f(float x);
 template <> __device__ __forceinline__ float from_f<float>(float x) { return x; }
 template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {
   return __float2bfloat16(x);
-}
-
-// x rounded to T and back: what the TPU kernel's .astype(v.dtype) does
-template <typename T> __device__ __forceinline__ float round_to(float x) {
-  return to_f(from_f<T>(x));
 }
 
 struct Attn {
@@ -147,18 +164,6 @@ __device__ __forceinline__ long long row_offset(int bi, int hi, int row, int t,
   return ((long long)bi * t + row) * h * d + (long long)hi * d;
 }
 
-// dst[r * ld + c] = src(head (bi, hi), row row0 + r, column c) as float32,
-// for r < kTile and c < d; rows past t are zero.
-template <typename T>
-__device__ void load_tile(float* dst, int ld, const T* src, int bi, int hi,
-                          int row0, int t, int h, int d) {
-  for (int i = threadIdx.x; i < kTile * d; i += kThreads) {
-    const int r = i / d, c = i - r * d, row = row0 + r;
-    dst[r * ld + c] =
-        row < t ? to_f(src[row_offset(bi, hi, row, t, h, d) + c]) : 0.f;
-  }
-}
-
 // Minimum and maximum of a[i0 .. i0 + kTile) within [0, n), in every lane.
 __device__ void warp_range(const int* a, int i0, int n, int& lo, int& hi) {
   lo = INT_MAX;
@@ -173,24 +178,6 @@ __device__ void warp_range(const int* a, int i0, int n, int& lo, int& hi) {
     lo = min(lo, __shfl_xor_sync(0xffffffffu, lo, off));
     hi = max(hi, __shfl_xor_sync(0xffffffffu, hi, off));
   }
-}
-
-// False when no pair of the query tile at q0 and the key tile at k0 can be
-// allowed. Every warp computes the same answer from the same data, so the
-// whole block skips together.
-__device__ bool tile_live(const Attn& a, int bi, int q0, int k0) {
-  int qlo, qhi, klo, khi;
-  if (a.causal) {
-    warp_range(a.qp, q0, a.tq, qlo, qhi);
-    warp_range(a.kp, k0, a.tk, klo, khi);
-    if (klo > qhi) return false;
-  }
-  if (a.qs) {
-    warp_range(a.qs + (long long)bi * a.tq, q0, a.tq, qlo, qhi);
-    warp_range(a.ks + (long long)bi * a.tk, k0, a.tk, klo, khi);
-    if (klo > qhi || khi < qlo) return false;
-  }
-  return true;
 }
 
 // What the mask needs of one row or column: its position, its segment id, and
@@ -218,18 +205,7 @@ __device__ __forceinline__ bool allowed(const Attn& a, const Info& q,
          (!a.qs || q.seg == k.seg);
 }
 
-// info[i] = key_info (or query_info) of row0 + i, for i < kTile
-__device__ void load_info(Info* info, const Attn& a, int bi, int row0,
-                          bool keys) {
-  for (int i = threadIdx.x; i < kTile; i += kThreads)
-    info[i] = keys ? key_info(a, bi, row0 + i) : query_info(a, bi, row0 + i);
-}
-
-__host__ __device__ constexpr int row_stride(int d) { return d | 1; }
-
 // ---------------------------------------------------------------- K3: forward
-
-constexpr int kFwdThreads = 128;  // 4 warps of 16 query rows
 
 __device__ __forceinline__ unsigned smem_u32(const void* p) {
   return static_cast<unsigned>(__cvta_generic_to_shared(p));
@@ -310,6 +286,17 @@ __device__ __forceinline__ void ldsm_x4_trans(unsigned (&r)[4], const void* p) {
       : "r"(smem_u32(p)));
 }
 
+// Named barrier `id` (1 .. 15; 0 is __syncthreads') of `threads` threads:
+// arrive without waiting (a producer), or wait for all of them (a consumer,
+// who then sees the producers' shared-memory writes).
+__device__ __forceinline__ void bar_arrive(int id, int threads) {
+  asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
+}
+
+__device__ __forceinline__ void bar_sync(int id, int threads) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
+}
+
 // (lo, hi) rounded to a bfloat16 pair, lo in the low half
 __device__ __forceinline__ unsigned pack_bf16(float lo, float hi) {
   __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
@@ -341,10 +328,10 @@ __host__ __device__ constexpr int fwd_keys() {
   return std::is_same<T, float>::value ? 32 : 64;
 }
 
-// Row stride, in elements, of a K3 tile whose head_dim is padded to dp: 16
+// Row stride, in elements, of a tile whose head_dim is padded to dp: 16
 // bytes past it, so 8 rows read at one column fall in 8 distinct bank groups.
 template <typename T>
-__host__ __device__ constexpr int fwd_ld(int dp) {
+__host__ __device__ constexpr int tile_ld(int dp) {
   return dp + 16 / static_cast<int>(sizeof(T));
 }
 
@@ -353,22 +340,22 @@ template <int NK> struct KeyTile;
 // the query tile, two K and two V tiles, two key tiles' mask data
 template <typename T>
 size_t fwd_smem(int dp) {
-  return (kTile + 4 * fwd_keys<T>()) * fwd_ld<T>(dp) * sizeof(T) +
+  return (kTile + 4 * fwd_keys<T>()) * tile_ld<T>(dp) * sizeof(T) +
          2 * sizeof(KeyTile<fwd_keys<T>()>);
 }
 
 // dst[r * LD + c] = src(head (bi, hi), row row0 + r, column c) for r < rows
-// and c < DP: zero past t and past d. With `vec`, 16-byte cp.async copies
-// (the caller commits and waits; columns d .. DP are zeroed once at block
-// start): a thread copies one 16-byte column of every (128 / chunks a row)-th
-// row; otherwise element by element.
-template <typename T, int DP>
+// and c < DP: zero past t and past d, by the block's NT threads. With `vec`,
+// 16-byte cp.async copies (the caller commits and waits; columns d .. DP are
+// zeroed once at block start): a thread copies one 16-byte column of every
+// (NT / chunks a row)-th row; otherwise element by element.
+template <typename T, int DP, int NT = kThreads>
 __device__ void stage_tile(T* dst, const T* src, int bi, int hi, int row0, int rows,
                            int t, int h, int d, bool vec) {
-  constexpr int LD = fwd_ld<T>(DP);
+  constexpr int LD = tile_ld<T>(DP);
   constexpr int kPer = 16 / sizeof(T);       // elements a copy
   constexpr int kChunks = DP / kPer;         // copies a padded row: 2 .. 32
-  constexpr int kStep = kFwdThreads / kChunks;
+  constexpr int kStep = NT / kChunks;
   if (vec) {
     const int c = (threadIdx.x % kChunks) * kPer;
     if (c >= d) return;
@@ -379,7 +366,7 @@ __device__ void stage_tile(T* dst, const T* src, int bi, int hi, int row0, int r
       cp_async16(dst + r * LD + c, in ? p + r * stride : src, in ? 16 : 0);
     }
   } else {
-    for (int i = threadIdx.x; i < rows * DP; i += kFwdThreads) {
+    for (int i = threadIdx.x; i < rows * DP; i += NT) {
       const int r = i / DP, c = i - r * DP, row = row0 + r;
       dst[r * LD + c] = row < t && c < d ? src[row_offset(bi, hi, row, t, h, d) + c]
                                          : from_f<T>(0.f);
@@ -387,62 +374,87 @@ __device__ void stage_tile(T* dst, const T* src, int bi, int hi, int row0, int r
   }
 }
 
-// What the masks need of this block's query tile: the range of its positions
-// and of its segment ids, and whether all its rows exist.
-struct QTile {
+// Columns d .. DP of `rows` consecutive tile rows from t, which no 16-byte
+// copy writes: zeroed once at block start.
+template <typename T, int DP, int NT = kThreads>
+__device__ void zero_padding(T* t, int rows, int d) {
+  constexpr int LD = tile_ld<T>(DP);
+  for (int i = threadIdx.x; i < rows * (DP - d); i += NT) {
+    const int r = i / (DP - d);
+    t[r * LD + d + (i - r * (DP - d))] = from_f<T>(0.f);
+  }
+}
+
+// What the masks need of this block's own tile (its queries in K3 and K5, its
+// keys in K4): the range of its positions and of its segment ids, and whether
+// all its rows exist.
+struct TileSpan {
   int plo, phi, slo, shi;
   bool whole;
 };
 
-__device__ QTile query_tile(const Attn& a, int bi, int q0) {
-  QTile q{0, 0, 0, 0, q0 + kTile <= a.tq};
+__device__ TileSpan query_tile(const Attn& a, int bi, int q0) {
+  TileSpan q{0, 0, 0, 0, q0 + kTile <= a.tq};
   if (a.causal) warp_range(a.qp, q0, a.tq, q.plo, q.phi);
   if (a.qs) warp_range(a.qs + (long long)bi * a.tq, q0, a.tq, q.slo, q.shi);
   return q;
 }
 
-// tile_live's test of key tile `tile` (NK keys) against the query tile, from
-// one lane: 0 when no pair can be allowed (or the tile lies past tk), 2 when
-// every pair is (no key mask, no segments, every row and key inside t, every
-// key position <= every query position), 1 otherwise.
-template <int NK>
-__device__ int key_tile_state(const Attn& a, int bi, const QTile& q, int tile) {
-  const int k0 = tile * NK;
-  if (tile >= (a.tk + NK - 1) / NK) return 0;
-  const int n = min(NK, a.tk - k0);
+__device__ TileSpan key_tile(const Attn& a, int bi, int k0) {
+  TileSpan k{0, 0, 0, 0, k0 + kTile <= a.tk};
+  if (a.causal) warp_range(a.kp, k0, a.tk, k.plo, k.phi);
+  if (a.qs) warp_range(a.ks + (long long)bi * a.tk, k0, a.tk, k.slo, k.shi);
+  return k;
+}
+
+// The skip test of tile `tile` (N rows) of the other side against the
+// block's own tile, from one lane: key tiles against a query tile (KEYS: K3,
+// K5) or query tiles against a key tile (K4). 0 when no pair can be allowed
+// (or the tile lies past t): the least key position is past the greatest
+// query position, or the segment ranges cannot meet; 2 when every pair is (no
+// key mask, no segments, every row inside t, every key position <= every
+// query position); 1 otherwise.
+template <int N, bool KEYS>
+__device__ int tile_state(const Attn& a, int bi, const TileSpan& own, int tile) {
+  const int t = KEYS ? a.tk : a.tq, r0 = tile * N;
+  if (tile >= (t + N - 1) / N) return 0;
+  const int n = min(N, t - r0);
+  const int* pos = KEYS ? a.kp : a.qp;
+  const int* seg = (KEYS ? a.ks : a.qs) + (long long)bi * t + r0;
   int plo = INT_MAX, phi = INT_MIN, slo = INT_MAX, shi = INT_MIN;
-  const int* seg = a.ks + (long long)bi * a.tk + k0;
 #pragma unroll 16
-  for (int i = 0; i < NK; ++i)
+  for (int i = 0; i < N; ++i)
     if (i < n) {
       if (a.causal) {
-        plo = min(plo, a.kp[k0 + i]);
-        phi = max(phi, a.kp[k0 + i]);
+        plo = min(plo, pos[r0 + i]);
+        phi = max(phi, pos[r0 + i]);
       }
       if (a.qs) {
         slo = min(slo, seg[i]);
         shi = max(shi, seg[i]);
       }
     }
-  if ((a.causal && plo > q.phi) || (a.qs && (slo > q.shi || shi < q.slo))) return 0;
-  return !a.km && !a.qs && q.whole && n == NK && (!a.causal || phi <= q.plo) ? 2 : 1;
+  const int klo = KEYS ? plo : own.plo, khi = KEYS ? phi : own.phi;
+  const int qlo = KEYS ? own.plo : plo, qhi = KEYS ? own.phi : phi;
+  if ((a.causal && klo > qhi) || (a.qs && (slo > own.shi || shi < own.slo))) return 0;
+  return !a.km && !a.qs && own.whole && n == N && (!a.causal || khi <= qlo) ? 2 : 1;
 }
 
-// The live key tiles in order, 32 at a time: lane i of each warp holds the
-// state of tile base + i, so the next live tile is a ballot away, and the
-// masks' data are read once per 32 tiles (a causal block's run of dead tiles
-// past its diagonal costs one read, not one a tile).
-template <int NK>
+// The live tiles of the other side in order, 32 at a time: lane i of each
+// warp holds the state of tile base + i, so the next live tile is a ballot
+// away, and the masks' data are read once per 32 tiles (a causal block's run
+// of dead tiles past its diagonal costs one read, not one a tile).
+template <int N, bool KEYS = true>
 struct TileScan {
   int base = -64, state = 0;
 
   // the first live tile at or after `tile` (its state in st), or the tile count
-  __device__ int next(const Attn& a, int bi, const QTile& q, int tile, int& st) {
-    const int tiles = (a.tk + NK - 1) / NK;
+  __device__ int next(const Attn& a, int bi, const TileSpan& own, int tile, int& st) {
+    const int tiles = ((KEYS ? a.tk : a.tq) + N - 1) / N;
     for (; tile < tiles; tile = base + 32) {
       if (tile >= base + 32) {
         base = tile;
-        state = key_tile_state<NK>(a, bi, q, base + (threadIdx.x & 31));
+        state = tile_state<N, KEYS>(a, bi, own, base + (threadIdx.x & 31));
       }
       const unsigned live =
           __ballot_sync(0xffffffffu, state != 0) & (0xffffffffu << (tile - base));
@@ -461,7 +473,7 @@ struct TileScan {
 template <int DP, int BK>
 __device__ __forceinline__ void tile_scores(float (&s)[BK / 8][4], const float* qt,
                                             const float* kt, int r0, int lane) {
-  constexpr int LD = fwd_ld<float>(DP);
+  constexpr int LD = tile_ld<float>(DP);
   const int g = lane >> 2, c = lane & 3;
 #pragma unroll
   for (int ks = 0; ks < DP / 8; ++ks) {
@@ -486,7 +498,7 @@ template <int DP, int BK>
 __device__ __forceinline__ void tile_scores(float (&s)[BK / 8][4],
                                             const __nv_bfloat16* qt,
                                             const __nv_bfloat16* kt, int r0, int lane) {
-  constexpr int LD = fwd_ld<__nv_bfloat16>(DP);
+  constexpr int LD = tile_ld<__nv_bfloat16>(DP);
   const int i = lane & 7, m1 = (lane >> 3) & 1, m2 = lane >> 4;
 #pragma unroll
   for (int ks = 0; ks < DP / 16; ++ks) {
@@ -510,7 +522,7 @@ template <int DP, int BK>
 __device__ __forceinline__ void tile_pv(float (&acc)[DP / 8][4],
                                         const float (&p)[BK / 8][4],
                                         const float* vt, int lane) {
-  constexpr int LD = fwd_ld<float>(DP);
+  constexpr int LD = tile_ld<float>(DP);
   const int g = lane >> 2, c = lane & 3;
   // A column c is key 2c, column c + 4 key 2c + 1 of each 8-key step
   unsigned ab[BK / 8][4], as[BK / 8][4];
@@ -541,7 +553,7 @@ template <int DP, int BK>
 __device__ __forceinline__ void tile_pv(float (&acc)[DP / 8][4],
                                         const float (&p)[BK / 8][4],
                                         const __nv_bfloat16* vt, int lane) {
-  constexpr int LD = fwd_ld<__nv_bfloat16>(DP);
+  constexpr int LD = tile_ld<__nv_bfloat16>(DP);
   const int i = lane & 7, m1 = (lane >> 3) & 1, m2 = lane >> 4;
 #pragma unroll
   for (int kk = 0; kk < BK / 16; ++kk) {
@@ -567,13 +579,13 @@ struct KeyTile {
   float km[NK];
 };
 
-// K and V of the key tile at k0 into one buffer (cp.async or element-wise),
-// and the mask data of its keys beside them (cp.async, zero past tk).
-template <typename T, int DP>
-__device__ __forceinline__ void stage_keys(T* kt, T* vt, KeyTile<fwd_keys<T>()>* info,
+// K and V of the key tile at k0 (BK keys) into one buffer (cp.async or
+// element-wise), and the mask data of its keys beside them (cp.async, zero
+// past tk).
+template <typename T, int DP, int BK = fwd_keys<T>()>
+__device__ __forceinline__ void stage_keys(T* kt, T* vt, KeyTile<BK>* info,
                                            const Attn& a, int bi, int hi, int k0,
                                            bool vec) {
-  constexpr int BK = fwd_keys<T>();
   stage_tile<T, DP>(kt, static_cast<const T*>(a.k), bi, hi, k0, BK, a.tk, a.h, a.d, vec);
   stage_tile<T, DP>(vt, static_cast<const T*>(a.v), bi, hi, k0, BK, a.tk, a.h, a.d, vec);
   const int j = threadIdx.x, k = k0 + j;
@@ -588,12 +600,11 @@ __device__ __forceinline__ void stage_keys(T* kt, T* vt, KeyTile<fwd_keys<T>()>*
 
 // D16: head_dim padded to 16 * D16 (d <= 16, 32, 64, 128)
 template <typename T, int D16>
-__global__ void __launch_bounds__(kFwdThreads, 2)
+__global__ void __launch_bounds__(kThreads, 2)
 flash_fwd_kernel(Attn a, int vec, T* __restrict__ o, float* __restrict__ lse) {
   constexpr int DP = 16 * D16;
-  constexpr int LD = fwd_ld<T>(DP);
+  constexpr int LD = tile_ld<T>(DP);
   constexpr int BK = fwd_keys<T>();
-  constexpr float kLog2e = 1.4426950408889634f;
   extern __shared__ __align__(16) unsigned char fwd_raw[];
   T* qt = reinterpret_cast<T*>(fwd_raw);  // [kTile][LD] this block's queries
   T* kb = qt + kTile * LD;                // [2][BK][LD] key tiles
@@ -605,14 +616,10 @@ flash_fwd_kernel(Attn a, int vec, T* __restrict__ o, float* __restrict__ lse) {
   const int q0 = (gridDim.x - 1 - blockIdx.x) * kTile;  // longest tiles first
   const float scale2 = a.scale * kLog2e;  // scores in log2 units: exp2 below
 
-  if (vec)  // the padding columns of every tile, which no copy writes
-    for (int i = threadIdx.x; i < (kTile + 4 * BK) * (DP - a.d); i += kFwdThreads) {
-      const int r = i / (DP - a.d);
-      qt[r * LD + a.d + (i - r * (DP - a.d))] = from_f<T>(0.f);
-    }
+  if (vec) zero_padding<T, DP>(qt, kTile + 4 * BK, a.d);
   stage_tile<T, DP>(qt, static_cast<const T*>(a.q), bi, hi, q0, kTile, a.tq, a.h, a.d,
                     vec);
-  const QTile qtile = query_tile(a, bi, q0);
+  const TileSpan qtile = query_tile(a, bi, q0);
   TileScan<BK> scan;
   const int tiles = (a.tk + BK - 1) / BK;
   int state;
@@ -710,7 +717,7 @@ flash_fwd_kernel(Attn a, int vec, T* __restrict__ o, float* __restrict__ lse) {
   }
 }
 
-// ------------------------------------------------------------ K5: dq backward
+// --------------------------------------------------------------- the backward
 
 struct Bwd {
   const void* dout;   // [b, tq, h, d], the input type
@@ -719,234 +726,307 @@ struct Bwd {
   const float* gl;    // [b, tq, h]
 };
 
-size_t dq_smem(int d) {
-  return (4 * kTile * row_stride(d) + kTile * kPs) * sizeof(float) +
-         kTile * sizeof(Info);
+// lse in log2 units, or 1e30 (so that exp2(s - it) is 0) for a row that no
+// key may see
+__device__ __forceinline__ float lse_log2(float lse) {
+  return lse > kNeg / 2 ? lse * kLog2e : -kNeg;
 }
 
-template <typename T, int DPT>
-__global__ void __launch_bounds__(kThreads, 1)
-flash_bwd_dq_kernel(Attn a, Bwd g, T* __restrict__ dq) {
-  extern __shared__ float smem[];
-  const int ld = row_stride(a.d);
-  float* qt = smem;               // [kTile][ld] queries
-  float* dot = qt + kTile * ld;   // [kTile][ld] output cotangents
-  float* kt = dot + kTile * ld;   // [kTile][ld] a key tile
-  float* vt = kt + kTile * ld;    // [kTile][ld] its values
-  float* dst = vt + kTile * ld;   // [kTile][kPs] ds of the tile
-  Info* kinfo = reinterpret_cast<Info*>(dst + kTile * kPs);
-  const T* K = static_cast<const T*>(a.k);
-  const T* V = static_cast<const T*>(a.v);
-  const int ty = threadIdx.x >> 4, tx = threadIdx.x & 15;
+// ------------------------------------------------------------ K5: dq backward
+
+// Key rows of a K5 key tile: 16 in float32, so that the query and dO tiles
+// and the double-buffered K and V tiles (101,760 bytes at d 128) leave room
+// for two blocks an SM; 64 in bfloat16 (105,984 bytes).
+template <typename T>
+__host__ __device__ constexpr int dq_keys() {
+  return std::is_same<T, float>::value ? 16 : 64;
+}
+
+// the query and dO tiles, two K and two V tiles, two key tiles' mask data
+template <typename T>
+size_t dq_smem(int dp) {
+  return (2 * kTile + 4 * dq_keys<T>()) * tile_ld<T>(dp) * sizeof(T) +
+         2 * sizeof(KeyTile<dq_keys<T>()>);
+}
+
+// K3's loop without the online softmax: per live key tile, S = Q K^T and
+// dP = dO V^T, p from the saved lse, ds = p (dp + g - di), dQ += dS K.
+template <typename T, int D16>
+__global__ void __launch_bounds__(kThreads, 2)
+flash_bwd_dq_kernel(Attn a, Bwd bw, int vec, T* __restrict__ dq) {
+  constexpr int DP = 16 * D16;
+  constexpr int LD = tile_ld<T>(DP);
+  constexpr int BK = dq_keys<T>();
+  extern __shared__ __align__(16) unsigned char dq_raw[];
+  T* qt = reinterpret_cast<T*>(dq_raw);  // [kTile][LD] this block's queries
+  T* dot = qt + kTile * LD;              // [kTile][LD] their output cotangents
+  T* kb = dot + kTile * LD;              // [2][BK][LD] key tiles
+  T* vb = kb + 2 * BK * LD;              // [2][BK][LD] their values
+  KeyTile<BK>* kinfo = reinterpret_cast<KeyTile<BK>*>(vb + 2 * BK * LD);  // [2]
+  const int lane = threadIdx.x & 31, r0 = (threadIdx.x >> 5) * 16;
+  const int g = lane >> 2, c = lane & 3;
   const int bi = blockIdx.y / a.h, hi = blockIdx.y - bi * a.h;
-  const int q0 = blockIdx.x * kTile;
+  const int q0 = (gridDim.x - 1 - blockIdx.x) * kTile;  // longest tiles first
+  const float scale2 = a.scale * kLog2e;
 
-  load_tile(qt, ld, static_cast<const T*>(a.q), bi, hi, q0, a.tq, a.h, a.d);
-  load_tile(dot, ld, static_cast<const T*>(g.dout), bi, hi, q0, a.tq, a.h, a.d);
-  Info qi[4];
-  float lse[4], dg[4], acc[4][DPT];
+  if (vec) zero_padding<T, DP>(qt, 2 * kTile + 4 * BK, a.d);
+  stage_tile<T, DP>(qt, static_cast<const T*>(a.q), bi, hi, q0, kTile, a.tq, a.h, a.d,
+                    vec);
+  stage_tile<T, DP>(dot, static_cast<const T*>(bw.dout), bi, hi, q0, kTile, a.tq, a.h,
+                    a.d, vec);
+  const TileSpan qtile = query_tile(a, bi, q0);
+  TileScan<BK> scan;
+  const int tiles = (a.tk + BK - 1) / BK;
+  int state;
+  int tile = scan.next(a, bi, qtile, 0, state);
+  if (tile < tiles) stage_keys<T, DP, BK>(kb, vb, kinfo, a, bi, hi, tile * BK, vec);
+  cp_async_commit();
+
+  // this thread's rows g and g + 8: mask data, lse (log2 units), g - di
+  Info qi[2];
+  float lse2[2], dg[2];
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int row = q0 + 4 * ty + i;
-    qi[i] = query_info(a, bi, row);
+  for (int r = 0; r < 2; ++r) {
+    const int row = q0 + r0 + g + 8 * r;
+    qi[r] = query_info(a, bi, row);
     const long long at = ((long long)bi * a.tq + row) * a.h + hi;
-    lse[i] = qi[i].ok ? g.lse[at] : kNeg;
-    dg[i] = qi[i].ok ? g.gl[at] - g.di[at] : 0.f;  // ds = p (dp - di + g)
-#pragma unroll
-    for (int n = 0; n < DPT; ++n) acc[i][n] = 0.f;
+    lse2[r] = lse_log2(qi[r].ok ? bw.lse[at] : kNeg);
+    dg[r] = qi[r].ok ? bw.gl[at] - bw.di[at] : 0.f;
   }
-
-  for (int k0 = 0; k0 < a.tk; k0 += kTile) {
-    if (!tile_live(a, bi, q0, k0)) continue;
-    __syncthreads();
-    load_tile(kt, ld, K, bi, hi, k0, a.tk, a.h, a.d);
-    load_tile(vt, ld, V, bi, hi, k0, a.tk, a.h, a.d);
-    load_info(kinfo, a, bi, k0, true);
-    __syncthreads();
-    float s[4][4] = {}, dp[4][4] = {};
-    for (int c = 0; c < a.d; ++c) {
-      float qv[4], gv[4], kc[4], vc[4];
+  float acc[DP / 8][4];
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        qv[i] = qt[(4 * ty + i) * ld + c];
-        gv[i] = dot[(4 * ty + i) * ld + c];
-      }
+  for (int n = 0; n < DP / 8; ++n) acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
+
+  for (int buf = 0; tile < tiles; buf ^= 1) {
+    int next_state;
+    const int next = scan.next(a, bi, qtile, tile + 1, next_state);
+    cp_async_wait_all();
+    __syncthreads();  // this tile landed; every warp is done with the other buffer
+    if (next < tiles)
+      stage_keys<T, DP, BK>(kb + (buf ^ 1) * BK * LD, vb + (buf ^ 1) * BK * LD,
+                            kinfo + (buf ^ 1), a, bi, hi, next * BK, vec);
+    cp_async_commit();
+    const KeyTile<BK>& ki = kinfo[buf];
+    const T* kt = kb + buf * BK * LD;
+    const int k0 = tile * BK;
+
+    float s[BK / 8][4], dp[BK / 8][4];
+#pragma unroll
+    for (int n = 0; n < BK / 8; ++n)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) s[n][j] = dp[n][j] = 0.f;
+    tile_scores<DP, BK>(s, qt, kt, r0, lane);
+    tile_scores<DP, BK>(dp, dot, vb + buf * BK * LD, r0, lane);
+
+    // s[n][2r + e] is row g + 8r, key n * 8 + 2c + e of the tile: it becomes ds
+#pragma unroll
+    for (int n = 0; n < BK / 8; ++n)
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
-        kc[j] = kt[(tx + 16 * j) * ld + c];
-        vc[j] = vt[(tx + 16 * j) * ld + c];
+        const int col = n * 8 + 2 * c + (j & 1), r = j >> 1;
+        const bool ok =
+            state == 2 || allowed(a, qi[r],
+                                  {ki.pos[col], ki.seg[col],
+                                   k0 + col < a.tk && (!a.km || ki.km[col] > 0.f)});
+        const float p = ok ? exp2_approx(fmaf(s[n][j], scale2, -lse2[r])) : 0.f;
+        s[n][j] = p * (dp[n][j] + dg[r]);
       }
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          s[i][j] = fmaf(qv[i], kc[j], s[i][j]);
-          dp[i][j] = fmaf(gv[i], vc[j], dp[i][j]);
-        }
-    }
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const bool ok = allowed(a, qi[i], kinfo[tx + 16 * j]) && lse[i] > kNeg / 2;
-        const float p = ok ? expf(s[i][j] * a.scale - lse[i]) : 0.f;
-        dst[(4 * ty + i) * kPs + tx + 16 * j] = round_to<T>(p * (dp[i][j] + dg[i]));
-      }
-    __syncthreads();
-    for (int c = 0; c < kTile; ++c) {
-      float ds[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) ds[i] = dst[(4 * ty + i) * kPs + c];
-#pragma unroll
-      for (int n = 0; n < DPT; ++n) {
-        const int col = tx + 16 * n;
-        if (col < a.d) {
-          const float kk = kt[c * ld + col];
-#pragma unroll
-          for (int i = 0; i < 4; ++i) acc[i][n] = fmaf(ds[i], kk, acc[i][n]);
-        }
-      }
-    }
+    tile_pv<DP, BK>(acc, s, kt, lane);  // K's rows in V's place
+    tile = next;
+    state = next_state;
   }
+  cp_async_wait_all();  // nothing in flight at exit
 
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int row = q0 + 4 * ty + i;
+  for (int r = 0; r < 2; ++r) {
+    const int row = q0 + r0 + g + 8 * r;
     if (row >= a.tq) continue;
     const long long at = row_offset(bi, hi, row, a.tq, a.h, a.d);
 #pragma unroll
-    for (int n = 0; n < DPT; ++n) {
-      const int col = tx + 16 * n;
-      if (col < a.d) dq[at + col] = from_f<T>(acc[i][n] * a.scale);
-    }
+    for (int n = 0; n < DP / 8; ++n)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int col = n * 8 + 2 * c + e;
+        if (col < a.d) dq[at + col] = from_f<T>(acc[n][2 * r + e] * a.scale);
+      }
   }
 }
 
 // ---------------------------------------------------------- K4: dk, dv backward
 
-size_t dkv_smem(int d) {
-  return (4 * kTile * row_stride(d) + 2 * kTile * kPs + 2 * kTile) * sizeof(float) +
-         kTile * sizeof(Info);
+// Query rows of a K4 query tile: 32 in float32, 64 in bfloat16 (one block of
+// 8 warps an SM: 144,640 and 123,392 bytes at d 128).
+template <typename T>
+__host__ __device__ constexpr int dkv_queries() {
+  return std::is_same<T, float>::value ? 32 : 64;
 }
 
-template <typename T, int DPT>
-__global__ void __launch_bounds__(kThreads, 1)
-flash_bwd_dkv_kernel(Attn a, Bwd g, T* __restrict__ dk, T* __restrict__ dv) {
-  extern __shared__ float smem[];
-  const int ld = row_stride(a.d);
-  float* kt = smem;                // [kTile][ld] this block's keys
-  float* vt = kt + kTile * ld;     // [kTile][ld] and values
-  float* qt = vt + kTile * ld;     // [kTile][ld] a query tile
-  float* dot = qt + kTile * ld;    // [kTile][ld] its output cotangents
-  float* ptt = dot + kTile * ld;   // [kTile][kPs] p transposed (key row, query col)
-  float* dstt = ptt + kTile * kPs; // [kTile][kPs] ds transposed
-  float* qlse = dstt + kTile * kPs;  // [kTile] lse of the query tile
-  float* qdg = qlse + kTile;         // [kTile] g - di of the query tile
-  Info* qinfo = reinterpret_cast<Info*>(qdg + kTile);
-  const T* Q = static_cast<const T*>(a.q);
-  const T* DO = static_cast<const T*>(g.dout);
-  const int ty = threadIdx.x >> 4, tx = threadIdx.x & 15;
-  const int bi = blockIdx.y / a.h, hi = blockIdx.y - bi * a.h;
-  const int k0 = blockIdx.x * kTile;
+// What a K4 query tile's queries bring: positions, segment ids, lse, g, di
+template <int NQ>
+struct QueryTile {
+  int pos[NQ], seg[NQ];
+  float lse[NQ], gl[NQ], di[NQ];
+};
 
-  load_tile(kt, ld, static_cast<const T*>(a.k), bi, hi, k0, a.tk, a.h, a.d);
-  load_tile(vt, ld, static_cast<const T*>(a.v), bi, hi, k0, a.tk, a.h, a.d);
-  Info ki[4];
-  float dka[4][DPT], dva[4][DPT];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    ki[i] = key_info(a, bi, k0 + 4 * ty + i);
-#pragma unroll
-    for (int n = 0; n < DPT; ++n) dka[i][n] = dva[i][n] = 0.f;
+// the key and value tiles, two Q and two dO tiles, P^T's fragments of the
+// four warp pairs, two query tiles' data
+template <typename T>
+size_t dkv_smem(int dp) {
+  constexpr int BQ = dkv_queries<T>();
+  return (2 * kTile + 4 * BQ) * tile_ld<T>(dp) * sizeof(T) + 4 * 16 * BQ * sizeof(float) +
+         2 * sizeof(QueryTile<BQ>);
+}
+
+// Q and dO of the query tile at q0 (BQ queries) into one buffer, and its
+// queries' data beside them (cp.async, zero past tq).
+template <typename T, int DP, int BQ>
+__device__ __forceinline__ void stage_queries(T* qt, T* dot, QueryTile<BQ>* info,
+                                              const Attn& a, const Bwd& bw, int bi,
+                                              int hi, int q0, bool vec) {
+  stage_tile<T, DP, kPairThreads>(qt, static_cast<const T*>(a.q), bi, hi, q0, BQ, a.tq,
+                                  a.h, a.d, vec);
+  stage_tile<T, DP, kPairThreads>(dot, static_cast<const T*>(bw.dout), bi, hi, q0, BQ,
+                                  a.tq, a.h, a.d, vec);
+  const int j = threadIdx.x, q = q0 + j;
+  if (j < BQ) {
+    const int in = q < a.tq ? 4 : 0, at = q < a.tq ? q : 0;
+    const long long row = (long long)bi * a.tq + at, lrow = row * a.h + hi;
+    if (a.causal) cp_async4(&info->pos[j], a.qp + at, in);
+    if (a.qs) cp_async4(&info->seg[j], a.qs + row, in);
+    cp_async4(&info->lse[j], bw.lse + lrow, in);
+    cp_async4(&info->gl[j], bw.gl + lrow, in);
+    cp_async4(&info->di[j], bw.di + lrow, in);
   }
+}
 
-  for (int q0 = 0; q0 < a.tq; q0 += kTile) {
-    if (!tile_live(a, bi, q0, k0)) continue;
-    __syncthreads();  // the previous query tile, p and ds are no longer read
-    load_tile(qt, ld, Q, bi, hi, q0, a.tq, a.h, a.d);
-    load_tile(dot, ld, DO, bi, hi, q0, a.tq, a.h, a.d);
-    load_info(qinfo, a, bi, q0, false);
-    for (int r = threadIdx.x; r < kTile; r += kThreads) {
-      const int row = q0 + r;
-      const long long at = ((long long)bi * a.tq + row) * a.h + hi;
-      qlse[r] = row < a.tq ? g.lse[at] : kNeg;
-      qdg[r] = row < a.tq ? g.gl[at] - g.di[at] : 0.f;
-    }
+// K5's four products transposed, split between a pair of warps on the same
+// 16 key rows (FA2's split): per live query tile, the first warp computes
+// S^T = K Q^T, P^T from each column's (query's) lse, hands P^T to its partner
+// through shared memory and adds P^T dO to dV; the second computes
+// dP^T = V dO^T, dS^T = P^T (dP^T + g - di) and adds dS^T Q to dK.
+template <typename T, int D16>
+__global__ void __launch_bounds__(kPairThreads, 1)
+flash_bwd_dkv_kernel(Attn a, Bwd bw, int vec, T* __restrict__ dk, T* __restrict__ dv) {
+  constexpr int DP = 16 * D16;
+  constexpr int LD = tile_ld<T>(DP);
+  constexpr int BQ = dkv_queries<T>();
+  extern __shared__ __align__(16) unsigned char dkv_raw[];
+  T* kt = reinterpret_cast<T*>(dkv_raw);  // [kTile][LD] this block's keys
+  T* vt = kt + kTile * LD;                // [kTile][LD] and values
+  T* qb = vt + kTile * LD;                // [2][BQ][LD] query tiles
+  T* gb = qb + 2 * BQ * LD;               // [2][BQ][LD] their output cotangents
+  float* pt = reinterpret_cast<float*>(gb + 2 * BQ * LD);  // [4][BQ / 8][32][4] P^T
+  QueryTile<BQ>* qinfo = reinterpret_cast<QueryTile<BQ>*>(pt + 4 * 16 * BQ);  // [2]
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int pair = warp & 3, r0 = pair * 16;
+  const bool dk_warp = warp >= 4;  // warps 0-3 own dV, 4-7 dK
+  const int g = lane >> 2, c = lane & 3;
+  const int bi = blockIdx.y / a.h, hi = blockIdx.y - bi * a.h;
+  // key tile 0, which every query tile sees under a causal mask, first
+  const int k0 = blockIdx.x * kTile;
+  const float scale2 = a.scale * kLog2e;
+  float4* pf = reinterpret_cast<float4*>(pt) + pair * (BQ / 8) * 32 + lane;
+
+  if (vec) zero_padding<T, DP, kPairThreads>(kt, 2 * kTile + 4 * BQ, a.d);
+  stage_tile<T, DP, kPairThreads>(kt, static_cast<const T*>(a.k), bi, hi, k0, kTile, a.tk,
+                                  a.h, a.d, vec);
+  stage_tile<T, DP, kPairThreads>(vt, static_cast<const T*>(a.v), bi, hi, k0, kTile, a.tk,
+                                  a.h, a.d, vec);
+  const TileSpan ktile = key_tile(a, bi, k0);
+  TileScan<BQ, false> scan;
+  const int tiles = (a.tq + BQ - 1) / BQ;
+  int state;
+  int tile = scan.next(a, bi, ktile, 0, state);
+  if (tile < tiles) stage_queries<T, DP, BQ>(qb, gb, qinfo, a, bw, bi, hi, tile * BQ, vec);
+  cp_async_commit();
+
+  // this thread's key rows g and g + 8
+  const Info ki[2] = {key_info(a, bi, k0 + r0 + g), key_info(a, bi, k0 + r0 + g + 8)};
+  float acc[DP / 8][4];  // dV or dK
+#pragma unroll
+  for (int n = 0; n < DP / 8; ++n) acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
+
+  for (int buf = 0; tile < tiles; buf ^= 1) {
+    int next_state;
+    const int next = scan.next(a, bi, ktile, tile + 1, next_state);
+    cp_async_wait_all();
+    // this tile landed; every warp is done with the other buffer and with
+    // the last tile's P^T
     __syncthreads();
-    float s[4][4] = {}, dp[4][4] = {};  // [key row i][query col j]
-    for (int c = 0; c < a.d; ++c) {
-      float kc[4], vc[4], qv[4], gv[4];
+    if (next < tiles)
+      stage_queries<T, DP, BQ>(qb + (buf ^ 1) * BQ * LD, gb + (buf ^ 1) * BQ * LD,
+                               qinfo + (buf ^ 1), a, bw, bi, hi, next * BQ, vec);
+    cp_async_commit();
+    const QueryTile<BQ>& qi = qinfo[buf];
+    const T* qt = qb + buf * BQ * LD;
+    const T* dot = gb + buf * BQ * LD;
+
+    // s[n][2r + e] is key row g + 8r, query n * 8 + 2c + e of the tile
+    float s[BQ / 8][4];
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        kc[i] = kt[(4 * ty + i) * ld + c];
-        vc[i] = vt[(4 * ty + i) * ld + c];
-      }
+    for (int n = 0; n < BQ / 8; ++n) s[n][0] = s[n][1] = s[n][2] = s[n][3] = 0.f;
+    if (!dk_warp) {
+      tile_scores<DP, BQ>(s, kt, qt, r0, lane);
+      const int q0 = tile * BQ;
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        qv[j] = qt[(tx + 16 * j) * ld + c];
-        gv[j] = dot[(tx + 16 * j) * ld + c];
-      }
+      for (int n = 0; n < BQ / 8; ++n) {
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
+        for (int e = 0; e < 2; ++e) {
+          const int col = n * 8 + 2 * c + e;
+          const float lse2 = lse_log2(qi.lse[col]);
+          const Info q{qi.pos[col], qi.seg[col], q0 + col < a.tq};
 #pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          s[i][j] = fmaf(kc[i], qv[j], s[i][j]);
-          dp[i][j] = fmaf(vc[i], gv[j], dp[i][j]);
-        }
-    }
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int col = tx + 16 * j;
-        const float lse = qlse[col];
-        const bool ok = allowed(a, qinfo[col], ki[i]) && lse > kNeg / 2;
-        const float p = ok ? expf(s[i][j] * a.scale - lse) : 0.f;
-        ptt[(4 * ty + i) * kPs + col] = round_to<T>(p);
-        dstt[(4 * ty + i) * kPs + col] = round_to<T>(p * (dp[i][j] + qdg[col]));
-      }
-    __syncthreads();
-    for (int r = 0; r < kTile; ++r) {
-      float p[4], ds[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        p[i] = ptt[(4 * ty + i) * kPs + r];
-        ds[i] = dstt[(4 * ty + i) * kPs + r];
-      }
-#pragma unroll
-      for (int n = 0; n < DPT; ++n) {
-        const int col = tx + 16 * n;
-        if (col < a.d) {
-          const float dov = dot[r * ld + col], qv = qt[r * ld + col];
-#pragma unroll
-          for (int i = 0; i < 4; ++i) {
-            dva[i][n] = fmaf(p[i], dov, dva[i][n]);
-            dka[i][n] = fmaf(ds[i], qv, dka[i][n]);
+          for (int r = 0; r < 2; ++r) {
+            const bool ok = state == 2 || allowed(a, q, ki[r]);
+            float& x = s[n][2 * r + e];
+            x = ok ? exp2_approx(fmaf(x, scale2, -lse2)) : 0.f;
           }
         }
+        pf[n * 32] = make_float4(s[n][0], s[n][1], s[n][2], s[n][3]);
       }
-    }
-  }
-
+      bar_arrive(1 + pair, 64);
+      tile_pv<DP, BQ>(acc, s, dot, lane);  // dV += P^T dO: dO's rows in V's place
+    } else {
+      tile_scores<DP, BQ>(s, vt, dot, r0, lane);  // dP^T
+      bar_sync(1 + pair, 64);
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int row = k0 + 4 * ty + i;
+      for (int n = 0; n < BQ / 8; ++n) {
+        const float4 p = pf[n * 32];
+        const int col = n * 8 + 2 * c;
+        const float dg0 = qi.gl[col] - qi.di[col], dg1 = qi.gl[col + 1] - qi.di[col + 1];
+        s[n][0] = p.x * (s[n][0] + dg0);
+        s[n][1] = p.y * (s[n][1] + dg1);
+        s[n][2] = p.z * (s[n][2] + dg0);
+        s[n][3] = p.w * (s[n][3] + dg1);
+      }
+      tile_pv<DP, BQ>(acc, s, qt, lane);  // dK += dS^T Q
+    }
+    tile = next;
+    state = next_state;
+  }
+  cp_async_wait_all();  // nothing in flight at exit
+
+  T* out = dk_warp ? dk : dv;
+  const float mul = dk_warp ? a.scale : 1.f;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = k0 + r0 + g + 8 * r;
     if (row >= a.tk) continue;
     const long long at = row_offset(bi, hi, row, a.tk, a.h, a.d);
 #pragma unroll
-    for (int n = 0; n < DPT; ++n) {
-      const int col = tx + 16 * n;
-      if (col < a.d) {
-        dk[at + col] = from_f<T>(dka[i][n] * a.scale);
-        dv[at + col] = from_f<T>(dva[i][n]);
+    for (int n = 0; n < DP / 8; ++n)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int col = n * 8 + 2 * c + e;
+        if (col < a.d) out[at + col] = from_f<T>(acc[n][2 * r + e] * mul);
       }
-    }
   }
 }
 
 // ------------------------------------------------------------------ launching
 
-int dpt_for(int d) { return d <= 16 ? 1 : d <= 32 ? 2 : d <= 64 ? 4 : 8; }
+// D16: head_dim padded to 16 * D16
+int d16_for(int d) { return d <= 16 ? 1 : d <= 32 ? 2 : d <= 64 ? 4 : 8; }
 
 bool valid(const Attn& a) {
   return a.q && a.k && a.v && a.qp && a.kp && (!a.qs == !a.ks) && a.b >= 1 &&
@@ -960,51 +1040,57 @@ cudaError_t prepare(K kernel, size_t smem) {
                               (int)smem);
 }
 
+// the tiles of one head run together, so its data stay in L2
 dim3 grid_for(int t, const Attn& a) {
   return dim3((t + kTile - 1) / kTile, a.b * a.h);
 }
 
 bool aligned16(const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0; }
 
+// whether tiles may load by 16-byte copies: rows of whole 16-byte chunks, and
+// q, k, v (and dout, where there is one) 16-byte aligned
+template <typename T>
+int vec_copies(const Attn& a, const void* dout) {
+  return a.d * sizeof(T) % 16 == 0 && aligned16(a.q) && aligned16(a.k) &&
+         aligned16(a.v) && aligned16(dout);
+}
+
 template <typename T, int D16>
 cudaError_t fwd(const Attn& a, void* o, float* lse, cudaStream_t s) {
   const size_t smem = fwd_smem<T>(16 * D16);
-  const int vec = a.d * sizeof(T) % 16 == 0 && aligned16(a.q) && aligned16(a.k) &&
-                  aligned16(a.v);
   cudaError_t e = prepare(flash_fwd_kernel<T, D16>, smem);
   if (e != cudaSuccess) return e;
-  // the query tiles of one head run together, so its K and V stay in L2
-  flash_fwd_kernel<T, D16><<<grid_for(a.tq, a), kFwdThreads, smem, s>>>(
-      a, vec, static_cast<T*>(o), lse);
+  flash_fwd_kernel<T, D16><<<grid_for(a.tq, a), kThreads, smem, s>>>(
+      a, vec_copies<T>(a, nullptr), static_cast<T*>(o), lse);
   return cudaGetLastError();
 }
 
-template <typename T, int DPT>
+template <typename T, int D16>
 cudaError_t bwd_dq(const Attn& a, const Bwd& g, void* dq, cudaStream_t s) {
-  const size_t smem = dq_smem(a.d);
-  cudaError_t e = prepare(flash_bwd_dq_kernel<T, DPT>, smem);
+  const size_t smem = dq_smem<T>(16 * D16);
+  cudaError_t e = prepare(flash_bwd_dq_kernel<T, D16>, smem);
   if (e != cudaSuccess) return e;
-  flash_bwd_dq_kernel<T, DPT><<<grid_for(a.tq, a), kThreads, smem, s>>>(
-      a, g, static_cast<T*>(dq));
+  flash_bwd_dq_kernel<T, D16><<<grid_for(a.tq, a), kThreads, smem, s>>>(
+      a, g, vec_copies<T>(a, g.dout), static_cast<T*>(dq));
   return cudaGetLastError();
 }
 
-template <typename T, int DPT>
+template <typename T, int D16>
 cudaError_t bwd_dkv(const Attn& a, const Bwd& g, void* dk, void* dv,
                     cudaStream_t s) {
-  const size_t smem = dkv_smem(a.d);
-  cudaError_t e = prepare(flash_bwd_dkv_kernel<T, DPT>, smem);
+  const size_t smem = dkv_smem<T>(16 * D16);
+  cudaError_t e = prepare(flash_bwd_dkv_kernel<T, D16>, smem);
   if (e != cudaSuccess) return e;
-  flash_bwd_dkv_kernel<T, DPT><<<grid_for(a.tk, a), kThreads, smem, s>>>(
-      a, g, static_cast<T*>(dk), static_cast<T*>(dv));
+  flash_bwd_dkv_kernel<T, D16><<<grid_for(a.tk, a), kPairThreads, smem, s>>>(
+      a, g, vec_copies<T>(a, g.dout), static_cast<T*>(dk), static_cast<T*>(dv));
   return cudaGetLastError();
 }
 
-// One call of `Fn<T, DPT>::run(args...)` for the input type and head_dim.
+// One call of `Fn<T, D16>::run(args...)` for the input type and head_dim.
 template <template <typename, int> class Fn, typename... Args>
 cudaError_t dispatch(int bf16, int d, Args... args) {
-  const int dpt = dpt_for(d);
-  const int width = dpt == 1 ? 0 : dpt == 2 ? 1 : dpt == 4 ? 2 : 3;
+  const int d16 = d16_for(d);
+  const int width = d16 == 1 ? 0 : d16 == 2 ? 1 : d16 == 4 ? 2 : 3;
   switch ((bf16 ? 4 : 0) + width) {
     case 0: return Fn<float, 1>::run(args...);
     case 1: return Fn<float, 2>::run(args...);
@@ -1017,20 +1103,19 @@ cudaError_t dispatch(int bf16, int d, Args... args) {
   }
 }
 
-// K3's D16 is dispatch's DPT: d <= 16, 32, 64, 128 give 1, 2, 4, 8
 template <typename T, int D16> struct Fwd {
   static cudaError_t run(Attn a, void* o, float* lse, cudaStream_t s) {
     return fwd<T, D16>(a, o, lse, s);
   }
 };
-template <typename T, int DPT> struct Dq {
+template <typename T, int D16> struct Dq {
   static cudaError_t run(Attn a, Bwd g, void* dq, cudaStream_t s) {
-    return bwd_dq<T, DPT>(a, g, dq, s);
+    return bwd_dq<T, D16>(a, g, dq, s);
   }
 };
-template <typename T, int DPT> struct Dkv {
+template <typename T, int D16> struct Dkv {
   static cudaError_t run(Attn a, Bwd g, void* dk, void* dv, cudaStream_t s) {
-    return bwd_dkv<T, DPT>(a, g, dk, dv, s);
+    return bwd_dkv<T, D16>(a, g, dk, dv, s);
   }
 };
 

@@ -17,13 +17,13 @@ ds as the JAX package's does.
 On CUDA tensors `FlashAttentionFunction` launches the hand-written kernels of
 ``csrc/flash_attention.cu``: K3 (`dl4j_flash_fwd`) forward, K4
 (`dl4j_flash_bwd_dkv`) and K5 (`dl4j_flash_bwd_dq`) backward, float32 or
-bfloat16 with float32 sums. K3 runs its products on the tensor cores
-(`mma.sync`: bfloat16 products for bfloat16, and for float32 three TF32
-products per float32 one, the 3xTF32 split, which keeps float32 accuracy);
-K4 and K5 on CUDA cores. The note there says what bounds them and how they
-are laid out. On CPU tensors it runs `flash_fwd_reference` and
-`flash_bwd_reference`. There is no fallback from one to the other: a CUDA
-tensor the kernels do not take raises.
+bfloat16 with float32 sums. All three run their products on the tensor
+cores (`mma.sync`: bfloat16 products for bfloat16, and for float32 three
+TF32 products per float32 one, the 3xTF32 split, which keeps float32
+accuracy). The note there says what bounds them and how they are laid out.
+On CPU tensors it runs `flash_fwd_reference` and `flash_bwd_reference`.
+There is no fallback from one to the other: a CUDA tensor the kernels do
+not take raises.
 """
 from __future__ import annotations
 

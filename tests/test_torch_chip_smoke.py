@@ -349,3 +349,35 @@ def test_quant_noise_share():
     got[1, 3] += np.float32(5e-4)
     assert chip_smoke.quant_noise_share(got, want, fp32) == pytest.approx(0.5, rel=1e-3)
     assert chip_smoke.quant_noise_share(want, want, fp32) == 0.0
+
+
+_PTXAS_SAMPLE = """\
+ptxas info    : 0 bytes gmem
+ptxas info    : Compiling entry function '_ZN41_INTERNAL_8b3c_18_flash_attention_cu_6955af2c20flash_bwd_dkv_kernelI13__nv_bfloat16Li8EEEvNS_4AttnENS_3BwdEiPT_S5_' for 'sm_90a'
+ptxas info    : Function properties for _ZN41_INTERNAL_8b3c_18_flash_attention_cu_6955af2c20flash_bwd_dkv_kernelI13__nv_bfloat16Li8EEEvNS_4AttnENS_3BwdEiPT_S5_
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 186 registers, used 2 barriers, 400 bytes cmem[0]
+ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_116flash_fwd_kernelIfLi1EEEvNS_4AttnEiPT_Pf' for 'sm_90a'
+ptxas info    : Function properties for _ZN12_GLOBAL__N_116flash_fwd_kernelIfLi1EEEvNS_4AttnEiPT_Pf
+    24 bytes stack frame, 36 bytes spill stores, 28 bytes spill loads
+ptxas info    : Used 255 registers, used 1 barriers, 400 bytes cmem[0]
+ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_118int8_matmul_kernelILi32ELb1EEEvPKaS2_PKfS4_Pfiii' for 'sm_90a'
+ptxas info    : Used 128 registers, used 1 barriers, 18432 bytes smem
+ptxas info    : Compiling entry function '_Z14lrn_fwd_kernelPKfPfiiiffff' for 'sm_90a'
+ptxas info    : Used 32 registers, used 0 barriers
+"""
+
+
+def test_ptxas_report_names_every_instantiation():
+    """The build phase's record of each kernel: its name with its template
+    arguments (float and bf16 told apart, integers, booleans) past nvcc's
+    namespace prefix, its registers and its spill bytes."""
+    report = chip_smoke.ptxas_report(_PTXAS_SAMPLE)
+    assert [r["kernel"] for r in report] == [
+        "flash_bwd_dkv_kernel<bf16, 8>", "flash_fwd_kernel<float, 1>",
+        "int8_matmul_kernel<32, true>", "lrn_fwd_kernel"]
+    assert report[0] == {"kernel": "flash_bwd_dkv_kernel<bf16, 8>", "stack": 0,
+                         "spill_stores": 0, "spill_loads": 0, "registers": 186}
+    assert (report[1]["spill_stores"], report[1]["spill_loads"],
+            report[1]["registers"]) == (36, 28, 255)
+    assert report[3] == {"kernel": "lrn_fwd_kernel", "registers": 32}

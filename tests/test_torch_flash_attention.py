@@ -391,3 +391,59 @@ def test_one_tf32_pass_would_fail_the_float32_check(t):
     pays three tensor-core products for each float32 one."""
     (one, _, _), limit = _tf32_errors(t, seed=t + 1)
     assert one > 10 * limit
+
+
+def _causal_bwd(q, k, v, do, g, lse, di, mm):
+    """(dq, dk, dv) of causal attention over one head [t, d] with the lse
+    cotangent g, as K4 and K5 compute them from the saved lse and di, with
+    all four products (S, dP, and dQ, dK, dV from ds and p) by `mm`."""
+    t = q.shape[0]
+    scale = q.shape[1] ** -0.5
+    keep = torch.ones(t, t, dtype=torch.bool).tril()
+    p = torch.where(keep, torch.exp(mm(q, k.T) * scale - lse[:, None]), 0.0)
+    ds = p * (mm(do, v.T) - di[:, None] + g[:, None])
+    return mm(ds, k) * scale, mm(ds.T, q) * scale, mm(p.T, do)
+
+
+def _tf32_bwd_errors(t, seed):
+    """dq's, dk's and dv's errors relative to their max against float64 at d
+    128, causal, from the float64 lse and di: (one TF32 pass, 3xTF32, plain
+    float32 products), each a list of three."""
+    import chip_smoke
+    rng = np.random.default_rng(seed)
+    q, k, v, do = (torch.from_numpy(rng.standard_normal((t, 128)).astype(np.float32))
+                   for _ in range(4))
+    g = torch.from_numpy(rng.standard_normal(t).astype(np.float32))
+    q64, k64, v64, do64 = (x.double() for x in (q, k, v, do))
+    s = torch.where(torch.ones(t, t, dtype=torch.bool).tril(),
+                    q64 @ k64.T * 128 ** -0.5, port_fa.NEG)
+    lse = torch.logsumexp(s, -1)
+    di = ((torch.exp(s - lse[:, None]) @ v64) * do64).sum(-1)
+    want = _causal_bwd(q64, k64, v64, do64, g.double(), lse, di, torch.matmul)
+
+    def errs(mm):
+        got = _causal_bwd(q, k, v, do, g, lse.float(), di.float(), mm)
+        return [((x.double() - w).abs().max() / w.abs().max()).item()
+                for x, w in zip(got, want)]
+    return (errs(lambda a, b: _mm_tf32(a, b, 1)), errs(lambda a, b: _mm_tf32(a, b, 3)),
+            errs(torch.matmul)), chip_smoke.FLASH_REL["float32"]
+
+
+@pytest.mark.parametrize("t", [1024, 2048])
+def test_3xtf32_keeps_float32_accuracy_in_the_backward(t):
+    """K4's and K5's split products hold dq, dk and dv within the card
+    check's float32 limit (1e-5 of their max) of float64, as close as plain
+    float32 products come (about 1e-6 at t 1024 and 2048)."""
+    (_, three, plain), limit = _tf32_bwd_errors(t, seed=t + 2)
+    for e3, ep in zip(three, plain):
+        assert e3 <= limit
+        assert e3 <= 4 * ep
+
+
+@pytest.mark.parametrize("t", [1024, 2048])
+def test_one_tf32_pass_would_fail_the_backward_check(t):
+    """One TF32 pass for the backward's products puts dq, dk and dv 4e-4 to
+    1e-3 of their max from float64: each would fail the card's float32
+    check, which is why K4 and K5 take three products per float32 one."""
+    (one, _, _), limit = _tf32_bwd_errors(t, seed=t + 3)
+    assert all(e > 10 * limit for e in one)
