@@ -30,7 +30,9 @@ Phases, each of which fails the script (non-zero exit, no result line):
    before the gather, so the CUDA context stays usable). K6,
    the int8 product of quantized serving, bitwise against its plain
    version at AlexNet's three dense shapes for buckets 1 and 32, the JAX
-   package's test shapes, m beyond 32 and the extreme values, with
+   package's test shapes, m beyond 32, batch sizes around its 8-row
+   n-fragment, the extreme values (at the largest K too, where K is split
+   over a cluster of blocks) and operands one byte off alignment, with
    torch._int_mm as its yardstick and an int8 tensor-core bound of
    1,979 TOPS.
 4. Serving: zoo AlexNet at full width (224x224x3, 1000 classes, random
@@ -116,6 +118,11 @@ LRN_CASES = [
     ("even_n4", (4, 9, 9, 64), 4, 1e-2, 3.0, False),
     ("rows_1013_n1", (1, 1, 1013, 96), 1, 1e-2, 3.0, False),
     ("c2048_large_smem", (2, 3, 5, 2048), 7, 1e-2, 3.0, False),
+    # K2's tiles hold 2048 // C rows: C not a multiple of 4 (4-byte copies,
+    # one channel a thread) over 32 tiles and a ragged last one, and a window
+    # wider than 4 to a side (16-byte copies, one channel a thread)
+    ("c67_969_rows", (3, 17, 19, 67), LRN_N, 1e-2, 3.0, False),
+    ("c64_n10", (2, 9, 11, 64), 10, 1e-2, 3.0, False),
 ]
 
 
@@ -225,7 +232,8 @@ def _kernel_name(mangled):
 def ptxas_report(text):
     """[{"kernel": "flash_bwd_dq_kernel<bf16, 8>", "registers": 168,
     "spill_stores": 0, "spill_loads": 0, "stack": 0}, ...] from nvcc's
-    -Xptxas -v output, one entry per kernel."""
+    -Xptxas -v output, one entry per kernel, with "smem" (static shared
+    bytes) where ptxas reports any."""
     out, cur = [], None
     for line in text.splitlines():
         m = re.search(r"Compiling entry function '(\w+)'", line)
@@ -243,6 +251,9 @@ def ptxas_report(text):
         m = re.search(r"Used (\d+) registers", line)
         if m:
             cur["registers"] = int(m.group(1))
+            m = re.search(r"(\d+) bytes smem", line)
+            if m:
+                cur["smem"] = int(m.group(1))
     return out
 
 
@@ -341,8 +352,12 @@ def phase_lrn_bwd(torch, card):
             lib, = torch.autograd.grad(y, xr, gn, retain_graph=True)
             row["library_max_abs_err"] = (
                 lib.permute(0, 2, 3, 1) - want).abs().max().item()
-            row["ms"] = cuda_time_ms(
+            # the median of three readings: a single reading has come out
+            # at six times the others on the same card
+            row["ms_runs"] = [cuda_time_ms(
                 lambda: lrn_ops.lrn_bwd(x, g, LRN_K, alpha, LRN_BETA, n))
+                for _ in range(3)]
+            row["ms"] = sorted(row["ms_runs"])[1]
             row["plain_ms"] = cuda_time_ms(
                 lambda: lrn_ops.lrn_bwd_reference(x, g, LRN_K, alpha, LRN_BETA, n))
             row["library_ms"] = cuda_time_ms(
@@ -826,8 +841,11 @@ ALEXNET_DENSE = {"fc6": (256, 4096), "fc7": (4096, 4096), "output": (4096, 1000)
 # the JAX package's int8 test shapes (tests/test_quantize.py SHAPES): (B, K, N)
 JAX_INT8_SHAPES = [(1, 1, 1), (3, 5, 7), (8, 64, 16), (7, 127, 13),
                    (8, 128, 256), (9, 130, 33), (32, 256, 10), (5, 1024, 8)]
+INT8_MAX_K = (2 ** 31 - 1) // (128 * 128)   # quant_matmul.MAX_K
 # (label, m, K, N, fill, timed): fill None draws x and w uniformly from
-# [-128, 127]; (a, b) sets every x to a and every w to b, the largest sums
+# [-128, 127]; (a, b) sets every x to a and every w to b, the largest sums;
+# "x+1" or "w+1" draws them but lays that operand out one byte into its
+# buffer, so that it is not 16-byte aligned and takes the byte path
 INT8_CASES = (
     [(f"alexnet_{name}_m{m}", m, k, n, None, True)
      for m in (1, 32) for name, (k, n) in ALEXNET_DENSE.items()]
@@ -837,7 +855,17 @@ INT8_CASES = (
        ("m129_k130_bytes", 129, 130, 33, None, False),
        ("all_-128", 32, 4096, 1000, (-128, -128), False),
        ("all_127", 32, 4096, 1000, (127, 127), False),
-       ("x_-128_w_127", 32, 4096, 1000, (-128, 127), False)])
+       ("x_-128_w_127", 32, 4096, 1000, (-128, 127), False)]
+    # K split over 8 blocks at the largest K, on the byte path (MAX_K is odd)
+    # and on the 16-byte path: the largest partials and sums, bitwise
+    + [("maxk_-128", 4, INT8_MAX_K, 80, (-128, -128), False),
+       ("maxk_127", 32, INT8_MAX_K, 80, (127, 127), False),
+       ("k131056_-128", 32, INT8_MAX_K // 16 * 16, 64, (-128, -128), False),
+       ("n77_vec", 17, 512, 77, None, False)]
+    # batch sizes around the 8-row n-fragment
+    + [(f"b{b}_k1024_n200", b, 1024, 200, None, False) for b in (7, 8, 9, 17, 31)]
+    + [("x_offset1", 32, 4096, 1000, "x+1", False),
+       ("w_offset1", 9, 1024, 200, "w+1", False)])
 
 
 def int8_bound_ms(m, k, n):
@@ -849,11 +877,28 @@ def int8_bound_ms(m, k, n):
     return max(bytes_ms, ops_ms), ("bytes" if bytes_ms >= ops_ms else "operations")
 
 
+def int8_operands(torch, gen, m, k, n, fill, device):
+    """x [m, K] and w [N, K] int8 for one of INT8_CASES: drawn from `gen`,
+    constant, or drawn and laid out one byte into a larger buffer (fill "x+1"
+    or "w+1"; still contiguous, but not 16-byte aligned)."""
+    def drawn(shape, offset=0):
+        flat = torch.randint(-128, 128, (shape[0] * shape[1] + offset,),
+                             dtype=torch.int8, device=device, generator=gen)
+        return flat[offset:].view(shape)
+
+    if isinstance(fill, tuple):
+        return (torch.full((m, k), fill[0], dtype=torch.int8, device=device),
+                torch.full((n, k), fill[1], dtype=torch.int8, device=device))
+    return drawn((m, k), int(fill == "x+1")), drawn((n, k), int(fill == "w+1"))
+
+
 def phase_int8(torch, card):
     """K6 against its plain version on the card, bitwise (torch.equal), at
     AlexNet's three dense shapes for buckets 1 and 32, the JAX package's test
-    shapes, m-tiles beyond 32, a K that takes the byte path, and constant
-    inputs at the extremes; a non-contiguous weight must raise. Timed at
+    shapes, m-tiles beyond 32, batch sizes around the 8-row n-fragment, a K
+    and unaligned operands that take the byte path, and constant inputs at
+    the extremes (also at the largest K, split over 8 blocks); a
+    non-contiguous weight must raise. Timed at
     AlexNet's shapes, as device time per call (`device_ms`; plain CUDA
     events around back-to-back calls, `events_ms`, time the host here):
     K6, the plain version, torch._int_mm (the library yardstick; it refuses
@@ -863,12 +908,7 @@ def phase_int8(torch, card):
     gen = torch.Generator(device="cuda").manual_seed(5)
     rows = []
     for label, m, k, n, fill, timed in INT8_CASES:
-        if fill is None:
-            x, w = (torch.randint(-128, 128, shape, dtype=torch.int8, device="cuda",
-                                  generator=gen) for shape in ((m, k), (n, k)))
-        else:
-            x = torch.full((m, k), fill[0], dtype=torch.int8, device="cuda")
-            w = torch.full((n, k), fill[1], dtype=torch.int8, device="cuda")
+        x, w = int8_operands(torch, gen, m, k, n, fill, "cuda")
         got = qmm.int8_matmul(x, w)
         torch.cuda.synchronize()
         want = qmm.int8_matmul_reference(x, w)
@@ -893,6 +933,9 @@ def phase_int8(torch, card):
             row["fp32_matmul_ms"] = device_ms(torch, lambda: xf @ wf.T)
             row["bf16_matmul_ms"] = device_ms(torch, lambda: xb @ wb.T)
             row["bound_ms"], row["bound_by"] = int8_bound_ms(m, k, n)
+            row["x_bound"] = row["ms"] / row["bound_ms"]
+            row["x_library"] = (None if row["library_ms"] is None
+                                else row["ms"] / row["library_ms"])
         rows.append(row)
         log(f"int8_matmul {label}: {json.dumps(row)}  [{card}]")
     strided = torch.zeros((256, 8), dtype=torch.int8, device="cuda").t()

@@ -32,8 +32,8 @@ from . import cuda_build
 Tensor = torch.Tensor
 
 #: Largest channel count the kernels stage in shared memory (8 rows of
-#: MAX_CHANNELS float32 per block = 64 KiB forward, two rows per warp =
-#: 128 KiB backward).
+#: MAX_CHANNELS float32 per block = 64 KiB forward; the backward's tiles of
+#: x and g hold 2048 // C rows, at least one).
 MAX_CHANNELS = 2048
 
 #: Kernel launches made in this process: `launches` counts the forward

@@ -22,6 +22,11 @@ a dense layer left in float32, `check_layers_against_cpu` must catch an
 int8 preout that strays from the float32 one and a bfloat16 product more than
 one ulp off, and `check_served_batches` must catch an answer that is not its
 batch's rows.
+
+For the LRN backward, `checked_lrn_bwd` (every K2 call of the training phase
+against the plain version) must fail a stand-in that drops the transposed
+window's edge channel, whose error is far above the share of the cross term
+that `phase_lrn_bwd` allows.
 """
 import copy
 
@@ -229,6 +234,50 @@ def test_pinned_relus_take_the_recorded_branch(char_setup):
     assert len(flips) == len(masks) == 2
 
 
+def _dropped_edge_lrn_bwd(x, g, k, alpha, beta, n):
+    """A K2 stand-in whose transposed window stops one channel short of its
+    top edge: right in every term but the cross-channel one."""
+    up = n // 2
+    down = n - 1 - up
+    d = k + alpha * port_lrn.window_sum(x * x, up, down)
+    p = d.pow(-beta)
+    u = port_lrn.window_sum(g * x * p / d, down, up - 1)
+    return g * p - 2.0 * alpha * beta * x * u
+
+
+@pytest.mark.parametrize("case", ["plain", "edge_channel_dropped"])
+def test_checked_lrn_bwd_catches_a_dropped_edge_channel(monkeypatch, case):
+    """checked_lrn_bwd, which holds every K2 call of the training phase to
+    the plain backward, at AlexNet's LRN constants: a backward that drops the
+    transposed window's edge channel fails it, and its error is far above the
+    share of the cross term that phase_lrn_bwd allows."""
+    rng = np.random.default_rng(11)
+    x, g = (torch.from_numpy(rng.standard_normal((2, 5, 5, 64), dtype=np.float32))
+            for _ in range(2))
+    hyper = (chip_smoke.LRN_K, chip_smoke.LRN_ALPHA, chip_smoke.LRN_BETA,
+             chip_smoke.LRN_N)
+    if case != "plain":
+        monkeypatch.setattr(port_lrn, "lrn_bwd", _dropped_edge_lrn_bwd)
+        err = (_dropped_edge_lrn_bwd(x, g, *hyper)
+               - port_lrn.lrn_bwd_reference(x, g, *hyper)).abs().max().item()
+        cross = chip_smoke.lrn_cross_term(x, g, *hyper).abs().max().item()
+        assert err > 10 * chip_smoke.CROSS_SHARE * cross
+    stats = {"calls": 0, "max_abs_err": 0.0, "max_abs_dx": 0.0,
+             "max_cross_term": 0.0, "cotangent_contiguous": []}
+    xr = x.clone().requires_grad_()
+    with chip_smoke.checked_lrn_bwd(torch, stats):
+        y = port_lrn.lrn(xr, *hyper)
+        if case == "plain":
+            y.backward(g)
+        else:
+            with pytest.raises(AssertionError):
+                y.backward(g)
+    if case == "plain":
+        assert stats["calls"] == 1 and stats["max_abs_err"] == 0.0
+        assert stats["cotangent_contiguous"] == [True]
+        assert 0 < stats["max_cross_term"] < stats["max_abs_dx"]
+
+
 # ------------------------------------------------------------ quantized serving
 def _quantized(net, mode, float_layers=()):
     """A shallow copy of `net` serving its tree quantized to `mode`, with the
@@ -381,3 +430,4 @@ def test_ptxas_report_names_every_instantiation():
     assert (report[1]["spill_stores"], report[1]["spill_loads"],
             report[1]["registers"]) == (36, 28, 255)
     assert report[3] == {"kernel": "lrn_fwd_kernel", "registers": 32}
+    assert report[2]["smem"] == 18432 and "smem" not in report[0]

@@ -47,8 +47,8 @@ def test_plain_matches_reference_and_pallas(ref, n, c):
     np.testing.assert_allclose(got, pallas, rtol=1e-5, atol=1e-6)
 
 
-@pytest.mark.parametrize("c", [1, 3, 64, 192])
-@pytest.mark.parametrize("n", [1, 3, 4, 5])
+@pytest.mark.parametrize("c", [1, 3, 64, 67, 192])
+@pytest.mark.parametrize("n", [1, 3, 4, 5, 10])
 def test_plain_backward_matches_vjp_and_pallas(ref, n, c):
     jax, jnp, pk = ref
     x = _x((3, 11, 13, c), seed=n * 1000 + c)
@@ -116,8 +116,11 @@ def test_kernel_matches_plain_on_card():
 def test_backward_kernel_matches_plain_on_card():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the kernel has no CPU mode")
+    # K2's tiles hold 2048 // C rows: (3, 17, 19, 67) is 32 tiles and a
+    # ragged one with C not a multiple of 4, n 10 a window wider than 4 a side
     for shape, n in (((2, 55, 55, 64), 5), ((3, 7, 9, 3), 4), ((5, 1, 1, 1), 5),
-                     ((2, 3, 5, 2048), 7)):
+                     ((2, 3, 5, 2048), 7), ((3, 17, 19, 67), 5),
+                     ((2, 9, 11, 64), 10), ((4, 14, 14, 192), 5)):
         x = torch.from_numpy(_x(shape, seed=7)).cuda()
         g = torch.from_numpy(_x(shape, seed=8)).cuda()
         before = port_lrn.bwd_launches
@@ -141,3 +144,20 @@ def test_autograd_reaches_both_kernels_on_card():
         (before[0] + 1, before[1] + 1)
     want = port_lrn.lrn_bwd_reference(x.detach(), g, K, ALPHA, BETA, 5)
     torch.testing.assert_close(x.grad, want, rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.cuda
+def test_backward_kernel_takes_an_unaligned_tensor_on_card():
+    """A contiguous view one float into its buffer is 4-byte aligned only:
+    K2 takes its 4-byte copies there, and gives the same answer."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no CPU mode")
+    shape = (2, 9, 9, 64)
+    flat = torch.from_numpy(_x((2 * 9 * 9 * 64 + 1,), seed=9)).cuda()
+    x = flat[1:].view(shape)
+    g = torch.from_numpy(_x(shape, seed=10)).cuda()
+    assert x.data_ptr() % 16 != 0 and x.is_contiguous()
+    got = port_lrn.lrn_bwd(x, g, K, ALPHA, BETA, 5)
+    torch.cuda.synchronize()
+    want = port_lrn.lrn_bwd_reference(x, g, K, ALPHA, BETA, 5)
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-6)

@@ -85,6 +85,52 @@ def test_plain_product_exact_at_the_extremes(ref, xv, wv):
                                                        ref.jnp.asarray(w))))
 
 
+@pytest.mark.parametrize("xv,wv", [(-128, -128), (127, 127), (-128, 127)])
+def test_plain_product_exact_at_max_k(ref, xv, wv):
+    """At K = MAX_K the sums reach 2,147,467,264 (-128 x -128), the largest
+    that K6's split partials and the plain version must carry exactly."""
+    k = port_qmm.MAX_K
+    x = np.full((3, k), xv, np.int8)
+    w = np.full((5, k), wv, np.int8)
+    got = port_qmm.quant_matmul(torch.from_numpy(x), torch.from_numpy(w))
+    assert (got == k * xv * wv).all()
+    np.testing.assert_array_equal(
+        got.numpy(), np.asarray(ref.pk.int8_matmul_xla(ref.jnp.asarray(x),
+                                                       ref.jnp.asarray(w))))
+
+
+# the chip smoke's edge shapes for K6: batch sizes around its 8-row
+# n-fragment, N not a multiple of 16 on the 16-byte path
+EDGE_SHAPES = [(7, 1024, 200), (8, 1024, 200), (9, 1024, 200), (17, 1024, 200),
+               (31, 1024, 200), (17, 512, 77)]
+
+
+@pytest.mark.parametrize("b,k,n", EDGE_SHAPES)
+def test_plain_product_matches_xla_at_the_kernel_edges(ref, b, k, n):
+    x, w = _int8((b, k), b * 31 + n), _int8((n, k), b + n * 3)
+    got = port_qmm.quant_matmul(torch.from_numpy(x), torch.from_numpy(w))
+    np.testing.assert_array_equal(
+        got.numpy(), np.asarray(ref.pk.int8_matmul_xla(ref.jnp.asarray(x),
+                                                       ref.jnp.asarray(w))))
+
+
+def test_offset_views_are_contiguous_and_unaligned():
+    """The chip smoke's unaligned operands: one byte into their buffers, yet
+    contiguous, so the wrapper passes them and K6 takes its byte path."""
+    import chip_smoke
+    gen = torch.Generator().manual_seed(0)
+    for fill, which in (("x+1", 0), ("w+1", 1)):
+        ops = chip_smoke.int8_operands(torch, gen, 9, 1024, 200, fill, "cpu")
+        assert [t.shape for t in ops] == [(9, 1024), (200, 1024)]
+        assert all(t.is_contiguous() and t.dtype == torch.int8 for t in ops)
+        assert ops[which].data_ptr() % 16 != 0
+        assert ops[1 - which].storage_offset() == 0
+        torch.testing.assert_close(port_qmm.quant_matmul(*ops),
+                                   ops[0].int() @ ops[1].int().T)
+    x, w = chip_smoke.int8_operands(torch, gen, 2, 16, 3, (-128, 127), "cpu")
+    assert (x == -128).all() and (w == 127).all()
+
+
 def test_cpu_tensors_never_reach_the_kernel(monkeypatch):
     def boom(*a, **k):
         raise AssertionError("the CUDA kernel was asked for on the CPU")
@@ -329,7 +375,8 @@ def _need_cuda():
 @pytest.mark.cuda
 def test_kernel_matches_plain_on_card():
     _need_cuda()
-    for b, k, n in SHAPES + [(32, 4096, 1000), (33, 256, 4096), (129, 130, 33)]:
+    for b, k, n in SHAPES + EDGE_SHAPES + [(32, 4096, 1000), (33, 256, 4096),
+                                           (129, 130, 33)]:
         x = torch.from_numpy(_int8((b, k), b + k)).cuda()
         w = torch.from_numpy(_int8((n, k), n + k)).cuda()
         before = port_qmm.launches
@@ -348,3 +395,30 @@ def test_kernel_refuses_a_strided_weight_on_card():
     with pytest.raises(ValueError, match="contiguous"):
         port_qmm.quant_matmul(x, w)
     assert port_qmm.launches == before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("xv,wv", [(-128, -128), (127, 127)])
+@pytest.mark.parametrize("k", [port_qmm.MAX_K, port_qmm.MAX_K // 16 * 16],
+                         ids=["bytes", "vec"])
+def test_kernel_split_k_exact_at_max_k_on_card(xv, wv, k):
+    """K split over a cluster of 8 blocks at the largest K: every partial and
+    the sum (2,147,467,264 at MAX_K) stay exact."""
+    _need_cuda()
+    x = torch.full((32, k), xv, dtype=torch.int8, device="cuda")
+    w = torch.full((80, k), wv, dtype=torch.int8, device="cuda")
+    got = port_qmm.quant_matmul(x, w)
+    torch.cuda.synchronize()
+    assert (got == k * xv * wv).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("which", ["x", "w"])
+def test_kernel_takes_unaligned_operands_on_card(which):
+    _need_cuda()
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    import chip_smoke
+    x, w = chip_smoke.int8_operands(torch, gen, 9, 1024, 200, f"{which}+1", "cuda")
+    got = port_qmm.quant_matmul(x, w)
+    torch.cuda.synchronize()
+    assert torch.equal(got, port_qmm.int8_matmul_reference(x, w))
