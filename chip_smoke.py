@@ -23,6 +23,10 @@ Phases, each of which fails the script (non-zero exit, no result line):
    peaks). K1 is the LRN forward; K2, the LRN backward, is also
    held to an error under 1% of the largest cross-channel term
    (max|2 alpha beta x u|), so a kernel that dropped that term fails.
+   Both also run every shape in bfloat16, held within one bfloat16 ulp of
+   each value of the float32 plain version on the upcast inputs, rounded
+   once (`bf16_ulp_check`), and the AlexNet calls are timed in bfloat16
+   too, against F.local_response_norm (and autograd of it) in bfloat16.
    K3-K5 (flash attention) at the char model's shape and edge shapes, on
    the tensor cores: 3xTF32 in float32, bfloat16 products in bfloat16.
    Then an embedding net behind a ParallelInference on the card serves a
@@ -71,11 +75,20 @@ Phases, each of which fails the script (non-zero exit, no result line):
    `compute_gradient_and_score` with K1+K2 against the same call with LRN
    forward and backward bound to the plain versions (batch 128), and the
    card against the CPU path (batch 2), per layer, on the first draw of
-   rows where both runs decide every ReLU and max-pool near-tie alike (a
-   draw where rounding tips one of them is logged and skipped; see
-   compare_grads). Then the median warm step time, images/s, and one warm
+   rows where both runs decide every ReLU and max-pool near-tie alike (the
+   few rows where rounding tips one are set aside, at most an eighth of the
+   draw, or else the draw is logged and skipped; see compare_grads). Then the median warm step time, images/s, and one warm
    step under torch.profiler.
-6. One JSON line with every kernel's numbers, then the result line
+6. bfloat16 AlexNet (`phase_bf16_alexnet`): the JAX package's benchmark
+   network, `AlexNet().init(dtype=torch.bfloat16)` at full width, served
+   with phase 4's load and trained for TRAIN_STEPS `fit` steps at batch
+   128, every LRN on K1 and K2 in bfloat16: launch counts reset just before
+   and read just after each run; every K1 call of the re-run batches and
+   every K2 call of the steps held to its yardstick; each answer bitwise
+   its batch's rows; the card's layers against the CPU's one by one; one
+   batch's score against the CPU's (rtol 1e-2); p50/p99, images/s, the
+   median step, and a profiled forward and step.
+7. One JSON line with every kernel's numbers, then the result line
    {"ok": true, "device": {...}}.
 
 Needs one CUDA GPU; exits non-zero without one.
@@ -95,6 +108,7 @@ FP32_OPS_PER_S = 67e12      # H100 SXM data sheet, float32 outside tensor cores
 LRN_K, LRN_ALPHA, LRN_BETA, LRN_N = 2.0, 1e-4, 0.75, 5  # AlexNet's LRN
 SLEEP_CYCLES = 20_000_000   # ~10 ms at the H100's clock: longer than 20 launches take the host
 LRN_RTOL, LRN_ATOL = 1e-5, 1e-6       # float32 kernel vs float32 plain
+BF16_ULP = 2.0 ** -7   # the spacing of bfloat16 values, relative, at most
 SERVE_RTOL, SERVE_ATOL = 1e-4, 1e-7   # float32 forwards, cuDNN's choice of algorithm per batch size
 CROSS_SHARE = 0.01   # K2's error must stay under this share of its largest cross-channel term
 TRAIN_BATCH, TRAIN_STEPS = 128, 6     # AlexNet's published batch size
@@ -104,6 +118,7 @@ TRAIN_BATCH, TRAIN_STEPS = 128, 6     # AlexNet's published batch size
 # both runs decide every kink alike (compare_grads).
 GRAD_REL = 1e-4
 MAX_DRAWS = 6   # draws of rows tried for such a comparison
+MAX_SET_ASIDE = 1 / 8   # share of a draw's rows with flipped kinks that it may set aside
 SCORE_RTOL = 1e-5
 
 # (label, NHWC shape, n, alpha, scale of x, timed): AlexNet's two LRN calls
@@ -164,23 +179,50 @@ def device_ms(torch, fn, iters=20):
     return start.elapsed_time(end) / iters
 
 
-def lrn_bound_ms(numel, n):
-    """Least time for LRN over `numel` float32 elements: read x and write y
-    once (8 bytes), or 2n + 3 operations each (n squares, n - 1 adds, the
-    scale, the offset, the power and the divide counted as one each)."""
-    bytes_ms = 8.0 * numel / HBM_BYTES_PER_S * 1e3
+def lrn_bound_ms(numel, n, elem=4):
+    """Least time for LRN over `numel` elements of `elem` bytes: read x and
+    write y once (2 elem bytes: 8 in float32, 4 in bfloat16), or 2n + 3
+    float32 operations each (n squares, n - 1 adds, the scale, the offset,
+    the power and the divide counted as one each; both types compute in
+    float32)."""
+    bytes_ms = 2.0 * elem * numel / HBM_BYTES_PER_S * 1e3
     ops_ms = (2 * n + 3) * numel / FP32_OPS_PER_S * 1e3
     return max(bytes_ms, ops_ms), ("bytes" if bytes_ms >= ops_ms else "operations")
 
 
-def lrn_bwd_bound_ms(numel, n):
-    """Least time for the LRN backward over `numel` float32 elements: read x
-    and g and write dx once (12 bytes), or 3n + 8 operations each (the
-    squares' window 2n - 1, scale and offset 2, the power 1, t = g x p / d
-    3, the transposed window n - 1, g p - 2ab x u 4, counted as one each)."""
-    bytes_ms = 12.0 * numel / HBM_BYTES_PER_S * 1e3
+def lrn_bwd_bound_ms(numel, n, elem=4):
+    """Least time for the LRN backward over `numel` elements of `elem`
+    bytes: read x and g and write dx once (3 elem bytes: 12 in float32, 6
+    in bfloat16), or 3n + 8 float32 operations each (the squares' window
+    2n - 1, scale and offset 2, the power 1, t = g x p / d 3, the transposed
+    window n - 1, g p - 2ab x u 4, counted as one each)."""
+    bytes_ms = 3.0 * elem * numel / HBM_BYTES_PER_S * 1e3
     ops_ms = (3 * n + 8) * numel / FP32_OPS_PER_S * 1e3
     return max(bytes_ms, ops_ms), ("bytes" if bytes_ms >= ops_ms else "operations")
+
+
+def bf16_ulp_check(torch, label, got, want32, atol):
+    """Hold a bfloat16 kernel's result to its yardstick, the float32 plain
+    version on the upcast inputs (`want32`) rounded once: each value within
+    one bfloat16 ulp of the rounded yardstick, beyond the float32 check's
+    own slack (LRN_RTOL |want32| + atol, where a sum that cancels leaves
+    float32 rounding larger than the small result's ulp). The kernel computes
+    in float32 and rounds once too, so it lands on the other neighbour only
+    where its float32 value and the yardstick's straddle a rounding
+    boundary. Returns (max |got - rounded yardstick|, the largest error as a
+    share of its limit); raises if any value is further off."""
+    want = want32.to(torch.bfloat16).float()
+    ulp = torch.ldexp(torch.ones_like(want), torch.frexp(want).exponent - 8)
+    ulp = torch.where(want == 0, torch.zeros_like(ulp), ulp)
+    err = (got.float() - want).abs()
+    limit = ulp + LRN_RTOL * want32.abs() + atol
+    bad = int((err > limit).sum())
+    if bad:
+        raise RuntimeError(f"{label}: {bad} bfloat16 values lie beyond one ulp of "
+                           f"the float32 yardstick rounded once (largest error "
+                           f"{err.max().item()})")
+    share = torch.where(limit > 0, err / limit, torch.zeros_like(err))
+    return err.max().item(), share.max().item()
 
 
 def lrn_cross_term(x, g, k, alpha, beta, n):
@@ -269,107 +311,160 @@ def phase_build():
     return secs
 
 
+def _lrn_library(F, x, n, alpha):
+    """F.local_response_norm on the NCHW view of an NHWC tensor (its size
+    n, its alpha the per-element alpha times n): the library call that
+    computes K1's function."""
+    return F.local_response_norm(x.permute(0, 3, 1, 2), n, alpha * n, LRN_BETA, LRN_K)
+
+
 def phase_lrn(torch, card):
+    """K1 against `lrn_reference` on random x at every LRN_CASES shape:
+    float32 at LRN_RTOL/LRN_ATOL, bfloat16 within one bfloat16 ulp of the
+    float32 plain version rounded once (`bf16_ulp_check`). The AlexNet
+    calls are timed in both types beside the plain version and
+    F.local_response_norm: device time behind a sleep kernel (`device_ms`),
+    and the CUDA-event time of back-to-back calls (`events_ms`, how the
+    LRN kernels were timed before; for a call this short it also counts
+    the host's launches)."""
     import torch.nn.functional as F
     from deeplearning4j_torch.ops import lrn as lrn_ops
     gen = torch.Generator(device="cuda").manual_seed(0)
-    rows, worst = [], 0.0
+    rows = []
     for label, shape, n, alpha, scale, timed in LRN_CASES:
+        hyper = (LRN_K, alpha, LRN_BETA, n)
         x = torch.randn(shape, device="cuda", generator=gen) * scale
-        got = lrn_ops.lrn(x, LRN_K, alpha, LRN_BETA, n)
+        got = lrn_ops.lrn(x, *hyper)
         torch.cuda.synchronize()
-        want = lrn_ops.lrn_reference(x, LRN_K, alpha, LRN_BETA, n)
-        err = (got - want).abs().max().item()
+        want = lrn_ops.lrn_reference(x, *hyper)
         torch.testing.assert_close(got, want, rtol=LRN_RTOL, atol=LRN_ATOL)
-        worst = max(worst, err)
+        xb = x.to(torch.bfloat16)
+        got16 = lrn_ops.lrn(xb, *hyper)
+        torch.cuda.synchronize()
+        err16, share = bf16_ulp_check(torch, f"lrn {label} bfloat16", got16,
+                                      lrn_ops.lrn_reference(xb.float(), *hyper), LRN_ATOL)
         row = {"case": label, "shape": list(shape), "n": n,
-               "max_abs_err": err}
+               "max_abs_err": (got - want).abs().max().item(),
+               "bf16_max_abs_err": err16, "bf16_limit_share": share}
         if timed:
-            lib = F.local_response_norm(
-                x.permute(0, 3, 1, 2), n, alpha * n, LRN_BETA, LRN_K
-            ).permute(0, 2, 3, 1)
-            row["library_max_abs_err"] = (lib - want).abs().max().item()
-            row["ms"] = cuda_time_ms(
-                lambda: lrn_ops.lrn(x, LRN_K, alpha, LRN_BETA, n))
-            row["plain_ms"] = cuda_time_ms(
-                lambda: lrn_ops.lrn_reference(x, LRN_K, alpha, LRN_BETA, n))
-            row["library_ms"] = cuda_time_ms(
-                lambda: F.local_response_norm(x.permute(0, 3, 1, 2), n,
-                                              alpha * n, LRN_BETA, LRN_K))
+            row["library_max_abs_err"] = (_lrn_library(F, x, n, alpha).permute(0, 2, 3, 1)
+                                          - want).abs().max().item()
+            row["ms"] = device_ms(torch, lambda: lrn_ops.lrn(x, *hyper))
+            row["events_ms"] = cuda_time_ms(lambda: lrn_ops.lrn(x, *hyper))
+            row["plain_ms"] = device_ms(torch, lambda: lrn_ops.lrn_reference(x, *hyper))
+            row["library_ms"] = device_ms(torch, lambda: _lrn_library(F, x, n, alpha))
             row["bound_ms"], row["bound_by"] = lrn_bound_ms(x.numel(), n)
+            row["bf16_ms"] = device_ms(torch, lambda: lrn_ops.lrn(xb, *hyper))
+            row["bf16_library_ms"] = device_ms(torch, lambda: _lrn_library(F, xb, n, alpha))
+            row["bf16_bound_ms"], _ = lrn_bound_ms(x.numel(), n, elem=2)
+            # a device copy of the same bytes: what reading x and writing y
+            # take on this card at best
+            y, yb = torch.empty_like(x), torch.empty_like(xb)
+            row["copy_ms"] = device_ms(torch, lambda: y.copy_(x))
+            row["bf16_copy_ms"] = device_ms(torch, lambda: yb.copy_(xb))
+            del y, yb
         rows.append(row)
         log(f"lrn {label}: {json.dumps(row)}  [{card}]")
-        del x, got, want
+        del x, xb, got, got16, want
     # launches: filled from the serving run
-    return kernel_entry("lrn_fwd", "deeplearning4j_tpu/ops/pallas_kernels.py:128",
-                        rows, worst)
+    return kernel_entry("lrn_fwd", "deeplearning4j_tpu/ops/pallas_kernels.py:128", rows)
 
 
-def kernel_entry(name, replaces, rows, worst):
+def kernel_entry(name, replaces, rows):
     """A kernel's entry of the `kernels` line: its timed cases (AlexNet's two
-    LRN calls at batch 128, so one forward's or one step's worth) summed."""
+    LRN calls at batch 128, so one forward's or one step's worth) summed,
+    float32 and bfloat16; its largest errors over every case."""
     timed = [r for r in rows if "ms" in r]
     return {
         "name": name, "route": "cuda",
         "source": "deeplearning4j_torch/ops/csrc/lrn.cu",
-        "replaces": replaces, "launches": None, "max_abs_err": worst,
+        "replaces": replaces, "launches": None,
+        "max_abs_err": max(r["max_abs_err"] for r in rows),
         "ms": sum(r["ms"] for r in timed),
         "plain_ms": sum(r["plain_ms"] for r in timed),
         "bound_ms": sum(r["bound_ms"] for r in timed),
         "bound_by": "bytes" if all(r["bound_by"] == "bytes" for r in timed)
         else "operations",
         "library_ms": sum(r["library_ms"] for r in timed),
+        "events_ms": sum(r["events_ms"] for r in timed),
+        "bf16_ms": sum(r["bf16_ms"] for r in timed),
+        "bf16_bound_ms": sum(r["bf16_bound_ms"] for r in timed),
+        "bf16_library_ms": sum(r["bf16_library_ms"] for r in timed),
+        "bf16_max_abs_err": max(r["bf16_max_abs_err"] for r in rows),
+        "bf16_limit_share": max(r["bf16_limit_share"] for r in rows),
     }
 
 
 def phase_lrn_bwd(torch, card):
-    """K2 against `lrn_bwd_reference` on random x and cotangents, and the
-    library yardstick: autograd's backward of F.local_response_norm on the
-    NCHW view (its graph built once, only the backward timed)."""
+    """K2 against `lrn_bwd_reference` on random x and cotangents: float32
+    at LRN_RTOL/LRN_ATOL and with an error under CROSS_SHARE of the largest
+    cross-channel term; bfloat16 within one bfloat16 ulp of the float32
+    plain version rounded once, where the alpha 1e-2 cases carry the
+    cross-term evidence (at AlexNet's 1e-4 the term lies below a bfloat16
+    ulp of dx; with 1e-2 a dropped window channel is many ulps off). The
+    library yardstick is autograd's backward of F.local_response_norm on
+    the NCHW view (its graph built once, only the backward timed); times as
+    in phase_lrn, K2's the median of three readings."""
     import torch.nn.functional as F
     from deeplearning4j_torch.ops import lrn as lrn_ops
     gen = torch.Generator(device="cuda").manual_seed(1)
-    rows, worst = [], 0.0
+    rows = []
     for label, shape, n, alpha, scale, timed in LRN_CASES:
+        hyper = (LRN_K, alpha, LRN_BETA, n)
         x = torch.randn(shape, device="cuda", generator=gen) * scale
         g = torch.randn(shape, device="cuda", generator=gen)
-        got = lrn_ops.lrn_bwd(x, g, LRN_K, alpha, LRN_BETA, n)
+        got = lrn_ops.lrn_bwd(x, g, *hyper)
         torch.cuda.synchronize()
-        want = lrn_ops.lrn_bwd_reference(x, g, LRN_K, alpha, LRN_BETA, n)
+        want = lrn_ops.lrn_bwd_reference(x, g, *hyper)
         torch.testing.assert_close(got, want, rtol=LRN_RTOL, atol=LRN_ATOL)
         err = (got - want).abs().max().item()
-        cross = lrn_cross_term(x, g, LRN_K, alpha, LRN_BETA, n).abs().max().item()
+        cross = lrn_cross_term(x, g, *hyper).abs().max().item()
         if not err < CROSS_SHARE * cross:
             raise RuntimeError(f"lrn_bwd {label}: error {err} is not under "
                                f"{CROSS_SHARE} of the cross term {cross}")
-        worst = max(worst, err)
+        xb, gb = x.to(torch.bfloat16), g.to(torch.bfloat16)
+        got16 = lrn_ops.lrn_bwd(xb, gb, *hyper)
+        torch.cuda.synchronize()
+        err16, share = bf16_ulp_check(
+            torch, f"lrn_bwd {label} bfloat16", got16,
+            lrn_ops.lrn_bwd_reference(xb.float(), gb.float(), *hyper), LRN_ATOL)
         row = {"case": label, "shape": list(shape), "n": n, "alpha": alpha,
-               "max_abs_err": err, "max_cross_term": cross}
+               "max_abs_err": err, "max_cross_term": cross,
+               "bf16_max_abs_err": err16, "bf16_limit_share": share,
+               "bf16_max_cross_term": lrn_cross_term(
+                   xb.float(), gb.float(), *hyper).abs().max().item()}
         if timed:
-            xr = x.permute(0, 3, 1, 2).detach().requires_grad_()
-            y = F.local_response_norm(xr, n, alpha * n, LRN_BETA, LRN_K)
-            gn = g.permute(0, 3, 1, 2)
-            lib, = torch.autograd.grad(y, xr, gn, retain_graph=True)
+            graphs = {}
+            for key, (xv, gv) in {"f32": (x, g), "bf16": (xb, gb)}.items():
+                xr = xv.detach().requires_grad_()
+                graphs[key] = (_lrn_library(F, xr, n, alpha), xr, gv.permute(0, 3, 1, 2))
+
+            def library(key):
+                y, xr, gn = graphs[key]
+                return torch.autograd.grad(y, xr, gn, retain_graph=True)
+
             row["library_max_abs_err"] = (
-                lib.permute(0, 2, 3, 1) - want).abs().max().item()
+                library("f32")[0] - want).abs().max().item()
             # the median of three readings: a single reading has come out
             # at six times the others on the same card
-            row["ms_runs"] = [cuda_time_ms(
-                lambda: lrn_ops.lrn_bwd(x, g, LRN_K, alpha, LRN_BETA, n))
-                for _ in range(3)]
+            row["ms_runs"] = [device_ms(torch, lambda: lrn_ops.lrn_bwd(x, g, *hyper))
+                              for _ in range(3)]
             row["ms"] = sorted(row["ms_runs"])[1]
-            row["plain_ms"] = cuda_time_ms(
-                lambda: lrn_ops.lrn_bwd_reference(x, g, LRN_K, alpha, LRN_BETA, n))
-            row["library_ms"] = cuda_time_ms(
-                lambda: torch.autograd.grad(y, xr, gn, retain_graph=True))
+            row["events_ms"] = cuda_time_ms(lambda: lrn_ops.lrn_bwd(x, g, *hyper))
+            row["plain_ms"] = device_ms(
+                torch, lambda: lrn_ops.lrn_bwd_reference(x, g, *hyper))
+            row["library_ms"] = device_ms(torch, lambda: library("f32"))
             row["bound_ms"], row["bound_by"] = lrn_bwd_bound_ms(x.numel(), n)
-            del xr, y, gn, lib
+            row["bf16_ms"] = sorted(device_ms(torch, lambda: lrn_ops.lrn_bwd(xb, gb, *hyper))
+                                    for _ in range(3))[1]
+            row["bf16_library_ms"] = device_ms(torch, lambda: library("bf16"))
+            row["bf16_bound_ms"], _ = lrn_bwd_bound_ms(x.numel(), n, elem=2)
+            del graphs
         rows.append(row)
         log(f"lrn_bwd {label}: {json.dumps(row)}  [{card}]")
-        del x, g, got, want
+        del x, g, xb, gb, got, got16, want
     # launches: filled from the training run
-    return kernel_entry("lrn_bwd", "deeplearning4j_tpu/ops/pallas_kernels.py:141",
-                        rows, worst)
+    return kernel_entry("lrn_bwd", "deeplearning4j_tpu/ops/pallas_kernels.py:141", rows)
 
 
 @contextmanager
@@ -387,7 +482,9 @@ def patched(obj, name, value):
 def checked_lrn(torch, stats):
     """Run every LRN of the network through the kernel and, on the same
     activations, through the plain version, holding one to the other at
-    LRN_RTOL/LRN_ATOL. Records whether the layer's input already was a
+    LRN_RTOL/LRN_ATOL (a bfloat16 call: within one bfloat16 ulp of the
+    float32 plain version rounded once, `bf16_ulp_check`, its largest error
+    as a share of that limit recorded). Records whether the layer's input already was a
     contiguous NHWC tensor (its `.contiguous()` then copies nothing), the
     largest error, and the largest effect of the window term (the distance
     from x * k^-beta, what LRN would give with the window dropped)."""
@@ -397,11 +494,16 @@ def checked_lrn(torch, stats):
 
     def lrn(x, k, alpha, beta, n):
         got = kernel(x, k, alpha, beta, n)
-        want = lrn_ops.lrn_reference(x, k, alpha, beta, n)
-        torch.testing.assert_close(got, want, rtol=LRN_RTOL, atol=LRN_ATOL)
+        if x.dtype == torch.bfloat16:
+            want = lrn_ops.lrn_reference(x.float(), k, alpha, beta, n)
+            err, share = bf16_ulp_check(torch, "lrn in the forward", got, want, LRN_ATOL)
+            stats["limit_share"] = max(stats.get("limit_share", 0.0), share)
+        else:
+            want = lrn_ops.lrn_reference(x, k, alpha, beta, n)
+            torch.testing.assert_close(got, want, rtol=LRN_RTOL, atol=LRN_ATOL)
+            err = (got - want).abs().max().item()
         stats["calls"] += 1
-        stats["max_abs_err"] = max(stats["max_abs_err"],
-                                   (got - want).abs().max().item())
+        stats["max_abs_err"] = max(stats["max_abs_err"], err)
         stats["window_effect"] = max(stats["window_effect"], (
             want - x * k ** -beta).abs().max().item())
         return got
@@ -559,7 +661,8 @@ def phase_serving(torch, card):
 def profile_call(torch, label, fn, info):
     """One warm call of `fn` (which ends synchronized) under torch.profiler:
     the device's summed kernel and copy time against the wall time of that
-    same call, and the five largest device items. The median wall time of 5
+    same call, the five largest device items, and the LRN kernels' (K1, K2)
+    time and calls, which the five rarely include. The median wall time of 5
     unprofiled calls is reported beside it; the idle share is taken within
     the profiled call only, as busy and wall time from two different calls
     can give a share below 0."""
@@ -582,7 +685,9 @@ def profile_call(torch, label, fn, info):
            "device_busy_ms": busy_ms if dev else None,
            "device_idle_share": (1.0 - busy_ms / wall_ms) if dev else None,
            "top": [[e.key[:80], e.count, e.self_device_time_total / 1e3]
-                   for e in top]}
+                   for e in top],
+           "lrn_kernels": [[e.key[:40], e.count, e.self_device_time_total / 1e3]
+                           for e in dev if "lrn_" in e.key]}
     log(f"profile {label}: {json.dumps(out)}")
     return out
 
@@ -592,7 +697,9 @@ def checked_lrn_bwd(torch, stats):
     """Run every LRN backward through K2 and, on the same x and cotangent,
     through the plain version, holding one to the other (rtol LRN_RTOL,
     atol LRN_ATOL times the largest |dx|: cotangents at random init are
-    tiny). Records whether each cotangent reached the backward contiguous
+    tiny; a bfloat16 call within one bfloat16 ulp of the float32 plain
+    version rounded once, beyond that slack, its largest error as a share
+    of that limit recorded). Records whether each cotangent reached the backward contiguous
     (if not, `lrn_bwd` copies it), the largest error and the largest
     cross-channel term."""
     from deeplearning4j_torch.ops import lrn as lrn_ops
@@ -601,13 +708,20 @@ def checked_lrn_bwd(torch, stats):
     def lrn_bwd(x, g, k, alpha, beta, n):
         stats["cotangent_contiguous"].append(g.is_contiguous())
         got = kernel(x, g, k, alpha, beta, n)
+        if x.dtype == torch.bfloat16:
+            x, g = x.float(), g.float()
         want = lrn_ops.lrn_bwd_reference(x, g, k, alpha, beta, n)
         scale = want.abs().max().item()
-        torch.testing.assert_close(got, want, rtol=LRN_RTOL,
-                                   atol=LRN_ATOL * scale)
+        if got.dtype == torch.bfloat16:
+            err, share = bf16_ulp_check(torch, "lrn backward in the step", got, want,
+                                        LRN_ATOL * scale)
+            stats["limit_share"] = max(stats.get("limit_share", 0.0), share)
+        else:
+            torch.testing.assert_close(got, want, rtol=LRN_RTOL,
+                                       atol=LRN_ATOL * scale)
+            err = (got - want).abs().max().item()
         stats["calls"] += 1
-        stats["max_abs_err"] = max(stats["max_abs_err"],
-                                   (got - want).abs().max().item())
+        stats["max_abs_err"] = max(stats["max_abs_err"], err)
         stats["max_abs_dx"] = max(stats["max_abs_dx"], scale)
         stats["max_cross_term"] = max(
             stats["max_cross_term"],
@@ -661,10 +775,16 @@ def recorded_kinks(torch, net, kinks):
 
 
 def _kink_flips(a, b):
-    """How many recorded decisions two runs took differently."""
+    """How many recorded decisions two runs took differently, and in which
+    rows (examples) of the batch."""
     if [t.shape for t in a] != [t.shape for t in b]:
         raise RuntimeError("the two runs recorded different kinks")
-    return sum(int((s != t.to(s.device)).sum()) for s, t in zip(a, b))
+    flips, rows = 0, np.zeros(a[0].shape[0] if a else 0, bool)
+    for s, t in zip(a, b):
+        differ = (s != t.to(s.device)).reshape(s.shape[0], -1)
+        flips += int(differ.sum())
+        rows |= differ.any(1).cpu().numpy()
+    return flips, np.flatnonzero(rows)
 
 
 def compare_grads(label, param_utils, run_got, run_want, draws):
@@ -676,36 +796,70 @@ def compare_grads(label, param_utils, run_got, run_want, draws):
     between two elements of a pool window. The gradient then moves one
     cotangent to another place: at batch 2 that shifts conv1's weight
     gradient by about 1/sqrt(2 * 55 * 55) = 1.3e-2 of its norm, where the
-    rounding gives 1e-6. Such a draw is not a comparison of the same
-    function: its flips and difference are recorded and the next draw is
-    taken. A fault in a forward flips kinks on every draw and fails; a fault
-    in a backward fails the comparison on the first draw without flips.
-    The score has no jumps, so it is held on every draw."""
+    rounding gives 1e-6. Such rows are not a comparison of the same
+    function. A near-tie lies in one row of the batch, and the score and
+    gradient are means of each row's own, so where the flips fall in at
+    most MAX_SET_ASIDE of a draw's rows, those rows are set aside and both
+    runs are taken again on the rest, until no kink differs. Otherwise the
+    draw's flips and difference are recorded and the next draw is taken. A
+    fault in a forward flips kinks in most rows of every draw and fails; a
+    fault in a backward fails the comparison on the first draw without
+    flips. The score has no jumps, so it is held on every run."""
     skipped = []
     for start, ds in draws:
-        k_got, k_want = [], []
-        g_got, s_got = run_got(ds, k_got)
-        g_want, s_want = run_want(ds, k_want)
-        if not abs(s_got - s_want) <= SCORE_RTOL * abs(s_want):
-            raise RuntimeError(f"{label}, rows from {start}: score {s_got} vs {s_want}")
-        rel = _layer_rel_errs(param_utils, g_got, g_want)
-        worst = max(rel.values())
-        flips = _kink_flips(k_got, k_want)
-        if flips:
-            skipped.append({"rows_from": start, "kink_flips": flips,
-                            "worst_rel": worst})
+        rows = ds.num_examples()
+        keep = np.arange(rows)
+        while True:
+            sub = ds if len(keep) == rows else type(ds)(ds.features[keep],
+                                                         ds.labels[keep])
+            k_got, k_want = [], []
+            g_got, s_got = run_got(sub, k_got)
+            g_want, s_want = run_want(sub, k_want)
+            if not abs(s_got - s_want) <= SCORE_RTOL * abs(s_want):
+                raise RuntimeError(f"{label}, rows from {start}: score {s_got} vs {s_want}")
+            rel = _layer_rel_errs(param_utils, g_got, g_want)
+            worst = max(rel.values())
+            flips, flipped = _kink_flips(k_got, k_want)
+            if not flips:
+                break
             log(f"training: {label}, rows from {start}: {flips} kink(s) decided "
-                f"differently (gradient difference {worst:.3e}); next draw")
+                f"differently in rows {(start + keep[flipped]).tolist()} "
+                f"(gradient difference {worst:.3e})")
+            keep = np.delete(keep, flipped)
+            if rows - len(keep) > MAX_SET_ASIDE * rows:
+                skipped.append({"rows_from": start, "kink_flips": flips,
+                                "rows_set_aside": rows - len(keep),
+                                "worst_rel": worst})
+                log(f"training: {label}, rows from {start}: more than "
+                    f"{MAX_SET_ASIDE} of the rows set aside; next draw")
+                break
+        if flips:
             continue
+        set_aside = (start + np.setdiff1d(np.arange(rows), keep)).tolist()
         if not worst < GRAD_REL:
             raise RuntimeError(f"{label}, rows from {start}: gradient differs by "
                                f"{worst} (> {GRAD_REL}) with every kink decided "
                                f"alike, per layer: {rel}")
         log(f"training: {label}, rows from {start}: worst per-layer relative "
             f"gradient difference {worst:.3e} (limit {GRAD_REL}), every kink "
-            f"decided alike, score {s_got:.9g} vs {s_want:.9g}")
-        return {"worst_rel": worst, "rows_from": start, "skipped": skipped}
+            f"decided alike on {len(keep)} of {rows} rows (set aside: "
+            f"{set_aside}), score {s_got:.9g} vs {s_want:.9g}")
+        return {"worst_rel": worst, "rows_from": start, "rows_set_aside": set_aside,
+                "skipped": skipped}
     raise RuntimeError(f"{label}: no draw with every kink decided alike: {skipped}")
+
+
+class Steps:
+    """Listener: each step's score, and its end time after a sync."""
+
+    def __init__(self):
+        self.scores, self.ends = [], []
+
+    def iteration_done(self, model, iteration):
+        import torch
+        torch.cuda.synchronize()
+        self.ends.append(time.perf_counter())
+        self.scores.append(float(model.score_value))
 
 
 def phase_training(torch, card):
@@ -722,17 +876,6 @@ def phase_training(torch, card):
     n = TRAIN_STEPS * TRAIN_BATCH
     x = rng.standard_normal((n, 224, 224, 3), dtype=np.float32)
     y = np.eye(1000, dtype=np.float32)[rng.integers(0, 1000, n)]
-
-    class Steps:
-        """Listener: each step's score, and its end time after a sync."""
-
-        def __init__(self):
-            self.scores, self.ends = [], []
-
-        def iteration_done(self, model, iteration):
-            torch.cuda.synchronize()
-            self.ends.append(time.perf_counter())
-            self.scores.append(float(model.score_value))
 
     # 1. the main path, every K2 call checked on its real cotangents
     steps = Steps()
@@ -977,9 +1120,6 @@ def phase_int8(torch, card):
 # and the card is held to the CPU layer by layer, where the inputs are the
 # same: the first conv and every dense product within one bfloat16 ulp, the
 # int8 preouts bitwise (`check_layers_against_cpu`).
-BF16_ULP = 2.0 ** -7   # the spacing of bfloat16 values, relative, at most
-
-
 def quant_noise_share(got, want, fp32):
     """max|got - want| / max|want - fp32|: how far two evaluations of one
     quantized net lie apart, as a share of how far quantization moves it."""
@@ -1240,6 +1380,198 @@ def phase_quant_serving(torch, card, net, reqs, fp32_answers, cpu_net, fp32):
             f"{arm['p99_ms']:.3f} ms, {arm['images_per_s']:.1f} images/s, "
             f"drift {arm.get('max_drift', 0.0):.3e}  [{card}]")
     return arms
+
+
+# ------------------------------------------------------- bfloat16 AlexNet
+
+def check_layers_one_by_one(torch, net, cpu_net, x):
+    """Each layer of `net` on the card against the same layer of `cpu_net`
+    (the same parameters) on the CPU, both fed the card's input to that
+    layer, so that no difference carries from one layer to the next: within
+    one bfloat16 ulp of the layer's largest value (BF16_ULP), where each
+    side rounds its float32 sum once and a sum in another order can tip a
+    rounding. An LRN layer within two: the CPU's plain LRN rounds each op to
+    bfloat16, as the JAX package's `lrn_reference` does, and K1 rounds once
+    (K1 itself is held within one ulp of its float32 yardstick by
+    `checked_lrn`). Returns one record a layer."""
+    from deeplearning4j_torch.nn.layers.convolution import LocalResponseNormalization
+    out = []
+    with torch.inference_mode():
+        a = net._as_input(x)
+        for i, layer in enumerate(net.layers):
+            pre = net.conf.preprocessor(i)
+            if pre is not None:
+                a = pre(a)
+            card = layer.forward(net.params_tree[i], a)
+            cpu = layer.forward(cpu_net.params_tree[i], a.cpu())
+            diff = (card.cpu().float() - cpu.float()).abs().max().item()
+            top = max(card.float().abs().max().item(), cpu.float().abs().max().item())
+            ulps = 2 if isinstance(layer, LocalResponseNormalization) else 1
+            if not diff <= ulps * BF16_ULP * top:
+                raise RuntimeError(f"layer {i} ({type(layer).__name__}): card and CPU "
+                                   f"differ by {diff}, more than {ulps} bfloat16 ulp "
+                                   f"of its largest value {top}")
+            out.append({"layer": i, "kind": type(layer).__name__,
+                        "dtype": str(card.dtype).replace("torch.", ""),
+                        "max_abs_card_vs_cpu": diff, "max_abs": top,
+                        "share_of_limit": diff / (ulps * BF16_ULP * top) if top else 0.0})
+            a = card
+    return out
+
+
+def phase_bf16_alexnet(torch, card):
+    """The JAX package's benchmark AlexNet in bfloat16 (bench.py's
+    `AlexNet(num_labels=1000).init(dtype=jnp.bfloat16)`), at full width,
+    through the entry points a user calls: `AlexNet().init(dtype=
+    torch.bfloat16)` on CUDA by default, served by a BATCHED
+    ParallelInference (batch_limit 32, the serving phase's client load) and
+    trained by `fit` for TRAIN_STEPS steps at batch 128. Every LRN runs K1
+    in bfloat16 and every LRN backward K2: the counts are reset just before
+    the clients start and before `fit`, and read just after (K1 2 x
+    executed forwards and no K2 in serving; K1 and K2 2 x steps in
+    training). Every K1 call of the re-run batches and every K2 call of the
+    steps is held to its float32 yardstick rounded once (`checked_lrn`,
+    `checked_lrn_bwd`); each answer is bitwise the rows of its executed
+    batch (`check_served_batches`); each layer of the card's forward
+    against the CPU's on the same input (`check_layers_one_by_one`); the
+    card's score of one batch against the CPU's from the same parameters
+    (rtol 1e-2: bfloat16 activations summed in another order). Latencies
+    come from a second, unchecked run of the same load; the step time from
+    a second, unchecked epoch."""
+    from deeplearning4j_torch.data.dataset import DataSet
+    from deeplearning4j_torch.models.zoo import AlexNet
+    from deeplearning4j_torch.nn.multilayer import MultiLayerNetwork
+    from deeplearning4j_torch.ops import lrn as lrn_ops
+    from deeplearning4j_torch.parallel.inference import (InferenceMode,
+                                                          ParallelInference)
+    t0 = time.perf_counter()
+    net = AlexNet().init(dtype=torch.bfloat16)
+    if {t.dtype for lp in net.params_tree for t in lp.values()} != {torch.bfloat16}:
+        raise RuntimeError("AlexNet().init(dtype=torch.bfloat16) gave parameters "
+                           "that are not bfloat16")
+    it, classes = net.conf.input_type, net.layers[-1].n_out
+    hwc = (it.height, it.width, it.channels)
+    log(f"bf16 AlexNet: {hwc}/{classes}, {net.num_params()} params on {net.device}, "
+        f"init {time.perf_counter() - t0:.2f} s")
+    cpu_net = MultiLayerNetwork(net.conf).init(dtype=torch.bfloat16, device="cpu")
+    cpu_net.params_tree = tuple({k: v.cpu() for k, v in layer.items()}
+                                for layer in net.params_tree)
+    result = {"card": card}
+
+    # 1. serving
+    reqs = serving_requests(np.random.default_rng(2026))
+    images = sum(x.shape[0] for xs in reqs for x in xs)
+    pi = ParallelInference(net, inference_mode=InferenceMode.BATCHED, batch_limit=32)
+    batches = []
+    try:
+        pi.warmup()
+        with recorded_outputs(net, batches):
+            f0 = pi.total_forwards
+            lrn_ops.launches = lrn_ops.bwd_launches = 0  # the main path's run starts here
+            answers, _, _ = run_clients(pi, reqs)
+            launches = {"lrn_fwd": lrn_ops.launches,
+                        "lrn_bwd": lrn_ops.bwd_launches}  # ... and ends here
+            forwards = pi.total_forwards - f0
+        check_launches("bf16 serving", launches, {"lrn_fwd": 2 * forwards, "lrn_bwd": 0})
+        f0 = pi.total_forwards
+        lrn_ops.launches = 0
+        _, lat, wall = run_clients(pi, reqs)
+        check_launches("bf16 timed serving", {"lrn_fwd": lrn_ops.launches},
+                       {"lrn_fwd": 2 * (pi.total_forwards - f0)})
+    finally:
+        pi.shutdown()
+    if forwards < 1:
+        raise RuntimeError("bf16 serving executed no forward")
+    for (c, j), out in answers.items():
+        if out.dtype != np.float32 or out.shape != (reqs[c][j].shape[0], classes) \
+                or not np.isfinite(out).all():
+            raise RuntimeError(f"bf16: bad answer {out.dtype} {out.shape}")
+        np.testing.assert_allclose(out.sum(-1), 1.0, rtol=1e-5)
+    lrn_stats = {"calls": 0, "max_abs_err": 0.0, "window_effect": 0.0,
+                 "input_contiguous": []}
+    with checked_lrn(torch, lrn_stats):
+        result["batches_rechecked"] = check_served_batches(net, batches, reqs, answers)
+    lrn_stats["input_contiguous"] = all(lrn_stats["input_contiguous"])
+    del batches
+    result["serving"] = {**latency_stats(lat, images, wall), "forwards": forwards,
+                         "launches": launches, "lrn_in_forward": lrn_stats}
+    layers = check_layers_one_by_one(torch, net, cpu_net, reqs[0][0])
+    result["layers_vs_cpu"] = layers
+    x32 = np.random.default_rng(2031).standard_normal((32,) + hwc).astype(np.float32)
+    result["serving"]["profile"] = profile_call(
+        torch, "forward bf16 AlexNet", lambda: net.output(x32), {"batch": 32})
+    log(f"bf16 AlexNet serving: {json.dumps(result['serving'])}  [{card}]")
+    log(f"bf16 AlexNet layers, card vs CPU: {json.dumps(layers)}")
+
+    # 2. training
+    rng = np.random.default_rng(2027)
+    n = TRAIN_STEPS * TRAIN_BATCH
+    x = rng.standard_normal((n,) + hwc, dtype=np.float32)
+    y = np.eye(classes, dtype=np.float32)[rng.integers(0, classes, n)]
+    steps = Steps()
+    net.listeners[:] = [steps]
+    stats = {"calls": 0, "max_abs_err": 0.0, "max_abs_dx": 0.0,
+             "max_cross_term": 0.0, "cotangent_contiguous": []}
+    with checked_lrn_bwd(torch, stats):
+        lrn_ops.launches = lrn_ops.bwd_launches = 0  # the main path's run starts here
+        net.fit(x, y, epochs=1, batch_size=TRAIN_BATCH)
+        launches = {"lrn_fwd": lrn_ops.launches,
+                    "lrn_bwd": lrn_ops.bwd_launches}  # ... and ends here
+    want = 2 * TRAIN_STEPS
+    check_launches("bf16 training", launches, {"lrn_fwd": want, "lrn_bwd": want})
+    if net.iteration != TRAIN_STEPS or stats["calls"] != want \
+            or not all(np.isfinite(steps.scores)) or len(steps.scores) != TRAIN_STEPS:
+        raise RuntimeError(f"bf16 training: {net.iteration} steps, {stats['calls']} "
+                           f"checked K2 calls, scores {steps.scores}")
+    if {t.dtype for lp in net.params_tree for t in lp.values()} != {torch.bfloat16}:
+        raise RuntimeError("bf16 training left parameters that are not bfloat16")
+    stats["cotangent_contiguous"] = all(stats["cotangent_contiguous"])
+    log(f"bf16 AlexNet training: scores {steps.scores}; launches {launches}; K2 on "
+        f"the step's cotangents: {json.dumps(stats)}")
+    # timing: another epoch over the same batches, unchecked
+    steps = Steps()
+    net.listeners[:] = [steps]
+    lrn_ops.launches = lrn_ops.bwd_launches = 0
+    t0 = time.perf_counter()
+    net.fit(x, y, epochs=1, batch_size=TRAIN_BATCH)
+    check_launches("bf16 timed training", {"lrn_fwd": lrn_ops.launches,
+                                           "lrn_bwd": lrn_ops.bwd_launches},
+                   {"lrn_fwd": want, "lrn_bwd": want})
+    net.listeners.clear()
+    step_ms = np.diff([t0] + steps.ends) * 1e3
+    warm_ms = float(np.median(step_ms[1:]))
+    # one batch's score, the card against the CPU from the same parameters
+    cpu_net.params_tree = tuple({k: v.cpu() for k, v in layer.items()}
+                                for layer in net.params_tree)
+    ds = DataSet(x[:2], y[:2])
+    before = (lrn_ops.launches, lrn_ops.bwd_launches)
+    _, card_score = net.compute_gradient_and_score(ds)
+    ran = (lrn_ops.launches - before[0], lrn_ops.bwd_launches - before[1])
+    _, cpu_score = cpu_net.compute_gradient_and_score(ds)
+    if ran != (2, 2) or not abs(card_score - cpu_score) <= 1e-2 * abs(cpu_score):
+        raise RuntimeError(f"bf16 score: card {card_score} vs CPU {cpu_score}, "
+                           f"K1 and K2 ran {ran} times")
+    xb, yb = x[:TRAIN_BATCH], y[:TRAIN_BATCH]
+
+    def one_step():
+        net.fit(xb, yb, batch_size=TRAIN_BATCH)
+        torch.cuda.synchronize()
+
+    result["training"] = {
+        "steps": TRAIN_STEPS, "batch": TRAIN_BATCH, "launches": launches,
+        "scores": steps.scores, "step_ms": step_ms.tolist(),
+        "median_warm_step_ms": warm_ms, "images_per_s": TRAIN_BATCH / warm_ms * 1e3,
+        "lrn_bwd_in_step": stats, "score_card": card_score, "score_cpu": cpu_score,
+        "profile": profile_call(torch, "train step bf16 AlexNet", one_step,
+                                {"batch": TRAIN_BATCH})}
+    s = result["serving"]
+    log(f"bf16 AlexNet: serving p50 {s['p50_ms']:.3f} ms p99 {s['p99_ms']:.3f} ms, "
+        f"{s['images_per_s']:.1f} images/s, K1 {s['launches']['lrn_fwd']} launches in "
+        f"{s['forwards']} forwards; training step ms {step_ms.tolist()}, median warm "
+        f"{warm_ms:.3f} ms, {TRAIN_BATCH / warm_ms * 1e3:.1f} images/s, K1 "
+        f"{launches['lrn_fwd']} and K2 {launches['lrn_bwd']} launches in {TRAIN_STEPS} "
+        f"steps; score card {card_score:.6g} vs CPU {cpu_score:.6g}  [{card}]")
+    return result
 
 
 # ------------------------------------------------------- embedding indices
@@ -1869,6 +2201,9 @@ def main() -> int:
     del net, cpu_net
     torch.cuda.empty_cache()
     training = phase_training(torch, card)
+    torch.cuda.empty_cache()
+    phase_bf16_alexnet(torch, card)
+    torch.cuda.empty_cache()
     phase_attention_dispatch(torch, card)
     char = phase_char_model(torch, card)
     lrn_entry["launches"] = serving["launches"]["lrn_fwd"]

@@ -58,6 +58,13 @@ def _regularization_score(layers, params):
     return total
 
 
+def _to_numpy(t: Tensor) -> np.ndarray:
+    """A host copy of `t`; bfloat16 as float32, which holds every bfloat16
+    value exactly (numpy has no bfloat16, where the JAX package returns
+    ml_dtypes' bfloat16 arrays)."""
+    return (t.float() if t.dtype == torch.bfloat16 else t).cpu().numpy()
+
+
 class MultiLayerNetwork:
     def __init__(self, conf: MultiLayerConfiguration):
         self.conf = conf
@@ -233,12 +240,13 @@ class MultiLayerNetwork:
             return out.cpu().numpy()
 
     def feed_forward(self, x) -> List[np.ndarray]:
-        """All layer activations incl. input (reference feedForward())."""
+        """All layer activations incl. input (reference feedForward()).
+        bfloat16 activations come back as float32 (`_to_numpy`)."""
         self._check_init()
         with torch.inference_mode():
             xa = self._as_input(x)
             _, acts = self._forward(self.params_tree, xa)
-            return [a.cpu().numpy() for a in [xa] + acts]
+            return [_to_numpy(a) for a in [xa] + acts]
 
     def predict(self, x) -> np.ndarray:
         """Argmax class predictions (reference predict())."""

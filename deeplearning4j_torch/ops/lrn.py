@@ -13,10 +13,11 @@ with channels outside [0, C) counted as zero and N*(i) the transposed window
 the JAX package's backward kernel does.
 
 On a CUDA tensor the forward launches the hand-written kernel K1 and the
-backward K2, both in ``csrc/lrn.cu`` (float32, sm_90a; see the note there
-for what bounds them and how they are laid out). On a CPU tensor they compute
-`lrn_reference` and `lrn_bwd_reference`. There is no fallback from one to
-the other: a CUDA tensor the kernels do not take raises.
+backward K2, both in ``csrc/lrn.cu`` (float32 and bfloat16, sm_90a; see the
+note there for what bounds them and how they are laid out). On a CPU tensor
+they compute `lrn_reference` and `lrn_bwd_reference`, in the tensor's own
+type. There is no fallback from one to the other: a CUDA tensor the kernels
+do not take (float16, float64) raises.
 """
 from __future__ import annotations
 
@@ -31,10 +32,13 @@ from . import cuda_build
 
 Tensor = torch.Tensor
 
-#: Largest channel count the kernels stage in shared memory (8 rows of
-#: MAX_CHANNELS float32 per block = 64 KiB forward; the backward's tiles of
-#: x and g hold 2048 // C rows, at least one).
+#: Largest channel count the kernels take: K2 stages tiles of 8 KiB of x in
+#: shared memory, 2048 // C rows in float32 and 4096 // C in bfloat16.
 MAX_CHANNELS = 2048
+
+#: The element types the kernels take. Both compute in float32 registers; a
+#: bfloat16 result is rounded once, on its store.
+KERNEL_DTYPES = (torch.float32, torch.bfloat16)
 
 #: Kernel launches made in this process: `launches` counts the forward
 #: kernel (K1), `bwd_launches` the backward kernel (K2). Tests and the chip
@@ -49,14 +53,16 @@ _fns = {}
 
 def _kernel_fn(name: str):
     """A C entry point of ``csrc/lrn.cu`` (``dl4j_lrn_fwd`` or
-    ``dl4j_lrn_bwd``), built and typed at first use."""
+    ``dl4j_lrn_bwd``), built and typed at first use. Both take the element
+    type as their last argument before the stream: 1 for bfloat16, 0 for
+    float32."""
     fn = _fns.get(name)
     if fn is None:
         fn = getattr(cuda_build.load("lrn"), name)
         ptrs = 2 if name == "dl4j_lrn_fwd" else 3
         fn.argtypes = [ctypes.c_void_p] * ptrs + [
             ctypes.c_longlong, ctypes.c_int, ctypes.c_float, ctypes.c_float,
-            ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
+            ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
         fn.restype = ctypes.c_int
         _fns[name] = fn
     return fn
@@ -70,7 +76,10 @@ def window_sum(a: Tensor, left: int, right: int) -> Tensor:
 def lrn_reference(x: Tensor, k: float, alpha: float, beta: float,
                   n: int) -> Tensor:
     """Plain torch LRN over the last axis: squares, zero-padded window sum,
-    pow. The CPU path and the forward kernel's yardstick on the card."""
+    then x / d^beta, op by op in x's type, as the JAX package's
+    `lrn_reference` does. The CPU path and the forward kernel's yardstick on
+    the card, where a bfloat16 kernel is held to it in float32 on the upcast
+    input, rounded once."""
     up = n // 2
     return x / torch.pow(k + alpha * window_sum(x * x, up, n - 1 - up), beta)
 
@@ -78,8 +87,9 @@ def lrn_reference(x: Tensor, k: float, alpha: float, beta: float,
 def lrn_bwd_reference(x: Tensor, g: Tensor, k: float, alpha: float,
                       beta: float, n: int) -> Tensor:
     """Plain torch LRN backward, the formula of the JAX package's
-    `_lrn_bwd_kernel`. The CPU path and the backward kernel's yardstick on
-    the card."""
+    `_lrn_bwd_kernel`, op by op in x's type. The CPU path and the backward
+    kernel's yardstick on the card (in float32 for a bfloat16 kernel, as
+    for the forward)."""
     up = n // 2
     down = n - 1 - up
     d = k + alpha * window_sum(x * x, up, down)
@@ -89,8 +99,8 @@ def lrn_bwd_reference(x: Tensor, g: Tensor, k: float, alpha: float,
 
 
 def _check_kernel_input(name: str, t: Tensor) -> int:
-    if t.dtype != torch.float32:
-        raise TypeError(f"{name} kernel takes float32, got {t.dtype}")
+    if t.dtype not in KERNEL_DTYPES:
+        raise TypeError(f"{name} kernel takes float32 or bfloat16, got {t.dtype}")
     if not t.is_contiguous():
         raise ValueError(f"{name} kernel needs a contiguous NHWC tensor")
     c = t.shape[-1]
@@ -111,7 +121,7 @@ def _launch_kernel(x: Tensor, k: float, alpha: float, beta: float,
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         err = fn(x.data_ptr(), y.data_ptr(), rows, c, float(k), float(alpha),
-                 float(beta), int(n), stream)
+                 float(beta), int(n), int(x.dtype == torch.bfloat16), stream)
     if err != 0:
         raise RuntimeError(f"lrn kernel launch failed: CUDA error {err}")
     with _launches_lock:
@@ -124,10 +134,10 @@ def _launch_bwd_kernel(x: Tensor, g: Tensor, k: float, alpha: float,
     global bwd_launches
     c = _check_kernel_input("lrn backward", x)
     _check_kernel_input("lrn backward", g)
-    if g.shape != x.shape or g.device != x.device:
-        raise ValueError(f"lrn backward: cotangent {tuple(g.shape)} on "
-                         f"{g.device} does not match x {tuple(x.shape)} on "
-                         f"{x.device}")
+    if g.shape != x.shape or g.device != x.device or g.dtype != x.dtype:
+        raise ValueError(f"lrn backward: cotangent {tuple(g.shape)} {g.dtype} "
+                         f"on {g.device} does not match x {tuple(x.shape)} "
+                         f"{x.dtype} on {x.device}")
     dx = torch.empty_like(x)
     rows = x.numel() // c
     if rows == 0:
@@ -136,7 +146,8 @@ def _launch_bwd_kernel(x: Tensor, g: Tensor, k: float, alpha: float,
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         err = fn(x.data_ptr(), g.data_ptr(), dx.data_ptr(), rows, c, float(k),
-                 float(alpha), float(beta), int(n), stream)
+                 float(alpha), float(beta), int(n), int(x.dtype == torch.bfloat16),
+                 stream)
     if err != 0:
         raise RuntimeError(f"lrn backward kernel launch failed: CUDA error {err}")
     with _launches_lock:

@@ -5,7 +5,10 @@ rows where both decide every ReLU zero and max-pool choice alike
 (`recorded_kinks`). These cases hold it to what it must tell apart, on zoo
 AlexNet at 60x60x3 and batch 2: the same function passes on the first draw;
 parameters moved by 1e-3 flip kinks on every draw and fail; a backward off
-by 1e-3, which flips no kink, fails on the first draw.
+by 1e-3, which flips no kink, fails on the first draw. At batch 8, one
+example moved by 1e-3 in one run flips kinks in its row alone, which is set
+aside while the other seven are compared; moved parameters flip them in
+more rows than the eighth that may be set aside, and fail.
 
 For the char model, whose only kinks are its ReLUs, `compare_pinned_grads`
 pins the second run's ReLU decisions to the first's (`pinned_relus`); it is
@@ -26,7 +29,14 @@ batch's rows.
 For the LRN backward, `checked_lrn_bwd` (every K2 call of the training phase
 against the plain version) must fail a stand-in that drops the transposed
 window's edge channel, whose error is far above the share of the cross term
-that `phase_lrn_bwd` allows.
+that `phase_lrn_bwd` allows; in bfloat16 too, where the check is one
+bfloat16 ulp of the float32 plain version rounded once (`bf16_ulp_check`)
+and the stand-in runs at alpha 1e-2, the edge cases' alpha.
+
+The bfloat16 AlexNet phase (`phase_bf16_alexnet`) runs here end to end at
+60x60x3, batch 4 and 2 steps, with stand-ins for K1 and K2 that count a
+launch each as the kernels' wrappers do: it passes, and fails when one LRN
+forward or backward goes around the counted wrapper.
 """
 import copy
 
@@ -66,8 +76,21 @@ def _run(model, bwd_scale=1.0):
     return grads
 
 
-def _draws(x, y):
-    return ((s, DataSet(x[s:s + 2], y[s:s + 2])) for s in range(0, len(x), 2))
+def _draws(x, y, batch=2):
+    return ((s, DataSet(x[s:s + batch], y[s:s + batch]))
+            for s in range(0, len(x), batch))
+
+
+def _run_with_one_row_moved(model, row):
+    """`_run(model)` with the example `row` moved by 1e-3 wherever it is in
+    the batch: its kinks flip, and no other row's."""
+    noise = 1e-3 * np.random.default_rng(1).standard_normal(row.shape, dtype=np.float32)
+
+    def grads(ds, kinks):
+        f = ds.features.copy()
+        f[(f == row).all(axis=(1, 2, 3))] += noise * np.abs(row)
+        return _run(model)(DataSet(f, ds.labels), kinks)
+    return grads
 
 
 def _moved(net, scale):
@@ -79,13 +102,30 @@ def _moved(net, scale):
     return other
 
 
-@pytest.mark.parametrize("case", ["same", "moved_params", "backward_off"])
+@pytest.mark.parametrize("case", ["same", "moved_params", "backward_off",
+                                  "one_row_moved", "moved_params_batch_8"])
 def test_compare_grads_tells_kink_flips_from_faults(setup, monkeypatch, case):
     net, x, y = setup
     if case == "same":
         out = chip_smoke.compare_grads(case, port_params, _run(net), _run(net),
                                        _draws(x, y))
-        assert out == {"worst_rel": 0.0, "rows_from": 0, "skipped": []}
+        assert out == {"worst_rel": 0.0, "rows_from": 0, "rows_set_aside": [],
+                       "skipped": []}
+    elif case == "one_row_moved":
+        # one row of eight flips kinks: it is set aside, and the other seven
+        # are the same function
+        monkeypatch.setattr(chip_smoke, "SCORE_RTOL", 1.0)
+        out = chip_smoke.compare_grads(case, port_params, _run(net),
+                                       _run_with_one_row_moved(net, x[3]),
+                                       _draws(x, y, batch=8))
+        assert out == {"worst_rel": 0.0, "rows_from": 0, "rows_set_aside": [3],
+                       "skipped": []}
+    elif case == "moved_params_batch_8":
+        # moved parameters flip kinks in more than an eighth of the rows
+        monkeypatch.setattr(chip_smoke, "SCORE_RTOL", 1.0)
+        with pytest.raises(RuntimeError, match="no draw with every kink decided alike"):
+            chip_smoke.compare_grads(case, port_params, _run(net),
+                                     _run(_moved(net, 1e-3)), _draws(x, y, batch=8))
     elif case == "moved_params":
         # the moved parameters move the score too; only the kinks are under test
         monkeypatch.setattr(chip_smoke, "SCORE_RTOL", 1.0)
@@ -276,6 +316,144 @@ def test_checked_lrn_bwd_catches_a_dropped_edge_channel(monkeypatch, case):
         assert stats["calls"] == 1 and stats["max_abs_err"] == 0.0
         assert stats["cotangent_contiguous"] == [True]
         assert 0 < stats["max_cross_term"] < stats["max_abs_dx"]
+
+
+@pytest.mark.parametrize("case", ["plain", "edge_channel_dropped"])
+def test_checked_lrn_bwd_catches_a_dropped_edge_channel_in_bfloat16(monkeypatch, case):
+    """The same for a bfloat16 backward, held within one bfloat16 ulp of the
+    float32 plain version rounded once: at alpha 1e-2 (the edge cases of
+    phase_lrn_bwd) the dropped channel moves dx by many ulps."""
+    rng = np.random.default_rng(12)
+    x, g = (torch.from_numpy(rng.standard_normal((2, 5, 5, 64), dtype=np.float32)
+                             * s).to(torch.bfloat16) for s in (3.0, 1.0))
+    hyper = (chip_smoke.LRN_K, 1e-2, chip_smoke.LRN_BETA, chip_smoke.LRN_N)
+    plain = port_lrn.lrn_bwd_reference
+
+    def rounded_once(x, g, *h):  # what K2 computes: float32, rounded once
+        return plain(x.float(), g.float(), *h).to(torch.bfloat16)
+
+    def dropped(x, g, *h):
+        return _dropped_edge_lrn_bwd(x.float(), g.float(), *h).to(torch.bfloat16)
+
+    monkeypatch.setattr(port_lrn, "lrn_bwd", rounded_once if case == "plain" else dropped)
+    if case != "plain":
+        err = (dropped(x, g, *hyper).float() - rounded_once(x, g, *hyper).float()).abs()
+        assert err.max().item() > 8 * chip_smoke.BF16_ULP * rounded_once(
+            x, g, *hyper).float().abs().max().item()
+    stats = {"calls": 0, "max_abs_err": 0.0, "max_abs_dx": 0.0,
+             "max_cross_term": 0.0, "cotangent_contiguous": []}
+    xr = x.clone().requires_grad_()
+    with chip_smoke.checked_lrn_bwd(torch, stats):
+        y = port_lrn.lrn(xr, *hyper)
+        if case == "plain":
+            y.backward(g)
+        else:
+            with pytest.raises(RuntimeError, match="beyond one ulp"):
+                y.backward(g)
+    if case == "plain":
+        assert stats["calls"] == 1 and stats["max_abs_err"] == 0.0
+        assert stats["limit_share"] == 0.0 and stats["max_cross_term"] > 0
+
+
+@pytest.mark.parametrize("ulps,ok", [(0, True), (1, True), (2, False)])
+def test_bf16_ulp_check(ulps, ok):
+    """One bfloat16 ulp from the rounded yardstick passes, two fail: the
+    values are moved by whole steps of their bfloat16 bits."""
+    want32 = torch.tensor([0.3, -1.7, 2.0, 1000.0, 3e-3])
+    want = want32.to(torch.bfloat16)
+    got = (want.view(torch.int16) + ulps).view(torch.bfloat16)
+    if ok:
+        err, share = chip_smoke.bf16_ulp_check(torch, "t", got, want32, 0.0)
+        # one ulp is just under its limit (ulp + LRN_RTOL |want|)
+        assert (share == 0.0) if ulps == 0 else (0.99 < share <= 1.0)
+    else:
+        with pytest.raises(RuntimeError, match="beyond one ulp"):
+            chip_smoke.bf16_ulp_check(torch, "t", got, want32, 0.0)
+
+
+def test_lrn_bounds_take_the_element_size():
+    """AlexNet's two LRN calls at batch 128: 4 bytes an element forward and
+    6 backward in bfloat16, 8 and 12 in float32."""
+    numel = [128 * 55 * 55 * 64, 128 * 14 * 14 * 192]
+    fwd16 = sum(chip_smoke.lrn_bound_ms(m, 5, elem=2)[0] for m in numel)
+    bwd16 = sum(chip_smoke.lrn_bwd_bound_ms(m, 5, elem=2)[0] for m in numel)
+    assert fwd16 == pytest.approx(0.0353, abs=1e-4)
+    assert bwd16 == pytest.approx(0.0530, abs=1e-4)
+    assert sum(chip_smoke.lrn_bound_ms(m, 5)[0] for m in numel) == pytest.approx(2 * fwd16)
+    assert chip_smoke.lrn_bwd_bound_ms(numel[0], 5, elem=2)[1] == "bytes"
+
+
+class _SmallAlexNet(port_zoo.AlexNet):
+    """Zoo AlexNet at 60x60x3 that initializes on the CPU when no device is
+    named (the real one goes to CUDA)."""
+
+    def __init__(self):
+        super().__init__(input_shape=(60, 60, 3))
+
+    def init(self, seed=None, dtype=torch.float32, device="cpu"):
+        return super().init(seed=seed, dtype=dtype, device=device)
+
+
+@pytest.fixture
+def small_bf16_phase(monkeypatch):
+    """phase_bf16_alexnet cut to run here: 60x60x3, 2 clients x 2 requests,
+    2 steps at batch 4, no profiler, no CUDA sync. K1 and K2 are stand-ins
+    that count a launch per call, as the kernels' wrappers do, and compute
+    what the kernels compute (float32, rounded once)."""
+    monkeypatch.setattr(port_zoo, "AlexNet", _SmallAlexNet)
+    monkeypatch.setattr(chip_smoke, "TRAIN_BATCH", 4)
+    monkeypatch.setattr(chip_smoke, "TRAIN_STEPS", 2)
+    monkeypatch.setattr(chip_smoke, "serving_requests", lambda rng: [
+        [rng.standard_normal((int(rng.integers(1, 3)), 60, 60, 3)).astype(np.float32)
+         for _ in range(2)] for _ in range(2)])
+    monkeypatch.setattr(chip_smoke, "profile_call", lambda torch, label, fn, info: {})
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda *a: None)
+    fwd, bwd = port_lrn.lrn_reference, port_lrn.lrn_bwd_reference
+
+    def k1(x, *h):
+        port_lrn.launches += 1
+        return fwd(x.float(), *h).to(x.dtype)
+
+    def k2(x, g, *h):
+        port_lrn.bwd_launches += 1
+        return bwd(x.float(), g.float(), *h).to(x.dtype)
+
+    monkeypatch.setattr(port_lrn, "lrn_fwd", k1)
+    monkeypatch.setattr(port_lrn, "lrn_bwd", k2)
+    return fwd, bwd
+
+
+@pytest.mark.parametrize("case", ["counted", "forward_uncounted", "backward_uncounted"])
+def test_bf16_alexnet_phase_counts_its_launches(small_bf16_phase, monkeypatch, case):
+    from deeplearning4j_torch.nn.layers.convolution import LocalResponseNormalization
+    fwd, bwd = small_bf16_phase
+    if case == "forward_uncounted":   # the second LRN layer goes around K1
+        layer_fwd = LocalResponseNormalization.forward
+
+        def forward(self, params, x, **kw):
+            if x.shape[-1] == 192:
+                return fwd(x.contiguous(), self.k, self.alpha, self.beta, self.n)
+            return layer_fwd(self, params, x, **kw)
+
+        monkeypatch.setattr(LocalResponseNormalization, "forward", forward)
+    elif case == "backward_uncounted":   # a backward that skips the count
+        k2 = port_lrn.lrn_bwd
+        monkeypatch.setattr(port_lrn, "lrn_bwd", lambda x, g, *h: (
+            bwd(x.float(), g.float(), *h).to(x.dtype) if x.shape[-1] == 64
+            else k2(x, g, *h)))
+    if case == "counted":
+        out = chip_smoke.phase_bf16_alexnet(torch, "cpu")
+        s, t = out["serving"], out["training"]
+        assert s["launches"] == {"lrn_fwd": 2 * s["forwards"], "lrn_bwd": 0}
+        assert t["launches"] == {"lrn_fwd": 4, "lrn_bwd": 4}
+        assert s["lrn_in_forward"]["calls"] == 2 * out["batches_rechecked"]
+        assert t["lrn_bwd_in_step"]["calls"] == 4
+        assert len(out["layers_vs_cpu"]) == 13   # every layer of AlexNet
+        assert all(r["max_abs_card_vs_cpu"] == 0.0 for r in out["layers_vs_cpu"])
+        assert t["score_card"] == t["score_cpu"]
+    else:
+        with pytest.raises(RuntimeError, match="launches"):
+            chip_smoke.phase_bf16_alexnet(torch, "cpu")
 
 
 # ------------------------------------------------------------ quantized serving
