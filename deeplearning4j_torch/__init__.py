@@ -10,20 +10,30 @@ passes ``device="cpu"``. This package imports neither JAX nor
 from .nn.conf.builders import (BackpropType, MultiLayerConfiguration,
                                NeuralNetConfiguration, OptimizationAlgorithm)
 from .nn.conf.inputs import InputType
-from .data.dataset import DataSet
+from .data.dataset import DataSet, MultiDataSet
 from .data.iterators import (DataSetIterator, ExistingDataSetIterator,
                              ListDataSetIterator)
 from .nn.layers.core import (ActivationLayer, DenseLayer, DropoutLayer,
                              EmbeddingLayer, LossLayer, OutputLayer)
 from .nn.layers.convolution import (ConvolutionLayer, ConvolutionMode,
+                                    GlobalPoolingLayer,
                                     LocalResponseNormalization, PoolingType,
                                     SubsamplingLayer)
 from .nn.layers.attention import SelfAttentionLayer
 from .nn.layers.recurrent import RnnOutputLayer
 from .nn.multilayer import MultiLayerNetwork
+from .nn.graph import (ComputationGraph, DuplicateToTimeSeriesVertex,
+                       ElementWiseVertex, GraphVertex, L2NormalizeVertex,
+                       L2Vertex, LastTimeStepVertex, MergeVertex,
+                       PoolHelperVertex, PreprocessorVertex, ReshapeVertex,
+                       ScaleVertex, ShiftVertex, StackVertex, SubsetVertex,
+                       UnstackVertex)
+from .nn.conf.graph_conf import ComputationGraphConfiguration, GraphBuilder
 from .nn.updaters import (Adam, AdaDelta, AdaGrad, AdaMax, ExponentialSchedule,
                           GradientNormalization, InverseSchedule, MapSchedule,
                           Nesterovs, NoOp, PolySchedule, RmsProp, Schedule, Sgd,
                           SigmoidSchedule, StepSchedule)
 from .nn.weights import Distribution, WeightInit
 from .parallel.inference import InferenceMode, ParallelInference
+from .utils.model_serializer import (CheckpointCorruptError, ModelSerializer,
+                                     restore_model, save_model)

@@ -1,2 +1,2 @@
-"""Model zoo (reference deeplearning4j-zoo): the models this slice serves."""
-from .zoo import AlexNet, LeNet, ZooModel
+"""Model zoo (reference deeplearning4j-zoo): the models the port runs."""
+from .zoo import AlexNet, GoogLeNet, LeNet, ZooModel

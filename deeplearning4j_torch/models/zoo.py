@@ -1,25 +1,43 @@
 """Model zoo: standard architectures as config builders.
 
-Port of the MultiLayerNetwork models of `deeplearning4j_tpu/models/zoo.py`
-that this slice serves: LeNet and AlexNet, with the same layer lists and
-hyperparameters (so their configurations serialize to the same JSON), input
-shape NHWC [height, width, channels]. The ComputationGraph models and the
-pretrained-artifact loader come with later slices.
+Port of `deeplearning4j_tpu/models/zoo.py` for the models the port runs:
+LeNet and AlexNet (MultiLayerNetwork) and GoogLeNet (ComputationGraph),
+with the same layer lists, node names and hyperparameters, so their
+configurations serialize to the same JSON; input shape NHWC [height, width,
+channels]. `ZooModel.init` builds the network its configuration describes,
+and `init_pretrained` restores a local checkpoint after checking its
+checksum and architecture. ResNet50 waits for BatchNormalization, the
+recurrent and remaining models for their slices.
 """
 from __future__ import annotations
 
+import hashlib
+import os
 from dataclasses import dataclass
-from typing import Sequence
+from typing import Optional, Sequence
 
 from ..nn.conf.builders import MultiLayerConfiguration, NeuralNetConfiguration
+from ..nn.conf.graph_conf import ComputationGraphConfiguration
 from ..nn.conf.inputs import InputType
+from ..nn.graph.graph import ComputationGraph
+from ..nn.graph.vertices import MergeVertex
 from ..nn.layers.convolution import (ConvolutionLayer, ConvolutionMode,
+                                     GlobalPoolingLayer,
                                      LocalResponseNormalization, PoolingType,
                                      SubsamplingLayer)
 from ..nn.layers.core import DenseLayer, OutputLayer
 from ..nn.multilayer import MultiLayerNetwork
 from ..nn.updaters import AdaDelta, GradientNormalization, Nesterovs
 from ..nn.weights import Distribution, WeightInit
+
+
+def _architecture(conf):
+    """Layer and vertex class names, in order: what makes two
+    configurations the same architecture."""
+    if hasattr(conf, "layers"):
+        return [type(layer).__name__ for layer in conf.layers]
+    return [type(n.layer if n.is_layer() else n.vertex).__name__
+            for n in conf.nodes.values()]
 
 
 @dataclass
@@ -30,14 +48,60 @@ class ZooModel:
     seed: int = 123
     input_shape: Sequence[int] = (224, 224, 3)  # NHWC
 
-    def conf(self) -> MultiLayerConfiguration:
+    def conf(self):
         raise NotImplementedError
 
-    def init(self, **init_kwargs) -> MultiLayerNetwork:
-        """Build + initialize the network. Keyword arguments (``device=``,
-        ``dtype=``, ``seed=``) pass through to MultiLayerNetwork.init; with
+    def init(self, **init_kwargs):
+        """Build and initialize the network: a ComputationGraph for a graph
+        configuration, else a MultiLayerNetwork. Keyword arguments
+        (``device=``, ``dtype=``, ``seed=``) pass through to its init; with
         no ``device`` it runs on CUDA or raises."""
-        return MultiLayerNetwork(self.conf()).init(**init_kwargs)
+        c = self.conf()
+        if isinstance(c, ComputationGraphConfiguration):
+            return ComputationGraph(c).init(**init_kwargs)
+        return MultiLayerNetwork(c).init(**init_kwargs)
+
+    def pretrained_checksum(self) -> Optional[str]:
+        """Expected sha256 of the pretrained artifact, where the model
+        publishes one (reference ZooModel.pretrainedChecksum)."""
+        return None
+
+    def init_pretrained(self, path, verify_checksum: bool = True,
+                        expected_sha256: Optional[str] = None, device=None):
+        """Restore pretrained weights from a local checkpoint on `device`
+        (CUDA unless the caller asks for the CPU), after checking its sha256
+        (the reference downloads by URL and checks a checksum,
+        ZooModel.java:40-81; here the artifact is a file) and that it holds
+        this model's architecture, not merely the same container class."""
+        from ..utils.model_serializer import restore_model
+        if not os.path.exists(path):
+            raise FileNotFoundError(
+                f"No pretrained artifact at {path!r} (place the checkpoint "
+                "there; nothing is downloaded)")
+        expected = expected_sha256 or self.pretrained_checksum()
+        if verify_checksum and expected:
+            h = hashlib.sha256()
+            with open(path, "rb") as f:
+                for chunk in iter(lambda: f.read(1 << 20), b""):
+                    h.update(chunk)
+            if h.hexdigest() != expected:
+                raise ValueError(
+                    f"Pretrained artifact checksum mismatch for "
+                    f"{type(self).__name__}: got {h.hexdigest()}, expected "
+                    f"{expected}: corrupt or wrong file")
+        net = restore_model(path, device=device)
+        mine = self.conf()
+        if type(net.conf) is not type(mine):
+            raise ValueError(
+                f"Artifact at {path!r} holds a {type(net.conf).__name__}, not "
+                f"this zoo model's {type(mine).__name__}")
+        got, want = _architecture(net.conf), _architecture(mine)
+        if got != want:
+            raise ValueError(
+                f"Artifact at {path!r} is a different architecture "
+                f"({len(got)} layers) than {type(self).__name__} "
+                f"({len(want)} layers)")
+        return net
 
 
 @dataclass
@@ -141,3 +205,106 @@ class AlexNet(ZooModel):
                                    loss="negativeloglikelihood"))
                 .set_input_type(InputType.convolutional(h, w, c))
                 .build())
+
+
+@dataclass
+class GoogLeNet(ZooModel):
+    """Inception v1 (reference zoo/model/GoogLeNet.java:83-180, Szegedy et
+    al.; Nesterovs(1e-2, 0.9), l2 2e-4, relu), with the JAX package's SAME
+    3x3/1 max pool in each inception block. `fuse_siblings=True` runs the
+    sibling-conv fusion pass (nn/graph/fusion.py) over the built
+    configuration: each block's 1x1 cnn1/cnn2/cnn3 become one conv and
+    three SubsetVertex slices. `pooling_impl` goes to every
+    SubsamplingLayer (ops/pooling.py)."""
+
+    fuse_siblings: bool = False
+    pooling_impl: str = "auto"
+
+    def _inception(self, g, name, cfg, inp):
+        # cfg = [[c1x1], [c3r, c3], [c5r, c5], [pool_proj]]
+        g.add_layer(f"{name}-cnn1", ConvolutionLayer(
+            kernel_size=(1, 1), n_out=cfg[0][0], bias_init=0.2), inp)
+        g.add_layer(f"{name}-cnn2", ConvolutionLayer(
+            kernel_size=(1, 1), n_out=cfg[1][0], bias_init=0.2), inp)
+        g.add_layer(f"{name}-cnn3", ConvolutionLayer(
+            kernel_size=(1, 1), n_out=cfg[2][0], bias_init=0.2), inp)
+        g.add_layer(f"{name}-max1", SubsamplingLayer(
+            kernel_size=(3, 3), stride=(1, 1), pooling_type=PoolingType.MAX,
+            convolution_mode=ConvolutionMode.SAME,
+            pooling_impl=self.pooling_impl), inp)
+        g.add_layer(f"{name}-cnn4", ConvolutionLayer(
+            kernel_size=(3, 3), padding=(1, 1), n_out=cfg[1][1],
+            bias_init=0.2), f"{name}-cnn2")
+        g.add_layer(f"{name}-cnn5", ConvolutionLayer(
+            kernel_size=(5, 5), padding=(2, 2), n_out=cfg[2][1],
+            bias_init=0.2), f"{name}-cnn3")
+        g.add_layer(f"{name}-cnn6", ConvolutionLayer(
+            kernel_size=(1, 1), n_out=cfg[3][0], bias_init=0.2),
+            f"{name}-max1")
+        g.add_vertex(f"{name}-depthconcat1", MergeVertex(),
+                     f"{name}-cnn1", f"{name}-cnn4", f"{name}-cnn5",
+                     f"{name}-cnn6")
+        return f"{name}-depthconcat1"
+
+    def conf(self) -> ComputationGraphConfiguration:
+        h, w, c = self.input_shape
+        g = (NeuralNetConfiguration.builder()
+             .seed(self.seed)
+             .activation("relu")
+             .updater(Nesterovs(learning_rate=1e-2, momentum=0.9))
+             .weight_init(WeightInit.XAVIER)
+             .l2(2e-4)
+             .graph_builder())
+        g.add_inputs("input")
+        g.set_input_types(InputType.convolutional(h, w, c))
+        g.add_layer("cnn1", ConvolutionLayer(
+            kernel_size=(7, 7), stride=(2, 2), padding=(3, 3), n_out=64,
+            bias_init=0.2), "input")
+        g.add_layer("max1", SubsamplingLayer(
+            kernel_size=(3, 3), stride=(2, 2), padding=(1, 1),
+            pooling_type=PoolingType.MAX,
+            pooling_impl=self.pooling_impl), "cnn1")
+        g.add_layer("lrn1", LocalResponseNormalization(), "max1")
+        g.add_layer("cnn2", ConvolutionLayer(
+            kernel_size=(1, 1), n_out=64, bias_init=0.2), "lrn1")
+        g.add_layer("cnn3", ConvolutionLayer(
+            kernel_size=(3, 3), padding=(1, 1), n_out=192, bias_init=0.2),
+            "cnn2")
+        g.add_layer("lrn2", LocalResponseNormalization(), "cnn3")
+        g.add_layer("max2", SubsamplingLayer(
+            kernel_size=(3, 3), stride=(2, 2), padding=(1, 1),
+            pooling_type=PoolingType.MAX,
+            pooling_impl=self.pooling_impl), "lrn2")
+
+        x = self._inception(g, "3a", [[64], [96, 128], [16, 32], [32]],
+                            "max2")
+        x = self._inception(g, "3b", [[128], [128, 192], [32, 96], [64]], x)
+        g.add_layer("max3", SubsamplingLayer(
+            kernel_size=(3, 3), stride=(2, 2), padding=(1, 1),
+            pooling_type=PoolingType.MAX,
+            pooling_impl=self.pooling_impl), x)
+        x = self._inception(g, "4a", [[192], [96, 208], [16, 48], [64]],
+                            "max3")
+        x = self._inception(g, "4b", [[160], [112, 224], [24, 64], [64]], x)
+        x = self._inception(g, "4c", [[128], [128, 256], [24, 64], [64]], x)
+        x = self._inception(g, "4d", [[112], [144, 288], [32, 64], [64]], x)
+        x = self._inception(g, "4e", [[256], [160, 320], [32, 128], [128]], x)
+        g.add_layer("max4", SubsamplingLayer(
+            kernel_size=(3, 3), stride=(2, 2), padding=(1, 1),
+            pooling_type=PoolingType.MAX,
+            pooling_impl=self.pooling_impl), x)
+        x = self._inception(g, "5a", [[256], [160, 320], [32, 128], [128]],
+                            "max4")
+        x = self._inception(g, "5b", [[384], [192, 384], [48, 128], [128]], x)
+        g.add_layer("avgpool", GlobalPoolingLayer(
+            pooling_type=PoolingType.AVG), x)
+        g.add_layer("fc1", DenseLayer(n_out=1024, dropout_rate=0.4), "avgpool")
+        g.add_layer("output", OutputLayer(
+            n_out=self.num_labels, activation="softmax", loss="mcxent"),
+            "fc1")
+        g.set_outputs("output")
+        conf = g.build()
+        if self.fuse_siblings:
+            from ..nn.graph.fusion import fuse_sibling_convs
+            conf, _ = fuse_sibling_convs(conf)
+        return conf

@@ -349,5 +349,11 @@ class NeuralNetConfigurationBuilder:
     def list(self) -> ListBuilder:
         return ListBuilder(self._conf)
 
+    def graph_builder(self):
+        """A GraphBuilder for a ComputationGraphConfiguration (reference
+        Builder.graphBuilder)."""
+        from .graph_conf import GraphBuilder
+        return GraphBuilder(self._conf)
+
     def build(self) -> NeuralNetConfiguration:
         return self._conf

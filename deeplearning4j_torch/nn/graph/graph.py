@@ -1,0 +1,371 @@
+"""ComputationGraph: DAG networks with fit/output/score.
+
+Port of `deeplearning4j_tpu/nn/graph/graph.py` (reference
+nn/graph/ComputationGraph.java): `init`, the topological walk, the loss
+(every output head plus regularization), `output`, `outputs`,
+`feed_forward_named`, `predict`, `fit` (arrays, DataSet, MultiDataSet or an
+iterator of them), `fit_batch`, `score`, `compute_gradient_and_score`,
+`params`, `set_params`, `num_params`, `summary`, and the `warmup` and
+`_feature_struct` that ParallelInference calls.
+
+As in the port's MultiLayerNetwork, the walk runs eagerly, the step takes
+one autograd backward and then, per layer node in topological order and
+under ``torch.no_grad``, normalizes the gradients, runs the updater and sets
+``p - u``. Parameters and optimizer state are dicts keyed by layer-node
+name, in topological order, holding the port's layout (utils/params.py
+carries them to and from the JAX package's). An output layer's head takes
+its input (after its dropout) to `compute_score` and does not run its
+forward (graph.py:160-168 of the JAX package); output layers are sinks.
+Dropout draws from the network's own ``torch.Generator``.
+
+Not ported yet, each raising ``NotImplementedError``: truncated BPTT and
+``rnn_time_step`` (Queue A item 5, the recurrent slice), the fused
+multi-step loops ``fit_batches``/``fit_batch_repeated`` and ``evaluate``
+(Queue A item 7).
+"""
+from __future__ import annotations
+
+from typing import Any, Dict, List, Optional
+
+import numpy as np
+import torch
+
+from ...data.dataset import DataSet, MultiDataSet, SlicingMultiIterator
+from ...utils import params as param_utils
+from ..conf.builders import BackpropType
+from ..conf.graph_conf import ComputationGraphConfiguration
+from ..layers.core import dropout
+from ..multilayer import (_DeviceNetwork, _input_shape, _layer_step,
+                          _regularization_score, _to_numpy)
+from .vertices import LastTimeStepVertex
+
+Tensor = torch.Tensor
+
+
+def _later(what: str, item: str) -> NotImplementedError:
+    return NotImplementedError(
+        f"ComputationGraph {what} is not ported yet (ROADMAP Queue A {item})")
+
+
+class ComputationGraph(_DeviceNetwork):
+    def __init__(self, conf: ComputationGraphConfiguration):
+        self.conf = conf
+        self.params_tree: Optional[Dict[str, dict]] = None
+        self.opt_state: Optional[Dict[str, Any]] = None
+        self.device: Optional[torch.device] = None
+        self.iteration = 0
+        self.epoch = 0
+        self.listeners: List[Any] = []
+        #: loss + regularization of the last training step, a 0-d tensor on
+        #: the network's device
+        self.score_value: Optional[Tensor] = None
+        self._dtype = torch.float32
+        self._dropout_gen: Optional[torch.Generator] = None
+        self._initialized = False
+        self._layer_nodes = [n for n in conf.topo_order
+                             if conf.nodes[n].is_layer()]
+
+    # ------------------------------------------------------------------ init
+    def _draw_params(self, gen: torch.Generator, dtype) -> Dict[str, dict]:
+        return {name: self.conf.nodes[name].layer.init_params(gen, dtype)
+                for name in self._layer_nodes}
+
+    def _opt_init(self, params_tree) -> Dict[str, Any]:
+        return {name: self.conf.nodes[name].layer.updater.init(params_tree[name])
+                for name in self._layer_nodes}
+
+    # --------------------------------------------------------------- forward
+    def _walk(self, params, inputs: Dict[str, Tensor], *, train: bool = False,
+              generator: Optional[torch.Generator] = None,
+              fmasks: Optional[Dict[str, Tensor]] = None,
+              for_score: bool = False):
+        """The topological forward. Returns (activations by name, inputs
+        included; the output heads' inputs when `for_score`)."""
+        conf = self.conf
+        fmasks = fmasks or {}
+        acts: Dict[str, Tensor] = dict(inputs)
+        masks: Dict[str, Optional[Tensor]] = {
+            name: fmasks.get(name) for name in conf.network_inputs}
+        heads: Dict[str, Tensor] = {}
+        for name in conf.topo_order:
+            node = conf.nodes[name]
+            in_acts = [acts[n] for n in node.inputs]
+            in_masks = [masks.get(n) for n in node.inputs]
+            if node.is_layer():
+                a = in_acts[0]
+                if node.preprocessor is not None:
+                    a = node.preprocessor(a)
+                layer = node.layer
+                if for_score and layer.is_output_layer():
+                    if train and layer.dropout_rate and generator is not None:
+                        a = dropout(a, layer.dropout_rate, train, generator)
+                    heads[name] = a
+                    acts[name] = a  # outputs are sinks: nothing reads it
+                else:
+                    acts[name] = layer.forward(params[name], a, train=train,
+                                               generator=generator,
+                                               mask=in_masks[0])
+                masks[name] = in_masks[0]
+            else:
+                vertex = node.vertex
+                if isinstance(vertex, LastTimeStepVertex) and \
+                        vertex.mask_input is not None:
+                    in_masks = [masks.get(vertex.mask_input)]
+                acts[name] = vertex.forward(in_acts, train=train,
+                                            generator=generator, masks=in_masks)
+                masks[name] = vertex.output_mask(in_masks)
+        return acts, heads
+
+    def _loss(self, params, inputs, labels: Dict[str, Tensor], fmasks,
+              lmasks, train: bool, generator) -> Tensor:
+        """The sum of the output heads' losses plus regularization over the
+        layer nodes in topological order (reference
+        computeGradientAndScore sums the IOutputLayer scores)."""
+        _, heads = self._walk(params, inputs, train=train, generator=generator,
+                              fmasks=fmasks, for_score=True)
+        total = None
+        for out_name, y in labels.items():
+            layer = self.conf.nodes[out_name].layer
+            if layer is None or not layer.is_output_layer():
+                raise ValueError(f"Output node {out_name!r} is not an output "
+                                 "layer")
+            s = layer.compute_score(params[out_name], heads[out_name], y,
+                                    lmasks.get(out_name))
+            total = s if total is None else total + s
+        return total + _regularization_score(
+            [self.conf.nodes[n].layer for n in self._layer_nodes],
+            [params[n] for n in self._layer_nodes])
+
+    def _value_and_grad(self, inputs, labels, fmasks, lmasks, train, generator):
+        """(score, gradients by node) at the current parameters: one autograd
+        backward; a parameter the score does not reach gets zeros."""
+        tree = {n: {k: t.detach().requires_grad_() for k, t in lp.items()}
+                for n, lp in self.params_tree.items()}
+        flat = [t for lp in tree.values() for t in lp.values()]
+        with torch.enable_grad():
+            loss = self._loss(tree, inputs, labels, fmasks, lmasks, train,
+                              generator)
+        grads = torch.autograd.grad(loss, flat, allow_unused=True) if flat else ()
+        flat_g = iter([torch.zeros_like(t) if g is None else g
+                       for g, t in zip(grads, flat)])
+        return loss.detach(), {n: {k: next(flat_g) for k in lp}
+                               for n, lp in tree.items()}
+
+    # ------------------------------------------------------------------ data
+    @staticmethod
+    def _coerce(data, labels=None) -> MultiDataSet:
+        if isinstance(data, MultiDataSet):
+            return data
+        if isinstance(data, DataSet):
+            return MultiDataSet.from_dataset(data)
+        if labels is not None:
+            as_list = lambda v: [np.asarray(a) for a in
+                                 (v if isinstance(v, (list, tuple)) else [v])]
+            return MultiDataSet(as_list(data), as_list(labels))
+        raise ValueError("Expected MultiDataSet / DataSet / (features, labels)")
+
+    def _pack_inputs(self, features, features_masks=None):
+        conf = self.conf
+        if len(features) != len(conf.network_inputs):
+            raise ValueError(f"Graph has {len(conf.network_inputs)} inputs, "
+                             f"got {len(features)}")
+        inputs = {name: self._as_input(a)
+                  for name, a in zip(conf.network_inputs, features)}
+        fmasks = {}
+        if features_masks is not None:
+            fmasks = {name: self._as_mask(m) for name, m in
+                      zip(conf.network_inputs, features_masks) if m is not None}
+        return inputs, fmasks
+
+    def _pack(self, mds: MultiDataSet):
+        conf = self.conf
+        if len(mds.labels) != len(conf.network_outputs):
+            raise ValueError(f"Graph has {len(conf.network_outputs)} outputs, "
+                             f"got {len(mds.labels)} label arrays")
+        inputs, fmasks = self._pack_inputs(mds.features, mds.features_masks)
+        labels = {name: self._as_labels(y)
+                  for name, y in zip(conf.network_outputs, mds.labels)}
+        lmasks = {}
+        if mds.labels_masks is not None:
+            lmasks = {name: self._as_mask(m) for name, m in
+                      zip(conf.network_outputs, mds.labels_masks) if m is not None}
+        return inputs, labels, fmasks, lmasks
+
+    def _input_structs(self, batch_size: int,
+                       time_steps: Optional[int] = None) -> Dict[str, Tensor]:
+        """Meta tensors with the shape and type of each network input's
+        batch, from conf.input_types."""
+        conf = self.conf
+        if not conf.input_types or \
+                len(conf.input_types) != len(conf.network_inputs):
+            raise ValueError("sizing an input batch needs set_input_types(...) "
+                             "on the graph builder (one InputType per input)")
+        structs = {}
+        for name, it in zip(conf.network_inputs, conf.input_types):
+            shape = _input_shape(it, batch_size, time_steps)
+            if shape is None:
+                raise ValueError(f"cannot size input {name!r} from "
+                                 f"{type(it).__name__}")
+            structs[name] = torch.empty(shape, dtype=self._dtype, device="meta")
+        return structs
+
+    def _feature_struct(self, batch_size: int,
+                        time_steps: Optional[int] = None) -> Tensor:
+        """The meta feature batch of a single-input graph (ParallelInference's
+        call; MultiLayerNetwork has the same)."""
+        if len(self.conf.network_inputs) != 1:
+            raise ValueError("a feature batch is one array only for a "
+                             "single-input graph")
+        return next(iter(self._input_structs(batch_size, time_steps).values()))
+
+    def warmup(self, batch_size: int = 1, *,
+               time_steps: Optional[int] = None) -> "ComputationGraph":
+        """Push one zero batch of `batch_size` through `outputs()` so the
+        first real request at that size finds cuDNN's algorithms chosen and
+        the kernels built."""
+        self._check_init()
+        self.outputs(*[torch.zeros(s.shape, dtype=s.dtype, device=self.device)
+                       for s in self._input_structs(batch_size, time_steps).values()])
+        return self
+
+    # ------------------------------------------------------------- inference
+    @staticmethod
+    def _features(features):
+        if len(features) == 1 and isinstance(features[0], (list, tuple)):
+            return tuple(features[0])
+        return features
+
+    def outputs(self, *features, features_masks=None) -> List[np.ndarray]:
+        """Every network output, in conf.network_outputs order (reference
+        ComputationGraph.output(...))."""
+        self._check_init()
+        with torch.inference_mode():
+            inputs, fmasks = self._pack_inputs(self._features(features),
+                                               features_masks)
+            acts, _ = self._walk(self.params_tree, inputs, fmasks=fmasks)
+            return [_to_numpy(acts[n]) for n in self.conf.network_outputs]
+
+    def output(self, *features, features_masks=None) -> np.ndarray:
+        return self.outputs(*features, features_masks=features_masks)[0]
+
+    def feed_forward_named(self, *features) -> Dict[str, np.ndarray]:
+        """{node name: activation} of one inference forward over every
+        node, the inputs included (reference feedForward())."""
+        self._check_init()
+        with torch.inference_mode():
+            inputs, _ = self._pack_inputs(self._features(features))
+            acts, _ = self._walk(self.params_tree, inputs)
+            return {n: _to_numpy(a) for n, a in acts.items()}
+
+    def predict(self, *features) -> np.ndarray:
+        return np.argmax(self.output(*features), axis=-1)
+
+    # ------------------------------------------------------------------- fit
+    def fit(self, data, labels=None, *, epochs: int = 1,
+            batch_size: int = 32) -> "ComputationGraph":
+        """Train (reference fit(MultiDataSetIterator)) on a MultiDataSet, a
+        DataSet, (features, labels) arrays (lists of them for several inputs
+        or outputs, cut into `batch_size` rows, the last batch ragged), or
+        an iterable of DataSets or MultiDataSets."""
+        self._check_init()
+        if hasattr(data, "__iter__") and not isinstance(
+                data, (DataSet, MultiDataSet, list, tuple, np.ndarray)):
+            iterator = data
+            if int(epochs) > 1 and not hasattr(iterator, "reset"):
+                iterator = list(iterator)  # a generator: keep later epochs
+        else:
+            iterator = SlicingMultiIterator(self._coerce(data, labels), batch_size)
+        for _ in range(int(epochs)):
+            for ds in iterator:
+                self.fit_batch(ds)
+            self.epoch += 1
+            for lst in self.listeners:
+                if hasattr(lst, "on_epoch_end"):
+                    lst.on_epoch_end(self, self.epoch)
+        return self
+
+    def fit_batch(self, mds) -> None:
+        """One optimizer step on one batch: forward, loss, one backward,
+        then per layer node normalize -> update -> p - u."""
+        mds = self._coerce(mds)
+        if self.conf.backprop_type == BackpropType.TRUNCATED_BPTT and \
+                any(np.ndim(f) == 3 for f in mds.features) and \
+                all(np.ndim(y) == 3 for y in mds.labels):
+            raise _later("truncated BPTT", "item 5, the recurrent slice")
+        inputs, labels, fmasks, lmasks = self._pack(mds)
+        loss, grads = self._value_and_grad(inputs, labels, fmasks, lmasks,
+                                           True, self._dropout_gen)
+        with torch.no_grad():
+            stepped = {n: _layer_step(self.conf.nodes[n].layer,
+                                      self.params_tree[n], grads[n],
+                                      self.opt_state[n], self.iteration)
+                       for n in self._layer_nodes}
+        self.params_tree = {n: p for n, (p, _) in stepped.items()}
+        self.opt_state = {n: o for n, (_, o) in stepped.items()}
+        self.iteration += 1
+        self.score_value = loss
+        for lst in self.listeners:
+            lst.iteration_done(self, self.iteration)
+
+    def fit_batches(self, batches):
+        raise _later("fit_batches (fused multi-step loop)", "item 7")
+
+    def fit_batch_repeated(self, mds, steps: int):
+        raise _later("fit_batch_repeated (fused multi-step loop)", "item 7")
+
+    def rnn_time_step(self, *features):
+        raise _later("rnn_time_step", "item 5, the recurrent slice")
+
+    def evaluate(self, data, labels=None, batch_size: int = 128,
+                 output_index: int = 0):
+        raise _later("evaluate", "item 7 (eval/)")
+
+    # ----------------------------------------------------------------- score
+    def score(self, data=None) -> float:
+        """Loss summed over the output heads + regularization on `data`, no
+        dropout; with no data, the score of the last training step."""
+        self._check_init()
+        if data is None:
+            if self.score_value is None:
+                raise ValueError("No data given and no cached score")
+            return float(self.score_value)
+        with torch.inference_mode():
+            inputs, labels, fmasks, lmasks = self._pack(self._coerce(data))
+            return float(self._loss(self.params_tree, inputs, labels, fmasks,
+                                    lmasks, False, None))
+
+    def compute_gradient_and_score(self, data):
+        """(gradients by node in the port's layout, score) without updating
+        the parameters, with train=False: no dropout."""
+        self._check_init()
+        inputs, labels, fmasks, lmasks = self._pack(self._coerce(data))
+        loss, grads = self._value_and_grad(inputs, labels, fmasks, lmasks,
+                                           False, None)
+        return grads, float(loss)
+
+    # ------------------------------------------------------------ param view
+    def params(self) -> np.ndarray:
+        """The flat parameter vector, as the JAX package's `params()`."""
+        self._check_init()
+        return param_utils.flatten_params(self.params_tree)
+
+    def set_params(self, flat) -> None:
+        self._check_init()
+        self.params_tree = param_utils.unflatten_params(self.params_tree, flat,
+                                                        self.device)
+
+    def num_params(self) -> int:
+        self._check_init()
+        return param_utils.num_params(self.params_tree)
+
+    def summary(self) -> str:
+        lines = ["name | type | params"]
+        for name in self.conf.topo_order:
+            node = self.conf.nodes[name]
+            kind = type(node.layer if node.is_layer() else node.vertex).__name__
+            n = (param_utils.num_params(self.params_tree[name])
+                 if self._initialized and node.is_layer() else 0)
+            lines.append(f"{name} | {kind} | {n}")
+        if self._initialized:
+            lines.append(f"Total params: {self.num_params()}")
+        return "\n".join(lines)

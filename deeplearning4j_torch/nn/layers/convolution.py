@@ -1,8 +1,9 @@
 """Convolutional layer family of the serving and training slices.
 
 Port of `deeplearning4j_tpu/nn/layers/convolution.py`: ConvolutionLayer,
-SubsamplingLayer and LocalResponseNormalization, with the same config
-fields, the same output-size rule and the same explicit SAME pads.
+SubsamplingLayer, LocalResponseNormalization and GlobalPoolingLayer, with
+the same config fields, the same output-size rule and the same explicit
+SAME pads.
 
 Layout: activations are NHWC at every layer boundary, as in the JAX package.
 Inside a layer the tensor is viewed as channels-last NCHW
@@ -23,7 +24,7 @@ import torch.nn.functional as F
 from ...ops import lrn as lrn_ops
 from ...ops import pooling as pool_ops
 from ...utils import serde
-from ..conf.inputs import ConvolutionalType
+from ..conf.inputs import ConvolutionalType, FeedForwardType, RecurrentType
 from .core import BIAS, WEIGHT, Layer, dropout
 
 
@@ -239,3 +240,58 @@ class LocalResponseNormalization(Layer):
     def forward(self, params, x, *, train=False, generator=None, mask=None):
         return lrn_ops.lrn(x.contiguous(), self.k, self.alpha, self.beta,
                            self.n)
+
+
+@serde.register
+@dataclass
+class GlobalPoolingLayer(Layer):
+    """Global pooling over the spatial axes of NHWC input (CNN -> FF) or
+    the time axis of [batch, time, features] input (RNN -> FF), masked
+    time steps left out (reference nn/conf/layers/GlobalPoolingLayer and
+    util/MaskedReductionUtil). As in the JAX package the output is always
+    collapsed to [batch, features]; `collapse_dimensions` only
+    round-trips."""
+
+    pooling_type: PoolingType = PoolingType.MAX
+    pnorm: int = 2
+    collapse_dimensions: bool = True
+
+    def input_kind(self):
+        return "any"
+
+    def set_input_type(self, input_type):
+        if isinstance(input_type, ConvolutionalType):
+            return FeedForwardType(size=input_type.channels)
+        if isinstance(input_type, RecurrentType):
+            return FeedForwardType(size=input_type.size)
+        raise ValueError(f"GlobalPoolingLayer: unsupported {input_type}")
+
+    def forward(self, params, x, *, train=False, generator=None, mask=None):
+        if x.ndim == 4:      # NHWC: pool over H, W
+            axes, m = (1, 2), None
+        elif x.ndim == 3:    # [batch, time, features]: pool over time
+            axes = (1,)
+            m = None if mask is None else mask.to(x.dtype)[..., None]
+        else:
+            raise ValueError(f"GlobalPoolingLayer: rank {x.ndim} unsupported")
+        pt = self.pooling_type
+        if m is not None:
+            if pt == PoolingType.MAX:
+                x = torch.where(m > 0, x, torch.full_like(x, float("-inf")))
+            else:
+                x = x * m
+        if pt == PoolingType.MAX:
+            out = torch.amax(x, axes)
+        elif pt == PoolingType.SUM:
+            out = torch.sum(x, axes)
+        elif pt == PoolingType.AVG:
+            if m is not None:
+                out = torch.sum(x, axes) / torch.clamp(torch.sum(m, axes), min=1e-8)
+            else:
+                out = torch.mean(x, axes)
+        elif pt == PoolingType.PNORM:
+            p = float(self.pnorm)
+            out = torch.sum(torch.abs(x) ** p, axes) ** (1.0 / p)
+        else:
+            raise ValueError(f"Unknown pooling type {pt}")
+        return self._act()(out)

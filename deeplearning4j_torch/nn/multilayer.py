@@ -19,9 +19,11 @@ a float64 network) whatever the parameters' type, as the JAX package keeps
 them: in a bfloat16 network, casting them to bfloat16 would round a masked
 score's step count (1001 present steps count as 1000).
 
+Checkpoints are utils/model_serializer.py's, shared with ComputationGraph
+(nn/graph/graph.py), which reuses this module's casts and per-layer step.
 Not ported yet: truncated BPTT, ``steps_per_dispatch``, async and device
-prefetch, pad-to-bucket, checkpoints and the divergence sentinel, tracing
-and metrics.
+prefetch, pad-to-bucket, the checkpoint and divergence-sentinel hooks of
+`fit`, tracing and metrics.
 """
 from __future__ import annotations
 
@@ -65,7 +67,96 @@ def _to_numpy(t: Tensor) -> np.ndarray:
     return (t.float() if t.dtype == torch.bfloat16 else t).cpu().numpy()
 
 
-class MultiLayerNetwork:
+def _input_shape(it, batch_size: int, time_steps: Optional[int]):
+    """The shape of a feature batch of `batch_size` rows of input type
+    `it`, or None for an input type that does not size one."""
+    b = int(batch_size)
+    if isinstance(it, ConvolutionalType):
+        return (b, it.height, it.width, it.channels)
+    if isinstance(it, ConvolutionalFlatType):
+        return (b, it.flat_size)
+    if isinstance(it, RecurrentType):
+        t = time_steps or it.timeseries_length
+        if not t:
+            raise ValueError(
+                "a recurrent net needs time_steps= (or a RecurrentType "
+                "with timeseries_length)")
+        return (b, int(t), it.size)
+    if isinstance(it, FeedForwardType):
+        return (b, it.size)
+    return None
+
+
+def _layer_step(layer, params, grads, opt_state, iteration):
+    """One layer's share of an optimizer step: normalize its gradients,
+    run its updater, and set ``p - u`` (a frozen layer keeps its
+    parameters and state). Returns (new params, new optimizer state)."""
+    if layer.frozen:
+        return params, opt_state
+    g = normalize_layer_gradients(grads, layer.gradient_normalization,
+                                  layer.gradient_normalization_threshold)
+    updates, new_opt = layer.updater.update(g, opt_state, iteration)
+    return {k: p - updates[k].to(p.dtype) for k, p in params.items()}, new_opt
+
+
+class _DeviceNetwork:
+    """What MultiLayerNetwork and ComputationGraph share: init (each draws
+    its own tree, `_draw_params`, and builds its optimizer state,
+    `_opt_init`), the init check and the host-to-device casts of features,
+    labels and masks."""
+
+    def _check_init(self):
+        if not self._initialized:
+            raise RuntimeError("Call net.init() before using the network")
+
+    def init(self, seed: Optional[int] = None, dtype=torch.float32,
+             device: DeviceLike = None):
+        """Draw every layer's parameters (a graph's layer nodes in
+        topological order) from a generator seeded with `seed` (default: the
+        configuration's) and place them on `device` (default: CUDA, raising
+        when there is none); build each layer's optimizer state and the
+        dropout generator, on the same device and from the same seed."""
+        dev = resolve_device(device)
+        seed = self.conf.seed if seed is None else int(seed)
+        params = self._draw_params(torch.Generator().manual_seed(seed), dtype)
+        return self._adopt(param_utils.tree_map(
+            lambda t: param_utils.place(t, dev), params), dtype, dev, seed)
+
+    def _adopt(self, params_tree, dtype, device: torch.device,
+               seed: Optional[int] = None, opt_state=None):
+        """Make `params_tree` (on `device`) the network's parameters, with
+        `opt_state` or each layer's fresh optimizer state, the dropout
+        generator on `device` seeded with `seed` (default: the
+        configuration's), and the counters at 0."""
+        self.device, self._dtype = device, dtype
+        self.params_tree = params_tree
+        self.opt_state = (self._opt_init(params_tree) if opt_state is None
+                          else opt_state)
+        self._dropout_gen = torch.Generator(device=device).manual_seed(
+            self.conf.seed if seed is None else seed)
+        self.iteration = 0
+        self.epoch = 0
+        self._initialized = True
+        return self
+
+    def _as_input(self, x) -> Tensor:
+        """Features on the device: floating ones in the network's type,
+        integer ones (embedding indices) as they are, as the JAX package's
+        `_cast_features` does. A bfloat16 cast would round index 257 to 256."""
+        x = torch.as_tensor(x, device=self.device)
+        return x.to(self._dtype) if x.is_floating_point() else x
+
+    def _as_labels(self, y) -> Tensor:
+        """Labels (and masks) on the device, float32, or float64 in a
+        float64 network."""
+        return torch.as_tensor(np.asarray(y), device=self.device).to(
+            torch.promote_types(self._dtype, torch.float32))
+
+    def _as_mask(self, m) -> Optional[Tensor]:
+        return None if m is None else self._as_labels(m)
+
+
+class MultiLayerNetwork(_DeviceNetwork):
     def __init__(self, conf: MultiLayerConfiguration):
         self.conf = conf
         self.layers = list(conf.layers)
@@ -85,31 +176,12 @@ class MultiLayerNetwork:
         self._initialized = False
 
     # ------------------------------------------------------------------ init
-    def init(self, seed: Optional[int] = None, dtype=torch.float32,
-             device: DeviceLike = None) -> "MultiLayerNetwork":
-        """Draw the parameters from a generator seeded with `seed` (default:
-        the configuration's) and place them on `device` (default: CUDA,
-        raising when there is none); build each layer's optimizer state and
-        the dropout generator, on the same device and from the same seed."""
-        self.device = resolve_device(device)
-        self._dtype = dtype
-        seed = self.conf.seed if seed is None else int(seed)
-        gen = torch.Generator().manual_seed(seed)
-        self.params_tree = tuple(
-            {name: param_utils.place(t, self.device)
-             for name, t in layer.init_params(gen, dtype).items()}
-            for layer in self.layers)
-        self.opt_state = tuple(layer.updater.init(p) for layer, p in
-                               zip(self.layers, self.params_tree))
-        self._dropout_gen = torch.Generator(device=self.device).manual_seed(seed)
-        self.iteration = 0
-        self.epoch = 0
-        self._initialized = True
-        return self
+    def _draw_params(self, gen: torch.Generator, dtype) -> Tuple[dict, ...]:
+        return tuple(layer.init_params(gen, dtype) for layer in self.layers)
 
-    def _check_init(self):
-        if not self._initialized:
-            raise RuntimeError("Call net.init() before using the network")
+    def _opt_init(self, params_tree) -> Tuple[Any, ...]:
+        return tuple(layer.updater.init(p) for layer, p in
+                     zip(self.layers, params_tree))
 
     # --------------------------------------------------------------- forward
     def _forward(self, params, x: Tensor, train: bool = False,
@@ -170,43 +242,15 @@ class MultiLayerNetwork:
                        for g, t in zip(grads, flat)])
         return loss.detach(), tuple({k: next(flat_g) for k in lp} for lp in tree)
 
-    def _as_input(self, x) -> Tensor:
-        """Features on the device: floating ones in the network's type,
-        integer ones (embedding indices) as they are, as the JAX package's
-        `_cast_features` does. A bfloat16 cast would round index 257 to 256."""
-        x = torch.as_tensor(x, device=self.device)
-        return x.to(self._dtype) if x.is_floating_point() else x
-
-    def _as_labels(self, y) -> Tensor:
-        """Labels (and masks) on the device, float32, or float64 in a
-        float64 network."""
-        return torch.as_tensor(np.asarray(y), device=self.device).to(
-            torch.promote_types(self._dtype, torch.float32))
-
-    def _as_mask(self, m) -> Optional[Tensor]:
-        return None if m is None else self._as_labels(m)
-
     def _feature_struct(self, batch_size: int,
                         time_steps: Optional[int] = None) -> Tensor:
         """A meta tensor with the shape and dtype of a feature batch,
         inferred from conf.input_type (or the first layer's n_in when no
         input type was declared)."""
         b = int(batch_size)
-        it = getattr(self.conf, "input_type", None)
-        if isinstance(it, ConvolutionalType):
-            shape = (b, it.height, it.width, it.channels)
-        elif isinstance(it, ConvolutionalFlatType):
-            shape = (b, it.flat_size)
-        elif isinstance(it, RecurrentType):
-            t = time_steps or it.timeseries_length
-            if not t:
-                raise ValueError(
-                    "a recurrent net needs time_steps= (or a RecurrentType "
-                    "with timeseries_length)")
-            shape = (b, int(t), it.size)
-        elif isinstance(it, FeedForwardType):
-            shape = (b, it.size)
-        else:
+        shape = _input_shape(getattr(self.conf, "input_type", None), b,
+                             time_steps)
+        if shape is None:
             n_in = getattr(self.layers[0], "n_in", None)
             if not n_in:
                 raise ValueError(
@@ -286,22 +330,12 @@ class MultiLayerNetwork:
         loss, grads = self._value_and_grad(
             self._as_input(x), self._as_labels(y), self._as_mask(fmask),
             self._as_mask(lmask), True, self._dropout_gen)
-        new_params, new_opt = [], []
         with torch.no_grad():
-            for i, layer in enumerate(self.layers):
-                if layer.frozen:
-                    new_params.append(self.params_tree[i])
-                    new_opt.append(self.opt_state[i])
-                    continue
-                g = normalize_layer_gradients(
-                    grads[i], layer.gradient_normalization,
-                    layer.gradient_normalization_threshold)
-                updates, opt_i = layer.updater.update(g, self.opt_state[i],
-                                                      self.iteration)
-                new_params.append({k: p - updates[k].to(p.dtype)
-                                   for k, p in self.params_tree[i].items()})
-                new_opt.append(opt_i)
-        self.params_tree, self.opt_state = tuple(new_params), tuple(new_opt)
+            stepped = [_layer_step(layer, self.params_tree[i], grads[i],
+                                   self.opt_state[i], self.iteration)
+                       for i, layer in enumerate(self.layers)]
+        self.params_tree = tuple(p for p, _ in stepped)
+        self.opt_state = tuple(o for _, o in stepped)
         self.iteration += 1
         self.score_value = loss
         for lst in self.listeners:

@@ -76,14 +76,22 @@ class _Request:
 
 
 class ParallelInference:
-    """Thread-safe serving facade over an initialized MultiLayerNetwork,
-    which runs on the device it was initialized on."""
+    """Thread-safe serving facade over an initialized MultiLayerNetwork or
+    single-input, single-output ComputationGraph, which runs on the device
+    it was initialized on. Both answer `output(x)` and `warmup(b)`."""
 
     def __init__(self, model, *, inference_mode: InferenceMode = InferenceMode.BATCHED,
                  batch_limit: int = 32, queue_limit: int = 64,
                  batch_timeout_ms: float = 2.0, check_finite: bool = False):
         if not getattr(model, "_initialized", False):
             raise RuntimeError("Model must be init()ed before serving")
+        conf = model.conf
+        if hasattr(conf, "network_inputs") and (
+                len(conf.network_inputs) != 1 or len(conf.network_outputs) != 1):
+            raise ValueError(
+                f"ParallelInference serves a graph of one input and one output; "
+                f"this one has {len(conf.network_inputs)} and "
+                f"{len(conf.network_outputs)}")
         self.model = model
         self.inference_mode = inference_mode
         self.batch_limit = int(batch_limit)

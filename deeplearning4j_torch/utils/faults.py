@@ -1,7 +1,7 @@
 """Deterministic fault-injection registry.
 
 The torch package's copy of `deeplearning4j_tpu/utils/faults.py`, cut to the
-seam the serving slice calls. Production code calls :func:`fire` at named
+seams the port calls. Production code calls :func:`fire` at named
 injection points; when nothing is armed it is a near-free no-op. Tests arm a
 point with a plan string:
 
@@ -13,6 +13,8 @@ Call numbers are 1-based and counted per point. Points used here:
 
     serve.forward      each coalesced forward in ParallelInference (and
                        each SEQUENTIAL-mode forward)
+    checkpoint.write   mid-write of a checkpoint archive, after the
+                       parameters (utils/model_serializer.py)
 
 Stdlib-only on purpose: everything in the package may import this.
 """

@@ -1,18 +1,17 @@
 """chip_smoke.py's gradient comparison, run on the CPU at a small size.
 
-`compare_grads` compares two runs' per-layer gradients only on a draw of
-rows where both decide every ReLU zero and max-pool choice alike
-(`recorded_kinks`). These cases hold it to what it must tell apart, on zoo
-AlexNet at 60x60x3 and batch 2: the same function passes on the first draw;
-parameters moved by 1e-3 flip kinks on every draw and fail; a backward off
-by 1e-3, which flips no kink, fails on the first draw. At batch 8, one
-example moved by 1e-3 in one run flips kinks in its row alone, which is set
-aside while the other seven are compared; moved parameters flip them in
-more rows than the eighth that may be set aside, and fail.
+`compare_pinned_grads` compares two runs' per-parameter gradients with the
+second run's ReLU and max-pool decisions pinned to the first's
+(`pinned_kinks`), and fails when more than MAX_PINNED_SHARE of those
+decisions would have flipped. These cases hold it to what it must tell
+apart, on zoo AlexNet at 60x60x3: the same function passes with no flip;
+parameters moved by 1e-3 (batch 2) or 1e-4 (batch 8), or one example of 8
+moved by 1e-3, flip more than that share and fail; a backward off by 1e-3,
+which flips no kink, fails on the gradients. `pinned_kinks` records every
+ReLU layer and max pool, and refuses an activation whose kink it cannot pin.
 
-For the char model, whose only kinks are its ReLUs, `compare_pinned_grads`
-pins the second run's ReLU decisions to the first's (`pinned_relus`); it is
-held here, on the full-width network at t 16, to the same two outcomes, with
+For the char model, whose only kinks are its ReLUs, the same comparison is
+held, on the full-width network at t 16, to the same two outcomes, with
 a fault planted in each of the attention backward's cotangents alone.
 `check_sgd_step` must tell a fit step from one that moves the parameters
 too little. And the attention kernels' work and bound (`attention_pairs`,
@@ -65,8 +64,8 @@ def setup():
 
 
 def _run(model, bwd_scale=1.0):
-    def grads(ds, kinks):
-        with chip_smoke.recorded_kinks(torch, model, kinks):
+    def grads(ds, record, flips):
+        with chip_smoke.pinned_kinks(torch, model, record, flips):
             if bwd_scale == 1.0:
                 return model.compute_gradient_and_score(ds)
             ref = port_lrn.lrn_bwd_reference
@@ -76,20 +75,15 @@ def _run(model, bwd_scale=1.0):
     return grads
 
 
-def _draws(x, y, batch=2):
-    return ((s, DataSet(x[s:s + batch], y[s:s + batch]))
-            for s in range(0, len(x), batch))
-
-
 def _run_with_one_row_moved(model, row):
     """`_run(model)` with the example `row` moved by 1e-3 wherever it is in
     the batch: its kinks flip, and no other row's."""
     noise = 1e-3 * np.random.default_rng(1).standard_normal(row.shape, dtype=np.float32)
 
-    def grads(ds, kinks):
+    def grads(ds, record, flips):
         f = ds.features.copy()
         f[(f == row).all(axis=(1, 2, 3))] += noise * np.abs(row)
-        return _run(model)(DataSet(f, ds.labels), kinks)
+        return _run(model)(DataSet(f, ds.labels), record, flips)
     return grads
 
 
@@ -104,50 +98,41 @@ def _moved(net, scale):
 
 @pytest.mark.parametrize("case", ["same", "moved_params", "backward_off",
                                   "one_row_moved", "moved_params_batch_8"])
-def test_compare_grads_tells_kink_flips_from_faults(setup, monkeypatch, case):
+def test_compare_grads_tells_kink_flips_from_faults(setup, case):
     net, x, y = setup
+    two, eight = DataSet(x[:2], y[:2]), DataSet(x, y)
+    compare = lambda want, ds: chip_smoke.compare_pinned_grads(
+        case, torch, port_params, _run(net), want, ds)
     if case == "same":
-        out = chip_smoke.compare_grads(case, port_params, _run(net), _run(net),
-                                       _draws(x, y))
-        assert out == {"worst_rel": 0.0, "rows_from": 0, "rows_set_aside": [],
-                       "skipped": []}
-    elif case == "one_row_moved":
-        # one row of eight flips kinks: it is set aside, and the other seven
-        # are the same function
-        monkeypatch.setattr(chip_smoke, "SCORE_RTOL", 1.0)
-        out = chip_smoke.compare_grads(case, port_params, _run(net),
-                                       _run_with_one_row_moved(net, x[3]),
-                                       _draws(x, y, batch=8))
-        assert out == {"worst_rel": 0.0, "rows_from": 0, "rows_set_aside": [3],
-                       "skipped": []}
-    elif case == "moved_params_batch_8":
-        # moved parameters flip kinks in more than an eighth of the rows
-        monkeypatch.setattr(chip_smoke, "SCORE_RTOL", 1.0)
-        with pytest.raises(RuntimeError, match="no draw with every kink decided alike"):
-            chip_smoke.compare_grads(case, port_params, _run(net),
-                                     _run(_moved(net, 1e-3)), _draws(x, y, batch=8))
-    elif case == "moved_params":
-        # the moved parameters move the score too; only the kinks are under test
-        monkeypatch.setattr(chip_smoke, "SCORE_RTOL", 1.0)
-        with pytest.raises(RuntimeError, match="no draw with every kink decided alike"):
-            chip_smoke.compare_grads(case, port_params, _run(net),
-                                     _run(_moved(net, 1e-3)), _draws(x, y))
-    else:
-        with pytest.raises(RuntimeError, match="with every kink decided alike"):
-            chip_smoke.compare_grads(case, port_params, _run(net),
-                                     _run(net, bwd_scale=1.001), _draws(x, y))
+        out = compare(_run(net), two)
+        assert out["worst_rel"] == 0.0 and out["kink_flips_pinned"] == 0
+        assert out["kink_entries"] > 0
+        return
+    with pytest.raises(RuntimeError, match="kink decisions pinned" if case == "backward_off"
+                       else "kink decisions flipped"):
+        if case == "moved_params":       # 14 of 63,104 decisions flip
+            compare(_run(_moved(net, 1e-3)), two)
+        elif case == "moved_params_batch_8":   # 9 of 252,416
+            compare(_run(_moved(net, 1e-4)), eight)
+        elif case == "one_row_moved":    # 5 of 252,416, all in that row
+            compare(_run_with_one_row_moved(net, x[3]), eight)
+        else:
+            compare(_run(net, bwd_scale=1.001), two)
 
 
-def test_recorded_kinks_cover_every_layer_and_pool(setup):
+def test_recorded_kinks_cover_every_layer_and_pool(setup, monkeypatch):
     net, x, y = setup
-    kinks = []
-    with chip_smoke.recorded_kinks(torch, net, kinks):
+    record = []
+    with chip_smoke.pinned_kinks(torch, net, record):
         net.compute_gradient_and_score(DataSet(x[:2], y[:2]))
-    pools = [t for t in kinks if t.dtype == torch.int64]
-    # every layer but the output layer (its forward is not on the score's path)
-    assert len(kinks) - len(pools) == len(net.layers) - 1
+    pools = [t for t in record if t.dtype == torch.int64]
+    assert len(record) - len(pools) == 7   # the ReLUs of 5 convs and 2 dense layers
     assert len(pools) == 3   # AlexNet's three max pools
-    assert all((t >= -1).all() for t in pools)
+    assert all((t >= 0).all() for t in pools)
+    monkeypatch.setattr(net.layers[0], "activation", "leakyrelu")
+    with pytest.raises(ValueError, match="leakyrelu"):
+        with chip_smoke.pinned_kinks(torch, net, []):
+            pass
 
 
 def test_attention_pairs_and_bound():
@@ -192,8 +177,8 @@ def _char_run(model, bwd_scales=(1.0, 1.0, 1.0)):
     scaled by `bwd_scales`."""
     from deeplearning4j_torch.ops import flash_attention as port_fa
 
-    def grads(ds, masks, flips):
-        with chip_smoke.pinned_relus(torch, model, masks, flips):
+    def grads(ds, record, flips):
+        with chip_smoke.pinned_kinks(torch, model, record, flips):
             if bwd_scales == (1.0, 1.0, 1.0):
                 return model.compute_gradient_and_score(ds)
             ref = port_fa.flash_bwd_reference
@@ -216,9 +201,9 @@ def test_compare_pinned_grads_on_the_char_model(char_setup, case):
     if case == "same":
         out = chip_smoke.compare_pinned_grads(case, torch, port_params,
                                               _char_run(net), _char_run(net), ds)
-        assert out["worst_rel"] == 0.0 and out["relu_flips_pinned"] == 0
+        assert out["worst_rel"] == 0.0 and out["kink_flips_pinned"] == 0
         # both attention layers' ReLUs: 2 x batch 2 x t 16 x width 512
-        assert out["relu_entries"] == 2 * 2 * 16 * 512
+        assert out["kink_entries"] == 2 * 2 * 16 * 512
         # only the key biases, whose exact gradient is 0, are left out
         assert set(out["left_out_share_of_layer"]) == {"0.bk", "1.bk"}
     else:
@@ -263,10 +248,10 @@ def test_pinned_relus_take_the_recorded_branch(char_setup):
     branch even where its own input says otherwise, and counts those flips."""
     net, ds = char_setup
     masks, flips = [], []
-    with chip_smoke.pinned_relus(torch, net, masks):
+    with chip_smoke.pinned_kinks(torch, net, masks):
         net.compute_gradient_and_score(ds)
     flipped = [~m for m in masks]
-    with chip_smoke.pinned_relus(torch, net, flipped, flips):
+    with chip_smoke.pinned_kinks(torch, net, flipped, flips):
         net.compute_gradient_and_score(ds)
     # the first layer's input is the same, so every decision flipped; the
     # second layer's input changed with the first layer's output
@@ -609,3 +594,187 @@ def test_ptxas_report_names_every_instantiation():
             report[1]["registers"]) == (36, 28, 255)
     assert report[3] == {"kernel": "lrn_fwd_kernel", "registers": 32}
     assert report[2]["smem"] == 18432 and "smem" not in report[0]
+
+
+# ------------------------------------------- checkpoints and GoogLeNet phases
+class _SmallGoogLeNet(port_zoo.GoogLeNet):
+    """Zoo GoogLeNet at 32x32x3 with 10 classes that initializes on the CPU
+    when no device is named (the real one goes to CUDA)."""
+
+    def __init__(self, num_labels=10, fuse_siblings=False, **kw):
+        super().__init__(num_labels=10, input_shape=(32, 32, 3),
+                         fuse_siblings=fuse_siblings)
+
+    def init(self, seed=None, dtype=torch.float32, device="cpu"):
+        return super().init(seed=seed, dtype=dtype, device=device)
+
+
+@pytest.fixture
+def small_googlenet_phases(monkeypatch, tmp_path):
+    """The GoogLeNet phases cut to run here: 32x32x3, 2 clients x 2
+    requests, 2 steps at batch 4 in both types, no profiler, no device
+    timing, no CUDA sync; checkpoints under a temporary directory. K1 and
+    K2 are counting stand-ins, as in `small_bf16_phase`."""
+    monkeypatch.setattr(port_zoo, "GoogLeNet", _SmallGoogLeNet)
+    for name, value in (("GOOGLENET_BATCH", 4), ("GOOGLENET_STEPS", 2),
+                        ("GOOGLENET_BF16_BATCH", 4), ("GOOGLENET_BF16_STEPS", 2),
+                        ("ROOT", str(tmp_path))):
+        monkeypatch.setattr(chip_smoke, name, value)
+    monkeypatch.setattr(chip_smoke, "serving_requests", lambda rng: [
+        [rng.standard_normal((int(rng.integers(1, 3)), 32, 32, 3)).astype(np.float32)
+         for _ in range(2)] for _ in range(2)])
+    monkeypatch.setattr(chip_smoke, "profile_call", lambda torch, label, fn, info: {})
+    monkeypatch.setattr(chip_smoke, "forward_ms", lambda torch, net, x: 0.0)
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda *a: None)
+    monkeypatch.setattr(torch.cuda, "empty_cache", lambda *a: None)
+    fwd, bwd = port_lrn.lrn_reference, port_lrn.lrn_bwd_reference
+
+    def k1(x, *h):
+        port_lrn.launches += 1
+        return fwd(x.float(), *h).to(x.dtype)
+
+    def k2(x, g, *h):
+        port_lrn.bwd_launches += 1
+        return bwd(x.float(), g.float(), *h).to(x.dtype)
+
+    monkeypatch.setattr(port_lrn, "lrn_fwd", k1)
+    monkeypatch.setattr(port_lrn, "lrn_bwd", k2)
+    return fwd, bwd
+
+
+def _uncounted(monkeypatch, case, fwd, bwd):
+    """Route GoogLeNet's lrn2 (192 channels) around the counted K1 or K2."""
+    from deeplearning4j_torch.nn.layers.convolution import LocalResponseNormalization
+    if case == "forward_uncounted":
+        layer_fwd = LocalResponseNormalization.forward
+
+        def forward(self, params, x, **kw):
+            if x.shape[-1] == 192:
+                return fwd(x.contiguous(), self.k, self.alpha, self.beta, self.n)
+            return layer_fwd(self, params, x, **kw)
+
+        monkeypatch.setattr(LocalResponseNormalization, "forward", forward)
+    elif case == "backward_uncounted":
+        k2 = port_lrn.lrn_bwd
+        monkeypatch.setattr(port_lrn, "lrn_bwd", lambda x, g, *h: (
+            bwd(x.float(), g.float(), *h).to(x.dtype) if x.shape[-1] == 192
+            else k2(x, g, *h)))
+
+
+@pytest.mark.parametrize("case", ["counted", "forward_uncounted"])
+def test_googlenet_serving_phase_counts_its_launches(small_googlenet_phases,
+                                                     monkeypatch, case):
+    _uncounted(monkeypatch, case, *small_googlenet_phases)
+    if case != "counted":
+        with pytest.raises(RuntimeError, match="launches"):
+            chip_smoke.phase_googlenet_serving(torch, "cpu")
+        return
+    out = chip_smoke.phase_googlenet_serving(torch, "cpu")
+    assert out["launches"] == {"lrn_fwd": 2 * out["forwards"], "lrn_bwd": 0}
+    assert out["lrn_in_forward"]["calls"] == 2 * out["batches_rechecked"]
+    assert out["fused_groups"] == 9
+    assert out["fused_max_abs_vs_unfused"] <= 1e-6
+    assert out["max_abs_card_vs_cpu_b2"] == 0.0   # both on the CPU here
+
+
+@pytest.mark.parametrize("case", ["counted", "forward_uncounted", "backward_uncounted"])
+def test_googlenet_training_phase_counts_its_launches(small_googlenet_phases,
+                                                      monkeypatch, case):
+    _uncounted(monkeypatch, case, *small_googlenet_phases)
+    if case != "counted":
+        with pytest.raises(RuntimeError, match="launches"):
+            chip_smoke.phase_googlenet_training(torch, "cpu")
+        return
+    out = chip_smoke.phase_googlenet_training(torch, "cpu")
+    assert out["launches"] == {"lrn_fwd": 4, "lrn_bwd": 4}
+    assert out["lrn_bwd_in_step"]["calls"] == 4
+    # both on the CPU here: the same decisions, the replayed max pools'
+    # cotangents summed in another order
+    assert out["grad_rel_vs_cpu"]["kink_flips_pinned"] == 0
+    assert out["grad_rel_vs_cpu"]["worst_rel"] < 1e-5
+    assert out["checkpoint"]["bitwise"] == {k: True for k in out["checkpoint"]["bitwise"]}
+    bf16 = out["bf16"]
+    assert bf16["launches"] == {"lrn_fwd": 4, "lrn_bwd": 4}
+    assert bf16["lrn_in_forward"]["calls"] == bf16["lrn_bwd_in_step"]["calls"] == 4
+    assert bf16["checkpoint"]["dtype"] == "bfloat16"
+
+
+def test_checkpoint_round_trip_check_fails_on_a_changed_leaf(monkeypatch, tmp_path):
+    from deeplearning4j_torch.utils import model_serializer as port_ser
+    monkeypatch.setattr(chip_smoke, "ROOT", str(tmp_path))
+    net = port_zoo.LeNet().init(device="cpu")
+    x = np.zeros((2, 28, 28, 1), np.float32)
+    assert chip_smoke.check_checkpoint_round_trip(net, x, "lenet")["bytes"] > 0
+    restore = port_ser.restore_model
+
+    def off_by_one_ulp(path, **kw):
+        back = restore(path, **kw)
+        w = back.params_tree[0]["W"]
+        back.params_tree[0]["W"] = torch.nextafter(w, w + 1)
+        return back
+
+    monkeypatch.setattr(port_ser, "restore_model", off_by_one_ulp)
+    with pytest.raises(RuntimeError, match="not bitwise"):
+        chip_smoke.check_checkpoint_round_trip(net, x, "lenet")
+
+
+def test_checkpoint_fixtures_phase_runs_on_the_cpu():
+    out = chip_smoke.phase_checkpoint_fixtures(torch, "cpu", device="cpu")
+    assert out["lenet_iteration"] == 48 and out["graph_merge_iteration"] == 6
+    assert out["lenet_max_abs_card_vs_cpu"] == 0.0
+    assert out["graph_merge_max_abs_vs_expected"] < 1e-6
+
+
+def test_lrn_cases_hold_googlenets_two_calls():
+    groups = {}
+    for label, shape, n, alpha, scale, group in chip_smoke.LRN_CASES:
+        groups.setdefault(group, []).append(shape)
+    assert groups["googlenet"] == [(64, 56, 56, 64), (64, 56, 56, 192)]
+    assert groups["alexnet"] == [(128, 55, 55, 64), (128, 14, 14, 192)]
+    rows = [{"case": c[0], "group": c[5], "max_abs_err": 0.0, "bf16_max_abs_err": 0.0,
+             "bf16_limit_share": 0.0,
+             **({k: 1.0 for k in ("ms", "plain_ms", "bound_ms", "library_ms",
+                                  "events_ms", "bf16_ms", "bf16_bound_ms",
+                                  "bf16_library_ms")} if c[5] else {}),
+             **({"bound_by": "bytes"} if c[5] else {})} for c in chip_smoke.LRN_CASES]
+    entry = chip_smoke.kernel_entry("lrn_fwd", "x:1", rows)
+    assert entry["ms"] == 2.0 and entry["googlenet"]["ms"] == 2.0
+    assert entry["googlenet"]["cases"] == ["googlenet_lrn1_b64", "googlenet_lrn2_b64"]
+    assert entry["googlenet"]["bound_by"] == "bytes"
+
+
+@pytest.mark.parametrize("case", ["same", "lrn_backward_off"])
+def test_pinned_kinks_on_googlenet(case):
+    """`pinned_kinks` records every ReLU and max-pool decision of a GoogLeNet
+    and replays them: the same function passes with none flipped (the
+    replayed pools gather where the pools chose, so the gradients agree to
+    rounding, 1.5e-6 here: overlapping windows sum their cotangents in
+    another order);
+    an LRN backward off by 1e-3 in the second run fails."""
+    net = _SmallGoogLeNet().init()
+    rng = np.random.default_rng(3)
+    ds = DataSet(rng.standard_normal((2, 32, 32, 3)).astype(np.float32),
+                 np.eye(10, dtype=np.float32)[[1, 2]])
+    bwd = port_lrn.lrn_bwd
+
+    def run(scale):
+        def grads(ds, record, flips):
+            with chip_smoke.pinned_kinks(torch, net, record, flips), \
+                    chip_smoke.patched(port_lrn, "lrn_bwd",
+                                       lambda *a: bwd(*a) * scale):
+                return net.compute_gradient_and_score(ds)
+        return grads
+
+    if case == "same":
+        out = chip_smoke.compare_pinned_grads(case, torch, port_params, run(1.0),
+                                              run(1.0), ds)
+        assert out["worst_rel"] < 1e-5 and out["kink_flips_pinned"] == 0
+        relu_layers = [l for l in chip_smoke.net_layers(net)
+                       if (l.activation or "").lower() == "relu"]
+        pools = [l for l in chip_smoke.net_layers(net)
+                 if isinstance(l, port_zoo.SubsamplingLayer)]
+        assert out["kink_entries"] > 0 and len(relu_layers) > 50 and len(pools) == 13
+    else:
+        with pytest.raises(RuntimeError, match="pinned"):
+            chip_smoke.compare_pinned_grads(case, torch, port_params, run(1.0),
+                                            run(1.001), ds)
