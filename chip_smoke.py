@@ -106,7 +106,27 @@ Phases, each of which fails the script (non-zero exit, no result line):
    K1 and K2 call within one bfloat16 ulp of its yardstick); each network
    then saved and restored bitwise (parameters, optimizer state, counters,
    answers). GoogLeNet's two LRN shapes are also LRN_CASES of phase 3.
-9. One JSON line with every kernel's numbers, then the result line
+9. ResNet50 (`phase_resnet_training`, `phase_resnet_serving`,
+   `phase_resnet_bf16_training`): zoo ResNet50 at full width (224x224x3,
+   1000 classes, 53 BatchNormalization nodes with their running state, 16
+   shortcut adds), a ComputationGraph on no hand-written kernel: every
+   count is reset just before each run and must read 0 just after. Trained
+   by `fit` 6 steps at batch 128 in float32 (TF32 off): the BN state moves
+   on every step, and the first step's is held to a float64 recompute of
+   the batch statistics on the card; the median warm step from a second
+   epoch, a profiled step with its device time by kernel group, the BN
+   passes timed alone; train-mode gradients card vs CPU at batch 2, the CPU
+   pinned to the card's ReLU and max-pool decisions, and that step's new
+   state; a checkpoint round trip bitwise, BN state included. Served with
+   phase 4's load through ParallelInference(check_finite=True) on the
+   trained running statistics, or, where they overflow, on statistics set
+   from one train-mode forward of a calibration batch (the phase says
+   which): answers finite and bitwise their batch's rows, a batch of 2
+   against the CPU path. Trained 4 steps as a bfloat16 network at batch 256
+   (bench.py's 1024 cut for time and memory): BN state float32, scores
+   finite. `phase_checkpoint_fixtures` also restores the JAX package's
+   `mln_cnn.zip` (BN state, NormalizerStandardize) on the card.
+10. One JSON line with every kernel's numbers, then the result line
    {"ok": true, "device": {...}}.
 
 Needs one CUDA GPU; exits non-zero without one.
@@ -700,11 +720,38 @@ def phase_serving(torch, card):
     return result, net, reqs, answers, cpu_net
 
 
+#: Device-time groups of a profile, by kernel name, first match wins:
+#: cuDNN's and cuBLAS's convolutions and products, reductions (BN's
+#: statistics, the loss, the pools' and the updaters' sums), max and
+#: average pools, and the element-wise rest (BN's normalization, ReLU, the
+#: shortcut adds, the updates).
+PROFILE_GROUPS = (
+    ("h2d", ("HtoD",)),
+    ("conv_and_gemm", ("conv", "xmma", "gemm", "cudnn", "cutlass", "wgrad",
+                       "dgrad", "sm90_", "sm80_")),
+    ("reduce", ("reduce",)),
+    ("pool", ("pool",)),
+    ("elementwise", ("elementwise", "vectorized", "unrolled")),
+)
+
+
+def profile_groups(events):
+    """{group: device ms} of the CUDA items of a profile (PROFILE_GROUPS,
+    the rest under "other")."""
+    out = {}
+    for e in events:
+        key = next((g for g, subs in PROFILE_GROUPS
+                    if any(t in e.key for t in subs)), "other")
+        out[key] = out.get(key, 0.0) + e.self_device_time_total / 1e3
+    return out
+
+
 def profile_call(torch, label, fn, info):
     """One warm call of `fn` (which ends synchronized) under torch.profiler:
     the device's summed kernel and copy time against the wall time of that
     same call, the host-to-device copies' time and share of it, the five
-    largest device items, and the LRN kernels' (K1, K2) time and calls,
+    largest device items, the device time by kernel group
+    (`profile_groups`), and the LRN kernels' (K1, K2) time and calls,
     which the five rarely include. The median wall time of 5
     unprofiled calls is reported beside it; the idle share is taken within
     the profiled call only, as busy and wall time from two different calls
@@ -732,6 +779,7 @@ def profile_call(torch, label, fn, info):
            "h2d_share_of_busy": h2d_ms / busy_ms if dev and busy_ms else None,
            "top": [[e.key[:80], e.count, e.self_device_time_total / 1e3]
                    for e in top],
+           "groups_ms": profile_groups(dev),
            "lrn_kernels": [[e.key[:40], e.count, e.self_device_time_total / 1e3]
                            for e in dev if "lrn_" in e.key]}
     log(f"profile {label}: {json.dumps(out)}")
@@ -882,13 +930,53 @@ def negligible_grads(param_utils, grads):
     return out
 
 
-def compare_pinned_grads(label, torch, param_utils, run_got, run_want, ds):
+#: A gradient that is 0 by the network's structure (`zero_by_structure`) must
+#: stay below this share of its layer's gradient (Frobenius norms) in both
+#: runs: what is left is rounding.
+STRUCTURAL_ZERO_SHARE = 1e-4
+
+
+def zero_by_structure(net):
+    """{"node.b"} of a graph's layer nodes whose every consumer is a
+    BatchNormalization: under batch statistics a per-channel shift of the
+    BN's input changes nothing, so the bias's gradient is 0 but for
+    rounding, which pinned and unpinned runs round apart."""
+    from deeplearning4j_torch.nn.layers.convolution import BatchNormalization
+    conf = getattr(net, "conf", None)
+    if not hasattr(conf, "nodes"):
+        return set()
+    consumers = {}
+    for name, node in conf.nodes.items():
+        for i in node.inputs:
+            consumers.setdefault(i, []).append(node)
+    return {f"{name}.b" for name, node in conf.nodes.items()
+            if node.is_layer() and name in net.params_tree
+            and "b" in net.params_tree[name] and consumers.get(name)
+            and all(c.is_layer() and isinstance(c.layer, BatchNormalization)
+                    for c in consumers[name])}
+
+
+def _structural_zero_shares(param_utils, grads, names):
+    tree = param_utils.params_to_numpy(grads)
+    out = {}
+    for name in names:
+        node, k = name.rsplit(".", 1)
+        layer = float(np.sqrt(sum(float(np.linalg.norm(g)) ** 2
+                                  for g in tree[node].values())))
+        out[name] = float(np.linalg.norm(tree[node][k])) / max(layer, 1e-30)
+    return out
+
+
+def compare_pinned_grads(label, torch, param_utils, run_got, run_want, ds,
+                         structural_zeros=()):
     """Gradients of two runs of the same function on `ds`, the second with
     the first's kink decisions pinned (`pinned_kinks`): the decisions the
     second run would have taken otherwise under MAX_PINNED_SHARE of them,
     the scores under SCORE_RTOL, and every parameter's gradient under
     GRAD_REL relative norm, but those `negligible_grads` leaves out
-    (logged). Each parameter on its own, so that a fault in one cotangent
+    (logged) and the `structural_zeros` (`zero_by_structure`), which are
+    held under STRUCTURAL_ZERO_SHARE of their layer's in both runs instead.
+    Each parameter on its own, so that a fault in one cotangent
     (dq feeds Wq and bq, dk Wk, dv Wv) is not diluted by the larger
     gradients of the others."""
     record, flips = [], []
@@ -901,6 +989,14 @@ def compare_pinned_grads(label, torch, param_utils, run_got, run_want, ds):
     if not abs(s_got - s_want) <= SCORE_RTOL * abs(s_want):
         raise RuntimeError(f"{label}: score {s_got} vs {s_want}")
     rel = _layer_rel_errs(param_utils, g_got, g_want)
+    zero_shares = max([0.0] + [v for g in (g_got, g_want) for v in
+                               _structural_zero_shares(param_utils, g,
+                                                       structural_zeros).values()])
+    if not zero_shares < STRUCTURAL_ZERO_SHARE:
+        raise RuntimeError(f"{label}: a gradient that is 0 by structure is "
+                           f"{zero_shares} of its layer's (>= {STRUCTURAL_ZERO_SHARE})")
+    for name in structural_zeros:
+        rel.pop(name)
     left_out = negligible_grads(param_utils, g_want)
     worst_at = max((n for n in rel if n not in left_out), key=rel.get)
     worst = rel[worst_at]
@@ -910,6 +1006,8 @@ def compare_pinned_grads(label, torch, param_utils, run_got, run_want, ds):
                            f"parameter: {rel}, left out: {left_out}")
     out = {"worst_rel": worst, "worst_at": worst_at, "per_parameter": rel,
            "left_out_share_of_layer": left_out,
+           "zero_by_structure": len(structural_zeros),
+           "zero_by_structure_max_share": zero_shares,
            "kink_flips_pinned": flipped, "kink_entries": entries,
            "score_got": s_got, "score_want": s_want}
     log(f"{label}: {json.dumps(out)} (limits {GRAD_REL}, {MAX_PINNED_SHARE} "
@@ -1646,6 +1744,7 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 FIXTURES = os.path.join(ROOT, "tests", "fixtures")
 LENET_ZIP = os.path.join(FIXTURES, "pretrained", "lenet_mnist.zip")
 GRAPH_MERGE_ZIP = os.path.join(FIXTURES, "checkpoints", "graph_merge.zip")
+MLN_CNN_ZIP = os.path.join(FIXTURES, "checkpoints", "mln_cnn.zip")
 CKPT_RTOL, CKPT_ATOL = 1e-5, 1e-6   # a restored net on the card vs the CPU or the fixture
 GOOGLENET_BATCH, GOOGLENET_STEPS = 64, 6   # float32 training
 # bfloat16 training: bench.py's bench_googlenet runs batch 512; cut to 128 for time
@@ -1657,8 +1756,10 @@ def phase_checkpoint_fixtures(torch, card, device=None):
     """The JAX package's checkpoints restored by the port, on the card by
     default (`restore_model` with no device): `lenet_mnist.zip` against the
     same zip restored on the CPU (CKPT_RTOL/CKPT_ATOL, same top-1), and
-    `graph_merge.zip` against the fixture's expected answers
-    (`expected.npz["graph_merge_y"]`)."""
+    `graph_merge.zip` and `mln_cnn.zip` (BatchNormalization's running
+    statistics in its state.npz, float32 on the card) against the fixture's
+    expected answers (`expected.npz`); `mln_cnn.zip`'s NormalizerStandardize
+    restores with its 144 means."""
     from deeplearning4j_torch.utils import model_serializer as ser
     lenet = ser.restore_model(LENET_ZIP, device=device)
     lenet_cpu = ser.restore_model(LENET_ZIP, device="cpu")
@@ -1672,12 +1773,30 @@ def phase_checkpoint_fixtures(torch, card, device=None):
     out = graph.output(expected["graph_merge_x"])
     np.testing.assert_allclose(out, expected["graph_merge_y"], rtol=CKPT_RTOL,
                                atol=CKPT_ATOL)
+    from deeplearning4j_torch.data.normalizers import NormalizerStandardize
+    from deeplearning4j_torch.utils import params as param_utils
+    cnn = ser.restore_model(MLN_CNN_ZIP, device=device)
+    state = param_utils.tree_leaves(cnn.state_tree)
+    if not state or {(t.dtype, t.device.type) for t in state} != \
+            {(torch.float32, cnn.device.type)}:
+        raise RuntimeError(f"mln_cnn.zip: layer state {[(t.dtype, t.device) for t in state]}")
+    cnn_out = cnn.output(expected["mln_cnn_x"])
+    np.testing.assert_allclose(cnn_out, expected["mln_cnn_y"], rtol=CKPT_RTOL,
+                               atol=CKPT_ATOL)
+    norm = ser.restore_normalizer(MLN_CNN_ZIP)
+    if not isinstance(norm, NormalizerStandardize) or len(norm.mean) != 144:
+        raise RuntimeError(f"mln_cnn.zip: normalizer {type(norm).__name__}")
     result = {"lenet_device": str(lenet.device), "graph_merge_device": str(graph.device),
               "lenet_iteration": lenet.iteration,
               "lenet_max_abs_card_vs_cpu": float(np.abs(got - want).max()),
               "graph_merge_iteration": graph.iteration,
               "graph_merge_max_abs_vs_expected": float(
                   np.abs(out - expected["graph_merge_y"]).max()),
+              "mln_cnn_device": str(cnn.device), "mln_cnn_iteration": cnn.iteration,
+              "mln_cnn_state_leaves": len(state),
+              "mln_cnn_max_abs_vs_expected": float(
+                  np.abs(cnn_out - expected["mln_cnn_y"]).max()),
+              "mln_cnn_normalizer": [type(norm).__name__, len(norm.mean)],
               "card": card}
     log(f"checkpoints: {json.dumps(result)} (rtol {CKPT_RTOL}, atol {CKPT_ATOL})")
     return result
@@ -1695,9 +1814,11 @@ def _same_tree(a, b):
 
 def check_checkpoint_round_trip(net, x, label):
     """`save_model` then `restore_model` (onto the network's device): the
-    parameters, optimizer state, iteration and epoch bitwise equal, and the
-    answer on `x` bitwise equal. The archive goes to a temporary directory
-    under the checkout's build/, which .gitignore lists."""
+    parameters, optimizer state, layer state, iteration and epoch bitwise
+    equal, and the answer on `x` bitwise equal (NaN where NaN: an
+    untrained ResNet50 overflows in evaluation). The archive goes to a
+    temporary directory under the checkout's build/, which .gitignore
+    lists."""
     import tempfile
     from deeplearning4j_torch.utils import model_serializer as ser
     build = os.path.join(ROOT, "build")
@@ -1713,9 +1834,11 @@ def check_checkpoint_round_trip(net, x, label):
         restore_s = time.perf_counter() - t0
     same = {"params": _same_tree(net.params_tree, back.params_tree),
             "opt_state": _same_tree(net.opt_state, back.opt_state),
+            "state": _same_tree(net.state_tree, back.state_tree),
             "counters": (back.iteration, back.epoch) == (net.iteration, net.epoch),
             "dtype": back._dtype == net._dtype,
-            "output": bool(np.array_equal(net.output(x), back.output(x)))}
+            "output": bool(np.array_equal(net.output(x), back.output(x),
+                                          equal_nan=True))}
     if not all(same.values()):
         raise RuntimeError(f"{label}: the checkpoint round trip is not bitwise: {same}")
     out = {"bytes": size, "save_s": save_s, "restore_s": restore_s,
@@ -1734,22 +1857,24 @@ def forward_ms(torch, net, x):
 
     def walk():
         with torch.inference_mode():
-            net._walk(net.params_tree, {name: xt})
+            net._walk(net.params_tree, net.state_tree, {name: xt})
 
     return cuda_time_ms(walk, iters=5, warm=2)
 
 
-def _googlenet_shape(net):
+def _graph_shape(net):
     it = net.conf.input_types[0]
     return (it.height, it.width, it.channels), net.conf.nodes["output"].layer.n_out
 
 
 def _to_cpu_graph(net):
-    """A ComputationGraph on the CPU with `net`'s parameters."""
+    """A ComputationGraph on the CPU with `net`'s parameters and layer
+    state."""
     from deeplearning4j_torch.nn.graph.graph import ComputationGraph
     cpu = ComputationGraph(net.conf).init(dtype=net._dtype, device="cpu")
-    cpu.params_tree = {n: {k: v.cpu() for k, v in lp.items()}
-                       for n, lp in net.params_tree.items()}
+    cpu.params_tree, cpu.state_tree = (
+        {n: {k: v.cpu() for k, v in lp.items()} for n, lp in tree.items()}
+        for tree in (net.params_tree, net.state_tree))
     return cpu
 
 
@@ -1776,7 +1901,7 @@ def phase_googlenet_serving(torch, card):
                                                           ParallelInference)
     t0 = time.perf_counter()
     net = GoogLeNet(num_labels=1000).init()
-    hwc, classes = _googlenet_shape(net)
+    hwc, classes = _graph_shape(net)
     log(f"GoogLeNet: {hwc}/{classes}, {len(net.conf.nodes)} nodes, "
         f"{net.num_params()} params on {net.device}, init "
         f"{time.perf_counter() - t0:.2f} s")
@@ -1875,7 +2000,7 @@ def phase_googlenet_training(torch, card):
     from deeplearning4j_torch.utils import params as param_utils
     t0 = time.perf_counter()
     net = GoogLeNet(num_labels=1000).init()
-    hwc, classes = _googlenet_shape(net)
+    hwc, classes = _graph_shape(net)
     log(f"GoogLeNet training: {net.num_params()} params on {net.device}, init "
         f"{time.perf_counter() - t0:.2f} s")
     rng = np.random.default_rng(2036)
@@ -1998,6 +2123,485 @@ def phase_googlenet_training(torch, card):
     log(f"GoogLeNet bfloat16 training: {json.dumps(result['bf16'])}  [{card}]")
     del net, x, y
     torch.cuda.empty_cache()
+    return result
+
+
+# ------------------------------------------- ResNet50 (BatchNormalization)
+
+RESNET_BATCH, RESNET_STEPS = 128, 6   # float32 training
+# bfloat16 training: bench.py's bench_resnet50 runs batch 1024; cut to 256
+# for time and memory
+RESNET_BF16_BATCH, RESNET_BF16_STEPS = 256, 4
+# BN running statistics against a plain float64 recompute of the batch's
+# (a mean's error over the larger of |mean| and the batch's std), and the
+# card's new state against the CPU's
+STATE_RTOL = 1e-5
+
+
+def all_launches():
+    """Every hand-written kernel's launch count, K1-K6."""
+    from deeplearning4j_torch.ops import flash_attention as fa
+    from deeplearning4j_torch.ops import lrn as lrn_ops
+    from deeplearning4j_torch.ops import quant_matmul as qmm
+    return {"lrn_fwd": lrn_ops.launches, "lrn_bwd": lrn_ops.bwd_launches,
+            **_counts(fa), "int8_matmul": qmm.launches}
+
+
+def zero_launches():
+    from deeplearning4j_torch.ops import flash_attention as fa
+    from deeplearning4j_torch.ops import lrn as lrn_ops
+    from deeplearning4j_torch.ops import quant_matmul as qmm
+    lrn_ops.launches = lrn_ops.bwd_launches = qmm.launches = 0
+    _zero_counts(fa)
+
+
+def bn_nodes(net):
+    """{id(layer): node name} of a graph's BatchNormalization nodes."""
+    from deeplearning4j_torch.nn.layers.convolution import BatchNormalization
+    return {id(node.layer): name for name, node in net.conf.nodes.items()
+            if node.is_layer() and isinstance(node.layer, BatchNormalization)}
+
+
+@contextmanager
+def recorded_bn_stats(torch, records, active):
+    """While `active[0]`, append (layer, state in, batch mean, batch
+    variance) for every train-mode BatchNormalization call in the block:
+    the statistics of its input recomputed plainly, in float64 and two
+    passes (the biased variance), on the input's device."""
+    from deeplearning4j_torch.nn.layers.convolution import BatchNormalization
+    fwd = BatchNormalization.forward_with_state
+
+    def forward_with_state(self, params, state, x, *, train=False, **kw):
+        if train and active[0]:
+            with torch.no_grad():
+                xd = x.detach().double().reshape(-1, x.shape[-1])
+                mean = xd.mean(0)
+                records.append((self, state, mean, ((xd - mean) ** 2).mean(0)))
+        return fwd(self, params, state, x, train=train, **kw)
+
+    with patched(BatchNormalization, "forward_with_state", forward_with_state):
+        yield
+
+
+def state_rel_err(torch, got, want_mean, want_var):
+    """The largest error of a BN state {"mean", "var"} against float64
+    (mean, var): a mean's over the larger of |mean| and the std, a
+    variance's relative."""
+    mean, var = got["mean"].double().to(want_mean.device), got["var"].double().to(
+        want_var.device)
+    e_mean = ((mean - want_mean).abs()
+              / torch.maximum(want_mean.abs(), want_var.sqrt())).max().item()
+    return max(e_mean, ((var - want_var).abs() / want_var).max().item())
+
+
+def check_first_step_state(torch, net, records, state1):
+    """The state the first step committed (`state1`) against the running
+    update of each BN's plainly recomputed batch statistics:
+    decay * state in + (1 - decay) * batch, under STATE_RTOL. Returns the
+    worst error."""
+    names = bn_nodes(net)
+    if sorted(names[id(layer)] for layer, *_ in records) != sorted(names.values()):
+        raise RuntimeError(f"recorded {len(records)} BN calls in the first step, "
+                           f"expected one for each of {len(names)} BN nodes")
+    worst, at, ratio = 0.0, None, None
+    for layer, old, mean, var in records:
+        d = layer.decay
+        err = state_rel_err(torch, state1[names[id(layer)]],
+                            d * old["mean"].double() + (1 - d) * mean,
+                            d * old["var"].double() + (1 - d) * var)
+        if err > worst:
+            # the single-pass variance cancels as (|mean - pivot| / std)^2
+            pivot = old["mean"].double().to(mean.device)
+            worst, at = err, names[id(layer)]
+            ratio = ((mean - pivot).abs() / var.sqrt()).max().item()
+    if not worst <= STATE_RTOL:
+        raise RuntimeError(f"the first step's BN state differs from a plain recompute "
+                           f"by {worst} at {at} (> {STATE_RTOL})")
+    return {"worst": worst, "at": at, "max_mean_off_pivot_over_std": ratio}
+
+
+class StateSteps:
+    """Listener: after each step, whether every running statistic moved
+    from the step before, and (the first time) the state then, which also
+    ends `recorded_bn_stats`' recording."""
+
+    def __init__(self, torch, net, active):
+        self.torch, self.prev, self.active = torch, net.state_tree, active
+        self.moved, self.first = [], None
+
+    def iteration_done(self, model, iteration):
+        cur = model.state_tree
+        self.moved.append(all(not self.torch.equal(cur[n][k], self.prev[n][k])
+                              for n in cur for k in cur[n]))
+        if self.first is None:
+            self.first, self.active[0] = cur, False
+        self.prev = cur
+
+
+def check_state_float32(torch, net, label):
+    leaves = [t for n in net.state_tree.values() for t in n.values()]
+    if {t.dtype for t in leaves} != {torch.float32} or \
+            not all(bool(torch.isfinite(t).all()) for t in leaves):
+        raise RuntimeError(f"{label}: the BN state is not float32 and finite")
+    return len(leaves)
+
+
+def train_mode_grads(torch, model, new_states):
+    """A `compare_pinned_grads` run of one train-mode step's gradients
+    (batch statistics, as `fit` takes them; no dropout in ResNet50), its
+    new layer state appended to `new_states`."""
+    def run(ds, record, flips):
+        inputs, labels, fm, lm = model._pack(model._coerce(ds))
+        with pinned_kinks(torch, model, record, flips):
+            loss, grads, new_state = model._value_and_grad(inputs, labels, fm, lm,
+                                                           True, None)
+        new_states.append(new_state)
+        return grads, float(loss)
+    return run
+
+
+def bn_pass_ms(torch, net, x, train):
+    """The BatchNormalization passes of one step (`train`: forward and
+    backward with batch statistics) or one forward (running statistics) on
+    `x`, timed alone: every BN layer at the shape and type one walk gives
+    it, by `device_ms` (device time: the host's launches hidden behind a
+    sleep), summed. With the bytes that step must move at least (each BN
+    input read and output written once, and in training the cotangent read
+    and dx written once) over HBM_BYTES_PER_S."""
+    from deeplearning4j_torch.nn.layers.convolution import BatchNormalization
+    calls, fwd = [], BatchNormalization.forward_with_state
+
+    def recording(self, params, state, xx, **kw):
+        calls.append((self, params, state, tuple(xx.shape), xx.dtype))
+        return fwd(self, params, state, xx, **kw)
+
+    with patched(BatchNormalization, "forward_with_state", recording), \
+            torch.inference_mode():
+        inputs, _ = net._pack_inputs([x])
+        net._walk(net.params_tree, net.state_tree, inputs, train=train)
+    total, nbytes = 0.0, 0
+    gen = torch.Generator(device=net.device).manual_seed(7)
+    for layer, params, state, shape, dtype in calls:
+        xx = torch.randn(shape, generator=gen, device=net.device).to(dtype)
+        elem = xx.element_size() * xx.numel()
+        if train:
+            xx.requires_grad_()
+            p = {k: v.detach().clone().requires_grad_() for k, v in params.items()}
+            g = torch.randn(shape, generator=gen, device=net.device).to(dtype)
+
+            def run():
+                y, _ = layer.forward_with_state(p, state, xx, train=True)
+                torch.autograd.backward(y, g)
+            nbytes += 4 * elem
+        else:
+            def run():
+                with torch.inference_mode():
+                    layer.forward_with_state(params, state, xx)
+            nbytes += 2 * elem
+        total += device_ms(torch, run, iters=5)
+    return {"bn_layers": len(calls), "ms": total,
+            "bytes_bound_ms": nbytes / HBM_BYTES_PER_S * 1e3}
+
+
+def share_of_busy(ms, profile):
+    """`ms` over the profiled call's device-busy time, where it has one."""
+    busy = profile.get("device_busy_ms")
+    return ms / busy if busy else None
+
+
+def h2d_copy_ms(torch, x):
+    """CUDA-event time of the host-to-device copy of the numpy batch `x` as
+    `fit` and `output` make it (from pageable memory), the median of 3:
+    the profiler's trace does not always hold the copy."""
+    times = []
+    for _ in range(3):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        torch.as_tensor(x, device="cuda")
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end))
+    return float(np.median(times))
+
+
+def phase_resnet_training(torch, card):
+    """Zoo ResNet50 at full width (224x224x3, 1000 classes, 53 BN nodes, 16
+    shortcut adds; random weights from its seed), `ResNet50().init()` on
+    CUDA by default, trained by `fit` for RESNET_STEPS steps at batch
+    RESNET_BATCH, float32 with TF32 off, RmsProp(0.1, 0.96, 1e-3), l1 and
+    l2 as the zoo builds it. Every kernel count is reset just before `fit`
+    and read just after: ResNet50's path runs none of K1-K6 (its BN,
+    zero padding, adds and pools are plain torch, as plain XLA in the JAX
+    package). The state tree moves on every step; the first step's state
+    is held to a plain float64 recompute of each BN's batch statistics on
+    the card (`check_first_step_state`, STATE_RTOL). The median warm step
+    from a second, unchecked epoch; one profiled step, and the BN passes
+    timed alone (`bn_pass_ms`). Train-mode gradients card vs CPU at batch 2
+    (batch statistics) per parameter under GRAD_REL with the CPU run pinned
+    to the card's ReLU and max-pool decisions (`compare_pinned_grads`), and
+    the new state of that step card vs CPU under STATE_RTOL. Then a
+    checkpoint round trip, bitwise, BN state included. Returns the result
+    and the trained network."""
+    from deeplearning4j_torch.data.dataset import DataSet
+    from deeplearning4j_torch.models.zoo import ResNet50
+    from deeplearning4j_torch.utils import params as param_utils
+    t0 = time.perf_counter()
+    net = ResNet50(num_labels=1000).init()
+    hwc, classes = _graph_shape(net)
+    kinds = [type(n.layer if n.is_layer() else n.vertex).__name__
+             for n in net.conf.nodes.values()]
+    shape = {"nodes": len(kinds), "bn": kinds.count("BatchNormalization"),
+             "adds": kinds.count("ElementWiseVertex"), "params": net.num_params()}
+    log(f"ResNet50: {hwc}/{classes}, {json.dumps(shape)} on {net.device}, init "
+        f"{time.perf_counter() - t0:.2f} s")
+    rng = np.random.default_rng(2040)
+    n = RESNET_STEPS * RESNET_BATCH
+    x = rng.standard_normal((n,) + hwc, dtype=np.float32)
+    y = np.eye(classes, dtype=np.float32)[rng.integers(0, classes, n)]
+
+    steps, active, records = Steps(), [True], []
+    moved = StateSteps(torch, net, active)
+    net.listeners[:] = [steps, moved]
+    with recorded_bn_stats(torch, records, active):
+        zero_launches()   # the main path's run starts here
+        net.fit(x, y, epochs=1, batch_size=RESNET_BATCH)
+        launches = all_launches()   # ... and ends here
+    check_launches("ResNet50 training", launches, dict.fromkeys(launches, 0))
+    if net.iteration != RESNET_STEPS or len(steps.scores) != RESNET_STEPS \
+            or not all(np.isfinite(steps.scores)):
+        raise RuntimeError(f"ResNet50 training: {net.iteration} steps, scores "
+                           f"{steps.scores}")
+    if not all(moved.moved):
+        raise RuntimeError(f"ResNet50: the BN state did not move on every step: "
+                           f"{moved.moved}")
+    first_step = check_first_step_state(torch, net, records, moved.first)
+    del records, moved
+    log(f"ResNet50 training: scores {steps.scores}; launches {launches}; first "
+        f"step's BN state vs a float64 recompute {json.dumps(first_step)} "
+        f"(limit {STATE_RTOL})")
+    # timing: another epoch over the same batches, unchecked
+    steps = Steps()
+    net.listeners[:] = [steps]
+    zero_launches()
+    t0 = time.perf_counter()
+    net.fit(x, y, epochs=1, batch_size=RESNET_BATCH)
+    check_launches("ResNet50 timed training", all_launches(),
+                   dict.fromkeys(launches, 0))
+    net.listeners.clear()
+    step_ms = np.diff([t0] + steps.ends) * 1e3
+    warm_ms = float(np.median(step_ms[1:]))
+    xb, yb = x[:RESNET_BATCH], y[:RESNET_BATCH]
+
+    def one_step():
+        net.fit(xb, yb, batch_size=RESNET_BATCH)
+        torch.cuda.synchronize()
+
+    profile = profile_call(torch, "train step ResNet50", one_step,
+                           {"batch": RESNET_BATCH})
+    profile["h2d_copy_ms_by_events"] = h2d_copy_ms(torch, xb)
+    bn = bn_pass_ms(torch, net, xb, train=True)
+    bn["share_of_busy"] = share_of_busy(bn["ms"], profile)
+    log(f"ResNet50 training: BN passes alone {json.dumps(bn)}")
+
+    cpu_net = _to_cpu_graph(net)
+    new_states = []
+    det = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        vs_cpu = compare_pinned_grads("ResNet50: card vs CPU path, train mode, batch 2",
+                                      torch, param_utils,
+                                      train_mode_grads(torch, net, new_states),
+                                      train_mode_grads(torch, cpu_net, new_states),
+                                      DataSet(x[:2], y[:2]),
+                                      structural_zeros=zero_by_structure(net))
+    finally:
+        torch.backends.cudnn.deterministic = det
+    del cpu_net
+    card_state, cpu_state = new_states
+    state_err = max(state_rel_err(torch, card_state[nm], cpu_state[nm]["mean"].double(),
+                                  cpu_state[nm]["var"].double()) for nm in cpu_state
+                    if cpu_state[nm])
+    if not state_err <= STATE_RTOL:
+        raise RuntimeError(f"ResNet50: the step's new BN state card vs CPU differs "
+                           f"by {state_err} (> {STATE_RTOL})")
+    ckpt = check_checkpoint_round_trip(net, x[:8], "ResNet50 float32")
+    result = {"shape": shape, "steps": RESNET_STEPS, "batch": RESNET_BATCH,
+              "launches": launches, "scores": steps.scores,
+              "step_ms": step_ms.tolist(), "median_warm_step_ms": warm_ms,
+              "images_per_s": RESNET_BATCH / warm_ms * 1e3,
+              "first_step_state": first_step,
+              "grad_rel_vs_cpu": vs_cpu, "new_state_err_vs_cpu": state_err,
+              "bn_passes": bn, "profile": profile, "checkpoint": ckpt, "card": card}
+    busy = profile.get("device_busy_ms")
+    result["h2d_share_of_busy"] = share_of_busy(profile["h2d_copy_ms_by_events"],
+                                                profile)
+    log(f"ResNet50 training: step ms {step_ms.tolist()}, median warm {warm_ms:.3f} "
+        f"ms, {result['images_per_s']:.1f} images/s; one step busy {busy} ms, idle "
+        f"{profile.get('device_idle_share')}, H2D {profile['h2d_copy_ms_by_events']:.3f} "
+        f"ms ({result['h2d_share_of_busy']} of busy), BN passes {bn['ms']:.3f} ms "
+        f"alone ({bn['share_of_busy']} of busy); new state card vs CPU "
+        f"{state_err:.3e}  [{card}]")
+    del x, y, xb, yb
+    return result, net
+
+
+def calibrate_bn(torch, net, x):
+    """Every BN's running statistics set to the batch statistics of one
+    train-mode forward of `x` through the network's own walk, with each
+    layer's decay at 0 for that forward."""
+    from deeplearning4j_torch.nn.layers.convolution import BatchNormalization
+    with ExitStack() as stack:
+        for node in net.conf.nodes.values():
+            if node.is_layer() and isinstance(node.layer, BatchNormalization):
+                stack.enter_context(patched(node.layer, "decay", 0.0))
+        with torch.inference_mode():
+            inputs, _ = net._pack_inputs([x])
+            _, _, net.state_tree = net._walk(net.params_tree, net.state_tree,
+                                             inputs, train=True)
+
+
+def phase_resnet_serving(torch, card, net):
+    """The trained float32 ResNet50 behind a BATCHED ParallelInference
+    (batch_limit 32, check_finite=True) with the AlexNet phases' client
+    load, TF32 off, on its running statistics. Six steps leave them far
+    from the statistics of the later layers' inputs, and a ResNet50 with
+    normal(0, 0.5) weights overflows in evaluation without them (the JAX
+    package's tests/test_zoo.py says so): if the trained state does not
+    give finite answers on a probe batch, each BN's state is first set
+    from one train-mode forward of a calibration batch (`calibrate_bn`),
+    and the phase says which it took. Every kernel count is reset just
+    before the clients start and read just after: none runs. Each answer
+    finite and bitwise the rows of its executed batch; a batch of 2 on the
+    card against the CPU path (SERVE_RTOL/SERVE_ATOL, same top-1);
+    latencies from a second, unchecked run; one bucket-32 forward profiled
+    and its BN passes timed alone."""
+    from deeplearning4j_torch.parallel.inference import (InferenceMode,
+                                                          ParallelInference)
+    hwc, classes = _graph_shape(net)
+    rng = np.random.default_rng(2041)
+    xcal = rng.standard_normal((32,) + hwc).astype(np.float32)
+    probe = net.output(xcal[:8])
+    trained_state_finite = bool(np.isfinite(probe).all())
+    if not trained_state_finite:
+        calibrate_bn(torch, net, xcal)
+    log(f"ResNet50 serving: the trained running statistics give "
+        f"{'finite' if trained_state_finite else 'non-finite'} answers on a probe "
+        f"batch; {'served as trained' if trained_state_finite else 'BN state set from a train-mode forward of a calibration batch of 32'}")
+    reqs = serving_requests(np.random.default_rng(2042))
+    images = sum(x.shape[0] for xs in reqs for x in xs)
+    pi = ParallelInference(net, inference_mode=InferenceMode.BATCHED, batch_limit=32,
+                           check_finite=True)
+    batches = []
+    try:
+        pi.warmup()
+        with recorded_outputs(net, batches):
+            f0 = pi.total_forwards
+            zero_launches()   # the main path's run starts here
+            answers, _, _ = run_clients(pi, reqs)
+            launches = all_launches()   # ... and ends here
+            forwards = pi.total_forwards - f0
+        check_launches("ResNet50 serving", launches, dict.fromkeys(launches, 0))
+        f0 = pi.total_forwards
+        _, lat, wall = run_clients(pi, reqs)
+        timed_forwards = pi.total_forwards - f0
+    finally:
+        pi.shutdown()
+    if forwards < 1 or timed_forwards < 1:
+        raise RuntimeError("ResNet50 serving executed no forward")
+    for (c, j), out in answers.items():
+        if out.shape != (reqs[c][j].shape[0], classes) or not np.isfinite(out).all():
+            raise RuntimeError(f"ResNet50: bad answer {out.shape}")
+        np.testing.assert_allclose(out.sum(-1), 1.0, rtol=1e-5)
+    rechecked = check_served_batches(net, batches, reqs, answers)
+    del batches
+    x2 = rng.standard_normal((2,) + hwc).astype(np.float32)
+    cpu_net = _to_cpu_graph(net)
+    card_out, cpu_out = net.output(x2), cpu_net.output(x2)
+    # the softmax of random weights saturates, so hold the features that
+    # feed it too
+    card_feat = net.feed_forward_named(x2)["avgpool"]
+    cpu_feat = cpu_net.feed_forward_named(x2)["avgpool"]
+    del cpu_net
+    np.testing.assert_allclose(card_out, cpu_out, rtol=SERVE_RTOL, atol=SERVE_ATOL)
+    np.testing.assert_allclose(card_feat, cpu_feat, rtol=SERVE_RTOL,
+                               atol=SERVE_ATOL * np.abs(cpu_feat).max())
+    if not np.array_equal(card_out.argmax(-1), cpu_out.argmax(-1)):
+        raise RuntimeError("ResNet50: top-1 differs between the card and the CPU")
+    x32 = rng.standard_normal((32,) + hwc).astype(np.float32)
+    profile = profile_call(torch, "forward ResNet50", lambda: net.output(x32),
+                           {"batch": 32})
+    profile["h2d_copy_ms_by_events"] = h2d_copy_ms(torch, x32)
+    bn = bn_pass_ms(torch, net, x32, train=False)
+    bn["share_of_busy"] = share_of_busy(bn["ms"], profile)
+    result = {**latency_stats(lat, images, wall), "forwards": forwards,
+              "launches": launches, "batches_rechecked": rechecked,
+              "trained_state_finite": trained_state_finite,
+              "calibrated": not trained_state_finite,
+              "max_abs_card_vs_cpu_b2": float(np.abs(card_out - cpu_out).max()),
+              "avgpool_rel_card_vs_cpu_b2": float(
+                  np.linalg.norm(card_feat - cpu_feat) / np.linalg.norm(cpu_feat)),
+              "top1_prob_b2": card_out.max(-1).tolist(),
+              "bn_passes_b32": bn, "profile": profile, "card": card}
+    log(f"ResNet50 serving: p50 {result['p50_ms']:.3f} ms p99 {result['p99_ms']:.3f} "
+        f"ms, {result['images_per_s']:.1f} images/s, {forwards} forwards, answers "
+        f"finite  [{card}]")
+    log(f"ResNet50 serving: {json.dumps(result)}")
+    return result
+
+
+def phase_resnet_bf16_training(torch, card):
+    """ResNet50 as a bfloat16 network, bench.py's bench_resnet50 type:
+    `ResNet50().init(dtype=torch.bfloat16)`, RESNET_BF16_STEPS `fit` steps
+    at batch RESNET_BF16_BATCH. Every kernel count is reset just before and
+    read just after: none runs. The parameters are bfloat16, the BN state
+    stays float32, finite, and moves on every step; every score is finite."""
+    from deeplearning4j_torch.models.zoo import ResNet50
+    from deeplearning4j_torch.utils import params as param_utils
+    net = ResNet50(num_labels=1000).init(dtype=torch.bfloat16)
+    if net.device.type == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    hwc, classes = _graph_shape(net)
+    if {t.dtype for t in param_utils.tree_leaves(net.params_tree)} != {torch.bfloat16}:
+        raise RuntimeError("ResNet50().init(dtype=torch.bfloat16) gave parameters "
+                           "that are not bfloat16")
+    check_state_float32(torch, net, "ResNet50 bfloat16 at init")
+    rng = np.random.default_rng(2043)
+    n = RESNET_BF16_STEPS * RESNET_BF16_BATCH
+    x = rng.standard_normal((n,) + hwc, dtype=np.float32)
+    y = np.eye(classes, dtype=np.float32)[rng.integers(0, classes, n)]
+    steps, moved = Steps(), StateSteps(torch, net, [False])
+    net.listeners[:] = [steps, moved]
+    zero_launches()   # the bfloat16 run starts here
+    net.fit(x, y, epochs=1, batch_size=RESNET_BF16_BATCH)
+    launches = all_launches()   # ... and ends here
+    net.listeners.clear()
+    check_launches("ResNet50 bfloat16 training", launches, dict.fromkeys(launches, 0))
+    if net.iteration != RESNET_BF16_STEPS or len(steps.scores) != RESNET_BF16_STEPS \
+            or not all(np.isfinite(steps.scores)) or not all(moved.moved):
+        raise RuntimeError(f"ResNet50 bfloat16: {net.iteration} steps, scores "
+                           f"{steps.scores}, state moved {moved.moved}")
+    leaves = check_state_float32(torch, net, "ResNet50 bfloat16 after training")
+    step_ms = np.diff(steps.ends) * 1e3
+    xb, yb = x[:RESNET_BF16_BATCH], y[:RESNET_BF16_BATCH]
+
+    def one_step():
+        net.fit(xb, yb, batch_size=RESNET_BF16_BATCH)
+        torch.cuda.synchronize()
+
+    profile = profile_call(torch, "train step ResNet50 bfloat16", one_step,
+                           {"batch": RESNET_BF16_BATCH})
+    profile["h2d_copy_ms_by_events"] = h2d_copy_ms(torch, xb)
+    result = {"steps": RESNET_BF16_STEPS, "batch": RESNET_BF16_BATCH,
+              "launches": launches, "scores": steps.scores,
+              "state_leaves_float32": leaves,
+              "step_ms_after_the_first": step_ms.tolist(),
+              "median_step_ms": float(np.median(step_ms)) if len(step_ms) else None,
+              "peak_memory_gb": (torch.cuda.max_memory_allocated() / 1e9
+                                 if net.device.type == "cuda" else None),
+              "profile": profile, "card": card}
+    log(f"ResNet50 bfloat16 training: {json.dumps(result)}")
+    del net, x, y, xb, yb
     return result
 
 
@@ -2553,6 +3157,13 @@ def main() -> int:
     phase_googlenet_serving(torch, card)
     torch.cuda.empty_cache()
     phase_googlenet_training(torch, card)
+    torch.cuda.empty_cache()
+    _, resnet = phase_resnet_training(torch, card)
+    phase_resnet_serving(torch, card, resnet)
+    del resnet
+    torch.cuda.empty_cache()
+    phase_resnet_bf16_training(torch, card)
+    torch.cuda.empty_cache()
     phase_attention_dispatch(torch, card)
     char = phase_char_model(torch, card)
     lrn_entry["launches"] = serving["launches"]["lrn_fwd"]

@@ -13,12 +13,16 @@ from .nn.conf.inputs import InputType
 from .data.dataset import DataSet, MultiDataSet
 from .data.iterators import (DataSetIterator, ExistingDataSetIterator,
                              ListDataSetIterator)
+from .data.normalizers import (DataNormalization, ImagePreProcessingScaler,
+                               NormalizerMinMaxScaler, NormalizerStandardize)
 from .nn.layers.core import (ActivationLayer, DenseLayer, DropoutLayer,
                              EmbeddingLayer, LossLayer, OutputLayer)
-from .nn.layers.convolution import (ConvolutionLayer, ConvolutionMode,
+from .nn.layers.convolution import (BatchNormalization, Convolution1DLayer,
+                                    ConvolutionLayer, ConvolutionMode,
                                     GlobalPoolingLayer,
                                     LocalResponseNormalization, PoolingType,
-                                    SubsamplingLayer)
+                                    Subsampling1DLayer, SubsamplingLayer,
+                                    ZeroPaddingLayer)
 from .nn.layers.attention import SelfAttentionLayer
 from .nn.layers.recurrent import RnnOutputLayer
 from .nn.multilayer import MultiLayerNetwork

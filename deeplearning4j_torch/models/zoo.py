@@ -1,13 +1,13 @@
 """Model zoo: standard architectures as config builders.
 
 Port of `deeplearning4j_tpu/models/zoo.py` for the models the port runs:
-LeNet and AlexNet (MultiLayerNetwork) and GoogLeNet (ComputationGraph),
-with the same layer lists, node names and hyperparameters, so their
-configurations serialize to the same JSON; input shape NHWC [height, width,
-channels]. `ZooModel.init` builds the network its configuration describes,
-and `init_pretrained` restores a local checkpoint after checking its
-checksum and architecture. ResNet50 waits for BatchNormalization, the
-recurrent and remaining models for their slices.
+LeNet, SimpleCNN, AlexNet, VGG16 and VGG19 (MultiLayerNetwork), ResNet50
+and GoogLeNet (ComputationGraph), with the same layer lists, node names and
+hyperparameters, so their configurations serialize to the same JSON; input
+shape NHWC [height, width, channels]. `ZooModel.init` builds the network
+its configuration describes, and `init_pretrained` restores a local
+checkpoint after checking its checksum and architecture. The recurrent
+model and InceptionResNetV1/FaceNetNN4Small2 wait for their slices.
 """
 from __future__ import annotations
 
@@ -20,14 +20,15 @@ from ..nn.conf.builders import MultiLayerConfiguration, NeuralNetConfiguration
 from ..nn.conf.graph_conf import ComputationGraphConfiguration
 from ..nn.conf.inputs import InputType
 from ..nn.graph.graph import ComputationGraph
-from ..nn.graph.vertices import MergeVertex
-from ..nn.layers.convolution import (ConvolutionLayer, ConvolutionMode,
-                                     GlobalPoolingLayer,
+from ..nn.graph.vertices import ElementWiseVertex, MergeVertex
+from ..nn.layers.convolution import (BatchNormalization, ConvolutionLayer,
+                                     ConvolutionMode, GlobalPoolingLayer,
                                      LocalResponseNormalization, PoolingType,
-                                     SubsamplingLayer)
-from ..nn.layers.core import DenseLayer, OutputLayer
+                                     SubsamplingLayer, ZeroPaddingLayer)
+from ..nn.layers.core import (ActivationLayer, DenseLayer, DropoutLayer,
+                              LossLayer, OutputLayer)
 from ..nn.multilayer import MultiLayerNetwork
-from ..nn.updaters import AdaDelta, GradientNormalization, Nesterovs
+from ..nn.updaters import AdaDelta, GradientNormalization, Nesterovs, RmsProp
 from ..nn.weights import Distribution, WeightInit
 
 
@@ -140,6 +141,43 @@ class LeNet(ZooModel):
 
 
 @dataclass
+class SimpleCNN(ZooModel):
+    """Reference zoo/model/SimpleCNN.java:75-128: a conv/BN stack with
+    average pools and dropout, ending in conv(num_labels), global average
+    pooling and softmax; as in the JAX package the tail is a
+    LossLayer(softmax, mcxent), so that it trains."""
+
+    num_labels: int = 10
+    input_shape: Sequence[int] = (48, 48, 1)
+
+    def conf(self) -> MultiLayerConfiguration:
+        h, w, c = self.input_shape
+        b = (NeuralNetConfiguration.builder()
+             .seed(self.seed)
+             .activation("identity")
+             .weight_init(WeightInit.RELU)
+             .updater(AdaDelta())
+             .convolution_mode(ConvolutionMode.SAME)
+             .gradient_normalization(
+                 GradientNormalization.RENORMALIZE_L2_PER_LAYER)
+             .list())
+        for n, k in ((16, 7), (32, 5), (64, 3), (128, 3)):
+            for _ in range(2):
+                b.layer(ConvolutionLayer(kernel_size=(k, k), n_out=n))
+                b.layer(BatchNormalization())
+            b.layer(ActivationLayer(activation="relu"))
+            b.layer(SubsamplingLayer(kernel_size=(2, 2),
+                                     pooling_type=PoolingType.AVG))
+            b.layer(DropoutLayer(dropout_rate=0.5))
+        b.layer(ConvolutionLayer(kernel_size=(3, 3), n_out=256))
+        b.layer(BatchNormalization())
+        b.layer(ConvolutionLayer(kernel_size=(3, 3), n_out=self.num_labels))
+        b.layer(GlobalPoolingLayer(pooling_type=PoolingType.AVG))
+        b.layer(LossLayer(activation="softmax", loss="mcxent"))
+        return b.set_input_type(InputType.convolutional(h, w, c)).build()
+
+
+@dataclass
 class AlexNet(ZooModel):
     """One-tower AlexNet (reference zoo/model/AlexNet.java): gaussian(0,
     0.01) init, bias 1 on conv2/4/5 and dense, dropout 0.5, Nesterov
@@ -205,6 +243,153 @@ class AlexNet(ZooModel):
                                    loss="negativeloglikelihood"))
                 .set_input_type(InputType.convolutional(h, w, c))
                 .build())
+
+
+def _vgg_conf(builder, conv_plan, num_labels, input_shape):
+    h, w, c = input_shape
+    for n in conv_plan:
+        if n == "M":
+            builder.layer(SubsamplingLayer(kernel_size=(2, 2), stride=(2, 2),
+                                           pooling_type=PoolingType.MAX))
+        else:
+            builder.layer(ConvolutionLayer(kernel_size=(3, 3), stride=(1, 1),
+                                           padding=(1, 1), n_out=n))
+    builder.layer(OutputLayer(n_out=num_labels, activation="softmax",
+                              loss="negativeloglikelihood"))
+    return builder.set_input_type(InputType.convolutional(h, w, c)).build()
+
+
+@dataclass
+class VGG16(ZooModel):
+    """Reference zoo/model/VGG16.java:90-160: the conv stack straight into
+    the output layer (the reference's dense tail is commented out too)."""
+
+    def conf(self) -> MultiLayerConfiguration:
+        b = (NeuralNetConfiguration.builder().seed(self.seed)
+             .activation("relu").updater(Nesterovs(learning_rate=1e-2))
+             .weight_init(WeightInit.XAVIER).list())
+        plan = [64, 64, "M", 128, 128, "M", 256, 256, 256, "M",
+                512, 512, 512, "M", 512, 512, 512, "M"]
+        return _vgg_conf(b, plan, self.num_labels, self.input_shape)
+
+
+@dataclass
+class VGG19(ZooModel):
+    """Reference zoo/model/VGG19.java:80-150."""
+
+    def conf(self) -> MultiLayerConfiguration:
+        b = (NeuralNetConfiguration.builder().seed(self.seed)
+             .activation("relu").updater(Nesterovs(learning_rate=1e-2))
+             .weight_init(WeightInit.XAVIER).list())
+        plan = [64, 64, "M", 128, 128, "M", 256, 256, 256, 256, "M",
+                512, 512, 512, 512, "M", 512, 512, 512, 512, "M"]
+        return _vgg_conf(b, plan, self.num_labels, self.input_shape)
+
+
+@dataclass
+class ResNet50(ZooModel):
+    """Reference zoo/model/ResNet50.java:82-230, as the JAX package builds
+    it: a stem (zero pad 3, 7x7/2 conv, BN, ReLU, 3x3/2 max pool, both
+    Truncate), then `_conv_block` (a strided 1x1 bottleneck with a
+    projection shortcut) and `_identity_block` per stage, each shortcut an
+    ElementWiseVertex add, global average pooling and a negative
+    log-likelihood output. RmsProp(0.1, 0.96, 1e-3), normal(0, 0.5) init,
+    l1 1e-7, l2 5e-5. Every stage's first block strides 2, its own too, so
+    a 224x224 image gives 112 -> 55 -> 28 -> 14 -> 7 -> 4."""
+
+    def _bn_act(self, g, name, inp, act="relu"):
+        g.add_layer("bn" + name, BatchNormalization(), inp)
+        g.add_layer("act" + name, ActivationLayer(activation=act), "bn" + name)
+        return "act" + name
+
+    def _identity_block(self, g, kernel, filters, stage, block, inp):
+        f1, f2, f3 = filters
+        base = f"{stage}{block}_branch"
+        g.add_layer(f"res{base}2a", ConvolutionLayer(
+            kernel_size=(1, 1), n_out=f1), inp)
+        a = self._bn_act(g, f"{base}2a", f"res{base}2a")
+        g.add_layer(f"res{base}2b", ConvolutionLayer(
+            kernel_size=kernel, n_out=f2,
+            convolution_mode=ConvolutionMode.SAME), a)
+        a = self._bn_act(g, f"{base}2b", f"res{base}2b")
+        g.add_layer(f"res{base}2c", ConvolutionLayer(
+            kernel_size=(1, 1), n_out=f3), a)
+        g.add_layer(f"bn{base}2c", BatchNormalization(), f"res{base}2c")
+        g.add_vertex(f"short{base}", ElementWiseVertex(op="add"),
+                     f"bn{base}2c", inp)
+        g.add_layer(f"res{stage}{block}_out",
+                    ActivationLayer(activation="relu"), f"short{base}")
+        return f"res{stage}{block}_out"
+
+    def _conv_block(self, g, kernel, filters, stage, block, inp,
+                    stride=(2, 2)):
+        f1, f2, f3 = filters
+        base = f"{stage}{block}_branch"
+        g.add_layer(f"res{base}2a", ConvolutionLayer(
+            kernel_size=(1, 1), stride=stride, n_out=f1), inp)
+        a = self._bn_act(g, f"{base}2a", f"res{base}2a")
+        g.add_layer(f"res{base}2b", ConvolutionLayer(
+            kernel_size=kernel, n_out=f2,
+            convolution_mode=ConvolutionMode.SAME), a)
+        a = self._bn_act(g, f"{base}2b", f"res{base}2b")
+        g.add_layer(f"res{base}2c", ConvolutionLayer(
+            kernel_size=(1, 1), n_out=f3), a)
+        g.add_layer(f"bn{base}2c", BatchNormalization(), f"res{base}2c")
+        # projection shortcut
+        g.add_layer(f"res{base}1", ConvolutionLayer(
+            kernel_size=(1, 1), stride=stride, n_out=f3), inp)
+        g.add_layer(f"bn{base}1", BatchNormalization(), f"res{base}1")
+        g.add_vertex(f"short{base}", ElementWiseVertex(op="add"),
+                     f"bn{base}2c", f"bn{base}1")
+        g.add_layer(f"res{stage}{block}_out",
+                    ActivationLayer(activation="relu"), f"short{base}")
+        return f"res{stage}{block}_out"
+
+    def conf(self) -> ComputationGraphConfiguration:
+        h, w, c = self.input_shape
+        g = (NeuralNetConfiguration.builder()
+             .seed(self.seed)
+             .activation("identity")
+             .updater(RmsProp(learning_rate=0.1, rms_decay=0.96,
+                              epsilon=0.001))
+             .weight_init(WeightInit.DISTRIBUTION)
+             .dist(Distribution(kind="normal", mean=0.0, std=0.5))
+             .l1(1e-7).l2(5e-5)
+             .graph_builder())
+        g.add_inputs("input")
+        g.set_input_types(InputType.convolutional(h, w, c))
+        g.add_layer("stem-zero", ZeroPaddingLayer(padding=(3, 3)), "input")
+        g.add_layer("stem-cnn1", ConvolutionLayer(
+            kernel_size=(7, 7), stride=(2, 2), n_out=64), "stem-zero")
+        a = self._bn_act(g, "stem1", "stem-cnn1")
+        g.add_layer("stem-maxpool1", SubsamplingLayer(
+            kernel_size=(3, 3), stride=(2, 2),
+            pooling_type=PoolingType.MAX), a)
+
+        x = self._conv_block(g, (3, 3), (64, 64, 256), "2", "a",
+                             "stem-maxpool1", stride=(2, 2))
+        x = self._identity_block(g, (3, 3), (64, 64, 256), "2", "b", x)
+        x = self._identity_block(g, (3, 3), (64, 64, 256), "2", "c", x)
+
+        x = self._conv_block(g, (3, 3), (128, 128, 512), "3", "a", x)
+        for blk in "bcd":
+            x = self._identity_block(g, (3, 3), (128, 128, 512), "3", blk, x)
+
+        x = self._conv_block(g, (3, 3), (256, 256, 1024), "4", "a", x)
+        for blk in "bcdef":
+            x = self._identity_block(g, (3, 3), (256, 256, 1024), "4", blk, x)
+
+        x = self._conv_block(g, (3, 3), (512, 512, 2048), "5", "a", x)
+        x = self._identity_block(g, (3, 3), (512, 512, 2048), "5", "b", x)
+        x = self._identity_block(g, (3, 3), (512, 512, 2048), "5", "c", x)
+
+        g.add_layer("avgpool", GlobalPoolingLayer(
+            pooling_type=PoolingType.AVG), x)
+        g.add_layer("output", OutputLayer(
+            n_out=self.num_labels, activation="softmax",
+            loss="negativeloglikelihood"), "avgpool")
+        g.set_outputs("output")
+        return g.build()
 
 
 @dataclass

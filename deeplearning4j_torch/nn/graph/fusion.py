@@ -191,7 +191,7 @@ def _slice_leaf(leaf, off: int, n: int):
 
 def fuse_params(groups: Sequence[FusionGroup], tree: Dict[str, dict]
                 ) -> Dict[str, dict]:
-    """An unfused per-node tree (parameters or optimizer state) on the
+    """An unfused per-node tree (parameters, optimizer or layer state) on the
     fused graph: the members' entries concatenated into the fused node's,
     every other entry passed through."""
     members = {m for g in groups for m in g.members}
@@ -219,9 +219,9 @@ def unfuse_params(groups: Sequence[FusionGroup], tree: Dict[str, dict]
 
 def fuse_graph(net):
     """An initialized ComputationGraph -> the fused graph carrying the same
-    parameters and optimizer state (concatenated copies, not drawn anew),
-    iteration and epoch, on the same device. Returns `net` itself when
-    nothing is fusible."""
+    parameters, optimizer state and layer state (concatenated copies, not
+    drawn anew), iteration and epoch, on the same device. Returns `net`
+    itself when nothing is fusible."""
     from .graph import ComputationGraph
     fused_conf, groups = fuse_sibling_convs(net.conf)
     if not groups:
@@ -236,7 +236,8 @@ def fuse_graph(net):
                 for n in out._layer_nodes}
 
     out._adopt(carried(net.params_tree), net._dtype, net.device,
-               opt_state=carried(net.opt_state))
+               opt_state=carried(net.opt_state),
+               state_tree=carried(net.state_tree))
     out.iteration = net.iteration
     out.epoch = net.epoch
     return out

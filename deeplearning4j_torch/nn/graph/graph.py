@@ -11,9 +11,13 @@ iterator of them), `fit_batch`, `score`, `compute_gradient_and_score`,
 As in the port's MultiLayerNetwork, the walk runs eagerly, the step takes
 one autograd backward and then, per layer node in topological order and
 under ``torch.no_grad``, normalizes the gradients, runs the updater and sets
-``p - u``. Parameters and optimizer state are dicts keyed by layer-node
-name, in topological order, holding the port's layout (utils/params.py
-carries them to and from the JAX package's). An output layer's head takes
+``p - u``. Parameters, optimizer state and layer state are dicts keyed by
+layer-node name, in topological order, holding the port's layout
+(utils/params.py carries them to and from the JAX package's). The layer
+state (BatchNormalization's running statistics) is threaded through the
+walk as in the JAX package: `fit_batch` commits the new state with the new
+parameters, and the inference and scoring calls run on it and leave it as
+it is. An output layer's head takes
 its input (after its dropout) to `compute_score` and does not run its
 forward (graph.py:160-168 of the JAX package); output layers are sinks.
 Dropout draws from the network's own ``torch.Generator``.
@@ -52,6 +56,7 @@ class ComputationGraph(_DeviceNetwork):
         self.conf = conf
         self.params_tree: Optional[Dict[str, dict]] = None
         self.opt_state: Optional[Dict[str, Any]] = None
+        self.state_tree: Optional[Dict[str, dict]] = None
         self.device: Optional[torch.device] = None
         self.iteration = 0
         self.epoch = 0
@@ -74,19 +79,26 @@ class ComputationGraph(_DeviceNetwork):
         return {name: self.conf.nodes[name].layer.updater.init(params_tree[name])
                 for name in self._layer_nodes}
 
+    def _state_init(self, dtype) -> Dict[str, dict]:
+        return {name: self.conf.nodes[name].layer.init_state(dtype)
+                for name in self._layer_nodes}
+
     # --------------------------------------------------------------- forward
-    def _walk(self, params, inputs: Dict[str, Tensor], *, train: bool = False,
+    def _walk(self, params, state, inputs: Dict[str, Tensor], *,
+              train: bool = False,
               generator: Optional[torch.Generator] = None,
               fmasks: Optional[Dict[str, Tensor]] = None,
               for_score: bool = False):
         """The topological forward. Returns (activations by name, inputs
-        included; the output heads' inputs when `for_score`)."""
+        included; the output heads' inputs when `for_score`; the new layer
+        state by layer node, an output head's passed through)."""
         conf = self.conf
         fmasks = fmasks or {}
         acts: Dict[str, Tensor] = dict(inputs)
         masks: Dict[str, Optional[Tensor]] = {
             name: fmasks.get(name) for name in conf.network_inputs}
         heads: Dict[str, Tensor] = {}
+        new_state: Dict[str, dict] = {}
         for name in conf.topo_order:
             node = conf.nodes[name]
             in_acts = [acts[n] for n in node.inputs]
@@ -101,10 +113,11 @@ class ComputationGraph(_DeviceNetwork):
                         a = dropout(a, layer.dropout_rate, train, generator)
                     heads[name] = a
                     acts[name] = a  # outputs are sinks: nothing reads it
+                    new_state[name] = state[name]
                 else:
-                    acts[name] = layer.forward(params[name], a, train=train,
-                                               generator=generator,
-                                               mask=in_masks[0])
+                    acts[name], new_state[name] = layer.forward_with_state(
+                        params[name], state[name], a, train=train,
+                        generator=generator, mask=in_masks[0])
                 masks[name] = in_masks[0]
             else:
                 vertex = node.vertex
@@ -114,15 +127,17 @@ class ComputationGraph(_DeviceNetwork):
                 acts[name] = vertex.forward(in_acts, train=train,
                                             generator=generator, masks=in_masks)
                 masks[name] = vertex.output_mask(in_masks)
-        return acts, heads
+        return acts, heads, new_state
 
-    def _loss(self, params, inputs, labels: Dict[str, Tensor], fmasks,
-              lmasks, train: bool, generator) -> Tensor:
-        """The sum of the output heads' losses plus regularization over the
-        layer nodes in topological order (reference
-        computeGradientAndScore sums the IOutputLayer scores)."""
-        _, heads = self._walk(params, inputs, train=train, generator=generator,
-                              fmasks=fmasks, for_score=True)
+    def _loss(self, params, state, inputs, labels: Dict[str, Tensor], fmasks,
+              lmasks, train: bool, generator):
+        """(score, new layer state). The score is the sum of the output
+        heads' losses plus regularization over the layer nodes in
+        topological order (reference computeGradientAndScore sums the
+        IOutputLayer scores)."""
+        _, heads, new_state = self._walk(params, state, inputs, train=train,
+                                         generator=generator, fmasks=fmasks,
+                                         for_score=True)
         total = None
         for out_name, y in labels.items():
             layer = self.conf.nodes[out_name].layer
@@ -134,22 +149,23 @@ class ComputationGraph(_DeviceNetwork):
             total = s if total is None else total + s
         return total + _regularization_score(
             [self.conf.nodes[n].layer for n in self._layer_nodes],
-            [params[n] for n in self._layer_nodes])
+            [params[n] for n in self._layer_nodes]), new_state
 
     def _value_and_grad(self, inputs, labels, fmasks, lmasks, train, generator):
-        """(score, gradients by node) at the current parameters: one autograd
-        backward; a parameter the score does not reach gets zeros."""
+        """(score, gradients by node, new layer state) at the current
+        parameters and state: one autograd backward; a parameter the score
+        does not reach gets zeros."""
         tree = {n: {k: t.detach().requires_grad_() for k, t in lp.items()}
                 for n, lp in self.params_tree.items()}
         flat = [t for lp in tree.values() for t in lp.values()]
         with torch.enable_grad():
-            loss = self._loss(tree, inputs, labels, fmasks, lmasks, train,
-                              generator)
+            loss, new_state = self._loss(tree, self.state_tree, inputs, labels,
+                                         fmasks, lmasks, train, generator)
         grads = torch.autograd.grad(loss, flat, allow_unused=True) if flat else ()
         flat_g = iter([torch.zeros_like(t) if g is None else g
                        for g, t in zip(grads, flat)])
         return loss.detach(), {n: {k: next(flat_g) for k in lp}
-                               for n, lp in tree.items()}
+                               for n, lp in tree.items()}, new_state
 
     # ------------------------------------------------------------------ data
     @staticmethod
@@ -242,7 +258,8 @@ class ComputationGraph(_DeviceNetwork):
         with torch.inference_mode():
             inputs, fmasks = self._pack_inputs(self._features(features),
                                                features_masks)
-            acts, _ = self._walk(self.params_tree, inputs, fmasks=fmasks)
+            acts, _, _ = self._walk(self.params_tree, self.state_tree, inputs,
+                                    fmasks=fmasks)
             return [_to_numpy(acts[n]) for n in self.conf.network_outputs]
 
     def output(self, *features, features_masks=None) -> np.ndarray:
@@ -254,7 +271,7 @@ class ComputationGraph(_DeviceNetwork):
         self._check_init()
         with torch.inference_mode():
             inputs, _ = self._pack_inputs(self._features(features))
-            acts, _ = self._walk(self.params_tree, inputs)
+            acts, _, _ = self._walk(self.params_tree, self.state_tree, inputs)
             return {n: _to_numpy(a) for n, a in acts.items()}
 
     def predict(self, *features) -> np.ndarray:
@@ -286,15 +303,16 @@ class ComputationGraph(_DeviceNetwork):
 
     def fit_batch(self, mds) -> None:
         """One optimizer step on one batch: forward, loss, one backward,
-        then per layer node normalize -> update -> p - u."""
+        then per layer node normalize -> update -> p - u; the new layer
+        state is committed with the new parameters."""
         mds = self._coerce(mds)
         if self.conf.backprop_type == BackpropType.TRUNCATED_BPTT and \
                 any(np.ndim(f) == 3 for f in mds.features) and \
                 all(np.ndim(y) == 3 for y in mds.labels):
             raise _later("truncated BPTT", "item 5, the recurrent slice")
         inputs, labels, fmasks, lmasks = self._pack(mds)
-        loss, grads = self._value_and_grad(inputs, labels, fmasks, lmasks,
-                                           True, self._dropout_gen)
+        loss, grads, new_state = self._value_and_grad(
+            inputs, labels, fmasks, lmasks, True, self._dropout_gen)
         with torch.no_grad():
             stepped = {n: _layer_step(self.conf.nodes[n].layer,
                                       self.params_tree[n], grads[n],
@@ -302,6 +320,7 @@ class ComputationGraph(_DeviceNetwork):
                        for n in self._layer_nodes}
         self.params_tree = {n: p for n, (p, _) in stepped.items()}
         self.opt_state = {n: o for n, (_, o) in stepped.items()}
+        self.state_tree = new_state
         self.iteration += 1
         self.score_value = loss
         for lst in self.listeners:
@@ -323,7 +342,8 @@ class ComputationGraph(_DeviceNetwork):
     # ----------------------------------------------------------------- score
     def score(self, data=None) -> float:
         """Loss summed over the output heads + regularization on `data`, no
-        dropout; with no data, the score of the last training step."""
+        dropout, on the running layer state, which stays as it is; with no
+        data, the score of the last training step."""
         self._check_init()
         if data is None:
             if self.score_value is None:
@@ -331,16 +351,17 @@ class ComputationGraph(_DeviceNetwork):
             return float(self.score_value)
         with torch.inference_mode():
             inputs, labels, fmasks, lmasks = self._pack(self._coerce(data))
-            return float(self._loss(self.params_tree, inputs, labels, fmasks,
-                                    lmasks, False, None))
+            return float(self._loss(self.params_tree, self.state_tree, inputs,
+                                    labels, fmasks, lmasks, False, None)[0])
 
     def compute_gradient_and_score(self, data):
         """(gradients by node in the port's layout, score) without updating
-        the parameters, with train=False: no dropout."""
+        the parameters, with train=False: no dropout, the running layer
+        state, which stays as it is."""
         self._check_init()
         inputs, labels, fmasks, lmasks = self._pack(self._coerce(data))
-        loss, grads = self._value_and_grad(inputs, labels, fmasks, lmasks,
-                                           False, None)
+        loss, grads, _ = self._value_and_grad(inputs, labels, fmasks, lmasks,
+                                              False, None)
         return grads, float(loss)
 
     # ------------------------------------------------------------ param view

@@ -5,14 +5,24 @@ layer carries both the serializable config (same fields, same registered
 names) and the math:
 
     params = layer.init_params(gen, dtype)          # dict of named tensors
+    state  = layer.init_state(dtype)                # dict, {} for most layers
     y      = layer.forward(params, x, train=..., generator=..., mask=...)
+    y, new_state = layer.forward_with_state(params, state, x, train=..., ...)
 
 A dense layer given a quantized dict (`quantize.quantize_tree`) takes the
 int8 forward; an embedding layer, the int8 lookup.
 
+Layer state (BatchNormalization's running mean and variance) is threaded
+beside the parameters, as the JAX package's ``forward(params, state, x) ->
+(y, new_state)`` threads it. Here the stateless signature stays the
+layer's own `forward`, and the networks call `forward_with_state`, which
+for a stateless layer is `forward` with the state passed through; only a
+stateful layer overrides it. State tensors are never autograd leaves: they
+are detached, live outside ``params_tree``, and no updater or
+regularization sees them.
+
 Parameters are drawn on the CPU from an explicit `torch.Generator`; the
-network moves them to its device. Layers of these slices hold no state (no
-batch-norm yet), so there is no state tree. Dropout follows the reference:
+network moves them to its device. Dropout follows the reference:
 inverted, applied to the layer's INPUT, identity at inference; its mask is
 drawn from a generator on the input's device (the network's own dropout
 generator, MultiLayerNetwork.init). Every layer's forward takes the features
@@ -36,6 +46,7 @@ from ..weights import Distribution, WeightInit, init_weights
 
 Tensor = torch.Tensor
 Params = Dict[str, Tensor]
+State = Dict[str, Tensor]
 
 # Parameter-type tags (reference DefaultParamInitializer.WEIGHT_KEY/BIAS_KEY).
 WEIGHT = "W"
@@ -97,6 +108,10 @@ class Layer:
     def has_params(self) -> bool:
         return False
 
+    def init_state(self, dtype=torch.float32) -> State:
+        """Non-trainable layer state (running statistics), {} by default."""
+        return {}
+
     def param_reg(self, pname: str) -> Tuple[float, float]:
         """(l1, l2) applied to the named parameter."""
         if pname == BIAS:
@@ -110,6 +125,16 @@ class Layer:
                 generator: Optional[torch.Generator] = None,
                 mask: Optional[Tensor] = None) -> Tensor:
         raise NotImplementedError
+
+    def forward_with_state(self, params: Params, state: State, x: Tensor, *,
+                           train: bool = False,
+                           generator: Optional[torch.Generator] = None,
+                           mask: Optional[Tensor] = None
+                           ) -> Tuple[Tensor, State]:
+        """(y, new state): the JAX package's forward. A stateless layer runs
+        `forward` and hands its state back as it came."""
+        return self.forward(params, x, train=train, generator=generator,
+                            mask=mask), state
 
     # ---- helpers ---------------------------------------------------------
     def _act(self):

@@ -9,10 +9,15 @@ Where the JAX package jits one pure forward, the port runs the layers
 eagerly under ``torch.inference_mode``. Where it jits one pure train step,
 the port runs the forward and the loss under autograd, takes one backward,
 and then, per layer under ``torch.no_grad``, normalizes the gradients, runs
-the updater and sets ``p - u`` (frozen layers keep theirs). Parameters and
-optimizer state are tuples of per-layer dicts of tensors on the network's
-device (``params_tree``, ``opt_state``), in the port's layout
-(utils/params.py converts from and to the JAX package's). The features
+the updater and sets ``p - u`` (frozen layers keep theirs). Parameters,
+optimizer state and layer state are tuples of per-layer dicts of tensors on
+the network's device (``params_tree``, ``opt_state``, ``state_tree``), in
+the port's layout (utils/params.py converts from and to the JAX
+package's). The layer state (BatchNormalization's running statistics) is
+threaded through every forward as the JAX package threads it: a training
+step commits the new state with the new parameters; ``output``, ``score``,
+``compute_gradient_and_score`` and ``feed_forward`` run on it and leave it
+as it is. The features
 mask (``DataSet.features_mask``, [batch, time]) reaches every layer's forward
 as ``mask``, as in the JAX package. Labels and masks stay float32 (float64 in
 a float64 network) whatever the parameters' type, as the JAX package keeps
@@ -102,8 +107,8 @@ def _layer_step(layer, params, grads, opt_state, iteration):
 class _DeviceNetwork:
     """What MultiLayerNetwork and ComputationGraph share: init (each draws
     its own tree, `_draw_params`, and builds its optimizer state,
-    `_opt_init`), the init check and the host-to-device casts of features,
-    labels and masks."""
+    `_opt_init`, and its layer state, `_state_init`), the init check and the
+    host-to-device casts of features, labels and masks."""
 
     def _check_init(self):
         if not self._initialized:
@@ -114,8 +119,9 @@ class _DeviceNetwork:
         """Draw every layer's parameters (a graph's layer nodes in
         topological order) from a generator seeded with `seed` (default: the
         configuration's) and place them on `device` (default: CUDA, raising
-        when there is none); build each layer's optimizer state and the
-        dropout generator, on the same device and from the same seed."""
+        when there is none); build each layer's optimizer state, its layer
+        state and the dropout generator, on the same device and from the
+        same seed."""
         dev = resolve_device(device)
         seed = self.conf.seed if seed is None else int(seed)
         params = self._draw_params(torch.Generator().manual_seed(seed), dtype)
@@ -123,15 +129,20 @@ class _DeviceNetwork:
             lambda t: param_utils.place(t, dev), params), dtype, dev, seed)
 
     def _adopt(self, params_tree, dtype, device: torch.device,
-               seed: Optional[int] = None, opt_state=None):
+               seed: Optional[int] = None, opt_state=None, state_tree=None):
         """Make `params_tree` (on `device`) the network's parameters, with
-        `opt_state` or each layer's fresh optimizer state, the dropout
-        generator on `device` seeded with `seed` (default: the
-        configuration's), and the counters at 0."""
+        `opt_state` or each layer's fresh optimizer state, `state_tree` or
+        each layer's fresh layer state, the dropout generator on `device`
+        seeded with `seed` (default: the configuration's), and the counters
+        at 0."""
         self.device, self._dtype = device, dtype
         self.params_tree = params_tree
         self.opt_state = (self._opt_init(params_tree) if opt_state is None
                           else opt_state)
+        if state_tree is None:
+            state_tree = param_utils.tree_map(
+                lambda t: param_utils.place(t, device), self._state_init(dtype))
+        self.state_tree = state_tree
         self._dropout_gen = torch.Generator(device=device).manual_seed(
             self.conf.seed if seed is None else seed)
         self.iteration = 0
@@ -164,6 +175,7 @@ class MultiLayerNetwork(_DeviceNetwork):
             raise ValueError("Configuration has no layers")
         self.params_tree: Optional[Tuple[dict, ...]] = None
         self.opt_state: Optional[Tuple[Any, ...]] = None
+        self.state_tree: Optional[Tuple[dict, ...]] = None
         self.device: Optional[torch.device] = None
         self.iteration = 0
         self.epoch = 0
@@ -183,38 +195,48 @@ class MultiLayerNetwork(_DeviceNetwork):
         return tuple(layer.updater.init(p) for layer, p in
                      zip(self.layers, params_tree))
 
+    def _state_init(self, dtype) -> Tuple[dict, ...]:
+        return tuple(layer.init_state(dtype) for layer in self.layers)
+
     # --------------------------------------------------------------- forward
-    def _forward(self, params, x: Tensor, train: bool = False,
+    def _forward(self, params, state, x: Tensor, train: bool = False,
                  generator: Optional[torch.Generator] = None,
                  fmask: Optional[Tensor] = None
-                 ) -> Tuple[Tensor, List[Tensor]]:
-        """Run all layers; returns (final activation, every activation)."""
+                 ) -> Tuple[Tensor, Tuple[dict, ...], List[Tensor]]:
+        """Run all layers; returns (final activation, new layer state, every
+        activation)."""
         a = x
-        activations = []
+        activations, new_state = [], []
         for i, layer in enumerate(self.layers):
             p = self.conf.preprocessor(i)
             if p is not None:
                 a = p(a)
-            a = layer.forward(params[i], a, train=train, generator=generator,
-                              mask=fmask)
+            a, st = layer.forward_with_state(params[i], state[i], a, train=train,
+                                             generator=generator, mask=fmask)
+            new_state.append(st)
             activations.append(a)
-        return a, activations
+        return a, tuple(new_state), activations
 
-    def _loss(self, params, x: Tensor, y: Tensor, fmask: Optional[Tensor],
-              lmask: Optional[Tensor], train: bool,
-              generator: Optional[torch.Generator]) -> Tensor:
-        """Score = output-layer loss + regularization (reference
-        computeGradientAndScore): every layer but the last, the output
-        layer's preprocessor, its input dropout when training, then its
-        `compute_score`."""
+    def _loss(self, params, state, x: Tensor, y: Tensor,
+              fmask: Optional[Tensor], lmask: Optional[Tensor], train: bool,
+              generator: Optional[torch.Generator]
+              ) -> Tuple[Tensor, Tuple[dict, ...]]:
+        """(score, new layer state). Score = output-layer loss +
+        regularization (reference computeGradientAndScore): every layer but
+        the last, the output layer's preprocessor, its input dropout when
+        training, then its `compute_score`; the output layer's state passes
+        through."""
         a = x
         n = len(self.layers)
+        new_state = []
         for i, layer in enumerate(self.layers[:-1]):
             p = self.conf.preprocessor(i)
             if p is not None:
                 a = p(a)
-            a = layer.forward(params[i], a, train=train, generator=generator,
-                              mask=fmask)
+            a, st = layer.forward_with_state(params[i], state[i], a, train=train,
+                                             generator=generator, mask=fmask)
+            new_state.append(st)
+        new_state.append(state[n - 1])
         out_layer = self.layers[-1]
         if not out_layer.is_output_layer():
             raise ValueError("Last layer must be an output layer to compute score")
@@ -224,23 +246,26 @@ class MultiLayerNetwork(_DeviceNetwork):
         if train and out_layer.dropout_rate and generator is not None:
             a = dropout(a, out_layer.dropout_rate, train, generator)
         loss = out_layer.compute_score(params[n - 1], a, y, lmask)
-        return loss + _regularization_score(self.layers, params)
+        return (loss + _regularization_score(self.layers, params),
+                tuple(new_state))
 
     def _value_and_grad(self, x: Tensor, y: Tensor, fmask: Optional[Tensor],
                         lmask: Optional[Tensor], train: bool,
                         generator: Optional[torch.Generator]):
-        """(score, gradients) at the current parameters: one autograd
-        backward. A parameter the score does not reach gets zeros, as JAX's
-        grad gives."""
+        """(score, gradients, new layer state) at the current parameters and
+        state: one autograd backward. A parameter the score does not reach
+        gets zeros, as JAX's grad gives."""
         tree = tuple({k: t.detach().requires_grad_() for k, t in lp.items()}
                      for lp in self.params_tree)
         flat = [t for lp in tree for t in lp.values()]
         with torch.enable_grad():
-            loss = self._loss(tree, x, y, fmask, lmask, train, generator)
+            loss, new_state = self._loss(tree, self.state_tree, x, y, fmask,
+                                         lmask, train, generator)
         grads = torch.autograd.grad(loss, flat, allow_unused=True) if flat else ()
         flat_g = iter([torch.zeros_like(t) if g is None else g
                        for g, t in zip(grads, flat)])
-        return loss.detach(), tuple({k: next(flat_g) for k in lp} for lp in tree)
+        return (loss.detach(), tuple({k: next(flat_g) for k in lp} for lp in tree),
+                new_state)
 
     def _feature_struct(self, batch_size: int,
                         time_steps: Optional[int] = None) -> Tensor:
@@ -279,17 +304,22 @@ class MultiLayerNetwork(_DeviceNetwork):
         """Forward pass, inference mode (reference output())."""
         self._check_init()
         with torch.inference_mode():
-            out, _ = self._forward(self.params_tree, self._as_input(x),
-                                   fmask=self._as_mask(features_mask))
+            out, _, _ = self._forward(self.params_tree, self.state_tree,
+                                      self._as_input(x),
+                                      fmask=self._as_mask(features_mask))
             return out.cpu().numpy()
 
-    def feed_forward(self, x) -> List[np.ndarray]:
+    def feed_forward(self, x, train: bool = False) -> List[np.ndarray]:
         """All layer activations incl. input (reference feedForward()).
-        bfloat16 activations come back as float32 (`_to_numpy`)."""
+        With `train`, batch statistics normalize (and dropout, which then
+        raises for want of a generator, as the JAX package's raises for want
+        of a key); the new layer state is discarded. bfloat16 activations
+        come back as float32 (`_to_numpy`)."""
         self._check_init()
         with torch.inference_mode():
             xa = self._as_input(x)
-            _, acts = self._forward(self.params_tree, xa)
+            _, _, acts = self._forward(self.params_tree, self.state_tree, xa,
+                                       train=train)
             return [_to_numpy(a) for a in [xa] + acts]
 
     def predict(self, x) -> np.ndarray:
@@ -326,8 +356,9 @@ class MultiLayerNetwork(_DeviceNetwork):
 
     def _do_step(self, x, y, fmask, lmask):
         """One optimizer step: forward + loss + one backward, then per layer
-        normalize -> update -> p - u, skipping frozen layers."""
-        loss, grads = self._value_and_grad(
+        normalize -> update -> p - u, skipping frozen layers; the new layer
+        state is committed with the new parameters."""
+        loss, grads, new_state = self._value_and_grad(
             self._as_input(x), self._as_labels(y), self._as_mask(fmask),
             self._as_mask(lmask), True, self._dropout_gen)
         with torch.no_grad():
@@ -336,6 +367,7 @@ class MultiLayerNetwork(_DeviceNetwork):
                        for i, layer in enumerate(self.layers)]
         self.params_tree = tuple(p for p, _ in stepped)
         self.opt_state = tuple(o for _, o in stepped)
+        self.state_tree = new_state
         self.iteration += 1
         self.score_value = loss
         for lst in self.listeners:
@@ -343,8 +375,9 @@ class MultiLayerNetwork(_DeviceNetwork):
 
     # ----------------------------------------------------------------- score
     def score(self, ds: Optional[DataSet] = None, x=None, y=None) -> float:
-        """Mean loss + regularization (reference score()); with no data, the
-        score of the last training step."""
+        """Mean loss + regularization (reference score()) on the running
+        layer state, which stays as it is; with no data, the score of the
+        last training step."""
         self._check_init()
         fmask = lmask = None
         if ds is not None:
@@ -355,16 +388,18 @@ class MultiLayerNetwork(_DeviceNetwork):
                 raise ValueError("No data given and no cached score")
             return float(self.score_value)
         with torch.inference_mode():
-            return float(self._loss(self.params_tree, self._as_input(x),
-                                    self._as_labels(y), self._as_mask(fmask),
-                                    self._as_mask(lmask), False, None))
+            return float(self._loss(self.params_tree, self.state_tree,
+                                    self._as_input(x), self._as_labels(y),
+                                    self._as_mask(fmask), self._as_mask(lmask),
+                                    False, None)[0])
 
     def compute_gradient_and_score(self, ds: DataSet):
         """(gradients, score) without updating the parameters (reference
         computeGradientAndScore() + gradient()), with train=False: no
-        dropout. The gradients are per-layer dicts in the port's layout."""
+        dropout, the running layer state, which stays as it is. The
+        gradients are per-layer dicts in the port's layout."""
         self._check_init()
-        loss, grads = self._value_and_grad(
+        loss, grads, _ = self._value_and_grad(
             self._as_input(ds.features), self._as_labels(ds.labels),
             self._as_mask(ds.features_mask), self._as_mask(ds.labels_mask),
             False, None)

@@ -6,14 +6,21 @@ symmetric ``padding=`` cannot express, so every pool pads explicitly with
 ``F.pad`` first: max pools pad with -inf (the JAX package's ``reduce_window``
 init value), sums with 0. The backward is autograd's.
 
-Max-pool tie rule: the backward of ``F.max_pool2d`` sends a window's whole
-cotangent to its FIRST maximal element (row-major within the window). That
-is the JAX package's ``impl="sns"`` rule (XLA's select-and-scatter, its TPU
-default), NOT its CPU default ``"mask"``, which splits the cotangent equally
-among tied maxima. The two agree wherever window maxima are unique. A layer
-that asks for ``"mask"`` raises NotImplementedError until a later slice
-ports it. Average pools have one backward whatever the JAX package's
-"window"/"conv" emitter choice, which only changes how XLA lowers it.
+Max-pool tie rules, the JAX package's two ``impl``s:
+
+- ``"sns"`` (and ``"auto"``): the backward of ``F.max_pool2d`` sends a
+  window's whole cotangent to its FIRST maximal element (row-major within
+  the window), as XLA's select-and-scatter, the JAX package's TPU default.
+- ``"mask"``: `MaxPoolMask`, the JAX package's ``_max_pool_mask``, splits
+  a window's cotangent equally among its tied maxima, in plain torch ops
+  (it is XLA, not Pallas, there), with the same padded extents and -inf
+  fill. It is the JAX package's CPU default.
+
+The two agree wherever window maxima are unique. The port's ``"auto"``
+means ``"sns"`` on every device: the JAX package's per-backend rule
+(``select_pooling_impl``) was measured on a TPU and a CPU rig. Average
+pools have one backward whatever the JAX package's "window"/"conv" emitter
+choice, which only changes how XLA lowers it.
 """
 from __future__ import annotations
 
@@ -35,23 +42,72 @@ def _nchw_padded(x: Tensor, pads: Pads2D, value: float) -> Tensor:
     return xc
 
 
-MAX_IMPLS = ("auto", "sns")
+MAX_IMPLS = ("auto", "sns", "mask")
+
+
+def _max_pool_sns(x: Tensor, window, strides, pads: Pads2D) -> Tensor:
+    y = F.max_pool2d(_nchw_padded(x, pads, float("-inf")), tuple(window),
+                     tuple(strides))
+    return y.permute(0, 2, 3, 1)
+
+
+class MaxPoolMask(torch.autograd.Function):
+    """NHWC max pool whose backward splits each window's cotangent equally
+    among the window's maxima (JAX ``ops/pooling.py:_max_pool_mask``):
+
+        dx = sum over window offsets (p, q) of
+             place_pq(g * (x_pq == y) / ties)
+
+    where x_pq is the strided view of the padded x at offset (p, q), aligned
+    to the output grid, and ties counts the offsets equal to y. The
+    offsets are summed in the JAX package's order."""
+
+    @staticmethod
+    def forward(ctx, x, window, strides, pads):
+        y = _max_pool_sns(x, window, strides, pads)
+        ctx.save_for_backward(x, y)
+        ctx.geometry = (tuple(window), tuple(strides), pads)
+        return y
+
+    @staticmethod
+    def backward(ctx, g):
+        x, y = ctx.saved_tensors
+        (kh, kw), (sh, sw), ((pt, pb), (pl, pr)) = ctx.geometry
+        B, H, W, C = x.shape
+        OH, OW = y.shape[1], y.shape[2]
+        # the padded extents cover the furthest window, which can reach past
+        # H + pt + pb when a truncating stride leaves the high pad short
+        hp = max(H + pt + pb, (OH - 1) * sh + kh)
+        wp = max(W + pl + pr, (OW - 1) * sw + kw)
+        # -inf fill: a padding cell equals y only where the whole window is
+        # padding, and its share lands in the margin sliced away below
+        xp = F.pad(x, (0, 0, pl, wp - W - pl, pt, hp - H - pt),
+                   value=float("-inf"))
+        views = [(slice(p, p + (OH - 1) * sh + 1, sh),
+                  slice(q, q + (OW - 1) * sw + 1, sw))
+                 for p in range(kh) for q in range(kw)]
+        eqs = [xp[:, vh, vw, :] == y for vh, vw in views]
+        ties = eqs[0].to(g.dtype)
+        for eq in eqs[1:]:
+            ties = ties + eq.to(g.dtype)
+        share = g / ties
+        dxp = torch.zeros((B, hp, wp, C), dtype=g.dtype, device=g.device)
+        for (vh, vw), eq in zip(views, eqs):
+            dxp[:, vh, vw, :] += share * eq.to(g.dtype)
+        return dxp[:, pt:pt + H, pl:pl + W, :].to(x.dtype), None, None, None
 
 
 def max_pool(x: Tensor, window, strides, pads: Pads2D, *,
              impl: str = "auto") -> Tensor:
-    """NHWC max pool; padding cells hold -inf so they never win. The
-    backward follows the "sns" tie rule (module docstring); `impl` "auto"
-    and "sns" both mean that, "mask" raises NotImplementedError."""
-    if impl == "mask":
-        raise NotImplementedError(
-            "max_pool impl 'mask' (ties split equally in the backward) is not "
-            "ported yet; use 'auto' or 'sns' (the first maximum takes all)")
+    """NHWC max pool; padding cells hold -inf so they never win. `impl`
+    picks the backward's tie rule (module docstring): "auto" and "sns" the
+    first maximum, "mask" an equal split among tied maxima."""
     if impl not in MAX_IMPLS:
-        raise ValueError(f"max_pool impl {impl!r} not in {MAX_IMPLS + ('mask',)}")
-    y = F.max_pool2d(_nchw_padded(x, pads, float("-inf")), tuple(window),
-                     tuple(strides))
-    return y.permute(0, 2, 3, 1)
+        raise ValueError(f"max_pool impl {impl!r} not in {MAX_IMPLS}")
+    if impl == "mask":
+        return MaxPoolMask.apply(x, tuple(window), tuple(strides),
+                                 (tuple(pads[0]), tuple(pads[1])))
+    return _max_pool_sns(x, window, strides, pads)
 
 
 def sum_pool(x: Tensor, window, strides, pads: Pads2D) -> Tensor:

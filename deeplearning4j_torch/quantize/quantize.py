@@ -220,7 +220,11 @@ def tree_precision(params) -> str:
 def matmul_any(x: Tensor, w: Tensor, b: Optional[Tensor] = None) -> Tensor:
     """x @ w (+ b) with a float32 epilogue for bfloat16 weights: x is cast
     to bfloat16 for the product, which returns float32 before the bias;
-    other weights take the plain product."""
+    other weights take the plain product. Integer features (kept integer
+    by the networks' input cast, for embedding indices) are promoted to
+    the weight's type first, as JAX's ``x @ w`` promotes them."""
+    if not x.is_floating_point():
+        x = x.to(w.dtype)
     if w.dtype == torch.bfloat16:
         y = torch.matmul(x.to(torch.bfloat16), w).to(torch.float32)
     else:

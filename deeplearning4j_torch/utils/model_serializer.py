@@ -7,8 +7,10 @@ the JAX package wrote restores here, and one written here restores there.
 Entries: ``configuration.json`` (the configuration's JSON, shared by both
 packages), ``metadata.json`` (format version, model class, dtype name
 ``float32``/``bfloat16``, iteration, epoch), ``coefficients.npz`` (the
-parameters), ``state.npz`` (layer state), ``updaterState.npz`` (optimizer
-state) and ``normalizer.json``. Each npz holds a tree's leaves as
+parameters), ``state.npz`` (layer state: BatchNormalization's running
+mean and variance, float32 in a bfloat16 network too),
+``updaterState.npz`` (optimizer state) and ``normalizer.json`` (a
+data/normalizers.py normalizer, by its registered name). Each npz holds a tree's leaves as
 ``leaf00000``, ``leaf00001``, ... in ``jax.tree_util`` order
 (utils/params.py `tree_leaves`), in the JAX package's layout (HWIO
 kernels), with their type names in a ``__dtypes__`` array; bfloat16 leaves
@@ -20,10 +22,6 @@ Deliberate differences from the JAX package:
   read: the port draws dropout masks from a ``torch.Generator``, and a
   restored network keeps the one seeded from its configuration. The JAX
   package restores a zip without the entry.
-- The port has no layer state yet (BatchNormalization is ROADMAP Queue A
-  item 3): it writes a ``state.npz`` with no leaves, and a checkpoint
-  whose ``state.npz`` holds leaves raises ``NotImplementedError`` rather
-  than dropping them.
 
 Writes are atomic: the archive is built in a temporary file beside the
 target, fsynced and ``os.replace``d over it, so a crash mid-write (the
@@ -157,9 +155,6 @@ def save_model(model, path, save_updater: bool = True, normalizer=None) -> None:
         "epoch": int(model.epoch),
         "has_updater": bool(save_updater),
     }
-    # the port's layer state: one empty dict per layer (per layer node)
-    state = ({n: {} for n in model.params_tree} if isinstance(model.params_tree, dict)
-             else tuple({} for _ in model.params_tree))
     path = os.fspath(path)
     tmp = f"{path}.tmp.{os.getpid()}"
     try:
@@ -171,7 +166,7 @@ def save_model(model, path, save_updater: bool = True, normalizer=None) -> None:
                 # the bulk is on disk, the central directory is not: a kill
                 # here leaves a torn temporary file, never a torn `path`
                 faults.fire("checkpoint.write")
-                zf.writestr(STATE_ENTRY, _tree_to_npz_bytes(state))
+                zf.writestr(STATE_ENTRY, _tree_to_npz_bytes(model.state_tree))
                 if save_updater:
                     zf.writestr(UPDATER_ENTRY, _tree_to_npz_bytes(model.opt_state))
                 if normalizer is not None:
@@ -264,28 +259,26 @@ def restore_model(path, load_updater: bool = True, device: DeviceLike = None):
         with torch.device("meta"):
             params = model._draw_params(torch.Generator(), dtype)
             opt = model._opt_init(params)
-        params, opt = _read_trees(zf, path, meta, params, opt, load_updater, dev)
-    model._adopt(params, dtype, dev, opt_state=opt)
+            state = model._state_init(dtype)
+        params, opt, state = _read_trees(zf, path, meta, params, opt, state,
+                                         load_updater, dev)
+    model._adopt(params, dtype, dev, opt_state=opt, state_tree=state)
     _read_counters(model, meta)
     return model
 
 
 def _read_trees(zf: zipfile.ZipFile, path, meta: dict, params, opt_state,
-                load_updater: bool, device: torch.device):
-    """(parameters, updater state or None where it is not loaded) from an
-    open checkpoint onto `device`, on the templates' structure."""
-    stored_state = _npz_leaves(_read_entry(zf, path, STATE_ENTRY))
-    if stored_state:
-        raise NotImplementedError(
-            f"checkpoint {path!r} holds {len(stored_state)} layer-state arrays "
-            "(BatchNormalization running statistics); layer state comes with "
-            "ROADMAP Queue A item 3")
+                state, load_updater: bool, device: torch.device):
+    """(parameters, updater state or None where it is not loaded, layer
+    state) from an open checkpoint onto `device`, on the templates'
+    structure and types (layer state stays float32 in a bfloat16 network)."""
     params = _npz_bytes_to_tree(_read_entry(zf, path, PARAMS_ENTRY), params,
                                 device)
+    state = _npz_bytes_to_tree(_read_entry(zf, path, STATE_ENTRY), state, device)
     if load_updater and meta.get("has_updater") and UPDATER_ENTRY in zf.namelist():
         return params, _npz_bytes_to_tree(_read_entry(zf, path, UPDATER_ENTRY),
-                                          opt_state, device)
-    return params, None
+                                          opt_state, device), state
+    return params, None, state
 
 
 def _read_counters(model, meta: dict) -> None:
@@ -306,17 +299,18 @@ def load_checkpoint_state(model, path, load_updater: bool = True,
         dev = resolve_device(device)
         move = lambda tree: param_utils.tree_map(
             lambda t: param_utils.place(t, dev), tree)
-        model.params_tree, model.opt_state = move(model.params_tree), \
-            move(model.opt_state)
+        model.params_tree, model.opt_state, model.state_tree = \
+            move(model.params_tree), move(model.opt_state), move(model.state_tree)
         if dev != model.device:
             model._dropout_gen = torch.Generator(device=dev).manual_seed(
                 model.conf.seed)
         model.device = dev
     meta = validate_checkpoint(path)
     with zipfile.ZipFile(path, "r") as zf:
-        params, opt = _read_trees(zf, path, meta, model.params_tree,
-                                  model.opt_state, load_updater, model.device)
-    model.params_tree = params
+        params, opt, state = _read_trees(zf, path, meta, model.params_tree,
+                                         model.opt_state, model.state_tree,
+                                         load_updater, model.device)
+    model.params_tree, model.state_tree = params, state
     if opt is not None:
         model.opt_state = opt
     _read_counters(model, meta)
@@ -324,9 +318,9 @@ def load_checkpoint_state(model, path, load_updater: bool = True,
 
 
 def restore_normalizer(path):
-    """The normalizer stored beside the model, or None. Its classes come
-    with data/normalizers.py (ROADMAP Queue A item 3): until then a stored
-    normalizer raises KeyError naming its unregistered class."""
+    """The normalizer stored beside the model (a data/normalizers.py class
+    by its registered name, the JAX package's names), or None."""
+    from ..data import normalizers  # noqa: F401  (registers the classes)
     with zipfile.ZipFile(path, "r") as zf:
         if NORMALIZER_ENTRY not in zf.namelist():
             return None

@@ -8,7 +8,9 @@ convolution kernels as OIHW in channels-last memory, which is what
 ``[n_in, n_out]``. This module is the only place that knows the difference;
 the round trip is bitwise (a permutation moves no bits). Optimizer state
 (``opt_state``: one dict per layer, parameter name -> ``()``, one array, or a
-tuple of arrays shaped like the parameter) follows the same rule.
+tuple of arrays shaped like the parameter) follows the same rule, and so
+does layer state (``state_tree``: BatchNormalization's 1-D running
+statistics, never permuted).
 
 Quantized trees (``quantize/quantize.py``) carry across too: int8 ``W_q``
 [n_out, n_in], float32 ``W_scale``, int32 ``W_zp`` (all 1-D or 2-D, so never
@@ -144,6 +146,19 @@ def opt_state_from_numpy(tree, device: DeviceLike = None):
 
 def opt_state_to_numpy(tree):
     """Inverse of :func:`opt_state_from_numpy`: the reference's layout."""
+    return params_to_numpy(tree)
+
+
+def state_from_numpy(tree, device: DeviceLike = None):
+    """Reference ``state_tree`` (per layer a dict of running statistics,
+    BatchNormalization's float32 ``mean`` and ``var``, or ``{}``) -> the
+    port's, on `device`. Leaves keep their type: float32 in a bfloat16
+    network too."""
+    return params_from_numpy(tree, device)
+
+
+def state_to_numpy(tree):
+    """Inverse of :func:`state_from_numpy`: the reference's layout."""
     return params_to_numpy(tree)
 
 

@@ -14,8 +14,15 @@
 - Resume: save after 2 steps, restore, 2 more, bitwise the 4 uninterrupted
   steps (dropout off, the CPU's sums in a fixed order).
 - Each corruption raises CheckpointCorruptError, an architecture mismatch
-  ValueError, the `checkpoint.write` fault point leaves the earlier
-  checkpoint whole, and a populated state.npz NotImplementedError.
+  ValueError (a layer state that does not fit too), and the
+  `checkpoint.write` fault point leaves the earlier checkpoint whole.
+- Layer state (state.npz): the JAX package's `mln_cnn.zip` (a populated
+  BatchNormalization state and a NormalizerStandardize) restores bitwise,
+  matches `expected.npz` and resumes 2 `fit` steps as the JAX package's
+  restore does (parameters, Adam and BN state within 1e-5, relative or of
+  the leaf's largest value); a mini ResNet's zip written by the port
+  restores in the JAX package with bitwise parameters, RmsProp state and BN
+  state, in float32 and bfloat16 (its state float32).
 - The leaf order equals `zoo_param_manifest.json` for LeNet, AlexNet and
   GoogLeNet.
 """
@@ -324,13 +331,96 @@ def test_fault_point_keeps_the_write_atomic(tmp_path):
                              net.params_tree)
 
 
-def test_populated_state_raises_not_implemented(tmp_path):
+def test_state_that_does_not_fit_raises_value_error(tmp_path):
+    """A state.npz whose leaves do not fit the configuration's layer state
+    (LeNet has none) raises ValueError, as the parameters' do."""
     buf = io.BytesIO()
     np.savez(buf, leaf00000=np.ones(3, np.float32), __dtypes__=np.array(["float32"]))
     path = str(tmp_path / "bn.zip")
     _rewrite(LENET, path, replace={port_ser.STATE_ENTRY: buf.getvalue()})
-    with pytest.raises(NotImplementedError, match="item 3"):
+    with pytest.raises(ValueError, match="arrays"):
         port_ser.restore_model(path, device="cpu")
+
+
+# ---------------------------------------- layer state: mln_cnn.zip and BN zips
+
+MLN_CNN = os.path.join(FIX, "checkpoints", "mln_cnn.zip")
+
+
+def test_mln_cnn_restores_with_state_and_normalizer():
+    expected = np.load(os.path.join(FIX, "checkpoints", "expected.npz"))
+    net = port_ser.restore_model(MLN_CNN, device="cpu")
+    ref_net = ref_ser.restore_model(MLN_CNN)
+    assert isinstance(net, port.MultiLayerNetwork)
+    assert (net.iteration, net.epoch) == (ref_net.iteration, ref_net.epoch)
+    assert net.iteration > 0
+    _assert_tree_bitwise(net.params_tree, ref_net.params_tree, "params")
+    _assert_tree_bitwise(net.opt_state, ref_net.opt_state, "Adam state")
+    _assert_tree_bitwise(net.state_tree, ref_net.state_tree, "BN state")
+    assert net.state_tree[2]["mean"].abs().sum() > 0   # a populated state
+    np.testing.assert_allclose(net.output(expected["mln_cnn_x"]), expected["mln_cnn_y"],
+                               rtol=1e-5, atol=1e-6)
+    norm = port_ser.restore_normalizer(MLN_CNN)
+    assert isinstance(norm, port.NormalizerStandardize)
+    assert len(norm.mean) == len(norm.std) == 144
+    assert norm == port_ser.serde.from_json(
+        ref_ser.serde.to_json(ref_ser.restore_normalizer(MLN_CNN)))
+
+
+def test_mln_cnn_resumes_training_as_the_reference():
+    expected = np.load(os.path.join(FIX, "checkpoints", "expected.npz"))
+    net = port_ser.restore_model(MLN_CNN, device="cpu")
+    ref_net = ref_ser.restore_model(MLN_CNN)
+    x = expected["mln_cnn_x"]
+    y = np.eye(4, dtype=np.float32)[np.arange(len(x)) % 4]
+    it0 = net.iteration
+    net.fit(x, y, epochs=2, batch_size=len(x))
+    ref_net.fit(x, y, epochs=2, batch_size=len(x), use_async=False)
+    assert net.iteration == ref_net.iteration == it0 + 2
+    np.testing.assert_allclose(float(net.score_value), float(ref_net.score_value),
+                               rtol=1e-5)
+    for what, mine, theirs in (("params", net.params_tree, ref_net.params_tree),
+                               ("Adam", net.opt_state, ref_net.opt_state),
+                               ("BN state", net.state_tree, ref_net.state_tree)):
+        got = port_params.tree_leaves(port_params.params_to_numpy(mine))
+        want = jax.tree_util.tree_leaves(theirs)
+        assert len(got) == len(want), what
+        for i, (a, b) in enumerate(zip(got, want)):
+            b = np.asarray(b)
+            # Adam's second moment squares the gradients' differences
+            np.testing.assert_allclose(a, b, rtol=1e-5, atol=1e-5 * np.abs(b).max(),
+                                       err_msg=f"{what} leaf {i}")
+
+
+def _mini_resnet(dtype):
+    from test_torch_resnet import _data, _mini_conf
+    net = port.ComputationGraph(_mini_conf(port, port_zoo)).init(device="cpu",
+                                                                 dtype=dtype)
+    x, y = _data(8, seed=44)
+    net.fit(x, y, batch_size=4)   # a moved running state and RmsProp state
+    return net, x
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["float32", "bfloat16"])
+def test_port_resnet_zip_restores_in_reference_with_state(tmp_path, dtype):
+    net, x = _mini_resnet(dtype)
+    assert {t.dtype for t in port_params.tree_leaves(net.state_tree)} == {torch.float32}
+    path = str(tmp_path / "resnet.zip")
+    port_ser.save_model(net, path)
+    ref_net = ref_ser.restore_model(path)
+    assert (ref_net.iteration, ref_net.epoch) == (net.iteration, net.epoch) == (2, 1)
+    _assert_tree_bitwise(net.params_tree, ref_net.params_tree, "params")
+    _assert_tree_bitwise(net.opt_state, ref_net.opt_state, "RmsProp state")
+    _assert_tree_bitwise(net.state_tree, ref_net.state_tree, "BN state")
+    # and back: the port's restore of its own zip, bitwise, state float32
+    back = port_ser.restore_model(path, device="cpu")
+    _assert_port_trees_equal(back.state_tree, net.state_tree)
+    _assert_port_trees_equal(back.params_tree, net.params_tree)
+    np.testing.assert_array_equal(back.output(x[:2]), net.output(x[:2]))
+    fresh = port.ComputationGraph(net.conf).init(device="cpu", dtype=dtype, seed=3)
+    port_ser.load_checkpoint_state(fresh, path)
+    _assert_port_trees_equal(fresh.state_tree, net.state_tree)
 
 
 # ------------------------------------------------------------- leaf order

@@ -778,3 +778,117 @@ def test_pinned_kinks_on_googlenet(case):
         with pytest.raises(RuntimeError, match="pinned"):
             chip_smoke.compare_pinned_grads(case, torch, port_params, run(1.0),
                                             run(1.001), ds)
+
+
+# ------------------------------------------------------- the ResNet50 phases
+
+class _SmallResNet50(port_zoo.ResNet50):
+    """ResNet50's stem, blocks and head at narrow widths, 32x32x3 and 10
+    classes, from the zoo model's own `_conv_block` and `_identity_block`,
+    initializing on the CPU when no device is named."""
+
+    def __init__(self, num_labels=10, **kw):
+        super().__init__(num_labels=10, input_shape=(32, 32, 3))
+
+    def conf(self):
+        import deeplearning4j_torch as port
+        g = (port.NeuralNetConfiguration.builder().seed(self.seed)
+             .activation("identity")
+             .updater(port.RmsProp(learning_rate=0.1, rms_decay=0.96, epsilon=0.001))
+             .weight_init(port.WeightInit.DISTRIBUTION)
+             .dist(port.Distribution(kind="normal", mean=0.0, std=0.5))
+             .l1(1e-7).l2(5e-5).graph_builder())
+        g.add_inputs("input")
+        g.set_input_types(port.InputType.convolutional(32, 32, 3))
+        g.add_layer("stem-zero", port.ZeroPaddingLayer(padding=(3, 3)), "input")
+        g.add_layer("stem-cnn1", port.ConvolutionLayer(
+            kernel_size=(7, 7), stride=(2, 2), n_out=8), "stem-zero")
+        a = self._bn_act(g, "stem1", "stem-cnn1")
+        g.add_layer("stem-maxpool1", port.SubsamplingLayer(
+            kernel_size=(3, 3), stride=(2, 2), pooling_type=port.PoolingType.MAX), a)
+        x = self._conv_block(g, (3, 3), (8, 8, 16), "2", "a", "stem-maxpool1")
+        x = self._identity_block(g, (3, 3), (8, 8, 16), "2", "b", x)
+        x = self._conv_block(g, (3, 3), (12, 12, 24), "3", "a", x)
+        g.add_layer("avgpool", port.GlobalPoolingLayer(
+            pooling_type=port.PoolingType.AVG), x)
+        g.add_layer("output", port.OutputLayer(
+            n_out=self.num_labels, activation="softmax",
+            loss="negativeloglikelihood"), "avgpool")
+        g.set_outputs("output")
+        return g.build()
+
+    def init(self, seed=None, dtype=torch.float32, device="cpu"):
+        return super().init(seed=seed, dtype=dtype, device=device)
+
+
+@pytest.fixture
+def small_resnet_phases(monkeypatch, tmp_path):
+    """The ResNet50 phases cut to run here: `_SmallResNet50`, 2 clients x 2
+    requests, 2 steps at batch 4 in both types, no profiler, no device
+    timing, no CUDA sync; checkpoints under a temporary directory."""
+    monkeypatch.setattr(port_zoo, "ResNet50", _SmallResNet50)
+    for name, value in (("RESNET_BATCH", 4), ("RESNET_STEPS", 2),
+                        ("RESNET_BF16_BATCH", 4), ("RESNET_BF16_STEPS", 2),
+                        ("ROOT", str(tmp_path))):
+        monkeypatch.setattr(chip_smoke, name, value)
+    monkeypatch.setattr(chip_smoke, "serving_requests", lambda rng: [
+        [rng.standard_normal((int(rng.integers(1, 3)), 32, 32, 3)).astype(np.float32)
+         for _ in range(2)] for _ in range(2)])
+    monkeypatch.setattr(chip_smoke, "profile_call", lambda torch, label, fn, info: {})
+    monkeypatch.setattr(chip_smoke, "bn_pass_ms", lambda torch, net, x, train: {
+        "bn_layers": 0, "ms": 0.0, "bytes_bound_ms": 0.0})
+    monkeypatch.setattr(chip_smoke, "h2d_copy_ms", lambda torch, x: 0.0)
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda *a: None)
+
+
+def test_resnet_phases_run_and_check_state(small_resnet_phases):
+    out, net = chip_smoke.phase_resnet_training(torch, "cpu")
+    assert out["shape"]["bn"] == 12 and out["shape"]["adds"] == 3
+    assert set(out["launches"].values()) == {0}
+    assert out["first_step_state"]["worst"] < 1e-6      # float32 vs float64, CPU
+    assert out["grad_rel_vs_cpu"]["kink_flips_pinned"] == 0
+    assert out["grad_rel_vs_cpu"]["worst_rel"] < 1e-5
+    # both on the CPU here, the second run pinned: its relu is z * mask
+    assert out["new_state_err_vs_cpu"] < 1e-6
+    assert out["checkpoint"]["bitwise"] == {k: True for k in out["checkpoint"]["bitwise"]}
+    served = chip_smoke.phase_resnet_serving(torch, "cpu", net)
+    assert set(served["launches"].values()) == {0} and served["forwards"] >= 1
+    assert served["max_abs_card_vs_cpu_b2"] == served["avgpool_rel_card_vs_cpu_b2"] == 0.0
+    bf16 = chip_smoke.phase_resnet_bf16_training(torch, "cpu")
+    assert bf16["state_leaves_float32"] == 24 and len(bf16["scores"]) == 2
+
+
+def test_first_step_state_check_catches_an_unbiased_variance(small_resnet_phases,
+                                                            monkeypatch):
+    """A BN whose running variance took the unbiased batch variance (what
+    F.batch_norm keeps: n/(n-1) away) fails the first step's check."""
+    from deeplearning4j_torch.nn.layers.convolution import BatchNormalization
+    fwd = BatchNormalization.forward_with_state
+
+    def unbiased(self, params, state, x, *, train=False, **kw):
+        y, new = fwd(self, params, state, x, train=train, **kw)
+        if train:
+            n = x.numel() // x.shape[-1]
+            old = self.decay * state["var"]
+            new = {"mean": new["mean"], "var": old + (new["var"] - old) * n / (n - 1)}
+        return y, new
+
+    monkeypatch.setattr(BatchNormalization, "forward_with_state", unbiased)
+    with pytest.raises(RuntimeError, match="plain recompute"):
+        chip_smoke.phase_resnet_training(torch, "cpu")
+
+
+def test_calibrate_bn_takes_one_forwards_batch_statistics():
+    net = _SmallResNet50().init()
+    x = np.random.default_rng(3).standard_normal((4, 32, 32, 3)).astype(np.float32)
+    initial = net.feed_forward_named(x)   # evaluation on the initial state
+    inputs, _ = net._pack_inputs([x])
+    with torch.no_grad():   # batch statistics, pivoted on the same state
+        acts, _, _ = net._walk(net.params_tree, net.state_tree, inputs, train=True)
+    chip_smoke.calibrate_bn(torch, net, x)
+    evaluated = net.feed_forward_named(x)
+    for name in ("bnstem1", "bn3a_branch2c", "output"):
+        np.testing.assert_array_equal(evaluated[name], acts[name].numpy())
+        assert not np.array_equal(evaluated[name], initial[name])
+    assert all(n.layer.decay == 0.9 for n in net.conf.nodes.values()
+               if type(n.layer).__name__ == "BatchNormalization")

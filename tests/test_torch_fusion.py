@@ -135,3 +135,39 @@ def test_gates_reject_what_would_not_be_exact(gate):
     assert json.loads(fused.to_json()) == json.loads(conf(**second).to_json())
     port_fusion.fuse_sibling_convs(conf())
     assert port_fusion.sibling_conv_fusion_total["fused"] == before["fused"] + 1
+
+
+def test_fuse_graph_carries_the_layer_state():
+    """Sibling 1x1 convs each feeding a BatchNormalization: the fused graph
+    carries the BN nodes' running statistics as they are (the fused conv
+    node has none), answers on them as the unfused graph does, and a
+    training step moves the same state."""
+    g = (port.NeuralNetConfiguration.builder().seed(4)
+         .updater(port.Sgd(learning_rate=0.1)).graph_builder()
+         .add_inputs("in").set_input_types(port.InputType.convolutional(6, 6, 3)))
+    g.add_layer("a", port.ConvolutionLayer(kernel_size=(1, 1), n_out=4), "in")
+    g.add_layer("b", port.ConvolutionLayer(kernel_size=(1, 1), n_out=5), "in")
+    g.add_layer("bn_a", port.BatchNormalization(), "a")
+    g.add_layer("bn_b", port.BatchNormalization(), "b")
+    g.add_vertex("m", port.MergeVertex(), "bn_a", "bn_b")
+    g.add_layer("pool", port.GlobalPoolingLayer(pooling_type=port.PoolingType.AVG), "m")
+    g.add_layer("out", port.OutputLayer(n_out=3, activation="softmax",
+                                        loss="mcxent"), "pool")
+    net = port.ComputationGraph(g.set_outputs("out").build()).init(device="cpu")
+    rng = np.random.default_rng(6)
+    x = rng.standard_normal((4, 6, 6, 3)).astype(np.float32)
+    y = np.eye(3, dtype=np.float32)[rng.integers(0, 3, 4)]
+    net.fit(x, y, batch_size=4)   # a running state away from its init
+    fused = port_fusion.fuse_graph(net)
+    assert fused is not net and "a+b" in fused.state_tree
+    assert fused.state_tree["a+b"] == {}
+    for n in ("bn_a", "bn_b"):
+        for k in ("mean", "var"):
+            assert torch.equal(fused.state_tree[n][k], net.state_tree[n][k])
+    np.testing.assert_allclose(fused.output(x), net.output(x), rtol=1e-6, atol=1e-7)
+    net.fit(x, y, batch_size=4)
+    fused.fit(x, y, batch_size=4)
+    for n in ("bn_a", "bn_b"):
+        for k in ("mean", "var"):
+            torch.testing.assert_close(fused.state_tree[n][k], net.state_tree[n][k],
+                                       rtol=1e-6, atol=1e-7)

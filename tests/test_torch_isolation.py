@@ -67,14 +67,15 @@ def test_init_without_device_raises_when_there_is_no_gpu(monkeypatch):
 
 
 def test_graph_and_checkpoint_entry_points_default_to_the_gpu(monkeypatch):
-    """ComputationGraph.init (through zoo GoogLeNet), restore_model and
-    init_pretrained run on CUDA unless asked for the CPU, and raise
-    without a GPU."""
-    from deeplearning4j_torch.models.zoo import GoogLeNet, LeNet
+    """ComputationGraph.init (through zoo GoogLeNet and ResNet50),
+    restore_model and init_pretrained run on CUDA unless asked for the CPU,
+    and raise without a GPU."""
+    from deeplearning4j_torch.models.zoo import GoogLeNet, LeNet, ResNet50
     from deeplearning4j_torch.utils import model_serializer
     lenet_zip = str(ROOT / "tests" / "fixtures" / "pretrained" / "lenet_mnist.zip")
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     for call in (lambda: GoogLeNet(num_labels=10, input_shape=(32, 32, 3)).init(),
+                 lambda: ResNet50(num_labels=10, input_shape=(32, 32, 3)).init(),
                  lambda: model_serializer.restore_model(lenet_zip),
                  lambda: LeNet().init_pretrained(lenet_zip)):
         with pytest.raises(RuntimeError, match="device='cpu'"):

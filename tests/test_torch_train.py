@@ -252,8 +252,17 @@ def test_max_pool_tie_rule_matches_reference_sns():
     yt.backward(torch.from_numpy(g))
     np.testing.assert_allclose(xt.grad.numpy(), np.asarray(want), rtol=1e-6,
                                atol=1e-6)
-    with pytest.raises(NotImplementedError, match="mask"):
-        port_pool.max_pool(xt, (3, 3), (2, 2), pads, impl="mask")
+    # "mask" splits the ties instead (the JAX package's CPU default),
+    # which on these windows gives another gradient
+    y, vjp = jax.vjp(lambda v: ref_pool.max_pool(v, (3, 3), (2, 2), pads,
+                                                 impl="mask"), jnp.asarray(x))
+    want_mask, = vjp(jnp.asarray(g))
+    xm = torch.from_numpy(x).requires_grad_()
+    port_pool.max_pool(xm, (3, 3), (2, 2), pads, impl="mask").backward(
+        torch.from_numpy(g))
+    np.testing.assert_allclose(xm.grad.numpy(), np.asarray(want_mask),
+                               rtol=1e-6, atol=1e-6)
+    assert not np.allclose(xm.grad.numpy(), xt.grad.numpy())
     with pytest.raises(ValueError):
         port_pool.max_pool(xt, (3, 3), (2, 2), pads, impl="conv")
 
