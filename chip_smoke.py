@@ -126,7 +126,28 @@ Phases, each of which fails the script (non-zero exit, no result line):
    (bench.py's 1024 cut for time and memory): BN state float32, scores
    finite. `phase_checkpoint_fixtures` also restores the JAX package's
    `mln_cnn.zip` (BN state, NormalizerStandardize) on the card.
-10. One JSON line with every kernel's numbers, then the result line
+10. The recurrent slice (`phase_text_generation`, `phase_rnn_checkpoint`):
+   zoo TextGenerationLSTM at bench.py's bench_lstm width (two GravesLSTM(256),
+   77 characters, batch 128 x 64 steps, truncated BPTT 50: two windows and
+   two optimizer steps a batch), `fit` over TEXT_BATCHES batches with every
+   count reset just before and read just after (0: the JAX LSTM is plain
+   XLA); each window held a detached carry and none is left after a batch;
+   the median warm batch, tokens/s, one profiled batch (device busy against
+   wall); gradients card vs CPU at batch 2 (`compare_pinned_grads`);
+   `rnn_time_step` step by step against `output` (rtol 1e-4, atol 1e-6) and
+   RnnStateMismatchError for another batch size; served through
+   ParallelInference (p50, sequences/s); a checkpoint round trip bitwise.
+   The JAX package's `mln_rnn.zip` restored on the card against
+   `expected.npz` (rtol 1e-5), resumed one step against the CPU's resume,
+   and round-tripped bitwise.
+11. The face models (`phase_face_model`): zoo InceptionResNetV1 (160x160x3,
+   1001 labels) and FaceNetNN4Small2 (96x96x3, 5749 labels) at full width,
+   served through ParallelInference(check_finite=True) (on calibrated BN
+   statistics where the initial ones overflow), then trained FACE_STEPS
+   steps at batch FACE_BATCH with every count 0, the first step's BN state
+   held to a float64 recompute; card vs CPU at batch 2, the train-mode score
+   and every node one by one (`check_nodes_one_by_one`).
+12. One JSON line with every kernel's numbers, then the result line
    {"ok": true, "device": {...}}.
 
 Needs one CUDA GPU; exits non-zero without one.
@@ -579,10 +600,11 @@ def checked_lrn(torch, stats):
         yield
 
 
-def serving_requests(rng, clients=4, per_client=8):
+def serving_requests(rng, clients=4, per_client=8, shape=(224, 224, 3)):
     """The serving phases' client load: per client, `per_client` requests of
-    1-8 random 224x224x3 images."""
-    return [[rng.standard_normal((int(rng.integers(1, 9)), 224, 224, 3)
+    1-8 random images of `shape` (224x224x3 unless a model takes another
+    size)."""
+    return [[rng.standard_normal((int(rng.integers(1, 9)),) + tuple(shape)
                                  ).astype(np.float32)
              for _ in range(per_client)] for _ in range(clients)]
 
@@ -2476,8 +2498,6 @@ def phase_resnet_serving(torch, card, net):
     card against the CPU path (SERVE_RTOL/SERVE_ATOL, same top-1);
     latencies from a second, unchecked run; one bucket-32 forward profiled
     and its BN passes timed alone."""
-    from deeplearning4j_torch.parallel.inference import (InferenceMode,
-                                                          ParallelInference)
     hwc, classes = _graph_shape(net)
     rng = np.random.default_rng(2041)
     xcal = rng.standard_normal((32,) + hwc).astype(np.float32)
@@ -2488,33 +2508,11 @@ def phase_resnet_serving(torch, card, net):
     log(f"ResNet50 serving: the trained running statistics give "
         f"{'finite' if trained_state_finite else 'non-finite'} answers on a probe "
         f"batch; {'served as trained' if trained_state_finite else 'BN state set from a train-mode forward of a calibration batch of 32'}")
-    reqs = serving_requests(np.random.default_rng(2042))
-    images = sum(x.shape[0] for xs in reqs for x in xs)
-    pi = ParallelInference(net, inference_mode=InferenceMode.BATCHED, batch_limit=32,
-                           check_finite=True)
-    batches = []
-    try:
-        pi.warmup()
-        with recorded_outputs(net, batches):
-            f0 = pi.total_forwards
-            zero_launches()   # the main path's run starts here
-            answers, _, _ = run_clients(pi, reqs)
-            launches = all_launches()   # ... and ends here
-            forwards = pi.total_forwards - f0
-        check_launches("ResNet50 serving", launches, dict.fromkeys(launches, 0))
-        f0 = pi.total_forwards
-        _, lat, wall = run_clients(pi, reqs)
-        timed_forwards = pi.total_forwards - f0
-    finally:
-        pi.shutdown()
-    if forwards < 1 or timed_forwards < 1:
-        raise RuntimeError("ResNet50 serving executed no forward")
-    for (c, j), out in answers.items():
-        if out.shape != (reqs[c][j].shape[0], classes) or not np.isfinite(out).all():
-            raise RuntimeError(f"ResNet50: bad answer {out.shape}")
-        np.testing.assert_allclose(out.sum(-1), 1.0, rtol=1e-5)
-    rechecked = check_served_batches(net, batches, reqs, answers)
-    del batches
+    served, answers = serve_checked(torch, net,
+                                    serving_requests(np.random.default_rng(2042)),
+                                    "ResNet50 serving", check_finite=True)
+    if any(out.shape[1:] != (classes,) for out in answers.values()):
+        raise RuntimeError("ResNet50: an answer of another shape than [rows, classes]")
     x2 = rng.standard_normal((2,) + hwc).astype(np.float32)
     cpu_net = _to_cpu_graph(net)
     card_out, cpu_out = net.output(x2), cpu_net.output(x2)
@@ -2534,9 +2532,7 @@ def phase_resnet_serving(torch, card, net):
     profile["h2d_copy_ms_by_events"] = h2d_copy_ms(torch, x32)
     bn = bn_pass_ms(torch, net, x32, train=False)
     bn["share_of_busy"] = share_of_busy(bn["ms"], profile)
-    result = {**latency_stats(lat, images, wall), "forwards": forwards,
-              "launches": launches, "batches_rechecked": rechecked,
-              "trained_state_finite": trained_state_finite,
+    result = {**served, "trained_state_finite": trained_state_finite,
               "calibrated": not trained_state_finite,
               "max_abs_card_vs_cpu_b2": float(np.abs(card_out - cpu_out).max()),
               "avgpool_rel_card_vs_cpu_b2": float(
@@ -2544,8 +2540,8 @@ def phase_resnet_serving(torch, card, net):
               "top1_prob_b2": card_out.max(-1).tolist(),
               "bn_passes_b32": bn, "profile": profile, "card": card}
     log(f"ResNet50 serving: p50 {result['p50_ms']:.3f} ms p99 {result['p99_ms']:.3f} "
-        f"ms, {result['images_per_s']:.1f} images/s, {forwards} forwards, answers "
-        f"finite  [{card}]")
+        f"ms, {result['images_per_s']:.1f} images/s, {result['forwards']} forwards, "
+        f"answers finite  [{card}]")
     log(f"ResNet50 serving: {json.dumps(result)}")
     return result
 
@@ -3131,12 +3127,510 @@ def phase_char_model(torch, card):
     return result
 
 
+# ------------------------------------------------- the recurrent slice
+
+# bench.py's bench_lstm (BASELINE.md's GravesLSTM char-RNN row): 77
+# characters, batch 128 x 64 steps; the zoo's tBPTT of 50 cuts each batch
+# into windows of 50 and 14
+TEXT_LABELS, TEXT_BATCH, TEXT_T, TEXT_BATCHES = 77, 128, 64, 4
+STREAM_RTOL, STREAM_ATOL = 1e-4, 1e-6   # rnn_time_step step by step vs output
+STREAM_ROWS = 8
+MLN_RNN_ZIP = os.path.join(FIXTURES, "checkpoints", "mln_rnn.zip")
+RESUME_REL = 1e-5   # a resumed step, card vs CPU: relative norm per leaf
+
+
+def text_data(rows, t, seed):
+    """One-hot characters [rows, t, TEXT_LABELS] and their successors, from
+    a numpy seed."""
+    idx = np.random.default_rng(seed).integers(0, TEXT_LABELS, (rows, t + 1))
+    eye = np.eye(TEXT_LABELS, dtype=np.float32)
+    return eye[idx[:, :-1]], eye[idx[:, 1:]]
+
+
+class CarryWindows:
+    """Listener: for each truncated-BPTT window, whether the network held a
+    carry there, and whether every carry tensor was detached (no autograd
+    history to cross into the next window)."""
+
+    def __init__(self):
+        self.windows = []
+
+    def iteration_done(self, model, iteration):
+        from deeplearning4j_torch.utils import params as param_utils
+        leaves = param_utils.tree_leaves(model._rnn_carry)
+        self.windows.append(bool(leaves) and all(
+            t.grad_fn is None and not t.requires_grad for t in leaves))
+
+
+def _to_cpu_mln(net):
+    """A MultiLayerNetwork on the CPU with `net`'s parameters, optimizer
+    state and layer state."""
+    from deeplearning4j_torch.nn.multilayer import MultiLayerNetwork
+    from deeplearning4j_torch.utils import params as param_utils
+    cpu = MultiLayerNetwork(net.conf).init(dtype=net._dtype, device="cpu")
+    cpu.params_tree, cpu.opt_state, cpu.state_tree = (
+        param_utils.tree_map(lambda t: t.cpu(), tree)
+        for tree in (net.params_tree, net.opt_state, net.state_tree))
+    cpu.iteration = net.iteration
+    return cpu
+
+
+def gradient_run(torch, model):
+    """A `compare_pinned_grads` run: `compute_gradient_and_score` (train
+    False) under `pinned_kinks`."""
+    def run(ds, record, flips):
+        with pinned_kinks(torch, model, record, flips):
+            return model.compute_gradient_and_score(ds)
+    return run
+
+
+def check_streaming(torch, net, x):
+    """`rnn_time_step` over the steps of `x` one at a time from a cleared
+    carry against `output` on the whole sequence (STREAM_RTOL, STREAM_ATOL);
+    then a call with another batch size must raise RnnStateMismatchError
+    and leave no carry. Returns the error and ms a step."""
+    from deeplearning4j_torch.nn.multilayer import RnnStateMismatchError
+    whole = net.output(x)
+    net.rnn_clear_previous_state()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    streamed = np.stack([net.rnn_time_step(x[:, t]) for t in range(x.shape[1])], 1)
+    step_ms = (time.perf_counter() - t0) * 1e3 / x.shape[1]
+    np.testing.assert_allclose(streamed, whole, rtol=STREAM_RTOL, atol=STREAM_ATOL)
+    try:
+        net.rnn_time_step(np.concatenate([x[:, 0], x[:1, 0]]))   # one row more
+    except RnnStateMismatchError:
+        pass
+    else:
+        raise RuntimeError("rnn_time_step took another batch size than its carry's")
+    if net._rnn_carry is not None:
+        raise RuntimeError("a refused rnn_time_step left its carry behind")
+    net.rnn_clear_previous_state()
+    return {"rows": x.shape[0], "steps": x.shape[1],
+            "max_abs_vs_output": float(np.abs(streamed - whole).max()),
+            "ms_per_step": step_ms, "mismatch_raised_and_reset": True}
+
+
+def sequence_requests(rng, clients=4, per_client=8):
+    """The serving load of a character model: per client, `per_client`
+    requests of 1-8 one-hot sequences of TEXT_T steps."""
+    eye = np.eye(TEXT_LABELS, dtype=np.float32)
+    return [[eye[rng.integers(0, TEXT_LABELS, (int(rng.integers(1, 9)), TEXT_T))]
+             for _ in range(per_client)] for _ in range(clients)]
+
+
+SERVE_BATCH_LIMIT = 32   # the serving phases' ParallelInference batch_limit
+
+
+def serve_checked(torch, net, reqs, label, check_finite=False, time_steps=None):
+    """`net` behind a BATCHED ParallelInference (SERVE_BATCH_LIMIT) with the
+    client load `reqs`, every count reset just before the clients start and
+    read just after: none of K1-K6 may run. Each answer finite and bitwise
+    the rows of the batch it was served in (`check_served_batches`), whose
+    `net.output` gives it again; latencies from a second, unchecked run.
+    Returns (latency stats with the forwards and launches, answers)."""
+    from deeplearning4j_torch.parallel.inference import (InferenceMode,
+                                                          ParallelInference)
+    rows = sum(x.shape[0] for xs in reqs for x in xs)
+    pi = ParallelInference(net, inference_mode=InferenceMode.BATCHED,
+                           batch_limit=SERVE_BATCH_LIMIT, check_finite=check_finite)
+    batches = []
+    try:
+        pi.warmup(time_steps=time_steps)
+        with recorded_outputs(net, batches):
+            f0 = pi.total_forwards
+            zero_launches()   # the main path's run starts here
+            answers, _, _ = run_clients(pi, reqs)
+            launches = all_launches()   # ... and ends here
+            forwards = pi.total_forwards - f0
+        check_launches(label, launches, dict.fromkeys(launches, 0))
+        f0 = pi.total_forwards
+        _, lat, wall = run_clients(pi, reqs)
+        timed_forwards = pi.total_forwards - f0
+    finally:
+        pi.shutdown()
+    if forwards < 1 or timed_forwards < 1:
+        raise RuntimeError(f"{label} executed no forward")
+    for (c, j), out in answers.items():
+        if out.shape[0] != reqs[c][j].shape[0] or not np.isfinite(out).all():
+            raise RuntimeError(f"{label}: bad answer {out.shape}")
+        np.testing.assert_allclose(out.sum(-1), 1.0, rtol=1e-5)
+    rechecked = check_served_batches(net, batches, reqs, answers)
+    stats = latency_stats(lat, rows, wall)
+    stats.update(forwards=forwards, launches=launches, batches_rechecked=rechecked)
+    return stats, answers
+
+
+def phase_text_generation(torch, card):
+    """Zoo TextGenerationLSTM (two GravesLSTM(256) + RnnOutputLayer, RmsProp
+    0.1, l2 1e-3, truncated BPTT 50) at bench.py's bench_lstm width: 77
+    characters, batch 128 x 64 steps, float32 (TF32 off), `init()` on CUDA
+    by default. `fit` over TEXT_BATCHES batches, each two windows (50 and
+    14) and so two optimizer steps, with every count reset just before and
+    read just after (no kernel of K1-K6 sits on this path: the JAX LSTM is a
+    lax.scan in plain XLA); every window held a detached carry, and none is
+    left after each batch; scores finite. The median warm batch, tokens/s,
+    and one profiled batch (device busy against wall: the per-step loop of
+    small launches is host-bound). Gradients card vs CPU on a batch of 2 x
+    64 (`compare_pinned_grads`, GRAD_REL); `rnn_time_step` step by step
+    against `output` (`check_streaming`); served behind ParallelInference
+    (`serve_checked`); a checkpoint round trip bitwise."""
+    from deeplearning4j_torch.data.dataset import DataSet
+    from deeplearning4j_torch.models.zoo import TextGenerationLSTM
+    from deeplearning4j_torch.utils import params as param_utils
+    net = TextGenerationLSTM(num_labels=TEXT_LABELS,
+                             input_shape=(TEXT_T, TEXT_LABELS)).init()
+    shape = {"layers": [type(layer).__name__ for layer in net.layers],
+             "hidden": net.layers[0].n_out, "params": net.num_params(),
+             "tbptt": net.conf.tbptt_fwd_length}
+    x, y = text_data(TEXT_BATCHES * TEXT_BATCH, TEXT_T, seed=2050)
+    windows = -(-TEXT_T // net.conf.tbptt_fwd_length)
+    steps, carry = Steps(), CarryWindows()
+    net.listeners[:] = [steps, carry]
+    batch_ms, cleared = [], []
+    zero_launches()   # the main path's run starts here
+    for b in range(TEXT_BATCHES):
+        rows = slice(b * TEXT_BATCH, (b + 1) * TEXT_BATCH)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        net.fit(x[rows], y[rows], batch_size=TEXT_BATCH)
+        torch.cuda.synchronize()
+        batch_ms.append((time.perf_counter() - t0) * 1e3)
+        cleared.append(net._rnn_carry is None)
+    launches = all_launches()   # ... and ends here
+    net.listeners.clear()
+    check_launches("TextGenerationLSTM training", launches, dict.fromkeys(launches, 0))
+    if net.iteration != windows * TEXT_BATCHES or not all(np.isfinite(steps.scores)):
+        raise RuntimeError(f"TextGenerationLSTM: {net.iteration} steps, scores "
+                           f"{steps.scores}")
+    if not all(cleared) or len(carry.windows) != net.iteration or not all(carry.windows):
+        raise RuntimeError(f"TextGenerationLSTM: carry cleared after each batch "
+                           f"{cleared}, held detached in each window {carry.windows}")
+    warm_ms = float(np.median(batch_ms[1:]))
+
+    def one_batch():
+        net.fit(x[:TEXT_BATCH], y[:TEXT_BATCH], batch_size=TEXT_BATCH)
+        torch.cuda.synchronize()
+
+    profile = profile_call(torch, "fit batch TextGenerationLSTM", one_batch,
+                           {"batch": TEXT_BATCH, "steps": TEXT_T, "windows": windows})
+    cpu_net = _to_cpu_mln(net)
+    vs_cpu = compare_pinned_grads("TextGenerationLSTM: card vs CPU path, batch 2",
+                                  torch, param_utils, gradient_run(torch, net),
+                                  gradient_run(torch, cpu_net), DataSet(x[:2], y[:2]))
+    del cpu_net
+    stream = check_streaming(torch, net, x[:STREAM_ROWS])
+    serving, _ = serve_checked(torch, net, sequence_requests(np.random.default_rng(2051)),
+                               "TextGenerationLSTM serving", time_steps=TEXT_T)
+    ckpt = check_checkpoint_round_trip(net, x[:4], "TextGenerationLSTM")
+    result = {"shape": shape, "batch": TEXT_BATCH, "steps": TEXT_T,
+              "windows_per_batch": windows, "launches": launches,
+              "scores": steps.scores, "batch_ms": batch_ms,
+              "median_warm_batch_ms": warm_ms,
+              "tokens_per_s": TEXT_BATCH * TEXT_T / warm_ms * 1e3,
+              "profile": profile, "grad_rel_vs_cpu": vs_cpu, "streaming": stream,
+              "serving": serving, "checkpoint": ckpt, "card": card}
+    log(f"TextGenerationLSTM: batch ms {batch_ms}, median warm {warm_ms:.3f} ms, "
+        f"{result['tokens_per_s']:.1f} tokens/s; one batch busy "
+        f"{profile.get('device_busy_ms')} ms of {profile['wall_ms']:.3f} ms wall "
+        f"(idle {profile.get('device_idle_share')}); served p50 "
+        f"{serving['p50_ms']:.3f} ms, {serving['images_per_s']:.1f} sequences/s  "
+        f"[{card}]")
+    log(f"TextGenerationLSTM: {json.dumps(result)}")
+    return result
+
+
+def phase_rnn_checkpoint(torch, card, device=None):
+    """The JAX package's `mln_rnn.zip` (LSTM(8) + RnnOutputLayer(3), Adam)
+    restored by `restore_model`, on the card by default: its output against
+    `expected.npz` (rtol 1e-5, atol 1e-6, as the JAX package's own test);
+    one resumed `fit` step on the card against the same step from the CPU's
+    restore (score SCORE_RTOL, parameters and Adam state RESUME_REL per
+    leaf); then the resumed network's checkpoint round trip, bitwise."""
+    from deeplearning4j_torch.utils import model_serializer as ser
+    from deeplearning4j_torch.utils import params as param_utils
+    expected = np.load(os.path.join(FIXTURES, "checkpoints", "expected.npz"))
+    net = ser.restore_model(MLN_RNN_ZIP, device=device)
+    cpu = ser.restore_model(MLN_RNN_ZIP, device="cpu")
+    if net._rnn_carry is not None or param_utils.tree_leaves(net.state_tree):
+        raise RuntimeError("mln_rnn.zip restored with a carry or a layer state")
+    x = expected["mln_rnn_x"]
+    out = net.output(x)
+    np.testing.assert_allclose(out, expected["mln_rnn_y"], rtol=1e-5, atol=1e-6)
+    y = np.eye(3, dtype=np.float32)[np.arange(x.shape[0] * x.shape[1]).reshape(
+        x.shape[:2]) % 3]
+    it0 = net.iteration
+    net.fit(x, y, batch_size=len(x))
+    cpu.fit(x, y, batch_size=len(x))
+    if not net.iteration == cpu.iteration == it0 + 1:
+        raise RuntimeError(f"mln_rnn.zip resumed to {net.iteration}, {cpu.iteration}")
+    s_card, s_cpu = float(net.score_value), float(cpu.score_value)
+    if not abs(s_card - s_cpu) <= SCORE_RTOL * abs(s_cpu):
+        raise RuntimeError(f"mln_rnn.zip resumed: score {s_card} vs {s_cpu}")
+    rel = {}
+    for what, mine, theirs in (("params", net.params_tree, cpu.params_tree),
+                               ("adam", net.opt_state, cpu.opt_state)):
+        for i, (a, b) in enumerate(zip(param_utils.tree_leaves(mine),
+                                       param_utils.tree_leaves(theirs))):
+            a, b = a.cpu().double(), b.double()
+            rel[f"{what}{i}"] = ((a - b).norm() / b.norm().clamp_min(1e-30)).item()
+    worst = max(rel.values())
+    if not worst <= RESUME_REL:
+        raise RuntimeError(f"mln_rnn.zip resumed: card vs CPU {rel}")
+    ckpt = check_checkpoint_round_trip(net, x, "mln_rnn.zip resumed")
+    result = {"device": str(net.device), "iteration": net.iteration,
+              "max_abs_vs_expected": float(np.abs(out - expected["mln_rnn_y"]).max()),
+              "resumed_score_card_vs_cpu": [s_card, s_cpu],
+              "resumed_worst_rel_vs_cpu": worst, "checkpoint": ckpt, "card": card}
+    log(f"mln_rnn.zip: {json.dumps(result)}")
+    return result
+
+
+# --------------------------------------------------------- the face models
+
+FACE_MODELS = (("InceptionResNetV1", (160, 160, 3), 1001),
+               ("FaceNetNN4Small2", (96, 96, 3), 5749))
+FACE_BATCH, FACE_STEPS = 64, 6
+FACE_CALIBRATION = 32   # images of the train-mode forward that sets BN's state
+NODE_REL = 1e-5   # a node's output card vs CPU on the same inputs, of its largest value
+# The whole train-mode score of a batch of 2, card vs CPU: the forward carries
+# each device's rounding through the batch statistics of 107 BNs (of 37 in
+# FaceNetNN4Small2), from weights that training on the card leaves different
+# in every run; InceptionResNetV1 read 0, 1.4e-5 and 5.2e-5 in three runs on
+# an H100. The nodes themselves are held one by one (`check_nodes_one_by_one`).
+FACE_SCORE_RTOL = 1e-3
+
+
+def _face_shape(net):
+    kinds = [type(n.layer if n.is_layer() else n.vertex).__name__
+             for n in net.conf.nodes.values()]
+    return {"nodes": len(kinds), "bn": kinds.count("BatchNormalization"),
+            "convs": kinds.count("ConvolutionLayer"),
+            "adds": kinds.count("ElementWiseVertex"), "params": net.num_params()}
+
+
+#: A BN channel whose variance formula magnifies float32 rounding more than
+#: this (`bn_cancellation`) is left out of the node-by-node comparison and
+#: counted: at 1e3 its output already moves by 1e-4 with either device's
+#: rounding.
+BN_CANCELLATION_MAX = 1e3
+
+
+def bn_cancellation(torch, layer, state, x):
+    """Per channel, how far a train-mode BatchNormalization magnifies the
+    float32 rounding of its input: its single-pass variance, mean((x -
+    pivot)^2) - mean(x - pivot)^2 with the running mean as pivot (the JAX
+    package's formula), loses the share mean((x - pivot)^2) / (var + eps)
+    of its float32 digits; in float64, at least 1. None for another
+    layer."""
+    from deeplearning4j_torch.nn.layers.convolution import BatchNormalization
+    if not isinstance(layer, BatchNormalization):
+        return None
+    xc = x.detach().double().cpu().reshape(-1, x.shape[-1]) - state["mean"].double().cpu()
+    second = (xc * xc).mean(0)
+    var = second - xc.mean(0) ** 2
+    return torch.clamp_min(second / (var + layer.eps), 1.0)
+
+
+def check_nodes_one_by_one(torch, net, cpu_net, x):
+    """Every node of the graph on the card against the same node on the CPU
+    (the same parameters and state), both fed the card's train-mode
+    activations of its inputs, so that no difference carries from node to
+    node: the output within NODE_REL of its largest value and a BN's new
+    state within STATE_RTOL; for a layer, the gradients of its parameters
+    and of its input under one random cotangent (the same on both) within
+    GRAD_REL relative norm each, the CPU's ReLU and max-pool decisions
+    pinned to the card's (`pinned_kinks`, at most MAX_PINNED_SHARE flipped).
+    A BN node is compared per channel: a channel of a batch of 2 whose mean
+    lies far from the running mean loses most of its float32 digits in BN's
+    variance formula, in either package (`bn_cancellation`), so the limits
+    are multiplied by the largest such magnification of the channels kept,
+    and a channel above BN_CANCELLATION_MAX is left out and counted.
+    A whole network's train-mode gradients cannot be held so: at random
+    init these ReLU-before-BN stacks carry float32 rounding through the batch
+    statistics of later layers into a few % of some gradients (the same
+    network on the CPU with the two images swapped). Returns the worst
+    errors."""
+    name_in = net.conf.network_inputs[0]
+    with torch.no_grad():
+        acts, _, _ = net._walk(net.params_tree, net.state_tree,
+                               {name_in: torch.as_tensor(x, device=net.device)},
+                               train=True)
+    gen = torch.Generator().manual_seed(2060)
+    worst = {"out": 0.0, "grad": 0.0, "state": 0.0, "bn_cancellation": 1.0,
+             "share_of_limit": 0.0}
+    flipped = entries = left_out = 0
+
+    class One:   # pinned_kinks' view of a single layer
+        def __init__(self, layer):
+            self.layers = [layer]
+
+    for name in net.conf.topo_order:
+        node = net.conf.nodes[name]
+        ins = [acts[i] for i in node.inputs]
+        if not node.is_layer():
+            with torch.no_grad():
+                got = node.vertex.forward(ins, train=True, masks=[None] * len(ins))
+                want = node.vertex.forward([a.cpu() for a in ins], train=True,
+                                           masks=[None] * len(ins))
+            err = (got.cpu() - want).abs().max().item() / max(
+                want.abs().max().item(), 1e-30)
+            if not err <= NODE_REL:
+                raise RuntimeError(f"node {name}: card vs CPU {err} (> {NODE_REL})")
+            worst["out"] = max(worst["out"], err)
+            continue
+        layer, record, flips, res = node.layer, [], [], []
+        g = None
+        for side, model, dev in (("card", net, net.device), ("cpu", cpu_net, "cpu")):
+            params = {k: v.detach().clone().requires_grad_()
+                      for k, v in model.params_tree[name].items()}
+            a = ins[0].detach().to(dev).requires_grad_()
+            with torch.enable_grad(), pinned_kinks(torch, One(layer), record,
+                                                   None if side == "card" else flips):
+                y, st = layer.forward_with_state(params, model.state_tree[name], a,
+                                                 train=True)
+                if g is None:
+                    g = torch.randn(y.shape, generator=gen, dtype=y.dtype)
+                leaves = [a] + list(params.values())
+                # a head's forward leaves its centers unused
+                grads = [torch.zeros_like(t) if d is None else d for t, d in zip(
+                    leaves, torch.autograd.grad(y, leaves, g.to(dev), allow_unused=True))]
+            res.append((y.detach().cpu(), [t.cpu() for t in grads],
+                        {k: v.cpu() for k, v in st.items()}))
+        (y_card, g_card, s_card), (y_cpu, g_cpu, s_cpu) = res
+        flipped += sum(flips)
+        entries += sum(int(m.numel()) for m in record)
+        serr = max([((s_card[k] - v).abs().max() / v.abs().max()).item()
+                    for k, v in s_cpu.items()] + [0.0])
+        factor, cancel = 1.0, bn_cancellation(torch, layer, net.state_tree[name], ins[0])
+        if cancel is not None:
+            # BN is per channel: compare the channels that keep their digits
+            keep = cancel <= BN_CANCELLATION_MAX
+            left_out += int((~keep).sum())
+            factor = cancel[keep].max().item() if keep.any() else 1.0
+            y_card, y_cpu = y_card[..., keep], y_cpu[..., keep]
+            g_card, g_cpu = ([t[..., keep] for t in gs] for gs in (g_card, g_cpu))
+        err = (y_card - y_cpu).abs().max().item() / max(y_cpu.abs().max().item(), 1e-30)
+        gerr = max(((gc - gw).norm() / gw.norm().clamp_min(1e-30)).item()
+                   for gc, gw in zip(g_card, g_cpu))
+        if not (err <= NODE_REL * factor and gerr <= GRAD_REL * factor
+                and serr <= STATE_RTOL):
+            raise RuntimeError(f"node {name} ({type(layer).__name__}): card vs CPU "
+                               f"output {err}, gradients {gerr} (limits x {factor}), "
+                               f"state {serr}")
+        worst = {"out": max(worst["out"], err), "grad": max(worst["grad"], gerr),
+                 "state": max(worst["state"], serr),
+                 "bn_cancellation": max(worst["bn_cancellation"], factor),
+                 "share_of_limit": max(worst["share_of_limit"], err / (NODE_REL * factor),
+                                       gerr / (GRAD_REL * factor), serr / STATE_RTOL)}
+    if not flipped <= MAX_PINNED_SHARE * entries:
+        raise RuntimeError(f"{flipped} of {entries} kink decisions flipped node by node")
+    return {"nodes": len(net.conf.topo_order), **worst, "kink_flips_pinned": flipped,
+            "kink_entries": entries, "bn_channels_left_out": left_out}
+
+
+def phase_face_model(torch, card, name, hwc, classes):
+    """Zoo InceptionResNetV1 (160x160x3, 1001 labels) or FaceNetNN4Small2
+    (96x96x3, 5749 labels) at full width, random weights from its seed:
+    conv_bn blocks, an avgpool, a 128-d bottleneck, L2NormalizeVertex and
+    the CenterLossOutputLayer, a ComputationGraph on no hand-written kernel,
+    float32 (TF32 off). Served first, with phase 4's load at the model's
+    size, through ParallelInference(check_finite=True): on its initial
+    running statistics, or, where a probe batch overflows (the normal(0,
+    0.5) init of InceptionResNetV1 does), on statistics set from one
+    train-mode forward of a calibration batch of FACE_CALIBRATION
+    (`calibrate_bn`), the phase says which. Then trained by `fit`
+    FACE_STEPS steps at batch FACE_BATCH, every count reset just before
+    and read just after (0); the BN state moves on every step and the
+    first step's is held to a float64 recompute of the batch statistics
+    (`check_first_step_state`); the median step after the first, images/s,
+    one profiled step. Card vs CPU on a batch of 2: the train-mode score
+    (FACE_SCORE_RTOL) and every node one by one (`check_nodes_one_by_one`)."""
+    from deeplearning4j_torch.models import zoo
+    t0 = time.perf_counter()
+    net = getattr(zoo, name)(num_labels=classes, input_shape=hwc).init()
+    shape = _face_shape(net)
+    log(f"{name}: {hwc}/{classes}, {json.dumps(shape)} on {net.device}, init "
+        f"{time.perf_counter() - t0:.2f} s")
+    rng = np.random.default_rng(2070 + len(name))
+    xcal = rng.standard_normal((FACE_CALIBRATION,) + hwc).astype(np.float32)
+    initial_state_finite = bool(np.isfinite(net.output(xcal[:8])).all())
+    if not initial_state_finite:
+        calibrate_bn(torch, net, xcal)
+    del xcal
+    serving, _ = serve_checked(torch, net, serving_requests(rng, shape=hwc),
+                               f"{name} serving", check_finite=True)
+    n = FACE_STEPS * FACE_BATCH
+    x = rng.standard_normal((n,) + hwc, dtype=np.float32)
+    y = np.eye(classes, dtype=np.float32)[rng.integers(0, classes, n)]
+    steps, active, records = Steps(), [True], []
+    moved = StateSteps(torch, net, active)
+    net.listeners[:] = [steps, moved]
+    with recorded_bn_stats(torch, records, active):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        zero_launches()   # the main path's run starts here
+        net.fit(x, y, epochs=1, batch_size=FACE_BATCH)
+        launches = all_launches()   # ... and ends here
+    net.listeners.clear()
+    check_launches(f"{name} training", launches, dict.fromkeys(launches, 0))
+    if net.iteration != FACE_STEPS or not all(np.isfinite(steps.scores)) \
+            or not all(moved.moved):
+        raise RuntimeError(f"{name} training: {net.iteration} steps, scores "
+                           f"{steps.scores}, state moved {moved.moved}")
+    first_step = check_first_step_state(torch, net, records, moved.first)
+    del records, moved
+    step_ms = np.diff([t0] + steps.ends) * 1e3
+    warm_ms = float(np.median(step_ms[1:]))
+    xb, yb = x[:FACE_BATCH], y[:FACE_BATCH]
+
+    def one_step():
+        net.fit(xb, yb, batch_size=FACE_BATCH)
+        torch.cuda.synchronize()
+
+    profile = profile_call(torch, f"train step {name}", one_step, {"batch": FACE_BATCH})
+    cpu_net = _to_cpu_graph(net)
+    with torch.no_grad():
+        scores = [float(m._loss(m.params_tree, m.state_tree, *m._pack(m._coerce(
+            x[:2], y[:2])), True, None)[0]) for m in (net, cpu_net)]
+    if not abs(scores[0] - scores[1]) <= FACE_SCORE_RTOL * abs(scores[1]):
+        raise RuntimeError(f"{name}: train-mode score card vs CPU {scores}")
+    det = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        nodes = check_nodes_one_by_one(torch, net, cpu_net, x[:2])
+    finally:
+        torch.backends.cudnn.deterministic = det
+    del cpu_net
+    result = {"shape": shape, "input": list(hwc), "classes": classes,
+              "initial_state_finite": initial_state_finite,
+              "calibrated": not initial_state_finite, "serving": serving,
+              "steps": FACE_STEPS, "batch": FACE_BATCH, "launches": launches,
+              "scores": steps.scores, "step_ms": step_ms.tolist(),
+              "median_step_ms_after_the_first": warm_ms,
+              "images_per_s": FACE_BATCH / warm_ms * 1e3,
+              "first_step_state": first_step, "profile": profile,
+              "train_score_card_vs_cpu_b2": scores, "nodes_card_vs_cpu_b2": nodes,
+              "card": card}
+    log(f"{name}: served p50 {serving['p50_ms']:.3f} ms, "
+        f"{serving['images_per_s']:.1f} images/s "
+        f"({'calibrated' if result['calibrated'] else 'initial state'}); step ms "
+        f"{step_ms.tolist()}, median {warm_ms:.3f} ms, "
+        f"{result['images_per_s']:.1f} images/s; one step busy "
+        f"{profile.get('device_busy_ms')} ms, idle {profile.get('device_idle_share')}"
+        f"  [{card}]")
+    log(f"{name}: {json.dumps(result)}")
+    del net, x, y, xb, yb
+    return result
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on a GPU",
               file=sys.stderr)
         return 2
+    t0 = time.perf_counter()
     card = phase_header(torch)
     phase_build()
     lrn_entry = phase_lrn(torch, card)
@@ -3164,6 +3658,12 @@ def main() -> int:
     torch.cuda.empty_cache()
     phase_resnet_bf16_training(torch, card)
     torch.cuda.empty_cache()
+    phase_text_generation(torch, card)
+    phase_rnn_checkpoint(torch, card)
+    torch.cuda.empty_cache()
+    for name, hwc, classes in FACE_MODELS:
+        phase_face_model(torch, card, name, hwc, classes)
+        torch.cuda.empty_cache()
     phase_attention_dispatch(torch, card)
     char = phase_char_model(torch, card)
     lrn_entry["launches"] = serving["launches"]["lrn_fwd"]
@@ -3172,6 +3672,7 @@ def main() -> int:
         entry["launches"] = char["bf16"]["launches"][entry["name"]]
     int8_entry["launches"] = quant["int8"]["launches"]["int8_matmul"]
     kernels = {"kernels": [lrn_entry, lrn_bwd_entry] + flash_entries + [int8_entry]}
+    log(f"chip_smoke: every phase passed in {time.perf_counter() - t0:.1f} s  [{card}]")
     log(json.dumps(kernels))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

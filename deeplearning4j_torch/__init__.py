@@ -24,8 +24,10 @@ from .nn.layers.convolution import (BatchNormalization, Convolution1DLayer,
                                     Subsampling1DLayer, SubsamplingLayer,
                                     ZeroPaddingLayer)
 from .nn.layers.attention import SelfAttentionLayer
-from .nn.layers.recurrent import RnnOutputLayer
-from .nn.multilayer import MultiLayerNetwork
+from .nn.layers.pretrain import CenterLossOutputLayer
+from .nn.layers.recurrent import (LSTM, GravesBidirectionalLSTM, GravesLSTM,
+                                  RnnOutputLayer)
+from .nn.multilayer import MultiLayerNetwork, RnnStateMismatchError
 from .nn.graph import (ComputationGraph, DuplicateToTimeSeriesVertex,
                        ElementWiseVertex, GraphVertex, L2NormalizeVertex,
                        L2Vertex, LastTimeStepVertex, MergeVertex,

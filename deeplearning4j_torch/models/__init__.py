@@ -1,2 +1,4 @@
 """Model zoo (reference deeplearning4j-zoo): the models the port runs."""
-from .zoo import AlexNet, GoogLeNet, LeNet, ZooModel
+from .zoo import (AlexNet, FaceNetNN4Small2, GoogLeNet, InceptionResNetV1,
+                  LeNet, ResNet50, SimpleCNN, TextGenerationLSTM, VGG16, VGG19,
+                  ZooModel)

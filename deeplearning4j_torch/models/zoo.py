@@ -6,8 +6,10 @@ and GoogLeNet (ComputationGraph), with the same layer lists, node names and
 hyperparameters, so their configurations serialize to the same JSON; input
 shape NHWC [height, width, channels]. `ZooModel.init` builds the network
 its configuration describes, and `init_pretrained` restores a local
-checkpoint after checking its checksum and architecture. The recurrent
-model and InceptionResNetV1/FaceNetNN4Small2 wait for their slices.
+checkpoint after checking its checksum and architecture. TextGenerationLSTM
+(MultiLayerNetwork, truncated BPTT) and the face models InceptionResNetV1
+and FaceNetNN4Small2 (ComputationGraph, center loss; their blocks in
+models/helpers.py) are here too.
 """
 from __future__ import annotations
 
@@ -16,20 +18,27 @@ import os
 from dataclasses import dataclass
 from typing import Optional, Sequence
 
-from ..nn.conf.builders import MultiLayerConfiguration, NeuralNetConfiguration
+from ..nn.conf.builders import (BackpropType, MultiLayerConfiguration,
+                                NeuralNetConfiguration)
 from ..nn.conf.graph_conf import ComputationGraphConfiguration
 from ..nn.conf.inputs import InputType
 from ..nn.graph.graph import ComputationGraph
-from ..nn.graph.vertices import ElementWiseVertex, MergeVertex
+from ..nn.graph.vertices import (ElementWiseVertex, L2NormalizeVertex,
+                                 MergeVertex)
 from ..nn.layers.convolution import (BatchNormalization, ConvolutionLayer,
                                      ConvolutionMode, GlobalPoolingLayer,
                                      LocalResponseNormalization, PoolingType,
                                      SubsamplingLayer, ZeroPaddingLayer)
 from ..nn.layers.core import (ActivationLayer, DenseLayer, DropoutLayer,
                               LossLayer, OutputLayer)
+from ..nn.layers.pretrain import CenterLossOutputLayer
+from ..nn.layers.recurrent import GravesLSTM, RnnOutputLayer
 from ..nn.multilayer import MultiLayerNetwork
 from ..nn.updaters import AdaDelta, GradientNormalization, Nesterovs, RmsProp
 from ..nn.weights import Distribution, WeightInit
+from .helpers import (conv_bn, facenet_inception, inception_resnet_a,
+                      inception_resnet_b, inception_resnet_c, reduction_a,
+                      reduction_b)
 
 
 def _architecture(conf):
@@ -287,6 +296,32 @@ class VGG19(ZooModel):
 
 
 @dataclass
+class TextGenerationLSTM(ZooModel):
+    """Reference zoo/model/TextGenerationLSTM.java:77-97: two GravesLSTM(256)
+    + RnnOutput(mcxent), RmsProp, l2 1e-3, tBPTT 50."""
+
+    num_labels: int = 26  # totalUniqueCharacters
+    input_shape: Sequence[int] = (50, 26)  # [maxLen, vocab]
+    hidden: int = 256
+
+    def conf(self) -> MultiLayerConfiguration:
+        return (NeuralNetConfiguration.builder()
+                .seed(self.seed)
+                .l2(0.001)
+                .weight_init(WeightInit.XAVIER)
+                .updater(RmsProp(learning_rate=0.1))
+                .list()
+                .layer(GravesLSTM(n_out=self.hidden, activation="tanh"))
+                .layer(GravesLSTM(n_out=self.hidden, activation="tanh"))
+                .layer(RnnOutputLayer(n_out=self.num_labels,
+                                      activation="softmax", loss="mcxent"))
+                .set_input_type(InputType.recurrent(self.input_shape[1]))
+                .backprop_type(BackpropType.TRUNCATED_BPTT)
+                .tbptt_fwd_length(50).tbptt_back_length(50)
+                .build())
+
+
+@dataclass
 class ResNet50(ZooModel):
     """Reference zoo/model/ResNet50.java:82-230, as the JAX package builds
     it: a stem (zero pad 3, 7x7/2 conv, BN, ReLU, 3x3/2 max pool, both
@@ -493,3 +528,129 @@ class GoogLeNet(ZooModel):
             from ..nn.graph.fusion import fuse_sibling_convs
             conf, _ = fuse_sibling_convs(conf)
         return conf
+
+
+@dataclass
+class InceptionResNetV1(ZooModel):
+    """Reference zoo/model/InceptionResNetV1.java (:75 init adds the
+    bottleneck + center-loss head onto graphBuilder :101; blocks via
+    InceptionResNetHelper) — Szegedy et al., arXiv 1602.07261. Face-
+    recognition scale: 160×160×3 input, 128-d embedding, center loss."""
+
+    num_labels: int = 1001
+    input_shape: Sequence[int] = (160, 160, 3)
+    embedding_size: int = 128
+
+    def conf(self) -> ComputationGraphConfiguration:
+        h, w, c = self.input_shape
+        g = (NeuralNetConfiguration.builder()
+             .seed(self.seed)
+             .activation("identity")
+             .updater(RmsProp(learning_rate=0.1, rms_decay=0.96,
+                              epsilon=0.001))
+             .weight_init(WeightInit.DISTRIBUTION)
+             .dist(Distribution(kind="normal", mean=0.0, std=0.5))
+             .graph_builder())
+        g.add_inputs("input")
+        g.set_input_types(InputType.convolutional(h, w, c))
+        # stem (reference graphBuilder :101-167)
+        x = conv_bn(g, "stem1", "input", 32, (3, 3), (2, 2))
+        x = conv_bn(g, "stem2", x, 32, (3, 3))
+        x = conv_bn(g, "stem3", x, 64, (3, 3))
+        g.add_layer("stem-pool", SubsamplingLayer(
+            kernel_size=(3, 3), stride=(2, 2),
+            pooling_type=PoolingType.MAX,
+            convolution_mode=ConvolutionMode.SAME), x)
+        x = conv_bn(g, "stem4", "stem-pool", 80, (1, 1))
+        x = conv_bn(g, "stem5", x, 192, (3, 3))
+        x = conv_bn(g, "stem6", x, 256, (3, 3), (2, 2))
+        # 5× Inception-ResNet-A @ scale .17 (reference :167)
+        x = inception_resnet_a(g, "resnetA", 5, 0.17, x)
+        x = reduction_a(g, "reduceA", x)
+        # 10× Inception-ResNet-B @ .10 (reference :220); width follows the
+        # merge of reduction-A (256 + 384 + 256 = 896)
+        x = inception_resnet_b(g, "resnetB", 10, 0.10, x, width=896)
+        x = reduction_b(g, "reduceB", x)
+        # 5× Inception-ResNet-C @ .20 (reference :302); 896+384+256+256
+        x = inception_resnet_c(g, "resnetC", 5, 0.20, x, width=1792)
+        g.add_layer("avgpool", GlobalPoolingLayer(
+            pooling_type=PoolingType.AVG), x)
+        # bottleneck embedding + L2 normalize + center loss (init :75-99)
+        g.add_layer("bottleneck", DenseLayer(
+            n_out=self.embedding_size, activation="identity"), "avgpool")
+        g.add_vertex("embeddings", L2NormalizeVertex(), "bottleneck")
+        g.add_layer("lossLayer", CenterLossOutputLayer(
+            n_out=self.num_labels, activation="softmax", loss="mcxent",
+            alpha=0.9, lambda_=1e-4), "embeddings")
+        g.set_outputs("lossLayer")
+        return g.build()
+
+
+@dataclass
+class FaceNetNN4Small2(ZooModel):
+    """Reference zoo/model/FaceNetNN4Small2.java (:322-335 tail:
+    avgpool → bottleneck dense → L2NormalizeVertex 'embeddings' →
+    CenterLossOutputLayer; inception modules via FaceNetHelper) —
+    Schroff et al. FaceNet, OpenFace nn4.small2 variant, 96×96×3."""
+
+    num_labels: int = 5749
+    input_shape: Sequence[int] = (96, 96, 3)
+    embedding_size: int = 128
+
+    def conf(self) -> ComputationGraphConfiguration:
+        h, w, c = self.input_shape
+        g = (NeuralNetConfiguration.builder()
+             .seed(self.seed)
+             .activation("relu")
+             .updater(Nesterovs(learning_rate=0.001, momentum=0.9))
+             .weight_init(WeightInit.RELU)
+             .graph_builder())
+        g.add_inputs("input")
+        g.set_input_types(InputType.convolutional(h, w, c))
+        x = conv_bn(g, "stem1", "input", 64, (7, 7), (2, 2))
+        g.add_layer("pool1", SubsamplingLayer(
+            kernel_size=(3, 3), stride=(2, 2),
+            pooling_type=PoolingType.MAX,
+            convolution_mode=ConvolutionMode.SAME), x)
+        x = conv_bn(g, "stem2", "pool1", 64, (1, 1))
+        x = conv_bn(g, "stem3", x, 192, (3, 3))
+        g.add_layer("pool2", SubsamplingLayer(
+            kernel_size=(3, 3), stride=(2, 2),
+            pooling_type=PoolingType.MAX,
+            convolution_mode=ConvolutionMode.SAME), x)
+        # nn4.small2 inception stack (OpenFace table; reference
+        # FaceNetHelper.appendGraph calls)
+        x = facenet_inception(g, "inception3a", "pool2", c1x1=64,
+                              c3x3_reduce=96, c3x3=128, c5x5_reduce=16,
+                              c5x5=32, pool_proj=32)
+        x = facenet_inception(g, "inception3b", x, c1x1=64,
+                              c3x3_reduce=96, c3x3=128, c5x5_reduce=32,
+                              c5x5=64, pool_proj=64,
+                              pool_type=PoolingType.AVG)
+        x = facenet_inception(g, "inception3c", x, c1x1=0,
+                              c3x3_reduce=128, c3x3=256, c5x5_reduce=32,
+                              c5x5=64, pool_proj=0, stride3x3=(2, 2),
+                              pool_stride=(2, 2))
+        x = facenet_inception(g, "inception4a", x, c1x1=256,
+                              c3x3_reduce=96, c3x3=192, c5x5_reduce=32,
+                              c5x5=64, pool_proj=128,
+                              pool_type=PoolingType.AVG)
+        x = facenet_inception(g, "inception4e", x, c1x1=0,
+                              c3x3_reduce=160, c3x3=256, c5x5_reduce=64,
+                              c5x5=128, pool_proj=0, stride3x3=(2, 2),
+                              pool_stride=(2, 2))
+        x = facenet_inception(g, "inception5a", x, c1x1=256,
+                              c3x3_reduce=96, c3x3=384, pool_proj=96,
+                              pool_type=PoolingType.AVG)
+        x = facenet_inception(g, "inception5b", x, c1x1=256,
+                              c3x3_reduce=96, c3x3=384, pool_proj=96)
+        g.add_layer("avgpool", GlobalPoolingLayer(
+            pooling_type=PoolingType.AVG), x)
+        g.add_layer("bottleneck", DenseLayer(
+            n_out=self.embedding_size, activation="identity"), "avgpool")
+        g.add_vertex("embeddings", L2NormalizeVertex(), "bottleneck")
+        g.add_layer("lossLayer", CenterLossOutputLayer(
+            n_out=self.num_labels, activation="softmax", loss="mcxent",
+            alpha=0.9, lambda_=1e-4), "embeddings")
+        g.set_outputs("lossLayer")
+        return g.build()

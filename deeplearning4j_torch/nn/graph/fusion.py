@@ -25,7 +25,7 @@ fused and the candidates rejected (the JAX package's metric family of that
 name, a plain dict here until optimize/metrics.py is ported).
 
 The multi-model serving merge of the JAX module (`merge_serving_conf`,
-`build_fused_serving_net`) waits for the serving plane, Queue A item 8.
+`build_fused_serving_net`) waits for the serving plane, Queue A item 3.
 """
 from __future__ import annotations
 

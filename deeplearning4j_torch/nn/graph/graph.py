@@ -22,13 +22,19 @@ its input (after its dropout) to `compute_score` and does not run its
 forward (graph.py:160-168 of the JAX package); output layers are sinks.
 Dropout draws from the network's own ``torch.Generator``.
 
-Not ported yet, each raising ``NotImplementedError``: truncated BPTT and
-``rnn_time_step`` (Queue A item 5, the recurrent slice), the fused
-multi-step loops ``fit_batches``/``fit_batch_repeated`` and ``evaluate``
-(Queue A item 7).
+Recurrent nodes keep their streaming carry outside ``state_tree``, keyed by
+node name, as MultiLayerNetwork does (nn/multilayer.py): truncated BPTT
+(`_fit_tbptt`, windows over every rank-3 array of a MultiDataSet, rank-2
+inputs passed whole into each window) and `rnn_time_step` merge it in and
+split it back out, detached, when they commit.
+
+Not ported yet, each raising ``NotImplementedError``: the fused multi-step
+loops ``fit_batches``/``fit_batch_repeated`` and ``evaluate`` (ROADMAP Queue A
+item 1, training tools and data).
 """
 from __future__ import annotations
 
+import logging
 from typing import Any, Dict, List, Optional
 
 import numpy as np
@@ -44,6 +50,7 @@ from ..multilayer import (_DeviceNetwork, _input_shape, _layer_step,
 from .vertices import LastTimeStepVertex
 
 Tensor = torch.Tensor
+log = logging.getLogger(__name__)
 
 
 def _later(what: str, item: str) -> NotImplementedError:
@@ -66,6 +73,9 @@ class ComputationGraph(_DeviceNetwork):
         self.score_value: Optional[Tensor] = None
         self._dtype = torch.float32
         self._dropout_gen: Optional[torch.Generator] = None
+        #: {recurrent node: its streaming carry {"h", "c"}}, or None outside
+        #: truncated BPTT and rnn_time_step
+        self._rnn_carry: Optional[Dict[str, dict]] = None
         self._initialized = False
         self._layer_nodes = [n for n in conf.topo_order
                              if conf.nodes[n].is_layer()]
@@ -151,16 +161,19 @@ class ComputationGraph(_DeviceNetwork):
             [self.conf.nodes[n].layer for n in self._layer_nodes],
             [params[n] for n in self._layer_nodes]), new_state
 
-    def _value_and_grad(self, inputs, labels, fmasks, lmasks, train, generator):
+    def _value_and_grad(self, inputs, labels, fmasks, lmasks, train, generator,
+                        state=None):
         """(score, gradients by node, new layer state) at the current
-        parameters and state: one autograd backward; a parameter the score
-        does not reach gets zeros."""
+        parameters and `state` (default: the layer state, without a carry):
+        one autograd backward; a parameter the score does not reach gets
+        zeros."""
         tree = {n: {k: t.detach().requires_grad_() for k, t in lp.items()}
                 for n, lp in self.params_tree.items()}
         flat = [t for lp in tree.values() for t in lp.values()]
         with torch.enable_grad():
-            loss, new_state = self._loss(tree, self.state_tree, inputs, labels,
-                                         fmasks, lmasks, train, generator)
+            loss, new_state = self._loss(
+                tree, self.state_tree if state is None else state, inputs,
+                labels, fmasks, lmasks, train, generator)
         grads = torch.autograd.grad(loss, flat, allow_unused=True) if flat else ()
         flat_g = iter([torch.zeros_like(t) if g is None else g
                        for g, t in zip(grads, flat)])
@@ -302,17 +315,57 @@ class ComputationGraph(_DeviceNetwork):
         return self
 
     def fit_batch(self, mds) -> None:
-        """One optimizer step on one batch: forward, loss, one backward,
-        then per layer node normalize -> update -> p - u; the new layer
-        state is committed with the new parameters."""
+        """One training batch: under TRUNCATED_BPTT with a rank-3 input and
+        rank-3 labels, one step per window (`_fit_tbptt`); otherwise one
+        optimizer step on the whole batch."""
         mds = self._coerce(mds)
-        if self.conf.backprop_type == BackpropType.TRUNCATED_BPTT and \
-                any(np.ndim(f) == 3 for f in mds.features) and \
-                all(np.ndim(y) == 3 for y in mds.labels):
-            raise _later("truncated BPTT", "item 5, the recurrent slice")
-        inputs, labels, fmasks, lmasks = self._pack(mds)
+        if self.conf.backprop_type == BackpropType.TRUNCATED_BPTT:
+            if any(np.ndim(f) == 3 for f in mds.features) and \
+                    all(np.ndim(y) == 3 for y in mds.labels):
+                self._fit_tbptt(mds)
+                return
+            if not getattr(self, "_warned_tbptt_labels", False):
+                log.warning("Truncated BPTT requires rank-3 features and labels; "
+                            "using standard BPTT")
+                self._warned_tbptt_labels = True
+        self._rnn_carry = None   # standard BPTT: every batch starts from zeros
+        self._step(*self._pack(mds))
+
+    def _fit_tbptt(self, mds: MultiDataSet):
+        """Truncated BPTT over the graph (reference doTruncatedBPTT): windows
+        of tbptt_fwd_length over the time axis of every rank-3 array, one
+        optimizer step each, the carry passed on detached; rank-2 inputs,
+        and masks shorter than the longest sequence, go whole into every
+        window."""
+        T = max(np.shape(f)[1] for f in mds.features if np.ndim(f) == 3)
+        L = self.conf.tbptt_fwd_length
+        self.rnn_clear_previous_state()
+        self._seed_recurrent_states(np.shape(mds.features[0])[0])
+
+        def mask_win(m, s, e):
+            if m is None:
+                return None
+            return m[:, s:e] if np.ndim(m) >= 2 and np.shape(m)[1] >= T else m
+
+        for start in range(0, T, L):
+            end = min(start + L, T)
+            win = MultiDataSet(
+                [f[:, start:end] if np.ndim(f) == 3 else f for f in mds.features],
+                [y[:, start:end] for y in mds.labels],
+                None if mds.features_masks is None else
+                [mask_win(m, start, end) for m in mds.features_masks],
+                None if mds.labels_masks is None else
+                [mask_win(m, start, end) for m in mds.labels_masks])
+            self._step(*self._pack(win))
+        self.rnn_clear_previous_state()
+
+    def _step(self, inputs, labels, fmasks, lmasks) -> None:
+        """One optimizer step: forward, loss, one backward, then per layer
+        node normalize -> update -> p - u; the new layer state (and carry)
+        is committed with the new parameters."""
         loss, grads, new_state = self._value_and_grad(
-            inputs, labels, fmasks, lmasks, True, self._dropout_gen)
+            inputs, labels, fmasks, lmasks, True, self._dropout_gen,
+            state=self._merged_state())
         with torch.no_grad():
             stepped = {n: _layer_step(self.conf.nodes[n].layer,
                                       self.params_tree[n], grads[n],
@@ -320,24 +373,67 @@ class ComputationGraph(_DeviceNetwork):
                        for n in self._layer_nodes}
         self.params_tree = {n: p for n, (p, _) in stepped.items()}
         self.opt_state = {n: o for n, (_, o) in stepped.items()}
-        self.state_tree = new_state
+        self._commit_state(new_state)
         self.iteration += 1
         self.score_value = loss
         for lst in self.listeners:
             lst.iteration_done(self, self.iteration)
 
     def fit_batches(self, batches):
-        raise _later("fit_batches (fused multi-step loop)", "item 7")
+        raise _later("fit_batches (fused multi-step loop)",
+                     "item 1, training tools and data")
 
     def fit_batch_repeated(self, mds, steps: int):
-        raise _later("fit_batch_repeated (fused multi-step loop)", "item 7")
+        raise _later("fit_batch_repeated (fused multi-step loop)",
+                     "item 1, training tools and data")
 
-    def rnn_time_step(self, *features):
-        raise _later("rnn_time_step", "item 5, the recurrent slice")
+    # ------------------------------------------------------------- rnn state
+    def _seed_recurrent_states(self, batch: int):
+        """Start a zero carry for `batch` rows, unless one is running."""
+        if self._rnn_carry is None:
+            self._rnn_carry = {
+                n: self.conf.nodes[n].layer.seed_recurrent_state(
+                    batch, self._dtype, self.device)
+                for n in self._layer_nodes if self.conf.nodes[n].layer.is_recurrent()}
+
+    def _merged_state(self):
+        """The layer state with the carry merged in, where one is running."""
+        if self._rnn_carry is None:
+            return self.state_tree
+        return {n: {**st, **self._rnn_carry.get(n, {})}
+                for n, st in self.state_tree.items()}
+
+    def _commit_state(self, new_state):
+        """Take a step's new state: the carry (detached) apart from the
+        layer state, where one is running."""
+        if self._rnn_carry is None:
+            self.state_tree = new_state
+            return
+        split = {n: self._split_carry(st) for n, st in new_state.items()}
+        self.state_tree = {n: st for n, (st, _) in split.items()}
+        self._rnn_carry = {n: c for n, (_, c) in split.items() if c}
+
+    def rnn_time_step(self, *features) -> List[np.ndarray]:
+        """Streaming inference from the stored carry (reference
+        ComputationGraph.rnnTimeStep): every network output, in
+        conf.network_outputs order, for inputs of one step [batch, features]
+        or several [batch, time, features]. Raises as
+        MultiLayerNetwork.rnn_time_step does."""
+        self._check_init()
+        self._check_streaming((n, self.conf.nodes[n].layer) for n in self._layer_nodes)
+        inputs, _ = self._pack_inputs(self._features(features))
+        batch = next(iter(inputs.values())).shape[0]
+        self._check_carry_batch(batch)
+        self._seed_recurrent_states(batch)
+        with torch.no_grad():
+            acts, _, new_state = self._walk(self.params_tree, self._merged_state(),
+                                            inputs)
+        self._commit_state(new_state)
+        return [_to_numpy(acts[n]) for n in self.conf.network_outputs]
 
     def evaluate(self, data, labels=None, batch_size: int = 128,
                  output_index: int = 0):
-        raise _later("evaluate", "item 7 (eval/)")
+        raise _later("evaluate", "item 1, training tools and data (eval/)")
 
     # ----------------------------------------------------------------- score
     def score(self, data=None) -> float:

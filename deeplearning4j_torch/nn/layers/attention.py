@@ -66,6 +66,10 @@ class SelfAttentionLayer(Layer):
     def has_params(self):
         return True
 
+    def supports_streaming(self):
+        # one step at a time, each step would attend to itself alone
+        return False
+
     def param_reg(self, pname):
         if pname in (W_Q, W_K, W_V, W_O):
             return (self.l1 or 0.0, self.l2 or 0.0)

@@ -143,6 +143,15 @@ class Layer:
     def is_output_layer(self) -> bool:
         return False
 
+    def is_recurrent(self) -> bool:
+        """True for a layer that keeps a streaming carry (the LSTMs)."""
+        return False
+
+    def supports_streaming(self) -> bool:
+        """False for a layer that needs the whole sequence (the
+        bidirectional LSTM, attention): `rnn_time_step` raises for it."""
+        return True
+
     def _winit(self, gen, shape, fan_in, fan_out, dtype):
         return init_weights(gen, shape, fan_in, fan_out,
                             self.weight_init or WeightInit.XAVIER,

@@ -24,14 +24,25 @@ a float64 network) whatever the parameters' type, as the JAX package keeps
 them: in a bfloat16 network, casting them to bfloat16 would round a masked
 score's step count (1001 present steps count as 1000).
 
+Recurrent layers keep a streaming carry ({"h", "c"} per LSTM layer) outside
+``state_tree``, as the JAX package does: it is merged into the layer state
+only for truncated BPTT windows and `rnn_time_step` (`_merged_state`) and
+split back out when a step commits (`_commit_state`), so ``state_tree`` and
+``state.npz`` never hold it. A committed carry is detached: no gradient
+crosses a window boundary, as none crosses the JAX package's jitted steps.
+Truncated BPTT (`_fit_tbptt`) takes one optimizer step per window of
+``tbptt_fwd_length`` steps, the last one partial, the backward over the whole
+window (``tbptt_back_length`` is ignored, as in the JAX package).
+
 Checkpoints are utils/model_serializer.py's, shared with ComputationGraph
 (nn/graph/graph.py), which reuses this module's casts and per-layer step.
-Not ported yet: truncated BPTT, ``steps_per_dispatch``, async and device
-prefetch, pad-to-bucket, the checkpoint and divergence-sentinel hooks of
-`fit`, tracing and metrics.
+Not ported yet (ROADMAP Queue A item 1, training tools and data):
+``steps_per_dispatch``, async and device prefetch, pad-to-bucket, the
+checkpoint and divergence-sentinel hooks of `fit`, tracing and metrics.
 """
 from __future__ import annotations
 
+import logging
 from typing import Any, List, Optional, Tuple
 
 import numpy as np
@@ -45,9 +56,17 @@ from .conf.builders import BackpropType, MultiLayerConfiguration
 from .conf.inputs import (ConvolutionalFlatType, ConvolutionalType,
                           FeedForwardType, RecurrentType)
 from .layers.core import dropout
+from .layers.recurrent import RECURRENT_CARRY_KEYS
 from .updaters import normalize_layer_gradients
 
 Tensor = torch.Tensor
+log = logging.getLogger(__name__)
+
+
+class RnnStateMismatchError(ValueError):
+    """`rnn_time_step` was called with another batch size than the stored
+    recurrent carry's. The carry is reset before this raises, so that the
+    failed call leaves no stale carry to the next caller."""
 
 
 def _regularization_score(layers, params):
@@ -147,6 +166,7 @@ class _DeviceNetwork:
             self.conf.seed if seed is None else seed)
         self.iteration = 0
         self.epoch = 0
+        self._rnn_carry = None
         self._initialized = True
         return self
 
@@ -165,6 +185,38 @@ class _DeviceNetwork:
 
     def _as_mask(self, m) -> Optional[Tensor]:
         return None if m is None else self._as_labels(m)
+
+    # ------------------------------------------------------------- rnn state
+    def rnn_clear_previous_state(self):
+        """Drop the recurrent carry (reference rnnClearPreviousState())."""
+        self._rnn_carry = None
+
+    def _check_streaming(self, layers):
+        """`rnn_time_step` needs every layer able to run step by step."""
+        for name, layer in layers:
+            if not layer.supports_streaming():
+                raise NotImplementedError(
+                    f"{type(layer).__name__} ({name!r}) does not support "
+                    "rnn_time_step (it needs the whole sequence)")
+
+    def _check_carry_batch(self, batch: int):
+        """Raise RnnStateMismatchError, after resetting the carry, when a
+        stored carry has another batch size than `batch`."""
+        carries = (self._rnn_carry.values() if isinstance(self._rnn_carry, dict)
+                   else self._rnn_carry or ())
+        for carry in carries:
+            if "h" in carry and carry["h"].shape[0] != batch:
+                stored = carry["h"].shape[0]
+                self._rnn_carry = None
+                raise RnnStateMismatchError(
+                    f"rnn_time_step batch size {batch} != stored state batch "
+                    f"size {stored}; the stored recurrent state has been reset")
+
+    @staticmethod
+    def _split_carry(st: dict):
+        """(layer state without the carry, the carry detached)."""
+        return ({k: v for k, v in st.items() if k not in RECURRENT_CARRY_KEYS},
+                {k: v.detach() for k, v in st.items() if k in RECURRENT_CARRY_KEYS})
 
 
 class MultiLayerNetwork(_DeviceNetwork):
@@ -185,6 +237,9 @@ class MultiLayerNetwork(_DeviceNetwork):
         self.score_value: Optional[Tensor] = None
         self._dtype = torch.float32
         self._dropout_gen: Optional[torch.Generator] = None
+        #: per layer, the streaming carry {"h", "c"} ({} for other layers),
+        #: or None outside truncated BPTT and rnn_time_step
+        self._rnn_carry: Optional[Tuple[dict, ...]] = None
         self._initialized = False
 
     # ------------------------------------------------------------------ init
@@ -251,16 +306,18 @@ class MultiLayerNetwork(_DeviceNetwork):
 
     def _value_and_grad(self, x: Tensor, y: Tensor, fmask: Optional[Tensor],
                         lmask: Optional[Tensor], train: bool,
-                        generator: Optional[torch.Generator]):
+                        generator: Optional[torch.Generator], state=None):
         """(score, gradients, new layer state) at the current parameters and
-        state: one autograd backward. A parameter the score does not reach
-        gets zeros, as JAX's grad gives."""
+        `state` (default: the layer state, without a carry): one autograd
+        backward. A parameter the score does not reach gets zeros, as JAX's
+        grad gives."""
         tree = tuple({k: t.detach().requires_grad_() for k, t in lp.items()}
                      for lp in self.params_tree)
         flat = [t for lp in tree for t in lp.values()]
         with torch.enable_grad():
-            loss, new_state = self._loss(tree, self.state_tree, x, y, fmask,
-                                         lmask, train, generator)
+            loss, new_state = self._loss(
+                tree, self.state_tree if state is None else state, x, y, fmask,
+                lmask, train, generator)
         grads = torch.autograd.grad(loss, flat, allow_unused=True) if flat else ()
         flat_g = iter([torch.zeros_like(t) if g is None else g
                        for g, t in zip(grads, flat)])
@@ -350,24 +407,48 @@ class MultiLayerNetwork(_DeviceNetwork):
     def _fit_batch(self, ds: DataSet):
         if self.conf.backprop_type == BackpropType.TRUNCATED_BPTT and \
                 np.ndim(ds.features) == 3:
-            raise NotImplementedError(
-                "truncated BPTT comes with the recurrent slice of the port")
+            if np.ndim(ds.labels) == 3:
+                self._fit_tbptt(ds)
+                return
+            # windowing rank-2 labels on axis 1 would cut the class axis
+            if not getattr(self, "_warned_tbptt_labels", False):
+                log.warning("Truncated BPTT requires rank-3 (time-series) labels; "
+                            "got rank-%d: using standard BPTT", np.ndim(ds.labels))
+                self._warned_tbptt_labels = True
+        self._rnn_carry = None   # standard BPTT: every batch starts from zeros
         self._do_step(ds.features, ds.labels, ds.features_mask, ds.labels_mask)
+
+    def _fit_tbptt(self, ds: DataSet):
+        """Truncated BPTT (reference doTruncatedBPTT): one optimizer step per
+        window of tbptt_fwd_length steps, the last one partial, masks
+        windowed alike; the carry starts from zeros, passes from window to
+        window detached, and is dropped after the batch."""
+        T = np.shape(ds.features)[1]
+        L = self.conf.tbptt_fwd_length
+        self.rnn_clear_previous_state()
+        self._seed_recurrent_states(np.shape(ds.features)[0])
+        for start in range(0, T, L):
+            end = min(start + L, T)
+            win = lambda m: None if m is None else m[:, start:end]
+            self._do_step(ds.features[:, start:end], ds.labels[:, start:end],
+                          win(ds.features_mask), win(ds.labels_mask))
+        self.rnn_clear_previous_state()
 
     def _do_step(self, x, y, fmask, lmask):
         """One optimizer step: forward + loss + one backward, then per layer
         normalize -> update -> p - u, skipping frozen layers; the new layer
-        state is committed with the new parameters."""
+        state (and carry) is committed with the new parameters."""
         loss, grads, new_state = self._value_and_grad(
             self._as_input(x), self._as_labels(y), self._as_mask(fmask),
-            self._as_mask(lmask), True, self._dropout_gen)
+            self._as_mask(lmask), True, self._dropout_gen,
+            state=self._merged_state())
         with torch.no_grad():
             stepped = [_layer_step(layer, self.params_tree[i], grads[i],
                                    self.opt_state[i], self.iteration)
                        for i, layer in enumerate(self.layers)]
         self.params_tree = tuple(p for p, _ in stepped)
         self.opt_state = tuple(o for _, o in stepped)
-        self.state_tree = new_state
+        self._commit_state(new_state)
         self.iteration += 1
         self.score_value = loss
         for lst in self.listeners:
@@ -408,3 +489,46 @@ class MultiLayerNetwork(_DeviceNetwork):
     def num_params(self) -> int:
         self._check_init()
         return param_utils.num_params(self.params_tree)
+
+    # ------------------------------------------------------------- rnn state
+    def _seed_recurrent_states(self, batch: int):
+        """Start a zero carry for `batch` rows, unless one is running."""
+        if self._rnn_carry is None:
+            self._rnn_carry = tuple(
+                layer.seed_recurrent_state(batch, self._dtype, self.device)
+                if layer.is_recurrent() else {} for layer in self.layers)
+
+    def _merged_state(self):
+        """The layer state with the carry merged in, where one is running."""
+        if self._rnn_carry is None:
+            return self.state_tree
+        return tuple({**st, **carry}
+                     for st, carry in zip(self.state_tree, self._rnn_carry))
+
+    def _commit_state(self, new_state):
+        """Take a step's new state: the carry (detached) apart from the
+        layer state, where one is running."""
+        if self._rnn_carry is None:
+            self.state_tree = new_state
+            return
+        split = [self._split_carry(st) for st in new_state]
+        self.state_tree = tuple(st for st, _ in split)
+        self._rnn_carry = tuple(c for _, c in split)
+
+    def rnn_time_step(self, x) -> np.ndarray:
+        """Streaming inference from the stored carry (reference
+        rnnTimeStep()): x is [batch, features] (one step) or [batch, time,
+        features]; the carry moves on. Raises NotImplementedError for a
+        layer that needs the whole sequence, and RnnStateMismatchError
+        (after resetting the carry) for another batch size than the
+        carry's."""
+        self._check_init()
+        self._check_streaming(enumerate(self.layers))
+        xa = self._as_input(x)
+        self._check_carry_batch(xa.shape[0])
+        self._seed_recurrent_states(xa.shape[0])
+        with torch.no_grad():
+            out, new_state, _ = self._forward(self.params_tree,
+                                              self._merged_state(), xa)
+        self._commit_state(new_state)
+        return _to_numpy(out)

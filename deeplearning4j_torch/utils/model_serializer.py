@@ -313,6 +313,7 @@ def load_checkpoint_state(model, path, load_updater: bool = True,
     model.params_tree, model.state_tree = params, state
     if opt is not None:
         model.opt_state = opt
+    model.rnn_clear_previous_state()   # a carry of the run before the restore
     _read_counters(model, meta)
     return meta
 

@@ -25,6 +25,12 @@
   state, in float32 and bfloat16 (its state float32).
 - The leaf order equals `zoo_param_manifest.json` for LeNet, AlexNet and
   GoogLeNet.
+- Recurrent networks: the JAX package's `mln_rnn.zip` (LSTM + RnnOutputLayer,
+  Adam) restores bitwise, with no carry and an empty state, matches
+  `expected.npz` (rtol 1e-5, atol 1e-6) and resumes 2 `fit` steps as the
+  JAX package's restore does (within 1e-5); the port's zips of a truncated-
+  BPTT MLN (GravesLSTM + LSTM) and of a graph with a bidirectional node
+  restore in the JAX package bitwise (outputs rtol 1e-5) and in the port.
 """
 import hashlib
 import io
@@ -451,3 +457,91 @@ def test_leaf_order_matches_manifest(name):
         [[str(k), v] for k, v in manifest if v]
     keys = sorted(tree) if isinstance(tree, dict) else list(range(len(tree)))
     assert keys == [k for k, _ in manifest]
+
+
+# ------------------------------------------- recurrent state: mln_rnn.zip
+
+MLN_RNN = os.path.join(FIX, "checkpoints", "mln_rnn.zip")
+
+
+def test_mln_rnn_restores_and_matches_expected():
+    expected = np.load(os.path.join(FIX, "checkpoints", "expected.npz"))
+    net = port_ser.restore_model(MLN_RNN, device="cpu")
+    ref_net = ref_ser.restore_model(MLN_RNN)
+    assert isinstance(net, port.MultiLayerNetwork)
+    assert isinstance(net.layers[0], port.LSTM)
+    assert (net.iteration, net.epoch) == (ref_net.iteration, ref_net.epoch)
+    assert net.iteration > 0
+    _assert_tree_bitwise(net.params_tree, ref_net.params_tree, "params")
+    _assert_tree_bitwise(net.opt_state, ref_net.opt_state, "Adam state")
+    assert port_params.tree_leaves(net.state_tree) == [] and net._rnn_carry is None
+    np.testing.assert_allclose(net.output(expected["mln_rnn_x"]), expected["mln_rnn_y"],
+                               rtol=1e-5, atol=1e-6)
+
+
+def test_mln_rnn_resumes_training_as_the_reference():
+    expected = np.load(os.path.join(FIX, "checkpoints", "expected.npz"))
+    net = port_ser.restore_model(MLN_RNN, device="cpu")
+    ref_net = ref_ser.restore_model(MLN_RNN)
+    x = expected["mln_rnn_x"]
+    y = np.eye(3, dtype=np.float32)[np.arange(x.shape[0] * x.shape[1]).reshape(
+        x.shape[:2]) % 3]
+    it0 = net.iteration
+    net.fit(x, y, epochs=2, batch_size=len(x))
+    ref_net.fit(x, y, epochs=2, batch_size=len(x), use_async=False)
+    assert net.iteration == ref_net.iteration == it0 + 2
+    np.testing.assert_allclose(float(net.score_value), float(ref_net.score_value),
+                               rtol=1e-5)
+    for what, mine, theirs in (("params", net.params_tree, ref_net.params_tree),
+                               ("Adam", net.opt_state, ref_net.opt_state)):
+        got = port_params.tree_leaves(port_params.params_to_numpy(mine))
+        want = jax.tree_util.tree_leaves(theirs)
+        assert len(got) == len(want), what
+        for i, (a, b) in enumerate(zip(got, want)):
+            b = np.asarray(b)
+            np.testing.assert_allclose(a, b, rtol=1e-5, atol=1e-5 * np.abs(b).max(),
+                                       err_msg=f"{what} leaf {i}")
+
+
+def _recurrent_net(kind):
+    """A port network of each recurrent layer, trained one truncated-BPTT
+    batch (3 windows): an MLN of GravesLSTM + LSTM, or a graph with a
+    bidirectional node."""
+    from test_torch_tbptt import _data, _mln_conf
+    x, y, fm, lm = _data(seed=12)
+    if kind == "mln":
+        net = port.MultiLayerNetwork(_mln_conf(port)).init(device="cpu")
+        net.fit(port.DataSet(x, y, fm, lm), batch_size=len(x))
+        return net, x
+    g = (port.NeuralNetConfiguration.builder().seed(9)
+         .updater(port.RmsProp(learning_rate=1e-2)).graph_builder())
+    g.add_inputs("in")
+    g.set_input_types(port.InputType.recurrent(x.shape[2]))
+    g.add_layer("bi", port.GravesBidirectionalLSTM(n_out=4, activation="tanh"), "in")
+    g.add_layer("lstm", port.LSTM(n_out=5, activation="tanh"), "bi")
+    g.add_layer("out", port.RnnOutputLayer(n_out=y.shape[2], activation="softmax",
+                                           loss="mcxent"), "lstm")
+    g.set_outputs("out")
+    g.backprop_type(port.BackpropType.TRUNCATED_BPTT)
+    g.tbptt_fwd_length(4)
+    net = port.ComputationGraph(g.build()).init(device="cpu")
+    net.fit(port.MultiDataSet([x], [y], [fm], [lm]), batch_size=len(x))
+    return net, x
+
+
+@pytest.mark.parametrize("kind", ["mln", "graph"])
+def test_port_recurrent_zip_restores_in_reference(tmp_path, kind):
+    net, x = _recurrent_net(kind)
+    assert net.iteration == 3 and net._rnn_carry is None
+    path = str(tmp_path / "rnn.zip")
+    port_ser.save_model(net, path)
+    ref_net = ref_ser.restore_model(path)
+    assert (ref_net.iteration, ref_net.epoch) == (net.iteration, net.epoch)
+    _assert_tree_bitwise(net.params_tree, ref_net.params_tree, "params")
+    _assert_tree_bitwise(net.opt_state, ref_net.opt_state, "opt state")
+    np.testing.assert_allclose(net.output(x), np.asarray(ref_net.output(x)),
+                               rtol=1e-5, atol=1e-7)
+    back = port_ser.restore_model(path, device="cpu")
+    _assert_port_trees_equal(back.params_tree, net.params_tree)
+    _assert_port_trees_equal(back.opt_state, net.opt_state)
+    np.testing.assert_array_equal(back.output(x), net.output(x))

@@ -36,6 +36,15 @@ The bfloat16 AlexNet phase (`phase_bf16_alexnet`) runs here end to end at
 60x60x3, batch 4 and 2 steps, with stand-ins for K1 and K2 that count a
 launch each as the kernels' wrappers do: it passes, and fails when one LRN
 forward or backward goes around the counted wrapper.
+
+The recurrent and face-model phases run here too, cut in size:
+`phase_text_generation` (8 units, the zoo's 64 steps and tBPTT 50) passes
+and fails when a committed carry keeps its autograd history;
+`check_streaming` fails when the carry is lost between steps;
+`phase_rnn_checkpoint` restores `mln_rnn.zip` on the CPU; `phase_face_model`
+runs FaceNetNN4Small2 at 96x96; `check_nodes_one_by_one` fails on one
+conv node's parameters moved by 1e-3; `bn_cancellation` measures how far a
+channel's mean lies from the running mean that pivots BN's variance.
 """
 import copy
 
@@ -892,3 +901,148 @@ def test_calibrate_bn_takes_one_forwards_batch_statistics():
         assert not np.array_equal(evaluated[name], initial[name])
     assert all(n.layer.decay == 0.9 for n in net.conf.nodes.values()
                if type(n.layer).__name__ == "BatchNormalization")
+
+
+# ------------------------------------- the recurrent slice and the face models
+
+class _SmallTextGenerationLSTM(port_zoo.TextGenerationLSTM):
+    """Zoo TextGenerationLSTM at 8 units that initializes on the CPU when no
+    device is named; its input width and tBPTT are the zoo's."""
+
+    def __init__(self, **kw):
+        super().__init__(hidden=8, **kw)
+
+    def init(self, seed=None, dtype=torch.float32, device="cpu"):
+        return super().init(seed=seed, dtype=dtype, device=device)
+
+
+@pytest.fixture
+def small_text_phase(monkeypatch, tmp_path):
+    """The TextGenerationLSTM phase cut to run here: 8 units, 2 batches of
+    4 (still 64 steps: windows of 50 and 14), 2 clients x 2 requests served
+    in buckets up to 4, no profiler, no CUDA sync; checkpoints under a
+    temporary directory."""
+    monkeypatch.setattr(port_zoo, "TextGenerationLSTM", _SmallTextGenerationLSTM)
+    for name, value in (("TEXT_BATCH", 4), ("TEXT_BATCHES", 2), ("STREAM_ROWS", 4),
+                        ("SERVE_BATCH_LIMIT", 4), ("ROOT", str(tmp_path))):
+        monkeypatch.setattr(chip_smoke, name, value)
+    requests = chip_smoke.sequence_requests
+    monkeypatch.setattr(chip_smoke, "sequence_requests",
+                        lambda rng: requests(rng, clients=2, per_client=2))
+    monkeypatch.setattr(chip_smoke, "profile_call", lambda torch, label, fn, info: {
+        "wall_ms": 0.0})
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda *a: None)
+
+
+@pytest.mark.parametrize("case", ["detached", "carry_kept_attached"])
+def test_text_generation_phase(small_text_phase, monkeypatch, case):
+    if case == "carry_kept_attached":
+        # a commit that keeps the autograd history: the check must see it
+        monkeypatch.setattr(MultiLayerNetwork, "_split_carry", staticmethod(
+            lambda st: ({k: v for k, v in st.items() if k not in ("h", "c")},
+                        {k: v for k, v in st.items() if k in ("h", "c")})))
+        with pytest.raises(RuntimeError, match="detached"):
+            chip_smoke.phase_text_generation(torch, "cpu")
+        return
+    out = chip_smoke.phase_text_generation(torch, "cpu")
+    assert out["windows_per_batch"] == 2 and len(out["scores"]) == 4
+    assert out["launches"] == dict.fromkeys(out["launches"], 0)
+    assert out["grad_rel_vs_cpu"]["worst_rel"] == 0.0   # both on the CPU here
+    assert out["streaming"]["max_abs_vs_output"] <= 1e-6
+    assert out["serving"]["forwards"] >= 1
+    assert out["checkpoint"]["bitwise"] == {k: True for k in out["checkpoint"]["bitwise"]}
+
+
+def test_check_streaming_catches_a_lost_carry(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda *a: None)
+    net = _SmallTextGenerationLSTM(num_labels=77, input_shape=(64, 77)).init()
+    x, _ = chip_smoke.text_data(3, 6, seed=1)
+    assert chip_smoke.check_streaming(torch, net, x)["max_abs_vs_output"] <= 1e-6
+    commit = MultiLayerNetwork._commit_state
+
+    def forgetful(self, new_state):   # each step starts from zeros again
+        commit(self, new_state)
+        self._rnn_carry = tuple({k: torch.zeros_like(v) for k, v in c.items()}
+                                for c in self._rnn_carry)
+
+    monkeypatch.setattr(MultiLayerNetwork, "_commit_state", forgetful)
+    with pytest.raises(AssertionError):
+        chip_smoke.check_streaming(torch, net, x)
+
+
+def test_rnn_checkpoint_phase(monkeypatch, tmp_path):
+    monkeypatch.setattr(chip_smoke, "ROOT", str(tmp_path))
+    out = chip_smoke.phase_rnn_checkpoint(torch, "cpu", device="cpu")
+    assert out["max_abs_vs_expected"] <= 1e-6
+    assert out["resumed_worst_rel_vs_cpu"] == 0.0   # both on the CPU here
+    assert out["checkpoint"]["bitwise"] == {k: True for k in out["checkpoint"]["bitwise"]}
+
+
+def _small_face(name, hwc):
+    base = getattr(port_zoo, name)
+
+    class Small(base):
+        def __init__(self, num_labels=5, **kw):
+            super().__init__(num_labels=5, input_shape=hwc)
+
+        def init(self, seed=None, dtype=torch.float32, device="cpu"):
+            return super().init(seed=seed, dtype=dtype, device=device)
+    return Small
+
+
+@pytest.fixture
+def small_face_phase(monkeypatch):
+    """The face-model phase cut to run here: FaceNetNN4Small2 at its
+    96x96 with 5 classes, 2 steps at batch 2, 2 clients x 2 requests served
+    in buckets up to 4, no profiler, no CUDA sync. (InceptionResNetV1's 21
+    M parameters make each of its CPU steps slow; the phase is the same
+    code for both.)"""
+    monkeypatch.setattr(port_zoo, "FaceNetNN4Small2",
+                        _small_face("FaceNetNN4Small2", (96, 96, 3)))
+    monkeypatch.setattr(chip_smoke, "FACE_BATCH", 2)
+    monkeypatch.setattr(chip_smoke, "FACE_STEPS", 2)
+    monkeypatch.setattr(chip_smoke, "SERVE_BATCH_LIMIT", 4)
+    requests = chip_smoke.serving_requests
+    monkeypatch.setattr(chip_smoke, "serving_requests", lambda rng, shape: requests(
+        rng, clients=2, per_client=2, shape=shape))
+    monkeypatch.setattr(chip_smoke, "profile_call", lambda torch, label, fn, info: {})
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda *a: None)
+
+
+def test_face_model_phase(small_face_phase):
+    out = chip_smoke.phase_face_model(torch, "cpu", "FaceNetNN4Small2", (96, 96, 3), 5)
+    assert out["launches"] == dict.fromkeys(out["launches"], 0)
+    assert len(out["scores"]) == 2 and out["first_step_state"]["worst"] <= 1e-5
+    nodes = out["nodes_card_vs_cpu_b2"]
+    assert nodes["out"] == nodes["grad"] == nodes["state"] == 0.0   # both CPU
+    assert nodes["kink_flips_pinned"] == 0 and nodes["kink_entries"] > 0
+    assert out["serving"]["forwards"] >= 1 and not out["calibrated"]
+
+
+def test_check_nodes_one_by_one_catches_one_node_off():
+    from deeplearning4j_torch.nn.graph.graph import ComputationGraph
+    net = _small_face("FaceNetNN4Small2", (96, 96, 3))().init()
+    x = np.random.default_rng(3).standard_normal((2, 96, 96, 3)).astype(np.float32)
+    cpu = ComputationGraph(net.conf).init(device="cpu")
+    cpu.params_tree, cpu.state_tree = net.params_tree, net.state_tree
+    assert chip_smoke.check_nodes_one_by_one(torch, net, cpu, x)["grad"] == 0.0
+    moved = dict(cpu.params_tree)
+    moved["inception4a-3x3-cnn"] = {k: v * (1 + 1e-3) for k, v in
+                                    moved["inception4a-3x3-cnn"].items()}
+    cpu.params_tree = moved
+    with pytest.raises(RuntimeError, match="inception4a-3x3-cnn"):
+        chip_smoke.check_nodes_one_by_one(torch, net, cpu, x)
+
+
+def test_bn_cancellation_measures_the_pivot_distance():
+    from deeplearning4j_torch.nn.layers.convolution import BatchNormalization
+    bn = BatchNormalization(n_out=2, eps=1e-3)
+    gen = torch.Generator().manual_seed(0)
+    x = torch.randn(4, 5, 5, 2, generator=gen)
+    x[..., 1] = x[..., 1] * 0.1 + 30.0     # channel 1: 300 stds off the pivot
+    state = {"mean": torch.zeros(2), "var": torch.ones(2)}
+    got = chip_smoke.bn_cancellation(torch, bn, state, x)
+    assert got[0] < 1.2 and abs(got[1].item() / (900.01 / 0.011) - 1.0) < 0.2
+    assert (chip_smoke.bn_cancellation(torch, bn, {"mean": x.mean((0, 1, 2)),
+                                                   "var": state["var"]}, x) < 1.01).all()
+    assert chip_smoke.bn_cancellation(torch, DenseLayer(n_in=2, n_out=2), state, x) is None

@@ -81,3 +81,20 @@ def test_graph_and_checkpoint_entry_points_default_to_the_gpu(monkeypatch):
         with pytest.raises(RuntimeError, match="device='cpu'"):
             call()
     assert model_serializer.restore_model(lenet_zip, device="cpu").device.type == "cpu"
+
+
+@pytest.mark.parametrize("name", ["TextGenerationLSTM", "InceptionResNetV1",
+                                  "FaceNetNN4Small2"])
+def test_recurrent_and_face_zoo_models_default_to_the_gpu(monkeypatch, name):
+    """The zoo models of the recurrent slice and the face models run on
+    CUDA unless asked for the CPU, and raise without a GPU; their modules
+    (nn/layers/recurrent.py, nn/layers/pretrain.py, models/helpers.py) are
+    among those imported above with JAX blocked."""
+    from deeplearning4j_torch.models import zoo
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    small = {"TextGenerationLSTM": {}, "InceptionResNetV1": dict(
+        num_labels=3, input_shape=(64, 64, 3)), "FaceNetNN4Small2": dict(num_labels=3)}
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        getattr(zoo, name)(**small[name]).init()
+    net = getattr(zoo, name)(**small[name]).init(device="cpu")
+    assert net.device.type == "cpu"
