@@ -147,7 +147,23 @@ Phases, each of which fails the script (non-zero exit, no result line):
    steps at batch FACE_BATCH with every count 0, the first step's BN state
    held to a float64 recompute; card vs CPU at batch 2, the train-mode score
    and every node one by one (`check_nodes_one_by_one`).
-12. One JSON line with every kernel's numbers, then the result line
+12. The fit loop (`phase_fit_loop_alexnet`, `phase_fit_loop_char`):
+   zoo AlexNet at full width, float32, batch 128, cuDNN deterministic:
+   `fit` with device prefetch (pinned staging on a side stream) is the main
+   path, K1 and K2 reset just before and read just after (2 a step each);
+   prefetch against no prefetch, steps_per_dispatch=3 against single steps
+   and `fit_batch_repeated` against a loop, each bitwise; an
+   EarlyStoppingTrainer run whose restored best model answers bitwise as
+   when saved; then, with cuDNN's defaults, the step time and the H2D share
+   of busy time with and without prefetch, and `last_etl_host_ms` /
+   `last_etl_h2d_ms`. The char model at bench.py's attention_longctx width
+   (bfloat16, `packed_segments`) on 16 ragged sequences of 512-8192 tokens
+   through PackToBucketIterator(bucket_len=8192): K3-K5 reset and read
+   around one checkpointing epoch (2 a step each); the packed score against
+   the unpacked one (PACKED_RTOL), a fresh network's resume bitwise, the
+   sentinel's `skip_step` on an injected ``step.nonfinite`` bitwise; real
+   tokens/s packed against padded.
+13. One JSON line with every kernel's numbers, then the result line
    {"ok": true, "device": {...}}.
 
 Needs one CUDA GPU; exits non-zero without one.
@@ -1162,6 +1178,213 @@ def phase_training(torch, card):
             "profile": profile, "card": card}
 
 
+# ------------------------------------------- the fit loop on AlexNet (K1, K2)
+
+FIT_GROUP = 3        # steps_per_dispatch of the grouped run, and the repeats
+FIT_PROFILE_BATCHES = 3   # batches of each profiled fit call
+FIT_ES_MAX_EPOCHS = 2     # early stopping: epochs of FIT_ES_BATCHES batches
+FIT_ES_BATCHES = 2
+
+
+class _Deterministic:
+    """cuDNN's deterministic algorithms and no autotuning inside the block,
+    so that two runs of the same steps are bitwise equal."""
+
+    def __init__(self, torch):
+        self.cudnn = torch.backends.cudnn
+
+    def __enter__(self):
+        self.saved = self.cudnn.deterministic, self.cudnn.benchmark
+        self.cudnn.deterministic, self.cudnn.benchmark = True, False
+
+    def __exit__(self, *exc):
+        self.cudnn.deterministic, self.cudnn.benchmark = self.saved
+        return False
+
+
+def _require_same(label, a, b):
+    """`a` and `b` trained alike: parameters, optimizer state and counters
+    bitwise equal."""
+    same = {"params": _same_tree(a.params_tree, b.params_tree),
+            "opt_state": _same_tree(a.opt_state, b.opt_state),
+            "iteration": a.iteration == b.iteration}
+    if not all(same.values()):
+        raise RuntimeError(f"{label}: not bitwise equal: {same}")
+    return same
+
+
+def timed_fit_ms(torch, net, *args, **kw):
+    """Wall ms of one `fit` call from a synced device to a synced device."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    net.fit(*args, **kw)
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3
+
+
+def phase_fit_loop_alexnet(torch, card, device=None):
+    """(a) The whole `fit` loop on zoo AlexNet at full width (float32, batch
+    TRAIN_BATCH, TRAIN_STEPS steps, dropout on), cuDNN deterministic: `fit`
+    with device prefetch (the default: pinned staging on a side stream) is
+    the main path, its K1 and K2 counts reset just before and read just
+    after (2 a step each, no other kernel); against it, bitwise after the
+    same steps: `fit` without prefetch (pageable copies in the step) and
+    with steps_per_dispatch=FIT_GROUP; `fit_batch_repeated` against a loop
+    of single `fit` calls on one batch; an EarlyStoppingTrainer run
+    (ScoreImprovement and MaxEpochs, the held-out score, `Evaluation` of the
+    best model, a LocalFileModelSaver under build/) whose restored best
+    model answers bitwise as the network did when it was saved. Then, with
+    cuDNN's default algorithms, each way: a warm epoch timed from sync to
+    sync, each step's median with a sync after it, and one profiled `fit`
+    of FIT_PROFILE_BATCHES batches (H2D share of busy time)."""
+    import shutil
+    from deeplearning4j_torch.data.dataset import DataSet
+    from deeplearning4j_torch.earlystopping import (
+        EarlyStoppingConfiguration, EarlyStoppingTrainer, LocalFileModelSaver,
+        MaxEpochsTerminationCondition, ScoreImprovementEpochTerminationCondition)
+    from deeplearning4j_torch.models.zoo import AlexNet
+    make = lambda: AlexNet().init(device=device)
+    net = make()
+    shape = tuple(net._feature_struct(TRAIN_BATCH).shape[1:])
+    classes = net.layers[-1].n_out
+    rng = np.random.default_rng(2031)
+    n = TRAIN_STEPS * TRAIN_BATCH
+    x = rng.standard_normal((n,) + shape, dtype=np.float32)
+    y = np.eye(classes, dtype=np.float32)[rng.integers(0, classes, n)]
+    result = {"card": card, "batch": TRAIN_BATCH, "steps": TRAIN_STEPS}
+    with _Deterministic(torch):
+        # 1. the main path: fit with device prefetch
+        torch.cuda.synchronize()
+        zero_launches()   # the main path's run starts here
+        net.fit(x, y, batch_size=TRAIN_BATCH)
+        launches = all_launches()   # ... and ends here
+        want = dict.fromkeys(launches, 0)
+        want.update(lrn_fwd=2 * TRAIN_STEPS, lrn_bwd=2 * TRAIN_STEPS)
+        if launches != want or net.iteration != TRAIN_STEPS:
+            raise RuntimeError(f"fit loop: {net.iteration} steps, launches "
+                               f"{launches}, expected {want}")
+        if not np.isfinite(float(net.score_value)):
+            raise RuntimeError(f"fit loop: score {float(net.score_value)}")
+        result["launches"] = launches
+        result["etl"] = {"last_etl_ms": net.last_etl_ms,
+                         "last_etl_host_ms": net.last_etl_host_ms,
+                         "last_etl_h2d_ms": net.last_etl_h2d_ms}
+        if not net.last_etl_h2d_ms > 0:
+            raise RuntimeError("fit loop: the prefetched batch carries no h2d time")
+        # 2. the same steps without prefetch, and grouped
+        pageable, grouped = make(), make()
+        pageable.fit(x, y, batch_size=TRAIN_BATCH, prefetch_to_device=False)
+        grouped.fit(x, y, batch_size=TRAIN_BATCH, steps_per_dispatch=FIT_GROUP)
+        result["prefetch_vs_pageable"] = _require_same(
+            "prefetch vs no prefetch", net, pageable)
+        result["grouped_vs_single"] = _require_same(
+            f"steps_per_dispatch={FIT_GROUP} vs single steps", grouped, net)
+        del grouped
+        # 3. fit_batch_repeated against a loop on one batch (no mask, as the
+        # repeats take the batch as it is)
+        repeated, looped = make(), make()
+        one = DataSet(x[:TRAIN_BATCH], y[:TRAIN_BATCH])
+        repeated.fit_batch_repeated(one, FIT_GROUP)
+        for _ in range(FIT_GROUP):
+            looped.fit(one, batch_size=TRAIN_BATCH, pad_to_bucket=False)
+        result["repeated_vs_loop"] = _require_same(
+            "fit_batch_repeated vs a loop", repeated, looped)
+        del repeated, looped
+        log(f"fit loop: bitwise {json.dumps({k: result[k] for k in ('prefetch_vs_pageable', 'grouped_vs_single', 'repeated_vs_loop')})}")
+
+        # 4. early stopping on a held-out split, the best model on disk
+        es_dir = os.path.join(ROOT, "build", "fit_loop_early_stopping")
+        shutil.rmtree(es_dir, ignore_errors=True)
+        train_n = FIT_ES_BATCHES * TRAIN_BATCH
+        xh, yh = x[train_n:train_n + TRAIN_BATCH], y[train_n:train_n + TRAIN_BATCH]
+        saver = LocalFileModelSaver(es_dir)
+        saved = {}
+        save_best = saver.save_best_model
+
+        def remember(model, score):
+            t0 = time.perf_counter()
+            save_best(model, score)
+            saved.update(answer=model.output(xh[:32]), epoch=model.epoch,
+                         save_s=time.perf_counter() - t0)
+
+        saver.save_best_model = remember
+        conf = (EarlyStoppingConfiguration.builder()
+                .epoch_termination_conditions(
+                    ScoreImprovementEpochTerminationCondition(1),
+                    MaxEpochsTerminationCondition(FIT_ES_MAX_EPOCHS))
+                .score_calculator(lambda m: m.score(DataSet(xh, yh)))
+                .model_saver(saver).build())
+        es_net = make()
+        t0 = time.perf_counter()
+        es = EarlyStoppingTrainer(conf, es_net, x[:train_n], y[:train_n],
+                                  batch_size=TRAIN_BATCH).fit()
+        es_s = time.perf_counter() - t0
+        best = es.best_model
+        if best is es_net or best.epoch != saved["epoch"]:
+            raise RuntimeError(f"early stopping: best model of epoch {best.epoch}, "
+                               f"saved at {saved.get('epoch')}")
+        if not np.array_equal(best.output(xh[:32]), saved["answer"]):
+            raise RuntimeError("early stopping: the restored best model answers "
+                               "otherwise than when it was saved")
+        ev = best.evaluate(xh, yh, batch_size=TRAIN_BATCH)
+        if ev.num_examples() != len(xh):
+            raise RuntimeError(f"early stopping: evaluated {ev.num_examples()} images")
+        result["early_stopping"] = {
+            "termination": es.termination_reason.value,
+            "details": es.termination_details, "total_epochs": es.total_epochs,
+            "best_epoch": es.best_model_epoch,
+            "score_vs_epoch": es.score_vs_epoch, "best_answers_bitwise": True,
+            "held_out_accuracy": ev.accuracy(), "seconds": es_s,
+            "best_save_s": saved["save_s"], "device": str(best.device)}
+        log(f"fit loop early stopping: {json.dumps(result['early_stopping'])}")
+        shutil.rmtree(es_dir, ignore_errors=True)
+    # 5. timing, with cuDNN's default algorithms as users run it: a warm
+    # epoch each way (wall from sync to sync, the producer's start and first
+    # batch included; and each step's median, synced by a listener), then
+    # one profiled fit each way
+    timing = {}
+    for name, model, flag in (("prefetch", net, True), ("pageable", pageable, False)):
+        model.fit(x, y, batch_size=TRAIN_BATCH, prefetch_to_device=flag)  # warm
+        ms = timed_fit_ms(torch, model, x, y, batch_size=TRAIN_BATCH,
+                          prefetch_to_device=flag)
+        steps = Steps()
+        model.listeners[:] = [steps]
+        t0 = time.perf_counter()
+        model.fit(x, y, batch_size=TRAIN_BATCH, prefetch_to_device=flag)
+        model.listeners.clear()
+        step_ms = np.diff([t0] + steps.ends) * 1e3
+        xs = x[:FIT_PROFILE_BATCHES * TRAIN_BATCH]
+        ys = y[:FIT_PROFILE_BATCHES * TRAIN_BATCH]
+
+        def fit_call(model=model, flag=flag):
+            model.fit(xs, ys, batch_size=TRAIN_BATCH, prefetch_to_device=flag)
+            torch.cuda.synchronize()
+
+        prof = profile_call(torch, f"fit of {FIT_PROFILE_BATCHES} batches, {name}",
+                            fit_call, {"batch": TRAIN_BATCH,
+                                       "batches": FIT_PROFILE_BATCHES})
+        timing[name] = {"epoch_ms_per_step": ms / TRAIN_STEPS,
+                        "images_per_s": TRAIN_STEPS * TRAIN_BATCH / ms * 1e3,
+                        "synced_step_ms": step_ms.tolist(),
+                        "median_synced_step_ms": float(np.median(step_ms[1:])),
+                        "h2d_share_of_busy": prof.get("h2d_share_of_busy"),
+                        "h2d_ms": prof.get("h2d_ms"),
+                        "device_idle_share": prof.get("device_idle_share"),
+                        "etl": {"last_etl_ms": model.last_etl_ms,
+                                "last_etl_host_ms": model.last_etl_host_ms,
+                                "last_etl_h2d_ms": model.last_etl_h2d_ms},
+                        "profile": prof}
+        log(f"fit loop {name}: {timing[name]['epoch_ms_per_step']:.3f} ms a step "
+            f"over a warm epoch ({timing[name]['images_per_s']:.1f} images/s), "
+            f"median synced step {timing[name]['median_synced_step_ms']:.3f} ms, "
+            f"H2D share of busy {timing[name]['h2d_share_of_busy']}, etl "
+            f"{json.dumps(timing[name]['etl'])}  [{card}]")
+    result["timing"] = timing
+    del pageable
+    log(f"fit loop (AlexNet): launches {launches}, etl {json.dumps(result['etl'])}  [{card}]")
+    return result
+
+
 # ------------------------------------------------------- int8 matmul (K6)
 
 INT8_OPS_PER_S = 1979e12   # H100 SXM data sheet, dense int8 tensor cores
@@ -1320,7 +1543,8 @@ def recorded_outputs(net, records):
 
     def recording(x, *args, **kwargs):
         y = output(x, *args, **kwargs)
-        records.append((np.array(x), y))
+        # a served batch arrives on the card, staged through pinned memory
+        records.append((x.cpu().numpy() if hasattr(x, "cpu") else np.array(x), y))
         return y
 
     net.output = recording
@@ -2919,15 +3143,17 @@ def phase_attention_dispatch(torch, card):
     return rows
 
 
-def char_conf(impl="auto"):
+def char_conf(impl="auto", packed=False):
     """bench.py's attention_longctx network: two causal SelfAttentionLayers
     (512 wide, 4 heads, ReLU), an RnnOutputLayer (96-way softmax, MCXENT),
-    Sgd(0.1), one-hot input of 96 characters."""
+    Sgd(0.1), one-hot input of 96 characters; with `packed`, the attention
+    layers read segment ids from the features mask (`packed_segments`)."""
     from deeplearning4j_torch import (InputType, NeuralNetConfiguration,
                                       RnnOutputLayer, SelfAttentionLayer, Sgd)
     attn = lambda: SelfAttentionLayer(n_out=CHAR_WIDTH, n_heads=CHAR_HEADS,
                                       causal=True, activation="relu",
-                                      attention_impl=impl)
+                                      attention_impl=impl,
+                                      packed_segments=packed)
     return (NeuralNetConfiguration.builder().seed(0).updater(Sgd(CHAR_LR)).list()
             .layer(attn()).layer(attn())
             .layer(RnnOutputLayer(n_out=CHAR_VOCAB, activation="softmax",
@@ -3124,6 +3350,175 @@ def phase_char_model(torch, card):
     np.testing.assert_allclose(card_net.output(small_ds.features),
                                cpu_net.output(small_ds.features),
                                rtol=1e-4, atol=1e-6)
+    return result
+
+
+# ----------------------------------- the fit loop on the packed char model
+
+FIT_SEQS, FIT_SEQ_MIN = 16, 512   # ragged sequences of FIT_SEQ_MIN..CHAR_T tokens
+FIT_BASE_BATCH = 8                # sequences a base batch, before packing
+PACKED_RTOL = 1e-4   # packed vs unpacked score: phase_char_model's output rtol
+FIT_TIMED_EPOCHS = 3   # timed epochs each way, the median kept
+
+
+def ragged_char_data(n, t, lo, seed):
+    """`n` sequences of one-hot characters, their successors as labels, with
+    lengths uniform in [lo, t] from a numpy seed, padded to `t` with a 0/1
+    features and labels mask. Returns (DataSet, lengths)."""
+    from deeplearning4j_torch.data.dataset import DataSet
+    rng = np.random.default_rng(seed)
+    lengths = rng.integers(lo, t + 1, n)
+    idx = rng.integers(0, CHAR_VOCAB, (n, t))
+    eye = np.eye(CHAR_VOCAB, dtype=np.float32)
+    mask = (np.arange(t)[None, :] < lengths[:, None]).astype(np.float32)
+    x, y = eye[idx] * mask[..., None], eye[np.roll(idx, -1, 1)] * mask[..., None]
+    return DataSet(x, y, mask, mask.copy()), lengths
+
+
+def _base_batches(ds, size):
+    from deeplearning4j_torch.data.dataset import DataSet
+    return [DataSet(ds.features[i:i + size], ds.labels[i:i + size],
+                    ds.features_mask[i:i + size], ds.labels_mask[i:i + size])
+            for i in range(0, ds.num_examples(), size)]
+
+
+class _Iterations:
+    """Listener: every iteration number, and the parameters (cloned) at
+    iteration `keep_at`."""
+
+    def __init__(self, torch, keep_at=None):
+        self.torch, self.keep_at = torch, keep_at
+        self.seen, self.params = [], None
+
+    def iteration_done(self, model, iteration):
+        from deeplearning4j_torch.utils import params as param_utils
+        self.seen.append(iteration)
+        if iteration == self.keep_at:
+            self.params = param_utils.tree_map(self.torch.clone, model.params_tree)
+
+
+def phase_fit_loop_char(torch, card, device=None):
+    """(b) The fit loop on the char model at bench.py's attention_longctx
+    width (two causal SelfAttentionLayer(512, 4 heads), bfloat16, the flash
+    route) with `packed_segments`: FIT_SEQS ragged sequences of
+    FIT_SEQ_MIN..CHAR_T tokens from a seed, in base batches of
+    FIT_BASE_BATCH, packed by PackToBucketIterator(bucket_len=CHAR_T,
+    rows=CHAR_BATCH), so segment ids reach K3-K5 at full width. The main
+    path: one epoch of `fit` over the packed batches with a CheckpointManager
+    saving after the next-to-last step, K3-K5 counts reset just before and
+    read just after (2 a step each). Checks: the first packed batch's score
+    equals its sequences' unpacked score (PACKED_RTOL); a fresh network's
+    `fit(..., resume=True)` from that checkpoint takes the last step and
+    ends bitwise where the main path did; a DivergenceSentinel("skip_step") tripped by an injected
+    ``step.nonfinite`` on the second step leaves the parameters bitwise as
+    after the first. Then real tokens/s, packed against the same sequences
+    padded one a row (the median of FIT_TIMED_EPOCHS warm epochs each,
+    taken in turns)."""
+    import shutil
+    from deeplearning4j_torch.data.dataset import DataSet
+    from deeplearning4j_torch.data.iterators import (ExistingDataSetIterator,
+                                                     PackToBucketIterator)
+    from deeplearning4j_torch.data.padding import first_fit_pack
+    from deeplearning4j_torch.nn.multilayer import MultiLayerNetwork
+    from deeplearning4j_torch.ops import flash_attention as fa
+    from deeplearning4j_torch.optimize.resilience import (CheckpointManager,
+                                                          DivergenceSentinel)
+    from deeplearning4j_torch.utils import faults
+    conf = char_conf(impl="pallas", packed=True)
+    make = lambda: MultiLayerNetwork(conf).init(dtype=torch.bfloat16, device=device)
+    data, lengths = ragged_char_data(FIT_SEQS, CHAR_T, FIT_SEQ_MIN, seed=2032)
+    bases = _base_batches(data, FIT_BASE_BATCH)
+    packed = lambda: PackToBucketIterator(ExistingDataSetIterator(bases),
+                                          bucket_len=CHAR_T, rows=CHAR_BATCH)
+    batches = list(packed())
+    real = int(lengths.sum())
+    result = {"card": card, "t": CHAR_T, "rows": CHAR_BATCH, "sequences": FIT_SEQS,
+              "real_tokens": real, "packed_batches": len(batches),
+              "packed_util": real / (len(batches) * CHAR_BATCH * CHAR_T)}
+    steps = len(batches)
+    if steps < 2:
+        raise RuntimeError(f"{steps} packed batch: the checks need two")
+    ckpt_dir = os.path.join(ROOT, "build", "fit_loop_char_ckpt")
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+    manager = lambda: CheckpointManager(ckpt_dir, save_every_n_iterations=steps - 1,
+                                        save_every_n_epochs=None)
+
+    # 1. the main path: one epoch of packed batches, checkpointing
+    net = make()
+    torch.cuda.synchronize()
+    _zero_counts(fa)   # the main path's run starts here
+    net.fit(packed(), checkpoint=manager())
+    launches = _counts(fa)   # ... and ends here
+    if launches != dict.fromkeys(launches, 2 * steps) or net.iteration != steps:
+        raise RuntimeError(f"packed char model: {net.iteration} steps, launches "
+                           f"{launches}, expected {2 * steps} of each")
+    if not np.isfinite(float(net.score_value)):
+        raise RuntimeError(f"packed char model: score {float(net.score_value)}")
+    result["launches"] = launches
+    result["etl"] = {"last_etl_ms": net.last_etl_ms,
+                     "last_etl_host_ms": net.last_etl_host_ms,
+                     "last_etl_h2d_ms": net.last_etl_h2d_ms}
+
+    # 2. packed against unpacked score, on the first packed batch's sequences
+    first = first_fit_pack(lengths[:FIT_BASE_BATCH], CHAR_T)[:CHAR_BATCH]
+    members = sorted(i for b in first for i in b)
+    base = bases[0]
+    unpacked = DataSet(base.features[members], base.labels[members],
+                       base.features_mask[members], base.labels_mask[members])
+    s_packed, s_unpacked = net.score(batches[0]), net.score(unpacked)
+    rel = abs(s_packed - s_unpacked) / abs(s_unpacked)
+    if not rel <= PACKED_RTOL:
+        raise RuntimeError(f"packed score {s_packed} vs unpacked {s_unpacked}")
+    result["packed_vs_unpacked_score"] = {"packed": s_packed, "unpacked": s_unpacked,
+                                          "rel": rel, "sequences": len(members)}
+
+    # 3. resume: a fresh network from the checkpoint takes the last step
+    resumed, ran = make(), _Iterations(torch)
+    resumed.listeners.append(ran)
+    resumed.fit(packed(), resume=True, checkpoint=manager())
+    if ran.seen != [steps]:
+        raise RuntimeError(f"resumed packed fit ran iterations {ran.seen}, "
+                           f"not {[steps]}")
+    result["resume"] = _require_same("resumed packed fit", resumed, net)
+    result["resume"]["from_iteration"] = steps - 1
+    del resumed
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+
+    # 4. the sentinel drops a step flagged non-finite
+    guarded, after_first = make(), _Iterations(torch, keep_at=1)
+    guarded.listeners.append(after_first)
+    sentinel = DivergenceSentinel("skip_step")
+    with faults.injected("step.nonfinite", "fail:2"):
+        guarded.fit(ExistingDataSetIterator(batches[:2]), sentinel=sentinel)
+    if sentinel.nonfinite_steps != 1 or guarded.iteration != 1 or \
+            not _same_tree(guarded.params_tree, after_first.params):
+        raise RuntimeError(f"skip_step: {sentinel.nonfinite_steps} flagged, "
+                           f"iteration {guarded.iteration}, parameters as after "
+                           f"step 1: {_same_tree(guarded.params_tree, after_first.params)}")
+    result["skip_step"] = {"flagged": sentinel.nonfinite_steps, "bitwise": True}
+    del guarded
+
+    # 5. real tokens/s: packed against the same sequences padded one a row,
+    # FIT_TIMED_EPOCHS warm epochs each in turns, the median epoch
+    runs = {"packed": (net, packed, steps),
+            "padded": (make(), lambda: ExistingDataSetIterator(
+                _base_batches(data, CHAR_BATCH)), -(-FIT_SEQS // CHAR_BATCH))}
+    epochs_ms = {name: [] for name in runs}
+    for name, (model, source, _) in runs.items():
+        model.fit(source())   # warm
+    for _ in range(FIT_TIMED_EPOCHS):
+        for name, (model, source, _) in runs.items():
+            epochs_ms[name].append(timed_fit_ms(torch, model, source()))
+    timing = {}
+    for name, (_, _, n_steps) in runs.items():
+        ms = float(np.median(epochs_ms[name]))
+        timing[name] = {"epoch_ms": ms, "epochs_ms": epochs_ms[name],
+                        "steps": n_steps, "real_tokens_per_s": real / ms * 1e3,
+                        "util": real / (n_steps * CHAR_BATCH * CHAR_T)}
+    timing["packed_over_padded"] = (timing["packed"]["real_tokens_per_s"]
+                                    / timing["padded"]["real_tokens_per_s"])
+    result["timing"] = timing
+    log(f"packed char model: {json.dumps(result)}  [{card}]")
     return result
 
 
@@ -3646,6 +4041,8 @@ def main() -> int:
     torch.cuda.empty_cache()
     training = phase_training(torch, card)
     torch.cuda.empty_cache()
+    fit_loop = phase_fit_loop_alexnet(torch, card)
+    torch.cuda.empty_cache()
     phase_bf16_alexnet(torch, card)
     torch.cuda.empty_cache()
     phase_googlenet_serving(torch, card)
@@ -3666,12 +4063,16 @@ def main() -> int:
         torch.cuda.empty_cache()
     phase_attention_dispatch(torch, card)
     char = phase_char_model(torch, card)
+    torch.cuda.empty_cache()
+    fit_char = phase_fit_loop_char(torch, card)
     lrn_entry["launches"] = serving["launches"]["lrn_fwd"]
     lrn_bwd_entry["launches"] = training["launches"]["lrn_bwd"]
     for entry in flash_entries:
         entry["launches"] = char["bf16"]["launches"][entry["name"]]
     int8_entry["launches"] = quant["int8"]["launches"]["int8_matmul"]
     kernels = {"kernels": [lrn_entry, lrn_bwd_entry] + flash_entries + [int8_entry]}
+    log(f"chip_smoke: the fit loop's launches: AlexNet {json.dumps(fit_loop['launches'])}, "
+        f"packed char model {json.dumps(fit_char['launches'])}")
     log(f"chip_smoke: every phase passed in {time.perf_counter() - t0:.1f} s  [{card}]")
     log(json.dumps(kernels))
     log(json.dumps({"ok": True, "device": {

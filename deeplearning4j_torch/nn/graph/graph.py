@@ -28,9 +28,13 @@ node name, as MultiLayerNetwork does (nn/multilayer.py): truncated BPTT
 inputs passed whole into each window) and `rnn_time_step` merge it in and
 split it back out, detached, when they commit.
 
-Not ported yet, each raising ``NotImplementedError``: the fused multi-step
-loops ``fit_batches``/``fit_batch_repeated`` and ``evaluate`` (ROADMAP Queue A
-item 1, training tools and data).
+`fit` takes the JAX package's signature and defaults and runs
+MultiLayerNetwork's loop (nn/stepping.py): pad to bucket, device prefetch,
+`steps_per_dispatch` groups through `fit_batches` (a loop of the same eager
+step, bitwise the batches one by one), checkpoints with resume and the
+divergence sentinel. As in the JAX package, groups, `fit_batches` and
+`fit_batch_repeated` reject truncated BPTT. `evaluate` fills
+eval/evaluation.Evaluation for one output.
 """
 from __future__ import annotations
 
@@ -41,21 +45,18 @@ import numpy as np
 import torch
 
 from ...data.dataset import DataSet, MultiDataSet, SlicingMultiIterator
+from ...optimize import metrics as metrics_mod
 from ...utils import params as param_utils
 from ..conf.builders import BackpropType
 from ..conf.graph_conf import ComputationGraphConfiguration
 from ..layers.core import dropout
 from ..multilayer import (_DeviceNetwork, _input_shape, _layer_step,
                           _regularization_score, _to_numpy)
+from ..stepping import check_fit_args, commit_multi, data_pipeline, run_fit
 from .vertices import LastTimeStepVertex
 
 Tensor = torch.Tensor
 log = logging.getLogger(__name__)
-
-
-def _later(what: str, item: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"ComputationGraph {what} is not ported yet (ROADMAP Queue A {item})")
 
 
 class ComputationGraph(_DeviceNetwork):
@@ -71,6 +72,8 @@ class ComputationGraph(_DeviceNetwork):
         #: loss + regularization of the last training step, a 0-d tensor on
         #: the network's device
         self.score_value: Optional[Tensor] = None
+        #: the fit loop's wait for the last batch, host and h2d shares
+        self.last_etl_ms = self.last_etl_host_ms = self.last_etl_h2d_ms = 0.0
         self._dtype = torch.float32
         self._dropout_gen: Optional[torch.Generator] = None
         #: {recurrent node: its streaming carry {"h", "c"}}, or None outside
@@ -292,26 +295,43 @@ class ComputationGraph(_DeviceNetwork):
 
     # ------------------------------------------------------------------- fit
     def fit(self, data, labels=None, *, epochs: int = 1,
-            batch_size: int = 32) -> "ComputationGraph":
+            batch_size: int = 32, step_fn=None, use_async: bool = True,
+            async_queue_size: int = 8, steps_per_dispatch: int = 1,
+            pad_to_bucket: bool = True, prefetch_to_device: bool = True,
+            prefetch_depth: int = 2, prefetch_sharding=None,
+            prefetch_divisor: int = 1,
+            checkpoint=None, resume: bool = False, sentinel=None
+            ) -> "ComputationGraph":
         """Train (reference fit(MultiDataSetIterator)) on a MultiDataSet, a
         DataSet, (features, labels) arrays (lists of them for several inputs
-        or outputs, cut into `batch_size` rows, the last batch ragged), or
-        an iterable of DataSets or MultiDataSets."""
+        or outputs, cut into `batch_size` rows), or an iterable of DataSets
+        or MultiDataSets. The options are MultiLayerNetwork.fit's;
+        `steps_per_dispatch > 1` raises NotImplementedError under truncated
+        BPTT, as in the JAX package."""
         self._check_init()
+        epochs, skip = check_fit_args(self, epochs, steps_per_dispatch,
+                                      step_fn, checkpoint, resume, sentinel)
+        tbptt = self.conf.backprop_type == BackpropType.TRUNCATED_BPTT
+        if int(steps_per_dispatch) > 1 and tbptt:
+            raise NotImplementedError(
+                "steps_per_dispatch > 1 does not support truncated BPTT "
+                "iterators; use fit_batch_repeated for resident batches")
         if hasattr(data, "__iter__") and not isinstance(
                 data, (DataSet, MultiDataSet, list, tuple, np.ndarray)):
             iterator = data
-            if int(epochs) > 1 and not hasattr(iterator, "reset"):
+            if epochs > 1 and not hasattr(iterator, "reset"):
                 iterator = list(iterator)  # a generator: keep later epochs
         else:
             iterator = SlicingMultiIterator(self._coerce(data, labels), batch_size)
-        for _ in range(int(epochs)):
-            for ds in iterator:
-                self.fit_batch(ds)
-            self.epoch += 1
-            for lst in self.listeners:
-                if hasattr(lst, "on_epoch_end"):
-                    lst.on_epoch_end(self, self.epoch)
+        wrapped = data_pipeline(
+            self, iterator, pad=pad_to_bucket and not tbptt,
+            use_async=use_async, queue_size=async_queue_size,
+            prefetch_to_device=prefetch_to_device,
+            prefetch_depth=prefetch_depth, prefetch_sharding=prefetch_sharding,
+            prefetch_divisor=prefetch_divisor, multi=True)
+        run_fit(self, wrapped, epochs=epochs, step=step_fn or self.fit_batch,
+                spd=int(steps_per_dispatch), checkpoint=checkpoint,
+                sentinel=sentinel, skip_batches=skip, coerce=self._coerce)
         return self
 
     def fit_batch(self, mds) -> None:
@@ -329,7 +349,7 @@ class ComputationGraph(_DeviceNetwork):
                             "using standard BPTT")
                 self._warned_tbptt_labels = True
         self._rnn_carry = None   # standard BPTT: every batch starts from zeros
-        self._step(*self._pack(mds))
+        self._run_and_commit(*self._pack(mds))
 
     def _fit_tbptt(self, mds: MultiDataSet):
         """Truncated BPTT over the graph (reference doTruncatedBPTT): windows
@@ -356,13 +376,14 @@ class ComputationGraph(_DeviceNetwork):
                 [mask_win(m, start, end) for m in mds.features_masks],
                 None if mds.labels_masks is None else
                 [mask_win(m, start, end) for m in mds.labels_masks])
-            self._step(*self._pack(win))
+            self._run_and_commit(*self._pack(win))
         self.rnn_clear_previous_state()
 
-    def _step(self, inputs, labels, fmasks, lmasks) -> None:
+    def _train_step(self, inputs, labels, fmasks, lmasks) -> Tensor:
         """One optimizer step: forward, loss, one backward, then per layer
         node normalize -> update -> p - u; the new layer state (and carry)
-        is committed with the new parameters."""
+        is committed with the new parameters. Returns the loss, a 0-d
+        tensor on the device (no host sync)."""
         loss, grads, new_state = self._value_and_grad(
             inputs, labels, fmasks, lmasks, True, self._dropout_gen,
             state=self._merged_state())
@@ -376,16 +397,44 @@ class ComputationGraph(_DeviceNetwork):
         self._commit_state(new_state)
         self.iteration += 1
         self.score_value = loss
+        return loss
+
+    def _run_and_commit(self, inputs, labels, fmasks, lmasks) -> None:
+        """`_train_step`, counted, then the listeners."""
+        self._train_step(inputs, labels, fmasks, lmasks)
+        metrics_mod.record_train_step(1)
         for lst in self.listeners:
             lst.iteration_done(self, self.iteration)
 
-    def fit_batches(self, batches):
-        raise _later("fit_batches (fused multi-step loop)",
-                     "item 1, training tools and data")
+    def _no_tbptt(self, what: str):
+        if self.conf.backprop_type == BackpropType.TRUNCATED_BPTT:
+            raise NotImplementedError(
+                f"{what} does not support truncated BPTT windows; call "
+                "fit_batch per batch")
 
-    def fit_batch_repeated(self, mds, steps: int):
-        raise _later("fit_batch_repeated (fused multi-step loop)",
-                     "item 1, training tools and data")
+    def fit_batches(self, batches) -> "ComputationGraph":
+        """One optimizer step per minibatch of `batches` (same shapes; masks
+        uniformly present or absent), back to back with no host sync; the
+        listeners fire afterwards with each step's loss. Bitwise the same
+        as `fit_batch` per batch."""
+        self._check_init()
+        packed = [self._pack(self._coerce(b)) for b in batches]
+        self._no_tbptt("fit_batches")
+        self._rnn_carry = None
+        losses = [self._train_step(*p) for p in packed]
+        commit_multi(self, losses, len(packed))
+        return self
+
+    def fit_batch_repeated(self, mds, steps: int) -> "ComputationGraph":
+        """`steps` optimizer steps on one minibatch, copied to the device
+        once: `fit_batch` in a loop."""
+        self._check_init()
+        self._no_tbptt("fit_batch_repeated")
+        packed = self._pack(self._coerce(mds))
+        self._rnn_carry = None
+        losses = [self._train_step(*packed) for _ in range(int(steps))]
+        commit_multi(self, losses, int(steps))
+        return self
 
     # ------------------------------------------------------------- rnn state
     def _seed_recurrent_states(self, batch: int):
@@ -433,7 +482,22 @@ class ComputationGraph(_DeviceNetwork):
 
     def evaluate(self, data, labels=None, batch_size: int = 128,
                  output_index: int = 0):
-        raise _later("evaluate", "item 1, training tools and data (eval/)")
+        """Classification metrics (eval/evaluation.Evaluation) for network
+        output `output_index`, over `data` in `batch_size` rows,
+        mask-aware."""
+        from ...eval.evaluation import Evaluation
+        self._check_init()
+        mds = self._coerce(data, labels)
+        ev = Evaluation()
+        n = mds.num_examples()
+        for start in range(0, n, batch_size):
+            part = mds.slice(start, min(start + batch_size, n))
+            outs = self.outputs(*part.features,
+                                features_masks=part.features_masks)
+            lm = None if part.labels_masks is None \
+                else part.labels_masks[output_index]
+            ev.eval(part.labels[output_index], outs[output_index], mask=lm)
+        return ev
 
     # ----------------------------------------------------------------- score
     def score(self, data=None) -> float:

@@ -34,11 +34,21 @@ Truncated BPTT (`_fit_tbptt`) takes one optimizer step per window of
 ``tbptt_fwd_length`` steps, the last one partial, the backward over the whole
 window (``tbptt_back_length`` is ignored, as in the JAX package).
 
+`fit` takes the JAX package's signature and defaults: its loop
+(nn/stepping.py, shared with ComputationGraph) pads ragged batches to the
+epoch's batch shape (`pad_to_bucket`), stages batches onto the device on a
+producer thread through pinned memory (`prefetch_to_device`), groups
+`steps_per_dispatch` same-shaped batches into one `fit_batches` call, and
+runs the checkpoint (`checkpoint`, `resume`) and divergence-sentinel
+(`sentinel`) hooks, the spans and the metrics. Where the JAX package scans a
+group in one jitted dispatch, the port runs it as a loop of the same eager
+step with no host sync between steps, the losses staying on the device
+until the group commits, so a group is bitwise the same batches fitted one
+by one. `evaluate` / `evaluate_regression` fill eval/evaluation.py's
+accumulators; `fit_solver` runs optimize/solvers.py.
+
 Checkpoints are utils/model_serializer.py's, shared with ComputationGraph
 (nn/graph/graph.py), which reuses this module's casts and per-layer step.
-Not ported yet (ROADMAP Queue A item 1, training tools and data):
-``steps_per_dispatch``, async and device prefetch, pad-to-bucket, the
-checkpoint and divergence-sentinel hooks of `fit`, tracing and metrics.
 """
 from __future__ import annotations
 
@@ -50,6 +60,7 @@ import torch
 
 from ..data.dataset import DataSet
 from ..data.iterators import as_iterator
+from ..optimize import metrics as metrics_mod
 from ..utils import params as param_utils
 from ..utils.device import DeviceLike, resolve_device
 from .conf.builders import BackpropType, MultiLayerConfiguration
@@ -57,6 +68,7 @@ from .conf.inputs import (ConvolutionalFlatType, ConvolutionalType,
                           FeedForwardType, RecurrentType)
 from .layers.core import dropout
 from .layers.recurrent import RECURRENT_CARRY_KEYS
+from .stepping import check_fit_args, commit_multi, data_pipeline, run_fit
 from .updaters import normalize_layer_gradients
 
 Tensor = torch.Tensor
@@ -180,11 +192,23 @@ class _DeviceNetwork:
     def _as_labels(self, y) -> Tensor:
         """Labels (and masks) on the device, float32, or float64 in a
         float64 network."""
-        return torch.as_tensor(np.asarray(y), device=self.device).to(
+        if not isinstance(y, Tensor):
+            y = np.asarray(y)
+        return torch.as_tensor(y, device=self.device).to(
             torch.promote_types(self._dtype, torch.float32))
 
     def _as_mask(self, m) -> Optional[Tensor]:
         return None if m is None else self._as_labels(m)
+
+    def set_listeners(self, *listeners):
+        """Replace the listeners (optimize/listeners.py): `iteration_done`
+        after every optimizer step, `on_epoch_end` after every epoch."""
+        self.listeners = list(listeners)
+        return self
+
+    def add_listener(self, listener):
+        self.listeners.append(listener)
+        return self
 
     # ------------------------------------------------------------- rnn state
     def rnn_clear_previous_state(self):
@@ -235,6 +259,9 @@ class MultiLayerNetwork(_DeviceNetwork):
         #: loss + regularization of the last training step, a 0-d tensor on
         #: the network's device (read it with float() or score())
         self.score_value: Optional[Tensor] = None
+        #: the fit loop's wait for the last batch (reference lastEtlTime),
+        #: split by a device prefetcher into host wait and h2d copy
+        self.last_etl_ms = self.last_etl_host_ms = self.last_etl_h2d_ms = 0.0
         self._dtype = torch.float32
         self._dropout_gen: Optional[torch.Generator] = None
         #: per layer, the streaming carry {"h", "c"} ({} for other layers),
@@ -384,45 +411,86 @@ class MultiLayerNetwork(_DeviceNetwork):
         return np.argmax(self.output(x), axis=-1)
 
     # ------------------------------------------------------------------- fit
-    def fit(self, data, labels=None, *, epochs: int = 1,
-            batch_size: int = 32) -> "MultiLayerNetwork":
+    def fit(self, data, labels=None, *, epochs: int = 1, batch_size: int = 32,
+            use_async: bool = True, async_queue_size: int = 8,
+            step_fn=None, steps_per_dispatch: int = 1,
+            pad_to_bucket: bool = True, prefetch_to_device: bool = True,
+            prefetch_depth: int = 2, prefetch_sharding=None,
+            prefetch_divisor: int = 1,
+            checkpoint=None, resume: bool = False, sentinel=None
+            ) -> "MultiLayerNetwork":
         """Train (reference fit(DataSetIterator)). Accepts a DataSetIterator,
-        a DataSet, or (features, labels) arrays, cut into `batch_size` rows.
+        a DataSet, or (features, labels) arrays cut into `batch_size` rows.
+        `step_fn(ds)` replaces the per-batch step (ParallelWrapper's hook).
 
-        The ragged last batch runs as it is. The JAX package pads it to the
-        epoch's batch shape with zero-weight rows, which gives the same loss
-        and gradients and buys it one compiled step; eager torch has
-        nothing to compile, so the port does not pad."""
+        `pad_to_bucket` pads a ragged batch to the epoch's batch shape with
+        zero-weight rows (loss and gradients as on the unpadded batch;
+        BatchNormalization's batch statistics see the pad rows, as in the
+        JAX package); not under truncated BPTT, whose labels mask is
+        windowed in time. `use_async` prefetches on a producer thread;
+        `prefetch_to_device` makes that thread stage batches onto the
+        network's device through pinned memory on its own stream, at most
+        `prefetch_depth` ahead (`prefetch_sharding` needs ParallelWrapper,
+        not ported yet).
+
+        `steps_per_dispatch > 1` runs each `steps_per_dispatch` same-shaped
+        batches as one `fit_batches` group (a batch of another shape
+        flushes the group first; the epoch's tail group runs short); it
+        cannot combine with `step_fn`, `checkpoint` or `sentinel`. Under
+        truncated BPTT listeners then fire once per batch, not per window.
+
+        `checkpoint` (optimize/resilience.CheckpointManager) saves at its
+        cadence; `resume=True` first restores its newest valid checkpoint
+        and skips what it covers, `epochs` counting the run's total epochs:
+        resumed, a deterministic unshuffled run is bitwise an uninterrupted
+        one for a model without dropout (the port does not store the
+        dropout generator's state). `sentinel`
+        (optimize/resilience.DivergenceSentinel) checks every step for a
+        non-finite loss or parameter."""
         self._check_init()
-        it = as_iterator(data, labels, batch_size)
-        for _ in range(int(epochs)):
-            for ds in it:
-                self._fit_batch(ds)
-            self.epoch += 1
-            for lst in self.listeners:
-                if hasattr(lst, "on_epoch_end"):
-                    lst.on_epoch_end(self, self.epoch)
+        epochs, skip = check_fit_args(self, epochs, steps_per_dispatch,
+                                      step_fn, checkpoint, resume, sentinel)
+        tbptt = self.conf.backprop_type == BackpropType.TRUNCATED_BPTT
+        wrapped = data_pipeline(
+            self, as_iterator(data, labels, batch_size),
+            pad=pad_to_bucket and not tbptt, use_async=use_async,
+            queue_size=async_queue_size, prefetch_to_device=prefetch_to_device,
+            prefetch_depth=prefetch_depth, prefetch_sharding=prefetch_sharding,
+            prefetch_divisor=prefetch_divisor, multi=False)
+        run_fit(self, wrapped, epochs=epochs, step=step_fn or self._fit_batch,
+                spd=int(steps_per_dispatch), checkpoint=checkpoint,
+                sentinel=sentinel, skip_batches=skip)
         return self
 
+    def _tbptt_batch(self, ds) -> bool:
+        """Whether `ds` runs as truncated-BPTT windows: rank-3 features and
+        labels under TRUNCATED_BPTT. Rank-2 labels warn once and run whole
+        (windowing them on axis 1 would cut the class axis)."""
+        if self.conf.backprop_type != BackpropType.TRUNCATED_BPTT or \
+                np.ndim(ds.features) != 3:
+            return False
+        if np.ndim(ds.labels) == 3:
+            return True
+        if not getattr(self, "_warned_tbptt_labels", False):
+            log.warning("Truncated BPTT requires rank-3 (time-series) labels; "
+                        "got rank-%d: using standard BPTT", np.ndim(ds.labels))
+            self._warned_tbptt_labels = True
+        return False
+
     def _fit_batch(self, ds: DataSet):
-        if self.conf.backprop_type == BackpropType.TRUNCATED_BPTT and \
-                np.ndim(ds.features) == 3:
-            if np.ndim(ds.labels) == 3:
-                self._fit_tbptt(ds)
-                return
-            # windowing rank-2 labels on axis 1 would cut the class axis
-            if not getattr(self, "_warned_tbptt_labels", False):
-                log.warning("Truncated BPTT requires rank-3 (time-series) labels; "
-                            "got rank-%d: using standard BPTT", np.ndim(ds.labels))
-                self._warned_tbptt_labels = True
+        if self._tbptt_batch(ds):
+            self._fit_tbptt(ds)
+            return
         self._rnn_carry = None   # standard BPTT: every batch starts from zeros
         self._do_step(ds.features, ds.labels, ds.features_mask, ds.labels_mask)
 
-    def _fit_tbptt(self, ds: DataSet):
+    def _fit_tbptt(self, ds: DataSet, do_step=None) -> Tensor:
         """Truncated BPTT (reference doTruncatedBPTT): one optimizer step per
         window of tbptt_fwd_length steps, the last one partial, masks
         windowed alike; the carry starts from zeros, passes from window to
-        window detached, and is dropped after the batch."""
+        window detached, and is dropped after the batch. Returns the last
+        window's loss."""
+        do_step = do_step or self._do_step
         T = np.shape(ds.features)[1]
         L = self.conf.tbptt_fwd_length
         self.rnn_clear_previous_state()
@@ -430,14 +498,16 @@ class MultiLayerNetwork(_DeviceNetwork):
         for start in range(0, T, L):
             end = min(start + L, T)
             win = lambda m: None if m is None else m[:, start:end]
-            self._do_step(ds.features[:, start:end], ds.labels[:, start:end],
-                          win(ds.features_mask), win(ds.labels_mask))
+            loss = do_step(ds.features[:, start:end], ds.labels[:, start:end],
+                           win(ds.features_mask), win(ds.labels_mask))
         self.rnn_clear_previous_state()
+        return loss
 
-    def _do_step(self, x, y, fmask, lmask):
+    def _train_step(self, x, y, fmask, lmask) -> Tensor:
         """One optimizer step: forward + loss + one backward, then per layer
         normalize -> update -> p - u, skipping frozen layers; the new layer
-        state (and carry) is committed with the new parameters."""
+        state (and carry) is committed with the new parameters. Returns the
+        loss, a 0-d tensor on the device (no host sync)."""
         loss, grads, new_state = self._value_and_grad(
             self._as_input(x), self._as_labels(y), self._as_mask(fmask),
             self._as_mask(lmask), True, self._dropout_gen,
@@ -451,8 +521,77 @@ class MultiLayerNetwork(_DeviceNetwork):
         self._commit_state(new_state)
         self.iteration += 1
         self.score_value = loss
+        return loss
+
+    def _do_step(self, x, y, fmask, lmask) -> Tensor:
+        """`_train_step`, counted, then the listeners."""
+        loss = self._train_step(x, y, fmask, lmask)
+        metrics_mod.record_train_step(1)
         for lst in self.listeners:
             lst.iteration_done(self, self.iteration)
+        return loss
+
+    def fit_batches(self, batches) -> "MultiLayerNetwork":
+        """One optimizer step per batch of `batches` (same shapes and masks),
+        run back to back with no host sync, the listeners firing afterwards
+        with each step's loss (the JAX package runs them as one scanned
+        dispatch; the ComputationGraph.fit_batches analog). Truncated-BPTT
+        batches (rank-3 features AND labels) run their whole window schedule
+        each, from a fresh carry, and fire one listener event per batch.
+        Bitwise the same as fitting the batches one by one."""
+        self._check_init()
+        batches = list(batches)
+        self._rnn_carry = None
+        if self._tbptt_batch(batches[0]):
+            windows = -(-np.shape(batches[0].features)[1]
+                        // self.conf.tbptt_fwd_length)
+            losses = [self._fit_tbptt(b, self._train_step) for b in batches]
+            commit_multi(self, losses, len(batches) * windows,
+                         listener_events=len(batches))
+            return self
+        if self.conf.backprop_type == BackpropType.TRUNCATED_BPTT and \
+                not getattr(self, "_warned_tbptt_labels", False):
+            log.warning("Truncated BPTT requires rank-3 (time-series) features "
+                        "and labels: using standard BPTT")
+            self._warned_tbptt_labels = True
+        losses = []
+        for b in batches:
+            self._rnn_carry = None
+            losses.append(self._train_step(b.features, b.labels,
+                                           b.features_mask, b.labels_mask))
+        commit_multi(self, losses, len(batches))
+        return self
+
+    def fit_batch_repeated(self, ds: DataSet, steps: int
+                           ) -> "MultiLayerNetwork":
+        """`steps` optimizer steps on one batch, copied to the device once.
+        For truncated-BPTT batches each repeat runs the full window schedule
+        from a fresh carry (one optimizer step PER WINDOW, so the iteration
+        advances steps * ceil(T / L); one listener event per repeat)."""
+        self._check_init()
+        self._rnn_carry = None
+        ds = DataSet(self._as_input(ds.features), self._as_labels(ds.labels),
+                     self._as_mask(ds.features_mask), self._as_mask(ds.labels_mask))
+        steps = int(steps)
+        if self._tbptt_batch(ds):
+            windows = -(-ds.features.shape[1] // self.conf.tbptt_fwd_length)
+            losses = [self._fit_tbptt(ds, self._train_step) for _ in range(steps)]
+            commit_multi(self, losses, steps * windows, listener_events=steps)
+            return self
+        losses = [self._train_step(ds.features, ds.labels, ds.features_mask,
+                                   ds.labels_mask) for _ in range(steps)]
+        commit_multi(self, losses, steps)
+        return self
+
+    def fit_solver(self, x, y, *, max_iterations: int = 100,
+                   tolerance: float = 1e-6, fmask=None, lmask=None) -> float:
+        """Full-batch optimization with the configured non-SGD solver
+        (reference Solver dispatch; LINE_GRADIENT_DESCENT /
+        CONJUGATE_GRADIENT / LBFGS). Returns the final score."""
+        from ..optimize.solvers import solver_for
+        solver = solver_for(self.conf.optimization_algo,
+                            max_iterations=max_iterations, tolerance=tolerance)
+        return solver.optimize(self, x, y, fmask, lmask)
 
     # ----------------------------------------------------------------- score
     def score(self, ds: Optional[DataSet] = None, x=None, y=None) -> float:
@@ -485,6 +624,25 @@ class MultiLayerNetwork(_DeviceNetwork):
             self._as_mask(ds.features_mask), self._as_mask(ds.labels_mask),
             False, None)
         return grads, float(loss)
+
+    # ------------------------------------------------------------ evaluation
+    def evaluate(self, data, labels=None, batch_size: int = 128):
+        """Classification metrics (eval/evaluation.Evaluation) of `output`
+        over `data` in `batch_size` rows, mask-aware."""
+        from ..eval.evaluation import Evaluation
+        return self._evaluate(Evaluation(), data, labels, batch_size)
+
+    def evaluate_regression(self, data, labels=None, batch_size: int = 128):
+        """Per-column regression metrics (RegressionEvaluation)."""
+        from ..eval.evaluation import RegressionEvaluation
+        return self._evaluate(RegressionEvaluation(), data, labels, batch_size)
+
+    def _evaluate(self, ev, data, labels, batch_size: int):
+        self._check_init()
+        for ds in as_iterator(data, labels, batch_size):
+            out = self.output(ds.features, features_mask=ds.features_mask)
+            ev.eval(ds.labels, out, mask=ds.labels_mask)
+        return ev
 
     def num_params(self) -> int:
         self._check_init()

@@ -14,6 +14,11 @@ and shutdown that serves queued stragglers and fails whatever it cannot.
 Packed admission (segment-masked sequence rows) waits for the attention
 slice; the gateway hooks, device scheduler and flight recorder for the
 serving-plane slice.
+
+A coalesced batch reaches the card through the same pinned staging as the
+fit loop's device prefetch (data/iterators.PinnedStager): a copy into a
+pinned host buffer, a `non_blocking` copy on the stager's stream and a wait
+for it, then the forward on the device tensor.
 """
 from __future__ import annotations
 
@@ -26,6 +31,7 @@ from typing import List, Optional
 
 import numpy as np
 
+from ..data.iterators import PinnedStager
 from ..data.padding import next_pow2_bucket, repeat_tail_rows
 from ..utils import faults
 
@@ -98,6 +104,8 @@ class ParallelInference:
         self.batch_timeout_ms = float(batch_timeout_ms)
         self.check_finite = bool(check_finite)
         self._lock = threading.Lock()
+        # used under self._lock only: one forward at a time stages
+        self._stager = PinnedStager(model.device)
         self._enqueue_lock = threading.Lock()
         self._queue: "queue.Queue[Optional[_Request]]" = queue.Queue(
             maxsize=queue_limit)
@@ -193,7 +201,7 @@ class ParallelInference:
         # Chaos seam: armed "serve.forward" plans fail or delay this
         # forward deterministically by call ordinal.
         faults.fire("serve.forward")
-        return self.model.output(x)
+        return self.model.output(self._stager.stage([x], [False])[0])
 
     def _require_finite(self, out) -> None:
         if self.check_finite and not np.isfinite(out).all():

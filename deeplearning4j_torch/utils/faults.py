@@ -1,9 +1,9 @@
 """Deterministic fault-injection registry.
 
 The torch package's copy of `deeplearning4j_tpu/utils/faults.py`, cut to the
-seams the port calls. Production code calls :func:`fire` at named
-injection points; when nothing is armed it is a near-free no-op. Tests arm a
-point with a plan string:
+seams the port calls. Production code calls :func:`fire` (or, at a
+flag-style point, :func:`check`) at named injection points; when nothing is
+armed both are near-free no-ops. Tests arm a point with a plan string:
 
     ``"fail:2"``      raise :class:`FaultInjected` on the 2nd call
     ``"fail:1,3"``    ... on the 1st and 3rd calls
@@ -15,6 +15,10 @@ Call numbers are 1-based and counted per point. Points used here:
                        each SEQUENTIAL-mode forward)
     checkpoint.write   mid-write of a checkpoint archive, after the
                        parameters (utils/model_serializer.py)
+    etl.next           each base-iterator poll in the async producer
+                       (data/iterators.py)
+    step.nonfinite     per-step divergence flag (checked, never raised;
+                       optimize/resilience.py)
 
 Stdlib-only on purpose: everything in the package may import this.
 """
@@ -34,13 +38,14 @@ class FaultInjected(RuntimeError):
 
 
 class _Plan:
-    __slots__ = ("action", "calls", "delay_ms", "count")
+    __slots__ = ("action", "calls", "delay_ms", "count", "fired")
 
     def __init__(self, action: str, calls: FrozenSet[int], delay_ms: float):
         self.action = action      # "fail" | "delay"
         self.calls = calls        # 1-based call numbers covered
         self.delay_ms = delay_ms
         self.count = 0            # calls seen at this point
+        self.fired = 0            # calls the plan covered
 
 
 def _parse(spec: str) -> _Plan:
@@ -88,28 +93,59 @@ def clear(point: Optional[str] = None) -> None:
             _plans.pop(point, None)
 
 
+def _advance(point: str):
+    """Count one call at `point`; (plan, call number) when an armed plan
+    covers it, else None."""
+    with _lock:
+        plan = _plans.get(point)
+        if plan is None:
+            return None
+        plan.count += 1
+        if plan.count not in plan.calls:
+            return None
+        plan.fired += 1
+        return plan, plan.count
+
+
 def fire(point: str) -> None:
     """Injection hook: no-op unless an armed plan covers this call; then
     raises :class:`FaultInjected` (``fail``) or sleeps and returns
     (``delay``)."""
-    with _lock:
-        plan = _plans.get(point)
-        if plan is None:
-            return
-        plan.count += 1
-        n = plan.count
-        if n not in plan.calls:
-            return
+    hit = _advance(point)
+    if hit is None:
+        return
+    plan, n = hit
     if plan.action == "delay":
         time.sleep(plan.delay_ms / 1000.0)
         return
     raise FaultInjected(f"injected fault at {point!r} (call #{n})")
 
 
+def check(point: str) -> bool:
+    """Non-raising variant for flag-style points (``step.nonfinite``):
+    True when the plan covers this call. A ``delay`` plan sleeps but
+    returns False: it slows the caller without flipping the flag."""
+    hit = _advance(point)
+    if hit is None:
+        return False
+    plan, _ = hit
+    if plan.action == "delay":
+        time.sleep(plan.delay_ms / 1000.0)
+        return False
+    return True
+
+
 def call_count(point: str) -> int:
     with _lock:
         plan = _plans.get(point)
         return plan.count if plan else 0
+
+
+def fired_count(point: str) -> int:
+    """Calls at `point` that the armed plan covered."""
+    with _lock:
+        plan = _plans.get(point)
+        return plan.fired if plan else 0
 
 
 @contextmanager

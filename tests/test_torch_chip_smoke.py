@@ -45,6 +45,14 @@ and fails when a committed carry keeps its autograd history;
 runs FaceNetNN4Small2 at 96x96; `check_nodes_one_by_one` fails on one
 conv node's parameters moved by 1e-3; `bn_cancellation` measures how far a
 channel's mean lies from the running mean that pivots BN's variance.
+
+The fit-loop phases run here cut in size, with counting stand-ins for the
+kernels: `phase_fit_loop_alexnet` (AlexNet at 60x60, 3 steps at batch 4)
+passes, and fails when an LRN goes around K1's counted wrapper, when the
+prefetch stages features one ulp off (prefetch no longer bitwise the
+pageable run), or when a group drops a batch; `phase_fit_loop_char` (16
+wide, bucket 32) passes, and fails when the resume restores nothing or the
+sentinel's `skip_step` keeps the flagged update.
 """
 import copy
 
@@ -1046,3 +1054,125 @@ def test_bn_cancellation_measures_the_pivot_distance():
     assert (chip_smoke.bn_cancellation(torch, bn, {"mean": x.mean((0, 1, 2)),
                                                    "var": state["var"]}, x) < 1.01).all()
     assert chip_smoke.bn_cancellation(torch, DenseLayer(n_in=2, n_out=2), state, x) is None
+
+
+# ------------------------------------------------------------ the fit loop
+
+def _counting_lrn(monkeypatch):
+    """K1 and K2 stand-ins that count a launch per call, as the kernels'
+    wrappers do, computing the plain versions."""
+    fwd, bwd = port_lrn.lrn_reference, port_lrn.lrn_bwd_reference
+
+    def k1(x, *h):
+        port_lrn.launches += 1
+        return fwd(x, *h)
+
+    def k2(x, g, *h):
+        port_lrn.bwd_launches += 1
+        return bwd(x, g, *h)
+
+    monkeypatch.setattr(port_lrn, "lrn_fwd", k1)
+    monkeypatch.setattr(port_lrn, "lrn_bwd", k2)
+
+
+@pytest.fixture
+def small_fit_loop_phase(monkeypatch, tmp_path):
+    """phase_fit_loop_alexnet cut to run here: AlexNet at 60x60x3, 3 steps
+    at batch 4 (one group of 3), profiled calls of 2 batches, one epoch of
+    early stopping (one best-model save), no profiler, no CUDA sync,
+    counting stand-ins for K1 and K2, build/ under a temporary directory."""
+    monkeypatch.setattr(port_zoo, "AlexNet", _SmallAlexNet)
+    for name, value in (("TRAIN_BATCH", 4), ("TRAIN_STEPS", 3),
+                        ("FIT_PROFILE_BATCHES", 2), ("FIT_ES_MAX_EPOCHS", 1),
+                        ("ROOT", str(tmp_path))):
+        monkeypatch.setattr(chip_smoke, name, value)
+    monkeypatch.setattr(chip_smoke, "profile_call", lambda torch, label, fn, info: (
+        fn(), {"h2d_share_of_busy": None})[1])
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda *a: None)
+    _counting_lrn(monkeypatch)
+
+
+@pytest.mark.parametrize("case", ["counted", "uncounted_lrn", "staging_off_by_one_ulp",
+                                  "group_skips_a_step"])
+def test_fit_loop_alexnet_phase(small_fit_loop_phase, monkeypatch, case):
+    from deeplearning4j_torch.data import iterators as port_it
+    if case == "uncounted_lrn":   # the second LRN layer goes around K1
+        from deeplearning4j_torch.nn.layers.convolution import LocalResponseNormalization
+        layer_fwd = LocalResponseNormalization.forward
+
+        def forward(self, params, x, **kw):
+            if x.shape[-1] == 192:
+                return port_lrn.lrn_reference(x, self.k, self.alpha, self.beta, self.n)
+            return layer_fwd(self, params, x, **kw)
+        monkeypatch.setattr(LocalResponseNormalization, "forward", forward)
+    elif case == "staging_off_by_one_ulp":   # a prefetch that changes the data
+        stage = port_it.PinnedStager.stage
+
+        def off(self, arrays, features, cast_dtype=None, consumer=None):
+            out = stage(self, arrays, features, cast_dtype, consumer)
+            return [torch.nextafter(t, t + 1) if t is not None and f else t
+                    for t, f in zip(out, features)]
+        monkeypatch.setattr(port_it.PinnedStager, "stage", off)
+    elif case == "group_skips_a_step":   # a group that drops its last batch
+        def fit_batches(net, batches, _orig=MultiLayerNetwork.fit_batches):
+            return _orig(net, batches[:-1])
+        monkeypatch.setattr(MultiLayerNetwork, "fit_batches", fit_batches)
+    if case == "counted":
+        out = chip_smoke.phase_fit_loop_alexnet(torch, "cpu", device="cpu")
+        assert out["launches"]["lrn_fwd"] == out["launches"]["lrn_bwd"] == 6
+        assert all(v for v in out["prefetch_vs_pageable"].values())
+        assert out["etl"]["last_etl_h2d_ms"] > 0
+        es = out["early_stopping"]
+        assert es["best_answers_bitwise"] and es["total_epochs"] == 1
+        assert set(out["timing"]) == {"prefetch", "pageable"}
+    else:
+        with pytest.raises(RuntimeError, match="launches|bitwise"):
+            chip_smoke.phase_fit_loop_alexnet(torch, "cpu", device="cpu")
+
+
+@pytest.fixture
+def small_fit_char_phase(monkeypatch, tmp_path):
+    """phase_fit_loop_char cut to run here: 16 wide, 4 heads, bucket 32,
+    8 sequences of 4..32 tokens in one base batch packed into rows of 2,
+    counting stand-ins for K3-K5 (the plain versions), no CUDA sync."""
+    from deeplearning4j_torch.ops import flash_attention as port_fa
+    for name, value in (("CHAR_WIDTH", 16), ("CHAR_T", 32), ("CHAR_BATCH", 2),
+                        ("FIT_SEQS", 8), ("FIT_SEQ_MIN", 4), ("FIT_BASE_BATCH", 8),
+                        ("ROOT", str(tmp_path))):
+        monkeypatch.setattr(chip_smoke, name, value)
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda *a: None)
+    fwd, bwd = port_fa.flash_fwd_reference, port_fa.flash_bwd_reference
+
+    def k3(*a):
+        port_fa.fwd_launches += 1
+        return fwd(*a)
+
+    def k45(*a):
+        port_fa.bwd_dkv_launches += 1
+        port_fa.bwd_dq_launches += 1
+        return bwd(*a)
+
+    monkeypatch.setattr(port_fa, "flash_fwd", k3)
+    monkeypatch.setattr(port_fa, "flash_bwd", k45)
+
+
+@pytest.mark.parametrize("case", ["counted", "resume_restores_nothing",
+                                  "skip_step_keeps_the_update"])
+def test_fit_loop_char_phase(small_fit_char_phase, monkeypatch, case):
+    from deeplearning4j_torch.optimize import resilience
+    if case == "resume_restores_nothing":
+        monkeypatch.setattr(resilience.CheckpointManager, "restore_into",
+                            lambda self, model: None)
+    elif case == "skip_step_keeps_the_update":
+        monkeypatch.setattr(resilience.DivergenceSentinel, "_skip_step",
+                            lambda self, model: None)
+    if case == "counted":
+        out = chip_smoke.phase_fit_loop_char(torch, "cpu", device="cpu")
+        steps = out["packed_batches"]
+        assert steps >= 2 and out["launches"] == dict.fromkeys(out["launches"], 2 * steps)
+        assert out["packed_vs_unpacked_score"]["rel"] <= chip_smoke.PACKED_RTOL
+        assert out["resume"]["params"] and out["skip_step"]["bitwise"]
+        assert out["timing"]["packed"]["util"] >= out["timing"]["padded"]["util"]
+    else:
+        with pytest.raises(RuntimeError, match="resumed|skip_step"):
+            chip_smoke.phase_fit_loop_char(torch, "cpu", device="cpu")

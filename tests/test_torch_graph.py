@@ -16,8 +16,9 @@
   parameter (relative norm under 1e-5) and parameters and optimizer state
   after 3 `fit` steps (rtol 1e-5): float32 convolutions summed in another
   order on both sides.
-- ParallelInference over a graph on the CPU, the graph paths left for later
-  slices, and `params`/`set_params` against the JAX package's flat vector.
+- ParallelInference over a graph on the CPU, `fit_batches`,
+  `fit_batch_repeated` and `evaluate` (once left for a later slice), and
+  `params`/`set_params` against the JAX package's flat vector.
 """
 import json
 import os
@@ -386,12 +387,30 @@ def test_params_set_params_round_trip_matches_reference_layout(mini):
 
 
 def test_later_paths_raise_naming_their_item(mini):
+    """The paths this test once held to NotImplementedError (fit_batches,
+    fit_batch_repeated, evaluate) are ported: a group is bitwise the same
+    batches fitted one by one, a repeat the same batch fitted in a loop, and
+    evaluate counts the argmax hits of `output`."""
     port_net, _ = mini
-    for call in (lambda: port_net.fit_batches([]),
-                 lambda: port_net.fit_batch_repeated(None, 2),
-                 lambda: port_net.evaluate(None)):
-        with pytest.raises(NotImplementedError, match="item 1, training tools"):
-            call()
+    nets = [port.ComputationGraph(_mini_conf(port, port_zoo)).init(device="cpu")
+            for _ in range(4)]
+    (x1, y1), (x2, y2) = _data(4, seed=21), _data(4, seed=22)
+    b1, b2 = MultiDataSet([x1], [y1]), MultiDataSet([x2], [y2])
+    nets[0].fit_batches([b1, b2])
+    nets[1].fit_batch(b1)
+    nets[1].fit_batch(b2)
+    nets[2].fit_batch_repeated(b1, 2)
+    nets[3].fit_batch(b1)
+    nets[3].fit_batch(b1)
+    for a, b in ((nets[0], nets[1]), (nets[2], nets[3])):
+        assert a.iteration == b.iteration == 2
+        for name in a.params_tree:
+            for k in a.params_tree[name]:
+                assert torch.equal(a.params_tree[name][k], b.params_tree[name][k])
+        assert torch.equal(a.score_value, b.score_value)
+    ev = port_net.evaluate(x1, y1, batch_size=3)
+    hits = int((port_net.predict(x1) == np.argmax(y1, -1)).sum())
+    assert ev.num_examples() == 4 and ev.accuracy() == hits / 4
     # rnn_time_step is ported (tests/test_torch_tbptt.py): a graph without a
     # recurrent node streams as `output` computes
     x = np.random.default_rng(3).standard_normal((2, 32, 32, 3)).astype(np.float32)

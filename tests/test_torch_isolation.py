@@ -98,3 +98,44 @@ def test_recurrent_and_face_zoo_models_default_to_the_gpu(monkeypatch, name):
         getattr(zoo, name)(**small[name]).init()
     net = getattr(zoo, name)(**small[name]).init(device="cpu")
     assert net.device.type == "cpu"
+
+
+@pytest.mark.parametrize("module", [
+    "optimize/metrics.py", "optimize/tracing.py", "optimize/listeners.py",
+    "optimize/resilience.py", "optimize/solvers.py", "eval/evaluation.py",
+    "eval/roc.py", "earlystopping/termination.py", "earlystopping/savers.py",
+    "earlystopping/config.py", "earlystopping/trainer.py",
+    "nn/transfer_learning.py", "nn/stepping.py", "data/iterators.py",
+    "data/padding.py"])
+def test_fit_loop_modules_are_the_ports_own(module):
+    """The fit loop's modules exist in the port (the walk above imports
+    them with JAX blocked), and none reaches into the JAX package, its
+    numpy-only modules included."""
+    text = (PKG / module).read_text()
+    assert "deeplearning4j_tpu" not in text.replace("`deeplearning4j_tpu/", "")
+
+
+def test_staging_and_restores_default_to_the_gpu(monkeypatch, tmp_path):
+    """Device prefetch, the pinned stager and the checkpoint and best-model
+    restores run on CUDA unless asked for the CPU, and raise without a
+    GPU rather than staging onto the CPU."""
+    from deeplearning4j_torch.data.iterators import (DevicePrefetchIterator,
+                                                     ExistingDataSetIterator,
+                                                     PinnedStager)
+    from deeplearning4j_torch.earlystopping import LocalFileModelSaver
+    from deeplearning4j_torch.models.zoo import LeNet
+    from deeplearning4j_torch.optimize.resilience import CheckpointManager
+    net = LeNet().init(device="cpu")
+    mgr = CheckpointManager(str(tmp_path / "ckpt"))
+    mgr.save(net)
+    saver = LocalFileModelSaver(str(tmp_path / "best"))
+    saver.save_best_model(net, 1.0)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for call in (lambda: PinnedStager(),
+                 lambda: DevicePrefetchIterator(ExistingDataSetIterator([])),
+                 lambda: mgr.restore_latest(),
+                 lambda: LocalFileModelSaver(str(tmp_path / "best")).get_best_model()):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            call()
+    assert mgr.restore_latest(device="cpu")[0].device.type == "cpu"
+    assert saver.get_best_model().device.type == "cpu"   # where it was saved from
