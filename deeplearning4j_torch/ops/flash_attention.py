@@ -24,6 +24,12 @@ accuracy). The note there says what bounds them and how they are laid out.
 On CPU tensors it runs `flash_fwd_reference` and `flash_bwd_reference`.
 There is no fallback from one to the other: a CUDA tensor the kernels do
 not take raises.
+
+`decode_attention` is the port of the JAX package's single-query decode
+attention (`decode_attention`, which there runs `_fwd_kernel` with one query
+row). On CUDA tensors it launches K7 (`dl4j_decode_attention` of
+``csrc/decode_attention.cu``), a split-KV kernel that reads only the valid
+prefix of the cache; on CPU tensors it runs `decode_attention_reference`.
 """
 from __future__ import annotations
 
@@ -51,6 +57,8 @@ MAX_HEAD_DIM = 128
 fwd_launches = 0
 bwd_dkv_launches = 0
 bwd_dq_launches = 0
+#: K7 launches, one for each `decode_attention` call on CUDA tensors
+decode_launches = 0
 _launches_lock = threading.Lock()
 
 _POINTERS = {"dl4j_flash_fwd": 10, "dl4j_flash_bwd_dkv": 14,
@@ -403,3 +411,146 @@ def flash_attention(q: Tensor, k: Tensor, v: Tensor, *, causal: bool = False,
     o, lse = FlashAttentionFunction.apply(q, k, v, km, qs, ks, qp, kp,
                                           1.0 / math.sqrt(d), bool(causal))
     return (o, lse) if with_lse else o
+
+
+# ---------------------------------------------------------------------------
+# Decode: one query row against a KV cache (K7).
+# ---------------------------------------------------------------------------
+
+DECODE_IMPLS = ("auto", "flash", "dense")
+#: K7's blocks: at least this many keys each, and about this many blocks an
+#: SM in all (the split count is chosen from the bucket length, not from
+#: cache_len, which lives on the device)
+DECODE_MIN_CHUNK = 64
+DECODE_BLOCKS_PER_SM = 4
+
+
+def _decode_valid(cache_len: Tensor, tk: int, device) -> Tensor:
+    """[b, tk] bool: key j of row i is in its valid prefix."""
+    n = torch.as_tensor(cache_len, device=device).to(torch.int64)
+    return torch.arange(tk, device=device)[None, :] < n[:, None]
+
+
+def decode_attention_reference(q: Tensor, k: Tensor, v: Tensor,
+                               cache_len: Tensor) -> Tensor:
+    """Plain torch version of K7: for each row i and head, the softmax of
+    q k^T / sqrt(d) over the first cache_len[i] keys (all t_kv where it is
+    larger) times v, sums in float32 (float64 for float64 inputs), the
+    output rounded once to q's dtype; a row with cache_len <= 0 outputs 0,
+    as a fully masked row of the flash arm. Keys past a row's prefix weigh
+    exactly 0 and, as in K7, whatever they hold (NaN too) never reaches the
+    output."""
+    d = q.shape[-1]
+    acc = _acc_dtype(q)
+    valid = _decode_valid(cache_len, k.shape[1], q.device)
+    keys = valid[:, :, None, None]
+    k = torch.where(keys, k.to(acc), 0.0)
+    v = torch.where(keys, v.to(acc), 0.0)
+    valid = valid[:, None, None, :]
+    s = torch.einsum("bqhd,bkhd->bhqk", q.to(acc), k) / math.sqrt(d)
+    s = torch.where(valid, s, NEG)
+    p = torch.where(valid, torch.exp(s - s.amax(-1, keepdim=True)), 0.0)
+    l = p.sum(-1, keepdim=True)
+    p = p / torch.where(l > 0, l, 1.0)
+    return torch.einsum("bhqk,bkhd->bqhd", p, v).to(q.dtype)
+
+
+def _decode_dense(q: Tensor, k: Tensor, v: Tensor, cache_len: Tensor) -> Tensor:
+    """The JAX function's dense arm: float32 scores, NEG where masked, a
+    softmax, and the weights cast to v's dtype before the product."""
+    d = q.shape[-1]
+    acc = _acc_dtype(q)
+    valid = _decode_valid(cache_len, k.shape[1], q.device)[:, None, None, :]
+    s = torch.einsum("bqhd,bkhd->bhqk", q.to(acc), k.to(acc)) / math.sqrt(d)
+    w = torch.softmax(torch.where(valid, s, NEG), dim=-1)
+    return torch.einsum("bhqk,bkhd->bqhd", w.to(v.dtype), v).to(q.dtype)
+
+
+_sm_count = {}
+
+
+def decode_splits(device: torch.device, bh: int, t_kv: int) -> int:
+    """K7's split count: enough blocks for DECODE_BLOCKS_PER_SM an SM, each
+    taking at least DECODE_MIN_CHUNK keys of the bucket."""
+    sms = _sm_count.get(device.index)
+    if sms is None:
+        sms = _sm_count[device.index] = \
+            torch.cuda.get_device_properties(device).multi_processor_count
+    want = -(-DECODE_BLOCKS_PER_SM * sms // max(1, bh))
+    return max(1, min(want, -(-t_kv // DECODE_MIN_CHUNK), 65535))
+
+
+def _launch_decode(q: Tensor, k: Tensor, v: Tensor, cache_len: Tensor) -> Tensor:
+    """K7 on CUDA tensors; raises on anything it does not take."""
+    global decode_launches
+    if q.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"the decode kernel takes float32 or bfloat16, got {q.dtype}")
+    b, _, h, d = q.shape
+    tk = k.shape[1]
+    if k.dtype != q.dtype or v.dtype != q.dtype:
+        raise TypeError(f"q, k, v dtypes differ: {q.dtype}, {k.dtype}, {v.dtype}")
+    if k.shape != (b, tk, h, d) or v.shape != k.shape:
+        raise ValueError(f"q {tuple(q.shape)}, k {tuple(k.shape)}, v "
+                         f"{tuple(v.shape)}: expected [b, 1, h, d] and [b, t, h, d]")
+    if not 1 <= d <= MAX_HEAD_DIM:
+        raise ValueError(f"the decode kernel takes head_dim 1..{MAX_HEAD_DIM}, "
+                         f"got {d}")
+    for t in (k, v):   # any batch and key strides; heads and rows contiguous
+        if t.device != q.device or t.stride(3) != 1 or t.stride(2) != d:
+            raise ValueError("k and v must lie on q's device with each key's "
+                             "heads contiguous ([b, t, h, d] strides (*, *, d, 1))")
+    q = q.contiguous()
+    lens = cache_len.to(device=q.device, dtype=torch.int32).contiguous()
+    if lens.shape != (b,):
+        raise ValueError(f"cache_len {tuple(lens.shape)}: expected ({b},)")
+    splits = decode_splits(q.device, b * h, tk)
+    o = torch.empty_like(q)
+    part_acc = torch.empty(b * h * splits * d, dtype=torch.float32, device=q.device)
+    part_ml = torch.empty(b * h * splits * 2, dtype=torch.float32, device=q.device)
+    fn = _fns.get("dl4j_decode_attention")
+    if fn is None:
+        fn = cuda_build.load("decode_attention").dl4j_decode_attention
+        fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 4 + [
+            ctypes.c_longlong] * 4 + [ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        _fns["dl4j_decode_attention"] = fn
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), lens.data_ptr(),
+                 o.data_ptr(), part_acc.data_ptr(), part_ml.data_ptr(), b, h, tk, d,
+                 k.stride(0), k.stride(1), v.stride(0), v.stride(1), splits,
+                 int(q.dtype == torch.bfloat16), stream)
+    if err != 0:
+        raise RuntimeError(f"dl4j_decode_attention launch failed: CUDA error {err}")
+    with _launches_lock:
+        decode_launches += 1
+    return o
+
+
+def decode_attention(q: Tensor, k: Tensor, v: Tensor, cache_len, *,
+                     impl: str = "auto") -> Tensor:
+    """Single-query-row attention against a growing KV cache, with the
+    semantics of the JAX package's `decode_attention`.
+
+    q [batch, 1, heads, head_dim] is this step's query; k, v [batch, t_kv,
+    heads, head_dim] the bucketed cache view (rows past cache_len are
+    garbage and never weigh); cache_len [batch] int, the valid prefix of
+    each row including the current token. Returns [batch, 1, heads,
+    head_dim] in q's dtype.
+
+    `impl="auto"` and `"flash"` launch K7 on CUDA tensors (a geometry K7
+    does not take raises there) and run `decode_attention_reference` on CPU
+    tensors; `"dense"` is the JAX function's einsum arm. No backward: decode
+    is inference only."""
+    b, tq, hh, d = q.shape
+    if tq != 1:
+        raise ValueError(f"decode_attention takes one query row, got {tq}")
+    if impl not in DECODE_IMPLS:
+        raise ValueError(f"unknown decode_attention impl {impl!r}")
+    _check_device(q)
+    cache_len = torch.as_tensor(cache_len, device=q.device)
+    if impl == "dense":
+        return _decode_dense(q, k, v, cache_len)
+    if q.device.type == "cuda":
+        return _launch_decode(q, k, v, cache_len)
+    return decode_attention_reference(q, k, v, cache_len)

@@ -10,10 +10,12 @@ own forward under a lock.
 Kept from the JAX package: both modes, the typed errors, deadline shedding,
 the finite-output check, batch-failure isolation (a failed batch is retried
 request by request so only the offender fails), warmup over the bucket set,
-and shutdown that serves queued stragglers and fails whatever it cannot.
-Packed admission (segment-masked sequence rows) waits for the attention
-slice; the gateway hooks, device scheduler and flight recorder for the
-serving-plane slice.
+shutdown that serves queued stragglers and fails whatever it cannot, and
+packed admission: short single-sequence requests coalesce into ONE
+``[1, pack_bucket]`` row separated by segment ids (the features mask of a
+model whose attention layers run ``packed_segments=True``), which reaches
+the flash kernels (K3) with segment ids on the GPU. The gateway hooks,
+device scheduler and flight recorder wait for the serving-plane slice.
 
 A coalesced batch reaches the card through the same pinned staging as the
 fit loop's device prefetch (data/iterators.PinnedStager): a copy into a
@@ -30,9 +32,10 @@ import time
 from typing import List, Optional
 
 import numpy as np
+import torch
 
 from ..data.iterators import PinnedStager
-from ..data.padding import next_pow2_bucket, repeat_tail_rows
+from ..data.padding import next_pow2_bucket, record_packing, repeat_tail_rows
 from ..utils import faults
 
 
@@ -65,6 +68,17 @@ class DeadlineExceededError(RuntimeError):
     """The request's deadline passed before a forward could serve it."""
 
 
+class DecodeStepError(BatchExecutionError):
+    """One iteration-level decode step failed for the requests riding it:
+    the victims get this typed wrapper (their KV blocks freed), decode
+    batchmates keep generating on the next step."""
+
+
+class KVCacheExhaustedError(QueueFullError):
+    """The paged KV cache has no free blocks for this admission or growth
+    step: the decode plane's backpressure signal."""
+
+
 class _Request:
     __slots__ = ("x", "event", "result", "error", "deadline")
 
@@ -88,7 +102,8 @@ class ParallelInference:
 
     def __init__(self, model, *, inference_mode: InferenceMode = InferenceMode.BATCHED,
                  batch_limit: int = 32, queue_limit: int = 64,
-                 batch_timeout_ms: float = 2.0, check_finite: bool = False):
+                 batch_timeout_ms: float = 2.0, check_finite: bool = False,
+                 packed_admission: bool = False, pack_bucket: int = 0):
         if not getattr(model, "_initialized", False):
             raise RuntimeError("Model must be init()ed before serving")
         conf = model.conf
@@ -102,6 +117,21 @@ class ParallelInference:
         self.inference_mode = inference_mode
         self.batch_limit = int(batch_limit)
         self.batch_timeout_ms = float(batch_timeout_ms)
+        # Packed admission: capacity is tokens of one [1, pack_bucket] row,
+        # not batch rows; an ineligible request (not one sequence, or too
+        # long) takes the row path and is counted.
+        self.packed_admission = bool(packed_admission)
+        self.pack_bucket = int(pack_bucket)
+        if self.packed_admission:
+            if inference_mode != InferenceMode.BATCHED:
+                raise ValueError(
+                    "packed_admission requires InferenceMode.BATCHED")
+            if self.pack_bucket < 1:
+                raise ValueError(
+                    "packed_admission needs pack_bucket >= 1 (the token "
+                    "capacity of the packed row)")
+        self.total_packed_requests = 0
+        self.total_pack_fallbacks = 0
         self.check_finite = bool(check_finite)
         self._lock = threading.Lock()
         # used under self._lock only: one forward at a time stages
@@ -125,6 +155,12 @@ class ParallelInference:
                 daemon=True)
             self._worker.start()
 
+    def _pack_eligible(self, x: np.ndarray) -> bool:
+        """A request can ride a packed row iff it is a single sequence: one
+        batch row of [1, t, features] with 1 <= t <= pack_bucket."""
+        return (x.ndim == 3 and x.shape[0] == 1
+                and 0 < x.shape[1] <= self.pack_bucket)
+
     @staticmethod
     def builder(model) -> "ParallelInferenceBuilder":
         return ParallelInferenceBuilder(model)
@@ -143,6 +179,13 @@ class ParallelInference:
             if b not in self.warmed_buckets:
                 self.warmed_buckets.append(b)
             b <<= 1
+        if self.packed_admission:
+            # the packed forward carries a features mask (the segment ids)
+            x_s = self.model._feature_struct(1, self.pack_bucket)
+            dev = self.model.device
+            self.model.output(torch.zeros(x_s.shape, dtype=x_s.dtype, device=dev),
+                              features_mask=torch.zeros((1, self.pack_bucket),
+                                                        device=dev))
         return self
 
     # ----------------------------------------------------------------- output
@@ -225,7 +268,10 @@ class ParallelInference:
     # -------------------------------------------------------------- collector
     def _collector_loop(self):
         try:
-            self._collect()
+            if self.packed_admission:
+                self._collect_packed()
+            else:
+                self._collect()
         except BaseException as e:
             # Collector must never die silently: mark the server down (under
             # the enqueue lock so no request can slip in after the drain)
@@ -347,6 +393,146 @@ class ParallelInference:
             for r in batch:
                 self._run_batch([r])
 
+    # ---------------------------------------------------------------- packed
+    def _collect_packed(self):
+        """Packed-admission collector: eligible requests coalesce by
+        first-come token fit into one [1, pack_bucket] row (carried to the
+        next row on overflow); an ineligible request runs alone through the
+        row path. Deadline, isolation and shutdown semantics are those of
+        _collect."""
+        cap = self.pack_bucket
+        carry: Optional[_Request] = None
+        while True:
+            if carry is not None:
+                first, carry = carry, None
+            else:
+                try:
+                    first = self._queue.get(timeout=0.1)
+                except queue.Empty:
+                    if self._shutdown:
+                        return
+                    continue
+            if first is None:  # shutdown sentinel: serve stragglers, exit
+                self._drain_and_exit_packed()
+                return
+            if not self._pack_eligible(first.x):
+                self._note_pack_fallback(1)
+                self._run_batch([first])
+                continue
+            batch = [first]
+            toks = first.x.shape[1]
+            if toks < cap:
+                time.sleep(self.batch_timeout_ms / 1000.0)
+            saw_sentinel = False
+            while toks < cap:
+                try:
+                    nxt = self._queue.get_nowait()
+                except queue.Empty:
+                    break
+                if nxt is None:
+                    saw_sentinel = True
+                    break
+                if not self._pack_eligible(nxt.x) or \
+                        toks + nxt.x.shape[1] > cap:
+                    carry = nxt
+                    break
+                batch.append(nxt)
+                toks += nxt.x.shape[1]
+            self._run_packed(batch)
+            if saw_sentinel:
+                self._drain_and_exit_packed(carry)
+                return
+
+    def _drain_and_exit_packed(self, carry: Optional[_Request] = None):
+        """Shutdown flush for packed mode: queued stragglers in
+        token-capacity packed rows; ineligible ones alone through the row
+        path."""
+        leftovers = [] if carry is None else [carry]
+        while True:
+            try:
+                r = self._queue.get_nowait()
+            except queue.Empty:
+                break
+            if r is not None:
+                leftovers.append(r)
+        batch: List[_Request] = []
+        toks = 0
+        for r in leftovers:
+            if not self._pack_eligible(r.x):
+                self._note_pack_fallback(1)
+                self._run_batch([r])
+                continue
+            if batch and toks + r.x.shape[1] > self.pack_bucket:
+                self._run_packed(batch)
+                batch, toks = [], 0
+            batch.append(r)
+            toks += r.x.shape[1]
+        if batch:
+            self._run_packed(batch)
+
+    def _note_pack_fallback(self, n: int) -> None:
+        with self._stats_lock:
+            self.total_pack_fallbacks += n
+        record_packing("serve", fallbacks=n)
+
+    def _forward_packed(self, xs: np.ndarray, segmask: np.ndarray) -> np.ndarray:
+        faults.fire("serve.forward")
+        x, seg = self._stager.stage([xs, segmask], [False, False])
+        return self.model.output(x, features_mask=seg)
+
+    def _run_packed(self, batch: List[_Request]):
+        now = time.monotonic()
+        live = []
+        for r in batch:  # SLO late-shed, as in _run_batch
+            if r.expired(now):
+                self._shed()
+                r.error = DeadlineExceededError("deadline passed while queued")
+                r.event.set()
+            else:
+                live.append(r)
+        batch = live
+        if not batch:
+            return
+        try:
+            # Chaos seam: an armed "serve.pack" plan fails the assembly (and,
+            # below, the unpack) of a packed row.
+            faults.fire("serve.pack")
+            feat = batch[0].x.shape[2]
+            xs = np.zeros((1, self.pack_bucket, feat), batch[0].x.dtype)
+            segmask = np.zeros((1, self.pack_bucket), np.float32)
+            ofs = 0
+            for s, r in enumerate(batch, start=1):
+                t_i = r.x.shape[1]
+                xs[0, ofs:ofs + t_i] = r.x[0]
+                segmask[0, ofs:ofs + t_i] = s
+                ofs += t_i
+            with self._lock:
+                out = self._forward_packed(xs, segmask)
+            self._require_finite(out)
+            self.executed_batch_sizes.append(len(batch))
+            with self._stats_lock:
+                self.total_forwards += 1
+                self.total_packed_requests += len(batch)
+            record_packing("serve", items=len(batch), real_tokens=ofs,
+                           padded_tokens=self.pack_bucket)
+            faults.fire("serve.pack")
+            ofs = 0
+            for r in batch:
+                t_i = r.x.shape[1]
+                r.result = out[:, ofs:ofs + t_i]
+                r.event.set()
+                ofs += t_i
+        except BaseException as e:
+            err = self._batch_failure(e, len(batch))
+            if len(batch) == 1:
+                batch[0].error = err
+                batch[0].event.set()
+                return
+            # as in _run_batch: each request in its own packed row, so only
+            # the offender fails
+            for r in batch:
+                self._run_packed([r])
+
     # --------------------------------------------------------------- shutdown
     def _fail_pending(self, exc: BaseException) -> None:
         """Fail every request still queued so no caller is stranded."""
@@ -392,6 +578,8 @@ class ParallelInferenceBuilder:
         self._queue_limit = 64
         self._timeout_ms = 2.0
         self._check_finite = False
+        self._packed_admission = False
+        self._pack_bucket = 0
 
     def inference_mode(self, mode: InferenceMode):
         self._mode = mode
@@ -413,9 +601,19 @@ class ParallelInferenceBuilder:
         self._check_finite = bool(enabled)
         return self
 
+    def packed_admission(self, bucket: int):
+        """Coalesce short sequence requests into one [1, bucket] packed row
+        (segment ids through the features mask). The served model's
+        attention layers must run packed_segments=True."""
+        self._packed_admission = True
+        self._pack_bucket = int(bucket)
+        return self
+
     def build(self) -> ParallelInference:
         return ParallelInference(
             self._model, inference_mode=self._mode,
             batch_limit=self._batch_limit, queue_limit=self._queue_limit,
             batch_timeout_ms=self._timeout_ms,
-            check_finite=self._check_finite)
+            check_finite=self._check_finite,
+            packed_admission=self._packed_admission,
+            pack_bucket=self._pack_bucket)

@@ -13,6 +13,10 @@ Call numbers are 1-based and counted per point. Points used here:
 
     serve.forward      each coalesced forward in ParallelInference (and
                        each SEQUENTIAL-mode forward)
+    serve.pack         the assembly and the unpack of each packed row
+                       (ParallelInference with packed_admission)
+    serve.decode_step  each decode step attempt of DecodeEngine, solo
+                       retries included (serving/decode.py)
     checkpoint.write   mid-write of a checkpoint archive, after the
                        parameters (utils/model_serializer.py)
     etl.next           each base-iterator poll in the async producer

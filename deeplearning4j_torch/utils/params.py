@@ -133,6 +133,26 @@ def params_from_numpy(tree, device: DeviceLike = None):
     return tree_map(lambda a: _to_port(np.asarray(a), dev), _top(tree))
 
 
+def transformer_decoder_from_numpy(tree, *, heads: int, max_context: int,
+                                   device: DeviceLike = None):
+    """The JAX package's ``TransformerDecoder.params_tree`` (numpy arrays or
+    anything ``np.asarray`` takes: {"emb", "lnf_s", "lnf_b", "layers": [...]})
+    as the port's ``serving.decode.TransformerDecoder`` on `device`, with
+    vocab, depth, head_dim and ff read from the shapes; `heads` and
+    `max_context` are not in the tree."""
+    from ..serving.decode import TransformerDecoder
+    vocab, d = np.asarray(tree["emb"]).shape
+    if d % heads:
+        raise ValueError(f"d_model {d} is not a multiple of heads {heads}")
+    model = TransformerDecoder(vocab=vocab, layers=len(tree["layers"]),
+                               heads=heads, head_dim=d // heads,
+                               ff=np.asarray(tree["layers"][0]["w1"]).shape[1]
+                               if tree["layers"] else 1,
+                               max_context=max_context, device=device)
+    model.params_tree = tree_map(np.asarray, tree)
+    return model
+
+
 def params_to_numpy(tree):
     """Inverse of :func:`params_from_numpy`: the reference's layout, numpy."""
     return tree_map(_to_reference, _top(tree))

@@ -1,0 +1,172 @@
+"""Single-query decode attention in the torch port against the JAX package.
+
+The port's `decode_attention` on CPU tensors runs its plain version
+(`decode_attention_reference`), which is held to the JAX package's
+`decode_attention` with `impl="auto"` (its dense einsum arm on the CPU) and
+with `impl="flash", interpret=True` (the Pallas kernel `_fwd_kernel` with one
+query row, in interpret mode). Inputs come from a numpy seed: b 3, 2 heads,
+head_dim 8, t_kv 8/16/64, cache_len 1, a middle length and t_kv.
+
+Tolerance: float32 rtol 1e-5 / atol 1e-6 (a softmax over at most 64 keys,
+sums in another order). bfloat16: the JAX dense arm rounds the weights to
+bfloat16 before the product with v and returns a bfloat16 sum, where the
+port sums in float32 and rounds once; both sit within 2e-2 of max|o| (a few
+bfloat16 ulps).
+
+K7 itself runs only on a GPU: the test marked `cuda` skips without one
+(``python -m pytest tests/test_torch_decode_attention.py -m cuda
+--noconftest``).
+"""
+import numpy as np
+import pytest
+import torch
+
+from deeplearning4j_torch.ops import flash_attention as port_fa
+
+B, H, D = 3, 2, 8
+F32 = dict(rtol=1e-5, atol=1e-6)
+
+
+@pytest.fixture(scope="module")
+def jax_fa():
+    jax = pytest.importorskip("jax")
+    from deeplearning4j_tpu.ops import flash_attention
+    return jax, flash_attention
+
+
+def _inputs(tk, seed=1, d=D):
+    rng = np.random.default_rng(seed + tk)
+    q = rng.standard_normal((B, 1, H, d)).astype(np.float32)
+    k = rng.standard_normal((B, tk, H, d)).astype(np.float32)
+    v = rng.standard_normal((B, tk, H, d)).astype(np.float32)
+    lens = np.array([1, tk // 2 + 1, tk], np.int32)
+    return q, k, v, lens
+
+
+def _port(q, k, v, lens, **kw):
+    return port_fa.decode_attention(*(torch.from_numpy(a) for a in (q, k, v)),
+                                    torch.from_numpy(lens), **kw).numpy()
+
+
+@pytest.mark.parametrize("tk", [8, 16, 64])
+@pytest.mark.parametrize("jax_impl", ["auto", "flash"])
+def test_plain_version_matches_jax(jax_fa, tk, jax_impl):
+    _, fa = jax_fa
+    q, k, v, lens = _inputs(tk)
+    kw = {"interpret": True} if jax_impl == "flash" else {}
+    want = np.asarray(fa.decode_attention(q, k, v, lens, impl=jax_impl, **kw))
+    got = _port(q, k, v, lens)
+    assert got.shape == (B, 1, H, D)
+    np.testing.assert_allclose(got, want, **F32)
+
+
+@pytest.mark.parametrize("tk", [8, 64])
+def test_dense_arm_matches_jax_dense_arm(jax_fa, tk):
+    _, fa = jax_fa
+    q, k, v, lens = _inputs(tk, seed=5)
+    want = np.asarray(fa.decode_attention(q, k, v, lens, impl="dense"))
+    np.testing.assert_allclose(_port(q, k, v, lens, impl="dense"), want, **F32)
+
+
+def test_plain_version_is_the_masked_softmax():
+    """Each row against a per-head numpy softmax over its first cache_len
+    keys: the keys past it never weigh (garbage there changes nothing)."""
+    q, k, v, lens = _inputs(16, seed=3)
+    got = _port(q, k, v, lens)
+    k2, v2 = k.copy(), v.copy()
+    for i, n in enumerate(lens):
+        k2[i, n:] = 1e6
+        v2[i, n:] = np.nan
+        for hh in range(H):
+            s = q[i, 0, hh] @ k[i, :n, hh].T / np.sqrt(D)
+            w = np.exp(s - s.max())
+            np.testing.assert_allclose(got[i, 0, hh], (w / w.sum()) @ v[i, :n, hh],
+                                       rtol=1e-5, atol=1e-6)
+    np.testing.assert_array_equal(_port(q, k2, v2, lens), got)
+
+
+def test_bfloat16_matches_jax(jax_fa):
+    jax, fa = jax_fa
+    q, k, v, lens = _inputs(16, seed=7)
+    jb = jax.numpy.bfloat16
+    want = np.asarray(fa.decode_attention(*(jax.numpy.asarray(a, jb) for a in (q, k, v)),
+                                          lens)).astype(np.float32)
+    bf = lambda a: torch.from_numpy(a).to(torch.bfloat16)
+    got = port_fa.decode_attention(bf(q), bf(k), bf(v), torch.from_numpy(lens))
+    assert got.dtype == torch.bfloat16
+    got = got.float().numpy()
+    assert np.abs(got - want).max() <= 2e-2 * np.abs(want).max()
+
+
+def test_zero_length_row_outputs_zero():
+    """cache_len 0 (a row no key may see) gives 0, as a fully masked row of
+    the flash arm; a cache_len past the bucket takes every key."""
+    q, k, v, _ = _inputs(8, seed=9)
+    lens = np.array([0, 99, 8], np.int32)
+    got = _port(q, k, v, lens)
+    assert (got[0] == 0).all()
+    np.testing.assert_array_equal(got[1], _port(q, k, v, np.array([8, 8, 8],
+                                                                   np.int32))[1])
+
+
+def test_rejects_multi_query_rows_and_unknown_impl():
+    z = torch.zeros(1, 2, 1, 4)
+    with pytest.raises(ValueError, match="one query row"):
+        port_fa.decode_attention(z, z, z, torch.ones(1, dtype=torch.int32))
+    z1 = torch.zeros(1, 1, 1, 4)
+    with pytest.raises(ValueError, match="unknown decode_attention impl"):
+        port_fa.decode_attention(z1, z1, z1, torch.ones(1, dtype=torch.int32),
+                                 impl="pallas")
+
+
+def test_strided_layer_view_matches_contiguous():
+    """The decode step reads a layer's slice of its [b, t, layers, h, d]
+    view in place; the answer is that of the contiguous copy."""
+    rng = np.random.default_rng(11)
+    view = torch.from_numpy(rng.standard_normal((B, 16, 3, H, D)).astype(np.float32))
+    q = torch.from_numpy(rng.standard_normal((B, 1, H, D)).astype(np.float32))
+    lens = torch.tensor([1, 9, 16], dtype=torch.int32)
+    got = port_fa.decode_attention(q, view[:, :, 1], view[:, :, 2], lens)
+    want = port_fa.decode_attention(q, view[:, :, 1].contiguous(),
+                                    view[:, :, 2].contiguous(), lens)
+    torch.testing.assert_close(got, want, rtol=0, atol=0)
+
+
+def test_cpu_tensors_never_launch_the_kernel():
+    before = port_fa.decode_launches
+    q, k, v, lens = _inputs(8)
+    _port(q, k, v, lens)
+    assert port_fa.decode_launches == before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_kernel_matches_plain_on_card(dtype):
+    """K7 against its plain version on the card: float32 within 1e-5 of
+    max|plain| (sums in another order), bfloat16 within 1e-2 (the output
+    rounded once); a strided layer view, head_dim 19 (one element a lane)
+    and 128, cache_len 0 and past the bucket. Each call counts one launch."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no CPU mode")
+    dt = getattr(torch, dtype)
+    rel = 1e-5 if dtype == "float32" else 1e-2
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    for b, t, h, d, layers in ((4, 256, 4, 32, 3), (3, 300, 2, 19, 0),
+                               (2, 1000, 2, 128, 0)):
+        mk = lambda *s: torch.randn(*s, device="cuda", generator=gen).to(dt)
+        q = mk(b, 1, h, d)
+        k, v = ((mk(b, t, layers, h, d)[:, :, 1], mk(b, t, layers, h, d)[:, :, 1])
+                if layers else (mk(b, t, h, d), mk(b, t, h, d)))
+        lens = torch.tensor([0, t + 3] + [t // 3 + 1] * (b - 2), dtype=torch.int32,
+                            device="cuda")
+        before = port_fa.decode_launches
+        got = port_fa.decode_attention(q, k, v, lens)
+        torch.cuda.synchronize()
+        assert port_fa.decode_launches == before + 1
+        want = port_fa.decode_attention_reference(q.float(), k.float(), v.float(), lens)
+        assert (got[0] == 0).all()
+        err = (got.float() - want).abs().max().item()
+        assert err <= rel * want.abs().max().item()
+    with pytest.raises(ValueError, match="head_dim"):
+        z = torch.zeros(1, 1, 1, 160, device="cuda")
+        port_fa.decode_attention(z, z, z, torch.ones(1, dtype=torch.int32, device="cuda"))

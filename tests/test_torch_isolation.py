@@ -139,3 +139,42 @@ def test_staging_and_restores_default_to_the_gpu(monkeypatch, tmp_path):
             call()
     assert mgr.restore_latest(device="cpu")[0].device.type == "cpu"
     assert saver.get_best_model().device.type == "cpu"   # where it was saved from
+
+
+@pytest.mark.parametrize("module", ["serving/__init__.py", "serving/decode.py",
+                                    "ops/flash_attention.py",
+                                    "parallel/inference.py"])
+def test_decode_modules_are_the_ports_own(module):
+    """The decode plane's modules and the wrapper of its kernel (K7,
+    ops/csrc/decode_attention.cu) exist in the port, are among those the
+    walk above imports with JAX blocked, and none reaches into the JAX
+    package."""
+    text = (PKG / module).read_text()
+    assert "deeplearning4j_tpu" not in text.replace("`deeplearning4j_tpu/", "")
+    assert (PKG / "ops" / "csrc" / "decode_attention.cu").exists()
+
+
+def test_decode_entry_points_default_to_the_gpu(monkeypatch):
+    """TransformerDecoder, PagedKVCache and DecodeEngine run on CUDA unless
+    asked for the CPU, and raise without a GPU; the engine refuses an
+    adapter on another device than its own."""
+    from deeplearning4j_torch.serving.decode import (DecodeEngine, PagedKVCache,
+                                                     TransformerAdapter,
+                                                     TransformerDecoder)
+    model = TransformerDecoder(vocab=8, layers=1, heads=1, head_dim=2, ff=4,
+                               max_context=16, device="cpu")
+    cache = PagedKVCache(layers=1, heads=1, head_dim=2, device="cpu")
+    adapter = TransformerAdapter(model, cache, pack_bucket=8)
+    assert model.top["emb"].device.type == "cpu" and cache.device.type == "cpu"
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for call in (lambda: TransformerDecoder(vocab=8, layers=1, heads=1, head_dim=2,
+                                            ff=4),
+                 lambda: PagedKVCache(layers=1, heads=1, head_dim=2),
+                 lambda: DecodeEngine(adapter)):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            call()
+    eng = DecodeEngine(adapter, device="cpu")
+    eng.shutdown()
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    with pytest.raises(ValueError, match="adapter runs on"):
+        DecodeEngine(adapter, device="cuda")
