@@ -174,12 +174,15 @@ Phases, each of which fails the script (non-zero exit, no result line):
    heads of 32, read in place from a layer of the step's view) and at b 16,
    t_kv 8192, 4 heads of 128 in float32 and bfloat16 (DECODE_REL; one
    bfloat16 ulp), timed beside its bytes bound, SDPA with a boolean mask
-   and K3 at one query row. The DecodeEngine at bench.py
-   bench_serving_decode's defaults (TransformerDecoder(seed=7), 4 layers,
-   6 clients x 4 prompts x 48 tokens): K7 = layers x steps, every answer
-   equal to `naive_generate`'s on the card, step logits against a full
-   recompute, the KV cache drained, a `serve.decode_step` fault isolated to
-   one rider; tokens/s, inter-token p50/p99. TextGenerationLSTM through
+   and K3 at one query row, at each split count and with no key to read,
+   its host microseconds a call beside; also the engine's 64-key bucket
+   and lengths on the edges of the per-row split. The DecodeEngine at
+   bench.py bench_serving_decode's defaults (TransformerDecoder(seed=7), 4
+   layers, 6 clients x 4 prompts x 48 tokens): K7 = layers x steps, one K7
+   device kernel a layer in a profiled step, every answer equal to
+   `naive_generate`'s on the card, step logits against a full recompute,
+   the KV cache drained, a `serve.decode_step` fault isolated to one
+   rider; tokens/s, inter-token p50/p99. TextGenerationLSTM through
    RecurrentAdapter against a direct `rnn_time_step` stream. The bfloat16
    char model behind ParallelInference(packed_admission=True, pack_bucket
    8192): K3 = 2 x packed forwards, answers against each request alone, a
@@ -806,13 +809,14 @@ def profile_groups(events):
     return out
 
 
-def profile_call(torch, label, fn, info):
+def profile_call(torch, label, fn, info, count=None):
     """One warm call of `fn` (which ends synchronized) under torch.profiler:
     the device's summed kernel and copy time against the wall time of that
     same call, the host-to-device copies' time and share of it, the five
     largest device items, the device time by kernel group
     (`profile_groups`), and the LRN kernels' (K1, K2) time and calls,
-    which the five rarely include. The median wall time of 5
+    which the five rarely include; with `count`, the calls of the device
+    kernels whose names hold it (`counted_calls`). The median wall time of 5
     unprofiled calls is reported beside it; the idle share is taken within
     the profiled call only, as busy and wall time from two different calls
     can give a share below 0."""
@@ -842,6 +846,8 @@ def profile_call(torch, label, fn, info):
            "groups_ms": profile_groups(dev),
            "lrn_kernels": [[e.key[:40], e.count, e.self_device_time_total / 1e3]
                            for e in dev if "lrn_" in e.key]}
+    if count is not None:
+        out["counted_calls"] = sum(e.count for e in dev if count in e.key)
     log(f"profile {label}: {json.dumps(out)}")
     return out
 
@@ -4112,8 +4118,9 @@ DECODE_REL = 1e-5   # float32 K7 against its plain version, of max|plain|
 # (label, b, t_kv, h, d, dtype, layers of the view it is sliced from (0: a
 # contiguous [b, t, h, d] tensor), timed): the engine's geometry (bench.py
 # bench_serving_decode: max_decode_batch 8, KV view up to 256, 4 heads of 32,
-# read in place from a layer of the step's [b, t, 4, h, d] view), a long
-# cache in both types, and edge shapes (one element a lane: d 19 in float32,
+# read in place from a layer of the step's [b, t, 4, h, d] view) and its
+# 64-key bucket, a long cache in both types, lengths on the split edges
+# (DECODE_EDGE_CASES), and edge shapes (one element a lane: d 19 in float32,
 # 36 in bfloat16, 100 over 4 pieces; b 1; a cache_len past the bucket)
 DECODE_CASES = [
     ("engine_f32", 8, 256, 4, 32, "float32", 4, True),
@@ -4123,6 +4130,10 @@ DECODE_CASES = [
     ("d36_bf16", 3, 300, 2, 36, "bfloat16", 2, False),
     ("d100_f32", 2, 100, 3, 100, "float32", 0, False),
     ("b1_d8", 1, 16, 1, 8, "float32", 0, False),
+    # after the cases above, so that theirs draw the same inputs from the seeds
+    ("engine_t64_f32", 8, 64, 4, 32, "float32", 4, True),
+    ("edges_f32", 12, 512, 4, 32, "float32", 4, False),
+    ("edges_bf16", 12, 4096, 2, 128, "bfloat16", 0, False),
 ]
 
 
@@ -4136,7 +4147,39 @@ def decode_lens(rng, b, t):
     return lens
 
 
-def decode_inputs(torch, gen, rng, b, t, h, d, dtype, layers, device):
+# The cases whose cache_len straddle K7's split edges (`decode_edge_lens`)
+DECODE_EDGE_CASES = ("edges_f32", "edges_bf16")
+DECODE_SPLITS_SWEPT = (1, 2, 4, 8)   # K7's blocks a (row, head), timed at each
+HOST_CALLS = 1000   # wrapper calls timed on the host clock, no sync
+
+
+def decode_block_keys(d, elem_bytes, bucket_keys):
+    """Keys one K7 block takes an iteration on its 16-byte route, as
+    decode_attention.cu computes them: lane groups of G lanes (the power of
+    two, at most 32, that covers d in 16-byte pieces) in 4 warps, or in 8
+    where the block takes at least 512 keys of the bucket (`bucket_keys`:
+    t_kv over the split count, rounded up), 4 keys a group."""
+    pieces = max(1, d * elem_bytes // 16)
+    g = 1
+    while g < pieces and g < 32:
+        g *= 2
+    warps = 8 if bucket_keys >= 512 else 4
+    return warps * 32 // g * 4
+
+
+def decode_edge_lens(b, t, splits, unit):
+    """b cache lengths on the edges of K7's per-row split (S blocks of
+    ceil(n / S) keys rounded up to `unit`): 1, S - 1, S, S + 1, unit S - 1,
+    unit S, unit S + 1, 2 unit S - 1, 2 unit S + 1, t - 1, t, and more of t;
+    each within [1, t]."""
+    s, c = splits, unit
+    edges = [1, s - 1, s, s + 1, c * s - 1, c * s, c * s + 1, 2 * c * s - 1,
+             2 * c * s + 1, t - 1, t]
+    lens = [min(max(1, n), t) for n in edges][:b]
+    return np.asarray(lens + [t] * (b - len(lens)), np.int32)
+
+
+def decode_inputs(torch, gen, rng, b, t, h, d, dtype, layers, device, lens=None):
     dt = getattr(torch, dtype)
     mk = lambda *s_: torch.randn(*s_, device=device, generator=gen).to(dt)
     q = mk(b, 1, h, d)
@@ -4144,8 +4187,22 @@ def decode_inputs(torch, gen, rng, b, t, h, d, dtype, layers, device):
         k, v = mk(b, t, layers, h, d)[:, :, 1], mk(b, t, layers, h, d)[:, :, 1]
     else:
         k, v = mk(b, t, h, d), mk(b, t, h, d)
-    lens = torch.from_numpy(decode_lens(rng, b, t)).to(device)
-    return q, k, v, lens
+    lens = decode_lens(rng, b, t) if lens is None else lens
+    return q, k, v, torch.from_numpy(lens).to(device)
+
+
+def host_us(torch, fn, calls=HOST_CALLS):
+    """Host microseconds a call of `fn`: the host clock over `calls` calls
+    with no sync between them (what the wrapper costs the launching thread),
+    then one sync outside the clock."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    us = (time.perf_counter() - t0) / calls * 1e6
+    torch.cuda.synchronize()
+    return us
 
 
 def decode_bound_ms(q, k, lens):
@@ -4177,14 +4234,18 @@ def check_decode(torch, fa, label, got, q, k, v, lens):
 
 def phase_decode_kernel(torch, card, device=None):
     """K7 (`_launch_decode`) against `decode_attention_reference` at
-    DECODE_CASES, ragged cache_len from a seed (1 and t_kv among them), and
-    rows with cache_len 0 (output 0) and past the bucket (all keys). For the
-    timed cases: device times of K7, its plain version, SDPA with a boolean
-    mask from cache_len (the library call computing the same function, timed
-    as the yardstick only) and K3 with one query row under the same key mask
-    (`_launch_fwd`, the route the TPU kernel takes, held to the plain version
-    too), beside the bytes bound. Returns the kernels-line entry (the
-    engine's geometry) and the rows."""
+    DECODE_CASES, ragged cache_len from a seed (1 and t_kv among them; on
+    the split edges for DECODE_EDGE_CASES), and rows with cache_len 0
+    (output 0) and past the bucket (all keys). For the timed cases: device
+    times of K7, its plain version, SDPA with a boolean mask from cache_len
+    (the library call computing the same function, timed as the yardstick
+    only) and K3 with one query row under the same key mask (`_launch_fwd`,
+    the route the TPU kernel takes, held to the plain version too), beside
+    the bytes bound; K7 with every row empty (`empty_ms`: its launch, merge
+    and store, no key read); K7's host microseconds a call (`host_us`); and,
+    on the card, K7 at each split count of DECODE_SPLITS_SWEPT, each held to
+    the plain version. Returns the kernels-line entry (the engine's
+    geometry) and the rows."""
     import torch.nn.functional as F
     from deeplearning4j_torch.ops import flash_attention as fa
     dev = device or "cuda"
@@ -4192,16 +4253,24 @@ def phase_decode_kernel(torch, card, device=None):
     rng = np.random.default_rng(14)
     rows, worst = {}, 0.0
     launches0 = fa.decode_launches
+    on_card = torch.device(dev).type == "cuda"
     for label, b, t, h, d, dtype, layers, timed in DECODE_CASES:
-        q, k, v, lens = decode_inputs(torch, gen, rng, b, t, h, d, dtype, layers, dev)
+        splits = fa.decode_splits(torch.device(dev), b * h, t) if on_card else None
+        edges = None
+        if label in DECODE_EDGE_CASES:
+            elem = 4 if dtype == "float32" else 2
+            s_ = splits or fa.DECODE_MAX_SPLITS
+            edges = decode_edge_lens(b, t, s_, decode_block_keys(d, elem, -(-t // s_)))
+        q, k, v, lens = decode_inputs(torch, gen, rng, b, t, h, d, dtype, layers, dev,
+                                      edges)
         got = fa._launch_decode(q, k, v, lens)
         torch.cuda.synchronize()
         err = check_decode(torch, fa, label, got, q, k, v, lens)
         worst = max(worst, err)
         row = {"case": label, "shape": [b, t, h, d], "dtype": dtype,
-               "strided_view": bool(layers), "lens": [int(x) for x in lens[:4]],
-               "max_abs_err": err,
-               "splits": fa.decode_splits(q.device, b * h, t) if q.is_cuda else None}
+               "strided_view": bool(layers),
+               "lens": [int(x) for x in lens[:4 if edges is None else b]],
+               "max_abs_err": err, "splits": splits}
         if b > 1:   # a row no key may see, and one past the bucket
             odd = lens.clone()
             odd[0], odd[1] = 0, t + 5
@@ -4230,11 +4299,21 @@ def phase_decode_kernel(torch, card, device=None):
             row["library_rel_err"] = _rel_err(sdpa().transpose(1, 2),
                                               fa.decode_attention_reference(q, k, v, lens))
             row["ms"] = device_ms(torch, lambda: fa._launch_decode(q, k, v, lens))
+            empty = torch.zeros_like(lens)   # no key read: the launch, merge and store
+            row["empty_ms"] = device_ms(torch, lambda: fa._launch_decode(q, k, v, empty))
+            row["host_us"] = host_us(torch, lambda: fa._launch_decode(q, k, v, lens))
             row["plain_ms"] = device_ms(torch, lambda: fa.decode_attention_reference(
                 q, k, v, lens))
             row["library_ms"] = device_ms(torch, sdpa)
             row["k3_q1_ms"] = device_ms(torch, k3)
             row["bound_ms"], row["bound_by"] = decode_bound_ms(q, k, lens)
+            if on_card:   # the split rule's alternatives, each checked
+                row["ms_by_splits"] = {}
+                for s_ in DECODE_SPLITS_SWEPT:
+                    run = lambda: fa._launch_decode(q, k, v, lens, splits=s_)
+                    check_decode(torch, fa, f"{label} at {s_} splits", run(), q, k, v,
+                                 lens)
+                    row["ms_by_splits"][s_] = device_ms(torch, run)
             del km, kc, vc, qh, kh, vh, mask, o3
         rows[label] = row
         log(f"decode {label}: {json.dumps(row)}  [{card}]")
@@ -4250,9 +4329,13 @@ def phase_decode_kernel(torch, card, device=None):
              "launches": None, "max_abs_err": worst,
              **{key: main[key] for key in ("ms", "plain_ms", "bound_ms", "bound_by",
                                           "library_ms", "k3_q1_ms")},
+             "host_us": main["host_us"],
              "long": {lab: {key: rows[lab][key] for key in
                             ("ms", "plain_ms", "bound_ms", "library_ms", "k3_q1_ms")}
-                      for lab in ("long_f32", "long_bf16") if lab in rows}}
+                      for lab in ("long_f32", "long_bf16") if lab in rows},
+             "short": {lab: {key: rows[lab][key] for key in
+                             ("ms", "plain_ms", "bound_ms", "library_ms", "k3_q1_ms")}
+                       for lab in ("engine_t64_f32",) if lab in rows}}
     return entry, rows
 
 
@@ -4352,10 +4435,15 @@ def check_step_logits(eng, model, cache, prompt, steps, pack_bucket):
     return worst
 
 
-def profile_decode_step(torch, eng, cache, prompts, rows):
+K7_KERNEL = "decode_attention_kernel"   # K7's device kernel, by name
+
+
+def profile_decode_step(torch, eng, cache, prompts, rows, layers):
     """One engine step of `rows` requests (prefilled from `prompts`, the
     engine paused) under torch.profiler (`profile_call`): its device busy
-    time against its wall, where a step's time goes."""
+    time against its wall, where a step's time goes. Fails unless the step
+    ran K7's device kernel once a layer (`layers` calls): one kernel a
+    decode_attention call."""
     ad = eng.adapter
     rids = [-2 - i for i in range(rows)]
     items = [(rid, np.asarray(p, np.int32)) for rid, p in zip(rids, prompts)]
@@ -4375,8 +4463,12 @@ def profile_decode_step(torch, eng, cache, prompts, rows):
                 last.update(out)
                 torch.cuda.synchronize()
 
-            return profile_call(torch, f"decode step of {rows} rows", one_step,
-                                {"rows": rows})
+            prof = profile_call(torch, f"decode step of {rows} rows", one_step,
+                                {"rows": rows}, count=K7_KERNEL)
+            if prof["counted_calls"] != layers:
+                raise RuntimeError(f"decode step profile: {prof['counted_calls']} "
+                                   f"K7 kernels in a step of {layers} layers")
+            return prof
         finally:
             for rid in rids:
                 cache.free(rid)
@@ -4520,7 +4612,7 @@ def phase_decode_serving(torch, card, device=None):
         logits_err = max(check_step_logits(eng, model, cache, p, 8, g["pack_bucket"])
                          for p in prompts[:2])
         profile = profile_decode_step(torch, eng, cache, prompts,
-                                      g["max_decode_batch"])
+                                      g["max_decode_batch"], g["layers"])
         chaos = decode_chaos(eng, model, cache, prompts[:2], g["max_new_tokens"],
                              g["pack_bucket"])
     finally:

@@ -24,27 +24,58 @@
 // bfloat16, far under the card's ~20 float32 flops a byte of device memory.
 // So there is no tensor-core work to do (a 64-row tile would waste 63 of its
 // rows) and the aim is to stream the valid prefixes of K and V at the
-// memory's rate, from enough blocks to fill the card.
+// memory's rate, from enough blocks to fill the card, in one launch.
 //
-// Design: split-KV ("flash-decoding"), two launches.
-// * Partial pass, grid (b * h, splits): block (bh, s) takes keys
-//   [s * chunk, min((s + 1) * chunk, n_i)) and returns at once when that
-//   range is empty. Its 4 warps are cut into lane groups of G lanes (G the
-//   power of two that covers d in 16-byte pieces: 8 lanes for d 32 in
-//   float32, 32 for d 128; one element a lane where d or the strides are not
-//   whole 16-byte pieces). A group takes one key at a time, kUnroll keys in
-//   flight: each lane loads its 16 bytes of k and of v, the dot product is
-//   summed across the group by butterfly shuffles (every lane gets the same
-//   sum), and the group keeps a running max m, sum l and a d-wide
-//   accumulator in float32 registers (online softmax). The block then
-//   merges its groups through shared memory by their maxima and writes one
-//   partial (m, l, acc[d]) to a float32 scratch.
-// * Combine pass, grid (b * h): merges the ceil(n_i / chunk) partials of
-//   the row by their maxima, divides by the merged sum, and rounds once to
-//   the output type.
-// The wrapper (ops/flash_attention.py) picks the split count from the bucket
-// length and the SM count (it cannot read cache_len without a sync) and
-// allocates the scratch.
+// Design: split-KV ("flash-decoding") in one launch.
+// * Grid b * h * S blocks; the S blocks of one (row, head) form a thread
+//   block cluster (S <= 8, the portable size, chosen by the wrapper from
+//   b * h, t_kv and the SM count: cache_len lives on the device and the host
+//   never reads it). A block has 4 warps, or 8 where it takes at least
+//   kWideKeys keys of the bucket: there a block streams long enough that
+//   twice the lanes (and twice the ring) keep more of its keys in flight.
+// * Per-row split, on the device: block s of row i takes keys
+//   [s c_i, min((s + 1) c_i, n_i)), c_i = ceil(n_i / S) rounded up to one
+//   iteration of the block (its lane groups times kGroupKeys). A short row's
+//   surplus blocks have no keys at all, and a long row's blocks carry n_i / S
+//   keys each, not t_kv / S. A block with no keys does not return: it holds
+//   m = -inf, l = 0 and takes part in the merge.
+// * Lane groups: the warps are cut into groups of G lanes (G the power of
+//   two that covers d in 16-byte pieces: 8 lanes for d 32 in float32, 16 for
+//   d 128 in bfloat16, 32 for d 128 in float32; one element a lane where d
+//   or the strides are not whole 16-byte pieces). A group takes one key at
+//   a time: the dot product is summed across the group by butterfly
+//   shuffles (every lane gets the same sum), and the group keeps a running
+//   max m, sum l and a d-wide accumulator in float32 registers (online
+//   softmax). The key loop has a block-uniform trip count (the shuffles need
+//   the whole warp) and masks keys past the block's range instead of
+//   branching around them.
+// * Streaming (the 16-byte route): K and V pass through a ring of kStages
+//   stages in shared memory, filled with cp.async.cg 16-byte copies, one
+//   commit group a stage; a lane computes on stage it while the next
+//   kStages - 1 are in flight. Each lane copies exactly the 16-byte pieces
+//   it later reads itself, so the ring needs no __syncthreads: a lane's
+//   cp.async.wait_group covers its own copies. cp.async and not
+//   cp.async.bulk (TMA's one-dimensional copy): a key row of one head is
+//   128-512 bytes, so one bulk copy and mbarrier per row would cost the
+//   issuing thread about as much as the lanes' own copies, and every lane
+//   group would then wait on rows other warps issued, behind a block-wide
+//   barrier a stage. Keys past the range are zero-filled (src-size 0), never
+//   read. The element route (d or a stride not a whole number of 16-byte
+//   pieces) keeps register loads, kGroupKeys keys a group in flight.
+// * Merge: each block merges its groups by their maxima into (m, l, acc[d])
+//   and writes it into rank 0's shared memory, slot `rank`, through
+//   distributed shared memory (a store does not wait on the peer). One
+//   cluster barrier later rank 0 holds every partial: it merges them by
+//   their maxima, divides by the merged sum and rounds once to the output
+//   type. Rank 0 reads no other block's shared memory, so no block has to
+//   stay resident for it and one barrier is enough; a barrier arrival at the
+//   kernel's start, waited on just before the stores, makes sure rank 0 has
+//   started before anyone writes to it. (Rank 0 pulling the partials
+//   instead takes a second barrier, to keep the others resident until it
+//   has read them, and the round trip of its remote loads: slower at every
+//   cluster size on the card.) S = 1 is the same kernel with a plain launch
+//   and no cluster barrier. There is no scratch in device memory and no
+//   second kernel.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
@@ -54,11 +85,11 @@ namespace {
 
 using bf16 = __nv_bfloat16;
 
-constexpr int kWarps = 4;
-constexpr int kThreads = kWarps * 32;
 constexpr int kMaxHeadDim = 128;
-constexpr int kUnroll = 4;   // keys a lane group has in flight
-constexpr int kCombineThreads = 128;
+constexpr int kMaxSplits = 8;   // a portable cluster
+constexpr int kStages = 3;      // the ring's depth (16-byte route)
+constexpr int kGroupKeys = 4;   // keys a lane group takes an iteration
+constexpr int kWideKeys = 512;  // bucket keys a block from which it has 8 warps
 
 __device__ __forceinline__ float to_float(float v) { return v; }
 __device__ __forceinline__ float to_float(bf16 v) { return __bfloat162float(v); }
@@ -66,7 +97,8 @@ __device__ __forceinline__ void store(float* p, float v) { *p = v; }
 __device__ __forceinline__ void store(bf16* p, float v) { *p = __float2bfloat16_rn(v); }
 
 // VEC consecutive elements at p into f[0, VEC), as float: one 16-byte load
-// (4 float32 or 8 bfloat16) or, for VEC 1, one element.
+// (4 float32 or 8 bfloat16) or, for VEC 1, one element. p may point into
+// global or shared memory.
 template <typename T, int VEC>
 __device__ __forceinline__ void load(const T* p, float* f) {
   if constexpr (VEC == 1) {
@@ -85,42 +117,132 @@ __device__ __forceinline__ void load(const T* p, float* f) {
   }
 }
 
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// 16 bytes from global src to shared dst, or 16 zero bytes (nothing read)
+// where !ok.
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool ok) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+               :: "r"(smem_addr(dst)), "l"(src), "r"(ok ? 16 : 0) : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// Until at most N of this thread's newest commit groups are in flight.
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory");
+}
+
+// The first half of a cluster barrier, with no memory ordering: this block
+// has started. cluster_wait completes it.
+__device__ __forceinline__ void cluster_arrive_relaxed() {
+  asm volatile("barrier.cluster.arrive.relaxed.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.aligned;\n" ::: "memory");
+}
+
+// A cluster-wide barrier that also orders every block's stores to shared
+// memory (its peers' too) before the loads after it.
+__device__ __forceinline__ void cluster_sync() {
+  asm volatile("barrier.cluster.arrive.release.aligned;\n"
+               "barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+
+// `local`'s counterpart in the shared memory of the cluster's block `rank`,
+// as a generic address: plain stores through it write that block's shared
+// memory (distributed shared memory).
+__device__ __forceinline__ float* rank_ptr(float* local, int rank) {
+  float* remote;
+  asm("mapa.u64 %0, %1, %2;\n" : "=l"(remote) : "l"(local), "r"(rank));
+  return remote;
+}
+
 // Pieces of VEC elements a lane holds: a group of 32 lanes covers d = 128 at
 // one element a lane in 4 pieces; every other group covers d in one.
 template <int VEC, int G>
 __host__ __device__ constexpr int pieces() { return G == 32 ? (kMaxHeadDim / VEC + 31) / 32 : 1; }
 
-template <typename T, int VEC, int G>
-__global__ void __launch_bounds__(kThreads)
-decode_partial_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                      const T* __restrict__ v, const int* __restrict__ cache_len,
-                      float* __restrict__ part_acc, float* __restrict__ part_ml,
-                      int h, int t, int d, long long k_sb, long long k_st,
-                      long long v_sb, long long v_st, int chunk, float scale) {
-  constexpr int P = pieces<VEC, G>();
-  constexpr int E = P * VEC;            // elements of a row a lane holds
-  constexpr int NG = kWarps * (32 / G);  // lane groups a block
-  constexpr int STRIDE = E * G;          // a group's row in shared memory (>= d)
-  __shared__ float sm_acc[NG * STRIDE];
-  __shared__ float sm_m[NG], sm_l[NG], sm_w[NG];
+template <int G, int W>
+__host__ __device__ constexpr int groups() { return W * (32 / G); }
 
-  const int bh = blockIdx.x, split = blockIdx.y;
+// The ring: kStages x kGroupKeys x (K, V) x threads 16-byte slots, a lane's
+// slots 16 bytes apart from its neighbours' (conflict-free reads).
+template <int VEC, int W>
+__host__ __device__ constexpr int ring_bytes() {
+  return VEC > 1 ? kStages * kGroupKeys * 2 * W * 32 * 16 : 0;
+}
+
+// Floats of the merge area: the groups' accumulators (a row of pieces x VEC
+// x G each), their m, l and weights, then, used on rank 0, a slot of acc[d],
+// m, l for each block of the cluster.
+template <int VEC, int G, int W>
+__host__ __device__ constexpr int merge_floats() {
+  return groups<G, W>() * pieces<VEC, G>() * VEC * G + 3 * groups<G, W>() +
+         kMaxSplits * (kMaxHeadDim + 2);
+}
+
+template <int VEC, int G, int W>
+__host__ __device__ constexpr int smem_bytes() {
+  return ring_bytes<VEC, W>() + 4 * merge_floats<VEC, G, W>();
+}
+static_assert(smem_bytes<8, 16, 8>() <= 227 * 1024 && smem_bytes<4, 32, 8>() <= 227 * 1024,
+              "a block's shared memory is at most 227 KB");
+
+// W warps a block.
+template <typename T, int VEC, int G, int W>
+__global__ void __launch_bounds__(W * 32)
+decode_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                        const T* __restrict__ v, const int* __restrict__ cache_len,
+                        T* __restrict__ o, int h, int t, int d, long long k_sb,
+                        long long k_st, long long v_sb, long long v_st, int splits,
+                        float scale) {
+  constexpr bool kStaged = VEC > 1;
+  constexpr int kThreads = W * 32;
+  constexpr int P = pieces<VEC, G>();
+  constexpr int E = P * VEC;              // elements of a row a lane holds
+  constexpr int NG = groups<G, W>();      // lane groups a block
+  constexpr int KG = kGroupKeys;
+  constexpr int U = NG * KG;              // keys a block takes an iteration
+  constexpr int STRIDE = E * G;           // a group's row in the merge area (>= d)
+  constexpr int SLOT = kMaxHeadDim + 2;   // a block's partial on rank 0: acc[d], m, l
+  extern __shared__ __align__(16) unsigned char smem[];
+  unsigned char* ring = smem;
+  float* sm_acc = reinterpret_cast<float*>(smem + ring_bytes<VEC, W>());
+  float* sm_m = sm_acc + NG * STRIDE;
+  float* sm_l = sm_m + NG;
+  float* sm_w = sm_l + NG;
+  float* recv = sm_w + NG;                // rank 0: the cluster's partials
+
+  const bool cluster = splits > 1;
+  if (cluster) cluster_arrive_relaxed();  // this block has started; waited on below
+  const int bh = blockIdx.x / splits;
+  const int rank = blockIdx.x - bh * splits;   // = %cluster_ctarank
   const int i = bh / h, hh = bh - i * h;
-  const int n = min(cache_len[i], t);
-  const int lo = split * chunk;
-  if (lo >= n) return;   // the whole chunk lies past the valid prefix
+  const int n = max(0, min(cache_len[i], t));
+  const int per = (n + splits - 1) / splits;
+  const int chunk = (per + U - 1) / U * U;
+  const int lo = min(rank * chunk, n);
   const int hi = min(lo + chunk, n);
+  const int iters = (hi - lo + U - 1) / U;   // 0 for a block with no keys
   const int lane = threadIdx.x & 31;
   const int r = lane & (G - 1);                        // lane within its group
   const int grp = (threadIdx.x >> 5) * (32 / G) + lane / G;
   const int pieces_d = (d + VEC - 1) / VEC;
 
+  const T* qb = q + (long long)bh * d;
   float qf[E];
 #pragma unroll
   for (int p = 0; p < P; ++p) {
     const int piece = p * G + r;
     if (piece < pieces_d) {
-      load<T, VEC>(q + (long long)bh * d + piece * VEC, qf + p * VEC);
+      load<T, VEC>(qb + piece * VEC, qf + p * VEC);
     } else {
 #pragma unroll
       for (int x = 0; x < VEC; ++x) qf[p * VEC + x] = 0.f;
@@ -135,55 +257,92 @@ decode_partial_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
   for (int e = 0; e < E; ++e) acc[e] = 0.f;
 
-  // Warp-uniform trip count: every lane runs every iteration (the shuffles
-  // need the whole warp); a group whose key lies past hi loads nothing.
-  for (int base = lo; base < hi; base += NG * kUnroll) {
-    float kf[kUnroll][E], vf[kUnroll][E];
+  // This lane's ring slot for key u of a stage (kv 0: K, 1: V).
+  auto slot = [&](int stage, int u, int kv) {
+    return reinterpret_cast<T*>(ring + (((stage * KG + u) * 2 + kv) * kThreads +
+                                        threadIdx.x) * 16);
+  };
+  // Iteration it's keys into its stage (16-byte route; P = 1 there).
+  auto issue = [&](int it) {
+    const int stage = it % kStages;
 #pragma unroll
-    for (int u = 0; u < kUnroll; ++u) {
-      const int j = base + u * NG + grp;
+    for (int u = 0; u < KG; ++u) {
+      const int j = lo + it * U + u * NG + grp;
+      const bool ok = j < hi && r < pieces_d;
+      cp_async16(slot(stage, u, 0), ok ? kb + j * k_st + r * VEC : qb, ok);
+      cp_async16(slot(stage, u, 1), ok ? vb + j * v_st + r * VEC : qb, ok);
+    }
+  };
+  if constexpr (kStaged) {
 #pragma unroll
-      for (int p = 0; p < P; ++p) {
-        const int piece = p * G + r;
-        if (j < hi && piece < pieces_d) {
-          load<T, VEC>(kb + j * k_st + piece * VEC, kf[u] + p * VEC);
-          load<T, VEC>(vb + j * v_st + piece * VEC, vf[u] + p * VEC);
-        } else {
+    for (int s = 0; s < kStages - 1; ++s) {
+      if (s < iters) issue(s);
+      cp_async_commit();
+    }
+  }
+
+  for (int it = 0; it < iters; ++it) {
+    float kf[KG][E], vf[KG][E];
+    if constexpr (kStaged) {
+      cp_async_wait<kStages - 2>();   // this lane's copies of stage it landed
 #pragma unroll
-          for (int x = 0; x < VEC; ++x) kf[u][p * VEC + x] = vf[u][p * VEC + x] = 0.f;
+      for (int u = 0; u < KG; ++u) {
+        load<T, VEC>(slot(it % kStages, u, 0), kf[u]);
+        load<T, VEC>(slot(it % kStages, u, 1), vf[u]);
+      }
+      // Refill the slot this lane read at it - 1.
+      if (it + kStages - 1 < iters) issue(it + kStages - 1);
+      cp_async_commit();
+    } else {
+#pragma unroll
+      for (int u = 0; u < KG; ++u) {
+        const int j = lo + it * U + u * NG + grp;
+#pragma unroll
+        for (int p = 0; p < P; ++p) {
+          const int piece = p * G + r;
+          if (j < hi && piece < pieces_d) {
+            load<T, VEC>(kb + j * k_st + piece * VEC, kf[u] + p * VEC);
+            load<T, VEC>(vb + j * v_st + piece * VEC, vf[u] + p * VEC);
+          } else {
+#pragma unroll
+            for (int x = 0; x < VEC; ++x) kf[u][p * VEC + x] = vf[u][p * VEC + x] = 0.f;
+          }
         }
       }
     }
-    float s[kUnroll];
+    float s[KG];
     float m_new = m;
 #pragma unroll
-    for (int u = 0; u < kUnroll; ++u) {
+    for (int u = 0; u < KG; ++u) {
       float dot = 0.f;
 #pragma unroll
       for (int e = 0; e < E; ++e) dot = fmaf(qf[e], kf[u][e], dot);
 #pragma unroll
       for (int off = G / 2; off > 0; off >>= 1)
         dot += __shfl_xor_sync(0xffffffffu, dot, off);
-      const bool valid = base + u * NG + grp < hi;
+      const bool valid = lo + it * U + u * NG + grp < hi;
       s[u] = valid ? dot : -INFINITY;
       m_new = fmaxf(m_new, s[u]);
     }
-    if (m_new == -INFINITY) continue;   // no key of this group yet
-    const float corr = expf(m - m_new);  // 0 on the group's first key
-    l *= corr;
+    if (m_new != -INFINITY) {   // else no key of this group yet
+      const float corr = expf(m - m_new);   // 0 on the group's first key
+      l *= corr;
 #pragma unroll
-    for (int e = 0; e < E; ++e) acc[e] *= corr;
+      for (int e = 0; e < E; ++e) acc[e] *= corr;
 #pragma unroll
-    for (int u = 0; u < kUnroll; ++u) {
-      const float p = expf(s[u] - m_new);   // 0 for a key past hi
-      l += p;
+      for (int u = 0; u < KG; ++u) {
+        const float p = expf(s[u] - m_new);   // 0 for a key past hi (its v is 0)
+        l += p;
 #pragma unroll
-      for (int e = 0; e < E; ++e) acc[e] = fmaf(p, vf[u][e], acc[e]);
+        for (int e = 0; e < E; ++e) acc[e] = fmaf(p, vf[u][e], acc[e]);
+      }
+      m = m_new;
     }
-    m = m_new;
   }
+  if constexpr (kStaged) cp_async_wait<0>();   // only empty groups are left
 
-  // Merge the block's groups by their maxima.
+  // Merge the block's groups by their maxima (m = -inf, l = 0, acc = 0 for a
+  // block with no keys) into its slot on rank 0.
 #pragma unroll
   for (int p = 0; p < P; ++p)
 #pragma unroll
@@ -195,137 +354,185 @@ decode_partial_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
   __syncthreads();
   float mb = -INFINITY;
-  for (int g = 0; g < NG; ++g) mb = fmaxf(mb, sm_m[g]);   // finite: lo < n
+  for (int g = 0; g < NG; ++g) mb = fmaxf(mb, sm_m[g]);
   if (threadIdx.x < NG) {
     const float mg = sm_m[threadIdx.x];
     sm_w[threadIdx.x] = mg == -INFINITY ? 0.f : expf(mg - mb);
   }
   __syncthreads();
-  const long long slot = (long long)bh * gridDim.y + split;
+  float* dst = recv + rank * SLOT;
+  if (cluster) {
+    cluster_wait();   // every block of the cluster has started: rank 0 is there
+    dst = rank_ptr(dst, 0);
+  }
   for (int e = threadIdx.x; e < d; e += kThreads) {
     float sum = 0.f;
     for (int g = 0; g < NG; ++g) sum = fmaf(sm_w[g], sm_acc[g * STRIDE + e], sum);
-    part_acc[slot * d + e] = sum;
+    dst[e] = sum;
   }
   if (threadIdx.x == 0) {
     float lb = 0.f;
     for (int g = 0; g < NG; ++g) lb = fmaf(sm_w[g], sm_l[g], lb);
-    part_ml[2 * slot] = mb;
-    part_ml[2 * slot + 1] = lb;
+    dst[kMaxHeadDim] = mb;
+    dst[kMaxHeadDim + 1] = lb;
   }
-}
+  if (cluster) cluster_sync();   // every partial has reached rank 0
+  else __syncthreads();
+  if (rank != 0) return;
 
-template <typename T>
-__global__ void __launch_bounds__(kCombineThreads)
-decode_combine_kernel(const float* __restrict__ part_acc,
-                      const float* __restrict__ part_ml,
-                      const int* __restrict__ cache_len, T* __restrict__ o,
-                      int h, int t, int d, int splits, int chunk) {
-  const int bh = blockIdx.x;
-  const int n = min(cache_len[bh / h], t);
-  T* out = o + (long long)bh * d;
-  if (n <= 0) {   // no key to see: 0, as a fully masked flash row
-    for (int e = threadIdx.x; e < d; e += kCombineThreads) store(out + e, 0.f);
-    return;
+  // Rank 0: merge the cluster's partials by their maxima, divide, round once.
+  float w[kMaxSplits];
+  float mc = -INFINITY, lc = 0.f;
+#pragma unroll
+  for (int s = 0; s < kMaxSplits; ++s)
+    if (s < splits) mc = fmaxf(mc, recv[s * SLOT + kMaxHeadDim]);
+#pragma unroll
+  for (int s = 0; s < kMaxSplits; ++s) {
+    const float ms = s < splits ? recv[s * SLOT + kMaxHeadDim] : -INFINITY;
+    w[s] = ms == -INFINITY ? 0.f : expf(ms - mc);
+    if (s < splits) lc = fmaf(w[s], recv[s * SLOT + kMaxHeadDim + 1], lc);
   }
-  const int used = (n + chunk - 1) / chunk;   // partials the first pass wrote
-  const float* ml = part_ml + 2LL * bh * splits;
-  float mb = -INFINITY;
-  for (int s = 0; s < used; ++s) mb = fmaxf(mb, ml[2 * s]);
-  float lb = 0.f;
-  for (int s = 0; s < used; ++s) lb = fmaf(expf(ml[2 * s] - mb), ml[2 * s + 1], lb);
-  const float inv = 1.f / lb;
-  const float* acc = part_acc + (long long)bh * splits * d;
-  for (int e = threadIdx.x; e < d; e += kCombineThreads) {
+  const float inv = lc > 0.f ? 1.f / lc : 0.f;   // lc = 0: no key, output 0
+  T* out = o + (long long)bh * d;
+  for (int e = threadIdx.x; e < d; e += kThreads) {
     float sum = 0.f;
-    for (int s = 0; s < used; ++s) sum = fmaf(expf(ml[2 * s] - mb), acc[(long long)s * d + e], sum);
+#pragma unroll
+    for (int s = 0; s < kMaxSplits; ++s)
+      if (s < splits) sum = fmaf(w[s], recv[s * SLOT + e], sum);
     store(out + e, sum * inv);
   }
 }
 
+constexpr int kMaxDevices = 64;
+
+// Dynamic shared memory above 48 KB must be allowed once per device and
+// instantiation. Two threads racing on a first launch set the same value.
+template <typename T, int VEC, int G, int W>
+cudaError_t allow_smem() {
+  constexpr int bytes = smem_bytes<VEC, G, W>();
+  if constexpr (bytes <= 48 * 1024) {
+    return cudaSuccess;
+  } else {
+    static bool allowed[kMaxDevices];
+    int dev = 0;
+    cudaError_t e = cudaGetDevice(&dev);
+    if (e != cudaSuccess) return e;
+    if (dev >= kMaxDevices) return cudaErrorInvalidDevice;
+    if (!allowed[dev]) {
+      e = cudaFuncSetAttribute(decode_attention_kernel<T, VEC, G, W>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+      if (e != cudaSuccess) return e;
+      allowed[dev] = true;
+    }
+    return cudaSuccess;
+  }
+}
+
+template <typename T, int VEC, int G, int W>
+cudaError_t launch_one(const void* q, const void* k, const void* v, const int* len,
+                       void* o, int bh, int h, int t, int d, long long k_sb,
+                       long long k_st, long long v_sb, long long v_st, int splits,
+                       float scale, cudaStream_t s) {
+  const cudaError_t e = allow_smem<T, VEC, G, W>();
+  if (e != cudaSuccess) return e;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((unsigned)(bh * splits), 1, 1);
+  cfg.blockDim = dim3(W * 32, 1, 1);
+  cfg.dynamicSmemBytes = smem_bytes<VEC, G, W>();
+  cfg.stream = s;
+  cudaLaunchAttribute attr;
+  attr.id = cudaLaunchAttributeClusterDimension;
+  attr.val.clusterDim.x = splits;
+  attr.val.clusterDim.y = 1;
+  attr.val.clusterDim.z = 1;
+  cfg.attrs = &attr;
+  cfg.numAttrs = splits > 1 ? 1 : 0;
+  return cudaLaunchKernelEx(&cfg, decode_attention_kernel<T, VEC, G, W>,
+                            static_cast<const T*>(q), static_cast<const T*>(k),
+                            static_cast<const T*>(v), len, static_cast<T*>(o), h, t, d,
+                            k_sb, k_st, v_sb, v_st, splits, scale);
+}
+
+// The element route (VEC 1) always runs 4 warps.
 template <typename T, int VEC, int G>
-void launch_partial(dim3 grid, cudaStream_t s, const void* q, const void* k,
-                    const void* v, const int* len, float* pacc, float* pml,
-                    int h, int t, int d, long long k_sb, long long k_st,
-                    long long v_sb, long long v_st, int chunk, float scale) {
-  decode_partial_kernel<T, VEC, G><<<grid, kThreads, 0, s>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      len, pacc, pml, h, t, d, k_sb, k_st, v_sb, v_st, chunk, scale);
+cudaError_t launch_by_warps(bool wide, const void* q, const void* k, const void* v,
+                            const int* len, void* o, int bh, int h, int t, int d,
+                            long long k_sb, long long k_st, long long v_sb,
+                            long long v_st, int splits, float scale, cudaStream_t s) {
+  if constexpr (VEC > 1) {
+    if (wide)
+      return launch_one<T, VEC, G, 8>(q, k, v, len, o, bh, h, t, d, k_sb, k_st, v_sb,
+                                      v_st, splits, scale, s);
+  }
+  return launch_one<T, VEC, G, 4>(q, k, v, len, o, bh, h, t, d, k_sb, k_st, v_sb, v_st,
+                                  splits, scale, s);
 }
 
 template <typename T, int VEC>
-void partial_by_group(int G, dim3 grid, cudaStream_t s, const void* q,
-                      const void* k, const void* v, const int* len, float* pacc,
-                      float* pml, int h, int t, int d, long long k_sb,
-                      long long k_st, long long v_sb, long long v_st, int chunk,
-                      float scale) {
-#define DL4J_PARTIAL(g)                                                        \
-  launch_partial<T, VEC, g>(grid, s, q, k, v, len, pacc, pml, h, t, d, k_sb,   \
-                            k_st, v_sb, v_st, chunk, scale)
+cudaError_t launch_by_group(int G, bool wide, const void* q, const void* k,
+                            const void* v, const int* len, void* o, int bh, int h,
+                            int t, int d, long long k_sb, long long k_st,
+                            long long v_sb, long long v_st, int splits, float scale,
+                            cudaStream_t s) {
+#define DL4J_DECODE(g)                                                            \
+  return launch_by_warps<T, VEC, g>(wide, q, k, v, len, o, bh, h, t, d, k_sb,    \
+                                    k_st, v_sb, v_st, splits, scale, s)
   switch (G) {
-    case 1: DL4J_PARTIAL(1); break;
-    case 2: DL4J_PARTIAL(2); break;
-    case 4: DL4J_PARTIAL(4); break;
-    case 8: DL4J_PARTIAL(8); break;
-    case 16: DL4J_PARTIAL(16); break;
-    default: DL4J_PARTIAL(32); break;
+    case 1: DL4J_DECODE(1);
+    case 2: DL4J_DECODE(2);
+    case 4: DL4J_DECODE(4);
+    case 8: DL4J_DECODE(8);
+    case 16: DL4J_DECODE(16);
+    default: DL4J_DECODE(32);
   }
-#undef DL4J_PARTIAL
+#undef DL4J_DECODE
 }
 
 bool aligned16(const void* p) { return (uintptr_t)p % 16 == 0; }
 
 template <typename T>
-int launch(const void* q, const void* k, const void* v, const int* len, void* o,
-           float* pacc, float* pml, int b, int h, int t, int d, long long k_sb,
-           long long k_st, long long v_sb, long long v_st, int splits,
-           cudaStream_t s) {
+cudaError_t launch(const void* q, const void* k, const void* v, const int* len, void* o,
+                   int b, int h, int t, int d, long long k_sb, long long k_st,
+                   long long v_sb, long long v_st, int splits, cudaStream_t s) {
   constexpr int kVec = 16 / sizeof(T);
+  // The 16-byte route (and its cp.async ring) needs every row piece 16-byte
+  // aligned: d, the strides and the base pointers.
   const bool vec = d % kVec == 0 && k_sb % kVec == 0 && k_st % kVec == 0 &&
                    v_sb % kVec == 0 && v_st % kVec == 0 && aligned16(q) &&
                    aligned16(k) && aligned16(v);
   const int pieces_d = vec ? d / kVec : d;
   int G = 1;
   while (G < pieces_d && G < 32) G <<= 1;
-  const int chunk = (t + splits - 1) / splits;
+  const bool wide = (t + splits - 1) / splits >= kWideKeys;
   const float scale = 1.f / sqrtf((float)d);
-  const dim3 grid(b * h, splits);
-  if (vec)
-    partial_by_group<T, kVec>(G, grid, s, q, k, v, len, pacc, pml, h, t, d,
-                              k_sb, k_st, v_sb, v_st, chunk, scale);
-  else
-    partial_by_group<T, 1>(G, grid, s, q, k, v, len, pacc, pml, h, t, d, k_sb,
-                           k_st, v_sb, v_st, chunk, scale);
-  cudaError_t e = cudaGetLastError();
-  if (e != cudaSuccess) return (int)e;
-  decode_combine_kernel<T><<<b * h, kCombineThreads, 0, s>>>(
-      pacc, pml, len, static_cast<T*>(o), h, t, d, splits, chunk);
-  return (int)cudaGetLastError();
+  return vec ? launch_by_group<T, kVec>(G, wide, q, k, v, len, o, b * h, h, t, d, k_sb,
+                                        k_st, v_sb, v_st, splits, scale, s)
+             : launch_by_group<T, 1>(G, wide, q, k, v, len, o, b * h, h, t, d, k_sb,
+                                     k_st, v_sb, v_st, splits, scale, s);
 }
 
 }  // namespace
 
 // q, o: [b, 1, h, d] contiguous; k, v: [b, t, h, d] with batch strides k_sb,
 // v_sb and key strides k_st, v_st in elements (heads contiguous, d apart);
-// cache_len: [b] int32; part_acc: [b * h * splits * d] float32 and part_ml:
-// [b * h * splits * 2] float32 scratch. is_bf16: 0 for float32, 1 for
-// bfloat16. Returns a cudaError_t.
+// cache_len: [b] int32. splits: blocks a (row, head), 1..8, one cluster.
+// is_bf16: 0 for float32, 1 for bfloat16. One launch; returns its
+// cudaError_t (a refused cluster launch included).
 extern "C" int dl4j_decode_attention(const void* q, const void* k, const void* v,
-                                     const void* cache_len, void* o,
-                                     void* part_acc, void* part_ml, int b, int h,
+                                     const void* cache_len, void* o, int b, int h,
                                      int t, int d, long long k_sb, long long k_st,
                                      long long v_sb, long long v_st, int splits,
                                      int is_bf16, void* stream) {
   if (b < 0 || h < 1 || t < 1 || d < 1 || d > kMaxHeadDim || splits < 1 ||
-      splits > t || (long long)b * h > 2147483647LL || splits > 65535)
+      splits > kMaxSplits || (long long)b * h * splits > 2147483647LL)
     return (int)cudaErrorInvalidValue;
   if (b == 0) return (int)cudaSuccess;
   cudaStream_t s = (cudaStream_t)stream;
   const int* len = static_cast<const int*>(cache_len);
-  float* pacc = static_cast<float*>(part_acc);
-  float* pml = static_cast<float*>(part_ml);
-  return is_bf16 ? launch<bf16>(q, k, v, len, o, pacc, pml, b, h, t, d, k_sb, k_st,
-                                v_sb, v_st, splits, s)
-                 : launch<float>(q, k, v, len, o, pacc, pml, b, h, t, d, k_sb, k_st,
-                                 v_sb, v_st, splits, s);
+  cudaError_t e = is_bf16 ? launch<bf16>(q, k, v, len, o, b, h, t, d, k_sb, k_st, v_sb,
+                                         v_st, splits, s)
+                          : launch<float>(q, k, v, len, o, b, h, t, d, k_sb, k_st, v_sb,
+                                          v_st, splits, s);
+  if (e != cudaSuccess) return (int)e;
+  return (int)cudaGetLastError();
 }

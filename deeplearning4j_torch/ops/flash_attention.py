@@ -418,11 +418,19 @@ def flash_attention(q: Tensor, k: Tensor, v: Tensor, *, causal: bool = False,
 # ---------------------------------------------------------------------------
 
 DECODE_IMPLS = ("auto", "flash", "dense")
-#: K7's blocks: at least this many keys each, and about this many blocks an
-#: SM in all (the split count is chosen from the bucket length, not from
-#: cache_len, which lives on the device)
-DECODE_MIN_CHUNK = 64
+#: K7's split rule (`decode_splits`): about DECODE_BLOCKS_PER_SM blocks an SM
+#: in all, a block for every DECODE_MIN_CHUNK keys of the bucket at most, and
+#: no more than DECODE_MAX_SPLITS blocks a (row, head), the portable cluster
+#: that merges them. The host cannot see cache_len (it lives on the device),
+#: so the rule reads the bucket length; each row's keys are then split by its
+#: own length on the device. Measured on an H100 (chip_smoke.py's
+#: `ms_by_splits`): at the decode engine's 32 (row, head) pairs a 64-key
+#: bucket is fastest on one block, a 256-key bucket on two (one block takes
+#: its keys in too many dependent steps, four pay more in cluster barriers
+#: than they save); 64 pairs of 8192 keys want the whole cluster of 8.
+DECODE_MIN_CHUNK = 128
 DECODE_BLOCKS_PER_SM = 4
+DECODE_MAX_SPLITS = 8
 
 
 def _decode_valid(cache_len: Tensor, tk: int, device) -> Tensor:
@@ -470,18 +478,22 @@ _sm_count = {}
 
 
 def decode_splits(device: torch.device, bh: int, t_kv: int) -> int:
-    """K7's split count: enough blocks for DECODE_BLOCKS_PER_SM an SM, each
-    taking at least DECODE_MIN_CHUNK keys of the bucket."""
+    """K7's blocks a (row, head), 1..DECODE_MAX_SPLITS: enough for
+    DECODE_BLOCKS_PER_SM an SM, each taking at least DECODE_MIN_CHUNK keys
+    of the bucket. Reads no device tensor: the same (SM count, bh, t_kv)
+    always give the same count."""
     sms = _sm_count.get(device.index)
     if sms is None:
         sms = _sm_count[device.index] = \
             torch.cuda.get_device_properties(device).multi_processor_count
     want = -(-DECODE_BLOCKS_PER_SM * sms // max(1, bh))
-    return max(1, min(want, -(-t_kv // DECODE_MIN_CHUNK), 65535))
+    return max(1, min(want, -(-t_kv // DECODE_MIN_CHUNK), DECODE_MAX_SPLITS))
 
 
-def _launch_decode(q: Tensor, k: Tensor, v: Tensor, cache_len: Tensor) -> Tensor:
-    """K7 on CUDA tensors; raises on anything it does not take."""
+def _launch_decode(q: Tensor, k: Tensor, v: Tensor, cache_len: Tensor, *,
+                   splits: Optional[int] = None) -> Tensor:
+    """K7 on CUDA tensors, one launch; raises on anything it does not take.
+    `splits` overrides `decode_splits` (for measuring the rule)."""
     global decode_launches
     if q.dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(f"the decode kernel takes float32 or bfloat16, got {q.dtype}")
@@ -503,23 +515,24 @@ def _launch_decode(q: Tensor, k: Tensor, v: Tensor, cache_len: Tensor) -> Tensor
     lens = cache_len.to(device=q.device, dtype=torch.int32).contiguous()
     if lens.shape != (b,):
         raise ValueError(f"cache_len {tuple(lens.shape)}: expected ({b},)")
-    splits = decode_splits(q.device, b * h, tk)
+    if splits is None:
+        splits = decode_splits(q.device, b * h, tk)
+    elif not 1 <= splits <= DECODE_MAX_SPLITS:
+        raise ValueError(f"splits {splits}: the decode kernel takes 1.."
+                         f"{DECODE_MAX_SPLITS}")
     o = torch.empty_like(q)
-    part_acc = torch.empty(b * h * splits * d, dtype=torch.float32, device=q.device)
-    part_ml = torch.empty(b * h * splits * 2, dtype=torch.float32, device=q.device)
     fn = _fns.get("dl4j_decode_attention")
     if fn is None:
         fn = cuda_build.load("decode_attention").dl4j_decode_attention
-        fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 4 + [
+        fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + [
             ctypes.c_longlong] * 4 + [ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
         fn.restype = ctypes.c_int
         _fns["dl4j_decode_attention"] = fn
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), lens.data_ptr(),
-                 o.data_ptr(), part_acc.data_ptr(), part_ml.data_ptr(), b, h, tk, d,
-                 k.stride(0), k.stride(1), v.stride(0), v.stride(1), splits,
-                 int(q.dtype == torch.bfloat16), stream)
+                 o.data_ptr(), b, h, tk, d, k.stride(0), k.stride(1), v.stride(0),
+                 v.stride(1), splits, int(q.dtype == torch.bfloat16), stream)
     if err != 0:
         raise RuntimeError(f"dl4j_decode_attention launch failed: CUDA error {err}")
     with _launches_lock:

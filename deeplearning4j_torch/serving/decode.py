@@ -450,6 +450,7 @@ class TransformerDecoder(nn.Module):
         v_view = torch.as_tensor(v_view, device=self.device)
         b = tok.shape[0]
         rows = torch.arange(b, device=self.device)
+        seen = (lens + 1).to(torch.int32)   # K7's cache_len, the same for every layer
         x = self._embed(tok, pos)[:, None, :]   # [b, 1, d]
         k_toks, v_toks = [], []
         for li, lp in enumerate(self.blocks):
@@ -459,7 +460,7 @@ class TransformerDecoder(nn.Module):
             v_new = self._heads((h @ lp["wv"])[:, 0])
             k_view[rows, lens, li] = k_new.to(k_view.dtype)
             v_view[rows, lens, li] = v_new.to(v_view.dtype)
-            a = decode_attention(q, k_view[:, :, li], v_view[:, :, li], lens + 1)
+            a = decode_attention(q, k_view[:, :, li], v_view[:, :, li], seen)
             x = x + a.reshape(b, 1, self.d_model) @ lp["wo"]
             x = x + self._mlp(_layer_norm(x, lp["ln2_s"], lp["ln2_b"]), lp)
             k_toks.append(k_new)

@@ -93,6 +93,32 @@ def test_decode_kernel_phase(no_card, monkeypatch, case):
     assert rows["engine_f32"]["k3_q1_rel_err"] < 1e-5
 
 
+def test_decode_edge_lens_straddle_the_split_edges():
+    """At 8 splits of 32-key iterations: 1, S - 1, S, S + 1, then either
+    side of 32 S and 64 S, and the bucket. A block of 4 warps takes 4 keys
+    a lane group an iteration (16 groups of 8 lanes at d 32 in float32, 8
+    of 16 at d 128 in bfloat16, 4 of 32 at d 128 in float32); from 512 keys
+    of the bucket a block has 8 warps."""
+    assert chip_smoke.decode_block_keys(32, 4, 128) == 64
+    assert chip_smoke.decode_block_keys(128, 2, 128) == 32
+    assert chip_smoke.decode_block_keys(128, 4, 511) == 16
+    assert chip_smoke.decode_block_keys(128, 2, 512) == 64
+    lens = chip_smoke.decode_edge_lens(12, 512, 8, 32)
+    assert lens.tolist() == [1, 7, 8, 9, 255, 256, 257, 511, 512, 511, 512, 512]
+    assert chip_smoke.decode_edge_lens(3, 16, 1, 128).tolist() == [1, 1, 1]
+
+
+def test_decode_step_profile_counts_one_kernel_a_layer(small_decode, monkeypatch):
+    """A step whose attention took two device kernels a call (a partial and
+    a combine pass) fails the profile's count."""
+    _counting_k7(monkeypatch)
+    monkeypatch.setattr(chip_smoke, "profile_call", lambda torch, label, fn, info,
+                        count=None: (fn(), {"rows": info["rows"], "counted_calls":
+                                            2 * SMALL_DECODE["layers"]})[1])
+    with pytest.raises(RuntimeError, match="2 layers"):
+        chip_smoke.phase_decode_serving(torch, "cpu", device="cpu")
+
+
 def test_decode_bound_counts_the_valid_prefixes():
     q = torch.zeros(2, 1, 4, 32)
     k = torch.zeros(2, 256, 4, 32)
@@ -113,10 +139,17 @@ SMALL_DECODE = dict(vocab=64, layers=2, heads=2, head_dim=8, ff=32, max_context=
 @pytest.fixture
 def small_decode(no_card, monkeypatch):
     monkeypatch.setattr(chip_smoke, "DECODE_GEOMETRY", SMALL_DECODE)
-    monkeypatch.setattr(chip_smoke, "profile_call", lambda torch, label, fn, info: (
-        fn(), {"rows": info["rows"]})[1])
+    monkeypatch.setattr(chip_smoke, "profile_call", _profiled)
     monkeypatch.setattr(chip_smoke, "decode_engine",
                         lambda g, name, device=None: _engine(g, name))
+
+
+def _profiled(torch, label, fn, info, count=None):
+    """profile_call on the CPU: one call of `fn`; the counted kernel calls
+    are the stand-in K7's launches in it."""
+    before = port_fa.decode_launches
+    fn()
+    return {"rows": info["rows"], "counted_calls": port_fa.decode_launches - before}
 
 
 def _engine(g, name, _real=chip_smoke.decode_engine):
@@ -151,7 +184,7 @@ def test_decode_serving_phase(small_decode, monkeypatch, case):
     assert out["chaos"]["died"] == 1 and out["chaos"]["survivor_tokens"] == 8
     assert out["chaos"]["survivor_equals_naive"]
     assert out["step_logits_rel_vs_recompute"] < 1e-5
-    assert out["step_profile"] == {"rows": 4}
+    assert out["step_profile"] == {"rows": 4, "counted_calls": 2}   # one a layer
     assert 0 < out["kv_utilization_peak"] <= 1
 
 

@@ -21,6 +21,7 @@ import numpy as np
 import pytest
 import torch
 
+import chip_smoke
 from deeplearning4j_torch.ops import flash_attention as port_fa
 
 B, H, D = 3, 2, 8
@@ -139,13 +140,46 @@ def test_cpu_tensors_never_launch_the_kernel():
     assert port_fa.decode_launches == before
 
 
+@pytest.mark.parametrize("sms", [1, 78, 132, 144])
+def test_decode_splits_between_one_and_eight(monkeypatch, sms):
+    """K7's split count is 1..8 (a portable cluster) at any SM count,
+    b * h and bucket, and the same for the same arguments: it reads no
+    device tensor."""
+    dev = torch.device("cuda", 0)
+    monkeypatch.setitem(port_fa._sm_count, 0, sms)
+    for bh in (1, 3, 32, 64, 500, 10_000):
+        for t_kv in (1, 16, 63, 64, 65, 256, 8192, 1 << 20):
+            s = port_fa.decode_splits(dev, bh, t_kv)
+            assert 1 <= s <= port_fa.DECODE_MAX_SPLITS == 8
+            assert s == port_fa.decode_splits(dev, bh, t_kv)
+            assert s <= max(1, -(-t_kv // port_fa.DECODE_MIN_CHUNK))
+
+
+def test_decode_splits_follow_the_rule(monkeypatch):
+    """At 132 SMs: the engine's 32 (row, head) pairs take 2 blocks each at
+    a 256-key bucket and 1 at 64 keys; 64 pairs at 8192 keys take the 8 of
+    a full cluster; b * h past the card's blocks takes one."""
+    dev = torch.device("cuda", 0)
+    monkeypatch.setitem(port_fa._sm_count, 0, 132)
+    want = lambda bh, t: max(1, min(-(-port_fa.DECODE_BLOCKS_PER_SM * 132 // bh),
+                                    -(-t // port_fa.DECODE_MIN_CHUNK), 8))
+    for bh, t in ((32, 256), (32, 64), (64, 8192), (4096, 8192), (1, 1)):
+        assert port_fa.decode_splits(dev, bh, t) == want(bh, t)
+    assert port_fa.decode_splits(dev, 32, 256) == 2
+    assert port_fa.decode_splits(dev, 32, 64) == 1
+    assert port_fa.decode_splits(dev, 64, 8192) == 8
+    assert port_fa.decode_splits(dev, 4096, 8192) == 1
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_kernel_matches_plain_on_card(dtype):
     """K7 against its plain version on the card: float32 within 1e-5 of
     max|plain| (sums in another order), bfloat16 within 1e-2 (the output
     rounded once); a strided layer view, head_dim 19 (one element a lane)
-    and 128, cache_len 0 and past the bucket. Each call counts one launch."""
+    and 128, cache_len 0 and past the bucket, and lengths on the edges of
+    the per-row split (`chip_smoke.decode_edge_lens`) at 1-8 splits. Each
+    call counts one launch."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the kernel has no CPU mode")
     dt = getattr(torch, dtype)
@@ -167,6 +201,21 @@ def test_kernel_matches_plain_on_card(dtype):
         assert (got[0] == 0).all()
         err = (got.float() - want).abs().max().item()
         assert err <= rel * want.abs().max().item()
+    # cache_len on the edges of the per-row split, at every split count
+    for b, t, h, d, layers in ((12, 512, 4, 32, 4), (12, 4096, 2, 128, 0)):
+        mk = lambda *s: torch.randn(*s, device="cuda", generator=gen).to(dt)
+        q = mk(b, 1, h, d)
+        k, v = ((mk(b, t, layers, h, d)[:, :, 1], mk(b, t, layers, h, d)[:, :, 1])
+                if layers else (mk(b, t, h, d), mk(b, t, h, d)))
+        want_splits = port_fa.decode_splits(q.device, b * h, t)
+        for splits in sorted({1, 2, 3, 4, 8, want_splits}):
+            unit = chip_smoke.decode_block_keys(d, q.element_size(), -(-t // splits))
+            lens = torch.from_numpy(chip_smoke.decode_edge_lens(b, t, splits, unit)).cuda()
+            got = port_fa._launch_decode(q, k, v, lens, splits=splits)
+            want = port_fa.decode_attention_reference(q.float(), k.float(), v.float(),
+                                                      lens)
+            err = (got.float() - want).abs().max().item()
+            assert err <= rel * want.abs().max().item(), (splits, lens.tolist())
     with pytest.raises(ValueError, match="head_dim"):
         z = torch.zeros(1, 1, 1, 160, device="cuda")
         port_fa.decode_attention(z, z, z, torch.ones(1, dtype=torch.int32, device="cuda"))
