@@ -187,7 +187,29 @@ Phases, each of which fails the script (non-zero exit, no result line):
    char model behind ParallelInference(packed_admission=True, pack_bucket
    8192): K3 = 2 x packed forwards, answers against each request alone, a
    `serve.pack` fault failing one request; requests/s, p50.
-14. One JSON line with every kernel's numbers, then the result line
+14. Data and pretraining (`phase_image_directory_alexnet`,
+   `phase_vae_mnist`, `phase_dbn_mnist`, `phase_records_export`, after the
+   fit loop): a directory of 16 label folders, 640 PPM images of
+   256x256x3 written from a seed, read by ImageRecordReader(224, 224, 3)
+   and ImageRecordReaderDataSetIterator(batch 128, 1000 classes, 8 workers)
+   through a DevicePrefetchIterator into zoo AlexNet's float32 `fit` for
+   one epoch: the host ETL's native arm carries every call (its resize
+   within one grey level of the numpy arm, the share that differs logged),
+   the first batch bitwise a direct decode, resize and scale, K1 and K2
+   reset just before and read just after (2 a step each), the loss finite
+   and the parameters moved; host ETL ms a batch at 1 and 8 workers and
+   by stage, the image-fed step against the array-fed one, one profiled
+   batch. DL4J's VariationalAutoEncoderExample at its widths (784-256-256-2,
+   Bernoulli, RmsProp(1e-3)) `pretrain`ed one epoch over 60,000 synthesized
+   MNIST images (IDX files, scaled to [0, 1]): the held-out negative ELBO
+   falls, a step card vs CPU on the same eps (1e-4), `generate` and
+   `reconstruction_error` on the card. The 784-1000-500-250-30 stack (an
+   RBM with CD-1, three AutoEncoders, a softmax head) `pretrain`ed one epoch
+   over 10,000 images, then `fit`: CD-1 card vs CPU on the same uniforms
+   with near-ties pinned (1e-5), each layer's reconstruction MSE falls, a
+   frozen layer skipped. A CSV through CSVRecordReader into an Iris net's
+   `fit`, and `fit` on exported files bitwise `fit` on the same batches.
+15. One JSON line with every kernel's numbers, then the result line
    {"ok": true, "device": {...}}.
 
 Needs one CUDA GPU; exits non-zero without one.
@@ -4808,6 +4830,580 @@ def phase_packed_admission(torch, card, device=None):
     return result
 
 
+# --------------------------------------- data and pretraining (the DataVec path)
+
+# The image phase at full size: 16 label folders of 256x256x3 PPMs read into
+# 224x224x3 batches of 128 for zoo AlexNet's 1000 classes; W = 1 and 8 ETL
+# workers timed, 8 feeding fit.
+IMAGE_FULL = dict(folders=16, images=640, src_px=256, out_px=224, batch=128,
+                  classes=1000, workers=(1, 8))
+# MNIST through the example's VAE (dl4j-examples VariationalAutoEncoderExample)
+VAE_FULL = dict(n_train=60000, encoder=(256, 256), decoder=(256, 256), latent=2,
+                batch=128, profiled_steps=10)
+# the 784-1000-500-250-30 stack of Hinton & Salakhutdinov (2006)
+DBN_FULL = dict(n_train=10000, widths=(1000, 500, 250, 30), batch=128)
+VAE_STEP_REL = 1e-4   # a VAE step's loss and gradients, card vs CPU, relative norm
+CD_STAT_REL = 1e-5    # CD-1 statistics, card vs CPU, relative norm
+CD_NEAR = 1e-6        # a Bernoulli decision is pinned where |u - p| < CD_NEAR
+SCALE_ULP = 1e-7      # native (x * (1/255)) against numpy (x / 255) scaling
+
+
+def _sync(torch, device):
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize()
+
+
+def write_image_directory(root, folders, per_folder, px, seed=2061):
+    """`folders` label folders of `per_folder` PPMs of px x px x 3 under
+    `root`, from a numpy seed: class k is a stripe texture of its own angle,
+    frequency and tint, plus noise, so that the classes can be learned."""
+    import shutil
+    from deeplearning4j_torch.data.images import write_ppm
+    shutil.rmtree(root, ignore_errors=True)
+    rng = np.random.default_rng(seed)
+    yy, xx = np.mgrid[0:px, 0:px].astype(np.float32) / px
+    for k in range(folders):
+        angle = np.pi * k / folders
+        freq = 4.0 + 3.0 * (k % 4)
+        wave = np.sin(2 * np.pi * freq * (np.cos(angle) * xx + np.sin(angle) * yy))
+        tint = np.array([0.5 + 0.5 * ((k + c) % 3 == 0) for c in range(3)], np.float32)
+        base = (128.0 + 90.0 * wave)[:, :, None] * tint
+        noise = rng.integers(-24, 25, (per_folder, px, px, 3), dtype=np.int16)
+        imgs = np.clip(base[None] + noise, 0, 255).astype(np.uint8)
+        d = os.path.join(root, f"class_{k:02d}")
+        os.makedirs(d)
+        for i, img in enumerate(imgs):
+            write_ppm(os.path.join(d, f"{i:04d}.ppm"), img)
+
+
+def etl_ms_per_batch(make_iterator):
+    """Host ms a batch of one pass over a fresh image iterator (decode,
+    resize, stack, scale, one-hot), and the batches' count."""
+    it = make_iterator()
+    t0 = time.perf_counter()
+    n = sum(1 for _ in it)
+    return (time.perf_counter() - t0) * 1e3 / n, n
+
+
+def etl_breakdown(files, px, workers):
+    """Host ms of each ETL stage over one batch's files: decode, the resize
+    on the calling thread (its OpenMP team), the resize over a pool of
+    `workers` threads each capped at one OpenMP thread (as the iterator
+    runs it), the stack and the u8->f32 scale."""
+    from concurrent.futures import ThreadPoolExecutor
+    from deeplearning4j_torch import native_etl
+    from deeplearning4j_torch.data.images import decode_image
+    resize = lambda im: native_etl.resize_bilinear(im, px, px)
+    out = {}
+    t0 = time.perf_counter()
+    decoded = [decode_image(p, 3) for p in files]
+    out["decode_ms"] = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    resized = [resize(im) for im in decoded]
+    out["resize_ms_calling_thread"] = (time.perf_counter() - t0) * 1e3
+    with ThreadPoolExecutor(workers, initializer=native_etl.set_omp_threads,
+                            initargs=(1,)) as pool:
+        list(pool.map(resize, decoded[:workers]))   # the workers started
+        t0 = time.perf_counter()
+        list(pool.map(resize, decoded))
+        out[f"resize_ms_{workers}_workers"] = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    batch = np.stack(resized)
+    out["stack_ms"] = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    native_etl.u8_to_f32_scaled(batch)
+    out["scale_ms"] = (time.perf_counter() - t0) * 1e3
+    return out
+
+
+def phase_image_directory_alexnet(torch, card, device=None, size=None):
+    """(a) The DataVec image path feeding zoo AlexNet at its published width:
+    a directory of `folders` label folders of PPM images written from a
+    seed, read by ImageRecordReader(out_px, out_px, 3) and
+    ImageRecordReaderDataSetIterator(batch, classes, workers=W), staged by a
+    DevicePrefetchIterator, and `fit` float32 for one epoch (images / batch
+    steps). Checks: the native arm carries every ETL call of that run; the
+    native resize and scale within one grey level of the numpy arm (the
+    share of pixels that differ logged); the first batch bitwise a direct
+    decode, resize and scale of its files; K1 and K2 counted twice a step,
+    reset just before fit and read just after; the loss finite and the
+    parameters moved. Readings: host ETL ms a batch at each W and one
+    batch's ETL by stage (`etl_breakdown`), the image-fed step against the
+    array-fed prefetched step, and one profiled batch."""
+    from deeplearning4j_torch import native_etl
+    from deeplearning4j_torch.data.images import (
+        ImageRecordReader, ImageRecordReaderDataSetIterator, decode_image)
+    from deeplearning4j_torch.data.iterators import DevicePrefetchIterator
+    from deeplearning4j_torch.models.zoo import AlexNet
+    s = dict(IMAGE_FULL, **(size or {}))
+    dev = torch.device(device or "cuda")
+    root = os.path.join(ROOT, "build", "image_directory")
+    per = s["images"] // s["folders"]
+    t0 = time.perf_counter()
+    write_image_directory(root, s["folders"], per, s["src_px"])
+    write_s = time.perf_counter() - t0
+    if not native_etl.available():
+        raise RuntimeError("image directory: the host ETL's native arm did not "
+                           "build or load")
+    px, batch = s["out_px"], s["batch"]
+    reader = ImageRecordReader(px, px, 3, root=root)
+    make = lambda w, r=reader: ImageRecordReaderDataSetIterator(
+        r, batch_size=batch, num_classes=s["classes"], workers=w)
+    result = {"card": card, "images": len(reader), "folders": len(reader.labels),
+              "src_px": s["src_px"], "out_px": px, "batch": batch,
+              "write_s": write_s, "etl_built_with": native_etl.built_with()}
+
+    # 1. the ETL arms and the first batch against a direct decode
+    first = next(iter(make(max(s["workers"]))))
+    files = [p for p, _ in reader.items[:batch]]
+    decoded = [decode_image(p, 3) for p in files]
+    resized = np.stack([native_etl.resize_bilinear(im, px, px) for im in decoded])
+    direct = native_etl.u8_to_f32_scaled(resized)
+    if not np.array_equal(first.features, direct):
+        raise RuntimeError("image directory: the first batch is not bitwise a "
+                           "direct decode, resize and scale of its files")
+    with native_etl.numpy_arm():
+        plain_resized = np.stack([native_etl.resize_bilinear(im, px, px)
+                                  for im in decoded])
+        plain_scaled = native_etl.u8_to_f32_scaled(resized)
+    grey = np.abs(resized.astype(np.int16) - plain_resized.astype(np.int16))
+    scale_diff = np.abs(direct - plain_scaled)
+    if grey.max() > 1 or scale_diff.max() > SCALE_ULP:
+        raise RuntimeError(f"image directory: native resize {int(grey.max())} grey "
+                           f"levels and scale {float(scale_diff.max())} off the "
+                           "numpy arm")
+    result["arms"] = {"resize_max_grey_levels": int(grey.max()),
+                      "resize_share_differing": float(np.mean(grey > 0)),
+                      "scale_max_abs_diff": float(scale_diff.max()),
+                      "scale_share_not_bitwise": float(np.mean(scale_diff > 0))}
+    log(f"image directory: native ETL arm (built with "
+        f"{' '.join(result['etl_built_with'])}) against numpy "
+        f"{json.dumps(result['arms'])}")
+
+    # 2. host ETL ms a batch at each worker count (the files in the page cache)
+    result["etl_ms_per_batch"] = {}
+    for w in s["workers"]:
+        ms, n = etl_ms_per_batch(lambda w=w: make(w))
+        result["etl_ms_per_batch"][str(w)] = ms
+    result["etl_breakdown"] = etl_breakdown(files, px, max(s["workers"]))
+    log(f"image directory: host ETL ms a batch by workers "
+        f"{json.dumps(result['etl_ms_per_batch'])}, one batch by stage "
+        f"{json.dumps(result['etl_breakdown'])}  [{card}]")
+
+    # 3. the main path: fit fed by the directory, staged on the device
+    net = AlexNet(input_shape=(px, px, 3), num_labels=s["classes"]).init(device=dev)
+    steps = -(-len(reader) // batch)
+    w_fit = max(s["workers"])
+    feed = lambda: DevicePrefetchIterator(make(w_fit), depth=2,
+                                          cast_dtype=torch.float32, device=dev)
+    before = {k: t.detach().clone() for k, t in net.params_tree[0].items()}
+    _sync(torch, dev)
+    native_etl.reset_calls()
+    zero_launches()   # the main path's run starts here
+    net.fit(feed(), pad_to_bucket=False)
+    launches = all_launches()   # ... and ends here
+    etl_calls = dict(native_etl.calls)
+    want = dict.fromkeys(launches, 0)
+    want.update(lrn_fwd=2 * steps, lrn_bwd=2 * steps)
+    if launches != want or net.iteration != steps:
+        raise RuntimeError(f"image directory: {net.iteration} steps, launches "
+                           f"{launches}, expected {want}")
+    if etl_calls["numpy"] or not etl_calls["native"]:
+        raise RuntimeError(f"image directory: the ETL calls of fit went "
+                           f"{etl_calls}, not all through the native arm")
+    score = float(net.score_value)
+    moved = any(not torch.equal(a, net.params_tree[0][k]) for k, a in before.items())
+    if not np.isfinite(score) or not moved:
+        raise RuntimeError(f"image directory: score {score}, parameters moved {moved}")
+    result.update(launches=launches, etl_calls=etl_calls, steps=steps, score=score)
+    log(f"image directory fit: {steps} steps, K1/K2 launches "
+        f"{launches['lrn_fwd']}/{launches['lrn_bwd']}, ETL calls {etl_calls}, "
+        f"score {score}")
+
+    # 4. the step fed by images against the same net fed arrays, both warm
+    xs = np.concatenate([ds.features for ds in make(w_fit)])
+    ys = np.concatenate([ds.labels for ds in make(w_fit)])
+    timing = {}
+    for name, call in (("image_fed", lambda: net.fit(feed(), pad_to_bucket=False)),
+                       ("array_fed", lambda: net.fit(xs, ys, batch_size=batch))):
+        call()   # warm
+        _sync(torch, dev)
+        t0 = time.perf_counter()
+        call()
+        _sync(torch, dev)
+        timing[name] = (time.perf_counter() - t0) * 1e3 / steps
+    result["step_ms"] = timing
+    one = ImageRecordReader(px, px, 3, paths=reader.items[:batch],
+                            labels=reader.labels)
+
+    def one_batch():
+        net.fit(DevicePrefetchIterator(make(w_fit, one), depth=2,
+                                       cast_dtype=torch.float32, device=dev),
+                pad_to_bucket=False)
+        _sync(torch, dev)
+
+    result["profile"] = profile_call(torch, "image-fed AlexNet fit, one batch",
+                                     one_batch, {"batch": batch, "workers": w_fit})
+    log(f"image directory: step ms image-fed {timing['image_fed']:.3f} against "
+        f"array-fed {timing['array_fed']:.3f}, idle share of one batch "
+        f"{result['profile'].get('device_idle_share')}  [{card}]")
+    return result
+
+
+def vae_conf(s):
+    """dl4j-examples VariationalAutoEncoderExample: 784 -> (256, 256) -> 2
+    latent -> (256, 256) -> Bernoulli(784), LEAKYRELU, pzx IDENTITY,
+    RmsProp(1e-3), XAVIER, l2 1e-4."""
+    from deeplearning4j_torch import (NeuralNetConfiguration, RmsProp,
+                                      VariationalAutoencoder, WeightInit)
+    return (NeuralNetConfiguration.builder().seed(12345)
+            .updater(RmsProp(learning_rate=1e-3)).weight_init(WeightInit.XAVIER)
+            .l2(1e-4).list()
+            .layer(VariationalAutoencoder(
+                n_in=784, n_out=s["latent"], encoder_layer_sizes=s["encoder"],
+                decoder_layer_sizes=s["decoder"], activation="leakyrelu",
+                pzx_activation="identity", reconstruction_distribution="bernoulli"))
+            .build())
+
+
+def mnist_iterator(path, n_train, batch, seed=2071):
+    """MnistDataSetIterator over `n_train` synthesized MNIST images (real IDX
+    files under `path`), scaled to [0, 1] by ImagePreProcessingScaler."""
+    from deeplearning4j_torch.data.fetchers import (MnistDataSetIterator,
+                                                    synthesize_mnist_idx)
+    from deeplearning4j_torch.data.normalizers import ImagePreProcessingScaler
+    synthesize_mnist_idx(path, n_train=n_train, n_test=batch, seed=seed)
+    it = MnistDataSetIterator(batch, path=path)
+    it.pre_processor = ImagePreProcessingScaler()
+    return it
+
+
+def _grads_given(torch, fn, params):
+    leaves = {k: t.detach().clone().requires_grad_() for k, t in params.items()}
+    with torch.enable_grad():
+        loss = fn(leaves)
+    grads = torch.autograd.grad(loss, list(leaves.values()))
+    return loss.detach(), dict(zip(leaves, grads))
+
+
+def phase_vae_mnist(torch, card, device=None, size=None):
+    """(b) DL4J's VariationalAutoEncoderExample at its published widths:
+    `pretrain` for one epoch over synthesized MNIST (IDX files, scaled to
+    [0, 1]) on the card. Checks: the negative ELBO of a held-out batch
+    (fixed eps) falls; one step's loss and gradients on the card, given the
+    same eps, within VAE_STEP_REL of the CPU port's; `reconstruction_error`
+    and `generate` run on the card. Readings: ms a step, and the idle share
+    of a profiled pretrain of `profiled_steps` steps."""
+    from deeplearning4j_torch import MultiLayerNetwork
+    from deeplearning4j_torch.utils import params as param_utils
+    s = dict(VAE_FULL, **(size or {}))
+    dev = torch.device(device or "cuda")
+    t0 = time.perf_counter()
+    it = mnist_iterator(os.path.join(ROOT, "build", "mnist_vae"), s["n_train"],
+                        s["batch"])
+    synth_s = time.perf_counter() - t0
+    net = MultiLayerNetwork(vae_conf(s)).init(device=dev)
+    layer = net.layers[0]
+    held = torch.as_tensor(next(iter(it)).features, device=dev)
+    eps_gen = lambda: torch.Generator(device=dev).manual_seed(77)
+
+    def elbo():
+        with torch.no_grad():
+            return float(layer.pretrain_loss(net.params_tree[0], held, eps_gen()))
+
+    # 1. one step, card against the CPU port, on the same eps
+    eps = [torch.randn((s["batch"], s["latent"]), generator=torch.Generator()
+                       .manual_seed(78))]
+    step = lambda params, x, e: _grads_given(
+        torch, lambda p: layer.pretrain_loss_given(p, x, e), params)
+    loss_c, grads_c = step(net.params_tree[0], held, [e.to(dev) for e in eps])
+    cpu_params = {k: t.cpu() for k, t in net.params_tree[0].items()}
+    loss_h, grads_h = step(cpu_params, held.cpu(), eps)
+    rel = _layer_rel_errs(param_utils, (grads_c,), (grads_h,))
+    loss_rel = abs(float(loss_c) - float(loss_h)) / abs(float(loss_h))
+    if not (loss_rel <= VAE_STEP_REL and max(rel.values()) <= VAE_STEP_REL):
+        raise RuntimeError(f"VAE: a step on the card against the CPU: loss "
+                           f"{loss_rel}, gradients {rel} (> {VAE_STEP_REL})")
+    # 2. the main path: one epoch of pretrain
+    before = elbo()
+    steps = -(-it.total_examples() // s["batch"])
+    _sync(torch, dev)
+    t0 = time.perf_counter()
+    net.pretrain(it, epochs=1)
+    _sync(torch, dev)
+    ms = (time.perf_counter() - t0) * 1e3 / steps
+    after = elbo()
+    if not (np.isfinite(after) and after < before):
+        raise RuntimeError(f"VAE: the held-out negative ELBO went {before} -> {after}")
+    # 3. reconstruction_error and generate on the card
+    with torch.no_grad():
+        recon = float(layer.reconstruction_error(net.params_tree[0], held))
+        z = torch.randn((16, s["latent"]), device=dev,
+                        generator=torch.Generator(device=dev).manual_seed(79))
+        gen = layer.generate(net.params_tree[0], z)
+    if not (np.isfinite(recon) and gen.shape == (16, 784) and gen.device.type == dev.type
+            and bool(((gen >= 0) & (gen <= 1)).all())):
+        raise RuntimeError(f"VAE: reconstruction error {recon}, generated "
+                           f"{tuple(gen.shape)} on {gen.device}")
+    few = next(iter(it)).features
+    few = np.concatenate([few] * s["profiled_steps"])
+
+    def pretrain_few():
+        net.pretrain(few, epochs=1, batch_size=s["batch"])
+        _sync(torch, dev)
+
+    prof = profile_call(torch, f"VAE pretrain, {s['profiled_steps']} steps",
+                        pretrain_few, {"steps": s["profiled_steps"]})
+    result = {"card": card, "steps": steps, "step_ms": ms, "synth_s": synth_s,
+              "elbo_before": before, "elbo_after": after,
+              "reconstruction_error": recon, "step_vs_cpu": {"loss": loss_rel,
+                                                             "grads": rel},
+              "device_idle_share": prof.get("device_idle_share"), "profile": prof}
+    log(f"VAE MNIST: {steps} pretrain steps, {ms:.3f} ms a step, negative ELBO "
+        f"{before:.3f} -> {after:.3f}, card vs CPU {max(rel.values()):.3g}, idle "
+        f"share {result['device_idle_share']}  [{card}]")
+    return result
+
+
+def dbn_conf(s):
+    """784-1000-500-250-30 (Hinton & Salakhutdinov 2006's encoder): an RBM,
+    three sigmoid AutoEncoders, then a softmax OutputLayer over 10 digits."""
+    from deeplearning4j_torch import (RBM, Adam, AutoEncoder, InputType,
+                                      NeuralNetConfiguration, OutputLayer,
+                                      WeightInit)
+    w = s["widths"]
+    b = (NeuralNetConfiguration.builder().seed(2006)
+         .updater(Adam(learning_rate=1e-3)).weight_init(WeightInit.XAVIER).list()
+         .layer(RBM(n_out=w[0], cd_k=1)))
+    for n in w[1:]:
+        b = b.layer(AutoEncoder(n_out=n, activation="sigmoid", corruption_level=0.2))
+    return (b.layer(OutputLayer(n_out=10, activation="softmax", loss="mcxent"))
+            .set_input_type(InputType.feed_forward(784)).build())
+
+
+def cd_chain(torch, layer, params, x, uniforms, pinned=None):
+    """CD-k by the layer's own prop_up/prop_down from `uniforms`, returning
+    (statistics as `RBM.pretrain_grads_given` forms them, per draw the
+    probabilities and the decisions). `pinned` (per draw: mask, decisions)
+    forces the decisions where the mask is set (`pinned_kinks`' role for
+    Bernoulli draws)."""
+    draws = []
+
+    def sample(i, p):
+        on = uniforms[i] < p
+        if pinned is not None:
+            mask, forced = pinned[i]
+            on = torch.where(mask, forced, on)
+        draws.append((p, on))
+        return on.to(x.dtype)
+
+    with torch.no_grad():
+        h0p = layer.prop_up(params, x)
+        hs, i = sample(0, h0p), 1
+        for k in range(layer.cd_k):
+            vkp = layer.prop_down(params, hs)
+            vs = sample(i, vkp)
+            hkp = layer.prop_up(params, vs)
+            i += 1
+            if k < layer.cd_k - 1:
+                hs = sample(i, hkp)
+                i += 1
+        B = x.shape[0]
+        stats = {"W": -(x.T @ h0p - vkp.T @ hkp) / B,
+                 "b": -torch.mean(h0p - hkp, dim=0),
+                 "vb": -torch.mean(x - vkp, dim=0)}
+    return stats, draws
+
+
+def check_cd_step(torch, layer, params, x, seed=2081):
+    """One CD step on the card against the CPU on the same uniforms: the
+    card's `pretrain_grads_given` is the chain `cd_chain` forms; the CPU's
+    chain takes the card's decisions where |u - p| < CD_NEAR (pinned;
+    above MAX_PINNED_SHARE of all decisions flipped fails) and its
+    statistics are within CD_STAT_REL of the card's."""
+    from deeplearning4j_torch.utils import params as param_utils
+    gen = torch.Generator().manual_seed(seed)
+    shapes = layer.noise_shapes(x.shape[0])
+    u_cpu = [torch.rand(sh, generator=gen) for sh in shapes]
+    u_dev = [u.to(x.device) for u in u_cpu]
+    with torch.no_grad():
+        _, lib_stats = layer.pretrain_grads_given(params, x, u_dev)
+    card_stats, card_draws = cd_chain(torch, layer, params, x, u_dev)
+    for k in card_stats:
+        if not torch.equal(card_stats[k], lib_stats[k]):
+            raise RuntimeError(f"CD step: pretrain_grads_given's {k} is not the "
+                               "chain's on the card")
+    pinned = [((u - p.cpu()).abs() < CD_NEAR, on.cpu())
+              for u, (p, on) in zip(u_cpu, card_draws)]
+    cpu_params = {k: t.cpu() for k, t in params.items()}
+    cpu_stats, cpu_draws = cd_chain(torch, layer, cpu_params, x.cpu(), u_cpu, pinned)
+    unpinned = [(u < p) for u, (p, _) in zip(u_cpu, cpu_draws)]
+    flips = sum(int(((un != on.cpu()) & m).sum())
+                for un, (_, on), (m, _) in zip(unpinned, card_draws, pinned))
+    near = sum(int(m.sum()) for m, _ in pinned)
+    total = sum(u.numel() for u in u_cpu)
+    if flips > MAX_PINNED_SHARE * total:
+        raise RuntimeError(f"CD step: {flips} of {total} Bernoulli decisions "
+                           f"flipped before they were pinned")
+    rel = _layer_rel_errs(param_utils, (card_stats,), (cpu_stats,))
+    if max(rel.values()) > CD_STAT_REL:
+        raise RuntimeError(f"CD step: statistics card vs CPU {rel} (> {CD_STAT_REL})")
+    return {"stats_rel": rel, "near_decisions": near, "flipped": flips,
+            "decisions": total}
+
+
+def recon_mse(torch, layer, params, x):
+    """Deterministic reconstruction MSE: the RBM's mean-field
+    prop_down(prop_up(x)), an AutoEncoder's decode(encode(x))."""
+    with torch.no_grad():
+        if hasattr(layer, "prop_up"):
+            r = layer.prop_down(params, layer.prop_up(params, x))
+        else:
+            r = layer.decode(params, layer.encode(params, x))
+        return float(torch.mean(torch.sum((r - x) ** 2, dim=-1)))
+
+
+def phase_dbn_mnist(torch, card, device=None, size=None):
+    """(c) Greedy layerwise pretrain of the 784-1000-500-250-30 stack
+    (RBM CD-1, then three AutoEncoders) for one epoch over synthesized MNIST
+    in [0, 1], then `fit` of the whole network with its softmax head for one
+    epoch, on the card. Checks: a CD-1 step card vs CPU on the same uniforms
+    (`check_cd_step`); each layer's reconstruction MSE on a held-out batch
+    falls from its initial parameters to its pretrained ones, on the same
+    input (the pretrained layers below it); a frozen
+    layer is skipped by pretrain; the fit score finite. Readings: ms a
+    pretrain step, ms a fit step, and a profiled pretrain of one batch
+    through the four layers."""
+    from deeplearning4j_torch import MultiLayerNetwork
+    s = dict(DBN_FULL, **(size or {}))
+    dev = torch.device(device or "cuda")
+    it = mnist_iterator(os.path.join(ROOT, "build", "mnist_dbn"), s["n_train"],
+                        s["batch"], seed=2072)
+    net = MultiLayerNetwork(dbn_conf(s)).init(device=dev)
+    held = torch.as_tensor(next(iter(it)).features, device=dev)
+    cd = check_cd_step(torch, net.layers[0], net.params_tree[0], held)
+    log(f"DBN: CD-1 card vs CPU {json.dumps(cd)} (limits {CD_STAT_REL}, "
+        f"{MAX_PINNED_SHARE} of the decisions)")
+    n_pre = len(s["widths"])
+
+    def recon_all(params):
+        """Each layer's reconstruction MSE under `params` (per layer), its
+        input from the network's current layers below it."""
+        with torch.no_grad():
+            return [recon_mse(torch, net.layers[i], params[i],
+                              net._prefix_activations(i, held)) for i in range(n_pre)]
+
+    # a frozen layer is skipped: a clone with layer 1 frozen, two batches
+    frozen = net.clone()
+    frozen.layers[1].frozen = True
+    two = np.concatenate([held.cpu().numpy()] * 2)
+    frozen.pretrain(two, epochs=1, batch_size=s["batch"])
+    same = [all(torch.equal(frozen.params_tree[i][k], net.params_tree[i][k])
+                for k in net.params_tree[i]) for i in range(n_pre + 1)]
+    if same != [i in (1, n_pre) for i in range(n_pre + 1)]:
+        raise RuntimeError(f"DBN: unchanged layers after pretrain with layer 1 "
+                           f"frozen: {same}")
+    del frozen
+    initial = [dict(p) for p in net.params_tree]
+    steps = -(-it.total_examples() // s["batch"])
+    _sync(torch, dev)
+    zero_launches()
+    t0 = time.perf_counter()
+    net.pretrain(it, epochs=1)
+    _sync(torch, dev)
+    pre_ms = (time.perf_counter() - t0) * 1e3 / (steps * n_pre)
+    before, after = recon_all(initial), recon_all(net.params_tree)
+    if not all(np.isfinite(a) and a < b for a, b in zip(after, before)):
+        raise RuntimeError(f"DBN: reconstruction MSE by layer {before} -> {after}")
+    if net.iteration != 0:
+        raise RuntimeError("DBN: pretrain moved the network's iteration count")
+    _sync(torch, dev)
+    t0 = time.perf_counter()
+    net.fit(it)
+    _sync(torch, dev)
+    fit_ms = (time.perf_counter() - t0) * 1e3 / steps
+    launches = all_launches()
+    score = float(net.score_value)
+    if not np.isfinite(score) or net.iteration != steps or any(launches.values()):
+        raise RuntimeError(f"DBN: fit score {score}, {net.iteration} steps, "
+                           f"launches {launches}")
+    one = held.cpu().numpy()
+
+    def pretrain_one():
+        net.pretrain(one, epochs=1, batch_size=s["batch"])
+        _sync(torch, dev)
+
+    prof = profile_call(torch, "DBN pretrain, one batch through the four layers",
+                        pretrain_one, {"layer_steps": n_pre})
+    result = {"card": card, "steps": steps, "pretrain_ms_per_layer_step": pre_ms,
+              "fit_step_ms": fit_ms, "recon_before": before, "recon_after": after,
+              "cd_step": cd, "fit_score": score, "launches": launches,
+              "device_idle_share": prof.get("device_idle_share"), "profile": prof}
+    log(f"DBN MNIST: pretrain {pre_ms:.3f} ms a layer step, fit {fit_ms:.3f} ms a "
+        f"step, reconstruction MSE {before} -> {after}, idle share "
+        f"{result['device_idle_share']}  [{card}]")
+    return result
+
+
+def phase_records_export(torch, card, device=None):
+    """A CSV written here goes through CSVRecordReader and
+    RecordReaderDataSetIterator into an Iris-shaped network (4-10-3) that
+    runs `fit` on the card; its batches are the CSV's rows; then
+    `export_datasets` re-batches the same records to files and `fit` on
+    ExportedDataSetIterator is bitwise `fit` on the same batches held in
+    memory."""
+    import shutil
+    from deeplearning4j_torch import (DenseLayer, InputType, MultiLayerNetwork,
+                                      NeuralNetConfiguration, OutputLayer, Sgd)
+    from deeplearning4j_torch.data.export import (ExportedDataSetIterator,
+                                                  export_datasets)
+    from deeplearning4j_torch.data.fetchers import iris_dataset
+    from deeplearning4j_torch.data.iterators import ListDataSetIterator
+    from deeplearning4j_torch.data.records import (CSVRecordReader,
+                                                   RecordReaderDataSetIterator)
+    dev = torch.device(device or "cuda")
+    d = os.path.join(ROOT, "build", "records_export")
+    shutil.rmtree(d, ignore_errors=True)
+    os.makedirs(d)
+    iris = iris_dataset()
+    path = os.path.join(d, "iris.csv")
+    with open(path, "w") as f:
+        f.write("sepal_l,sepal_w,petal_l,petal_w,species\n")
+        for x, y in zip(iris.features, iris.labels):
+            f.write(",".join(repr(float(v)) for v in x) + f",{int(np.argmax(y))}\n")
+    make = lambda: RecordReaderDataSetIterator(CSVRecordReader(path, skip_lines=1),
+                                               batch_size=50, label_index=4,
+                                               num_classes=3)
+    rows = list(make())
+    if not (np.array_equal(np.concatenate([r.features for r in rows]), iris.features)
+            and np.array_equal(np.concatenate([r.labels for r in rows]), iris.labels)):
+        raise RuntimeError("records: the CSV's batches are not its rows")
+    conf = lambda: (NeuralNetConfiguration.builder().seed(4)
+                    .updater(Sgd(learning_rate=0.1)).list()
+                    .layer(DenseLayer(n_out=10, activation="tanh"))
+                    .layer(OutputLayer(n_out=3, activation="softmax"))
+                    .set_input_type(InputType.feed_forward(4)).build())
+    net = MultiLayerNetwork(conf()).init(device=dev)
+    net.fit(make(), epochs=5)
+    acc = net.evaluate(iris.features, iris.labels).accuracy()
+    if not np.isfinite(float(net.score_value)) or net.iteration != 15:
+        raise RuntimeError(f"records: fit took {net.iteration} steps, score "
+                           f"{float(net.score_value)}")
+    files = export_datasets(make(), os.path.join(d, "exported"), 32)
+    a = MultiLayerNetwork(conf()).init(device=dev)
+    b = MultiLayerNetwork(conf()).init(device=dev)
+    a.fit(ExportedDataSetIterator(os.path.join(d, "exported")), pad_to_bucket=False)
+    b.fit(ListDataSetIterator(iris, 32), pad_to_bucket=False)
+    if not _same_tree(a.params_tree, b.params_tree):
+        raise RuntimeError("export: fit on the exported files is not bitwise fit "
+                           "on the same batches")
+    result = {"card": card, "csv_batches": len(rows), "fit_steps": net.iteration,
+              "accuracy": acc, "exported_files": len(files), "export_bitwise": True}
+    log(f"records and export: {json.dumps(result)}")
+    shutil.rmtree(d, ignore_errors=True)
+    return result
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -4833,6 +5429,12 @@ def main() -> int:
     training = phase_training(torch, card)
     torch.cuda.empty_cache()
     fit_loop = phase_fit_loop_alexnet(torch, card)
+    torch.cuda.empty_cache()
+    images = phase_image_directory_alexnet(torch, card)
+    torch.cuda.empty_cache()
+    phase_vae_mnist(torch, card)
+    phase_dbn_mnist(torch, card)
+    phase_records_export(torch, card)
     torch.cuda.empty_cache()
     phase_bf16_alexnet(torch, card)
     torch.cuda.empty_cache()
@@ -4868,6 +5470,9 @@ def main() -> int:
     decode_entry["launches"] = decode["launches"]["decode_attention"]
     kernels = {"kernels": [lrn_entry, lrn_bwd_entry] + flash_entries
                + [int8_entry, decode_entry]}
+    log(f"chip_smoke: the image-directory AlexNet fit's launches: K1 "
+        f"{images['launches']['lrn_fwd']}, K2 {images['launches']['lrn_bwd']} in "
+        f"{images['steps']} steps, ETL calls {json.dumps(images['etl_calls'])}")
     log(f"chip_smoke: the fit loop's launches: AlexNet {json.dumps(fit_loop['launches'])}, "
         f"packed char model {json.dumps(fit_char['launches'])}; decode serving K7 "
         f"{decode['launches']['decode_attention']} in {decode['steps']} steps; packed "

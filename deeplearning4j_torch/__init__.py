@@ -11,10 +11,18 @@ from .nn.conf.builders import (BackpropType, MultiLayerConfiguration,
                                NeuralNetConfiguration, OptimizationAlgorithm)
 from .nn.conf.inputs import InputType
 from .data.dataset import DataSet, MultiDataSet
-from .data.iterators import (DataSetIterator, ExistingDataSetIterator,
-                             ListDataSetIterator)
+from .data.fetchers import (IrisDataSetIterator, MnistDataFetcher,
+                            MnistDataSetIterator)
+from .data.iterators import (AsyncDataSetIterator, AsyncMultiDataSetIterator,
+                             AsyncShieldDataSetIterator,
+                             AsyncShieldMultiDataSetIterator, DataSetIterator,
+                             ExistingDataSetIterator, ListDataSetIterator)
 from .data.normalizers import (DataNormalization, ImagePreProcessingScaler,
                                NormalizerMinMaxScaler, NormalizerStandardize)
+from .data.records import (CSVRecordReader, CSVSequenceRecordReader,
+                           ListStringRecordReader, RecordReader,
+                           RecordReaderDataSetIterator,
+                           SequenceRecordReaderDataSetIterator)
 from .nn.layers.core import (ActivationLayer, DenseLayer, DropoutLayer,
                              EmbeddingLayer, LossLayer, OutputLayer)
 from .nn.layers.convolution import (BatchNormalization, Convolution1DLayer,
@@ -24,7 +32,8 @@ from .nn.layers.convolution import (BatchNormalization, Convolution1DLayer,
                                     Subsampling1DLayer, SubsamplingLayer,
                                     ZeroPaddingLayer)
 from .nn.layers.attention import SelfAttentionLayer
-from .nn.layers.pretrain import CenterLossOutputLayer
+from .nn.layers.pretrain import (RBM, AutoEncoder, CenterLossOutputLayer,
+                                 VariationalAutoencoder)
 from .nn.layers.recurrent import (LSTM, GravesBidirectionalLSTM, GravesLSTM,
                                   RnnOutputLayer)
 from .nn.multilayer import MultiLayerNetwork, RnnStateMismatchError
@@ -40,6 +49,20 @@ from .nn.updaters import (Adam, AdaDelta, AdaGrad, AdaMax, ExponentialSchedule,
                           Nesterovs, NoOp, PolySchedule, RmsProp, Schedule, Sgd,
                           SigmoidSchedule, StepSchedule)
 from .nn.weights import Distribution, WeightInit
+from .eval.evaluation import Evaluation, EvaluationBinary, RegressionEvaluation
+from .eval.roc import ROC, ROCBinary, ROCMultiClass
+from .nn.transfer_learning import (FineTuneConfiguration, TransferLearning,
+                                   TransferLearningHelper)
+from .optimize.listeners import (CheckpointListener,
+                                 CollectScoresIterationListener,
+                                 ComposableIterationListener,
+                                 EvaluativeListener, IterationListener,
+                                 ParamAndGradientIterationListener,
+                                 PerformanceListener, ScoreIterationListener)
+from .optimize.resilience import (CheckpointManager, DivergenceError,
+                                  DivergenceSentinel, RetryPolicy)
 from .parallel.inference import InferenceMode, ParallelInference
 from .utils.model_serializer import (CheckpointCorruptError, ModelSerializer,
                                      restore_model, save_model)
+
+__version__ = "0.1.0"

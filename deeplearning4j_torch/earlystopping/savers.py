@@ -24,10 +24,8 @@ class InMemoryModelSaver(EarlyStoppingModelSaver):
         self._best = None
 
     def save_best_model(self, model, score):
-        import torch
-        from ..utils.params import tree_map
+        from ..utils.params import tree_copy as copy
         # copies, not aliases: training goes on from the live trees
-        copy = lambda tree: tree_map(torch.clone, tree)
         self._best = (model, copy(model.params_tree), copy(model.state_tree),
                       copy(model.opt_state), model.iteration, model.epoch)
 

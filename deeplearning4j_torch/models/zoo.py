@@ -9,10 +9,12 @@ its configuration describes, and `init_pretrained` restores a local
 checkpoint after checking its checksum and architecture. TextGenerationLSTM
 (MultiLayerNetwork, truncated BPTT) and the face models InceptionResNetV1
 and FaceNetNN4Small2 (ComputationGraph, center loss; their blocks in
-models/helpers.py) are here too.
+models/helpers.py) are here too. `model_selector` builds any of the ten by
+its `ZooType`.
 """
 from __future__ import annotations
 
+import enum
 import hashlib
 import os
 from dataclasses import dataclass
@@ -654,3 +656,40 @@ class FaceNetNN4Small2(ZooModel):
             alpha=0.9, lambda_=1e-4), "embeddings")
         g.set_outputs("lossLayer")
         return g.build()
+
+
+class ZooType(enum.Enum):
+    """Reference zoo/ZooType.java: the zoo models the port has."""
+
+    LENET = "lenet"
+    SIMPLECNN = "simplecnn"
+    ALEXNET = "alexnet"
+    VGG16 = "vgg16"
+    VGG19 = "vgg19"
+    RESNET50 = "resnet50"
+    GOOGLENET = "googlenet"
+    TEXTGENLSTM = "textgenlstm"
+    INCEPTIONRESNETV1 = "inceptionresnetv1"
+    FACENETNN4SMALL2 = "facenetnn4small2"
+
+
+_ZOO = {
+    ZooType.LENET: LeNet,
+    ZooType.SIMPLECNN: SimpleCNN,
+    ZooType.ALEXNET: AlexNet,
+    ZooType.VGG16: VGG16,
+    ZooType.VGG19: VGG19,
+    ZooType.RESNET50: ResNet50,
+    ZooType.GOOGLENET: GoogLeNet,
+    ZooType.TEXTGENLSTM: TextGenerationLSTM,
+    ZooType.INCEPTIONRESNETV1: InceptionResNetV1,
+    ZooType.FACENETNN4SMALL2: FaceNetNN4Small2,
+}
+
+
+def model_selector(zoo_type: ZooType, **kwargs) -> ZooModel:
+    """A zoo model by type, `kwargs` passed to its constructor (reference
+    zoo/ModelSelector.java)."""
+    if zoo_type not in _ZOO:
+        raise ValueError(f"Unknown zoo type {zoo_type}")
+    return _ZOO[zoo_type](**kwargs)

@@ -524,21 +524,6 @@ class ComputationGraph(_DeviceNetwork):
                                               False, None)
         return grads, float(loss)
 
-    # ------------------------------------------------------------ param view
-    def params(self) -> np.ndarray:
-        """The flat parameter vector, as the JAX package's `params()`."""
-        self._check_init()
-        return param_utils.flatten_params(self.params_tree)
-
-    def set_params(self, flat) -> None:
-        self._check_init()
-        self.params_tree = param_utils.unflatten_params(self.params_tree, flat,
-                                                        self.device)
-
-    def num_params(self) -> int:
-        self._check_init()
-        return param_utils.num_params(self.params_tree)
-
     def summary(self) -> str:
         lines = ["name | type | params"]
         for name in self.conf.topo_order:

@@ -101,6 +101,29 @@ class Layer:
         type."""
         return input_type
 
+    # ---- layerwise pretraining (reference Layer.fit / pretrain) ----------
+    def is_pretrainable(self) -> bool:
+        """True for the unsupervised-pretrainable layers (AE, VAE, RBM)."""
+        return False
+
+    def pretrain_loss(self, params: Params, x: Tensor,
+                      generator: Optional[torch.Generator] = None) -> Tensor:
+        raise NotImplementedError(
+            f"{type(self).__name__} has no pretraining objective")
+
+    def pretrain_grads(self, params: Params, x: Tensor,
+                       generator: Optional[torch.Generator] = None
+                       ) -> Tuple[Tensor, Params]:
+        """(loss, grads) of one pretrain step: by default one autograd
+        backward of `pretrain_loss` (a parameter it does not reach gets
+        zeros); RBM overrides it with CD-k statistics."""
+        leaves = {k: t.detach().requires_grad_() for k, t in params.items()}
+        with torch.enable_grad():
+            loss = self.pretrain_loss(leaves, x, generator)
+        grads = torch.autograd.grad(loss, list(leaves.values()), allow_unused=True)
+        return loss.detach(), {k: torch.zeros_like(t) if g is None else g
+                               for (k, t), g in zip(leaves.items(), grads)}
+
     # ---- params ----------------------------------------------------------
     def init_params(self, gen: torch.Generator, dtype=torch.float32) -> Params:
         return {}

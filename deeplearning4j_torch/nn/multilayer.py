@@ -45,7 +45,10 @@ group in one jitted dispatch, the port runs it as a loop of the same eager
 step with no host sync between steps, the losses staying on the device
 until the group commits, so a group is bitwise the same batches fitted one
 by one. `evaluate` / `evaluate_regression` fill eval/evaluation.py's
-accumulators; `fit_solver` runs optimize/solvers.py.
+accumulators; `fit_solver` runs optimize/solvers.py. `pretrain` is the
+greedy layerwise pretraining of the AutoEncoder, VariationalAutoencoder and
+RBM layers; `params`, `set_params`, `num_params` and `clone` are shared with
+ComputationGraph.
 
 Checkpoints are utils/model_serializer.py's, shared with ComputationGraph
 (nn/graph/graph.py), which reuses this module's casts and per-layer step.
@@ -199,6 +202,38 @@ class _DeviceNetwork:
 
     def _as_mask(self, m) -> Optional[Tensor]:
         return None if m is None else self._as_labels(m)
+
+    # ------------------------------------------------------------ param view
+    def params(self) -> np.ndarray:
+        """The flat parameter vector (reference params()): leaves in
+        checkpoint order (dict keys sorted), each in the JAX package's
+        layout, row-major."""
+        self._check_init()
+        return param_utils.flatten_params(self.params_tree)
+
+    def set_params(self, flat) -> None:
+        """Inverse of `params`: the parameters from a flat vector, each leaf
+        keeping its type and device."""
+        self._check_init()
+        self.params_tree = param_utils.unflatten_params(self.params_tree, flat,
+                                                        self.device)
+
+    def num_params(self) -> int:
+        self._check_init()
+        return param_utils.num_params(self.params_tree)
+
+    def clone(self):
+        """A new network of a copy of the configuration holding copies of
+        the parameters, the optimizer state and the layer state, on the same
+        device, with the same counters; an uninitialized network clones
+        uninitialized."""
+        net = type(self)(self.conf.clone())
+        if self._initialized:
+            net._adopt(param_utils.tree_copy(self.params_tree), self._dtype,
+                       self.device, opt_state=param_utils.tree_copy(self.opt_state),
+                       state_tree=param_utils.tree_copy(self.state_tree))
+            net.iteration, net.epoch = self.iteration, self.epoch
+        return net
 
     def set_listeners(self, *listeners):
         """Replace the listeners (optimize/listeners.py): `iteration_done`
@@ -644,9 +679,67 @@ class MultiLayerNetwork(_DeviceNetwork):
             ev.eval(ds.labels, out, mask=ds.labels_mask)
         return ev
 
-    def num_params(self) -> int:
+    def summary(self) -> str:
+        """One line per layer (index, type, parameter count) and the total,
+        as the JAX package's `summary()` prints them."""
+        lines = ["idx | layer | params"]
+        for i, layer in enumerate(self.layers):
+            n = (param_utils.num_params(self.params_tree[i])
+                 if self._initialized else "?")
+            lines.append(f"{i} | {type(layer).__name__} | {n}")
+        if self._initialized:
+            lines.append(f"Total params: {self.num_params()}")
+        return "\n".join(lines)
+
+    # -------------------------------------------------------------- pretrain
+    def pretrain(self, data, *, epochs: int = 1, batch_size: int = 32
+                 ) -> "MultiLayerNetwork":
+        """Greedy layerwise unsupervised pretraining (reference
+        MultiLayerNetwork.pretrain(DataSetIterator)): for each pretrainable,
+        unfrozen layer in order, `epochs` passes over `data` (a
+        DataSetIterator, a DataSet, or a features array cut into
+        `batch_size` rows; labels are ignored) stepping that layer by its
+        own updater from a fresh state at iteration 0, on the inference-mode
+        activations of the layers before it. The noise comes from the
+        network's generator. The network's optimizer state and counters are
+        not touched; `score_value` is the last step's loss."""
         self._check_init()
-        return param_utils.num_params(self.params_tree)
+        if not isinstance(data, DataSet) and hasattr(data, "shape"):
+            data = DataSet(data, np.zeros((data.shape[0], 1), np.float32))
+        for i, layer in enumerate(self.layers):
+            if not layer.is_pretrainable() or layer.frozen:
+                continue
+            params_i = self.params_tree[i]
+            opt_i = layer.updater.init(params_i)
+            iteration, last = 0, None
+            for _ in range(epochs):
+                for ds in as_iterator(data, None, batch_size):
+                    with torch.no_grad():
+                        x = self._prefix_activations(i, self._as_input(ds.features))
+                    last, grads = layer.pretrain_grads(params_i, x,
+                                                       self._dropout_gen)
+                    with torch.no_grad():
+                        params_i, opt_i = _layer_step(layer, params_i, grads,
+                                                      opt_i, iteration)
+                    iteration += 1
+            if last is not None:
+                self.score_value = last
+            self.params_tree = tuple(params_i if j == i else p
+                                     for j, p in enumerate(self.params_tree))
+        return self
+
+    def _prefix_activations(self, i: int, x: Tensor) -> Tensor:
+        """The inference-mode input of layer i: layers 0..i-1 on the current
+        parameters and layer state, then layer i's preprocessor."""
+        a = x
+        for j in range(i):
+            p = self.conf.preprocessor(j)
+            if p is not None:
+                a = p(a)
+            a, _ = self.layers[j].forward_with_state(
+                self.params_tree[j], self.state_tree[j], a)
+        p = self.conf.preprocessor(i)
+        return a if p is None else p(a)
 
     # ------------------------------------------------------------- rnn state
     def _seed_recurrent_states(self, batch: int):

@@ -70,3 +70,10 @@ def resolve(act: ActivationLike) -> Callable[[Tensor], Tensor]:
     if key not in ACTIVATIONS:
         raise ValueError(f"Unknown activation {act!r}. Known: {sorted(ACTIVATIONS)}")
     return ACTIVATIONS[key]
+
+
+def register_activation(name: str, fn: Callable[[Tensor], Tensor]) -> None:
+    """Custom-activation extension point (reference TestCustomActivation):
+    a configuration names it by `name`, so its JSON round-trips; the
+    function must be registered in the process that loads it."""
+    ACTIVATIONS[name.lower()] = fn

@@ -80,6 +80,13 @@ def tree_map(fn: Callable, tree):
     return fn(tree)
 
 
+def tree_copy(tree):
+    """Every tensor leaf cloned (its memory format kept): a tree that crosses
+    a network boundary (clone, early-stopping savers) shares no storage with
+    the network it came from."""
+    return tree_map(torch.clone, tree)
+
+
 def tree_leaves(tree) -> List[Any]:
     """The leaves in ``jax.tree_util`` order: dict keys sorted, tuples and
     lists in order, ``None`` and empty containers giving none."""

@@ -157,7 +157,7 @@ def test_fault_plan_covers_listed_calls(spec, fails):
     assert faults.call_count("test.point") == 0
 
 
-@pytest.mark.parametrize("spec", ["kill:1", "fail:", "fail:0", "fail:2-4",
+@pytest.mark.parametrize("spec", ["boom:1", "fail:0/3", "fail:0", "fail:2-x",
                                   "delay:1", "delay:1@-5"])
 def test_fault_plan_rejects_unsupported_specs(spec):
     with pytest.raises(ValueError):
