@@ -209,7 +209,31 @@ Phases, each of which fails the script (non-zero exit, no result line):
    with near-ties pinned (1e-5), each layer's reconstruction MSE falls, a
    frozen layer skipped. A CSV through CSVRecordReader into an Iris net's
    `fit`, and `fit` on exported files bitwise `fit` on the same batches.
-15. One JSON line with every kernel's numbers, then the result line
+15. The serving plane (`phase_gateway`, right after the quantized serving
+   of phase 4): a ServingGateway on 127.0.0.1 over a ModelPool serving zoo
+   AlexNet at full width (tier "critical", with a CheckpointManager) and a
+   fused group of two zoo GoogLeNets (tier "batch"; the phase fails if the
+   group fell back); 4 clients x 8 requests of 1-8 images over HTTP
+   /predict beside 2 clients on the members, K1 = 2 x AlexNet's forwards + 4
+   x the fused ones; each HTTP answer against the same request in process
+   and `net.output`, each member's columns against that member alone, a
+   request of 2 against the CPU path; a second AlexNet trained 2 steps at
+   batch 32 publishes a checkpoint and POST /swap runs under live traffic
+   (no request fails, every answer the old parameters' or the new ones',
+   the new ones' after the swap returned), then /swap {"quantize": "int8"}
+   (the canary's drift under its budget, K6 = 3 x forwards, answers bitwise
+   their batch's rows), then a checkpoint with a NaN in fc8's bias (409
+   canary_rejected, the int8 tree itself restored, answers bitwise
+   unchanged); the serve.forward fault opens the breaker (503 breaker_open
+   without a forward, /health degraded) and one probe recloses it;
+   TransformerDecoder(seed=7) through POST /generate (6 clients x 4 prompts
+   x 48 tokens, every answer `naive_generate`'s, K7 = layers x steps); the
+   flight recorder's exemplars (phases within 1 ms of their latency),
+   /trace, and an AutoTuner with a temporary ledger behind /debug/tuner
+   (every ledger row valid). Reports p50/p99 and images/s over HTTP and in
+   process, one profiled request of each, the swap's pause, tokens/s and
+   inter-token p50/p99 through /generate.
+16. One JSON line with every kernel's numbers, then the result line
    {"ok": true, "device": {...}}.
 
 Needs one CUDA GPU; exits non-zero without one.
@@ -221,6 +245,7 @@ import subprocess
 import sys
 import threading
 import time
+import types
 from contextlib import ExitStack, contextmanager
 
 import numpy as np
@@ -1846,6 +1871,602 @@ def phase_quant_serving(torch, card, net, reqs, fp32_answers, cpu_net, fp32):
             f"{arm['p99_ms']:.3f} ms, {arm['images_per_s']:.1f} images/s, "
             f"drift {arm.get('max_drift', 0.0):.3e}  [{card}]")
     return arms
+
+
+# ------------------------------------------------------- the serving plane
+
+#: phase_gateway's sizes: zoo AlexNet and two zoo GoogLeNets at full width,
+#: the client load of phase_serving, bench.py bench_serving_decode's decoder
+GATEWAY_FULL = dict(alexnet=((224, 224, 3), 1000), googlenet=((224, 224, 3), 1000),
+                    clients=4, per_client=8, max_rows=8, face_clients=2,
+                    face_per_client=4, train_batch=32, train_steps=2,
+                    swap_clients=2, swap_inputs=4, int8_per_client=2,
+                    probe_rows=2, batch_limit=None,   # None: SERVE_BATCH_LIMIT
+                    decode=None)   # None: DECODE_GEOMETRY
+GATEWAY_BREAKER = dict(breaker_threshold=3, breaker_reset_s=1.0)
+GATEWAY_CANARY_DRIFT = 1e-2   # the int8 swap's golden-batch drift budget, of softmax outputs
+GATEWAY_HTTP_TIMEOUT_S = 300  # one HTTP call of the phase
+GATEWAY_JOIN_S = 600          # a client thread that has not ended by then fails the phase
+GATEWAY_PHASE_SUM_MS = 1.0    # an exemplar's phases against its wall latency
+GATEWAY_TUNER_S = 1.0         # the traffic the AutoTuner watches, s
+GATEWAY_TRACED = 16           # requests traced by the flight recorder
+
+
+def pixel_images(rng, n, shape):
+    """`n` images of `shape` on an 8-bit grid (k / 32 for k in -128..127,
+    standard normal before rounding): exact in float32 and short in JSON,
+    as pixel data sent to an image service is."""
+    x = np.clip(np.round(rng.standard_normal((n,) + tuple(shape)) * 32), -128, 127)
+    return (x / 32).astype(np.float32)
+
+
+def http_json(url, payload=None, timeout=GATEWAY_HTTP_TIMEOUT_S):
+    """(status, parsed JSON body) of one GET (payload None) or POST (a dict,
+    or JSON bytes already encoded) to the gateway; non-2xx answers too."""
+    import urllib.error
+    import urllib.request
+    data = payload if isinstance(payload, bytes) or payload is None \
+        else json.dumps(payload).encode()
+    req = urllib.request.Request(
+        url, data=data, headers={"Content-Type": "application/json"} if data else {})
+    try:
+        with urllib.request.urlopen(req, timeout=timeout) as r:
+            return r.status, json.loads(r.read())
+    except urllib.error.HTTPError as e:
+        return e.code, json.loads(e.read())
+
+
+def run_http_clients(url, jobs):
+    """One thread per client, each POSTing its (key, JSON bytes) jobs in
+    turn to `url`: ({key: (status, body)}, {key: (sent s, answered s)},
+    wall s). Raises if a thread does not end within GATEWAY_JOIN_S."""
+    answers, times, errors = {}, {}, []
+
+    def client(c):
+        try:
+            for key, body in jobs[c]:
+                t = time.perf_counter()
+                answers[key] = http_json(url, body)
+                times[key] = (t, time.perf_counter())
+        except BaseException as e:
+            errors.append(e)
+
+    threads = [threading.Thread(target=client, args=(c,), daemon=True)
+               for c in range(len(jobs))]
+    t0 = time.perf_counter()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=GATEWAY_JOIN_S)
+    wall = time.perf_counter() - t0
+    if errors or any(t.is_alive() for t in threads):
+        raise RuntimeError(f"gateway clients failed: {errors!r}")
+    return answers, times, wall
+
+
+def http_latency_stats(times, keys, images):
+    """latency_stats of the requests `keys`, over the span from the first
+    one sent to the last one answered."""
+    wall = max(times[k][1] for k in keys) - min(times[k][0] for k in keys)
+    return latency_stats([times[k][1] - times[k][0] for k in keys], images, wall)
+
+
+def ok_predictions(label, answers):
+    """{key: float32 predictions} of 200 answers; raises on any other."""
+    bad = {k: a for k, a in answers.items() if a[0] != 200}
+    if bad:
+        raise RuntimeError(f"{label}: failed requests {bad!r}"[:2000])
+    return {k: np.asarray(a[1]["predictions"], np.float32) for k, a in answers.items()}
+
+
+def lrn_layers_of(net):
+    """LRN layers one forward of `net` (a network or a graph) runs: K1 launches."""
+    from deeplearning4j_torch.nn.layers.convolution import LocalResponseNormalization
+    layers = net.layers if hasattr(net, "layers") else [
+        n.layer for n in net.conf.nodes.values() if n.is_layer()]
+    return sum(isinstance(layer, LocalResponseNormalization) for layer in layers)
+
+
+def gateway_launches(want_lrn=0, want_int8=0, want_decode=0):
+    want = dict.fromkeys(all_launches(), 0)
+    want.update(lrn_fwd=want_lrn, int8_matmul=want_int8, decode_attention=want_decode)
+    return want
+
+
+def swap_under_traffic(gw, net, inputs, clients):
+    """POST /swap while `clients` threads keep POSTing /predict over
+    `inputs`: each client sends until it has two answers from after the swap
+    returned. Returns ([(input index, sent s, status, predictions)], the
+    swap's answer, the swap's own wall s, when it returned)."""
+    bodies = [json.dumps({"model": "alexnet", "features": x.tolist()}).encode()
+              for x in inputs]
+    records, errors = [], []
+    lock = threading.Lock()
+    done_at = [None]
+    started = [threading.Event() for _ in range(clients)]
+
+    def client(c):
+        after, i = 0, c
+        try:
+            while after < 2:
+                k = i % len(inputs)
+                t = time.perf_counter()
+                code, body = http_json(gw.url + "/predict", bodies[k])
+                with lock:
+                    records.append((k, t, code, body.get("predictions")))
+                    if done_at[0] is not None and t > done_at[0]:
+                        after += 1
+                started[c].set()   # the swap waits for one answer a client
+                i += 1
+        except BaseException as e:
+            errors.append(e)
+            started[c].set()
+
+    threads = [threading.Thread(target=client, args=(c,), daemon=True)
+               for c in range(clients)]
+    for t in threads:
+        t.start()
+    for ev in started:
+        ev.wait(timeout=GATEWAY_JOIN_S)
+    t = time.perf_counter()
+    swap = http_json(gw.url + "/swap", {"model": "alexnet"})
+    with lock:
+        done_at[0] = time.perf_counter()
+    swap_wall = done_at[0] - t
+    for th in threads:
+        th.join(timeout=GATEWAY_JOIN_S)
+    if errors or any(th.is_alive() for th in threads):
+        raise RuntimeError(f"swap clients failed: {errors!r}")
+    return records, swap, swap_wall, done_at[0]
+
+
+def phase_gateway(torch, card, device=None, size=None):
+    """The serving plane (serving/gateway.py over serving/model_pool.py),
+    driven through its HTTP routes on 127.0.0.1 and in process:
+
+    1. `ServingGateway` over a `ModelPool`: zoo AlexNet (full width,
+       float32, on CUDA) as "alexnet" at tier "critical" (the highest of the
+       scheduler's tiers) with a CheckpointManager; two zoo GoogLeNets
+       (seeds 1 and 2) as the fused group "faces" at tier "batch", which
+       must not have fallen back (`entry.group`, and
+       serving_fused_fallback_total 0); `warmup()`. Four clients x 8
+       requests of 1-8 images POST /predict to "alexnet" while two clients
+       POST to the members. K1 is reset just before and read just after: 2
+       x AlexNet's forwards + 4 x the fused forwards (two LRNs a member).
+    2. The same AlexNet load in process (`gateway.predict`): each HTTP
+       answer equals its in-process answer and `net.output` (SERVE
+       tolerances); each member's columns equal that member alone; a request
+       of `probe_rows` images equals the CPU path.
+    3. A second AlexNet trained `train_steps` steps at batch `train_batch`
+       publishes a checkpoint; POST /swap runs while clients keep sending:
+       no request fails, every answer is the old parameters' or the new
+       ones', every answer sent after the swap returned is the new ones'.
+       Then POST /swap {"quantize": "int8"}: the golden batch's drift stays
+       under GATEWAY_CANARY_DRIFT, K6 = 3 x forwards and K1 = 2 x forwards
+       of a counted HTTP run, each answer bitwise its batch's rows. Then a
+       checkpoint with a NaN in fc8's bias: 409 canary_rejected, the old
+       tree itself restored, answers bitwise as before.
+    4. The fault point serve.forward armed: the breaker opens after
+       breaker_threshold failures, /predict then answers 503 breaker_open
+       without a forward, /health is degraded; after breaker_reset_s one
+       probe closes it.
+    5. `add_decode_model` of TransformerDecoder(seed=7) at
+       bench_serving_decode's defaults; 6 clients x 4 prompts x 48 tokens
+       through POST /generate: every answer equals `naive_generate`'s, K7 =
+       layers x decode steps.
+    6. The flight recorder on and the critical tier's SLO set below any
+       latency through POST /config: /debug/requests returns exemplars
+       whose phases sum to their latency (GATEWAY_PHASE_SUM_MS); /trace
+       parses; an AutoTuner with a temporary ledger runs one short window,
+       /debug/tuner reports it and every ledger line passes
+       `validate_entry`.
+
+    Reports p50/p99 and images/s over HTTP and in process, the swap's pause
+    (the serve/swap_pause span), tokens/s and inter-token p50/p99 through
+    /generate, and the K1, K6 and K7 counts."""
+    import tempfile
+
+    from deeplearning4j_torch.models.zoo import AlexNet, GoogLeNet
+    from deeplearning4j_torch.nn.multilayer import MultiLayerNetwork
+    from deeplearning4j_torch.optimize import tracing
+    from deeplearning4j_torch.optimize.metrics import registry
+    from deeplearning4j_torch.optimize.resilience import CheckpointManager
+    from deeplearning4j_torch.serving import (FusedModelGroup, ModelPool,
+                                              ServingGateway, SLOMonitor,
+                                              autotuner, flight_recorder)
+    from deeplearning4j_torch.serving import decode as sd
+    from deeplearning4j_torch.serving.model_pool import _golden_forward
+    from deeplearning4j_torch.utils import faults
+    s = dict(GATEWAY_FULL, **(size or {}))
+    dev = device or "cuda"
+    batch_limit = s["batch_limit"] or SERVE_BATCH_LIMIT
+    rng = np.random.default_rng(2171)
+    reg = registry()
+    result = {"card": card, "step_s": {}}
+    t_phase = time.perf_counter()
+
+    def step_done(name):
+        result["step_s"][name] = time.perf_counter() - t_phase - sum(
+            result["step_s"].values())
+
+    tmp = tempfile.TemporaryDirectory(prefix="chip_smoke_gateway_")
+    gw = ServingGateway(ModelPool())
+    try:
+        # 1. the gateway, its entries and the storm
+        (a_shape, a_classes), (g_shape, g_classes) = s["alexnet"], s["googlenet"]
+        net = AlexNet(input_shape=a_shape, num_labels=a_classes).init(device=dev)
+        mgr = CheckpointManager(os.path.join(tmp.name, "alexnet"), save_updater=False)
+        entry = gw.add_model("alexnet", net, checkpoints=mgr, tier="critical",
+                             batch_limit=batch_limit, **GATEWAY_BREAKER)
+        members = {f"face_{c}": GoogLeNet(input_shape=g_shape, num_labels=g_classes
+                                          ).init(device=dev, seed=i + 1)
+                   for i, c in enumerate("ab")}
+        fallbacks0 = reg.counter("serving_fused_fallback_total").total()
+        group = gw.add_fused_group("faces", members, tier="batch",
+                                   batch_limit=batch_limit)
+        fallbacks = reg.counter("serving_fused_fallback_total").total() - fallbacks0
+        if not isinstance(group, FusedModelGroup) or fallbacks != 0 or any(
+                gw.pool.get(m).group is not group for m in members):
+            raise RuntimeError(f"gateway: the fused group fell back ({fallbacks} "
+                               f"members counted in serving_fused_fallback_total)")
+        t0 = time.perf_counter()
+        gw.warmup()
+        log(f"gateway: warmup of alexnet {entry.engine.warmed_buckets} and faces "
+            f"{group.engine.warmed_buckets} in {time.perf_counter() - t0:.2f} s, "
+            f"fused nodes {len(group.fusion_groups)}")
+        gw.start()
+        predict = gw.url + "/predict"
+        reqs = [[pixel_images(rng, int(rng.integers(1, s["max_rows"] + 1)), a_shape)
+                 for _ in range(s["per_client"])] for _ in range(s["clients"])]
+        face_reqs = [[(f"face_{'ab'[(c + j) % 2]}",
+                       pixel_images(rng, int(rng.integers(1, s["max_rows"] + 1)), g_shape))
+                      for j in range(s["face_per_client"])] for c in range(s["face_clients"])]
+        jobs = [[((c, j), json.dumps({"model": "alexnet", "features": x.tolist()}).encode())
+                 for j, x in enumerate(xs)] for c, xs in enumerate(reqs)]
+        jobs += [[(("face", c, j), json.dumps({"model": m, "features": x.tolist()}).encode())
+                  for j, (m, x) in enumerate(xs)] for c, xs in enumerate(face_reqs)]
+        fa0, ff0 = entry.engine.total_forwards, group.engine.total_forwards
+        torch.cuda.synchronize()
+        zero_launches()   # the main path's run starts here
+        answers, times, wall = run_http_clients(predict, jobs)
+        launches = all_launches()   # ... and ends here
+        fwd_a = entry.engine.total_forwards - fa0
+        fwd_f = group.engine.total_forwards - ff0
+        check_launches("gateway storm", launches, gateway_launches(
+            lrn_layers_of(net) * fwd_a + lrn_layers_of(group.fused_net) * fwd_f))
+        got = ok_predictions("gateway storm", answers)
+        if fwd_a < 1 or fwd_f < 1:
+            raise RuntimeError(f"gateway: {fwd_a} alexnet and {fwd_f} fused forwards")
+        a_keys = [k for k in got if k[0] != "face"]
+        images = sum(reqs[c][j].shape[0] for c, j in a_keys)
+        http = http_latency_stats(times, a_keys, images)
+        result.update(storm_launches=launches, alexnet_forwards=fwd_a,
+                      fused_forwards=fwd_f, http=http, storm_wall_s=wall)
+
+        # 2. the answers
+        inproc, in_lat, in_wall = run_clients(
+            types.SimpleNamespace(output=lambda x: gw.predict("alexnet", x)), reqs)
+        result["in_process"] = latency_stats(in_lat, images, in_wall)
+        max_http_vs_inproc = max_vs_direct = 0.0
+        for c, j in a_keys:
+            x, out = reqs[c][j], got[(c, j)]
+            if out.shape != (x.shape[0], a_classes) or not np.isfinite(out).all():
+                raise RuntimeError(f"gateway: bad answer {out.shape} for {(c, j)}")
+            direct = net.output(x)
+            np.testing.assert_allclose(out, inproc[(c, j)], rtol=SERVE_RTOL, atol=SERVE_ATOL)
+            np.testing.assert_allclose(out, direct, rtol=SERVE_RTOL, atol=SERVE_ATOL)
+            max_http_vs_inproc = max(max_http_vs_inproc,
+                                     float(np.abs(out - inproc[(c, j)]).max()))
+            max_vs_direct = max(max_vs_direct, float(np.abs(out - direct).max()))
+        max_member = 0.0
+        for c, xs in enumerate(face_reqs):
+            for j, (m, x) in enumerate(xs):
+                out, solo = got[("face", c, j)], members[m].output(x)
+                if out.shape != solo.shape:
+                    raise RuntimeError(f"gateway: member {m} answered {out.shape}, "
+                                       f"alone {solo.shape}")
+                np.testing.assert_allclose(out, solo, rtol=SERVE_RTOL, atol=SERVE_ATOL)
+                max_member = max(max_member, float(np.abs(out - solo).max()))
+        cpu_net = MultiLayerNetwork(net.conf).init(device="cpu")
+        cpu_net.params_tree = tuple({k: v.cpu() for k, v in layer.items()}
+                                    for layer in net.params_tree)
+        x_probe = reqs[0][0][:s["probe_rows"]] if reqs[0][0].shape[0] >= s["probe_rows"] \
+            else pixel_images(rng, s["probe_rows"], a_shape)
+        code, body = http_json(predict, {"model": "alexnet", "features": x_probe.tolist()})
+        if code != 200:
+            raise RuntimeError(f"gateway: the probe request answered {code} {body}")
+        probe, cpu_out = np.asarray(body["predictions"], np.float32), cpu_net.output(x_probe)
+        np.testing.assert_allclose(probe, cpu_out, rtol=SERVE_RTOL, atol=SERVE_ATOL)
+        del cpu_net
+        result["max_abs_err"] = {"http_vs_in_process": max_http_vs_inproc,
+                                 "http_vs_direct": max_vs_direct,
+                                 "member_vs_alone": max_member,
+                                 "probe_vs_cpu": float(np.abs(probe - cpu_out).max())}
+        log(f"gateway: storm {fwd_a} alexnet + {fwd_f} fused forwards, K1 "
+            f"{launches['lrn_fwd']}; HTTP p50 {http['p50_ms']:.3f} ms p99 "
+            f"{http['p99_ms']:.3f} ms {http['images_per_s']:.1f} images/s, in process "
+            f"p50 {result['in_process']['p50_ms']:.3f} ms p99 "
+            f"{result['in_process']['p99_ms']:.3f} ms "
+            f"{result['in_process']['images_per_s']:.1f} images/s; "
+            f"{json.dumps(result['max_abs_err'])}  [{card}]")
+        c, j = max(a_keys, key=lambda k: reqs[k[0]][k[1]].shape[0])
+        rows = int(reqs[c][j].shape[0])
+        result["profile_http"] = profile_call(
+            torch, "gateway /predict", lambda: http_json(predict, jobs[c][j][1]),
+            {"route": "/predict", "rows": rows, "json_bytes": len(jobs[c][j][1])})
+        result["profile_in_process"] = profile_call(
+            torch, "gateway predict in process", lambda: gw.predict("alexnet", reqs[c][j]),
+            {"rows": rows})
+        step_done("serve")
+
+        # 3. swaps: under traffic, to int8, and a NaN checkpoint
+        trainer = AlexNet(input_shape=a_shape, num_labels=a_classes).init(device=dev)
+        n_train = s["train_batch"] * s["train_steps"]
+        xt = rng.standard_normal((n_train,) + tuple(a_shape)).astype(np.float32)
+        yt = np.eye(a_classes, dtype=np.float32)[rng.integers(0, a_classes, n_train)]
+        trainer.fit(xt, yt, epochs=1, batch_size=s["train_batch"])
+        if trainer.iteration != s["train_steps"]:
+            raise RuntimeError(f"gateway: the trainer took {trainer.iteration} steps")
+        t0 = time.perf_counter()
+        mgr.save(trainer)
+        save_s = time.perf_counter() - t0
+        swap_x = [pixel_images(rng, 1 + i % 2, a_shape) for i in range(s["swap_inputs"])]
+        old_refs = [net.output(x) for x in swap_x]
+        traced = tracing.is_enabled()
+        if not traced:
+            tracing.enable(fence_every=0)
+        try:
+            records, swap, swap_wall, done_at = swap_under_traffic(
+                gw, net, swap_x, s["swap_clients"])
+            spans = {e["name"]: e["dur"] / 1e3
+                     for e in tracing.export_trace_events()["traceEvents"]
+                     if e["name"] in ("serve/swap", "serve/swap_pause")}
+        finally:
+            if not traced:
+                tracing.disable()
+        if swap[0] != 200 or not swap[1].get("swapped"):
+            raise RuntimeError(f"gateway: the live swap answered {swap}")
+        new_refs = [net.output(x) for x in swap_x]
+        close = lambda a, b: np.allclose(a, b, rtol=SERVE_RTOL, atol=SERVE_ATOL)
+        if any(close(o, n) for o, n in zip(old_refs, new_refs)):
+            raise RuntimeError("gateway: the trained checkpoint answers as the old "
+                               "parameters do; the swap cannot be seen")
+        seen = {"old": 0, "new": 0, "after_swap": 0}
+        for k, t, code, pred in records:
+            if code != 200:
+                raise RuntimeError(f"gateway: a request during the swap answered {code}")
+            pred = np.asarray(pred, np.float32)
+            which = "new" if close(pred, new_refs[k]) else \
+                "old" if close(pred, old_refs[k]) else None
+            if which is None:
+                raise RuntimeError(f"gateway: an answer during the swap is neither the "
+                                   f"old parameters' nor the new ones' (input {k})")
+            seen[which] += 1
+            if t > done_at:
+                seen["after_swap"] += 1
+                if which != "new":
+                    raise RuntimeError("gateway: an answer sent after the swap returned "
+                                       "came from the old parameters")
+        result["swap"] = {"answers": seen, "requests": len(records),
+                          "swap_wall_ms": swap_wall * 1e3,
+                          "pause_ms": spans.get("serve/swap_pause"),
+                          "span_ms": spans.get("serve/swap"),
+                          "checkpoint_save_s": save_s, "file": swap[1]["file"]}
+        golden = entry.golden_batch
+        if golden is None:
+            raise RuntimeError("gateway: no golden batch was captured for the canary")
+        fp32_golden = _golden_forward(net, golden)
+        # a trained checkpoint moves the answers by design; a quantized one
+        # is bounded by the canary's drift budget
+        entry.canary_max_drift = GATEWAY_CANARY_DRIFT
+        code, body = http_json(gw.url + "/swap", {"model": "alexnet", "quantize": "int8"})
+        if code != 200 or body.get("precision") != "int8" or entry.precision != "int8":
+            raise RuntimeError(f"gateway: the int8 swap answered {code} {body}")
+        drift = float(np.abs(_golden_forward(net, golden) - fp32_golden).max())
+        if not drift <= GATEWAY_CANARY_DRIFT:
+            raise RuntimeError(f"gateway: int8 golden drift {drift} over the budget")
+        int8_jobs = [jobs[c][:s["int8_per_client"]] for c in range(s["clients"])]
+        batches = []
+        fa0 = entry.engine.total_forwards
+        with recorded_outputs(net, batches):
+            torch.cuda.synchronize()
+            zero_launches()   # the int8 run starts here
+            answers8, times8, _ = run_http_clients(predict, int8_jobs)
+            launches8 = all_launches()   # ... and ends here
+        fwd8 = entry.engine.total_forwards - fa0
+        check_launches("gateway int8", launches8, gateway_launches(
+            lrn_layers_of(net) * fwd8, expected_quant_launches(net, "int8", fwd8)
+            ["int8_matmul"]))
+        got8 = ok_predictions("gateway int8", answers8)
+        check_served_batches(net, batches, reqs, got8)
+        del batches
+        result["int8"] = {"launches": launches8, "forwards": fwd8, "golden_drift": drift,
+                          "drift_budget": GATEWAY_CANARY_DRIFT,
+                          **http_latency_stats(times8, list(got8), sum(
+                              reqs[c][j].shape[0] for c, j in got8))}
+        probe_x = swap_x[:2]
+        before = [gw.predict("alexnet", x) for x in probe_x]
+        tree8 = net.params_tree
+        tree = list(trainer.params_tree)
+        fc8 = dict(tree[-1])
+        fc8["b"] = fc8["b"].clone()
+        fc8["b"][0] = float("nan")
+        tree[-1] = fc8
+        trainer.params_tree = tuple(tree)
+        trainer.iteration += 1
+        mgr.save(trainer)
+        rejected = reg.counter("serving_swaps_total").value(
+            model="alexnet", outcome="canary_rejected", precision="fp32")
+        code, body = http_json(gw.url + "/swap", {"model": "alexnet"})
+        rejected = reg.counter("serving_swaps_total").value(
+            model="alexnet", outcome="canary_rejected", precision="fp32") - rejected
+        if code != 409 or "canary gate rejected" not in body.get("error", "") \
+                or rejected != 1:
+            raise RuntimeError(f"gateway: the NaN checkpoint answered {code} {body} "
+                               f"({rejected} canary rejections counted)")
+        if net.params_tree is not tree8 or entry.precision != "int8" \
+                or entry.version.get("file") != swap[1]["file"]:
+            raise RuntimeError("gateway: the rollback did not restore the int8 tree")
+        after = [gw.predict("alexnet", x) for x in probe_x]
+        if not all(np.array_equal(a, b) for a, b in zip(before, after)):
+            raise RuntimeError("gateway: answers moved across the rejected swap")
+        result["nan_checkpoint"] = {"status": code, "outcome": "canary_rejected",
+                                    "answers_bitwise_unchanged": True}
+        log(f"gateway: swap under traffic {json.dumps(result['swap'])}; int8 swap "
+            f"drift {drift:.3e}, K6 {launches8['int8_matmul']} K1 "
+            f"{launches8['lrn_fwd']} in {fwd8} forwards; NaN checkpoint rejected "
+            f"and rolled back  [{card}]")
+        del trainer, xt, yt
+        step_done("swaps")
+
+        # 4. the breaker
+        br = entry.breaker
+        one = json.dumps({"model": "alexnet", "features": swap_x[0].tolist()}).encode()
+        faults.inject("serve.forward", "fail:*")
+        try:
+            codes = [http_json(predict, one) for _ in range(br.failure_threshold)]
+            if [c for c, _ in codes] != [500] * br.failure_threshold or \
+                    any(b.get("reason") != "batch_failed" for _, b in codes) or \
+                    br.state != "open":
+                raise RuntimeError(f"gateway: breaker {br.state} after {codes}")
+            f0, calls0 = entry.engine.total_forwards, faults.call_count("serve.forward")
+            code, body = http_json(predict, one)
+            if code != 503 or body.get("reason") != "breaker_open" or \
+                    entry.engine.total_forwards != f0 or \
+                    faults.call_count("serve.forward") != calls0:
+                raise RuntimeError(f"gateway: an open breaker answered {code} {body}")
+            health = http_json(gw.url + "/health")[1]
+            if health["status"] != "degraded" or "alexnet" not in health["degraded"]:
+                raise RuntimeError(f"gateway: /health with an open breaker: {health}")
+        finally:
+            faults.clear("serve.forward")
+        time.sleep(br.reset_timeout_s + 0.05)
+        code, body = http_json(predict, one)
+        health = http_json(gw.url + "/health")[1]
+        if code != 200 or br.state != "closed" or health["status"] != "ok":
+            raise RuntimeError(f"gateway: the probe answered {code}, breaker "
+                               f"{br.state}, /health {health}")
+        result["breaker"] = {"opened_after": br.failure_threshold, "fast_fail": 503,
+                             "reclosed_after_s": br.reset_timeout_s}
+        step_done("breaker")
+
+        # 5. decode through POST /generate
+        g = s["decode"] or DECODE_GEOMETRY
+        decoder = sd.TransformerDecoder(vocab=g["vocab"], layers=g["layers"],
+                                        heads=g["heads"], head_dim=g["head_dim"],
+                                        ff=g["ff"], max_context=g["max_context"],
+                                        seed=7, device=dev)
+        gw.add_decode_model("decoder", decoder, max_decode_batch=g["max_decode_batch"],
+                            pack_bucket=g["pack_bucket"],
+                            kv_block_tokens=g["block_tokens"],
+                            kv_max_blocks=g["kv_max_blocks"])
+        gw.warmup("decoder")
+        n = g["clients"] * g["prompts_per_client"]
+        drng = np.random.default_rng(0)
+        prompts = [drng.integers(0, g["vocab"], size=ln).tolist()
+                   for ln in drng.integers(g["prompt_lo"], g["prompt_hi"], size=n)]
+        http_json(gw.url + "/generate", {"model": "decoder", "prompt": prompts[0],
+                                         "max_new_tokens": 2})   # unmeasured seeding pass
+        steps_c = reg.counter("serving_decode_steps_total").labels(model="decoder")
+        itl_h = reg.histogram("serving_inter_token_ms",
+                              buckets=sd.INTER_TOKEN_BUCKETS_MS).labels(model="decoder")
+        steps0, itl0 = steps_c.value(), len(itl_h.window_values())
+        per = g["prompts_per_client"]
+        gen_jobs = [[(c * per + j, json.dumps({
+            "model": "decoder", "prompt": prompts[c * per + j],
+            "max_new_tokens": g["max_new_tokens"]}).encode()) for j in range(per)]
+            for c in range(g["clients"])]
+        torch.cuda.synchronize()
+        zero_launches()   # the decode run starts here
+        gen, _, gen_wall = run_http_clients(gw.url + "/generate", gen_jobs)
+        launches_d = all_launches()   # ... and ends here
+        steps = int(steps_c.value() - steps0)
+        check_launches("gateway decode", launches_d,
+                       gateway_launches(want_decode=g["layers"] * steps))
+        bad = {i: a for i, a in gen.items() if a[0] != 200}
+        if bad:
+            raise RuntimeError(f"gateway: failed /generate requests {bad!r}"[:2000])
+        naive = [sd.naive_generate(decoder, p, g["max_new_tokens"], pad_to=g["pack_bucket"])
+                 for p in prompts]
+        diverged = [i for i in range(n) if gen[i][1]["tokens"] != naive[i]]
+        if diverged:
+            raise RuntimeError(f"gateway: /generate differs from naive_generate for "
+                               f"prompts {diverged}")
+        itl = np.asarray(itl_h.window_values()[itl0:], np.float64)
+        tokens = n * g["max_new_tokens"]
+        result["decode"] = {"requests": n, "tokens": tokens, "steps": steps,
+                            "launches": launches_d, "wall_s": gen_wall,
+                            "tokens_per_s": tokens / gen_wall,
+                            "inter_token_p50_ms": float(np.percentile(itl, 50)),
+                            "inter_token_p99_ms": float(np.percentile(itl, 99)),
+                            "all_equal_naive": True}
+        log(f"gateway: /generate {json.dumps(result['decode'])}  [{card}]")
+        step_done("decode")
+
+        # 6. the observability routes
+        flight_recorder.clear()
+        flight_recorder.enable()
+        ledger = os.path.join(tmp.name, "autotune_ledger.jsonl")
+        code, body = http_json(gw.url + "/config", {"tier_slo_ms": {"critical": 1e-3}})
+        if code != 200:
+            raise RuntimeError(f"gateway: /config answered {code} {body}")
+        for _ in range(GATEWAY_TRACED):
+            if http_json(predict, one)[0] != 200:
+                raise RuntimeError("gateway: a traced request failed")
+        # read before the tuner starts: its ticks hold the interpreter, and a
+        # woken caller's wait for them lands in its `respond` phase
+        code, ex = http_json(gw.url + "/debug/requests?model=alexnet")
+        if code != 200 or not ex.get("count"):
+            raise RuntimeError(f"gateway: /debug/requests answered {code} {ex}"[:2000])
+        gaps = [e["wall_ms"] - sum(p["ms"] for p in e["phases"]) for e in ex["requests"]]
+        respond = [sum(p["ms"] for p in e["phases"] if p["phase"] == "respond")
+                   for e in ex["requests"]]
+        if not (min(gaps) >= -GATEWAY_PHASE_SUM_MS and max(gaps) <= GATEWAY_PHASE_SUM_MS):
+            raise RuntimeError(f"gateway: exemplars' phases miss their latency by "
+                               f"{min(gaps)} to {max(gaps)} ms")
+        tuner = gw.attach_tuner(ledger_path=ledger, interval_s=0.2,
+                                monitor=SLOMonitor(gw.pool, window_s=30.0, min_samples=1))
+        t_end = time.perf_counter() + GATEWAY_TUNER_S
+        while time.perf_counter() < t_end:
+            if http_json(predict, one)[0] != 200:
+                raise RuntimeError("gateway: a request under the tuner failed")
+        tuner.stop()
+        code, trace = http_json(gw.url + "/trace")
+        serve_spans = sum(e.get("cat") == "serve" for e in trace.get("traceEvents", []))
+        if code != 200 or not serve_spans:
+            raise RuntimeError(f"gateway: /trace answered {code} with {serve_spans} "
+                               f"serving spans")
+        code, tuned = http_json(gw.url + "/debug/tuner")
+        rows = autotuner.read_ledger(ledger)
+        problems = [autotuner.validate_entry(r) for r in rows]
+        if code != 200 or not tuned.get("enabled") or not rows or any(problems):
+            raise RuntimeError(f"gateway: /debug/tuner {code} {tuned.get('state')}, "
+                               f"ledger {len(rows)} rows, problems {problems}")
+        http_json(gw.url + "/config", {"tier_slo_ms": {"critical": 50.0}})
+        stats = http_json(gw.url + "/stats")[1]
+        models = http_json(gw.url + "/models")[1]
+        result["observability"] = {
+            "exemplars": ex["count"], "phase_sum_gap_ms": [min(gaps), max(gaps)],
+            "respond_ms": [min(respond), max(respond)],
+            "trace_serve_spans": serve_spans, "tuner_state": tuned["state"],
+            "ledger_rows": len(rows), "ledger_kinds": sorted({r["kind"] for r in rows}),
+            "stats_models": sorted(stats["latency"]),
+            "models": [m["model"] for m in models["models"]]}
+        step_done("observability")
+        log(f"gateway: observability {json.dumps(result['observability'])}; seconds "
+            f"by step {json.dumps(result['step_s'])}")
+    finally:
+        flight_recorder.disable()
+        faults.clear("serve.forward")
+        gw.stop()
+        tmp.cleanup()
+    result["launches"] = {"lrn_fwd": result["storm_launches"]["lrn_fwd"],
+                          "int8_matmul": result["int8"]["launches"]["int8_matmul"],
+                          "decode_attention": result["decode"]["launches"]["decode_attention"]}
+    log(f"gateway: launches K1 {result['launches']['lrn_fwd']} (storm), K6 "
+        f"{result['launches']['int8_matmul']} (int8 run), K7 "
+        f"{result['launches']['decode_attention']} (/generate)  [{card}]")
+    return result
 
 
 # ------------------------------------------------------- bfloat16 AlexNet
@@ -5426,6 +6047,8 @@ def main() -> int:
     del answers
     del net, cpu_net
     torch.cuda.empty_cache()
+    gateway = phase_gateway(torch, card)
+    torch.cuda.empty_cache()
     training = phase_training(torch, card)
     torch.cuda.empty_cache()
     fit_loop = phase_fit_loop_alexnet(torch, card)
@@ -5477,7 +6100,10 @@ def main() -> int:
         f"packed char model {json.dumps(fit_char['launches'])}; decode serving K7 "
         f"{decode['launches']['decode_attention']} in {decode['steps']} steps; packed "
         f"admission K3 {packed['launches']['flash_fwd']} in "
-        f"{packed['packed_forwards']} packed forwards")
+        f"{packed['packed_forwards']} packed forwards; the gateway's K1 "
+        f"{gateway['launches']['lrn_fwd']} (storm), K6 "
+        f"{gateway['launches']['int8_matmul']} (int8 run), K7 "
+        f"{gateway['launches']['decode_attention']} (/generate)")
     log(f"chip_smoke: every phase passed in {time.perf_counter() - t0:.1f} s  [{card}]")
     log(json.dumps(kernels))
     log(json.dumps({"ok": True, "device": {

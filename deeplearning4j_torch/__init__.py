@@ -62,6 +62,7 @@ from .optimize.listeners import (CheckpointListener,
 from .optimize.resilience import (CheckpointManager, DivergenceError,
                                   DivergenceSentinel, RetryPolicy)
 from .parallel.inference import InferenceMode, ParallelInference
+from .serving import ModelPool, ServingGateway
 from .utils.model_serializer import (CheckpointCorruptError, ModelSerializer,
                                      restore_model, save_model)
 

@@ -24,15 +24,19 @@ input, not a network output. `sibling_conv_fusion_total` counts the groups
 fused and the candidates rejected (the JAX package's metric family of that
 name, a plain dict here until optimize/metrics.py is ported).
 
-The multi-model serving merge of the JAX module (`merge_serving_conf`,
-`build_fused_serving_net`) waits for the serving plane, Queue A item 3.
+The multi-model serving merge (`merge_serving_conf`,
+`build_fused_serving_net`) is the substrate of the serving plane's fused
+groups (serving/model_pool.FusedModelGroup): N same-input graphs merged
+under name prefixes into one inference-only graph whose `serving_concat`
+MergeVertex puts every member's output side by side, sibling-fused, so one
+forward answers for all of them.
 """
 from __future__ import annotations
 
 import copy
 import threading
 from dataclasses import dataclass
-from typing import Dict, List, Sequence, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import torch
 
@@ -42,7 +46,7 @@ from ..conf.graph_conf import ComputationGraphConfiguration, GraphNode, _toposor
 from ..layers.convolution import ConvolutionLayer
 from ..layers.core import DenseLayer
 from ..updaters import GradientNormalization
-from .vertices import SubsetVertex
+from .vertices import MergeVertex, SubsetVertex
 
 #: decisions of the fusion pass in this process, by outcome
 sibling_conv_fusion_total = {"fused": 0, "rejected": 0}
@@ -241,3 +245,161 @@ def fuse_graph(net):
     out.iteration = net.iteration
     out.epoch = net.epoch
     return out
+
+
+# ---------------------------------------------------------------------------
+# Multi-model serving merge (serving/model_pool.py FusedModelGroup substrate)
+# ---------------------------------------------------------------------------
+
+# Name of the synthetic concat head the merged serving graph ends in.
+SERVING_CONCAT = "serving_concat"
+
+
+class FusionIneligibleError(ValueError):
+    """The member set cannot be merged into one fused serving forward
+    (geometry/type/init/device mismatch). ModelPool catches this and falls
+    back to independent per-model entries — never a hard failure."""
+
+
+def _serving_member_ok(name: str, net) -> None:
+    """Raise FusionIneligibleError unless `net` is a single-input,
+    single-output, initialized ComputationGraph whose head is a sized
+    layer (the shapes the column slicing needs)."""
+    conf = getattr(net, "conf", None)
+    if not isinstance(conf, ComputationGraphConfiguration):
+        raise FusionIneligibleError(
+            f"member {name!r} is not a ComputationGraph (only graph "
+            "models can merge into a fused serving forward)")
+    if not getattr(net, "_initialized", False):
+        raise FusionIneligibleError(f"member {name!r} is not init()ed")
+    if len(conf.network_inputs) != 1 or len(conf.network_outputs) != 1:
+        raise FusionIneligibleError(
+            f"member {name!r} must have exactly one input and one "
+            f"output (has {len(conf.network_inputs)}/"
+            f"{len(conf.network_outputs)})")
+    if not conf.input_types:
+        raise FusionIneligibleError(
+            f"member {name!r} was built without set_input_types(...) — "
+            "the fused engine cannot warm its buckets")
+    head = conf.nodes[conf.network_outputs[0]]
+    if not head.is_layer() or getattr(head.layer, "n_out", 0) <= 0:
+        raise FusionIneligibleError(
+            f"member {name!r} head {conf.network_outputs[0]!r} has no "
+            "sized n_out to slice columns by")
+
+
+def merge_serving_conf(named_members: Sequence[Tuple[str, object]]
+                       ) -> Tuple[ComputationGraphConfiguration,
+                                  Dict[str, Tuple[int, int]]]:
+    """Merge N same-input-geometry single-head graphs into ONE inference
+    config: every member's nodes are cloned under a ``{member}/`` name
+    prefix, all members read one shared network input, and a final
+    MergeVertex (``serving_concat``) channel-concatenates the member heads
+    so one forward yields every member's output side by side.
+
+    Returns (merged_conf, col_slices) where ``col_slices[member] = (offset,
+    width)`` locates that member's columns in the concat. The merged config
+    is INFERENCE-ONLY (a MergeVertex over output heads cannot train).
+
+    Raises :class:`FusionIneligibleError` when members diverge (not graphs,
+    different input types, devices or types, duplicate names, <2
+    members)."""
+    if len(named_members) < 2:
+        raise FusionIneligibleError("a fused group needs >= 2 members")
+    names = [nm for nm, _ in named_members]
+    if len(set(names)) != len(names):
+        raise FusionIneligibleError(f"duplicate member names in {names}")
+    for nm, net in named_members:
+        _serving_member_ok(nm, net)
+    first_net = named_members[0][1]
+    first = first_net.conf
+    for nm, net in named_members[1:]:
+        if net.conf.input_types != first.input_types:
+            raise FusionIneligibleError(
+                f"member {nm!r} input type {net.conf.input_types} != "
+                f"{first.input_types} — fused batching needs identical "
+                "input geometry")
+        if net.device != first_net.device or net._dtype != first_net._dtype:
+            raise FusionIneligibleError(
+                f"member {nm!r} runs {net._dtype} on {net.device}, the first "
+                f"member {first_net._dtype} on {first_net.device}")
+    shared_input = first.network_inputs[0]
+    nodes: Dict[str, GraphNode] = {}
+    heads: List[str] = []
+    col_slices: Dict[str, Tuple[int, int]] = {}
+    off = 0
+    for nm, net in named_members:
+        conf = net.conf
+        own_input = conf.network_inputs[0]
+
+        def remap(inp, _nm=nm, _own=own_input):
+            return shared_input if inp == _own else f"{_nm}/{inp}"
+
+        for node_name, node in conf.nodes.items():
+            nodes[f"{nm}/{node_name}"] = GraphNode(
+                inputs=[remap(i) for i in node.inputs],
+                layer=copy.deepcopy(node.layer),
+                vertex=copy.deepcopy(node.vertex),
+                preprocessor=copy.deepcopy(node.preprocessor))
+        head = conf.network_outputs[0]
+        heads.append(f"{nm}/{head}")
+        width = conf.nodes[head].layer.n_out
+        col_slices[nm] = (off, width)
+        off += width
+    nodes[SERVING_CONCAT] = GraphNode(inputs=heads, vertex=MergeVertex())
+    merged = ComputationGraphConfiguration(
+        network_inputs=[shared_input],
+        network_outputs=[SERVING_CONCAT],
+        nodes=nodes,
+        topo_order=_toposort(nodes, [shared_input]),
+        input_types=copy.deepcopy(first.input_types),
+        seed=first.seed)
+    return merged, col_slices
+
+
+def fused_trees_from_members(groups: Sequence[FusionGroup],
+                             named_members: Sequence[Tuple[str, object]],
+                             order: Optional[Sequence[str]] = None
+                             ) -> Tuple[Dict[str, dict], Dict[str, dict]]:
+    """(params_tree, state_tree) for the fused serving graph, built from the
+    members' CURRENT trees (namespace-prefix then fuse_params), in `order`
+    (the fused graph's layer nodes) when given. Leaves are copies, never
+    aliases: the solo members stay the source of truth and change
+    independently (a hot swap rebuilds through here)."""
+    merged_p: Dict[str, dict] = {}
+    merged_s: Dict[str, dict] = {}
+    for nm, net in named_members:
+        for node, sub in net.params_tree.items():
+            merged_p[f"{nm}/{node}"] = sub
+        for node, sub in net.state_tree.items():
+            merged_s[f"{nm}/{node}"] = sub
+
+    def own(tree):
+        fused = fuse_params(groups, tree)
+        keys = list(order) if order is not None else list(fused)
+        return {n: param_utils.tree_map(torch.clone, fused[n]) for n in keys}
+
+    return own(merged_p), own(merged_s)
+
+
+def build_fused_serving_net(named_members: Sequence[Tuple[str, object]]):
+    """Members -> ONE inference-only ComputationGraph serving all of them,
+    on the members' device and in their type: merge under name prefixes,
+    run the sibling-fusion pass over the merged config (same-geometry first
+    layers collapse into one concatenated conv or product), and carry the
+    members' live parameters and layer state (nothing is drawn; the fused
+    net holds no optimizer state).
+
+    Returns (fused_net, groups, col_slices): run ``fused_net.output(x)``
+    once, slice ``[:, off:off+width]`` per member. Raises
+    :class:`FusionIneligibleError` when the member set cannot merge."""
+    from .graph import ComputationGraph
+    merged, col_slices = merge_serving_conf(named_members)
+    fused_conf, groups = fuse_sibling_convs(merged)
+    net = ComputationGraph(fused_conf)
+    first = named_members[0][1]
+    params, state = fused_trees_from_members(groups, named_members,
+                                             order=net._layer_nodes)
+    net._adopt(params, first._dtype, first.device, opt_state={},
+               state_tree=state)
+    return net, groups, col_slices

@@ -31,7 +31,7 @@ from collections import deque
 from typing import Any, Dict, Optional
 
 __all__ = ["enable", "disable", "is_enabled", "clear", "span", "begin",
-           "add_span", "fence", "export_trace_events", "dump",
+           "add_span", "add_spans", "fence", "export_trace_events", "dump",
            "DEFAULT_FENCE_EVERY"]
 
 # Default fence sampling once tracing is enabled: 1 fenced step in 16
@@ -190,6 +190,24 @@ def add_span(name: str, start: float, dur_s: float,
     if not _enabled:
         return
     _record(name, start, dur_s, args or None, cat)
+
+
+def add_spans(spans, cat: Optional[str] = None, **args) -> None:
+    """Bulk `add_span`: `spans` is [(name, start_s, dur_s)], recorded with
+    one enabled check and ONE shared args dict (the serving flight recorder
+    emits a span per phase of every request). The shared dict is stored by
+    reference; callers must not change it afterwards."""
+    if not _enabled:
+        return
+    shared = args or None
+    tid = threading.get_ident()
+    for name, start, dur_s in spans:
+        ev = {"name": name, "ts": start * 1e6, "dur": dur_s * 1e6, "tid": tid}
+        if cat:
+            ev["cat"] = cat
+        if shared:
+            ev["args"] = shared
+        _ring.append(ev)
 
 
 def fence(step: int, value) -> Optional[float]:

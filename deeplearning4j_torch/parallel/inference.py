@@ -14,8 +14,18 @@ shutdown that serves queued stragglers and fails whatever it cannot, and
 packed admission: short single-sequence requests coalesce into ONE
 ``[1, pack_bucket]`` row separated by segment ids (the features mask of a
 model whose attention layers run ``packed_segments=True``), which reaches
-the flash kernels (K3) with segment ids on the GPU. The gateway hooks,
-device scheduler and flight recorder wait for the serving-plane slice.
+the flash kernels (K3) with segment ids on the GPU.
+
+The serving plane (serving/model_pool.py, serving/gateway.py) drives it
+through the JAX package's hooks: `on_shed(request, reason)`,
+`on_batch(requests, rows, bucket, dur_s)` and `on_batch_error(exc,
+n_requests)`; a `scheduler` (serving/scheduler.DeviceScheduler) whose slot
+every forward holds, entered inside the engine lock; `paused()`, the
+hot-swap window; `queue_depth()` and `estimate_wait_s()` (an EWMA of the
+batch time) for admission; and `output(transform=, tag=, trace=)`: a
+per-request view of its rows (a fused member's columns), a name for
+failure attribution (`BatchExecutionError.request_tags`) and a
+flight-recorder trace whose phases the engine marks.
 
 A coalesced batch reaches the card through the same pinned staging as the
 fit loop's device prefetch (data/iterators.PinnedStager): a copy into a
@@ -25,11 +35,12 @@ for it, then the forward on the device tensor.
 from __future__ import annotations
 
 import collections
+import contextlib
 import enum
 import queue
 import threading
 import time
-from typing import List, Optional
+from typing import Callable, List, Optional
 
 import numpy as np
 import torch
@@ -80,15 +91,27 @@ class KVCacheExhaustedError(QueueFullError):
 
 
 class _Request:
-    __slots__ = ("x", "event", "result", "error", "deadline")
+    __slots__ = ("x", "event", "result", "error", "deadline", "transform",
+                 "tag", "trace")
 
-    def __init__(self, x: np.ndarray, deadline: Optional[float] = None):
+    def __init__(self, x: np.ndarray, deadline: Optional[float] = None,
+                 transform: Optional[Callable] = None,
+                 tag: Optional[str] = None, trace=None):
         self.x = x
         self.event = threading.Event()
         self.result: Optional[np.ndarray] = None
         self.error: Optional[BaseException] = None
         # Absolute time.monotonic() seconds; None = no SLO.
         self.deadline = deadline
+        # Applied to this request's rows after the scatter (a fused
+        # member's column slice); a raising transform fails only this
+        # request.
+        self.transform = transform
+        # Routing identity for failure attribution (request_tags).
+        self.tag = tag
+        # Flight-recorder RequestTrace or None (every touch point is one
+        # `is None` branch).
+        self.trace = trace
 
     def expired(self, now: Optional[float] = None) -> bool:
         return self.deadline is not None and \
@@ -148,7 +171,23 @@ class ParallelInference:
         self.total_shed = 0
         self.total_batch_failures = 0
         self._stats_lock = threading.Lock()
+        # EWMA of one coalesced forward's wall time, written under
+        # self._lock; the admission estimate reads it without a lock.
+        self._ewma_batch_s = 0.0
         self.warmed_buckets: List[int] = []
+        # Gateway hooks (a broken hook never takes the server down):
+        # on_shed(request, reason) on every deadline drop; on_batch(requests,
+        # rows, bucket, dur_s) after every forward; on_batch_error(exc,
+        # n_requests) after every failed forward attempt, solo retries
+        # included.
+        self.on_shed: Optional[Callable] = None
+        self.on_batch: Optional[Callable] = None
+        self.on_batch_error: Optional[Callable] = None
+        # Cross-model device arbitration: with a DeviceScheduler attached
+        # every forward holds one of its slots; None keeps the single-model
+        # path.
+        self.scheduler = None
+        self.sched_name: Optional[str] = None
         if inference_mode == InferenceMode.BATCHED:
             self._worker = threading.Thread(
                 target=self._collector_loop, name="ParallelInference-collector",
@@ -188,8 +227,42 @@ class ParallelInference:
                                                         device=dev))
         return self
 
+    # -------------------------------------------------------------- admission
+    def queue_depth(self) -> int:
+        """Requests currently queued (a gauge: qsize races the collector)."""
+        return self._queue.qsize()
+
+    def estimate_wait_s(self) -> float:
+        """Expected time until a request admitted now completes: the queued
+        batches ahead of it plus its own forward, at the EWMA batch time.
+        0.0 until the first forward seeds the EWMA."""
+        svc = self._ewma_batch_s
+        if svc <= 0.0:
+            return 0.0
+        batches_ahead = self.queue_depth() // max(1, self.batch_limit)
+        return (batches_ahead + 1) * svc
+
+    def _sched_slot(self, cost: float = 1.0):
+        """The device-budget gate of one forward: a WFQ slot when a
+        DeviceScheduler is attached, a no-op otherwise. Entered INSIDE
+        self._lock, so a paused() hot swap never parks holding the shared
+        slot, and the scheduler takes no engine lock (no deadlock)."""
+        if self.scheduler is None:
+            return contextlib.nullcontext()
+        return self.scheduler.slot(self.sched_name or "?", cost=cost)
+
+    @contextlib.contextmanager
+    def paused(self):
+        """Hold the execution lock: the forward in flight completes, then
+        dispatch stalls; queued requests wait, none is dropped. The hot-swap
+        window: the pool assigns new parameters inside it."""
+        with self._lock:
+            yield self
+
     # ----------------------------------------------------------------- output
-    def output(self, x, *, deadline: Optional[float] = None) -> np.ndarray:
+    def output(self, x, *, deadline: Optional[float] = None,
+               transform: Optional[Callable] = None,
+               tag: Optional[str] = None, trace=None) -> np.ndarray:
         """Predict for one request (any leading batch size). Thread-safe;
         in BATCHED mode blocks until the coalesced forward containing this
         request completes.
@@ -197,7 +270,11 @@ class ParallelInference:
         `deadline` is an absolute time.monotonic() second count: a request
         still unserved past it fails with :class:`DeadlineExceededError`. A
         full admission queue raises :class:`QueueFullError`, a closed server
-        :class:`ServerClosedError`."""
+        :class:`ServerClosedError`. `transform` maps this request's rows
+        before the caller sees them (a raising transform fails only this
+        request); `tag` names the request in ``err.request_tags``; `trace`
+        is a flight-recorder RequestTrace whose phase cut points the engine
+        marks (None records nothing)."""
         x = np.asarray(x)
         if x.ndim == 0:
             raise ValueError("Request must have a leading batch dimension")
@@ -207,19 +284,30 @@ class ParallelInference:
             if closed:
                 raise ServerClosedError("ParallelInference has been shut down")
             with self._lock:
-                req = _Request(x, deadline)
+                req = _Request(x, deadline, transform, tag, trace)
                 if req.expired():
-                    self._shed()
+                    self._shed(req, "expired")
                     raise DeadlineExceededError("deadline passed before dispatch")
                 try:
-                    out = self._forward(x)
+                    with self._sched_slot(float(x.shape[0])):
+                        if trace is not None:
+                            # no coalescing here: no queue or pack phases
+                            trace.mark("sched_wait")
+                            trace.mark("dispatch")
+                        out = self._forward(x)
+                        if trace is not None:
+                            trace.mark("device")
                     self._require_finite(out)
+                    if transform is not None:
+                        out = transform(out)
+                    if trace is not None:
+                        trace.mark("unpack")
                 except BaseException as e:
-                    raise self._batch_failure(e, 1)
+                    raise self._batch_failure(e, 1, reqs=[req])
                 with self._stats_lock:
                     self.total_forwards += 1
                 return out
-        req = _Request(x, deadline)
+        req = _Request(x, deadline, transform, tag, trace)
         # Enqueue under the same lock shutdown() uses to place its sentinel,
         # so no request can ever land BEHIND the sentinel and starve.
         with self._enqueue_lock:
@@ -236,9 +324,34 @@ class ParallelInference:
             raise req.error
         return req.result
 
-    def _shed(self) -> None:
+    def _shed(self, req: _Request, reason: str) -> None:
         with self._stats_lock:
             self.total_shed += 1
+        cb = self.on_shed
+        if cb is not None:
+            try:
+                cb(req, reason)
+            except Exception:
+                pass  # a broken hook must never take the server down
+
+    def _finish(self, r: _Request, rows) -> None:
+        """Deliver one request's rows, through its transform when it has
+        one; a raising transform fails only this request. The unpack mark
+        lands before event.set(): once the caller wakes it owns the
+        trace."""
+        if r.transform is not None:
+            try:
+                rows = r.transform(rows)
+            except BaseException as te:
+                if r.trace is not None:
+                    r.trace.mark("unpack")
+                r.error = self._batch_failure(te, 1, reqs=[r])
+                r.event.set()
+                return
+        r.result = rows
+        if r.trace is not None:
+            r.trace.mark("unpack")
+        r.event.set()
 
     def _forward(self, x: np.ndarray) -> np.ndarray:
         # Chaos seam: armed "serve.forward" plans fail or delay this
@@ -251,18 +364,29 @@ class ParallelInference:
             raise NonFiniteOutputError(
                 "forward returned non-finite (NaN/Inf) outputs")
 
-    def _batch_failure(self, e: BaseException,
-                       n_requests: int) -> BatchExecutionError:
+    def _batch_failure(self, e: BaseException, n_requests: int,
+                       reqs: Optional[List[_Request]] = None
+                       ) -> BatchExecutionError:
         """Record one failed forward attempt and return the typed error the
-        affected callers see (original exception chained)."""
+        affected callers see (original exception chained). The failed
+        requests' tags ride along as ``err.request_tags``, so a shared
+        engine's hook (a fused group) can charge the right members."""
         if isinstance(e, BatchExecutionError):
             err = e
         else:
             err = BatchExecutionError(
                 f"forward failed for a {n_requests}-request batch: {e}")
             err.__cause__ = e
+        if reqs is not None and not hasattr(err, "request_tags"):
+            err.request_tags = [r.tag for r in reqs]
         with self._stats_lock:
             self.total_batch_failures += 1
+        cb = self.on_batch_error
+        if cb is not None:
+            try:
+                cb(err, n_requests)
+            except Exception:
+                pass  # a broken hook must never take the server down
         return err
 
     # -------------------------------------------------------------- collector
@@ -347,48 +471,114 @@ class ParallelInference:
         if batch:
             self._run_batch(batch)
 
-    def _run_batch(self, batch: List[_Request]):
-        # SLO late-shed: a request whose deadline passed while queued is
-        # failed now rather than spending forward rows on it.
+    def _live(self, batch: List[_Request]) -> List[_Request]:
+        """SLO late-shed: a request whose deadline passed while queued is
+        failed now rather than spending forward rows on it."""
         now = time.monotonic()
         live = []
         for r in batch:
             if r.expired(now):
-                self._shed()
+                self._shed(r, "expired")
+                if r.trace is not None:
+                    r.trace.mark("queue_wait")  # died waiting: show where
                 r.error = DeadlineExceededError("deadline passed while queued")
                 r.event.set()
             else:
                 live.append(r)
-        batch = live
+        return live
+
+    @staticmethod
+    def _mark_all(traced: List[_Request], phase: str, **ctx) -> None:
+        """One timestamp per phase boundary for every traced batchmate (they
+        ride the same forward, so they share the timeline from here)."""
+        t = time.perf_counter()
+        for r in traced:
+            r.trace.mark(phase, t)
+            r.trace.ctx.update(ctx)
+
+    def _dispatch(self, traced: List[_Request], cost: float, forward):
+        """Run `forward()` under the engine lock and a scheduler slot,
+        marking sched_wait / dispatch / device on the traced requests and
+        updating the batch-time EWMA. Returns (output, seconds)."""
+        t0 = time.perf_counter()
+        with self._lock:
+            with self._sched_slot(cost):
+                if traced:
+                    po = (self.scheduler.last_passovers(self.sched_name)
+                          if self.scheduler is not None else 0)
+                    self._mark_all(traced, "sched_wait",
+                                   **({"sched_passovers": po} if po else {}))
+                    for r in traced:
+                        r.trace.mark("dispatch")
+                out = forward()
+                if traced:
+                    self._mark_all(traced, "device")
+            dur = time.perf_counter() - t0
+            # seeded by the first forward, then smoothed at 0.2
+            self._ewma_batch_s = dur if self._ewma_batch_s <= 0.0 \
+                else 0.8 * self._ewma_batch_s + 0.2 * dur
+        return out, dur
+
+    def _on_batch(self, batch: List[_Request], rows: int, bucket: int,
+                  dur: float) -> None:
+        cb = self.on_batch
+        if cb is not None:
+            try:
+                cb(batch, rows, bucket, dur)
+            except Exception:
+                pass  # a broken hook must never take the server down
+
+    def _close_failed(self, err, batch: List[_Request],
+                      traced: List[_Request]) -> bool:
+        """After a failed forward: close the attempt's window on the traced
+        requests (the solo retries add fresh segments) and fail a lone
+        request. Returns whether the batch must be retried request by
+        request, so only the offender fails."""
+        for r in traced:
+            r.trace.mark("device")
+            r.trace.ctx["failed_attempts"] = \
+                r.trace.ctx.get("failed_attempts", 0) + 1
+        if len(batch) == 1:
+            batch[0].error = err
+            batch[0].event.set()
+            return False
+        return True
+
+    def _run_batch(self, batch: List[_Request]):
+        batch = self._live(batch)
         if not batch:
             return
+        traced = [r for r in batch if r.trace is not None]
+        if traced:
+            self._mark_all(traced, "queue_wait")
         try:
             xs = np.concatenate([r.x for r in batch], axis=0)
             n = xs.shape[0]
+            bucket = next_pow2_bucket(n)
             # Pad to the bucket by repeating the tail row; pad rows are
             # sliced off before any caller sees them.
-            xs = repeat_tail_rows(xs, next_pow2_bucket(n) - n)
-            with self._lock:
-                out = self._forward(xs)
+            xs = repeat_tail_rows(xs, bucket - n)
+            if traced:
+                self._mark_all(traced, "pack", batch_rows=n, bucket=bucket)
+            out, dur = self._dispatch(traced, float(n),
+                                      lambda: self._forward(xs))
             self._require_finite(out[:n])
             self.executed_batch_sizes.append(n)
             with self._stats_lock:
                 self.total_forwards += 1
+            self._on_batch(batch, n, bucket, dur)
             ofs = 0
             for r in batch:
                 k = r.x.shape[0]
-                r.result = out[ofs:ofs + k]
-                r.event.set()
+                self._finish(r, out[ofs:ofs + k])
                 ofs += k
         except BaseException as e:
             # Batch-failure isolation: the affected callers fail with a
             # TYPED error and the collector survives. One bad request must
             # not poison its batchmates, so a failed multi-request batch is
             # retried request by request.
-            err = self._batch_failure(e, len(batch))
-            if len(batch) == 1:
-                batch[0].error = err
-                batch[0].event.set()
+            err = self._batch_failure(e, len(batch), reqs=batch)
+            if not self._close_failed(err, batch, traced):
                 return
             for r in batch:
                 self._run_batch([r])
@@ -481,18 +671,12 @@ class ParallelInference:
         return self.model.output(x, features_mask=seg)
 
     def _run_packed(self, batch: List[_Request]):
-        now = time.monotonic()
-        live = []
-        for r in batch:  # SLO late-shed, as in _run_batch
-            if r.expired(now):
-                self._shed()
-                r.error = DeadlineExceededError("deadline passed while queued")
-                r.event.set()
-            else:
-                live.append(r)
-        batch = live
+        batch = self._live(batch)
         if not batch:
             return
+        traced = [r for r in batch if r.trace is not None]
+        if traced:
+            self._mark_all(traced, "queue_wait")
         try:
             # Chaos seam: an armed "serve.pack" plan fails the assembly (and,
             # below, the unpack) of a packed row.
@@ -506,8 +690,11 @@ class ParallelInference:
                 xs[0, ofs:ofs + t_i] = r.x[0]
                 segmask[0, ofs:ofs + t_i] = s
                 ofs += t_i
-            with self._lock:
-                out = self._forward_packed(xs, segmask)
+            if traced:
+                self._mark_all(traced, "pack", packed_with=len(batch),
+                               packed_tokens=ofs, pack_bucket=self.pack_bucket)
+            out, dur = self._dispatch(traced, float(len(batch)),
+                                      lambda: self._forward_packed(xs, segmask))
             self._require_finite(out)
             self.executed_batch_sizes.append(len(batch))
             with self._stats_lock:
@@ -515,18 +702,16 @@ class ParallelInference:
                 self.total_packed_requests += len(batch)
             record_packing("serve", items=len(batch), real_tokens=ofs,
                            padded_tokens=self.pack_bucket)
+            self._on_batch(batch, len(batch), self.pack_bucket, dur)
             faults.fire("serve.pack")
             ofs = 0
             for r in batch:
                 t_i = r.x.shape[1]
-                r.result = out[:, ofs:ofs + t_i]
-                r.event.set()
+                self._finish(r, out[:, ofs:ofs + t_i])
                 ofs += t_i
         except BaseException as e:
-            err = self._batch_failure(e, len(batch))
-            if len(batch) == 1:
-                batch[0].error = err
-                batch[0].event.set()
+            err = self._batch_failure(e, len(batch), reqs=batch)
+            if not self._close_failed(err, batch, traced):
                 return
             # as in _run_batch: each request in its own packed row, so only
             # the offender fails

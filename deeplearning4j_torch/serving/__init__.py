@@ -1,8 +1,25 @@
-"""Serving: the decode plane of the JAX package's serving/ (serving/decode.py:
-token-granularity continuous batching over a paged KV cache, with a
-transformer and a recurrent adapter). The gateway, model pool, scheduler,
-breaker and flight recorder are not ported yet."""
-from . import decode
+"""Serving: the single-replica serving plane of the JAX package's serving/,
+ported. The gateway control plane (continuous batching, SLO shedding,
+per-model circuit breakers, checkpoint-gated hot swap with a canary gate,
+priority-tier WFQ scheduling across co-resident models and fused
+cross-model batching) on the stdlib HTTP core of utils/http_server.py; the
+per-request flight recorder (`flight_recorder`: phase-attributed tail
+latency, slow-request exemplars, GET /debug/requests and /trace); the
+serving control loop (`autotuner`: windowed SLO verdicts and the auditable
+hill-climbing AutoTuner behind GET /debug/tuner); and the autoregressive
+decode plane (`decode`: token-granularity continuous batching over a paged
+KV cache, POST /generate).
+
+Not ported yet: the replica federation (FederationFrontEnd, ReplicaServer,
+serve_replica, spawn_replica, ReplicaLostError), the Keras backend server
+and the nearest-neighbour server."""
+from . import autotuner, decode, flight_recorder
+from .autotuner import AutoTuner, Knob, SLOMonitor
+from .breaker import BreakerOpenError, CircuitBreaker
 from .decode import (DecodeEngine, PagedKVCache, RecurrentAdapter,
                      TransformerAdapter, TransformerDecoder, naive_generate,
                      register_metrics)
+from .flight_recorder import RequestTrace
+from .gateway import ServingGateway
+from .model_pool import FusedModelGroup, ModelEntry, ModelPool, SwapError
+from .scheduler import DeviceScheduler, TierShedError

@@ -36,9 +36,11 @@ Chaos seam: each step attempt fires the ``serve.decode_step`` fault point
 (utils/faults.py) before dispatch. A failing batch step is isolated by solo
 retries: only a request whose solo step also fails gets a typed
 :class:`~..parallel.inference.DecodeStepError`, its KV blocks freed, and
-batchmates keep generating. The gateway, the device scheduler and the
-flight recorder are not ported yet: ``scheduler``, ``trace`` and the
-``on_*`` hooks stay as attributes that default to None.
+batchmates keep generating. The serving plane drives the engine through
+the attributes ParallelInference has too: ``scheduler`` (a
+serving/scheduler.DeviceScheduler slot held by every step), the ``on_*``
+hooks (the model pool's breaker and metrics) and each request's
+flight-recorder ``trace``; each defaults to None.
 """
 from __future__ import annotations
 

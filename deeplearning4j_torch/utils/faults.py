@@ -32,6 +32,12 @@ Points used here:
                        (ParallelInference with packed_admission)
     serve.decode_step  each decode step attempt of DecodeEngine, solo
                        retries included (serving/decode.py)
+    serve.schedule     each DeviceScheduler slot acquisition
+                       (serving/scheduler.py)
+    serve.decode       a hot swap's checkpoint decode, before anything is
+                       changed (serving/model_pool.py)
+    swap.warm          each warm forward inside a hot swap's pause
+                       (serving/model_pool.py)
     checkpoint.write   mid-write of a checkpoint archive, after the
                        parameters (utils/model_serializer.py)
     etl.next           each base-iterator poll in the async producer
