@@ -233,7 +233,30 @@ Phases, each of which fails the script (non-zero exit, no result line):
    (every ledger row valid). Reports p50/p99 and images/s over HTTP and in
    process, one profiled request of each, the swap's pause, tokens/s and
    inter-token p50/p99 through /generate.
-16. One JSON line with every kernel's numbers, then the result line
+16. Scale-out (`phase_federation`, `phase_parallel_wrapper`,
+   `phase_param_server`, `phase_multihost`, at the end): two serving
+   replicas spawned by `spawn_replica` (AlexNet float32 and the decoder
+   through `federation_builder`) behind a FederationFrontEnd in this
+   process, on the one card: phase 15's /predict load cut to what JSON
+   carries and /generate beside it, every answer against this process's
+   own; each replica's K1 and K7 (its GET /metrics) held to the forwards
+   and decode steps it served; SIGKILL of a replica holding a /predict and
+   a /generate (the /predict retried on the sibling, no /predict failed,
+   the /generate a typed replica_lost), its respawn JOINING then HEALTHY,
+   a rolling /swap under traffic to the new parameters. ParallelWrapper
+   over 2 data shards on the card at a global batch of 128: sync `fit`
+   against a plain fit (each leaf's update within UPDATE_REL_STEP after a
+   step and UPDATE_REL_FIT after four), local SGD
+   against two networks averaged by hand, K1 and K2 = 2 x 2 shards x
+   steps, step ms against the plain step. The parameter server: one
+   worker at staleness 0 against the sequential fit, two racing workers
+   (applied and dropped pushes, pull/push ms), the HTTP node and client at
+   LeNet size. Two ranks of the multi-process runner over gloo (64 a
+   rank): bitwise agreement, the update against a single-process fit at
+   128, the chief's checkpoint restored, all-reduce ms; a killed rank
+   answered by exit code 17, and SIGTERM's grace checkpoint, both ranks
+   exiting 0, resumed to the uninterrupted run's parameters.
+17. One JSON line with every kernel's numbers, then the result line
    {"ok": true, "device": {...}}.
 
 Needs one CUDA GPU; exits non-zero without one.
@@ -399,9 +422,10 @@ def phase_header(torch):
         capture_output=True, text=True, timeout=60, check=True).stdout.strip()
     card = smi.splitlines()[0]
     log(card)
-    torch.backends.cudnn.allow_tf32 = False
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+    # the settings every tolerance here assumes, in this process and in the
+    # replicas and ranks it spawns
+    from deeplearning4j_torch.utils.device import exact_float32
+    exact_float32()
     log(f"torch {torch.__version__} cuda {torch.version.cuda} "
         f"device {torch.cuda.get_device_name(0)} count {torch.cuda.device_count()}")
     log("tf32: cudnn.allow_tf32=False (cuDNN's default is True), "
@@ -6025,6 +6049,1054 @@ def phase_records_export(torch, card, device=None):
     return result
 
 
+# ---------------------------------------------------------------------------
+# Scale-out: the replica federation, ParallelWrapper, the parameter server
+# and the multi-process runner
+# ---------------------------------------------------------------------------
+
+FEDERATION_FULL = dict(alexnet=((224, 224, 3), 1000), clients=4, bodies=24, max_rows=8,
+                       load_s=30.0, gen_clients=2, gen_prompts=4,
+                       kill_predict_clients=2, kill_generate_clients=2,
+                       kill_new_tokens=64, decode_step_delay_ms=10,
+                       train_batch=32, train_steps=2,
+                       swap_clients=2, swap_inputs=4, batch_limit=None,
+                       decode=None)   # None: DECODE_GEOMETRY
+FEDERATION_HEALTH = dict(interval_s=0.2, timeout_s=3.0)   # the front end's sweep
+FEDERATION_BEAT_S = 0.2       # each replica's beat cadence
+FEDERATION_JOIN_S = 600       # spawn to HEALTHY, the kernels' load and warmup included
+FEDERATION_WAIT_S = 120       # a chaos condition (an in-flight request) to arise
+FEDERATION_BUILDER = "chip_smoke:federation_builder"
+
+
+def federation_builder(gateway):
+    """The replica of `phase_federation` (spawned with `--builder
+    chip_smoke:federation_builder`): zoo AlexNet in float32 as "alexnet"
+    with the shared checkpoint directory, and TransformerDecoder(seed=7) as
+    "decoder" at bench_serving_decode's geometry, on the device and at the
+    size that DL4JTPU_FED_SPEC (JSON) names. A metrics collector publishes
+    this process's kernel launch counts and the AlexNet entry's forwards at
+    GET /metrics, so the parent holds each replica's K1 and K7 to what it
+    served."""
+    import torch
+
+    from deeplearning4j_torch.models.zoo import AlexNet
+    from deeplearning4j_torch.optimize.metrics import registry
+    from deeplearning4j_torch.optimize.resilience import CheckpointManager
+    from deeplearning4j_torch.serving import decode as sd
+    from deeplearning4j_torch.utils.device import exact_float32
+    exact_float32()
+    spec = json.loads(os.environ["DL4JTPU_FED_SPEC"])
+    dev = spec["device"]
+    shape, classes = spec["alexnet"]
+    net = AlexNet(input_shape=tuple(shape), num_labels=classes).init(device=dev)
+    gateway.add_model("alexnet", net, batch_limit=spec["batch_limit"],
+                      checkpoints=CheckpointManager(spec["ckpt"], save_updater=False))
+    g = spec["decode"]
+    decoder = sd.TransformerDecoder(vocab=g["vocab"], layers=g["layers"],
+                                    heads=g["heads"], head_dim=g["head_dim"],
+                                    ff=g["ff"], max_context=g["max_context"],
+                                    seed=7, device=dev)
+    gateway.add_decode_model("decoder", decoder, max_decode_batch=g["max_decode_batch"],
+                             pack_bucket=g["pack_bucket"],
+                             kv_block_tokens=g["block_tokens"],
+                             kv_max_blocks=g["kv_max_blocks"])
+
+    def collect(reg):
+        launches = reg.gauge("chip_smoke_kernel_launches",
+                             "Kernel launches in this replica process")
+        for name, n in all_launches().items():
+            launches.labels(kernel=name).set(n)
+        reg.gauge("chip_smoke_alexnet_forwards",
+                  "Forwards of the alexnet entry").set(
+                      gateway.pool.get("alexnet").engine.total_forwards)
+    registry().register_collector(collect)
+
+
+def scrape_metrics(url):
+    """{sample name with labels: value} of GET /metrics."""
+    import urllib.request
+    with urllib.request.urlopen(url + "/metrics", timeout=GATEWAY_HTTP_TIMEOUT_S) as r:
+        text = r.read().decode()
+    out = {}
+    for line in text.splitlines():
+        if line and not line.startswith("#"):
+            name, _, value = line.rpartition(" ")
+            out[name] = float(value)
+    return out
+
+
+def replica_counts(url):
+    """(K1 launches, K7 launches, AlexNet forwards, decode steps) of one
+    replica so far."""
+    m = scrape_metrics(url)
+    k = lambda name: m.get(f'chip_smoke_kernel_launches{{kernel="{name}"}}', 0.0)
+    return (k("lrn_fwd"), k("decode_attention"), m.get("chip_smoke_alexnet_forwards", 0.0),
+            m.get('serving_decode_steps_total{model="decoder"}', 0.0))
+
+
+def stop_processes(procs, timeout=30):
+    """SIGTERM every live process, then SIGKILL what has not ended."""
+    import signal
+    for p in procs:
+        if p.poll() is None:
+            p.send_signal(signal.SIGTERM)
+    for p in procs:
+        try:
+            p.wait(timeout=timeout)
+        except subprocess.TimeoutExpired:
+            p.kill()
+            p.wait()
+
+
+def wait_for(cond, timeout, what, detail=lambda: ""):
+    deadline = time.monotonic() + timeout
+    while time.monotonic() < deadline:
+        if cond():
+            return
+        time.sleep(0.005)
+    raise RuntimeError(f"federation: {what} within {timeout} s {detail()}"[:4000])
+
+
+def request_loop(url, bodies, stop, records, c, errors):
+    """POST `bodies` in turn, from the `c`-th on, to `url` until `stop`:
+    records (body index, sent s, answered s, status, body)."""
+    i = c
+    try:
+        while not stop.is_set():
+            k = i % len(bodies)
+            t = time.perf_counter()
+            code, body = http_json(url, bodies[k])
+            records.append((k, t, time.perf_counter(), code, body))
+            i += 1
+    except BaseException as e:
+        errors.append(e)
+
+
+def phase_federation(torch, card, device=None, size=None, builder=FEDERATION_BUILDER):
+    """Two serving replicas behind one `FederationFrontEnd`
+    (serving/federation.py), on one card:
+
+    1. The front end runs in this process; two replicas come from
+       `spawn_replica` with `federation_builder` (AlexNet float32 and the
+       decoder at bench_serving_decode's geometry), both on the card, the
+       kernels loaded from the build this script made. For `load_s`
+       seconds, `clients` closed-loop /predict clients (phase_gateway's
+       mix of 1 to `max_rows` images a request, at the rate the JSON leg
+       carries) and `gen_clients` /generate clients beside them go
+       through the front end: every answer equals this process's AlexNet
+       `output` on the same rows (SERVE tolerances) or `naive_generate`;
+       both replicas served; each replica's K1 launches are 2 x the
+       forwards it ran and its K7 launches layers x its decode steps (GET
+       /metrics of the replica, before and after the load). HTTP p50/p99
+       are over every /predict of the window.
+    2. SIGKILL replica 0 while it holds a /predict and a /generate in
+       flight: it is evicted, its /predict retries once on the sibling and
+       no /predict fails; the cut /generate answers 503 replica_lost with
+       tokens_so_far; every other answer across the kill is held as in 1.
+       Decode steps are slowed by DL4JTPU_FAULT_SERVE_DECODE_STEP (delay),
+       so a /generate is in flight long enough to be cut.
+    3. Replica 0 respawned: JOINING until warmed, then HEALTHY, then it takes
+       traffic again.
+    4. A second AlexNet trained `train_steps` steps publishes a checkpoint;
+       POST /swap to the front end (canary, then promote) under live
+       traffic: no request fails, every answer is the old parameters' or the
+       new ones', answers sent after it returned are the new ones', and each
+       replica, asked directly, answers with the new parameters.
+
+    Reports HTTP p50/p99 and images/s through the front end over the load
+    window, the eviction time, the failover count, JOINING -> HEALTHY, and
+    the swap's wall time."""
+    import tempfile
+
+    from deeplearning4j_torch.models.zoo import AlexNet
+    from deeplearning4j_torch.optimize.metrics import registry
+    from deeplearning4j_torch.optimize.resilience import CheckpointManager
+    from deeplearning4j_torch.parallel.cluster_health import HealthConfig
+    from deeplearning4j_torch.serving import decode as sd
+    from deeplearning4j_torch.serving import federation as fed
+    s = dict(FEDERATION_FULL, **(size or {}))
+    dev = device or "cuda"
+    g = s["decode"] or DECODE_GEOMETRY
+    rng = np.random.default_rng(2191)
+    reg = registry()
+    a_shape, a_classes = s["alexnet"]
+    result = {"card": card}
+    tmp = tempfile.TemporaryDirectory(prefix="chip_smoke_federation_")
+    spec = {"device": str(dev), "alexnet": [list(a_shape), a_classes],
+            "decode": g, "ckpt": os.path.join(tmp.name, "alexnet"),
+            "batch_limit": s["batch_limit"] or SERVE_BATCH_LIMIT}
+    env = {"DL4JTPU_FED_SPEC": json.dumps(spec),
+           "PYTHONPATH": os.pathsep.join([ROOT, os.environ.get("PYTHONPATH", "")]),
+           "DL4JTPU_FAULT_SERVE_DECODE_STEP": f"delay:*@{s['decode_step_delay_ms']}"}
+    fe = fed.FederationFrontEnd(health=HealthConfig(**FEDERATION_HEALTH),
+                                request_timeout_s=GATEWAY_HTTP_TIMEOUT_S).start()
+    procs = []
+
+    def spawn(rid):
+        return fed.spawn_replica(rid, fe.url, builder=builder,
+                                 interval_s=FEDERATION_BEAT_S, env=env)
+
+    def state(rid):
+        with fe._lock:
+            rep = fe._replicas.get(rid)
+            return None if rep is None else rep.state
+
+    def replica_urls():
+        return {r["id"]: r["url"] for r in http_json(fe.url + "/replicas")[1]["replicas"]}
+
+    try:
+        t0 = time.perf_counter()
+        procs = [spawn(0), spawn(1)]
+        ref_net = AlexNet(input_shape=a_shape, num_labels=a_classes).init(device=dev)
+        decoder = sd.TransformerDecoder(vocab=g["vocab"], layers=g["layers"],
+                                        heads=g["heads"], head_dim=g["head_dim"],
+                                        ff=g["ff"], max_context=g["max_context"],
+                                        seed=7, device=dev)
+        if not fe.wait_for_replicas(2, timeout=FEDERATION_JOIN_S):
+            raise RuntimeError(f"federation: replicas not healthy: "
+                               f"{http_json(fe.url + '/replicas')[1]}")
+        result["join_s"] = time.perf_counter() - t0
+        urls = replica_urls()
+
+        # 1. the load through the front end, over a fixed window
+        xs = [pixel_images(rng, int(rng.integers(1, s["max_rows"] + 1)), a_shape)
+              for _ in range(s["bodies"])]
+        bodies = [json.dumps({"model": "alexnet", "features": x.tolist()}).encode()
+                  for x in xs]
+        wants = [ref_net.output(x) for x in xs]
+        prompts = [rng.integers(0, g["vocab"], size=ln).tolist()
+                   for ln in rng.integers(g["prompt_lo"], g["prompt_hi"],
+                                          size=s["gen_prompts"])]
+        load_gen = [json.dumps({"model": "decoder", "prompt": p,
+                                "max_new_tokens": g["max_new_tokens"]}).encode()
+                    for p in prompts]
+        naive = [sd.naive_generate(decoder, p, g["max_new_tokens"], pad_to=g["pack_bucket"])
+                 for p in prompts]
+        before = {rid: replica_counts(u) for rid, u in urls.items()}
+        disp0 = {r["id"]: r["dispatched"] for r in
+                 http_json(fe.url + "/replicas")[1]["replicas"]}
+        stop, records, gen_out, errors = threading.Event(), [], [], []
+        loops = [threading.Thread(target=request_loop, daemon=True, args=(
+            fe.url + "/predict", bodies, stop, records, c * len(bodies) // s["clients"],
+            errors)) for c in range(s["clients"])]
+        loops += [threading.Thread(target=request_loop, daemon=True, args=(
+            fe.url + "/generate", load_gen, stop, gen_out, c, errors))
+            for c in range(s["gen_clients"])]
+        t_load = time.perf_counter()
+        for t in loops:
+            t.start()
+        stop.wait(s["load_s"])
+        stop.set()
+        for t in loops:
+            t.join(timeout=GATEWAY_JOIN_S)
+        if errors or any(t.is_alive() for t in loops):
+            raise RuntimeError(f"federation: clients failed: {errors!r}")
+        after = {rid: replica_counts(u) for rid, u in urls.items()}
+        if not records or not gen_out:
+            raise RuntimeError(f"federation: {len(records)} /predict and {len(gen_out)} "
+                               f"/generate answered in {s['load_s']} s")
+        failed = [(k, code, body) for k, _, _, code, body in records + gen_out
+                  if code != 200]
+        if failed:
+            raise RuntimeError(f"federation: failed requests {failed!r}"[:2000])
+        max_err = 0.0
+        for k, _, _, _, body in records:
+            got = np.asarray(body["predictions"], np.float32)
+            np.testing.assert_allclose(got, wants[k], rtol=SERVE_RTOL, atol=SERVE_ATOL)
+            max_err = max(max_err, float(np.abs(got - wants[k]).max()))
+        for k, _, _, _, body in gen_out:
+            if body["tokens"] != naive[k]:
+                raise RuntimeError(f"federation: /generate of prompt {k} is not "
+                                   "naive_generate's tokens")
+        disp = {r["id"]: r["dispatched"] - disp0[r["id"]] for r in
+                http_json(fe.url + "/replicas")[1]["replicas"]}
+        if min(disp.values()) < 1:
+            raise RuntimeError(f"federation: a replica served nothing: {disp}")
+        counts = {}
+        for rid in urls:
+            k1, k7, fwd, steps = (a - b for a, b in zip(after[rid], before[rid]))
+            if k1 != lrn_layers_of(ref_net) * fwd or k7 != g["layers"] * steps:
+                raise RuntimeError(f"federation: replica {rid} launched K1 {k1} for "
+                                   f"{fwd} forwards and K7 {k7} for {steps} decode steps")
+            counts[rid] = {"lrn_fwd": k1, "decode_attention": k7, "forwards": fwd,
+                           "decode_steps": steps}
+        if sum(c["lrn_fwd"] for c in counts.values()) < 1 or \
+                sum(c["decode_attention"] for c in counts.values()) < 1:
+            raise RuntimeError(f"federation: the replicas launched no K1 or no K7: {counts}")
+        images = sum(xs[k].shape[0] for k, *_ in records)
+        span = max(r[2] for r in records) - min(r[1] for r in records)
+        result.update(http=latency_stats([r[2] - r[1] for r in records], images, span),
+                      load_window_s=s["load_s"], load_wall_s=time.perf_counter() - t_load,
+                      generate_answers=len(gen_out), dispatched=disp,
+                      replica_launches=counts, max_abs_err_vs_in_process=max_err)
+        log(f"federation: {len(records)} /predict ({images} images) + {len(gen_out)} "
+            f"/generate through the front end in a {s['load_s']} s window, dispatched "
+            f"{json.dumps(disp)}, per replica {json.dumps(counts)}; HTTP p50 "
+            f"{result['http']['p50_ms']:.3f} ms p99 {result['http']['p99_ms']:.3f} ms "
+            f"{result['http']['images_per_s']:.2f} images/s  [{card}]")
+
+        # 2. SIGKILL replica 0 mid-load
+        gen_bodies = [json.dumps({"model": "decoder", "prompt": p,
+                                  "max_new_tokens": s["kill_new_tokens"]}).encode()
+                      for p in prompts]
+        stop, records, gen_out, errors = threading.Event(), [], [], []
+        retries0 = reg.counter("serving_failover_retries_total").total(outcome="ok")
+        evict0 = reg.counter("serving_replica_evictions_total").total()
+        loops = [threading.Thread(target=request_loop, daemon=True, args=(
+            fe.url + "/predict", bodies, stop, records, c, errors))
+            for c in range(s["kill_predict_clients"])]
+        loops += [threading.Thread(target=request_loop, daemon=True, args=(
+            fe.url + "/generate", gen_bodies, stop, gen_out, c, errors))
+            for c in range(s["kill_generate_clients"])]
+        for t in loops:
+            t.start()
+
+        def victim_busy():
+            with fe._lock:
+                kinds = {r.kind for r in fe._replicas[0].inflight}
+            return {"predict", "generate"} <= kinds
+
+        def detail():
+            bad = [(code, b) for _, _, _, code, b in records + gen_out if code != 200]
+            return (f"(replicas {http_json(fe.url + '/replicas')[1]}, errors "
+                    f"{errors!r}, failed answers {bad[:4]!r})")
+        wait_for(victim_busy, FEDERATION_WAIT_S,
+                 "replica 0 never held a /predict and a /generate at once", detail)
+        procs[0].kill()
+        t_kill = time.perf_counter()
+        wait_for(lambda: state(0) == fed.DEAD, FEDERATION_WAIT_S,
+                 "replica 0 not evicted", detail)
+        evict_ms = (time.perf_counter() - t_kill) * 1e3
+        procs[0].wait(timeout=60)
+        time.sleep(1.0)   # the survivor carries the load alone for a while
+        stop.set()
+        for t in loops:
+            t.join(timeout=GATEWAY_JOIN_S)
+        if errors or any(t.is_alive() for t in loops):
+            raise RuntimeError(f"federation: kill-stage clients failed: {errors!r}")
+        failed = [(k, code, body) for k, _, _, code, body in records if code != 200]
+        if failed:
+            raise RuntimeError(f"federation: /predict failed across the kill: "
+                               f"{failed!r}"[:2000])
+        for k, _, _, _, body in records:
+            np.testing.assert_allclose(np.asarray(body["predictions"], np.float32),
+                                       wants[k], rtol=SERVE_RTOL, atol=SERVE_ATOL)
+        cut = [b for _, _, _, code, b in gen_out if code != 200]
+        if not cut or any(b.get("reason") != "replica_lost" or "tokens_so_far" not in b
+                          for b in cut):
+            raise RuntimeError(f"federation: no typed replica_lost /generate: "
+                               f"{[(c, b) for _, _, _, c, b in gen_out]!r}"[:2000])
+        for k, _, _, code, body in gen_out:
+            if code == 200 and body["tokens"] != sd.naive_generate(
+                    decoder, prompts[k], s["kill_new_tokens"], pad_to=g["pack_bucket"]):
+                raise RuntimeError(f"federation: /generate {k} across the kill is not "
+                                   "naive_generate's")
+        retries = reg.counter("serving_failover_retries_total").total(outcome="ok") - retries0
+        if retries < 1:
+            raise RuntimeError("federation: the killed replica's /predict did not fail over")
+        result["kill"] = {"predicts": len(records), "failed_predicts": 0,
+                          "failover_retries_ok": retries,
+                          "evictions": reg.counter(
+                              "serving_replica_evictions_total").total() - evict0,
+                          "eviction_ms": evict_ms, "generate_cut": len(cut),
+                          "generate_ok": len(gen_out) - len(cut)}
+        log(f"federation: SIGKILL replica 0 {json.dumps(result['kill'])}  [{card}]")
+
+        # 3. respawn
+        t_respawn = time.perf_counter()
+        procs[0] = spawn(0)
+        seen = []
+
+        def joined():
+            st = state(0)
+            if not seen or seen[-1] != st:
+                seen.append(st)
+            return st == fed.HEALTHY
+        wait_for(joined, FEDERATION_JOIN_S, "the respawned replica never became healthy")
+        if fed.JOINING not in seen:
+            raise RuntimeError(f"federation: the respawned replica went {seen}, "
+                               "never JOINING before HEALTHY")
+        d0 = {r["id"]: r["dispatched"] for r in http_json(fe.url + "/replicas")[1]["replicas"]}
+        answers, _, _ = run_http_clients(fe.url + "/predict", [
+            [((c, j), bodies[2 * c + j]) for j in range(2)] for c in range(2)])
+        ok_predictions("federation after respawn", answers)
+        d1 = {r["id"]: r["dispatched"] for r in http_json(fe.url + "/replicas")[1]["replicas"]}
+        if d1[0] <= d0[0]:
+            raise RuntimeError("federation: the respawned replica took no traffic")
+        result["respawn"] = {"states": seen, "to_healthy_s": time.perf_counter() - t_respawn}
+
+        # 4. rolling swap under traffic
+        trainer = AlexNet(input_shape=a_shape, num_labels=a_classes).init(device=dev)
+        n_train = s["train_batch"] * s["train_steps"]
+        xt = rng.standard_normal((n_train,) + tuple(a_shape)).astype(np.float32)
+        yt = np.eye(a_classes, dtype=np.float32)[rng.integers(0, a_classes, n_train)]
+        trainer.fit(xt, yt, epochs=1, batch_size=s["train_batch"])
+        CheckpointManager(spec["ckpt"], save_updater=False).save(trainer)
+        swap_x = [pixel_images(rng, 1 + i % 2, a_shape) for i in range(s["swap_inputs"])]
+        old = [ref_net.output(x) for x in swap_x]
+        new = [trainer.output(x) for x in swap_x]
+        if all(np.allclose(a, b, rtol=SERVE_RTOL, atol=SERVE_ATOL) for a, b in zip(old, new)):
+            raise RuntimeError("federation: the trained AlexNet answers as the old one does")
+        sbodies = [json.dumps({"model": "alexnet", "features": x.tolist()}).encode()
+                   for x in swap_x]
+        stop, records, errors = threading.Event(), [], []
+        loops = [threading.Thread(target=request_loop, daemon=True, args=(
+            fe.url + "/predict", sbodies, stop, records, c, errors))
+            for c in range(s["swap_clients"])]
+        for t in loops:
+            t.start()
+        wait_for(lambda: len(records) >= s["swap_clients"], FEDERATION_WAIT_S,
+                 "no answer before the swap")
+        t = time.perf_counter()
+        swap = http_json(fe.url + "/swap", {"model": "alexnet"})
+        done_at = time.perf_counter()
+        wait_for(lambda: sum(1 for r in records if r[1] > done_at) >= 2 * s["swap_clients"],
+                 FEDERATION_WAIT_S, "no answer after the swap")
+        stop.set()
+        for th in loops:
+            th.join(timeout=GATEWAY_JOIN_S)
+        if errors or swap[0] != 200 or sorted(swap[1].get("swapped", [])) != [0, 1]:
+            raise RuntimeError(f"federation: the rolling swap answered {swap} "
+                               f"({errors!r})")
+        seen_swap = {"old": 0, "new": 0, "after_swap": 0}
+        for k, sent, _, code, body in records:
+            if code != 200:
+                raise RuntimeError(f"federation: a request during the swap answered {code}")
+            out = np.asarray(body["predictions"], np.float32)
+            is_new = np.allclose(out, new[k], rtol=SERVE_RTOL, atol=SERVE_ATOL)
+            if not is_new and not np.allclose(out, old[k], rtol=SERVE_RTOL, atol=SERVE_ATOL):
+                raise RuntimeError("federation: an answer during the swap is neither the "
+                                   "old parameters' nor the new ones'")
+            seen_swap["new" if is_new else "old"] += 1
+            if sent > done_at:
+                seen_swap["after_swap"] += 1
+                if not is_new:
+                    raise RuntimeError("federation: an answer sent after the swap "
+                                       "returned is the old parameters'")
+        for rid, url in replica_urls().items():
+            code, body = http_json(url + "/predict", sbodies[0])
+            if code != 200 or not np.allclose(np.asarray(body["predictions"], np.float32),
+                                              new[0], rtol=SERVE_RTOL, atol=SERVE_ATOL):
+                raise RuntimeError(f"federation: replica {rid} does not answer with the "
+                                   "new parameters after the roll")
+        result["swap"] = {"answers": seen_swap, "requests": len(records),
+                          "swap_wall_ms": (done_at - t) * 1e3, "canary": swap[1]["canary"]}
+        log(f"federation: respawn {json.dumps(result['respawn'])}; rolling swap "
+            f"{json.dumps(result['swap'])}  [{card}]")
+        return result
+    finally:
+        stop_processes(procs)
+        fe.stop()
+        tmp.cleanup()
+
+
+WRAPPER_FULL = dict(alexnet=((224, 224, 3), 1000), batch=128, shards=2, sync_steps=4,
+                    local_freq=3, local_steps=6, local_batches=3, timed_steps=3)
+# A leaf's update, sharded against plain (`update_rel_errs`): after one step
+# it differs by rounding, 8.0e-5 at most on the card (PR 18): one float32
+# rounding of a dense bias of 1.0 whose update is 6.8e-4 in norm, the
+# weights 4.1e-6; over a few steps ReLU and max-pool decisions tip where
+# the two runs round apart and the conv layers' updates drift apart (2.5e-3
+# after 4 steps; the dense layers' stay near 2e-6), as the card-vs-CPU
+# gradient checks see.
+UPDATE_REL_STEP = 1e-3
+UPDATE_REL_FIT = 1e-2
+
+
+def alexnet_batches(rng, n, batch, shape, classes):
+    x = rng.standard_normal((n * batch,) + tuple(shape)).astype(np.float32)
+    y = np.eye(classes, dtype=np.float32)[rng.integers(0, classes, n * batch)]
+    return x, y
+
+
+UPDATE_ULP = 1e-6   # of a leaf's norm: float32 rounding of the parameter itself
+
+
+def update_rel_errs(param_utils, init, got, want):
+    """Per leaf, |got - want| / (|want - init| + UPDATE_ULP |want|): the
+    sharded run's update against the plain run's, where a parameter near 1
+    moved by 1e-5 (a bias) keeps its float32 rounding (6e-8) out of the
+    ratio."""
+    out = []
+    for i, g, w in zip(param_utils.tree_leaves(init), param_utils.tree_leaves(got),
+                       param_utils.tree_leaves(want)):
+        w = w.double()
+        scale = (w - i.double()).norm().item() + UPDATE_ULP * w.norm().item()
+        if scale > 0:
+            out.append((g.double() - w).norm().item() / scale)
+    return out
+
+
+class Snapshots:
+    """A listener keeping a copy of the parameters after every step, after
+    a copy of those it starts from."""
+
+    def __init__(self, param_utils, net):
+        self.param_utils, self.trees = param_utils, [param_utils.tree_copy(net.params_tree)]
+
+    def iteration_done(self, model, iteration):
+        self.trees.append(self.param_utils.tree_copy(model.params_tree))
+
+
+def split_step(torch, net, x, y, blocks):
+    """One plain step of `net` on (x, y) whose gradient is the mean of the
+    gradients of `blocks` forwards and backwards of its row blocks: the
+    rounding of a sharded step, without ParallelWrapper. Each block draws
+    its rows of the whole batch's dropout mask (nn/shards.py), so only the
+    rounding differs from the plain step."""
+    from deeplearning4j_torch.nn import shards
+    xt, yt = net._as_input(x), net._as_labels(y)
+    n = xt.shape[0]
+    c = n // blocks
+    gen_state, state = net._dropout_gen.get_state(), net._merged_state()
+    parts = []
+    for i in range(blocks):
+        g = torch.Generator(device=net._dropout_gen.device)
+        g.set_state(gen_state)
+        with shards.sharded(shards.ShardContext(i, blocks, i * c, c, n)):
+            parts.append(net._value_and_grad(xt[i * c:(i + 1) * c], yt[i * c:(i + 1) * c],
+                                             None, None, True, g, state=state))
+    grads = tuple({k: sum(p[1][i][k] for p in parts) / blocks for k in lp}
+                  for i, lp in enumerate(parts[0][1]))
+    net._dropout_gen.set_state(g.get_state())
+    net._apply_step(sum(p[0] for p in parts) / blocks, grads, parts[0][2])
+
+
+def decisions(torch, net, params, x, blocks):
+    """{layer index: bool tensor} of the decisions a forward of `net` at
+    `params` takes on the rows `x`, run in `blocks` row blocks as a sharded
+    step runs them: each ReLU layer's (activation > 0) and each max-pool
+    layer's argmax in every window. The forward has no dropout, so from
+    the first dropout on (AlexNet's dense layers) its decisions are not
+    the training forward's."""
+    import torch.nn.functional as F
+
+    from deeplearning4j_torch.nn.layers.convolution import (ConvolutionLayer, ConvolutionMode,
+                                                            PoolingType, SubsamplingLayer,
+                                                            _pair, _same_pads)
+    from deeplearning4j_torch.nn.layers.core import DenseLayer
+    out = {}
+    with torch.inference_mode():
+        per_block = []
+        for xb in torch.chunk(net._as_input(x), blocks):
+            _, _, acts = net._forward(params, net.state_tree, xb)
+            per_block.append([xb] + acts)
+        for i, layer in enumerate(net.layers):
+            if isinstance(layer, (ConvolutionLayer, DenseLayer)) and \
+                    layer.activation == "relu":
+                out[i] = torch.cat([a[i + 1] > 0 for a in per_block])
+            elif isinstance(layer, SubsamplingLayer) and \
+                    layer.pooling_type == PoolingType.MAX:
+                win, st = _pair(layer.kernel_size), _pair(layer.stride)
+                idx = []
+                for a in per_block:
+                    v = a[i].permute(0, 3, 1, 2)
+                    if layer._mode() == ConvolutionMode.SAME:
+                        (t, b), (l, r) = (_same_pads(v.shape[2], win[0], st[0]),
+                                          _same_pads(v.shape[3], win[1], st[1]))
+                    else:
+                        (t, b), (l, r) = [(q, q) for q in _pair(layer.padding)]
+                    v = F.pad(v, (l, r, t, b), value=float("-inf"))
+                    idx.append(F.max_pool2d(v, win, st, return_indices=True)[1])
+                out[i] = torch.cat(idx)
+    return out
+
+
+def decision_flips(torch, a, b):
+    """{"relu": [flipped, of], "max_pool": [flipped, of]} between two
+    `decisions` of one batch."""
+    out = {"relu": [0, 0], "max_pool": [0, 0]}
+    for i in a:
+        kind = "relu" if a[i].dtype == torch.bool else "max_pool"
+        out[kind][0] += int((a[i] != b[i]).sum())
+        out[kind][1] += a[i].numel()
+    return out
+
+
+def fenced_step_ms(torch, dev, step, ds, n):
+    """The median wall ms of `n` warm steps, each fenced by a sync."""
+    step(ds)
+    times = []
+    for _ in range(n):
+        _sync(torch, dev)
+        t = time.perf_counter()
+        step(ds)
+        _sync(torch, dev)
+        times.append((time.perf_counter() - t) * 1e3)
+    return float(np.median(times))
+
+
+def wrapper_launches(k1, k2):
+    return dict(gateway_launches(want_lrn=k1), lrn_bwd=k2)
+
+
+def phase_parallel_wrapper(torch, card, device=None, size=None):
+    """`ParallelWrapper` (parallel/wrapper.py) with zoo AlexNet in float32
+    at a global batch of 128 over 2 data shards on the one card
+    (`data_parallel_mesh(devices=[card, card])`), cuDNN deterministic:
+
+    1. Sync mode, `sync_steps` steps through `fit` (batches prefetched onto
+       the card and cut there into the shards) against a plain `fit` of the
+       same batches at 128: every leaf's update within UPDATE_REL_STEP after
+       the first step and within UPDATE_REL_FIT after the last; K1 and K2
+       each launch 2 LRN layers x 2 shards x steps. Beside it, a control
+       that changes only the rounding (`split_step`: plain steps whose
+       gradient is the mean of the two row blocks'), held to the plain fit
+       the same way step by step; and at every step, the ReLU and max-pool
+       decisions of the sharded and of the control's forward (in row
+       blocks, at that step's parameters) that differ from the plain
+       forward's.
+    2. Local SGD (averaging every `local_freq` steps, `local_steps` steps):
+       held to two networks, each with its own `fit` on its 64 rows,
+       averaged every `local_freq` steps (rtol 1e-5); K1 and K2 each 2 x 2 x
+       steps.
+    3. Step ms of the sharded step against the plain step, warm, the median
+       of `timed_steps`."""
+    from deeplearning4j_torch.data.dataset import DataSet
+    from deeplearning4j_torch.models.zoo import AlexNet
+    from deeplearning4j_torch.parallel import ParallelWrapper, data_parallel_mesh
+    from deeplearning4j_torch.utils import params as param_utils
+    s = dict(WRAPPER_FULL, **(size or {}))
+    dev = device or "cuda"
+    shape, classes = s["alexnet"]
+    rng = np.random.default_rng(2201)
+    mesh = data_parallel_mesh(devices=[dev] * s["shards"])
+    make = lambda: AlexNet(input_shape=shape, num_labels=classes).init(device=dev)
+    lrn = lrn_layers_of(make())
+    result = {"card": card, "shards": s["shards"], "batch": s["batch"]}
+    prev = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        # 1. sync
+        x, y = alexnet_batches(rng, s["sync_steps"], s["batch"], shape, classes)
+        dp, plain, split = make(), make(), make()
+        snaps = {k: Snapshots(param_utils, n) for k, n in
+                 (("sharded", dp), ("plain", plain), ("control", split))}
+        dp.set_listeners(snaps["sharded"])
+        plain.set_listeners(snaps["plain"])
+        pw = ParallelWrapper(dp, mesh=mesh)
+        _sync(torch, dev)
+        zero_launches()   # the main path's run starts here
+        pw.fit(x, y, epochs=1, batch_size=s["batch"])
+        launches = all_launches()   # ... and ends here
+        want = s["shards"] * lrn * s["sync_steps"]
+        check_launches("wrapper sync", launches, wrapper_launches(want, want))
+        plain.fit(x, y, epochs=1, batch_size=s["batch"])
+        b = s["batch"]
+        for k in range(s["sync_steps"]):
+            split_step(torch, split, x[k * b:(k + 1) * b], y[k * b:(k + 1) * b], s["shards"])
+            snaps["control"].iteration_done(split, split.iteration)
+        if dp.iteration != plain.iteration or dp.iteration != s["sync_steps"]:
+            raise RuntimeError(f"wrapper: {dp.iteration} sharded, {plain.iteration} "
+                               "plain steps")
+        trees = {k: v.trees for k, v in snaps.items()}
+        init = trees["plain"][0]
+        by_step = {run: [max(update_rel_errs(param_utils, init, trees[run][k],
+                                             trees["plain"][k]))
+                         for k in range(1, s["sync_steps"] + 1)]
+                   for run in ("sharded", "control")}
+        flips = {"sharded": [], "control": []}
+        for k in range(s["sync_steps"]):
+            xk = x[k * b:(k + 1) * b]
+            want_d = decisions(torch, plain, trees["plain"][k], xk, 1)
+            for run in flips:
+                flips[run].append(decision_flips(torch, decisions(
+                    torch, plain, trees[run][k], xk, s["shards"]), want_d))
+        del trees, snaps
+        errs1, errs = by_step["sharded"][0], by_step["sharded"][-1]
+        result["sync"] = {"steps": dp.iteration, "launches": launches,
+                          "max_update_rel_err_step1": errs1,
+                          "max_update_rel_err": errs,
+                          "update_rel_err_by_step": by_step["sharded"],
+                          "control_update_rel_err_by_step": by_step["control"],
+                          "decision_flips_by_step": flips["sharded"],
+                          "control_decision_flips_by_step": flips["control"],
+                          "score": float(dp.score_value),
+                          "plain_score": float(plain.score_value)}
+        log(f"wrapper: sync {json.dumps(result['sync'])}  [{card}]")
+        if errs1 > UPDATE_REL_STEP or errs > UPDATE_REL_FIT:
+            raise RuntimeError(f"wrapper sync: a leaf's update differs from the plain "
+                               f"fit's by {errs1:.3g} of its norm after the "
+                               f"first step, {errs:.3g} after the last")
+        del split
+
+        # 3. step times (the warm networks of 1.)
+        ds = DataSet(x[:s["batch"]], y[:s["batch"]])
+        result["step_ms"] = {"sharded": fenced_step_ms(torch, dev, pw.fit_batch, ds,
+                                                       s["timed_steps"]),
+                             "plain": fenced_step_ms(torch, dev, plain._fit_batch, ds,
+                                                     s["timed_steps"])}
+        del dp, plain, pw
+
+        # 2. local SGD
+        F, steps = s["local_freq"], s["local_steps"]
+        xl, yl = alexnet_batches(rng, s["local_batches"], s["batch"], shape, classes)
+        order = [i % s["local_batches"] for i in range(steps)]
+        xs = np.concatenate([xl[i * s["batch"]:(i + 1) * s["batch"]] for i in order])
+        ys = np.concatenate([yl[i * s["batch"]:(i + 1) * s["batch"]] for i in order])
+        local = make()
+        lw = ParallelWrapper(local, mesh=mesh, averaging_frequency=F)
+        _sync(torch, dev)
+        zero_launches()
+        lw.fit(xs, ys, epochs=1, batch_size=s["batch"])
+        launches = all_launches()
+        want = s["shards"] * lrn * steps
+        check_launches("wrapper local SGD", launches, wrapper_launches(want, want))
+        reps = [make() for _ in range(s["shards"])]
+        c = s["batch"] // s["shards"]
+        for r in range(steps):
+            b = order[r] * s["batch"]
+            for w, net in enumerate(reps):
+                net.fit(xl[b + w * c:b + (w + 1) * c], yl[b + w * c:b + (w + 1) * c],
+                        epochs=1, batch_size=c, use_async=False)
+            if (r + 1) % F == 0:
+                with torch.no_grad():
+                    for key in ("params_tree", "opt_state"):
+                        leaves = [param_utils.tree_leaves(getattr(n, key)) for n in reps]
+                        avg = [torch.empty_like(ts[0]).copy_(torch.stack(ts).mean(0))
+                               for ts in zip(*leaves)]
+                        for n in reps:
+                            setattr(n, key, param_utils.tree_unflatten(
+                                getattr(n, key), [a.clone() for a in avg]))
+        got = param_utils.tree_leaves(local.params_tree)
+        want_leaves = param_utils.tree_leaves(reps[0].params_tree)
+        max_err = max(float((a - b).abs().max()) for a, b in zip(got, want_leaves))
+        bitwise = all(torch.equal(a, b) for a, b in zip(got, want_leaves))
+        for a, b in zip(got, want_leaves):
+            np.testing.assert_allclose(a.cpu().numpy(), b.cpu().numpy(), rtol=1e-5,
+                                       atol=1e-6)
+        result["local_sgd"] = {"steps": local.iteration, "averaging_frequency": F,
+                               "launches": launches, "max_abs_err": max_err,
+                               "bitwise": bitwise}
+        log(f"wrapper: local SGD {json.dumps(result['local_sgd'])}; step ms "
+            f"{json.dumps(result['step_ms'])}  [{card}]")
+        return result
+    finally:
+        torch.backends.cudnn.deterministic = prev
+
+
+PS_FULL = dict(alexnet=((224, 224, 3), 1000), batch=64, seq_steps=3, async_batches=2,
+               async_epochs=4, workers=2, staleness=(1, 0), lenet=((28, 28, 1), 10),
+               lenet_batch=32)
+
+
+def phase_param_server(torch, card, device=None, size=None):
+    """The parameter server (parallel/param_server.py) with zoo AlexNet in
+    float32, the server and its worker threads on the one card, cuDNN
+    deterministic:
+
+    1. One worker at max_staleness=0: the parameters equal the sequential
+       `fit` of the same batches (rtol 1e-5; bitwise reported); K1 and K2
+       each 2 x steps.
+    2. `workers` worker threads over `async_batches` batches for
+       `async_epochs` epochs, once at each max_staleness of `staleness`:
+       the applied and dropped pushes (every batch applied once, each
+       dropped push redone), the loss of the first and last applied pushes
+       (falling), and pull / gradient / push ms. Two workers at
+       max_staleness=1 can drop a push only when the other pushes twice
+       during one gradient; at 0 each push the other overtook drops.
+    3. The HTTP node and client at LeNet size: a pull equals the server's
+       parameters bitwise, a fresh push applies and a stale one drops, and
+       `remote_worker_fit` pushes one epoch; round-trip ms."""
+    from deeplearning4j_torch.models.zoo import AlexNet, LeNet
+    from deeplearning4j_torch.parallel import param_server as ps
+    from deeplearning4j_torch.utils import params as param_utils
+    s = dict(PS_FULL, **(size or {}))
+    dev = device or "cuda"
+    shape, classes = s["alexnet"]
+    rng = np.random.default_rng(2211)
+    make = lambda: AlexNet(input_shape=shape, num_labels=classes).init(device=dev)
+    result = {"card": card}
+    prev = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        x, y = alexnet_batches(rng, s["seq_steps"], s["batch"], shape, classes)
+        seq, net = make(), make()
+        lrn = lrn_layers_of(seq)
+        seq.fit(x, y, epochs=1, batch_size=s["batch"], use_async=False)
+        _sync(torch, dev)
+        zero_launches()
+        tr = ps.ParameterServerTrainer(net, workers=1, max_staleness=0)
+        tr.fit(x, y, epochs=1, batch_size=s["batch"])
+        launches = all_launches()
+        want = lrn * s["seq_steps"]
+        check_launches("param server, one worker", launches, wrapper_launches(want, want))
+        got, ref = (param_utils.tree_leaves(n.params_tree) for n in (net, seq))
+        for a, b in zip(got, ref):
+            np.testing.assert_allclose(a.cpu().numpy(), b.cpu().numpy(), rtol=1e-5, atol=1e-6)
+        result["one_worker"] = {
+            "applied": tr.server.applied, "launches": launches,
+            "max_abs_err": max(float((a - b).abs().max()) for a, b in zip(got, ref)),
+            "bitwise": all(torch.equal(a, b) for a, b in zip(got, ref))}
+        del seq, net, tr
+
+        # 2. racing workers
+        xa, ya = alexnet_batches(rng, s["async_batches"], s["batch"], shape, classes)
+        result["workers"] = {}
+        for stale in s["staleness"]:
+            net = make()
+            _sync(torch, dev)
+            zero_launches()
+            tr = ps.ParameterServerTrainer(net, workers=s["workers"], max_staleness=stale)
+            tr.fit(xa, ya, epochs=s["async_epochs"], batch_size=s["batch"])
+            launches = all_launches()
+            st = tr.server.stats()
+            computed = st["applied"] + st["stale_drops"]
+            check_launches(f"param server, racing workers at staleness {stale}", launches,
+                           wrapper_launches(lrn * computed, lrn * computed))
+            if st["applied"] != s["async_batches"] * s["async_epochs"] or \
+                    net.iteration != st["applied"]:
+                raise RuntimeError(f"param server: {st} for {net.iteration} iterations")
+            if not tr.losses[-1] < tr.losses[0]:
+                raise RuntimeError(f"param server: the loss did not fall: {tr.losses}")
+            t = np.asarray(tr.timings)
+            result["workers"][str(stale)] = {
+                **st, "launches": launches, "first_loss": tr.losses[0],
+                "last_loss": tr.losses[-1], "pull_ms_p50": float(np.median(t[:, 0])),
+                "grad_ms_p50": float(np.median(t[:, 1])),
+                "push_ms_p50": float(np.median(t[:, 2]))}
+            del net, tr
+
+        # 3. HTTP at LeNet size
+        (lshape, lclasses) = s["lenet"]
+        lenet = LeNet(input_shape=lshape, num_labels=lclasses).init(device=dev)
+        server = ps.ParameterServer(lenet, max_staleness=0)
+        node = ps.ParameterServerHttpNode(server).start()
+        try:
+            client = ps.HttpParameterServerClient(node.url, lenet.params_tree)
+            t0 = time.perf_counter()
+            v0, pulled = client.pull()
+            pull_ms = (time.perf_counter() - t0) * 1e3
+            if v0 != 0 or not all(torch.equal(a, b) for a, b in zip(
+                    param_utils.tree_leaves(pulled), param_utils.tree_leaves(server.params))):
+                raise RuntimeError("param server: the HTTP pull is not the server's tree")
+            zero = param_utils.tree_map(torch.zeros_like, lenet.params_tree)
+            t0 = time.perf_counter()
+            fresh = client.push(0, zero)
+            push_ms = (time.perf_counter() - t0) * 1e3
+            stale = client.push(0, zero)
+            if not fresh or stale or client.stats() != {"version": 1, "applied": 1,
+                                                        "stale_drops": 1}:
+                raise RuntimeError(f"param server: HTTP pushes {fresh}, {stale}, "
+                                   f"{client.stats()}")
+            xl, yl = alexnet_batches(rng, 2, s["lenet_batch"], lshape, lclasses)
+            worker = LeNet(input_shape=lshape, num_labels=lclasses).init(device=dev)
+            applied = ps.remote_worker_fit(worker, node.url, xl, yl, epochs=1,
+                                           batch_size=s["lenet_batch"])
+            if applied != 2 or server.version != 3:
+                raise RuntimeError(f"param server: remote worker applied {applied}, "
+                                   f"server at {server.version}")
+        finally:
+            node.stop()
+        result["http"] = {"params": param_utils.num_params(lenet.params_tree),
+                          "pull_ms": pull_ms, "push_ms": push_ms,
+                          "remote_applied": applied}
+        log(f"param server: one worker {json.dumps(result['one_worker'])}; "
+            f"{s['workers']} workers by max_staleness {json.dumps(result['workers'])}; HTTP "
+            f"{json.dumps(result['http'])}  [{card}]")
+        return result
+    finally:
+        torch.backends.cudnn.deterministic = prev
+
+
+MULTIHOST_FULL = dict(conf=None, rank_batch=64, steps=3, health_timeout_s=5.0,
+                      health_interval_s=0.2, exit_slack_s=15.0, grace_delay_ms=500,
+                      device=None)   # conf None: zoo AlexNet's; device None: cuda:0
+MULTIHOST_RUN_S = 600   # one two-rank run
+
+
+def run_ranks(args, coord_port, env=None, expect=(0, 0), on_line=None):
+    """Two ranks of `multihost.main` over gloo: (outputs, exit codes, wall s).
+    `on_line(rank, line, procs)` sees each output line as it comes."""
+    from deeplearning4j_torch.parallel.multihost import spawn_rank
+    child_env = {"PYTHONPATH": os.pathsep.join([ROOT, os.environ.get("PYTHONPATH", "")]),
+                 **(env or {})}
+    t0 = time.perf_counter()
+    procs = [spawn_rank(r, 2, f"127.0.0.1:{coord_port}", args, env=child_env,
+                        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+             for r in range(2)]
+    outs = [[], []]
+    ends = [None, None]
+
+    def reader(r):
+        for line in procs[r].stdout:
+            outs[r].append(line)
+            if on_line is not None:
+                on_line(r, line, procs)
+        procs[r].wait()
+        ends[r] = time.perf_counter()
+
+    threads = [threading.Thread(target=reader, args=(r,), daemon=True) for r in range(2)]
+    for t in threads:
+        t.start()
+    try:
+        for t in threads:
+            t.join(timeout=MULTIHOST_RUN_S)
+    finally:
+        stop_processes([p for p in procs if p.poll() is None], timeout=5)
+    rcs = tuple(p.returncode for p in procs)
+    texts = ["".join(o) for o in outs]
+    if rcs != tuple(expect):
+        raise RuntimeError(f"multihost: ranks exited {rcs}, expected {expect}:\n"
+                           + "\n".join(t[-3000:] for t in texts))
+    return texts, ends, time.perf_counter() - t0
+
+
+def free_port():
+    import socket
+    s = socket.socket()
+    s.bind(("127.0.0.1", 0))
+    port = s.getsockname()[1]
+    s.close()
+    return port
+
+
+def rank_params(prefix, rank, freq=1):
+    with np.load(f"{prefix}.f{freq}.rank{rank}.npz") as z:
+        return [z[k] for k in sorted(z.files)]
+
+
+def phase_multihost(torch, card, device=None, size=None):
+    """The multi-process runner (parallel/multihost.py): two ranks spawned
+    from the package's worker entry (`multihost.main`), both on the one card
+    and so over gloo (NCCL refuses two ranks on one device), zoo AlexNet at
+    64 a rank (a global batch of 128) on seeded images:
+
+    1. `steps` sync steps: the ranks agree bitwise; every leaf's update
+       within UPDATE_REL_FIT of a single-process `fit` of the global batches
+       at 128 on the card; the chief's step checkpoint restores to rank 0's
+       parameters bitwise; the all-reduce ms of each step; K1 and K2 2 x
+       steps in each rank.
+    2. Chaos: rank 1 SIGKILLs itself after step 1 with the health plane on;
+       rank 0 leaves with PeerLostError and exit code 17 within the beat
+       timeout plus `exit_slack_s` of rank 1's death.
+    3. Grace: SIGTERM to rank 0 after its first step (the steps slowed by a
+       step.stall delay): one grace checkpoint at an agreed step, both ranks
+       exit 0; the resumed run ends where the uninterrupted run of 1.
+       ended (rtol 1e-6)."""
+    import signal
+    import tempfile
+
+    from deeplearning4j_torch.data.dataset import DataSet
+    from deeplearning4j_torch.models.zoo import AlexNet
+    from deeplearning4j_torch.nn.conf.builders import MultiLayerConfiguration
+    from deeplearning4j_torch.nn.multilayer import MultiLayerNetwork
+    from deeplearning4j_torch.parallel.multihost import (StepCheckpointManager,
+                                                         _synthetic)
+    from deeplearning4j_torch.utils import params as param_utils
+    s = dict(MULTIHOST_FULL, **(size or {}))
+    dev = device or "cuda:0"
+    tmp = tempfile.TemporaryDirectory(prefix="chip_smoke_multihost_")
+    result = {"card": card}
+    try:
+        conf_path = os.path.join(tmp.name, "conf.json")
+        conf_json = s["conf"] or AlexNet().conf().to_json()
+        with open(conf_path, "w") as f:
+            f.write(conf_json)
+        rows = 2 * s["rank_batch"] * s["steps"]
+        base = ["--conf", conf_path, "--rows", str(rows), "--epochs", "1",
+                "--batch-size", str(s["rank_batch"]), "--device", s["device"] or dev,
+                "--backend", "gloo", "--exact-float32"]
+        prefix = os.path.join(tmp.name, "run")
+        ck = os.path.join(tmp.name, "ckpt")
+
+        # 1. the sync run
+        outs, _, wall = run_ranks(base + ["--out", prefix, "--checkpoint-dir", ck,
+                                          "--checkpoint-every", str(s["steps"])],
+                                  free_port())
+        r0, r1 = rank_params(prefix, 0), rank_params(prefix, 1)
+        if not all(np.array_equal(a, b) for a, b in zip(r0, r1)):
+            raise RuntimeError("multihost: the ranks disagree")
+        with open(f"{prefix}.f1.rank0.json") as f:
+            stats = json.load(f)
+        lrn = stats["launches"]
+        conf = MultiLayerConfiguration.from_json(conf_json)
+        # a rank on the CPU runs the plain versions, which count nothing
+        per = lrn_layers_of(MultiLayerNetwork(conf)) * s["steps"] \
+            if torch.device(s["device"] or dev).type == "cuda" else 0
+        if lrn != {"lrn_fwd": per, "lrn_bwd": per}:
+            raise RuntimeError(f"multihost: rank 0 launched {lrn}")
+        x, y = _synthetic(conf, rows, 0)
+        half, b = rows // 2, s["rank_batch"]
+        single = MultiLayerNetwork(conf).init(device=dev)
+        init = param_utils.tree_copy(single.params_tree)
+        prev = torch.backends.cudnn.deterministic
+        torch.backends.cudnn.deterministic = True   # as the ranks run
+        try:
+            for k in range(s["steps"]):
+                sl = slice(k * b, (k + 1) * b)
+                single._fit_batch(DataSet(np.concatenate([x[:half][sl], x[half:][sl]]),
+                                          np.concatenate([y[:half][sl], y[half:][sl]])))
+        finally:
+            torch.backends.cudnn.deterministic = prev
+        got = [torch.from_numpy(a) for a in r0]
+        want = [torch.from_numpy(param_utils.leaf_to_reference_bits(t)[0])
+                for t in param_utils.tree_leaves(single.params_tree)]
+        start = [torch.from_numpy(param_utils.leaf_to_reference_bits(t)[0])
+                 for t in param_utils.tree_leaves(init)]
+        errs = update_rel_errs(param_utils, start, got, want)
+        if max(errs) > UPDATE_REL_FIT:
+            raise RuntimeError(f"multihost: a leaf's update differs from the "
+                               f"single-process fit's by {max(errs):.3g} of its norm")
+        restored = MultiLayerNetwork(conf).init(device=dev)
+        if StepCheckpointManager(ck).restore_into(restored) != s["steps"]:
+            raise RuntimeError("multihost: the chief's checkpoint did not restore")
+        back = [param_utils.leaf_to_reference_bits(t)[0]
+                for t in param_utils.tree_leaves(restored.params_tree)]
+        if not all(np.array_equal(a, b) for a, b in zip(back, r0)):
+            raise RuntimeError("multihost: the restored checkpoint is not rank 0's tree")
+        result["sync"] = {"steps": stats["iteration"], "backend": stats["backend"],
+                          "device": stats["device"], "launches_rank0": lrn,
+                          "max_update_rel_err": max(errs),
+                          "allreduce_ms": stats["allreduce_ms"],
+                          "step_ms": stats["step_ms"], "wall_s": wall}
+        log(f"multihost: sync {json.dumps(result['sync'])}  [{card}]")
+
+        # 2. chaos: kill rank 1
+        health = {"DL4JTPU_HEARTBEAT_TIMEOUT_S": str(s["health_timeout_s"]),
+                  "DL4JTPU_HEARTBEAT_INTERVAL_S": str(s["health_interval_s"])}
+        outs, ends, wall = run_ranks(base + ["--health", "--crash-at", "1"], free_port(),
+                                     env=health, expect=(17, -9))
+        gap = ends[0] - ends[1]
+        if "PeerLostError" not in outs[0] or gap > s["health_timeout_s"] + s["exit_slack_s"]:
+            raise RuntimeError(f"multihost: rank 0 left {gap:.1f} s after rank 1 died:\n"
+                               + outs[0][-2000:])
+        result["kill"] = {"rank0_exit": 17, "exit_after_death_s": gap,
+                          "timeout_s": s["health_timeout_s"]}
+
+        # 3. grace: SIGTERM to rank 0, then resume
+        gk = os.path.join(tmp.name, "grace")
+        sent = []
+
+        def on_line(rank, line, procs):
+            if rank == 0 and line.startswith("STEP 0 1") and not sent:
+                procs[0].send_signal(signal.SIGTERM)
+                sent.append(time.perf_counter())
+
+        outs, _, _ = run_ranks(base + ["--health", "--checkpoint-dir", gk],
+                               free_port(), on_line=on_line, env={
+                                   **health, "DL4JTPU_FAULT_STEP_STALL":
+                                   f"delay:*@{s['grace_delay_ms']}"})
+        zips = [f for f in os.listdir(gk) if f.endswith(".zip")]
+        if not sent or len(zips) != 1 or any("DONE" in o for o in outs):
+            raise RuntimeError(f"multihost: grace wrote {zips} (SIGTERM sent: "
+                               f"{bool(sent)})")
+        grace_step = int(re.match(r"checkpoint_step(\d+)\.zip", zips[0]).group(1))
+        rprefix = os.path.join(tmp.name, "resumed")
+        run_ranks(base + ["--checkpoint-dir", gk, "--out", rprefix], free_port())
+        for a, b in zip(rank_params(rprefix, 0), r0):
+            np.testing.assert_allclose(a, b, rtol=1e-6, atol=1e-7)
+        result["grace"] = {"checkpoint_step": grace_step, "exits": [0, 0],
+                           "resumed_max_abs_err": max(
+                               float(np.abs(a - b).max())
+                               for a, b in zip(rank_params(rprefix, 0), r0))}
+        log(f"multihost: kill {json.dumps(result['kill'])}; grace "
+            f"{json.dumps(result['grace'])}  [{card}]")
+        return result
+    finally:
+        tmp.cleanup()
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -6085,6 +7157,14 @@ def main() -> int:
     decode = phase_decode_serving(torch, card)
     phase_decode_stream(torch, card)
     packed = phase_packed_admission(torch, card)
+    torch.cuda.empty_cache()
+    federation = phase_federation(torch, card)
+    torch.cuda.empty_cache()
+    wrapper = phase_parallel_wrapper(torch, card)
+    torch.cuda.empty_cache()
+    pserver = phase_param_server(torch, card)
+    torch.cuda.empty_cache()
+    multihost = phase_multihost(torch, card)
     lrn_entry["launches"] = serving["launches"]["lrn_fwd"]
     lrn_bwd_entry["launches"] = training["launches"]["lrn_bwd"]
     for entry in flash_entries:
@@ -6104,6 +7184,14 @@ def main() -> int:
         f"{gateway['launches']['lrn_fwd']} (storm), K6 "
         f"{gateway['launches']['int8_matmul']} (int8 run), K7 "
         f"{gateway['launches']['decode_attention']} (/generate)")
+    log(f"chip_smoke: scale-out launches: federation replicas "
+        f"{json.dumps(federation['replica_launches'])}; ParallelWrapper sync "
+        f"{json.dumps(wrapper['sync']['launches'])}, local SGD "
+        f"{json.dumps(wrapper['local_sgd']['launches'])}; parameter server "
+        f"{json.dumps(pserver['one_worker']['launches'])} (one worker), "
+        f"{json.dumps({k: w['launches'] for k, w in pserver['workers'].items()})} "
+        f"(racing, by max_staleness); runner rank 0 "
+        f"{json.dumps(multihost['sync']['launches_rank0'])}")
     log(f"chip_smoke: every phase passed in {time.perf_counter() - t0:.1f} s  [{card}]")
     log(json.dumps(kernels))
     log(json.dumps({"ok": True, "device": {

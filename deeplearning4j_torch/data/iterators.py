@@ -771,9 +771,11 @@ class DevicePrefetchIterator(AsyncDataSetIterator):
     on the producer (the step's own cast then does nothing); labels and
     masks go as they are. `device` is the network's (default: CUDA, raising
     without a GPU); on the CPU the producer only makes tensors.
-    `sharding`/`batch_divisor` stage mesh-sharded batches in the JAX
-    package; the port has no mesh yet (ParallelWrapper, ROADMAP Queue A
-    item 4), so a sharding raises.
+    `sharding` (parallel/mesh.py's `batch_sharded(mesh)`, ParallelWrapper's)
+    stages each batch on the mesh's first local device, where the wrapper
+    cuts its shards from it by rows (moving a shard to its own device
+    device to device); a batch whose row count `batch_divisor` does not
+    divide is handed on unstaged, for the wrapper's zero-weight pad.
 
     Each staged batch carries its ETL breakdown as `_etl_host_ms` (time
     the producer spent pulling it from the base iterator) and
@@ -785,11 +787,10 @@ class DevicePrefetchIterator(AsyncDataSetIterator):
                  batch_divisor: int = 1, cast_dtype=None,
                  device: DeviceLike = None):
         if sharding is not None:
-            raise NotImplementedError(
-                "sharded device prefetch needs ParallelWrapper, which is not "
-                "ported yet (ROADMAP Queue A item 4)")
+            device = sharding.device
         super().__init__(base, queue_size=depth)
         self._cast_dtype = cast_dtype
+        self._divisor = max(1, int(batch_divisor))
         self._stager = PinnedStager(device, slots=max(1, int(depth)) + 1)
         self._consumer = None
 
@@ -804,6 +805,9 @@ class DevicePrefetchIterator(AsyncDataSetIterator):
             torch.cuda.set_device(self._stager.device)
 
     def _stage(self, ds):
+        if isinstance(ds, (DataSet, MultiDataSet)) and \
+                metrics_mod.batch_rows(ds) % self._divisor:
+            return ds
         put = lambda arrays, features: self._stager.stage(
             arrays, features, self._cast_dtype, self._consumer)
         if isinstance(ds, MultiDataSet):

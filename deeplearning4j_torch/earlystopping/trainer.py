@@ -144,11 +144,21 @@ class EarlyStoppingGraphTrainer(EarlyStoppingTrainer):
 class EarlyStoppingParallelTrainer(EarlyStoppingTrainer):
     """Early stopping over data-parallel training (reference
     parallelism/EarlyStoppingParallelTrainer.java): each epoch trains
-    through a ParallelWrapper. The port has no ParallelWrapper yet, so
-    this raises on construction."""
+    through the ParallelWrapper's sharded or local-SGD step; termination,
+    scoring and best-model saving read the wrapped network as usual."""
 
     def __init__(self, config: EarlyStoppingConfiguration, wrapper,
                  train_data, train_labels=None, batch_size: int = 32):
-        raise NotImplementedError(
-            "EarlyStoppingParallelTrainer needs ParallelWrapper, which is not "
-            "ported yet (ROADMAP Queue A item 4)")
+        super().__init__(config, wrapper.model, train_data, train_labels,
+                         batch_size)
+        self.wrapper = wrapper
+
+    def _fit_epoch(self):
+        try:
+            self.wrapper.fit(self.train_data, self.train_labels, epochs=1,
+                             batch_size=self.batch_size)
+        finally:
+            # an iteration termination aborts by exception before fit's own
+            # finalize; a pending local-SGD window must still average so
+            # the saved best model is the wrapper's averaged one
+            self.wrapper.finalize()

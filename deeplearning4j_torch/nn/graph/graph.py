@@ -49,6 +49,7 @@ from ...optimize import metrics as metrics_mod
 from ...utils import params as param_utils
 from ..conf.builders import BackpropType
 from ..conf.graph_conf import ComputationGraphConfiguration
+from .. import shards
 from ..layers.core import dropout
 from ..multilayer import (_DeviceNetwork, _input_shape, _layer_step,
                           _regularization_score, _to_numpy)
@@ -157,8 +158,8 @@ class ComputationGraph(_DeviceNetwork):
             if layer is None or not layer.is_output_layer():
                 raise ValueError(f"Output node {out_name!r} is not an output "
                                  "layer")
-            s = layer.compute_score(params[out_name], heads[out_name], y,
-                                    lmasks.get(out_name))
+            s = shards.score(layer, params[out_name], heads[out_name], y,
+                             lmasks.get(out_name))
             total = s if total is None else total + s
         return total + _regularization_score(
             [self.conf.nodes[n].layer for n in self._layer_nodes],
@@ -334,24 +335,27 @@ class ComputationGraph(_DeviceNetwork):
                 sentinel=sentinel, skip_batches=skip, coerce=self._coerce)
         return self
 
-    def fit_batch(self, mds) -> None:
+    def fit_batch(self, mds, do_step=None) -> None:
         """One training batch: under TRUNCATED_BPTT with a rank-3 input and
         rank-3 labels, one step per window (`_fit_tbptt`); otherwise one
-        optimizer step on the whole batch."""
+        optimizer step on the whole batch. `do_step(inputs, labels,
+        fmasks, lmasks)` replaces `_run_and_commit` (ParallelWrapper's
+        sharded step)."""
         mds = self._coerce(mds)
+        do_step = do_step or self._run_and_commit
         if self.conf.backprop_type == BackpropType.TRUNCATED_BPTT:
             if any(np.ndim(f) == 3 for f in mds.features) and \
                     all(np.ndim(y) == 3 for y in mds.labels):
-                self._fit_tbptt(mds)
+                self._fit_tbptt(mds, do_step)
                 return
             if not getattr(self, "_warned_tbptt_labels", False):
                 log.warning("Truncated BPTT requires rank-3 features and labels; "
                             "using standard BPTT")
                 self._warned_tbptt_labels = True
         self._rnn_carry = None   # standard BPTT: every batch starts from zeros
-        self._run_and_commit(*self._pack(mds))
+        do_step(*self._pack(mds))
 
-    def _fit_tbptt(self, mds: MultiDataSet):
+    def _fit_tbptt(self, mds: MultiDataSet, do_step=None):
         """Truncated BPTT over the graph (reference doTruncatedBPTT): windows
         of tbptt_fwd_length over the time axis of every rank-3 array, one
         optimizer step each, the carry passed on detached; rank-2 inputs,
@@ -376,7 +380,7 @@ class ComputationGraph(_DeviceNetwork):
                 [mask_win(m, start, end) for m in mds.features_masks],
                 None if mds.labels_masks is None else
                 [mask_win(m, start, end) for m in mds.labels_masks])
-            self._run_and_commit(*self._pack(win))
+            (do_step or self._run_and_commit)(*self._pack(win))
         self.rnn_clear_previous_state()
 
     def _train_step(self, inputs, labels, fmasks, lmasks) -> Tensor:
@@ -384,9 +388,13 @@ class ComputationGraph(_DeviceNetwork):
         node normalize -> update -> p - u; the new layer state (and carry)
         is committed with the new parameters. Returns the loss, a 0-d
         tensor on the device (no host sync)."""
-        loss, grads, new_state = self._value_and_grad(
+        return self._apply_step(*self._value_and_grad(
             inputs, labels, fmasks, lmasks, True, self._dropout_gen,
-            state=self._merged_state())
+            state=self._merged_state()))
+
+    def _apply_step(self, loss: Tensor, grads, new_state) -> Tensor:
+        """The update half of `_train_step` (ParallelWrapper's sharded step
+        feeds it its reduced gradients)."""
         with torch.no_grad():
             stepped = {n: _layer_step(self.conf.nodes[n].layer,
                                       self.params_tree[n], grads[n],

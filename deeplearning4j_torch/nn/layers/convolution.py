@@ -33,6 +33,7 @@ import torch.nn.functional as F
 from ...ops import lrn as lrn_ops
 from ...ops import pooling as pool_ops
 from ...utils import serde
+from .. import shards
 from ..conf.inputs import ConvolutionalType, FeedForwardType, RecurrentType
 from .core import BIAS, WEIGHT, Layer, dropout
 
@@ -406,8 +407,8 @@ class BatchNormalization(Layer):
             # E[x^2] - E[x]^2 once the running mean has converged).
             pivot = state["mean"]
             xc = x.float() - pivot
-            mean_c = torch.mean(xc, axes)
-            var = torch.clamp_min(torch.mean(xc * xc, axes) - mean_c * mean_c, 0.0)
+            mean_c, sq = shards.batch_moments(xc, axes)
+            var = torch.clamp_min(sq - mean_c * mean_c, 0.0)
             mean = mean_c + pivot
             with torch.no_grad():
                 new_state = {

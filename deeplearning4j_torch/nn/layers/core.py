@@ -40,6 +40,7 @@ from ...ops import activations as act_ops
 from ...ops import losses as loss_ops
 from ...quantize import quantize as quantize_mod
 from ...utils import serde
+from .. import shards
 from ..conf.inputs import FeedForwardType, InputType
 from ..updaters import GradientNormalization, Updater
 from ..weights import Distribution, WeightInit, init_weights
@@ -65,7 +66,7 @@ def dropout(x: Tensor, rate: Optional[float], train: bool,
         raise ValueError(f"dropout on a {x.device} tensor needs a generator on "
                          f"that device, got one on {generator.device}")
     keep = 1.0 - rate
-    mask = torch.rand(x.shape, generator=generator, device=x.device) < keep
+    mask = shards.dropout_keep_mask(x, keep, generator)
     return torch.where(mask, x / keep, torch.zeros_like(x))
 
 

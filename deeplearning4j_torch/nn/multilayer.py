@@ -70,6 +70,7 @@ from .conf.builders import BackpropType, MultiLayerConfiguration
 from .conf.inputs import (ConvolutionalFlatType, ConvolutionalType,
                           FeedForwardType, RecurrentType)
 from .layers.core import dropout
+from . import shards
 from .layers.recurrent import RECURRENT_CARRY_KEYS
 from .stepping import check_fit_args, commit_multi, data_pipeline, run_fit
 from .updaters import normalize_layer_gradients
@@ -362,7 +363,7 @@ class MultiLayerNetwork(_DeviceNetwork):
             a = p(a)
         if train and out_layer.dropout_rate and generator is not None:
             a = dropout(a, out_layer.dropout_rate, train, generator)
-        loss = out_layer.compute_score(params[n - 1], a, y, lmask)
+        loss = shards.score(out_layer, params[n - 1], a, y, lmask)
         return (loss + _regularization_score(self.layers, params),
                 tuple(new_state))
 
@@ -465,8 +466,9 @@ class MultiLayerNetwork(_DeviceNetwork):
         windowed in time. `use_async` prefetches on a producer thread;
         `prefetch_to_device` makes that thread stage batches onto the
         network's device through pinned memory on its own stream, at most
-        `prefetch_depth` ahead (`prefetch_sharding` needs ParallelWrapper,
-        not ported yet).
+        `prefetch_depth` ahead; ParallelWrapper passes its mesh's
+        `prefetch_sharding` and `prefetch_divisor` (a batch whose rows the
+        divisor does not divide stays on the host for the wrapper's pad).
 
         `steps_per_dispatch > 1` runs each `steps_per_dispatch` same-shaped
         batches as one `fit_batches` group (a batch of another shape
@@ -512,12 +514,16 @@ class MultiLayerNetwork(_DeviceNetwork):
             self._warned_tbptt_labels = True
         return False
 
-    def _fit_batch(self, ds: DataSet):
+    def _fit_batch(self, ds: DataSet, do_step=None):
+        """One batch: one step, or under truncated BPTT one per window;
+        `do_step(x, y, fmask, lmask)` replaces `_do_step` (ParallelWrapper's
+        sharded step)."""
         if self._tbptt_batch(ds):
-            self._fit_tbptt(ds)
+            self._fit_tbptt(ds, do_step)
             return
         self._rnn_carry = None   # standard BPTT: every batch starts from zeros
-        self._do_step(ds.features, ds.labels, ds.features_mask, ds.labels_mask)
+        (do_step or self._do_step)(ds.features, ds.labels, ds.features_mask,
+                                   ds.labels_mask)
 
     def _fit_tbptt(self, ds: DataSet, do_step=None) -> Tensor:
         """Truncated BPTT (reference doTruncatedBPTT): one optimizer step per
@@ -543,10 +549,15 @@ class MultiLayerNetwork(_DeviceNetwork):
         normalize -> update -> p - u, skipping frozen layers; the new layer
         state (and carry) is committed with the new parameters. Returns the
         loss, a 0-d tensor on the device (no host sync)."""
-        loss, grads, new_state = self._value_and_grad(
+        return self._apply_step(*self._value_and_grad(
             self._as_input(x), self._as_labels(y), self._as_mask(fmask),
             self._as_mask(lmask), True, self._dropout_gen,
-            state=self._merged_state())
+            state=self._merged_state()))
+
+    def _apply_step(self, loss: Tensor, grads, new_state) -> Tensor:
+        """The update half of `_train_step` (ParallelWrapper's sharded step
+        feeds it its reduced gradients): per layer normalize -> update ->
+        p - u, commit the new state, count the iteration."""
         with torch.no_grad():
             stepped = [_layer_step(layer, self.params_tree[i], grads[i],
                                    self.opt_state[i], self.iteration)

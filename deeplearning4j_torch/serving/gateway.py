@@ -226,6 +226,27 @@ class ServingGateway(JsonHttpServer):
         """Checkpoint-gated hot-swap (ModelPool.swap protocol)."""
         return self.pool.swap(name, **kw)
 
+    def load(self) -> Dict[str, float]:
+        """Admission load across every entry: the queued requests summed
+        and the worst EWMA wait estimate. A federation replica rides it on
+        its beats, so the front end's least-loaded dispatch sees each
+        replica's pressure (serving/federation.py); an engine without an
+        estimator adds its depth only."""
+        depth = 0
+        wait = 0.0
+        for e in self.pool.entries():
+            try:
+                depth += int(e.engine.queue_depth())
+            except Exception:
+                continue
+            est = getattr(e.engine, "estimate_wait_s", None)
+            if est is not None:
+                try:
+                    wait = max(wait, float(est()))
+                except Exception:
+                    pass
+        return {"queue_depth": depth, "est_wait_s": wait}
+
     # -------------------------------------------------------------- predict
     def predict(self, name: str, x, *,
                 deadline_ms: Optional[float] = None,

@@ -44,6 +44,30 @@ Points used here:
                        (data/iterators.py)
     step.nonfinite     per-step divergence flag (checked, never raised;
                        optimize/resilience.py)
+    ps.pull / ps.push  each parameter-server transport attempt, retries
+                       included (parallel/param_server.py)
+
+Points of the cluster health plane (parallel/cluster_health.py):
+
+    heartbeat.send     each watchdog beat publish: ``fail:`` suppresses
+                       the beat (the peer goes quiet), ``delay:SEL@MS``
+                       slows the side channel
+    step.stall         checked in ClusterHealthMonitor.notify_step: when
+                       armed the step report is swallowed, so the process
+                       keeps beating but looks frozen (the stand-in for a
+                       wedged main thread)
+
+Points of the replica federation (serving/federation.py):
+
+    route.dispatch     each front-end dispatch leg (the first attempt and
+                       the failover retry count one call each): ``fail:``
+                       drops the leg before the HTTP post, exercising the
+                       failover path without killing a replica
+    replica.beat       each replica-side beat publish: ``fail:``
+                       suppresses the beat, so the replica goes dark and
+                       is evicted past timeout_s while its gateway keeps
+                       serving; armable in a replica process through
+                       DL4JTPU_FAULT_REPLICA_BEAT
 
 Stdlib-only on purpose: everything in the package may import this.
 """

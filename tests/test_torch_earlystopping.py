@@ -11,7 +11,8 @@ From the same parameters, the same data and the same configuration:
   matches the JAX package's best model (rtol 1e-5, atol 1e-7);
 - the termination conditions alone, on the same score sequences;
 - EarlyStoppingGraphTrainer over a ComputationGraph, and
-  EarlyStoppingParallelTrainer raising for want of ParallelWrapper.
+  EarlyStoppingParallelTrainer over a two-shard ParallelWrapper, which
+  trains as the plain fit does.
 """
 import math
 
@@ -187,6 +188,21 @@ def test_graph_trainer_and_parallel_trainer():
         graph, *TRAIN, batch_size=8).fit()
     assert result.total_epochs == 2 and graph.iteration == 6
     assert isinstance(result.best_model, port.ComputationGraph)
-    with pytest.raises(NotImplementedError, match="Queue A item 4"):
-        es.EarlyStoppingParallelTrainer(_configure(es, [], [], es.InMemoryModelSaver()),
-                                        object(), *TRAIN)
+    from deeplearning4j_torch.parallel import ParallelWrapper, data_parallel_mesh
+    mln = port.MultiLayerNetwork(
+        (port.NeuralNetConfiguration.builder().seed(9)
+         .updater(port.Sgd(learning_rate=0.3)).list()
+         .layer(port.DenseLayer(n_in=4, n_out=8, activation="tanh"))
+         .layer(port.OutputLayer(n_in=8, n_out=3, activation="softmax",
+                                 loss="mcxent")).build())).init(device="cpu")
+    single = port.MultiLayerNetwork(mln.conf.clone()).init(device="cpu")
+    wrapper = ParallelWrapper(mln, mesh=data_parallel_mesh(
+        devices=["cpu", "cpu"]))
+    result = es.EarlyStoppingParallelTrainer(
+        _configure(es, [es.MaxEpochsTerminationCondition(2)], [],
+                   es.InMemoryModelSaver()), wrapper, *TRAIN,
+        batch_size=8).fit()
+    single.fit(*TRAIN, epochs=2, batch_size=8)
+    assert result.total_epochs == 2 and mln.iteration == single.iteration == 6
+    np.testing.assert_allclose(mln.params(), single.params(), rtol=1e-5,
+                               atol=1e-6)

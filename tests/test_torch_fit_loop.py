@@ -283,8 +283,13 @@ def test_fit_argument_checks_match_reference():
         graph.fit(x, y, steps_per_dispatch=2)
     with pytest.raises(NotImplementedError, match="truncated BPTT"):
         graph.fit_batches([MultiDataSet([x], [y])])
-    with pytest.raises(NotImplementedError, match="ParallelWrapper"):
-        _port_mln().fit(x, y, prefetch_sharding=object())
+    from deeplearning4j_torch.parallel import (batch_sharded,
+                                               data_parallel_mesh)
+    sharded = _port_mln()
+    sharded.fit(x, y, batch_size=2, prefetch_divisor=2,
+                prefetch_sharding=batch_sharded(data_parallel_mesh(
+                    devices=["cpu", "cpu"])))
+    assert sharded.iteration == 2
 
 
 def test_fit_reports_etl_spans_and_metrics():
