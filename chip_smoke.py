@@ -7097,6 +7097,672 @@ def phase_multihost(torch, card, device=None, size=None):
         tmp.cleanup()
 
 
+# ------------------------------------- tensor, sequence and pipeline parallelism
+
+RING_FULL = dict(b=CHAR_BATCH, t=CHAR_T, h=CHAR_HEADS, d=CHAR_WIDTH // CHAR_HEADS,
+                 shards=2)
+SP_FULL = dict(t=CHAR_T, batch=CHAR_BATCH, seq=2, bf16_steps=3, threed_t=2048,
+               width=CHAR_WIDTH, heads=CHAR_HEADS, vocab=CHAR_VOCAB)
+TP_FULL = dict(alexnet=((224, 224, 3), 1000), batch=128, model=2, timed_steps=3)
+PIPE_FULL = dict(width=4096, body=8, classes=1000, stages=4, microbatches=8,
+                 batch=256, timed_steps=3)
+MH_TP_SP_FULL = dict(device=None)   # device None: cuda:0
+
+
+def ring_hops(n):
+    """Every (my, src) pair of an n-shard ring, in hop order per shard."""
+    return [(my, (my - s) % n) for my in range(n) for s in range(n)]
+
+
+def phase_ring_kernels(torch, card, flash_rows=None, device=None, size=None):
+    """K3-K5 on the operands the sequence-parallel ring gives them: the char
+    model's per-hop geometry (t_loc = t / shards query and key rows, 4 heads
+    of 128, batch 4, causal) at every (my, src) of a 2-shard ring, the
+    positions my * t_loc + i and src * t_loc + j, in float32 and bfloat16:
+    (o, lse) and, with a random non-zero lse cotangent, (dq, dk, dv) against
+    the plain versions within FLASH_REL of max|plain|. The hop the causal
+    mask hides whole (src > my) must give o = 0 and lse = NEG exactly and
+    zero gradients. Each kernel's ms a hop beside its ms at the plain char
+    model's shape (`flash_rows`, phase_flash's)."""
+    from deeplearning4j_torch.ops import flash_attention as fa
+    s = dict(RING_FULL, **(size or {}))
+    dev = device or "cuda"
+    b, h, d, n = s["b"], s["h"], s["d"], s["shards"]
+    tl = s["t"] // n
+    gen = torch.Generator(device=dev).manual_seed(19)
+    rows = []
+    for dtype in ("float32", "bfloat16"):
+        dt = getattr(torch, dtype)
+        mk = lambda *shape: torch.randn(*shape, device=dev, generator=gen).to(dt)
+        q, k, v, do = mk(b, tl, h, d), mk(b, tl, h, d), mk(b, tl, h, d), mk(b, tl, h, d)
+        gl = torch.randn(b, tl, h, device=dev, generator=gen)
+        scale = d ** -0.5
+        for my, src in ring_hops(n):
+            qp = my * tl + torch.arange(tl, device=dev, dtype=torch.int32)
+            kp = src * tl + torch.arange(tl, device=dev, dtype=torch.int32)
+            fwd = (q, k, v, None, None, None, qp, kp, scale, True)
+            o, lse = fa._launch_fwd(*fwd)
+            ow, lw = fa.flash_fwd_reference(*fwd)
+            di = (ow.float() * do.float()).sum(-1)
+            args = (q, k, v, do, lw, di, gl, None, None, None, qp, kp, scale, True)
+            dk, dv = fa._launch_bwd_dkv(*args)
+            dq = fa._launch_bwd_dq(*args)
+            _sync(torch, dev)
+            dkw, dvw = fa.flash_bwd_dkv_reference(*args)
+            dqw = fa.flash_bwd_dq_reference(*args)
+            row = {"dtype": dtype, "my": my, "src": src, "t_loc": tl,
+                   "masked_whole": src > my}
+            if src > my:
+                zero = all(bool((t == 0).all()) for t in (o, dq, dk, dv))
+                if not zero or not bool((lse == fa.NEG).all()):
+                    raise RuntimeError(f"ring hop {dtype} ({my}, {src}): the hop the "
+                                       "causal mask hides whole is not exactly 0 / NEG")
+                row["exact_zero"] = True
+            else:
+                live = lw > fa.NEG / 2
+                torch.testing.assert_close(lse[live], lw[live], **LSE_TOL)
+                for what, (got, want) in {"flash_fwd": (o, ow), "flash_bwd_dkv_dk": (dk, dkw),
+                                          "flash_bwd_dkv_dv": (dv, dvw),
+                                          "flash_bwd_dq": (dq, dqw)}.items():
+                    rel = _rel_err(got, want)
+                    if not rel <= FLASH_REL[dtype] or not torch.isfinite(got).all():
+                        raise RuntimeError(f"ring hop {what} {dtype} ({my}, {src}): "
+                                           f"error {rel} of max|plain|")
+                    row[f"{what}_rel_err"] = rel
+            if dev != "cpu" and torch.device(dev).type == "cuda":
+                pairs = attention_pairs(torch, qp, kp, True, b, h)
+                t_ = lambda fn: cuda_time_ms(fn, iters=5, warm=1)
+                for name, fn, nb in (
+                        ("flash_fwd", lambda: fa._launch_fwd(*fwd),
+                         _nbytes(q, k, v, qp, kp, o, lse)),
+                        ("flash_bwd_dkv", lambda: fa._launch_bwd_dkv(*args),
+                         _nbytes(q, k, v, do, lw, di, gl, qp, kp, dk, dv)),
+                        ("flash_bwd_dq", lambda: fa._launch_bwd_dq(*args),
+                         _nbytes(q, k, v, do, lw, di, gl, qp, kp, dq))):
+                    bound, by = attention_bound_ms(name, pairs, d, dtype, nb)
+                    plain = (flash_rows or {}).get(
+                        "model_f32" if dtype == "float32" else "model_bf16", {})
+                    row[name] = {"ms": t_(fn), "bound_ms": bound, "bound_by": by,
+                                 "pairs": pairs,
+                                 "char_model_shape_ms": plain.get(name, {}).get("ms")}
+            rows.append(row)
+            log(f"ring kernels: {json.dumps(row)}  [{card}]")
+            del o, lse, ow, lw, dk, dv, dq, dkw, dvw, dqw, args
+        del q, k, v, do, gl
+    return {"card": card, "hops": rows}
+
+
+def sp_conf(s, layers=2):
+    """The char model's network (char_conf) at `s`'s width and depth."""
+    from deeplearning4j_torch import (InputType, NeuralNetConfiguration,
+                                      RnnOutputLayer, SelfAttentionLayer, Sgd)
+    b = NeuralNetConfiguration.builder().seed(0).updater(Sgd(CHAR_LR)).list()
+    for _ in range(layers):
+        b = b.layer(SelfAttentionLayer(n_out=s["width"], n_heads=s["heads"],
+                                       causal=True, activation="relu"))
+    return (b.layer(RnnOutputLayer(n_out=s["vocab"], activation="softmax",
+                                   loss="mcxent"))
+            .set_input_type(InputType.recurrent(s["vocab"])).build())
+
+
+def sp_data(s, rows, t, seed):
+    """char_data at `s`'s vocabulary."""
+    from deeplearning4j_torch.data.dataset import DataSet
+    rng = np.random.default_rng(seed)
+    idx = rng.integers(0, s["vocab"], (rows, t))
+    eye = np.eye(s["vocab"], dtype=np.float32)
+    return DataSet(eye[idx], eye[np.roll(idx, -1, 1)], None,
+                   np.ones((rows, t), np.float32))
+
+
+def ring_launches(layers, shards, steps, backward=True):
+    """K3, K4 and K5 launches `steps` ring steps make: every shard runs a
+    hop of each kernel per shard of the ring, per attention layer."""
+    n = layers * shards * shards * steps
+    return {"flash_fwd": n, "flash_bwd_dkv": n if backward else 0,
+            "flash_bwd_dq": n if backward else 0}
+
+
+UPDATE_ULPS = 2.0   # a sub-rounding update: each entry within this many roundings
+
+
+def rel_errs_set_aside(param_utils, init, got, want):
+    """({"layer.param": `update_rel_errs`} of the parameters whose plain
+    update is resolvable, {"layer.param": share of its layer's update} of
+    those set aside, {"layer.param": roundings} of those held entry by
+    entry). Set aside: an update below NEGLIGIBLE_GRAD of its layer's, 0
+    but for rounding (the key biases: a shift of every key's score leaves
+    the softmax as it is). Held entry by entry: an update below one
+    rounding of the parameter (norm under eps |p|, the queries' and keys'
+    weights at the char model's init), which moves an entry by a rounding
+    or not at all; each entry must land within UPDATE_ULPS roundings
+    (eps |p|) of the plain step's."""
+    import torch
+    errs, aside, ulps = {}, {}, {}
+    items = lambda t: t.items() if isinstance(t, dict) else enumerate(t)
+    for (k, li), lg, lw in zip(items(init), (v for _, v in items(got)),
+                               (v for _, v in items(want))):
+        norms = {n: (lw[n].double() - li[n].double()).norm().item() for n in li}
+        layer = float(np.sqrt(sum(v * v for v in norms.values())))
+        for n in li:
+            name = f"{k}.{n}"
+            w, g = lw[n].double(), lg[n].double()
+            eps = torch.finfo(lw[n].dtype).eps
+            if norms[n] < NEGLIGIBLE_GRAD * layer:
+                aside[name] = norms[n] / max(layer, 1e-300)
+            elif norms[n] < eps * w.norm().item():
+                ulps[name] = ((g - w).abs() / (eps * w.abs()).clamp(min=1e-30)
+                              ).max().item()
+            else:
+                errs[name] = update_rel_errs(param_utils, [li[n]], [lg[n]],
+                                             [lw[n]])[0]
+    return errs, aside, ulps
+
+
+def check_one_step(label, errs, ulps):
+    """Raise unless every resolvable update is within UPDATE_REL_STEP and
+    every sub-rounding one within UPDATE_ULPS roundings."""
+    worst = max(errs, key=errs.get)
+    if errs[worst] > UPDATE_REL_STEP or any(u > UPDATE_ULPS for u in ulps.values()):
+        raise RuntimeError(f"{label}: a leaf's update differs from the plain step's by "
+                           f"{errs[worst]:.3g} of its norm ({worst}); sub-rounding "
+                           f"updates {json.dumps(ulps)} roundings")
+
+
+@contextmanager
+def pinned_relus_by_block(torch, net, record, flips=None, pin=True):
+    """`pinned_kinks`' ReLU rule across a sequence-parallel step: the plain
+    run (`flips` None) records each ReLU's decisions over the whole batch,
+    in call order; another run counts in `flips` the decisions its own
+    values take otherwise (each shard of a sharded step in its (rows, time)
+    block of each recorded decision, in its own call order), and with
+    `pin` runs the ReLU as z * the recorded mask. Float32 attention through
+    the ring rounds apart from one kernel call over the whole sequence by
+    about 1e-6, which tips a few of the 3.4e7 ReLU decisions near zero,
+    and a tipped decision moves the gradients of the weights below it by
+    far more than the rounding (PERF.md §6): a comparison on the
+    same decisions measures the step, one on its own decisions the tips."""
+    import torch.nn.functional as F
+    from deeplearning4j_torch.nn import shards
+    calls = threading.local()
+
+    def act(z):
+        if flips is None:
+            record.append((z > 0).detach())
+            return F.relu(z)
+        ctx = shards.current()
+        k = getattr(calls, "k", 0)
+        calls.k = k + 1
+        m = record[k]
+        if ctx is not None:
+            m = m[ctx.start:ctx.start + z.shape[0]]
+            if ctx.t_len and ctx.t_len < ctx.t_total and z.shape[1] == ctx.t_len:
+                m = m[:, ctx.t_start:ctx.t_start + ctx.t_len]
+        m = m.to(z.device)
+        flips.append(int(((z > 0) != m).sum()))
+        return z * m.to(z.dtype) if pin else F.relu(z)
+
+    with ExitStack() as stack:
+        for layer in net_layers(net):
+            if (layer.activation or "").lower() == "relu":
+                stack.enter_context(patched(layer, "_act", lambda: act))
+        yield
+
+
+def step_grads(torch, make, step, record=None, flips=None, pin=True):
+    """(the gradient tree one `step(net)` of a fresh `make()` network
+    applies, detached and whole: a leaf held in blocks gathered; the
+    network). With `record`, the step's ReLUs run under
+    `pinned_relus_by_block(record, flips, pin)`."""
+    from deeplearning4j_torch.parallel.mesh import gather_replicated
+    from deeplearning4j_torch.utils import params as param_utils
+    net, got = make(), []
+    apply_step = net._apply_step
+
+    def capture(loss, grads, new_state):
+        got.append(param_utils.tree_map(lambda t: t.detach().clone(),
+                                        gather_replicated(grads)))
+        return apply_step(loss, grads, new_state)
+
+    with ExitStack() as stack:
+        stack.enter_context(patched(net, "_apply_step", capture))
+        if record is not None:
+            stack.enter_context(pinned_relus_by_block(torch, net, record, flips, pin))
+        step(net)
+    return got[0], net
+
+
+def grad_rel_errs(got, want):
+    """({"layer.param": |got - want| / |want|} of every leaf whose plain
+    gradient is resolvable, {"layer.param": share of its layer's gradient
+    norm} of those set aside: below NEGLIGIBLE_GRAD of their layer's, 0 but
+    for rounding (the key biases: a shift of every key's score leaves the
+    softmax as it is))."""
+    errs, aside = {}, {}
+    items = lambda t: t.items() if isinstance(t, dict) else enumerate(t)
+    for (k, lw), (_, lg) in zip(items(want), items(got)):
+        norms = {n: lw[n].double().norm().item() for n in lw}
+        layer = float(np.sqrt(sum(v * v for v in norms.values())))
+        for n in lw:
+            if norms[n] < NEGLIGIBLE_GRAD * layer:
+                aside[f"{k}.{n}"] = norms[n] / max(layer, 1e-300)
+            else:
+                errs[f"{k}.{n}"] = (lg[n].double() - lw[n].double()).norm().item() \
+                    / norms[n]
+    return errs, aside
+
+
+def one_step_rel(torch, param_utils, make, step_plain, step_sharded, tree_of=None):
+    """(per-leaf update errors, the parameters set aside, the sub-rounding
+    ones' roundings, plain net, sharded net) of one step of each from the
+    same initial parameters (`rel_errs_set_aside`)."""
+    plain, sharded = make(), make()
+    init = param_utils.tree_copy(plain.params_tree)
+    step_plain(plain)
+    step_sharded(sharded)
+    got = (tree_of or (lambda n: n.params_tree))(sharded)
+    errs, aside, ulps = rel_errs_set_aside(param_utils, init, got, plain.params_tree)
+    return errs, aside, ulps, plain, sharded
+
+
+def phase_sequence_parallel(torch, card, char=None, device=None, size=None):
+    """`SequenceParallelWrapper` on the char model of bench.py
+    `bench_attention_longctx` at full width (2 causal SelfAttentionLayers of
+    512, 4 heads of 128, an RnnOutputLayer of 96) at t 8192 and batch 4,
+    over a 2-shard seq axis on the one card (`seq_parallel_mesh(devices=
+    [card, card])`):
+
+    1. One float32 step, its gradients against the plain single-device
+       step's from the same parameters (`step_grads`, `grad_rel_errs`; the
+       Wq/Wk updates at Sgd's rate are below a rounding of the weights,
+       their gradients are not). On the plain step's ReLU decisions
+       (`pinned_relus_by_block`, the flips counted) every leaf within
+       UPDATE_REL_STEP. On its own decisions each leaf may stray no further
+       than a rounding-only control does plus UPDATE_REL_STEP: the control
+       is the plain step with attention through `ring_self_attention` on
+       whole tensors (the ring's rounding, no wrapper). K3, K4 and K5 each
+       launch layers x shards x hops times (the counts reset just before
+       the unpinned step and read just after).
+    2. `bf16_steps` bfloat16 steps through `fit` (the main path), every
+       score finite, the launch counts held to the ring's, timed against
+       phase_char_model's bfloat16 step (`char`).
+    3. The 3-D mode: data 1 x model 2 x seq 2 (heads split over the model
+       axis, parameters sharded over it) at one attention layer and t
+       `threed_t`: one float32 step on the plain step's ReLU decisions,
+       finite, each leaf's gradient within UPDATE_REL_STEP of the plain
+       step's; then `output` against the plain network's."""
+    from deeplearning4j_torch.nn.multilayer import MultiLayerNetwork
+    from deeplearning4j_torch.ops import flash_attention as fa
+    from deeplearning4j_torch.ops.attention import sequence_parallel
+    from deeplearning4j_torch.parallel import SequenceParallelWrapper, seq_parallel_mesh
+    from deeplearning4j_torch.parallel.mesh import SEQ_AXIS, gather_replicated
+    from deeplearning4j_torch.utils import params as param_utils
+    s = dict(SP_FULL, **(size or {}))
+    dev = device or "cuda"
+    n = s["seq"]
+    on_card = torch.device(dev).type == "cuda"
+    result = {"card": card, "t": s["t"], "batch": s["batch"], "seq_shards": n}
+    ds = sp_data(s, s["batch"], s["t"], seed=2191)
+    mesh = seq_parallel_mesh(devices=[dev] * n)
+
+    # 1. one float32 step, sharded against plain
+    make = lambda: MultiLayerNetwork(sp_conf(s)).init(dtype=torch.float32, device=dev)
+    launches = {}
+
+    def sharded_step(net):
+        w = SequenceParallelWrapper(net, mesh)
+        _sync(torch, dev)
+        _zero_counts(fa)   # the main path's run starts here
+        w.fit_batch(ds)
+        launches.update(_counts(fa))   # ... and ends here
+
+    def control_step(net):
+        with sequence_parallel(mesh, SEQ_AXIS, None):
+            net._fit_batch(ds)
+
+    record, flips = [], {"pinned": [], "unpinned": [], "control": []}
+    plain_g, plain = step_grads(torch, make, lambda net: net._fit_batch(ds), record)
+    control_g, _ = step_grads(torch, make, control_step, record, flips["control"],
+                              pin=False)
+    unpinned_g, sharded = step_grads(torch, make, sharded_step, record,
+                                     flips["unpinned"], pin=False)
+    check_launches("sequence parallel f32 step", launches, ring_launches(2, n, 1))
+    pinned_g, _ = step_grads(torch, make, sharded_step, record, flips["pinned"])
+    errs, aside = grad_rel_errs(pinned_g, plain_g)
+    unpinned, _ = grad_rel_errs(unpinned_g, plain_g)
+    control, _ = grad_rel_errs(control_g, plain_g)
+    result["f32_step"] = {"max_grad_rel_err": max(errs.values()), "grad_rel_errs": errs,
+                          "unpinned_grad_rel_errs": unpinned,
+                          "control_grad_rel_errs": control, "set_aside": aside,
+                          "launches": launches,
+                          "relu_flips": {k: sum(v) for k, v in flips.items()},
+                          "score": float(sharded.score_value),
+                          "plain_score": float(plain.score_value)}
+    log(f"sequence parallel: f32 step {json.dumps(result['f32_step'])}  [{card}]")
+    strays = {k: e for k, e in unpinned.items() if e > control[k] + UPDATE_REL_STEP}
+    if max(errs.values()) > UPDATE_REL_STEP or strays:
+        raise RuntimeError(f"sequence parallel f32 step: gradients off the plain "
+                           f"step's by {json.dumps(errs)} on its decisions; on their "
+                           f"own, beyond the control's, {json.dumps(strays)}")
+    if not np.isclose(float(sharded.score_value), float(plain.score_value), rtol=1e-4):
+        raise RuntimeError(f"sequence parallel: score {float(sharded.score_value)} "
+                           f"against {float(plain.score_value)}")
+    del plain, sharded, plain_g, control_g, unpinned_g, pinned_g
+    if on_card:
+        torch.cuda.empty_cache()
+
+    # 2. bfloat16 steps through fit, timed
+    net = MultiLayerNetwork(sp_conf(s)).init(dtype=torch.bfloat16, device=dev)
+    w = SequenceParallelWrapper(net, mesh)
+    data = sp_data(s, s["batch"] * s["bf16_steps"], s["t"], seed=2192)
+    ends, scores = [], []
+
+    class Steps:
+        def iteration_done(self, model, iteration):
+            _sync(torch, dev)
+            ends.append(time.perf_counter())
+            scores.append(float(model.score_value))
+
+    net.set_listeners(Steps())
+    _sync(torch, dev)
+    _zero_counts(fa)   # the main path's run starts here
+    t0 = time.perf_counter()
+    w.fit(data, epochs=1, batch_size=s["batch"])
+    launches = _counts(fa)   # ... and ends here
+    check_launches("sequence parallel bf16 fit", launches,
+                   ring_launches(2, n, s["bf16_steps"]))
+    if len(scores) != s["bf16_steps"] or not all(np.isfinite(scores)):
+        raise RuntimeError(f"sequence parallel bf16: scores {scores}")
+    step_ms = (np.diff([t0] + ends) * 1e3).tolist()
+    warm = float(np.median(step_ms[1:])) if len(step_ms) > 1 else step_ms[0]
+    plain_ms = (char or {}).get("bf16", {}).get("median_warm_step_ms")
+    result["bf16"] = {"launches": launches, "scores": scores, "step_ms": step_ms,
+                      "median_warm_step_ms": warm, "plain_step_ms": plain_ms,
+                      "tokens_per_s": s["batch"] * s["t"] / warm * 1e3}
+    log(f"sequence parallel: bf16 fit {json.dumps(result['bf16'])}  [{card}]")
+    del net, w
+    if on_card:
+        torch.cuda.empty_cache()
+
+    # 3. data 1 x model 2 x seq 2 at one attention layer
+    t3 = s["threed_t"]
+    ds3 = sp_data(s, s["batch"], t3, seed=2193)
+    mesh3 = seq_parallel_mesh(seq_devices=2, model_devices=2, devices=[dev] * 4)
+    make3 = lambda: MultiLayerNetwork(sp_conf(s, layers=1)).init(dtype=torch.float32,
+                                                                 device=dev)
+    holder = {}
+
+    def threed_step(net):
+        holder["w"] = SequenceParallelWrapper(net, mesh3)
+        holder["w"].fit_batch(ds3)
+
+    record3, flips3 = [], []
+    plain3_g, plain3 = step_grads(torch, make3, lambda net: net._fit_batch(ds3),
+                                  record3)
+    got3_g, sharded3 = step_grads(torch, make3, threed_step, record3, flips3)
+    errs3, aside3 = grad_rel_errs(got3_g, plain3_g)
+    wq = sharded3.params_tree[0]["Wq"]
+    finite = all(bool(torch.isfinite(t).all()) for t in param_utils.tree_leaves(
+        gather_replicated(sharded3.params_tree)))
+    out_err = float(np.abs(holder["w"].output(ds3.features) - plain3.output(
+        ds3.features)).max())
+    result["three_d"] = {"mesh": list(mesh3.dims), "t": t3, "layers": 1,
+                         "max_grad_rel_err": max(errs3.values()),
+                         "grad_rel_errs": errs3, "set_aside": aside3,
+                         "relu_flips_pinned": sum(flips3), "finite": finite,
+                         "wq_blocks": [list(b.shape) for b in wq.slices],
+                         "output_max_abs_err": out_err}
+    log(f"sequence parallel: 3-D step {json.dumps(result['three_d'])}  [{card}]")
+    if max(errs3.values()) > UPDATE_REL_STEP:
+        raise RuntimeError(f"sequence parallel 3-D step: gradients off the plain "
+                           f"step's by {json.dumps(errs3)}")
+    if not finite or out_err > 1e-4:
+        raise RuntimeError(f"sequence parallel 3-D: output error {out_err:.3g}, "
+                           f"finite {finite}")
+    return result
+
+
+def phase_tensor_parallel(torch, card, device=None, size=None):
+    """`TensorParallelWrapper` on zoo AlexNet at batch 128, float32, over a
+    2-shard model axis on the one card (cuDNN deterministic), K1 and K2
+    under it: one step against the plain step from the same parameters
+    (every leaf's update within UPDATE_REL_STEP; K1 and K2 2 launches each,
+    the counts reset just before the step and read just after); the bytes
+    of parameters and updater state each shard holds against the whole
+    trees'; a checkpoint taken while placed that restores bitwise to the
+    gathered trees; `materialize_local` then a plain `output` against the
+    plain network's; the warm step ms against the plain step's."""
+    import tempfile
+
+    from deeplearning4j_torch.data.dataset import DataSet
+    from deeplearning4j_torch.models.zoo import AlexNet
+    from deeplearning4j_torch.parallel import TensorParallelWrapper, tensor_parallel_mesh
+    from deeplearning4j_torch.parallel.mesh import gather_replicated
+    from deeplearning4j_torch.utils import params as param_utils
+    from deeplearning4j_torch.utils.model_serializer import restore_model, save_model
+    s = dict(TP_FULL, **(size or {}))
+    dev = device or "cuda"
+    shape, classes = s["alexnet"]
+    rng = np.random.default_rng(2194)
+    x, y = alexnet_batches(rng, 1, s["batch"], shape, classes)
+    ds = DataSet(x, y)
+    mesh = tensor_parallel_mesh(devices=[dev] * s["model"])
+    make = lambda: AlexNet(input_shape=shape, num_labels=classes).init(device=dev)
+    lrn = lrn_layers_of(make())
+    result = {"card": card, "batch": s["batch"], "model_shards": s["model"]}
+    prev = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    tmp = tempfile.TemporaryDirectory(prefix="chip_smoke_tp_")
+    try:
+        holder = {}
+
+        def tp_step(net):
+            holder["w"] = TensorParallelWrapper(net, mesh)
+            _sync(torch, dev)
+            zero_launches()   # the main path's run starts here
+            holder["w"].fit_batch(ds)
+            holder["launches"] = all_launches()   # ... and ends here
+
+        errs, aside, ulps, plain, tp = one_step_rel(
+            torch, param_utils, make, lambda net: net._fit_batch(ds), tp_step,
+            tree_of=lambda n: gather_replicated(n.params_tree))
+        w = holder["w"]
+        check_launches("tensor parallel step", holder["launches"],
+                       wrapper_launches(lrn, lrn))
+        sizes = w.shard_bytes()
+        report = w.param_shard_report()
+        path = os.path.join(tmp.name, "tp_placed.zip")
+        save_model(tp, path)
+        restored = restore_model(path, device=dev)
+        w.materialize_local()
+        bitwise = all(torch.equal(a, b) for a, b in zip(
+            param_utils.tree_leaves((tp.params_tree, tp.opt_state)),
+            param_utils.tree_leaves((restored.params_tree, restored.opt_state))))
+        out_err = float(np.abs(tp.output(x[:8]) - plain.output(x[:8])).max())
+        result["step"] = {"max_update_rel_err": max(errs.values()),
+                          "set_aside": aside, "sub_rounding_ulps": ulps,
+                          "launches": holder["launches"],
+                          "score": float(tp.score_value),
+                          "plain_score": float(plain.score_value),
+                          "sharded_params": len(report), "shard_bytes": sizes,
+                          "shard_share": max(sizes["per_shard"]) / sizes["whole"],
+                          "checkpoint_bitwise": bitwise,
+                          "output_max_abs_err": out_err}
+        log(f"tensor parallel: {json.dumps(result['step'])}  [{card}]")
+        check_one_step("tensor parallel step", errs, ulps)
+        if not bitwise or out_err > 1e-5:
+            raise RuntimeError(f"tensor parallel: checkpoint bitwise {bitwise}, "
+                               f"output error {out_err}")
+        result["step_ms"] = {"sharded": fenced_step_ms(torch, dev, w.fit_batch, ds,
+                                                       s["timed_steps"]),
+                             "plain": fenced_step_ms(torch, dev, plain._fit_batch, ds,
+                                                     s["timed_steps"])}
+        log(f"tensor parallel: step ms {json.dumps(result['step_ms'])}  [{card}]")
+        return result
+    finally:
+        torch.backends.cudnn.deterministic = prev
+        tmp.cleanup()
+
+
+def pipe_conf(s):
+    from deeplearning4j_torch import (DenseLayer, InputType, NeuralNetConfiguration,
+                                      OutputLayer, Sgd)
+    b = NeuralNetConfiguration.builder().seed(19).updater(Sgd(0.01)).list()
+    for _ in range(s["body"]):
+        b = b.layer(DenseLayer(n_in=s["width"], n_out=s["width"], activation="relu"))
+    return (b.layer(OutputLayer(n_out=s["classes"], activation="softmax",
+                                loss="mcxent"))
+            .set_input_type(InputType.feed_forward(s["width"])).build())
+
+
+def phase_pipeline(torch, card, device=None, size=None):
+    """`PipelineParallelWrapper` on 8 identical DenseLayers of 4096 -> 4096
+    (AlexNet's fc width) and an OutputLayer of 1000, float32: 4 stages on
+    the one card, 8 microbatches, batch 256. One step against the plain
+    `fit` step from the same parameters (every leaf's update within
+    UPDATE_REL_STEP); `stage_shard_report` and each stage's bytes; the warm
+    step ms against the plain step's and the bubble fraction (S-1)/(M+S-1)."""
+    from deeplearning4j_torch.data.dataset import DataSet
+    from deeplearning4j_torch.nn.multilayer import MultiLayerNetwork
+    from deeplearning4j_torch.parallel import PipelineParallelWrapper, pipeline_mesh
+    from deeplearning4j_torch.utils import params as param_utils
+    s = dict(PIPE_FULL, **(size or {}))
+    dev = device or "cuda"
+    rng = np.random.default_rng(2195)
+    x = rng.standard_normal((s["batch"], s["width"])).astype(np.float32)
+    y = np.eye(s["classes"], dtype=np.float32)[rng.integers(0, s["classes"], s["batch"])]
+    ds = DataSet(x, y)
+    mesh = pipeline_mesh(s["stages"], devices=[dev] * s["stages"])
+    make = lambda: MultiLayerNetwork(pipe_conf(s)).init(device=dev)
+    holder = {}
+
+    def pipe_step(net):
+        holder["w"] = PipelineParallelWrapper(net, mesh, n_microbatches=s["microbatches"])
+        holder["w"].fit_batch(ds)
+
+    errs, aside, ulps, plain, piped = one_step_rel(torch, param_utils, make,
+                                      lambda net: net.fit(ds, batch_size=s["batch"]),
+                                      pipe_step)
+    w = holder["w"]
+    report = w.stage_shard_report()
+    result = {"card": card, "stages": s["stages"], "microbatches": s["microbatches"],
+              "batch": s["batch"], "max_update_rel_err": max(errs.values()),
+              "set_aside": aside, "sub_rounding_ulps": ulps,
+              "score": float(piped.score_value), "plain_score": float(plain.score_value),
+              "bubble_fraction": w.bubble_fraction(), "stage_bytes": w.stage_bytes(),
+              "stages_reported": sorted({v[1] for v in report.values()})}
+    log(f"pipeline: {json.dumps(result)}  [{card}]")
+    check_one_step("pipeline step", errs, ulps)
+    result["step_ms"] = {"pipeline": fenced_step_ms(torch, dev, w.fit_batch, ds,
+                                                    s["timed_steps"]),
+                         "plain": fenced_step_ms(torch, dev, plain._fit_batch, ds,
+                                                 s["timed_steps"])}
+    log(f"pipeline: step ms {json.dumps(result['step_ms'])}  [{card}]")
+    return result
+
+
+def mh_nets():
+    """The JAX package's multi-host worker's TP and SP networks (its phases 5
+    and 6) with their batches and step counts: {mode: (conf, x, y, steps)}."""
+    from deeplearning4j_torch import (DenseLayer, InputType, Nesterovs,
+                                      NeuralNetConfiguration, OutputLayer,
+                                      RnnOutputLayer, SelfAttentionLayer, Sgd)
+    tp = (NeuralNetConfiguration.builder().seed(7).updater(Nesterovs(0.1, momentum=0.9))
+          .list().layer(DenseLayer(n_out=16, activation="tanh"))
+          .layer(OutputLayer(n_out=3, activation="softmax", loss="mcxent"))
+          .set_input_type(InputType.feed_forward(8)).build())
+    sp = (NeuralNetConfiguration.builder().seed(21).updater(Sgd(0.1)).list()
+          .layer(SelfAttentionLayer(n_out=16, n_heads=4, causal=True))
+          .layer(RnnOutputLayer(n_out=3, activation="softmax", loss="mcxent"))
+          .set_input_type(InputType.recurrent(8)).build())
+    rng = np.random.default_rng(5)
+    tx = rng.standard_normal((16, 8)).astype(np.float32)
+    ty = np.eye(3, dtype=np.float32)[rng.integers(0, 3, size=16)]
+    rng = np.random.default_rng(6)
+    sx = rng.standard_normal((4, 16, 8)).astype(np.float32)
+    sy = np.eye(3, dtype=np.float32)[rng.integers(0, 3, (4, 16))]
+    return {"tp": (tp, tx, ty, 3), "sp": (sp, sx, sy, 2)}
+
+
+MH_HOLD = {"tp": 1e-3, "sp": 1e-2}   # the JAX multi-host test's |params| sum holds
+
+
+def phase_multihost_tp_sp(torch, card, device=None, size=None):
+    """Tensor and sequence parallelism across two gloo ranks sharing the card
+    (`multihost.main --mode tp / sp`, 2 shards a rank): the JAX package's
+    multi-host worker's TP net (8-16-3, Nesterovs, 3 steps on 16 rows, a
+    model axis of 4) and SP net (causal attention of 16 wide, 4 heads, 2
+    steps on 4 x 16, a seq axis of 4), every rank fed the whole batch. The
+    ranks agree within 1e-4; both match the single-process fit on the card
+    within the JAX test's holds (MH_HOLD, of the |params| sum); the TP
+    checkpoint the chief writes restores on both ranks to the trained
+    parameters bitwise; the hop, score and parameter-gather ms of each
+    rank."""
+    import tempfile
+
+    from deeplearning4j_torch.data.dataset import DataSet
+    from deeplearning4j_torch.nn.multilayer import MultiLayerNetwork
+    from deeplearning4j_torch.utils import params as param_utils
+    s = dict(MH_TP_SP_FULL, **(size or {}))
+    dev = device or "cuda:0"
+    rank_dev = s["device"] or dev
+    tmp = tempfile.TemporaryDirectory(prefix="chip_smoke_mh_tp_sp_")
+    result = {"card": card}
+    try:
+        for mode, (conf, x, y, steps) in mh_nets().items():
+            conf_path = os.path.join(tmp.name, f"{mode}.json")
+            with open(conf_path, "w") as f:
+                f.write(conf.to_json())
+            npz = os.path.join(tmp.name, f"{mode}.npz")
+            np.savez(npz, x=x, y=y)
+            prefix = os.path.join(tmp.name, "run")
+            _, _, wall = run_ranks(["--conf", conf_path, "--data", npz, "--epochs",
+                                    str(steps), "--batch-size", str(x.shape[0]),
+                                    "--device", rank_dev, "--backend", "gloo",
+                                    "--exact-float32", "--mode", mode,
+                                    "--out", prefix], free_port())
+            ranks = []
+            for r in range(2):
+                with np.load(f"{prefix}.{mode}.rank{r}.npz") as z:
+                    ranks.append([z[k] for k in sorted(z.files)])
+            agree = max(float(np.abs(a - b).max()) for a, b in zip(*ranks))
+            single = MultiLayerNetwork(conf).init(device=dev)
+            for _ in range(steps):
+                single._fit_batch(DataSet(x, y))
+            want = sum(float(np.abs(param_utils.leaf_to_reference_bits(t)[0]).sum())
+                       for t in param_utils.tree_leaves(single.params_tree))
+            got = sum(float(np.abs(a).sum()) for a in ranks[0])
+            reports = []
+            for r in range(2):
+                with open(f"{prefix}.{mode}.rank{r}.json") as f:
+                    reports.append(json.load(f))
+            row = {"ranks_max_abs_diff": agree, "params_abs_sum": got,
+                   "single_process_abs_sum": want, "hold": MH_HOLD[mode],
+                   "cross_ms": [rep["cross_ms"] for rep in reports],
+                   "step_ms": [rep["step_ms"] for rep in reports],
+                   "backend": reports[0]["backend"], "device": reports[0]["device"],
+                   "wall_s": wall}
+            if mode == "tp":
+                restored_ok = all(
+                    all(np.array_equal(a, b) for a, b in zip(
+                        [np.load(f"{prefix}.tp.rank{r}.restored.npz")[k] for k in sorted(
+                            np.load(f"{prefix}.tp.rank{r}.restored.npz").files)], ranks[0]))
+                    for r in range(2))
+                row["checkpoint_restored_bitwise"] = restored_ok
+                row["shard_bytes"] = reports[0]["shard_bytes"]
+                if not restored_ok:
+                    raise RuntimeError("multihost tp: the chief's checkpoint does not "
+                                       "restore to the trained parameters")
+            result[mode] = row
+            log(f"multihost {mode}: {json.dumps(row)}  [{card}]")
+            if agree > 1e-4 or abs(got - want) > MH_HOLD[mode]:
+                raise RuntimeError(f"multihost {mode}: ranks differ by {agree}, |params| "
+                                   f"{got} against {want} single-process")
+        return result
+    finally:
+        tmp.cleanup()
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -7108,7 +7774,7 @@ def main() -> int:
     phase_build()
     lrn_entry = phase_lrn(torch, card)
     lrn_bwd_entry = phase_lrn_bwd(torch, card)
-    flash_entries, _ = phase_flash(torch, card)
+    flash_entries, flash_rows = phase_flash(torch, card)
     int8_entry, _ = phase_int8(torch, card)
     decode_entry, _ = phase_decode_kernel(torch, card)
     torch.cuda.empty_cache()
@@ -7165,6 +7831,16 @@ def main() -> int:
     pserver = phase_param_server(torch, card)
     torch.cuda.empty_cache()
     multihost = phase_multihost(torch, card)
+    torch.cuda.empty_cache()
+    ring = phase_ring_kernels(torch, card, flash_rows)
+    torch.cuda.empty_cache()
+    seq_par = phase_sequence_parallel(torch, card, char)
+    torch.cuda.empty_cache()
+    tensor_par = phase_tensor_parallel(torch, card)
+    torch.cuda.empty_cache()
+    pipe = phase_pipeline(torch, card)
+    torch.cuda.empty_cache()
+    mh_tp_sp = phase_multihost_tp_sp(torch, card)
     lrn_entry["launches"] = serving["launches"]["lrn_fwd"]
     lrn_bwd_entry["launches"] = training["launches"]["lrn_bwd"]
     for entry in flash_entries:
@@ -7192,6 +7868,14 @@ def main() -> int:
         f"{json.dumps({k: w['launches'] for k, w in pserver['workers'].items()})} "
         f"(racing, by max_staleness); runner rank 0 "
         f"{json.dumps(multihost['sync']['launches_rank0'])}")
+    log(f"chip_smoke: tensor, sequence and pipeline parallelism: ring hops "
+        f"{len(ring['hops'])} held; sequence parallel f32 step "
+        f"{json.dumps(seq_par['f32_step']['launches'])}, bf16 fit "
+        f"{json.dumps(seq_par['bf16']['launches'])}; tensor parallel step "
+        f"{json.dumps(tensor_par['step']['launches'])}; pipeline bubble "
+        f"{pipe['bubble_fraction']:.4f}; across ranks tp "
+        f"{mh_tp_sp['tp']['ranks_max_abs_diff']}, sp "
+        f"{mh_tp_sp['sp']['ranks_max_abs_diff']}")
     log(f"chip_smoke: every phase passed in {time.perf_counter() - t0:.1f} s  [{card}]")
     log(json.dumps(kernels))
     log(json.dumps({"ok": True, "device": {

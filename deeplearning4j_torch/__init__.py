@@ -61,6 +61,9 @@ from .optimize.listeners import (CheckpointListener,
                                  PerformanceListener, ScoreIterationListener)
 from .optimize.resilience import (CheckpointManager, DivergenceError,
                                   DivergenceSentinel, RetryPolicy)
+from .parallel import (PipelineParallelWrapper, SequenceParallelWrapper,
+                       TensorParallelWrapper, pipeline_mesh, seq_parallel_mesh,
+                       tensor_parallel_mesh)
 from .parallel.inference import InferenceMode, ParallelInference
 from .serving import ModelPool, ServingGateway
 from .utils.model_serializer import (CheckpointCorruptError, ModelSerializer,

@@ -129,8 +129,8 @@ class ComputationGraph(_DeviceNetwork):
                     acts[name] = a  # outputs are sinks: nothing reads it
                     new_state[name] = state[name]
                 else:
-                    acts[name], new_state[name] = layer.forward_with_state(
-                        params[name], state[name], a, train=train,
+                    acts[name], new_state[name] = shards.forward_layer(
+                        layer, params[name], state[name], a, train=train,
                         generator=generator, mask=in_masks[0])
                 masks[name] = in_masks[0]
             else:

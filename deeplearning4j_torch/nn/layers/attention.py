@@ -2,20 +2,28 @@
 
 Port of `deeplearning4j_tpu/nn/layers/attention.py`: the same registered
 name, fields and parameters (Wq, Wk, Wv [n_in, n_out], Wo [n_out, n_out] and
-their biases), routed through `ops/attention.py:single_device_attention`. The
-port has no sequence-parallel context, so the JAX package's ring branch has
-no counterpart here.
+their biases), routed through `ops/attention.py:single_device_attention`, or,
+under an active `sequence_parallel` context whose seq axis divides the time
+axis, through ring attention: inside a sequence-parallel step each shard
+runs its ring (`ring_attention_shard`, heads cut over the model axis where
+they divide it), on whole tensors `ring_self_attention` runs the mesh's.
 """
 from __future__ import annotations
 
+import logging
 from dataclasses import dataclass
 
 import torch
 
-from ...ops.attention import pick_block_size, single_device_attention
+from ...ops.attention import (active_sequence_parallel, pick_block_size,
+                              ring_attention_shard, ring_self_attention,
+                              single_device_attention)
 from ...quantize.quantize import matmul_any
 from ...utils import serde
+from .. import shards
 from .core import Layer, dropout
+
+log = logging.getLogger(__name__)
 
 W_Q, W_K, W_V, W_O = "Wq", "Wk", "Wv", "Wo"
 B_Q, B_K, B_V, B_O = "bq", "bk", "bv", "bo"
@@ -90,6 +98,58 @@ class SelfAttentionLayer(Layer):
         """Block size for single-device blockwise attention; 0 = dense."""
         return pick_block_size(t, self.block_size)
 
+    def _ring(self, q, k, v, mask, seg):
+        """The ring's output under an active sequence_parallel context, or
+        None where attention runs on one device (no context, or a time axis
+        the seq axis does not divide: warned once)."""
+        sp = active_sequence_parallel()
+        if sp is None:
+            return None
+        if seg is not None:
+            raise ValueError(
+                "packed_segments is a single-device mode; it does not compose "
+                "with sequence_parallel (the ring has no segment operand)")
+        mesh, seq_axis, batch_axis, head_axis = sp
+        n_seq = mesh.axis_size(seq_axis)
+        ctx = shards.current()
+        in_step = ctx is not None and ctx.grid is not None
+        t = q.shape[1] * (n_seq if in_step and ctx.t_len else 1)
+        if (in_step and not ctx.t_len) or t % n_seq:
+            if not getattr(SelfAttentionLayer, "_warned_time_fallback", False):
+                log.warning(
+                    "sequence length %d does not divide the %d-way '%s' mesh "
+                    "axis; attention runs unsharded (dense or blockwise — "
+                    "sequence parallelism inactive for this window)", t,
+                    n_seq, seq_axis)
+                SelfAttentionLayer._warned_time_fallback = True
+            return None
+        h = self.n_heads
+        if head_axis is not None and h % mesh.axis_size(head_axis):
+            if not getattr(SelfAttentionLayer, "_warned_head_fallback", False):
+                log.warning(
+                    "n_heads=%d does not divide the %d-way '%s' mesh axis; "
+                    "attention heads replicate (tensor parallelism inactive "
+                    "for the ring)", h, mesh.axis_size(head_axis), head_axis)
+                SelfAttentionLayer._warned_head_fallback = True
+            head_axis = None
+        block = self._pick_block(t // n_seq)
+        if not in_step:
+            return ring_self_attention(q, k, v, mesh, axis=seq_axis,
+                                       causal=self.causal, key_mask=mask,
+                                       batch_axis=batch_axis,
+                                       head_axis=head_axis, block_size=block)
+        grid = ctx.grid
+        ring = lambda q, k, v: ring_attention_shard(
+            q, k, v, grid.coords[ctx.index][2], grid.dims[2], shards.ring_hop,
+            causal=self.causal, key_mask=mask, block_size=block,
+            count=ctx.index == 0 and (ctx.processes is None or grid.rank == 0))
+        if head_axis is None or not grid.heads:
+            return ring(q, k, v)
+        hs = h // grid.dims[1]
+        m = grid.coords[ctx.index][1]
+        part = lambda x: x[:, :, m * hs:(m + 1) * hs]
+        return shards.gather_heads(ring(part(q), part(k), part(v)))
+
     def forward(self, params, x, *, train=False, generator=None, mask=None):
         x = dropout(x, self.dropout_rate, train, generator)
         b, t, _ = x.shape
@@ -101,9 +161,11 @@ class SelfAttentionLayer(Layer):
         seg = None
         if self.packed_segments and mask is not None:
             seg = mask.to(torch.int32)
-        out = single_device_attention(
-            q, k, v, causal=self.causal, key_mask=mask, segment_ids=seg,
-            impl=self.attention_impl, block_size=self.block_size)
+        out = self._ring(q, k, v, mask, seg)
+        if out is None:
+            out = single_device_attention(
+                q, k, v, causal=self.causal, key_mask=mask, segment_ids=seg,
+                impl=self.attention_impl, block_size=self.block_size)
         out = matmul_any(out.reshape(b, t, self.n_out), params[W_O], params[B_O])
         out = self._act()(out)
         if mask is not None:

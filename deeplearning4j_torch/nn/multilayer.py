@@ -73,7 +73,7 @@ from .layers.core import dropout
 from . import shards
 from .layers.recurrent import RECURRENT_CARRY_KEYS
 from .stepping import check_fit_args, commit_multi, data_pipeline, run_fit
-from .updaters import normalize_layer_gradients
+from .updaters import leafwise, normalize_layer_gradients
 
 Tensor = torch.Tensor
 log = logging.getLogger(__name__)
@@ -136,7 +136,8 @@ def _layer_step(layer, params, grads, opt_state, iteration):
     g = normalize_layer_gradients(grads, layer.gradient_normalization,
                                   layer.gradient_normalization_threshold)
     updates, new_opt = layer.updater.update(g, opt_state, iteration)
-    return {k: p - updates[k].to(p.dtype) for k, p in params.items()}, new_opt
+    return {k: leafwise(lambda p, u: p - u.to(p.dtype), p, updates[k])
+            for k, p in params.items()}, new_opt
 
 
 class _DeviceNetwork:
@@ -329,8 +330,9 @@ class MultiLayerNetwork(_DeviceNetwork):
             p = self.conf.preprocessor(i)
             if p is not None:
                 a = p(a)
-            a, st = layer.forward_with_state(params[i], state[i], a, train=train,
-                                             generator=generator, mask=fmask)
+            a, st = shards.forward_layer(layer, params[i], state[i], a,
+                                         train=train, generator=generator,
+                                         mask=fmask)
             new_state.append(st)
             activations.append(a)
         return a, tuple(new_state), activations
@@ -351,8 +353,9 @@ class MultiLayerNetwork(_DeviceNetwork):
             p = self.conf.preprocessor(i)
             if p is not None:
                 a = p(a)
-            a, st = layer.forward_with_state(params[i], state[i], a, train=train,
-                                             generator=generator, mask=fmask)
+            a, st = shards.forward_layer(layer, params[i], state[i], a,
+                                         train=train, generator=generator,
+                                         mask=fmask)
             new_state.append(st)
         new_state.append(state[n - 1])
         out_layer = self.layers[-1]

@@ -147,13 +147,14 @@ class Updater:
         """(updates, new_state) for one layer's dict of gradients. The new
         state keeps the old state's dtype, as in the JAX package."""
         lr = self.current_rate(iteration)
+
+        def one(g, old):
+            u, s = self.apply(g, old, lr, iteration)
+            return u, (tuple(n.to(o.dtype) for n, o in zip(s, old))
+                       if isinstance(old, tuple) else s.to(old.dtype))
         updates, new_state = {}, {}
         for name, g in grads.items():
-            u, s = self.apply(g, state[name], lr, iteration)
-            updates[name] = u
-            old = state[name]
-            new_state[name] = (tuple(n.to(o.dtype) for n, o in zip(s, old))
-                               if isinstance(old, tuple) else s.to(old.dtype))
+            updates[name], new_state[name] = leafwise(one, g, state[name])
         return updates, new_state
 
 
@@ -297,8 +298,31 @@ class GradientNormalization(enum.Enum):
     CLIP_L2_PER_PARAM_TYPE = "clip_l2_per_param_type"
 
 
+# A leaf may be held in blocks (`parallel/mesh.py:ShardedLeaf`, a leaf that
+# tensor parallelism cuts): a norm is taken over all its blocks, and the
+# element-wise rest of a step (normalization's scaling, the updaters) runs
+# block by block.
+
+def leafwise(fn, leaf, *more):
+    """`fn(leaf, *more)`; for a leaf held in blocks, `fn` of each block (and
+    of `more`'s blocks), as a leaf held alike (a tuple of such leaves where
+    `fn` returns a tuple)."""
+    return fn(leaf, *more) if isinstance(leaf, Tensor) else leaf.map(fn, *more)
+
+
+def _l2(g) -> Tensor:
+    return torch.linalg.vector_norm(g) if isinstance(g, Tensor) else \
+        torch.sqrt(g.sq_norm())
+
+
 def _global_l2(tensors) -> Tensor:
-    return torch.sqrt(sum(torch.sum(t.float() ** 2) for t in tensors))
+    sq = [torch.sum(t.float() ** 2) if isinstance(t, Tensor) else t.sq_norm()
+          for t in tensors]
+    return torch.sqrt(sum(s.to(sq[0].device) for s in sq))
+
+
+def _times(g, f: Tensor):
+    return leafwise(lambda b: b * f.to(b.device), g)
 
 
 def _clip_scale(norm: Tensor, threshold: float) -> Tensor:
@@ -317,17 +341,19 @@ def normalize_layer_gradients(layer_grads: Dict[str, Tensor],
     G = GradientNormalization
     if mode == G.RENORMALIZE_L2_PER_LAYER:
         norm = torch.clamp(_global_l2(layer_grads.values()), min=1e-8)
-        return {k: g / norm for k, g in layer_grads.items()}
+        return {k: leafwise(lambda b: b / norm.to(b.device), g)
+                for k, g in layer_grads.items()}
     if mode == G.RENORMALIZE_L2_PER_PARAM_TYPE:
-        return {k: g / torch.clamp(torch.linalg.vector_norm(g), min=1e-8)
+        return {k: leafwise(lambda b, n=torch.clamp(_l2(g), min=1e-8):
+                            b / n.to(b.device), g)
                 for k, g in layer_grads.items()}
     if mode == G.CLIP_ELEMENT_WISE_ABSOLUTE_VALUE:
-        return {k: torch.clamp(g, -threshold, threshold)
+        return {k: leafwise(lambda b: torch.clamp(b, -threshold, threshold), g)
                 for k, g in layer_grads.items()}
     if mode == G.CLIP_L2_PER_LAYER:
         scale = _clip_scale(_global_l2(layer_grads.values()), threshold)
-        return {k: g * scale for k, g in layer_grads.items()}
+        return {k: _times(g, scale) for k, g in layer_grads.items()}
     if mode == G.CLIP_L2_PER_PARAM_TYPE:
-        return {k: g * _clip_scale(torch.linalg.vector_norm(g), threshold)
+        return {k: _times(g, _clip_scale(_l2(g), threshold))
                 for k, g in layer_grads.items()}
     raise ValueError(f"Unknown gradient normalization {mode}")

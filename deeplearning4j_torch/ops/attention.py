@@ -1,21 +1,35 @@
-"""Single-device attention: dense, blockwise, and the flash route, with the
-dispatch rule that picks one.
+"""Attention: dense, blockwise and the flash route on one device, with the
+dispatch rule that picks one, and ring attention for sequence parallelism.
 
-Port of the single-device half of `deeplearning4j_tpu/ops/attention.py`
-(`pick_block_size`, `select_attention_impl`, `single_device_attention`,
-`dense_attention`, `blockwise_attention`). Dense and blockwise are plain
-torch, as they are plain XLA there; "pallas" names the flash route
+Port of `deeplearning4j_tpu/ops/attention.py`. Dense and blockwise are
+plain torch, as they are plain XLA there; "pallas" names the flash route
 (`ops/flash_attention.py`: the CUDA kernels K3-K5 on a GPU, their plain
 versions on the CPU). The rule is the JAX package's as it runs on a TPU whose
 kernel probe passes: the flash route is ready wherever
-`flash_attention_supported` holds, so the card and the CPU choose alike. The
-sequence-parallel ring path is not ported.
+`flash_attention_supported` holds, so the card and the CPU choose alike.
+
+Ring attention (Liu et al. 2023): time is cut over a mesh's seq axis, each
+shard keeps its queries and the key/value blocks travel around the ring,
+one hop a step, folded into the shard's running softmax, so no shard holds
+the [T, T] scores. The flash body (`_ring_body_flash`) runs
+`flash_attention` once a hop (K3 forward; K4 and K5 backward on a GPU)
+with the queries' and the visiting block's global positions and the lse,
+and merges the hops' normalized (o, lse) pairs in float32; the plain body
+(`_ring_body`, blockwise inside each hop when `block_size` asks) runs where
+the flash geometry is not supported. Inside a sequence-parallel step
+(`parallel/sequence.py`) each shard runs its own ring
+(`ring_attention_shard`, its place and its hop given by the caller);
+`ring_self_attention` on whole tensors runs
+every shard of the ring in turn, a hop moving the block to the receiving
+shard's device (the JAX package's `shard_map` over the mesh).
 
 `attention_kernel_selected_total` counts every call's choice per impl (the
-JAX package counts per trace, which under jit is once per compiled shape).
+JAX package counts per trace, which under jit is once per compiled shape);
+a ring counts once a call, its route as "pallas", "blockwise" or "dense".
 """
 from __future__ import annotations
 
+import contextlib
 import logging
 import threading
 from typing import Optional
@@ -35,6 +49,39 @@ ATTENTION_IMPLS = ("pallas", "blockwise", "dense")
 attention_kernel_selected_total = {impl: 0 for impl in ATTENTION_IMPLS}
 _count_lock = threading.Lock()
 _warned_pallas = False
+
+# ---------------------------------------------------------------------------
+# Sequence-parallel context: while active, SelfAttentionLayer routes its
+# attention through the ring over the given mesh axis.
+# ---------------------------------------------------------------------------
+
+_SEQ_PARALLEL: list = []
+
+
+@contextlib.contextmanager
+def sequence_parallel(mesh, axis: str = "seq",
+                      batch_axis: Optional[str] = None,
+                      head_axis: Optional[str] = None):
+    """Route attention layers through the ring while active. `batch_axis`
+    optionally names the mesh axis the batch is cut over (the data half of
+    a data x seq mesh); `head_axis` one the heads are cut over (tensor
+    parallelism; heads are independent, so they compose with the ring)."""
+    _SEQ_PARALLEL.append((mesh, axis, batch_axis, head_axis))
+    try:
+        yield
+    finally:
+        _SEQ_PARALLEL.pop()
+
+
+def active_sequence_parallel():
+    """(mesh, seq_axis, batch_axis, head_axis) of the innermost active
+    sequence_parallel context, or None."""
+    return _SEQ_PARALLEL[-1] if _SEQ_PARALLEL else None
+
+
+def _count_attention_impl(impl: str) -> None:
+    with _count_lock:
+        attention_kernel_selected_total[impl] += 1
 
 
 def pick_block_size(t: int, block_size: int = 0) -> int:
@@ -112,8 +159,7 @@ def select_attention_impl(t_q: int, head_dim: int, *,
             choice = "pallas"
         else:
             choice = "blockwise" if blk else "dense"
-    with _count_lock:
-        attention_kernel_selected_total[choice] += 1
+    _count_attention_impl(choice)
     return choice
 
 
@@ -250,3 +296,200 @@ def blockwise_attention(q: Tensor, k: Tensor, v: Tensor, *,
         out = o / torch.clamp(l, min=1e-30)[..., None]
         outs.append(out.permute(0, 2, 1, 3))
     return torch.cat(outs, dim=1).to(q.dtype)
+
+
+# ---------------------------------------------------------------------------
+# Ring attention
+# ---------------------------------------------------------------------------
+
+def _ring_body(q: Tensor, k: Tensor, v: Tensor, key_mask: Optional[Tensor],
+               my: int, n: int, causal: bool, block_size: int, hop) -> Tensor:
+    """One shard's ring with the plain online softmax: local q/k/v blocks
+    [b, t_loc, h, d] of seq shard `my` of `n`; `hop(block, s)` gives the
+    (k, v, key mask) block held after hop s. With 0 < block_size < t_loc
+    each visiting block is folded in sub-blocks of `block_size`, each step
+    checkpointed (the blockwise recipe inside the ring)."""
+    b, t_loc, h, d = q.shape
+    acc = _acc(q)
+    qf = q.to(acc) / d ** 0.5
+    m = torch.full((b, h, t_loc), NEG, dtype=acc, device=q.device)
+    l = torch.zeros((b, h, t_loc), dtype=acc, device=q.device)
+    o = torch.zeros((b, h, t_loc, d), dtype=acc, device=q.device)
+    block = (k, v, key_mask)
+    for s in range(n):
+        kb, vb, kmb = block
+        kv_pos0 = ((my - s) % n) * t_loc
+        if block_size and block_size < t_loc:
+            for j in range(t_loc // block_size):
+                sub = slice(j * block_size, (j + 1) * block_size)
+                m, l, o = checkpoint(
+                    _kv_block_step, qf, kb[:, sub], vb[:, sub],
+                    None if kmb is None else kmb[:, sub], None, None, m, l, o,
+                    my * t_loc, kv_pos0 + j * block_size, causal,
+                    use_reentrant=False)
+        else:
+            m, l, o = _kv_block_step(qf, kb, vb, kmb, None, None, m, l, o,
+                                     my * t_loc, kv_pos0, causal)
+        if s < n - 1:   # the last block is never needed again
+            block = hop(block, s + 1)
+    out = o / torch.clamp(l, min=1e-30)[..., None]
+    return out.permute(0, 2, 1, 3).to(q.dtype)
+
+
+def _ring_body_flash(q: Tensor, k: Tensor, v: Tensor,
+                     key_mask: Optional[Tensor], my: int, n: int,
+                     causal: bool, q_block: int, kv_block: int, hop) -> Tensor:
+    """One shard's ring over the flash route: each hop is `flash_attention`
+    of the local queries against the visiting block, at the global
+    positions my * t_loc + i and src * t_loc + j, with the lse; the hops'
+    normalized pairs merge as
+
+        new = max(lse_acc, lse_hop),  w_i = exp(lse_i - new)
+        o_acc = (o_acc w_acc + o_hop w_hop) / (w_acc + w_hop)
+        lse_acc = new + log(w_acc + w_hop)
+
+    in float32. A hop the masks hide whole comes back (0, NEG) and merges
+    with weight 0; a row no hop lets see a key outputs 0, as
+    dense_attention's does. The merge takes the lse, so its cotangent
+    reaches the backward (g_lse in K4 and K5)."""
+    b, t_loc, h, d = q.shape
+    acc = _acc(q)
+    q_pos = my * t_loc + torch.arange(t_loc, dtype=torch.int32, device=q.device)
+    o_acc = torch.zeros((b, t_loc, h, d), dtype=acc, device=q.device)
+    lse_acc = torch.full((b, t_loc, h), NEG, dtype=acc, device=q.device)
+    block = (k, v, key_mask)
+    for s in range(n):
+        kb, vb, kmb = block
+        kv_pos = ((my - s) % n) * t_loc + torch.arange(
+            t_loc, dtype=torch.int32, device=q.device)
+        o_hop, lse_hop = fa.flash_attention(
+            q, kb, vb, causal=causal, key_mask=kmb, q_pos=q_pos, kv_pos=kv_pos,
+            q_block=q_block, kv_block=kv_block, with_lse=True)
+        lse_hop = lse_hop.to(acc)
+        new = torch.maximum(lse_acc, lse_hop)
+        w_acc = torch.exp(lse_acc - new)
+        w_hop = torch.exp(lse_hop - new)
+        denom = w_acc + w_hop
+        o_acc = (o_acc * w_acc[..., None] + o_hop.to(acc) * w_hop[..., None]) \
+            / denom[..., None]
+        lse_acc = torch.where(new <= NEG / 2, NEG, new + torch.log(denom))
+        if s < n - 1:
+            block = hop(block, s + 1)
+    return o_acc.to(q.dtype)
+
+
+def _ring_route(t_loc: int, head_dim: int, block_size: int,
+                use_flash: Optional[bool], q_block: int, kv_block: int) -> str:
+    """The ring's inner step: "pallas" (the flash body) by default wherever
+    the flash geometry is supported, else "blockwise" or "dense"."""
+    if use_flash is None:
+        use_flash = fa.flash_attention_supported(t_loc, t_loc, head_dim,
+                                                 q_block=q_block,
+                                                 kv_block=kv_block)
+    if use_flash:
+        return "pallas"
+    return "blockwise" if block_size else "dense"
+
+
+def _ring(route: str, q, k, v, key_mask, my, n, causal, block_size, q_block,
+          kv_block, hop):
+    if route == "pallas":
+        return _ring_body_flash(q, k, v, key_mask, my, n, causal, q_block,
+                                kv_block, hop)
+    return _ring_body(q, k, v, key_mask, my, n, causal, block_size, hop)
+
+
+def ring_self_attention(q: Tensor, k: Tensor, v: Tensor, mesh, *,
+                        axis: str = "seq", causal: bool = False,
+                        key_mask: Optional[Tensor] = None,
+                        batch_axis: Optional[str] = None,
+                        head_axis: Optional[str] = None,
+                        block_size: int = 0,
+                        use_flash: Optional[bool] = None,
+                        flash_q_block: int = 0,
+                        flash_kv_block: int = 0) -> Tensor:
+    """Sequence-parallel attention over whole q/k/v [batch, time, heads,
+    head_dim]: time cut over `axis` of `mesh` (batch over `batch_axis` and
+    heads over `head_axis` where given), every shard's ring run in turn on
+    its position's device, a hop moving the visiting block there; the
+    output is whole again, on q's device. Differentiable through the hops.
+
+    `use_flash`: None = the flash body wherever its geometry is supported
+    (head_dim <= 128 and any explicit blocks dividing the shard's time),
+    True/False force it (the JAX package's `flash_interpret`, its CPU
+    tests' switch, has no counterpart: the CPU runs the kernels' plain
+    versions)."""
+    n = mesh.axis_size(axis)
+    t = q.shape[1]
+    if t % n:
+        raise ValueError(f"time axis {t} must divide the {n}-device "
+                         f"'{axis}' mesh axis")
+    nh = mesh.axis_size(head_axis) if head_axis is not None else 1
+    if head_axis is not None and q.shape[2] % nh:
+        raise ValueError(f"heads {q.shape[2]} must divide the {nh}-device "
+                         f"'{head_axis}' mesh axis")
+    t_loc = t // n
+    if block_size and t_loc % block_size:
+        raise ValueError(f"per-device time {t_loc} must divide "
+                         f"block_size={block_size}")
+    route = _ring_route(t_loc, q.shape[-1], block_size, use_flash,
+                        flash_q_block, flash_kv_block)
+    _count_attention_impl(route)
+    nb = mesh.axis_size(batch_axis) if batch_axis is not None else 1
+    if q.shape[0] % nb:
+        raise ValueError(f"batch {q.shape[0]} must divide the {nb}-device "
+                         f"'{batch_axis}' mesh axis")
+    cut = lambda x, dim, i, c: x.narrow(dim, i * (x.shape[dim] // c),
+                                        x.shape[dim] // c)
+    rows = []
+    for bi in range(nb):
+        heads = []
+        for hi in range(nh):
+            def dev(my):
+                at = {axis: my}
+                if batch_axis is not None:
+                    at[batch_axis] = bi
+                if head_axis is not None:
+                    at[head_axis] = hi
+                return mesh.devices[mesh.position(**at)]
+
+            def piece(x, my, head=True):
+                x = cut(x, 0, bi, nb)
+                if head:
+                    x = cut(x, 2, hi, nh)
+                return cut(x, 1, my, n).to(dev(my))
+
+            blocks = [(piece(k, j), piece(v, j),
+                       None if key_mask is None else piece(key_mask, j, False))
+                      for j in range(n)]
+            outs = []
+            for my in range(n):
+                hop = lambda block, s, my=my: tuple(
+                    None if x is None else x.to(dev(my))
+                    for x in blocks[(my - s) % n])
+                kb, vb, kmb = blocks[my]
+                outs.append(_ring(route, piece(q, my), kb, vb, kmb, my, n,
+                                  causal, block_size, flash_q_block,
+                                  flash_kv_block, hop).to(q.device))
+            heads.append(torch.cat(outs, 1))
+        rows.append(torch.cat(heads, 2))
+    return torch.cat(rows, 0)
+
+
+def ring_attention_shard(q: Tensor, k: Tensor, v: Tensor, my: int, n: int,
+                         hop, *, causal: bool = False,
+                         key_mask: Optional[Tensor] = None,
+                         block_size: int = 0, count: bool = True) -> Tensor:
+    """Shard `my` of an `n`-shard ring inside a sequence-parallel step: q/k/v
+    [b, t_loc, h, d] are its blocks and `hop(block)` hands in the ring
+    predecessor's (k, v, key mask) block. `count`: whether this call counts
+    the ring's route (one shard of each ring does)."""
+    t_loc = q.shape[1]
+    if block_size and t_loc % block_size:
+        raise ValueError(f"per-device time {t_loc} must divide "
+                         f"block_size={block_size}")
+    route = _ring_route(t_loc, q.shape[-1], block_size, None, 0, 0)
+    if count:
+        _count_attention_impl(route)
+    return _ring(route, q, k, v, key_mask, my, n, causal, block_size, 0, 0,
+                 lambda block, s: hop(block))

@@ -1,10 +1,7 @@
 """Parallelism: device meshes, data-parallel training (sync and local SGD),
-the asynchronous parameter server, the multi-process runner with its
-cluster health plane, and batched inference.
-
-Ports the JAX package's parallel/ but its pipeline, tensor and sequence
-wrappers (PipelineParallelWrapper, TensorParallelWrapper,
-SequenceParallelWrapper and their meshes), which are still to come."""
+tensor, sequence (ring attention) and pipeline parallelism, the
+asynchronous parameter server, the multi-process runner with its cluster
+health plane, and batched inference. Ports the JAX package's parallel/."""
 from .cluster_health import (BarrierTimeoutError, ClusterDesyncError,
                              ClusterHealthError, ClusterHealthMonitor,
                              GraceCheckpointed, HealthConfig, PeerLostError,
@@ -21,4 +18,7 @@ from .multihost import (CheckpointManager, MultiHostRunner,
 from .param_server import (HttpParameterServerClient, ParameterServer,
                            ParameterServerHttpNode, ParameterServerTrainer,
                            remote_worker_fit)
+from .pipeline import PipelineParallelWrapper, pipeline_mesh
+from .sequence import SequenceParallelWrapper, seq_parallel_mesh
+from .tensor import TensorParallelWrapper, tensor_parallel_mesh
 from .wrapper import ParallelWrapper

@@ -1,9 +1,9 @@
-"""Device meshes: the substrate of data-parallel training.
+"""Device meshes: the substrate of every parallelism strategy.
 
-Port of the data axis of `deeplearning4j_tpu/parallel/mesh.py`. Where the
-JAX package builds a `jax.sharding.Mesh` and lets XLA place shards, a mesh
-here is a list of devices, one per data shard, each tagged with the
-process that owns it: the current process only, or, in a
+Port of `deeplearning4j_tpu/parallel/mesh.py`. Where the JAX package builds
+a `jax.sharding.Mesh` and lets XLA place shards, a mesh here is a list of
+devices in row-major order over its named axes, one per shard, each tagged
+with the process that owns it: the current process only, or, in a
 `torch.distributed` process group, every rank's devices in rank order.
 A device may stand in a mesh more than once, which puts several data
 shards on one device, as the JAX package's tests do with virtual CPU
@@ -13,7 +13,13 @@ fallback to one shard.
 
 Axis names are the JAX package's: "data" (data parallelism, the batch
 axis), "model" (tensor parallelism), "seq" (sequence parallelism) and
-"stage" (pipeline stages). Only the data axis has a wrapper here.
+"stage" (pipeline stages). `Mesh.coords(i)` is position i's index on each
+axis. The JAX package's placement helpers have counterparts that do what
+they do on plain tensors: `shard_slice` (a position's block of a value every
+process holds whole, `place_global`), `gather_replicated` (a tree of
+sharded leaves back to whole tensors) and `nn/shards.py:run` (one thread per
+shard, meeting at collectives, where the JAX package's `shard_map` runs one
+program per device).
 """
 from __future__ import annotations
 
@@ -78,6 +84,25 @@ class Mesh:
 
     def local_devices(self) -> List[torch.device]:
         return [self.devices[i] for i in self.local_positions()]
+
+    def axis_size(self, name: str) -> int:
+        """The size of axis `name`, 1 for an axis the mesh does not have."""
+        return int(self.shape.get(name, 1))
+
+    def coords(self, i: int) -> dict:
+        """{axis name: index} of position i (row-major over the axes)."""
+        out = {}
+        for name, d in zip(reversed(self.axis_names), reversed(self.dims)):
+            i, out[name] = divmod(i, d)
+        return {name: out[name] for name in self.axis_names}
+
+    def position(self, **index) -> int:
+        """The position at the given axis indices (0 on every axis not
+        named)."""
+        i = 0
+        for name, d in zip(self.axis_names, self.dims):
+            i = i * d + int(index.get(name, 0))
+        return i
 
 
 def create_mesh(shape: Optional[Sequence[int]] = None,
@@ -200,6 +225,101 @@ def replicate(mesh: Mesh, tree):
         if d not in out:
             out[d] = _map(lambda t: t.to(d), tree)
     return out
+
+
+def shard_slice(t, dim: int, index: int, count: int):
+    """Block `index` of `count` equal blocks of `t` along `dim`: what one
+    position holds of a value that every process holds whole (the JAX
+    package's `place_global`, where each process slices out its own
+    shards)."""
+    n = t.shape[dim]
+    if n % count:
+        raise ValueError(f"dimension {dim} of {tuple(t.shape)} does not divide "
+                         f"into {count} shards")
+    c = n // count
+    return t.narrow(dim, index * c, c)
+
+
+class ShardedLeaf:
+    """A tensor cut along `dim` into equal blocks, block j held on the
+    device of model shard j (`slices[j]`; None for a block another process
+    holds). A placed network's tree holds these where tensor parallelism
+    shards a leaf; `full()` is the whole tensor on one device."""
+
+    def __init__(self, slices, dim: int, shape, ranks=None, group=None):
+        self.slices = list(slices)
+        self.dim = int(dim)
+        self.shape = torch.Size(shape)
+        #: the process rank holding each block (None: this process, all)
+        self.ranks = ranks
+        #: the process group over which the blocks are spread (None: all
+        #: are in this process)
+        self.group = group
+
+    def like(self, slices) -> "ShardedLeaf":
+        """A leaf cut the same way holding `slices`."""
+        return ShardedLeaf(slices, self.dim, self.shape, self.ranks, self.group)
+
+    def map(self, fn, *others):
+        """`fn(block j, *(block j of each of others))` for every block this
+        process holds, as a leaf cut alike (a tuple of such leaves where
+        `fn` returns a tuple). Each of `others` is a leaf cut alike or a
+        tuple of them (an updater's state)."""
+        pick = lambda o, j: tuple(pick(x, j) for x in o) \
+            if isinstance(o, tuple) else o.slices[j]
+        return self._joined([None if b is None else
+                             fn(b, *(pick(o, j) for o in others))
+                             for j, b in enumerate(self.slices)])
+
+    def _joined(self, outs):
+        first = next(o for o in outs if o is not None)
+        if isinstance(first, tuple):
+            return tuple(self._joined([None if o is None else o[k] for o in outs])
+                         for k in range(len(first)))
+        return self.like(outs)
+
+    def sq_norm(self) -> torch.Tensor:
+        """The squared L2 norm over every block, in float32, on the first
+        block's device here (summed over the group, host-staged on gloo,
+        where blocks live in other processes)."""
+        local = [b for _, b in self.local()]
+        dev = local[0].device
+        s = sum(torch.sum(b.float() ** 2).to(dev) for b in local)
+        if self.group is not None:
+            from ..nn.shards import _host_staged
+            s = s.reshape(1).to("cpu" if _host_staged(self.group) else dev)
+            self.group.allreduce([s]).wait()
+            s = s[0].to(dev)
+        return s
+
+    @property
+    def dtype(self):
+        return next(s for s in self.slices if s is not None).dtype
+
+    def local(self):
+        """[(j, block)] of the blocks this process holds."""
+        return [(j, s) for j, s in enumerate(self.slices) if s is not None]
+
+    def full(self, device=None) -> torch.Tensor:
+        """The whole tensor on `device` (default: block 0's); every block
+        must be in this process (gather across processes first)."""
+        if any(s is None for s in self.slices):
+            raise RuntimeError("a block of this leaf lives in another process; "
+                               "gather it over the process group first")
+        dev = device or self.slices[0].device
+        return torch.cat([s.to(dev) for s in self.slices], self.dim)
+
+    def nbytes(self, j: int) -> int:
+        s = self.slices[j]
+        return 0 if s is None else s.numel() * s.element_size()
+
+
+def gather_replicated(tree, device=None):
+    """A tree with every `ShardedLeaf` replaced by its whole tensor on
+    `device` (default: its block 0's device); the counterpart of the JAX
+    package's `gather_replicated`, for blocks held in this process."""
+    return _map(lambda t: t.full(device) if isinstance(t, ShardedLeaf) else t,
+                tree)
 
 
 def pad_batch_to_multiple(arr, multiple: int) -> Tuple[object, int]:

@@ -33,7 +33,13 @@ checkpoint (`StepCheckpointManager`), as the JAX package keeps its key.
 `main` is the worker entry that spawned ranks run (`python -c "from
 deeplearning4j_torch.parallel.multihost import main; ..."`): it trains a
 network from a JSON configuration on seeded synthetic data or an npz, and
-writes each rank's parameters and timings.
+writes each rank's parameters and timings. Its `--mode tp` and `--mode sp`
+train one model axis or one seq ring across the ranks instead
+(TensorParallelWrapper, SequenceParallelWrapper; every rank feeds the
+identical global batch): the ranks' leaf blocks are all-gathered and the
+ring's hops cross them over the process group, host-staged, since gloo has
+no CUDA point-to-point; where each rank has a GPU of its own the group is
+NCCL (not exercised on a one-card machine).
 """
 from __future__ import annotations
 
@@ -689,6 +695,69 @@ def spawn_rank(process_id: int, num_processes: int, coordinator: str,
     return subprocess.Popen(cmd, env=child_env, **popen_kw)
 
 
+#: Model or seq shards each rank holds in `--mode tp` / `sp`, as each
+#: process of the JAX package's multi-host worker contributes two devices.
+SHARDS_PER_RANK = 2
+
+
+def _model_parallel_rank(args, runner, conf, x, y) -> None:
+    """One rank of `--mode tp` or `--mode sp`: a ("data" 1, "model" or
+    "seq" ranks x local shards) mesh, one `fit_batch` per `--batch-size`
+    rows of the whole batch, per epoch. Writes `<out>.<mode>.rank<r>.npz`
+    (parameters) and `.json` (iteration, step ms, the cross-process
+    transports' ms, the shard report). In tp mode the trees are then
+    gathered (`materialize_local`, every rank), the chief writes
+    `<out>.tp.zip`, and every rank restores it into `.restored.npz`."""
+    from ..data.dataset import DataSet
+    from ..nn import shards
+    from ..nn.multilayer import MultiLayerNetwork
+    from ..utils.model_serializer import restore_model
+    from .sequence import SequenceParallelWrapper
+    from .tensor import TensorParallelWrapper
+    n, rank, L = runner.process_count, runner.process_index, SHARDS_PER_RANK
+    devices = [runner.device if r == rank else runner._device_of(r)
+               for r in range(n) for _ in range(L)]
+    axis = mesh_lib.MODEL_AXIS if args.mode == "tp" else mesh_lib.SEQ_AXIS
+    mesh = mesh_lib.create_mesh([1, n * L], (mesh_lib.DATA_AXIS, axis), devices,
+                                [r for r in range(n) for _ in range(L)])
+    net = MultiLayerNetwork(conf.clone()).init(seed=args.seed, device=runner.device)
+    wrapper = (TensorParallelWrapper if args.mode == "tp"
+               else SequenceParallelWrapper)(net, mesh)
+    for k in shards.cross_ms:
+        shards.cross_ms[k] = 0.0
+    step_ms = []
+    b = args.batch_size
+    for _ in range(args.epochs):
+        for lo in range(0, x.shape[0] - b + 1, b):
+            t0 = time.perf_counter()
+            wrapper.fit_batch(DataSet(x[lo:lo + b], y[lo:lo + b]))
+            if net.device.type == "cuda":
+                torch.cuda.synchronize(net.device)
+            step_ms.append((time.perf_counter() - t0) * 1000.0)
+            print(f"STEP {rank} {net.iteration}", flush=True)
+    report = {"iteration": net.iteration, "step_ms": step_ms,
+              "cross_ms": dict(shards.cross_ms), "backend": runner.backend,
+              "device": str(runner.device), "mesh": list(mesh.dims)}
+    if args.mode == "tp":
+        report["shards"] = {k: list(v) for k, v in
+                            wrapper.param_shard_report().items()}
+        report["shard_bytes"] = wrapper.shard_bytes()
+        wrapper.materialize_local()
+    base = f"{args.out}.{args.mode}.rank{rank}" if args.out else None
+    if base:
+        np.savez(base + ".npz", **_leaves_npz(net))
+    if args.mode == "tp" and args.out:
+        ckpt = f"{args.out}.tp.zip"
+        runner.save_checkpoint(net, ckpt)
+        restored = restore_model(ckpt, device=runner.device)
+        np.savez(base + ".restored.npz", **_leaves_npz(restored))
+        runner.barrier("tp-ckpt-read")
+    if base:
+        with open(base + ".json", "w") as f:
+            json.dump(report, f)
+    print(f"DONE {rank} {args.mode} {net.iteration}", flush=True)
+
+
 def main(argv: Optional[List[str]] = None) -> int:
     """One rank of a multi-process fit of a MultiLayerNetwork: the network
     from a JSON configuration (`--conf`), seeded synthetic data
@@ -727,6 +796,10 @@ def main(argv: Optional[List[str]] = None) -> int:
                    help="utils.device.exact_float32(deterministic=True): no "
                         "TF32, bfloat16 products reduced in float32, cuDNN's "
                         "deterministic algorithms (to compare runs)")
+    p.add_argument("--mode", choices=("dp", "tp", "sp"), default="dp",
+                   help="dp: ParallelWrapper over a data axis of the ranks; tp "
+                        "/ sp: one model axis / one seq ring across the ranks, "
+                        "every rank fed the whole batch (--batch-size rows)")
     p.add_argument("--crash-at", type=int, default=-1)
     p.add_argument("--crash-rank", type=int, default=1)
     p.add_argument("--out", default=None)
@@ -750,6 +823,10 @@ def main(argv: Optional[List[str]] = None) -> int:
             x, y = z["x"], z["y"]
     else:
         x, y = _synthetic(conf, args.rows, args.data_seed)
+    if args.mode != "dp":
+        _model_parallel_rank(args, runner, conf, x, y)
+        runner.shutdown()
+        return 0
     lx, ly = runner.my_partition(x, y)
 
     for freq in [int(f) for f in args.averaging_frequency.split(",")]:

@@ -77,9 +77,13 @@ def _dtype_name(dtype: torch.dtype) -> str:
 
 def _tree_to_npz_bytes(tree) -> bytes:
     """npz-encode a port tree: its leaves in `tree_leaves` order, each in
-    the reference's layout, bfloat16 as uint16 bits named in __dtypes__."""
+    the reference's layout, bfloat16 as uint16 bits named in __dtypes__. A
+    leaf that tensor parallelism holds in blocks (`ShardedLeaf`) is written
+    whole, so a placed network checkpoints as the JAX package's does."""
     arrays, names = {}, []
     for i, t in enumerate(param_utils.tree_leaves(tree)):
+        if hasattr(t, "full"):   # parallel/mesh.py:ShardedLeaf
+            t = t.full("cpu")
         a, name = param_utils.leaf_to_reference_bits(t)
         arrays[f"leaf{i:05d}"] = a
         names.append(name)
