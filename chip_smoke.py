@@ -256,11 +256,30 @@ Phases, each of which fails the script (non-zero exit, no result line):
    128, the chief's checkpoint restored, all-reduce ms; a killed rank
    answered by exit code 17, and SIGTERM's grace checkpoint, both ranks
    exiting 0, resumed to the uninterrupted run's parameters.
-17. One JSON line with every kernel's numbers, then the result line
+17. Word and graph embeddings (`phase_word2vec_device_corpus`,
+   `phase_word2vec_builder`, `phase_doc_and_graph_embeddings`, at the end),
+   plain torch on no hand-written kernel: every count reset before and 0
+   after. The device-corpus engine (ShardedWord2Vec) at bench.py's w2v
+   large geometry (Zipf 1.05 over 1M ids, 10M tokens, layer 128, chunk
+   16384 x 8): a warm and a timed epoch (words/s), the tables' bytes, a
+   profiled call; one chunk on the trained tables, card against CPU and
+   against a float64 dense autograd form of the chunk (1e-5 of max|table|);
+   two shards listing the card twice against one at bench_w2v's default
+   geometry (rtol 2e-4, atol 2e-5 after 2 epochs); the planted two-cluster
+   corpus separating by more than 0.3. Word2Vec.builder() at its defaults
+   (HS) with negative 5 on that corpus as text: words/s, the host's share,
+   one HS + NS batch card against CPU and the dense form (with syn1 scaled
+   so that half the code bits leave the |score| < 6 window), a CBOW epoch,
+   the serializer's round trips bitwise, `words_nearest`. ParagraphVectors
+   DBOW and DM (purity of each probe's nearest document), `infer_vector`
+   card against CPU, GloVe at its defaults, DeepWalk on 10,000 vertices and
+   Node2Vec on 1,000 (same-topic or same-community neighbours first).
+18. One JSON line with every kernel's numbers, then the result line
    {"ok": true, "device": {...}}.
 
 Needs one CUDA GPU; exits non-zero without one.
 """
+import copy
 import json
 import os
 import re
@@ -7763,6 +7782,672 @@ def phase_multihost_tp_sp(torch, card, device=None, size=None):
         tmp.cleanup()
 
 
+# -------------------------------------------------- word and graph embeddings
+
+# bench.py's bench_w2v "large" geometry (its w2v large workload): Zipf 1.05
+# over 1M ids, 250,000 sentences of 40 tokens, a vocabulary of the ids drawn,
+# layer 128, window 5, negative 5, chunk 16384, 8 chunks a call, seed 1; and
+# its default geometry (50k ids, 10,000 sentences) for the two-shard check
+W2V_FULL = dict(vocab=1_000_000, sentences=250_000, sent_len=40, layer=128,
+                window=5, negative=5, chunk=16384, steps=8, seed=1,
+                shard_vocab=50_000, shard_sentences=10_000, shard_epochs=2,
+                shard_lr=0.025, profile=True)
+# tests/test_distributed_nlp.py's planted two-cluster corpus and settings
+W2V_PLANTED = dict(n_sent=600, layer=32, window=4, negative=5, lr=0.1, chunk=256,
+                   steps=8, seed=3, epochs=15)
+W2V_HOLD_REL = 1e-5        # a chunk or batch, card vs CPU and vs the dense form, of max|table|
+W2V_SHARD_RTOL, W2V_SHARD_ATOL = 2e-4, 2e-5   # tests/test_distributed_nlp.py:79-80
+W2V_CLUSTER_MIN = 0.3      # tests/test_distributed_nlp.py:66
+# Word2Vec.builder() at its defaults (layer 100, HS, batch 1024, window 5)
+# with negative 5 too, on bench_w2v's default corpus as text
+W2V_BUILDER_FULL = dict(vocab=50_000, sentences=10_000, sent_len=40, negative=5,
+                        seed=1, profile_sentences=1000, profile=True)
+# tests/test_nlp.py's two-topic corpus and settings (fit_w2v, words_nearest)
+NLP_PLANTED = dict(n=300, layer=24, window=3, epochs=25, batch=256, lr=0.1,
+                   min_lr=0.01, seed=7)
+# ParagraphVectors at tests/test_nlp.py's settings but 60 epochs, not 30 (at
+# 30, PV-DM's purity ranges 6-10 of 10 over seeds 1-12 on the CPU and was 5
+# on the card; at 60, 10 at every seed); GloVe at its builder's
+# defaults on a planted-topic corpus cut to fit (20 topics of 50 words,
+# 40,000 sentences of 10: 400k tokens, which the host's co-occurrence count
+# takes seconds over); DeepWalk at its defaults on a planted partition
+# of 10,000 vertices (100 communities of 100, 8 edges a vertex inside its
+# community, 1 across), 10 walks a vertex (its default; 5 leave a 2,000-vertex
+# graph's nearest neighbours 11% in their community); Node2Vec on 1,000 (its
+# walker is a Python loop over every step's neighbours), for 3 epochs (after
+# one, 65% of nearest neighbours are in their community; after three, all)
+DOC_GRAPH_FULL = dict(pv_docs=60, pv_epochs=60, glove_topics=20, glove_words=50,
+                      glove_sentences=40_000, glove_len=10, glove_epochs=25,
+                      dw_vertices=10_000, dw_community=100, dw_degree_in=8,
+                      dw_degree_out=1, dw_walks=10, dw_epochs=1, n2v_vertices=1_000,
+                      n2v_community=50, n2v_walks=10, n2v_epochs=3)
+
+
+def _sync_dev(torch, dev):
+    if torch.device(dev).type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def zipf_corpus(vocab, sentences, sent_len, seed=0):
+    """bench.py bench_w2v's corpus: ids drawn Zipf(1.05) over `vocab` in one
+    vectorized draw, a VocabCache of the ids drawn (count order), and the
+    flat (token ids, sentence ids) of `corpus_arrays`."""
+    from deeplearning4j_torch.nlp.vocab import VocabCache
+    rng = np.random.default_rng(seed)
+    probs = 1.0 / np.arange(1, vocab + 1) ** 1.05
+    probs /= probs.sum()
+    corpus = rng.choice(vocab, size=(sentences, sent_len), p=probs).astype(np.int32)
+    cache = VocabCache()
+    flat, counts = np.unique(corpus, return_counts=True)
+    for w, c in zip(flat, counts):
+        cache.add_token(str(w), count=int(c))
+    cache.finish(min_word_frequency=1)
+    remap = np.zeros(vocab, np.int32)
+    remap[flat] = [cache.index_of(str(w)) for w in flat]
+    toks = remap[corpus].reshape(-1)
+    sids = np.repeat(np.arange(sentences, dtype=np.int32), sent_len)
+    return cache, corpus, toks, sids
+
+
+def w2v_chunk_draws(torch, rng, chunk, window, negative, table_len):
+    """One chunk's draws made on the host (windows, keep uniforms, table
+    positions), so the card and the CPU see the same numbers."""
+    return (torch.as_tensor(rng.integers(1, window + 1, chunk)),
+            torch.as_tensor(rng.random((chunk, 2 * window + 1), dtype=np.float32)),
+            torch.as_tensor(rng.integers(0, table_len, (chunk, negative))))
+
+
+def dense_chunk_reference(torch, tables, corpus, sent, keep, unigram, start, lr,
+                          b, u, neg_pos, window):
+    """The JAX package's chunk (nlp/distributed.py:one_chunk) in its dense
+    form, written apart from the port and in float64: autograd of the summed
+    loss over the whole tables, each row's gradient divided by the chunk's
+    touch count of that row, one full-table update. Returns the new
+    tables."""
+    import torch.nn.functional as F
+    dev = tables["syn0"].device
+    syn0 = tables["syn0"].detach().double().requires_grad_(True)
+    syn1 = tables["syn1neg"].detach().double().requires_grad_(True)
+    V, n, C = syn0.shape[0], corpus.shape[0], b.shape[0]
+    offs = torch.tensor([o for o in range(-window, window + 1) if o], device=dev)
+    idx = start + torch.arange(C, device=dev)
+    P = idx[:, None] + offs[None, :]
+    ic, Pc = idx.clamp(max=n - 1), P.clamp(0, n - 1)
+    centers, contexts = corpus[ic].long(), corpus[Pc].long()
+    valid = ((offs.abs()[None, :] <= b[:, None]) & (P >= 0) & (P < n)
+             & (sent[Pc] == sent[ic][:, None]) & (idx < n)[:, None]
+             & (u[:, :1] < keep[centers][:, None]) & (u[:, 1:] < keep[contexts]))
+    vm = valid.double()
+    m = vm.sum(1)
+    negs = unigram[neg_pos.long()].long()
+    h = syn0[centers]
+    loss = -((F.logsigmoid((h[:, None, :] * syn1[contexts]).sum(-1)) * vm).sum()
+             + (F.logsigmoid(-(h[:, None, :] * syn1[negs]).sum(-1)) * m[:, None]).sum())
+    g0, g1 = torch.autograd.grad(loss, (syn0, syn1))
+    c0 = torch.zeros(V, device=dev, dtype=torch.float64).index_put_((centers,), m,
+                                                                    accumulate=True)
+    c1 = torch.zeros(V, device=dev, dtype=torch.float64).index_put_(
+        (torch.cat([contexts.reshape(-1), negs.reshape(-1)]),),
+        torch.cat([vm.reshape(-1), m.repeat_interleave(negs.shape[1])]), accumulate=True)
+    with torch.no_grad():
+        return {"syn0": syn0 - lr * g0 / c0.clamp(min=1)[:, None],
+                "syn1neg": syn1 - lr * g1 / c1.clamp(min=1)[:, None]}
+
+
+def table_rel_errs(got, want):
+    """{table: max|got - want| / max|want|}, on the host."""
+    out = {}
+    for k, w in want.items():
+        w = w.detach().float().cpu()
+        out[k] = float((got[k].detach().float().cpu() - w).abs().max()
+                       / w.abs().max().clamp(min=1e-30))
+    return out
+
+
+def cluster_separation(cache, vectors, groups):
+    """mean cosine within a group - mean cosine across groups, over the
+    vocabulary entries named str(id); `groups` maps an id to its group."""
+    ids = [w for w in groups if cache.index_of(str(w)) >= 0]
+    v = vectors[[cache.index_of(str(w)) for w in ids]]
+    v = v / np.clip(np.linalg.norm(v, axis=1, keepdims=True), 1e-12, None)
+    sims = v @ v.T
+    g = np.array([groups[w] for w in ids])
+    same = (g[:, None] == g[None, :]) & ~np.eye(len(ids), dtype=bool)
+    return float(sims[same].mean() - sims[g[:, None] != g[None, :]].mean())
+
+
+def planted_cluster_corpus(n_sent, seed=0, words=60, length=12):
+    """tests/test_distributed_nlp.py's corpus: two clusters of 30 ids whose
+    sentences never mix; (cache, indexed sentences, {id: cluster})."""
+    from deeplearning4j_torch.nlp.vocab import VocabCache
+    rng = np.random.default_rng(seed)
+    half = words // 2
+    sents = []
+    for _ in range(n_sent):
+        c = rng.integers(0, 2)
+        sents.append(rng.integers(half * c, half * (c + 1), length).astype(np.int32))
+    cache = VocabCache()
+    flat, counts = np.unique(np.concatenate(sents), return_counts=True)
+    for w, c in zip(flat, counts):
+        cache.add_token(str(w), count=int(c))
+    cache.finish(min_word_frequency=1)
+    remap = np.zeros(words, np.int32)
+    for w in flat:
+        remap[w] = cache.index_of(str(w))
+    return cache, [remap[s] for s in sents], {w: int(w >= half) for w in range(words)}
+
+
+def phase_word2vec_device_corpus(torch, card, device=None, size=None):
+    """The device-corpus engine (`nlp.ShardedWord2Vec`) at bench.py's w2v
+    large geometry: one warm epoch and one timed epoch over 10M tokens
+    (words/s), the tables' bytes, one profiled call (device busy against
+    wall, the top device ops). Holds: one chunk of the pure function
+    (`distributed.one_chunk`) on the trained tables, the card against the
+    CPU on the same host-made draws and against the dense autograd form of
+    the chunk (`dense_chunk_reference`), each table within W2V_HOLD_REL of
+    its max; at bench_w2v's default geometry, two shards listing the card
+    twice against one shard after `shard_epochs` epochs (rtol 2e-4, atol
+    2e-5); the planted two-cluster corpus separates by more than 0.3. No
+    hand-written kernel runs here: every count stays 0."""
+    from deeplearning4j_torch.nlp import distributed as dist
+    from deeplearning4j_torch.parallel.mesh import data_parallel_mesh
+    s = dict(W2V_FULL, **(size or {}))
+    dev = torch.device(device or "cuda")
+    result = {"card": card, "geometry": {k: s[k] for k in (
+        "vocab", "sentences", "sent_len", "layer", "window", "negative", "chunk",
+        "steps", "seed")}}
+    t0 = time.perf_counter()
+    cache, _, toks, sids = zipf_corpus(s["vocab"], s["sentences"], s["sent_len"])
+    result["host_setup_s"] = time.perf_counter() - t0
+    result["vocab_size"] = len(cache)
+    make = lambda c, **kw: dist.ShardedWord2Vec(
+        c, layer_size=s["layer"], window=s["window"], negative=s["negative"],
+        chunk=s["chunk"], steps_per_call=s["steps"], seed=s["seed"], **kw)
+    tr = make(cache, device=dev)
+    result["tables_bytes"] = sum(t.numel() * t.element_size() for t in tr.tables.values())
+    # 1. the main path: a warm epoch, then a timed one
+    zero_launches()
+    tr.fit_corpus(toks, sids, epochs=1)
+    _sync_dev(torch, dev)
+    t0 = time.perf_counter()
+    tr.fit_corpus(toks, sids, epochs=1)
+    _sync_dev(torch, dev)
+    epoch_s = time.perf_counter() - t0
+    launches = all_launches()
+    check_launches("word2vec device corpus", launches, dict.fromkeys(launches, 0))
+    losses = tr.last_losses.float().cpu().numpy()
+    if not np.isfinite(losses).all() or not np.isfinite(tr.vectors()).all():
+        raise RuntimeError(f"word2vec device corpus: losses {losses}")
+    result.update(epoch_s=epoch_s, words_per_s=len(toks) / epoch_s,
+                  calls_per_epoch=-(-len(toks) // (s["chunk"] * s["steps"])),
+                  last_losses=losses.tolist())
+    if s["profile"] and dev.type == "cuda":
+        starts = np.arange(s["steps"]) * s["chunk"]
+        lrs = np.full(s["steps"], tr.min_lr, np.float32)
+
+        def one_call():
+            tr._call(starts, lrs)
+            _sync_dev(torch, dev)
+
+        prof = profile_call(torch, f"word2vec device corpus, one call of {s['steps']} "
+                            f"chunks", one_call, {"chunks": s["steps"]})
+        result["profile"] = {k: prof[k] for k in (
+            "wall_ms", "unprofiled_wall_ms", "device_busy_ms", "device_idle_share", "top")}
+    # 2. one chunk on the trained tables: card against the CPU and against
+    # the dense form, on the same host-made draws
+    rng = np.random.default_rng(2201)
+    b, u, neg_pos = w2v_chunk_draws(torch, rng, s["chunk"], s["window"], s["negative"],
+                                    len(tr._unigram))
+    start = int(rng.integers(0, max(1, len(toks) - s["chunk"])))
+    lr = float(np.float32(tr.lr))
+    before = {k: t.clone() for k, t in tr.tables.items()}
+    rep = tr._replicas[tr.device]
+    on_card = dist.Replica({k: t.clone() for k, t in before.items()}, rep.corpus,
+                           rep.sent, rep.keep, rep.unigram)
+    on_cpu = dist.Replica({k: t.to("cpu", copy=True) for k, t in before.items()},
+                          rep.corpus.cpu(),
+                          rep.sent.cpu(), rep.keep.cpu(), rep.unigram.cpu())
+    cpu = torch.device("cpu")
+    dist.one_chunk({dev: on_card}, [dev], start, lr, b.to(dev), u.to(dev),
+                   neg_pos.to(dev), s["window"])
+    dist.one_chunk({cpu: on_cpu}, [cpu], start, lr, b, u, neg_pos, s["window"])
+    dense = dense_chunk_reference(torch, before, rep.corpus, rep.sent, rep.keep,
+                                  rep.unigram, start, lr, b.to(dev), u.to(dev),
+                                  neg_pos.to(dev), s["window"])
+    moved = max(table_rel_errs(before, on_cpu.tables).values())
+    hold = {"card_vs_cpu": table_rel_errs(on_card.tables, on_cpu.tables),
+            "card_vs_dense": table_rel_errs(on_card.tables, dense),
+            "chunk_moved_rel": moved, "start": start, "limit": W2V_HOLD_REL}
+    result["hold"] = hold
+    del before, on_card, on_cpu, dense
+    log(f"word2vec device corpus hold: {json.dumps(hold)}  [{card}]")
+    worst = max(list(hold["card_vs_cpu"].values()) + list(hold["card_vs_dense"].values()))
+    if not worst <= W2V_HOLD_REL or not moved > 0:
+        raise RuntimeError(f"word2vec device corpus: one chunk off by {worst} of max|table| "
+                           f"(> {W2V_HOLD_REL}), or no move ({moved})")
+    del tr
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    # 3. two shards on the card against one, at bench_w2v's default geometry
+    cache2, _, toks2, sids2 = zipf_corpus(s["shard_vocab"], s["shard_sentences"],
+                                          s["sent_len"])
+    single = make(cache2, device=dev, learning_rate=s["shard_lr"])
+    single.fit_corpus(toks2, sids2, epochs=s["shard_epochs"])
+    two = make(cache2, mesh=data_parallel_mesh(devices=[dev, dev]),
+               learning_rate=s["shard_lr"])
+    two.fit_corpus(toks2, sids2, epochs=s["shard_epochs"])
+    a, w = two.vectors(), single.vectors()
+    excess = float((np.abs(a - w) - (W2V_SHARD_ATOL + W2V_SHARD_RTOL * np.abs(w))).max())
+    result["two_shards"] = {"max_abs_diff": float(np.abs(a - w).max()),
+                            "max_excess_over_tolerance": excess,
+                            "shards": len(two._shard_devices),
+                            "epochs": s["shard_epochs"], "tokens": len(toks2)}
+    if not excess <= 0:
+        raise RuntimeError(f"word2vec two shards: {excess} beyond rtol {W2V_SHARD_RTOL}, "
+                           f"atol {W2V_SHARD_ATOL} of one shard")
+    # 4. quality: the planted two-cluster corpus
+    p = W2V_PLANTED
+    cache3, indexed, groups = planted_cluster_corpus(p["n_sent"])
+    t3, s3 = dist.corpus_arrays(indexed)
+    planted = dist.ShardedWord2Vec(cache3, layer_size=p["layer"], window=p["window"],
+                                   negative=p["negative"], learning_rate=p["lr"],
+                                   chunk=p["chunk"], steps_per_call=p["steps"],
+                                   seed=p["seed"], device=dev)
+    planted.fit_corpus(t3, s3, epochs=p["epochs"])
+    score = cluster_separation(cache3, planted.vectors(), groups)
+    result["planted_separation"] = score
+    if not score > W2V_CLUSTER_MIN:
+        raise RuntimeError(f"word2vec device corpus: planted clusters separate by {score} "
+                           f"(<= {W2V_CLUSTER_MIN})")
+    log(f"word2vec device corpus: {result['words_per_s']:.0f} words/s over "
+        f"{len(toks)} tokens ({epoch_s:.3f} s an epoch, vocabulary {len(cache)}, "
+        f"tables {result['tables_bytes']} bytes), idle share "
+        f"{result.get('profile', {}).get('device_idle_share')}; two shards "
+        f"{json.dumps(result['two_shards'])}; planted separation {score:.4f}; host "
+        f"setup {result['host_setup_s']:.1f} s  [{card}]")
+    return result
+
+
+@contextmanager
+def counted_embedding_steps(counts):
+    """Count the device steps of the host-pair engine, ParagraphVectors and
+    GloVe by name (each module's own binding of the step it calls)."""
+    from deeplearning4j_torch.nlp import embeddings as emb
+    from deeplearning4j_torch.nlp import glove
+    from deeplearning4j_torch.nlp import paragraph_vectors as pv
+    sites = [(emb, "_hs_step"), (emb, "_ns_step"), (pv, "_hs_step"), (pv, "_ns_step"),
+             (pv, "_dm_hs_step"), (pv, "_dm_ns_step"), (glove, "_glove_step")]
+    with ExitStack() as stack:
+        for mod, name in sites:
+            fn = getattr(mod, name)
+
+            def counting(*a, _fn=fn, _name=name, **kw):
+                counts[_name] = counts.get(_name, 0) + 1
+                return _fn(*a, **kw)
+
+            stack.enter_context(patched(mod, name, counting))
+        yield counts
+
+
+def dense_batch_reference(torch, tables, centers, contexts, codes, points, negs, lr):
+    """The JAX package's HS step then NS step (nlp/embeddings.py:_hs_step,
+    _ns_step, skip-gram) in their dense form, written apart from the port:
+    autograd over the whole tables, word2vec.c's |score| < 6 window on the
+    HS bits, each row's gradient divided by its touch count (`_row_scale`).
+    Computed in float64; returns the new tables and the share of valid HS
+    bits the window skipped."""
+    import torch.nn.functional as F
+    t = {k: v.detach().double() for k, v in tables.items()}
+    dev = t["syn0"].device
+    centers, contexts = centers.long(), contexts.long()
+
+    def counts(n, idx, w):
+        return torch.zeros(n, device=dev, dtype=torch.float64).index_put_(
+            (idx.reshape(-1).clamp(min=0),), w.reshape(-1).double(), accumulate=True)
+
+    syn0, syn1 = t["syn0"].requires_grad_(True), t["syn1"].requires_grad_(True)
+    score = (syn0[centers][:, None, :] * syn1[points.clamp(min=0).long()]).sum(-1)
+    valid = codes >= 0
+    window = (score.abs() < 6.0).detach()
+    sign = 1.0 - 2.0 * codes.clamp(min=0).double()
+    loss = -(F.logsigmoid(sign * score) * (valid & window).double()).sum()
+    g0, g1 = torch.autograd.grad(loss, (syn0, syn1))
+    skipped = float((valid & ~window).sum()) / max(1, int(valid.sum()))
+    with torch.no_grad():
+        syn0 = syn0 - lr * g0 / counts(syn0.shape[0], centers,
+                                       torch.ones_like(centers)).clamp(min=1)[:, None]
+        syn1 = syn1 - lr * g1 / counts(syn1.shape[0], points, valid).clamp(min=1)[:, None]
+    syn0.requires_grad_(True)
+    s1n = t["syn1neg"].requires_grad_(True)
+    h = syn0[centers]
+    loss = -(F.logsigmoid((h * s1n[contexts]).sum(-1)).sum()
+             + F.logsigmoid(-(h[:, None, :] * s1n[negs.long()]).sum(-1)).sum())
+    g0, gn = torch.autograd.grad(loss, (syn0, s1n))
+    slots = torch.cat([contexts[:, None], negs.long()], dim=1)
+    with torch.no_grad():
+        new = {"syn0": syn0 - lr * g0 / counts(syn0.shape[0], centers,
+                                               torch.ones_like(centers)).clamp(min=1)[:, None],
+               "syn1": syn1,
+               "syn1neg": s1n - lr * gn / counts(s1n.shape[0], slots,
+                                                 torch.ones_like(slots)).clamp(min=1)[:, None]}
+    return new, skipped
+
+
+def zipf_text(corpus):
+    return [" ".join(f"w{t}" for t in row) for row in corpus]
+
+
+def two_topic_text(n, seed):
+    """tests/test_nlp.py's corpus: sentences of 6 words drawn from two
+    disjoint five-word topics, alternating."""
+    rng = np.random.default_rng(seed)
+    animals = ["cat", "dog", "bird", "horse", "fish"]
+    foods = ["bread", "cheese", "apple", "rice", "soup"]
+    return [" ".join(rng.choice(animals if i % 2 == 0 else foods, size=6))
+            for i in range(n)], animals, foods
+
+
+def phase_word2vec_builder(torch, card, device=None, size=None):
+    """`Word2Vec.builder()` at its defaults (layer 100, hierarchical softmax,
+    batch 1024) with negative 5 too, skip-gram, on bench_w2v's default
+    corpus as text: the host-pair engine. Reports words/s and the host's
+    share of the wall (tokenizing and vocabulary, pair generation and the
+    per-batch negatives, timed again alone) against the device steps, and a
+    profiled epoch over `profile_sentences` sentences. Holds: one HS + NS
+    batch on the trained tables, and again with syn1 scaled so that about
+    half the batch's code bits leave word2vec.c's |score| < 6 window, the
+    card against the CPU and against the dense autograd form
+    (`dense_batch_reference`), within W2V_HOLD_REL of max|table|. Then one CBOW epoch, the serializer's
+    binary and header-text round trips (bitwise), and `words_nearest` on the
+    planted two-topic corpus (every neighbour of "cat" an animal)."""
+    from deeplearning4j_torch.nlp import WordVectorSerializer
+    from deeplearning4j_torch.nlp import embeddings as emb
+    from deeplearning4j_torch.nlp.tokenization import DefaultTokenizerFactory
+    from deeplearning4j_torch.nlp.vocab import VocabConstructor
+    from deeplearning4j_torch.nlp.word2vec import Word2Vec
+    s = dict(W2V_BUILDER_FULL, **(size or {}))
+    dev = torch.device(device or "cuda")
+    _, corpus, _, _ = zipf_corpus(s["vocab"], s["sentences"], s["sent_len"])
+    text = zipf_text(corpus)
+    n_tokens = corpus.size
+    result = {"card": card, "tokens": int(n_tokens)}
+
+    def builder(sentences):
+        return (Word2Vec.builder().iterate(sentences).negative_sample(s["negative"])
+                .seed(s["seed"]).device(dev))
+
+    # 1. the main path: fit, the launch counts 0
+    zero_launches()
+    steps = {}
+    _sync_dev(torch, dev)
+    t0 = time.perf_counter()
+    with counted_embedding_steps(steps):
+        w2v = builder(text).build().fit()
+    _sync_dev(torch, dev)
+    wall = time.perf_counter() - t0
+    launches = all_launches()
+    check_launches("word2vec builder", launches, dict.fromkeys(launches, 0))
+    tr = w2v._trainer
+    if not (tr.use_hs and tr.negative == s["negative"] and tr.layer_size == 100
+            and tr.batch_size == 1024 and np.isfinite(tr.last_loss)):
+        raise RuntimeError(f"word2vec builder: trainer {vars(tr).keys()} loss {tr.last_loss}")
+    # the host's part, timed again alone with the same generator calls
+    t0 = time.perf_counter()
+    tokenized = [DefaultTokenizerFactory().create(x).get_tokens() for x in text]
+    cache = VocabConstructor().build(tokenized)
+    indexed = emb.sentences_to_indices(tokenized, cache)
+    vocab_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(s["seed"])
+    centers, contexts = emb.generate_pairs(indexed, tr.window, rng)
+    order = rng.permutation(len(centers))
+    centers, contexts = centers[order], contexts[order]
+    for start in range(0, len(centers), tr.batch_size):
+        rng.choice(tr._unigram, size=(min(tr.batch_size, len(centers) - start), tr.negative))
+    pairs_s = time.perf_counter() - t0
+    result.update(wall_s=wall, words_per_s=n_tokens / wall, pairs=int(len(centers)),
+                  steps=steps, host_vocab_s=vocab_s, host_pairs_s=pairs_s,
+                  host_share=(vocab_s + pairs_s) / wall)
+    if s["profile"] and dev.type == "cuda":
+        part = indexed[:s["profile_sentences"]]
+        prof = profile_call(torch, f"word2vec builder, one epoch of {len(part)} sentences",
+                            lambda: (tr.fit_sentences(part, 1), _sync_dev(torch, dev)),
+                            {"sentences": len(part)})
+        result["profile"] = {k: prof[k] for k in (
+            "wall_ms", "unprofiled_wall_ms", "device_busy_ms", "device_idle_share", "top")}
+    # 2. one HS + NS batch: card against the CPU and the dense form
+    B = tr.batch_size
+    c, x = torch.as_tensor(centers[:B]), torch.as_tensor(contexts[:B])
+    codes = torch.as_tensor(tr._codes[contexts[:B]])
+    points = torch.as_tensor(tr._points[contexts[:B]])
+    negs = torch.as_tensor(np.random.default_rng(2202).choice(tr._unigram,
+                                                              size=(B, tr.negative)))
+    trained = {k: v.detach().float().cpu() for k, v in tr.tables.items()}
+    score = (trained["syn0"][c.long()][:, None, :]
+             * trained["syn1"][points.clamp(min=0).long()]).sum(-1)[codes >= 0].abs()
+    # the trained tables, then syn1 scaled so that about half the batch's
+    # code bits leave the |score| < 6 window
+    scale = 6.0 / max(float(score.median()), 1e-12)
+    lr = float(np.float32(tr.lr))
+    hold = {"limit": W2V_HOLD_REL, "syn1_scale": scale}
+    for variant, factor in (("trained", 1.0), ("syn1_scaled", scale)):
+        t = dict(trained, syn1=trained["syn1"] * factor)
+        after = {}
+        for where, d in (("card", dev), ("cpu", torch.device("cpu"))):
+            tb = {k: v.to(d, copy=True) for k, v in t.items()}
+            emb._hs_step(tb, c.to(d), x.to(d), codes.to(d), points.to(d), lr)
+            emb._ns_step(tb, c.to(d), x.to(d), negs.to(d), lr)
+            after[where] = tb
+        dense, skipped = dense_batch_reference(
+            torch, {k: v.to(dev) for k, v in t.items()}, c.to(dev), x.to(dev),
+            codes.to(dev), points.to(dev), negs.to(dev), lr)
+        hold[variant] = {"card_vs_cpu": table_rel_errs(after["card"], after["cpu"]),
+                         "card_vs_dense": table_rel_errs(after["card"], dense),
+                         "hs_bits_skipped_share": skipped}
+    result["hold"] = hold
+    log(f"word2vec builder hold: {json.dumps(hold)}  [{card}]")
+    worst = max(e for v in ("trained", "syn1_scaled") for k in ("card_vs_cpu", "card_vs_dense")
+                for e in hold[v][k].values())
+    skipped = hold["syn1_scaled"]["hs_bits_skipped_share"]
+    if not (worst <= W2V_HOLD_REL and 0 < skipped < 1):
+        raise RuntimeError(f"word2vec builder: one HS + NS batch off by {worst} of "
+                           f"max|table| (> {W2V_HOLD_REL}); skipped share {skipped}")
+    # 3. one CBOW epoch
+    t0 = time.perf_counter()
+    cbow = builder(text).elements_learning_algorithm("cbow").build().fit()
+    _sync_dev(torch, dev)
+    cbow_s = time.perf_counter() - t0
+    if not (np.isfinite(cbow._trainer.last_loss)
+            and np.isfinite(cbow.get_word_vector_matrix()).all()):
+        raise RuntimeError(f"word2vec CBOW: loss {cbow._trainer.last_loss}")
+    result["cbow"] = {"wall_s": cbow_s, "words_per_s": n_tokens / cbow_s,
+                      "last_loss": cbow._trainer.last_loss}
+    # 4. the serializer's round trips
+    out = os.path.join(ROOT, "build", "word2vec_smoke")
+    os.makedirs(out, exist_ok=True)
+    mat = w2v.get_word_vector_matrix()
+    trips = {}
+    for name, binary in (("vectors.bin", True), ("vectors.txt", False)):
+        path = os.path.join(out, name)
+        WordVectorSerializer.write_word2vec_model(w2v, path, binary=binary)
+        back = WordVectorSerializer.load_google_model(path, binary=binary)
+        trips[name] = bool(back.vocab.index2word == w2v.vocab.index2word and np.array_equal(
+            back.get_word_vector_matrix().view(np.uint32), mat.view(np.uint32)))
+    result["round_trips_bitwise"] = trips
+    if not all(trips.values()):
+        raise RuntimeError(f"word2vec serializer: round trips {trips}")
+    # 5. words_nearest on the planted two-topic corpus
+    p = NLP_PLANTED
+    sents, animals, _ = two_topic_text(p["n"], 0)
+    planted = (Word2Vec.builder().iterate(sents).layer_size(p["layer"])
+               .window_size(p["window"]).epochs(p["epochs"]).batch_size(p["batch"])
+               .learning_rate(p["lr"]).min_learning_rate(p["min_lr"]).seed(p["seed"])
+               .negative_sample(5).use_hierarchic_softmax(False).device(dev)
+               .build().fit())
+    near = planted.words_nearest("cat", top_n=4)
+    result["nearest_cat"] = near
+    if not set(near) <= set(animals):
+        raise RuntimeError(f"word2vec builder: nearest to 'cat' {near}")
+    log(f"word2vec builder: {result['words_per_s']:.0f} words/s ({wall:.3f} s for "
+        f"{n_tokens} tokens, {steps} steps), host share {result['host_share']:.3f} "
+        f"(vocabulary {vocab_s:.3f} s, pairs and negatives {pairs_s:.3f} s), idle "
+        f"share {result.get('profile', {}).get('device_idle_share')}; CBOW "
+        f"{result['cbow']['words_per_s']:.0f} words/s; round trips {trips}; "
+        f"nearest 'cat' {near}  [{card}]")
+    return result
+
+
+def topic_text(topics, words, sentences, length, seed):
+    """Planted topics: each sentence draws `length` words of one topic of
+    `words` words; (sentences, {word: topic})."""
+    rng = np.random.default_rng(seed)
+    t = rng.integers(0, topics, sentences)
+    ids = t[:, None] * words + rng.integers(0, words, (sentences, length))
+    return ([" ".join(f"t{i}" for i in row) for row in ids],
+            {f"t{i}": int(i // words) for i in range(topics * words)})
+
+
+def planted_partition(core, n, community, deg_in, deg_out, seed):
+    """A graph of n vertices in communities of `community`: each vertex
+    draws deg_in / 2 edges inside its community and the graph n deg_out / 2
+    edges between any two vertices (about deg_in and deg_out a vertex)."""
+    rng = np.random.default_rng(seed)
+    g = core.Graph(n)
+    a = np.repeat(np.arange(n), deg_in // 2)
+    b = (a // community) * community + rng.integers(0, community, a.size)
+    u = rng.integers(0, n, n * deg_out // 2)
+    v = rng.integers(0, n, u.size)
+    for x, y in zip(np.concatenate([a, u]), np.concatenate([b, v])):
+        if x != y:
+            g.add_edge(int(x), int(y))
+    return g
+
+
+def community_scores(model, n, community, probes, seed):
+    """(mean same-community cosine - mean cross-community cosine over probe
+    vertices against samples of each, share of each probe's 10 nearest in
+    its own community)."""
+    rng = np.random.default_rng(seed)
+    gap, near = [], []
+    for v in rng.choice(n, probes, replace=False):
+        base = (v // community) * community
+        same = [int(x) for x in base + rng.integers(0, community, 8) if x != v]
+        cross = [int(x) for x in rng.integers(0, n, 8) if x // community != v // community]
+        gap.append(np.mean([model.similarity(int(v), x) for x in same])
+                   - np.mean([model.similarity(int(v), x) for x in cross]))
+        near.append(np.mean([x // community == v // community
+                             for x in model.verticies_nearest(int(v), 10)]))
+    return float(np.mean(gap)), float(np.mean(near))
+
+
+def phase_doc_and_graph_embeddings(torch, card, device=None, size=None):
+    """ParagraphVectors (DBOW and DM, then `infer_vector`, card against CPU
+    within W2V_HOLD_REL of its largest entry) at tests/test_nlp.py's
+    settings (60 epochs) on its planted two-topic documents; GloVe
+    at its builder's defaults on a planted-topic corpus cut to fit; DeepWalk
+    at its defaults on a planted partition of `dw_vertices` vertices and
+    Node2Vec (p 0.5, q 2) on `n2v_vertices`. Each must put same-topic or
+    same-community neighbours ahead of the others, as the JAX package's
+    tests hold (tests/test_nlp.py:172, :213, :337); steps/s of each, every
+    kernel count 0."""
+    from deeplearning4j_torch.graph import DeepWalk, Node2Vec
+    from deeplearning4j_torch.graph import core
+    from deeplearning4j_torch.nlp import Glove, ParagraphVectors
+    s = dict(DOC_GRAPH_FULL, **(size or {}))
+    dev = torch.device(device or "cuda")
+    result = {"card": card}
+    zero_launches()
+
+    def timed(label, fn):
+        steps = {}
+        _sync_dev(torch, dev)
+        t0 = time.perf_counter()
+        with counted_embedding_steps(steps):
+            out = fn()
+        _sync_dev(torch, dev)
+        wall = time.perf_counter() - t0
+        n = sum(steps.values())
+        result[label] = {"wall_s": wall, "steps": steps, "steps_per_s": n / wall}
+        return out
+
+    # 1. ParagraphVectors: DBOW and DM, each probe's nearest document of its topic
+    docs, _, _ = two_topic_text(s["pv_docs"], 1)
+    labels = [f"DOC_{i}" for i in range(len(docs))]
+    p = NLP_PLANTED
+    for algo in ("dbow", "dm"):
+        pv = timed(f"pv_{algo}", lambda: (
+            ParagraphVectors.builder().iterate(docs).labels(labels)
+            .sequence_learning_algorithm(algo).layer_size(p["layer"])
+            .window_size(p["window"]).epochs(s["pv_epochs"]).batch_size(p["batch"])
+            .learning_rate(p["lr"]).min_learning_rate(p["min_lr"]).seed(p["seed"])
+            .negative_sample(5).use_hierarchic_softmax(False).device(dev).build().fit()))
+        same = np.mean([pv.similarity_docs("DOC_0", f"DOC_{i}") for i in range(2, 20, 2)])
+        cross = np.mean([pv.similarity_docs("DOC_0", f"DOC_{i}") for i in range(1, 20, 2)])
+        purity = sum(max((pv.similarity_docs(f"DOC_{q}", f"DOC_{j}"), j)
+                         for j in range(40) if j != q)[1] % 2 == q % 2 for q in range(10))
+        result[f"pv_{algo}"].update(same=float(same), cross=float(cross), purity=purity)
+        if not (same > cross and purity >= 8):
+            raise RuntimeError(f"ParagraphVectors {algo}: same {same}, cross {cross}, "
+                               f"purity {purity} of 10")
+        if algo == "dbow":
+            # infer_vector on the card against the same call on a CPU copy
+            # of the tables; the topic margin is reported, not held (the
+            # inferred vectors share the doc table's common component)
+            text_in = "cat dog horse fish bird cat"
+            inferred = pv.infer_vector(text_in)
+            on_cpu = copy.copy(pv)
+            on_cpu._trainer = copy.copy(pv._trainer)
+            on_cpu._trainer.device = torch.device("cpu")
+            on_cpu._trainer.tables = {k: v.cpu() for k, v in pv._trainer.tables.items()}
+            want = on_cpu.infer_vector(text_in)
+            err = float(np.abs(inferred - want).max() / np.abs(want).max())
+            cos = lambda a, b: float(a @ b / (np.linalg.norm(a) * np.linalg.norm(b)))
+            animal = np.mean([cos(inferred, pv.doc_vector(f"DOC_{i}")) for i in range(0, 20, 2)])
+            food = np.mean([cos(inferred, pv.doc_vector(f"DOC_{i}")) for i in range(1, 20, 2)])
+            result["pv_dbow"]["infer"] = {"card_vs_cpu": err, "animal": float(animal),
+                                          "food": float(food)}
+            if not (err <= W2V_HOLD_REL and np.isfinite(inferred).all()):
+                raise RuntimeError(f"ParagraphVectors infer_vector: card vs CPU {err}")
+    # 2. GloVe at its defaults on the planted topics
+    text, topic = topic_text(s["glove_topics"], s["glove_words"], s["glove_sentences"],
+                             s["glove_len"], 3)
+    g = timed("glove", lambda: Glove.builder().iterate(text).epochs(s["glove_epochs"])
+              .seed(5).device(dev).build().fit())
+    rng = np.random.default_rng(4)
+    probes = [f"t{i}" for i in rng.choice(len(topic), 10, replace=False)]
+    near_share = np.mean([np.mean([topic[w] == topic[q] for w in g.words_nearest(q, 4)])
+                          for q in probes])
+    others = [f"t{i}" for i in rng.choice(len(topic), 40, replace=False)]
+    gap = np.mean([np.mean([g.similarity(q, w) for w in others if topic[w] == topic[q]]
+                           or [0.0])
+                   - np.mean([g.similarity(q, w) for w in others if topic[w] != topic[q]])
+                   for q in probes])
+    result["glove"].update(nearest_same_topic_share=float(near_share),
+                           same_minus_cross=float(gap), last_loss=g.last_loss,
+                           vocab=len(g.vocab))
+    if not (near_share >= 0.75 and np.isfinite(g.last_loss)):
+        raise RuntimeError(f"GloVe: nearest words of their topic {near_share}, "
+                           f"loss {g.last_loss}")
+    # 3. DeepWalk and 4. Node2Vec on planted partitions
+    for label, cls, n, comm, walks, epochs, kw in (
+            ("deepwalk", DeepWalk, s["dw_vertices"], s["dw_community"], s["dw_walks"],
+             s["dw_epochs"], {}),
+            ("node2vec", Node2Vec, s["n2v_vertices"], s["n2v_community"], s["n2v_walks"],
+             s["n2v_epochs"], {"p": 0.5, "q": 2.0})):
+        graph = planted_partition(core, n, comm, s["dw_degree_in"], s["dw_degree_out"], 6)
+        model = timed(label, lambda: cls(device=dev, **kw).fit(
+            graph, walks_per_vertex=walks, epochs=epochs))
+        gap, near = community_scores(model, n, comm, 20, 7)
+        result[label].update(vertices=n, same_minus_cross=gap, nearest_same_share=near)
+        if not (gap > 0 and near > 0.5):
+            raise RuntimeError(f"{label}: same minus cross community {gap}, nearest in "
+                               f"community {near}")
+    launches = all_launches()
+    check_launches("doc and graph embeddings", launches, dict.fromkeys(launches, 0))
+    log(f"doc and graph embeddings: {json.dumps(result)}  [{card}]")
+    return result
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -7841,6 +8526,13 @@ def main() -> int:
     pipe = phase_pipeline(torch, card)
     torch.cuda.empty_cache()
     mh_tp_sp = phase_multihost_tp_sp(torch, card)
+    embed_s = {}
+    for name, phase in (("device_corpus", phase_word2vec_device_corpus),
+                        ("builder", phase_word2vec_builder),
+                        ("doc_and_graph", phase_doc_and_graph_embeddings)):
+        torch.cuda.empty_cache()
+        t1 = time.perf_counter()
+        embed_s[name] = (phase(torch, card), time.perf_counter() - t1)
     lrn_entry["launches"] = serving["launches"]["lrn_fwd"]
     lrn_bwd_entry["launches"] = training["launches"]["lrn_bwd"]
     for entry in flash_entries:
@@ -7876,6 +8568,11 @@ def main() -> int:
         f"{pipe['bubble_fraction']:.4f}; across ranks tp "
         f"{mh_tp_sp['tp']['ranks_max_abs_diff']}, sp "
         f"{mh_tp_sp['sp']['ranks_max_abs_diff']}")
+    (w2v, w2v_s), (builder, builder_s), (docs, docs_s) = embed_s.values()
+    log(f"chip_smoke: word and graph embeddings (no hand-written kernel; every count 0): "
+        f"device corpus {w2v['words_per_s']:.0f} words/s at 1M ids ({w2v_s:.1f} s), "
+        f"builder {builder['words_per_s']:.0f} words/s ({builder_s:.1f} s), docs and "
+        f"graphs {docs_s:.1f} s  [{card}]")
     log(f"chip_smoke: every phase passed in {time.perf_counter() - t0:.1f} s  [{card}]")
     log(json.dumps(kernels))
     log(json.dumps({"ok": True, "device": {
