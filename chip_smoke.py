@@ -274,7 +274,24 @@ Phases, each of which fails the script (non-zero exit, no result line):
    DBOW and DM (purity of each probe's nearest document), `infer_vector`
    card against CPU, GloVe at its defaults, DeepWalk on 10,000 vertices and
    Node2Vec on 1,000 (same-topic or same-community neighbours first).
-18. One JSON line with every kernel's numbers, then the result line
+18. Clustering, the k-NN server and Keras import (`phase_knn`,
+   `phase_kmeans`, `phase_tsne`, `phase_keras_import`, at the end), plain
+   torch on no hand-written kernel: every count reset before and 0 after.
+   Brute-force k-NN over a 1M x 128 float32 corpus (a Word2Vec table's
+   size) in both metrics, 1,024 queries in batches of 256 (queries/s, ms a
+   batch), a batch held to the CPU port (distances within 1e-5, indices but
+   at near-ties), the tie order on a corpus of duplicate rows, and
+   NearestNeighborsServer over HTTP (each answer a direct search's).
+   KMeansClustering on 1M x 64 planted blobs, k 256, up to 100 Lloyd
+   iterations (iterations/s), one step card and CPU against float64, the
+   inertia on a 100,000-point subset against the CPU's. Exact t-SNE at
+   5,000 x 50 with the defaults (calibration seconds and step ms apart),
+   one step card against CPU, the whole run's KL at 1,000 points against
+   the CPU's. Keras import of the eight fixtures through the port's own
+   HDF5 reader (against the recorded Keras outputs and the CPU port), the
+   full-width mnist_cnn.h5 served against the JAX package's outputs and
+   trained through KerasBackendServer over HTTP (/fit, /predict).
+19. One JSON line with every kernel's numbers, then the result line
    {"ok": true, "device": {...}}.
 
 Needs one CUDA GPU; exits non-zero without one.
@@ -8448,6 +8465,503 @@ def phase_doc_and_graph_embeddings(torch, card, device=None, size=None):
     return result
 
 
+# ----------------------------------------------------------------------------
+# Clustering, the k-NN server and Keras import (plain torch, no hand-written
+# kernel: every K1-K7 count is reset before each phase and must read 0 after)
+
+# A Word2Vec-sized table behind the nearest-neighbour server (1M x 128
+# float32, 512 MB), queried in batches of 256
+KNN_FULL = dict(n=1_000_000, d=128, queries=1024, batch=256, k=10, http_requests=64,
+                http_rows=8, http_clients=4, tie_rows=3000, tie_dim=8, tie_queries=256,
+                seed=2111)
+KNN_RTOL = 1e-5   # card against the CPU port: distances, and the near-ties that may swap
+KMEANS_FULL = dict(n=1_000_000, d=64, k=256, max_iterations=100, subset=100_000,
+                   spread=3.0, seed=2113)
+KMEANS_REL = 1e-5           # centroids, of max|c|: card or CPU against float64
+KMEANS_INERTIA_REL = 1e-4   # the final inertia on the subset, card against CPU
+# float32 rounding of a d^2 by the expansion, of ||p||^2 + max ||c||^2: two
+# centroids nearer each other than this may be taken in either order
+KMEANS_TIE = 2.0 ** -21
+# the usual MNIST t-SNE demo size, the JAX package's defaults (perplexity 30,
+# 500 iterations)
+TSNE_FULL = dict(n=5000, d=50, classes=10, n_iter=500, kl_n=1000, hold_steps=10,
+                 seed=2117)
+TSNE_STEP_REL = 1e-5   # one step card against CPU: y, velocity, KL
+TSNE_KL_REL = 1e-2     # the whole run's KL at kl_n: chaotic, so reported and held no tighter
+KERAS_DIR = os.path.join(ROOT, "tests", "fixtures", "keras")
+# (fixture, imported as a graph, rtol, atol): tests/test_keras_import.py's
+# tolerances against the recorded Keras outputs
+KERAS_FIXTURES = [("mlp", False, 1e-4, 1e-5), ("cnn", False, 1e-3, 1e-4),
+                  ("lstm", False, 1e-4, 1e-5), ("act_tail", False, 1e-4, 1e-5),
+                  ("relu_tail", False, 1e-4, 1e-5), ("cnn_cf", False, 1e-4, 1e-5),
+                  ("functional", True, 1e-4, 1e-5), ("lstm_last", True, 1e-4, 1e-5)]
+KERAS_CPU_RTOL, KERAS_CPU_ATOL = 1e-4, 1e-7   # card against the CPU port
+KERAS_FULL = dict(fit_images=1024, batch=128, epochs=1, serve_batch=128, timeout_s=600)
+
+
+def wall_ms(torch, dev, fn):
+    """(wall ms of one call of `fn` from a synced device to a synced device,
+    its result)."""
+    _sync_dev(torch, dev)
+    t0 = time.perf_counter()
+    out = fn()
+    _sync_dev(torch, dev)
+    return (time.perf_counter() - t0) * 1e3, out
+
+
+def step_device_ms(torch, dev, fn, iters=10):
+    """Device ms of one call of `fn` on CUDA (queued behind a sleep, so the
+    launches are not timed); wall ms on the CPU."""
+    if torch.device(dev).type == "cuda":
+        return device_ms(torch, fn, iters)
+    return min(wall_ms(torch, dev, fn)[0] for _ in range(3))
+
+
+def knn_hold(label, got_i, got_d, want_i, want_d, k):
+    """Hold the card's k-NN answer ([Q, k]) to the CPU port's on the same
+    batch (`want_*` with k + 1 columns): each distance within KNN_RTOL of
+    the CPU's at its place; an index may differ only where its distance lies
+    within KNN_RTOL of a neighbouring place's (a near-tie that rounding
+    orders either way), and where the k-th and (k+1)-th distances are
+    further apart than that, the two sets of k are the same. Returns (the
+    count of places that differ, the largest relative distance error)."""
+    wi, wd = want_i[:, :k], want_d[:, :k]
+    err = np.abs(got_d - wd) / np.maximum(np.abs(wd), np.finfo(np.float32).tiny)
+    if not err.max() <= KNN_RTOL:
+        raise RuntimeError(f"{label}: distances off the CPU port's by {err.max()}")
+    swaps = got_i != wi
+    for r, j in zip(*np.nonzero(swaps)):
+        row = want_d[r]
+        if not any(abs(row[j] - row[m]) <= KNN_RTOL * abs(row[j])
+                   for m in (j - 1, j + 1) if 0 <= m <= k):
+            raise RuntimeError(f"{label}: query {r} place {j} holds {got_i[r, j]}, the "
+                               f"CPU port {wi[r, j]}, with no near-tie there")
+    apart = want_d[:, k] - want_d[:, k - 1] > KNN_RTOL * np.abs(want_d[:, k - 1])
+    for r in np.nonzero(apart)[0]:
+        if set(got_i[r].tolist()) != set(wi[r].tolist()):
+            raise RuntimeError(f"{label}: query {r}'s {k} nearest differ from the CPU "
+                               f"port's: {sorted(got_i[r])} against {sorted(wi[r])}")
+    return int(swaps.sum()), float(err.max())
+
+
+def knn_tie_check(torch, vptree, dev, s, k):
+    """The tie order on a corpus of integer rows, each present two or three
+    times (every dot product exact, so equal distances are equal bits): the
+    answer must be the first k of the distances' (distance, index) order,
+    `jax.lax.top_k`'s, recomputed from the same device's distance matrix;
+    rows with a tie across the k-th place must occur. Returns per metric
+    the count of such rows."""
+    rng = np.random.default_rng(s["seed"] + 1)
+    base = rng.integers(-1, 2, (s["tie_rows"], s["tie_dim"])).astype(np.float32)
+    corpus = np.concatenate([base, base[rng.permutation(len(base))],
+                             base[:len(base) // 2]])
+    queries = rng.integers(-1, 2, (s["tie_queries"], s["tie_dim"])).astype(np.float32)
+    cols = np.broadcast_to(np.arange(len(corpus)), (len(queries), len(corpus)))
+    out = {}
+    for metric in ("euclidean", "cosine"):
+        idx, dist = vptree.knn_brute_force(corpus, queries, k, metric, device=dev)
+        d = vptree.knn_distances(torch.as_tensor(corpus, device=dev),
+                                 torch.as_tensor(queries, device=dev), metric).cpu().numpy()
+        order = np.lexsort((cols, d))
+        want = order[:, :k]
+        boundary = int((np.take_along_axis(d, order[:, k - 1:k], 1)
+                        == np.take_along_axis(d, order[:, k:k + 1], 1)).sum())
+        if not (np.array_equal(idx, want)
+                and np.array_equal(dist, np.take_along_axis(d, want, 1))):
+            bad = int((idx != want).any(1).sum())
+            raise RuntimeError(f"k-NN tie order ({metric}): {bad} of {len(queries)} "
+                               "queries not in (distance, index) order")
+        if boundary == 0:
+            raise RuntimeError(f"k-NN tie order ({metric}): no tie across the k-th place")
+        out[metric] = {"queries": len(queries), "ties_across_kth": boundary}
+    return out
+
+
+def knn_results(idx, dist):
+    """The server's JSON for one answer (a list of results, or a list of such
+    lists for a batch)."""
+    if np.ndim(idx) == 1:
+        return [{"index": int(i), "distance": float(d)} for i, d in zip(idx, dist)]
+    return [knn_results(i, d) for i, d in zip(idx, dist)]
+
+
+def phase_knn(torch, card, device=None, size=None):
+    """The brute-force k-NN path (`clustering.knn_brute_force` behind
+    `serving.NearestNeighbor`): a corpus of n x d float32 on the card,
+    `queries` queries in batches of `batch`, k nearest in both metrics;
+    queries/s and ms a batch; one batch of each held to the CPU port
+    (`knn_hold`); the tie order (`knn_tie_check`); `NearestNeighborsServer`
+    over HTTP on the card, single and batched requests from client threads,
+    each answer equal to a direct `search`. Every kernel count 0."""
+    from deeplearning4j_torch.clustering import vptree
+    from deeplearning4j_torch.serving import NearestNeighbor, NearestNeighborsServer
+    from deeplearning4j_torch.utils.http_server import json_request
+    s = dict(KNN_FULL, **(size or {}))
+    dev = torch.device(device or "cuda")
+    zero_launches()
+    rng = np.random.default_rng(s["seed"])
+    corpus = rng.standard_normal((s["n"], s["d"]), dtype=np.float32)
+    queries = rng.standard_normal((s["queries"], s["d"]), dtype=np.float32)
+    k, b = s["k"], s["batch"]
+    # one product and a top-k: read the corpus once, 2 n d flops a query
+    bound_ms = max(4.0 * s["n"] * s["d"] / HBM_BYTES_PER_S,
+                   2.0 * b * s["n"] * s["d"] / FP32_OPS_PER_S) * 1e3
+    result = {"card": card, "corpus": [s["n"], s["d"]], "corpus_bytes": corpus.nbytes,
+              "k": k, "batch": b, "batch_bound_ms": bound_ms}
+    for metric in ("euclidean", "cosine"):
+        nn = NearestNeighbor(corpus, metric=metric, device=dev)
+        nn.search(queries[:b], k)   # warm
+        batch_ms, answers = [], []
+        for i in range(0, len(queries), b):
+            ms, ans = wall_ms(torch, dev, lambda: nn.search(queries[i:i + b], k))
+            batch_ms.append(ms)
+            answers.append(ans)
+        got_i, got_d = answers[0]
+        want_i, want_d = vptree.knn_brute_force(corpus, queries[:b], k + 1, metric,
+                                                device="cpu")
+        swaps, err = knn_hold(f"k-NN {metric}", got_i, got_d, want_i, want_d, k)
+        result[metric] = {"queries_per_s": len(queries) / (sum(batch_ms) / 1e3),
+                          "ms_per_batch": batch_ms, "near_tie_swaps": swaps,
+                          "max_rel_err": err}
+        if dev.type == "cuda":
+            result[metric]["profile"] = profile_call(
+                torch, f"k-NN batch ({metric})", lambda: nn.search(queries[:b], k),
+                {"batch": b, "k": k})
+        del nn
+    result["ties"] = knn_tie_check(torch, vptree, dev, s, k)
+    # the server: single points and batches of http_rows, from client threads
+    reqs = [queries[rng.integers(0, len(queries), 1 if i % 2 == 0 else s["http_rows"])]
+            for i in range(s["http_requests"])]
+    reqs = [q[0] if len(q) == 1 else q for q in reqs]
+    latencies, replies, errors = [None] * len(reqs), [None] * len(reqs), []
+    with NearestNeighborsServer(corpus, device=dev) as srv:
+        health = json_request(srv.url + "/health")
+
+        def client(c):
+            try:
+                for i in range(c, len(reqs), s["http_clients"]):
+                    t0 = time.perf_counter()
+                    replies[i] = json_request(srv.url + "/knn", {"point": reqs[i].tolist(),
+                                                                 "k": k}, timeout=120)
+                    latencies[i] = (time.perf_counter() - t0) * 1e3
+            except Exception as e:  # noqa: BLE001 - reported below
+                errors.append(repr(e))
+
+        t0 = time.perf_counter()
+        threads = [threading.Thread(target=client, args=(c,)) for c in range(s["http_clients"])]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(600)
+        http_s = time.perf_counter() - t0
+        if errors or any(r is None for r in replies):
+            raise RuntimeError(f"k-NN server: {errors or 'a client did not finish'}")
+        for i, q in enumerate(reqs):
+            if replies[i]["results"] != knn_results(*srv.nn.search(q, k)):
+                raise RuntimeError(f"k-NN server: request {i} differs from a direct search")
+    if health != {"status": "ok", "corpus": s["n"], "dim": s["d"]}:
+        raise RuntimeError(f"k-NN server /health: {health}")
+    result["http"] = {"requests": len(reqs), "requests_per_s": len(reqs) / http_s,
+                      "p50_ms": float(np.percentile(latencies, 50)),
+                      "p99_ms": float(np.percentile(latencies, 99))}
+    launches = all_launches()
+    check_launches("k-NN", launches, dict.fromkeys(launches, 0))
+    log(f"k-NN: {json.dumps(result)}  [{card}]")
+    return result
+
+
+def kmeans_blobs(n, d, k, spread, seed):
+    """n points about k centres drawn normal(0, spread), each point its
+    centre plus a unit normal."""
+    rng = np.random.default_rng(seed)
+    centres = rng.normal(0.0, spread, (k, d)).astype(np.float32)
+    return centres[rng.integers(0, k, n)] + rng.standard_normal((n, d), dtype=np.float32)
+
+
+def kmeans_step_hold(torch, KMeansClustering, pts, pts_cpu, c0):
+    """One `_step` from centroids `c0`, card and CPU port, each against a
+    float64 recompute on the card: its assignment the float64 argmin but at
+    near-ties (KMEANS_TIE), its centroids those of its own assignment within
+    KMEANS_REL of max|c|; card against CPU on the clusters no differing
+    point touched."""
+    dev = pts.device
+    p64, c64 = pts.double(), c0.double()
+    d2 = ((p64 * p64).sum(-1)[:, None] - 2.0 * (p64 @ c64.T)
+          + (c64 * c64).sum(-1)[None, :])
+    a64 = d2.argmin(-1)
+    scale = (p64 * p64).sum(-1) + (c64 * c64).sum(-1).max()
+    k = c0.shape[0]
+    out = {}
+    steps = {"card": KMeansClustering._step(pts, c0),
+             "cpu": KMeansClustering._step(pts_cpu, c0.cpu())}
+    for label, (c, a, shift) in steps.items():
+        a = a.to(dev)
+        differ = a != a64
+        gap = d2.gather(1, a[:, None])[:, 0] - d2.gather(1, a64[:, None])[:, 0]
+        far = int((differ & (gap > KMEANS_TIE * scale)).sum())
+        sums = torch.zeros_like(c64).index_add_(0, a, p64)
+        counts = torch.bincount(a, minlength=k).double()[:, None]
+        want = torch.where(counts > 0, sums / counts.clamp(min=1.0), c64)
+        err = float((c.to(dev).double() - want).abs().max() / want.abs().max())
+        want_shift = float(torch.linalg.norm(want - c64, dim=-1).max())
+        out[label] = {"near_tie_flips": int(differ.sum()), "centroid_rel_err": err,
+                      "shift": float(shift), "shift_f64": want_shift}
+        if far or not err <= KMEANS_REL:
+            raise RuntimeError(f"k-means step ({label}): {far} points off the float64 "
+                               f"argmin beyond a near-tie, centroids off by {err}")
+    (c_card, a_card, _), (c_cpu, a_cpu, _) = steps.values()
+    differ = a_card.cpu() != a_cpu
+    touched = set(a_card.cpu()[differ].tolist()) | set(a_cpu[differ].tolist())
+    keep = torch.tensor([j for j in range(k) if j not in touched], dtype=torch.long)
+    err = float((c_card.cpu()[keep] - c_cpu[keep]).abs().max() / c_cpu.abs().max())
+    out["card_vs_cpu"] = {"assignments_differ": int(differ.sum()),
+                          "clusters_compared": len(keep), "centroid_rel_err": err}
+    if not err <= KMEANS_REL:
+        raise RuntimeError(f"k-means step: card against CPU centroids off by {err}")
+    return out
+
+
+def phase_kmeans(torch, card, device=None, size=None):
+    """KMeansClustering on the card: `fit` on n x d planted blobs (k
+    centres) up to max_iterations Lloyd iterations (iterations/s, a step's
+    device ms beside its bound); one `_step` from the same initial
+    centroids held by `kmeans_step_hold`; the final inertia of a fit on the
+    first `subset` points, card against CPU port, within
+    KMEANS_INERTIA_REL. Every kernel count 0."""
+    from deeplearning4j_torch.clustering import KMeansClustering
+    s = dict(KMEANS_FULL, **(size or {}))
+    dev = torch.device(device or "cuda")
+    zero_launches()
+    x = kmeans_blobs(s["n"], s["d"], s["k"], s["spread"], s["seed"])
+    pts = torch.as_tensor(x, device=dev)
+    km = KMeansClustering(s["k"], max_iterations=s["max_iterations"], seed=s["seed"],
+                          device=dev)
+    fit_ms, _ = wall_ms(torch, dev, lambda: km.fit(pts))
+    c_fit = torch.as_tensor(km.centroids, device=dev)
+    step_ms = step_device_ms(torch, dev, lambda: KMeansClustering._step(pts, c_fit))
+    profile = None
+    if dev.type == "cuda":
+        profile = profile_call(torch, "k-means step", lambda: (
+            KMeansClustering._step(pts, c_fit), torch.cuda.synchronize()), {"k": s["k"]})
+    # two [n, d] x [d, k] products; read the points twice, write nothing of size
+    bound_ms = max(8.0 * s["n"] * s["d"] / HBM_BYTES_PER_S,
+                   4.0 * s["n"] * s["d"] * s["k"] / FP32_OPS_PER_S) * 1e3
+    init = np.random.default_rng(s["seed"]).choice(s["n"], size=s["k"], replace=False)
+    c0 = pts[torch.as_tensor(init, device=dev)]
+    hold = kmeans_step_hold(torch, KMeansClustering, pts, torch.as_tensor(x), c0)
+    sub = x[:s["subset"]]
+    inertia = {}
+    for label, where in (("card", dev), ("cpu", "cpu")):
+        m = KMeansClustering(s["k"], max_iterations=s["max_iterations"], seed=s["seed"],
+                             device=where).fit(sub)
+        inertia[label] = {"inertia": m.inertia(sub), "iterations": m.iterations_run}
+    gap = abs(inertia["card"]["inertia"] - inertia["cpu"]["inertia"]) / inertia["cpu"]["inertia"]
+    if not (np.isfinite(km.centroids).all() and gap <= KMEANS_INERTIA_REL):
+        raise RuntimeError(f"k-means: subset inertia card against CPU off by {gap}")
+    result = {"card": card, "points": [s["n"], s["d"]], "k": s["k"],
+              "iterations": km.iterations_run, "fit_ms": fit_ms,
+              "iterations_per_s": km.iterations_run / (fit_ms / 1e3),
+              "step_device_ms": step_ms, "step_bound_ms": bound_ms, "step_hold": hold,
+              "profile": profile,
+              "subset": {"points": len(sub), "inertia_rel_gap": gap, **inertia}}
+    launches = all_launches()
+    check_launches("k-means", launches, dict.fromkeys(launches, 0))
+    log(f"k-means: {json.dumps(result)}  [{card}]")
+    return result
+
+
+def tsne_points(n, d, classes, seed):
+    """n points in `classes` clusters: centres normal(0, 4), unit noise."""
+    rng = np.random.default_rng(seed)
+    centres = rng.normal(0.0, 4.0, (classes, d))
+    return (centres[rng.integers(0, classes, n)]
+            + rng.standard_normal((n, d))).astype(np.float32)
+
+
+def phase_tsne(torch, card, device=None, size=None):
+    """Exact t-SNE on the card at the JAX package's defaults: the host
+    calibration's seconds and the device steps' ms apart, a step's device
+    ms beside its bound; one `_tsne_step` (after hold_steps exaggerated
+    steps) card against CPU port within TSNE_STEP_REL (y, velocity, KL);
+    the whole run's KL at kl_n points, card against CPU port, within
+    TSNE_KL_REL (the descent is chaotic: float32 rounding grows step by
+    step). Every kernel count 0."""
+    from deeplearning4j_torch.clustering import Tsne
+    from deeplearning4j_torch.clustering.tsne import _tsne_step
+    s = dict(TSNE_FULL, **(size or {}))
+    dev = torch.device(device or "cuda")
+    zero_launches()
+    x = tsne_points(s["n"], s["d"], s["classes"], s["seed"])
+    ts = Tsne(n_iter=s["n_iter"], seed=s["seed"], device=dev)
+    t0 = time.perf_counter()
+    P = ts._affinities(x)
+    calibration_s = time.perf_counter() - t0
+    descent_ms, y = wall_ms(torch, dev, lambda: ts._descend(P))
+    if not (y.shape == (s["n"], ts.n_components) and np.isfinite(y).all()
+            and np.isfinite(ts.kl_divergence)):
+        raise RuntimeError(f"t-SNE: embedding {y.shape}, KL {ts.kl_divergence}")
+    rng = np.random.default_rng(ts.seed)
+    yt = torch.as_tensor(rng.normal(0, 1e-4, (s["n"], ts.n_components)),
+                         dtype=torch.float32, device=dev)
+    vel = torch.zeros_like(yt)
+    Pd = torch.as_tensor(P, dtype=torch.float32, device=dev)
+    for _ in range(s["hold_steps"]):
+        yt, vel, _ = _tsne_step(yt, vel, Pd * ts.early_exaggeration,
+                                ts.initial_momentum, ts.learning_rate)
+    args = (ts.final_momentum, ts.learning_rate)
+    got = _tsne_step(yt, vel, Pd, *args)
+    want = _tsne_step(yt.cpu(), vel.cpu(), Pd.cpu(), *args)
+    rel = {name: float((g.cpu() - w).abs().max() / w.abs().max())
+           for name, g, w in zip(("y", "velocity", "kl"), got, want)}
+    if not max(rel.values()) <= TSNE_STEP_REL:
+        raise RuntimeError(f"t-SNE step card against CPU: {rel}")
+    step_ms = step_device_ms(torch, dev, lambda: _tsne_step(yt, vel, Pd, *args))
+    profile = None
+    if dev.type == "cuda":
+        profile = profile_call(torch, "t-SNE step", lambda: (
+            _tsne_step(yt, vel, Pd, *args), torch.cuda.synchronize()), {"n": s["n"]})
+    # read P once and write nothing of its size
+    bound_ms = 4.0 * s["n"] ** 2 / HBM_BYTES_PER_S * 1e3
+    kl = {}
+    for label, where in (("card", dev), ("cpu", "cpu")):
+        m = Tsne(n_iter=s["n_iter"], seed=s["seed"], device=where)
+        m.fit_transform(x[:s["kl_n"]])
+        kl[label] = m.kl_divergence
+    gap = abs(kl["card"] - kl["cpu"]) / abs(kl["cpu"])
+    if not gap <= TSNE_KL_REL:
+        raise RuntimeError(f"t-SNE at {s['kl_n']} points: KL card {kl['card']} against "
+                           f"CPU {kl['cpu']}")
+    result = {"card": card, "points": [s["n"], s["d"]], "n_iter": ts.n_iter,
+              "perplexity": ts.perplexity, "calibration_s": calibration_s,
+              "descent_ms": descent_ms, "ms_per_step": descent_ms / ts.n_iter,
+              "step_device_ms": step_ms, "step_bound_ms": bound_ms,
+              "kl": ts.kl_divergence, "step_hold": rel, "profile": profile,
+              "whole_run": {"points": s["kl_n"], "kl": kl, "rel_gap": gap}}
+    launches = all_launches()
+    check_launches("t-SNE", launches, dict.fromkeys(launches, 0))
+    log(f"t-SNE: {json.dumps(result)}  [{card}]")
+    return result
+
+
+def keras_leaves_equal(param_utils, a, b):
+    """Two networks' parameter trees, leaf by leaf, bitwise."""
+    la = param_utils.tree_leaves(param_utils.params_to_numpy(a))
+    lb = param_utils.tree_leaves(param_utils.params_to_numpy(b))
+    return len(la) == len(lb) and all(
+        x.dtype == y.dtype and x.shape == y.shape and x.tobytes() == y.tobytes()
+        for x, y in zip(la, lb))
+
+
+def phase_keras_import(torch, card, device=None, size=None):
+    """Keras import on the card through the port's own HDF5 reader: each of
+    the eight fixtures against its recorded Keras outputs (expected.npz at
+    tests/test_keras_import.py's tolerances) and against the CPU port
+    (KERAS_CPU_RTOL, KERAS_CPU_ATOL; parameter trees bitwise). Then the
+    full-width mnist_cnn.h5 (Keras's examples/mnist_cnn.py): the file's read
+    seconds, a batch of serve_batch served and held to the JAX package's
+    outputs (mnist_cnn_expected.npz, SERVE_RTOL/SERVE_ATOL), and training
+    through `KerasBackendServer` over HTTP: /fit on fit_images synthesized
+    MNIST images (epochs, batch), /predict against the served network's own
+    `output`, a bad handle's 400; a further epoch timed on the trained
+    network (step ms, images/s). Every kernel count 0."""
+    import urllib.error
+    from deeplearning4j_torch.data.fetchers import MnistDataFetcher
+    from deeplearning4j_torch.keras_import import Hdf5Archive, KerasModelImport
+    from deeplearning4j_torch.serving import KerasBackendServer
+    from deeplearning4j_torch.utils import params as param_utils
+    from deeplearning4j_torch.utils.http_server import json_request
+    s = dict(KERAS_FULL, **(size or {}))
+    dev = torch.device(device or "cuda")
+    zero_launches()
+    expected = np.load(os.path.join(KERAS_DIR, "expected.npz"))
+    result = {"card": card, "fixtures": {}}
+    for name, graph, rtol, atol in KERAS_FIXTURES:
+        path = os.path.join(KERAS_DIR, f"{name}.h5")
+        imp = (KerasModelImport.import_keras_model_and_weights if graph
+               else KerasModelImport.import_keras_sequential_model_and_weights)
+        net, cpu = imp(path, device=dev), imp(path, device="cpu")
+        x = expected[f"{name}_x"]
+        if name == "cnn_cf":   # Keras consumed [b, c, h, w]; the network NHWC
+            x = x.transpose(0, 2, 3, 1)
+        got, want, on_cpu = net.output(x), expected[f"{name}_y"], cpu.output(x)
+        keras_err = float(np.abs(got - want).max())
+        cpu_err = float(np.abs(got - on_cpu).max())
+        same_tree = keras_leaves_equal(param_utils, net.params_tree, cpu.params_tree)
+        result["fixtures"][name] = {"vs_keras": keras_err, "vs_cpu": cpu_err,
+                                    "trees_bitwise": same_tree}
+        if not (np.allclose(got, want, rtol=rtol, atol=atol)
+                and np.allclose(got, on_cpu, rtol=KERAS_CPU_RTOL, atol=KERAS_CPU_ATOL)
+                and same_tree):
+            raise RuntimeError(f"Keras import {name}: {result['fixtures'][name]}")
+    # the full-width model
+    path = os.path.join(KERAS_DIR, "mnist_cnn.h5")
+    t0 = time.perf_counter()
+    with Hdf5Archive(path) as ar:
+        ar.model_config()
+        weights = {n: ar.layer_weights(n) for n in ar.layer_names()}
+    read_s = time.perf_counter() - t0
+    n_weights = sum(a.size for w in weights.values() for a in w.values())
+    net = KerasModelImport.import_keras_sequential_model_and_weights(path, device=dev)
+    mexp = np.load(os.path.join(KERAS_DIR, "mnist_cnn_expected.npz"))
+    xs = mexp["x"][:s["serve_batch"]]
+    got = net.output(xs)
+    serve_ms = min(wall_ms(torch, dev, lambda: net.output(xs))[0] for _ in range(3))
+    err = float(np.abs(got - mexp["y"][:len(xs)]).max())
+    if not (n_weights == net.num_params() == 1_199_882
+            and np.allclose(got, mexp["y"][:len(xs)], rtol=SERVE_RTOL, atol=SERVE_ATOL)):
+        raise RuntimeError(f"mnist_cnn: {n_weights} weights read, served batch off the "
+                           f"JAX package's outputs by {err}")
+    data = MnistDataFetcher(path=os.path.join(ROOT, "build", "keras_mnist"),
+                            synthesize=True).as_dataset(s["fit_images"], flatten=False)
+    x, y = data.features / np.float32(255.0), data.labels
+    with KerasBackendServer(device=dev) as srv:
+        body = {"model_path": path, "features": x.tolist(), "labels": y.tolist(),
+                "epochs": s["epochs"], "batch_size": s["batch"]}
+        t0 = time.perf_counter()
+        fit = json_request(srv.url + "/fit", body, timeout=s["timeout_s"])
+        fit_s = time.perf_counter() - t0
+        steps = s["epochs"] * -(-len(x) // s["batch"])
+        if not (np.isfinite(fit["score"]) and fit["iterations"] == steps):
+            raise RuntimeError(f"Keras server /fit: {fit}")
+        served = srv._models[fit["handle"]]
+        pred = json_request(srv.url + "/predict", {"handle": fit["handle"],
+                                                   "features": xs.tolist()},
+                            timeout=s["timeout_s"])
+        pred = np.asarray(pred["predictions"], np.float32)
+        direct = served.output(xs)
+        if not (np.allclose(pred, direct, rtol=1e-5, atol=0)
+                and np.allclose(pred.sum(1), 1.0, rtol=1e-5)):
+            raise RuntimeError("Keras server /predict differs from the network's output")
+        try:
+            json_request(srv.url + "/predict", {"handle": "nope", "features": xs[:1].tolist()})
+            raise RuntimeError("Keras server: an unknown handle was answered")
+        except urllib.error.HTTPError as e:
+            if e.code != 400:
+                raise RuntimeError(f"Keras server: an unknown handle gave {e.code}") from e
+        epoch_ms, _ = wall_ms(torch, dev, lambda: served.fit(
+            x, y, epochs=1, batch_size=s["batch"]))
+        second_score = float(served.score_value)
+        profile = None
+        if dev.type == "cuda":
+            profile = profile_call(torch, "mnist_cnn fit step", lambda: (
+                served.fit(x[:s["batch"]], y[:s["batch"]], epochs=1, batch_size=s["batch"]),
+                torch.cuda.synchronize()), {"batch": s["batch"]})
+    result["mnist_cnn"] = {
+        "parameters": n_weights, "file_bytes": os.path.getsize(path), "read_s": read_s,
+        "serve": {"batch": len(xs), "ms": serve_ms, "images_per_s": len(xs) / (serve_ms / 1e3),
+                  "vs_jax": err},
+        "fit": {"images": len(x), "batch": s["batch"], "request_s": fit_s,
+                "score": fit["score"], "iterations": fit["iterations"],
+                "step_ms": epoch_ms / (steps // s["epochs"]),
+                "images_per_s": len(x) / (epoch_ms / 1e3),
+                "score_after_second_epoch": second_score,
+                "profile": profile}}
+    launches = all_launches()
+    check_launches("Keras import", launches, dict.fromkeys(launches, 0))
+    log(f"Keras import: {json.dumps(result)}  [{card}]")
+    return result
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -8573,6 +9087,20 @@ def main() -> int:
         f"device corpus {w2v['words_per_s']:.0f} words/s at 1M ids ({w2v_s:.1f} s), "
         f"builder {builder['words_per_s']:.0f} words/s ({builder_s:.1f} s), docs and "
         f"graphs {docs_s:.1f} s  [{card}]")
+    cluster_s = {}
+    for name, phase in (("knn", phase_knn), ("kmeans", phase_kmeans), ("tsne", phase_tsne),
+                        ("keras_import", phase_keras_import)):
+        torch.cuda.empty_cache()
+        t1 = time.perf_counter()
+        cluster_s[name] = (phase(torch, card), time.perf_counter() - t1)
+    (knn, knn_s), (km, km_s), (ts, ts_s), (keras, keras_s) = cluster_s.values()
+    log(f"chip_smoke: clustering, k-NN and Keras import (no hand-written kernel; every "
+        f"K1-K7 count 0): k-NN {knn['euclidean']['queries_per_s']:.0f} queries/s "
+        f"euclidean, {knn['cosine']['queries_per_s']:.0f} cosine ({knn_s:.1f} s); k-means "
+        f"{km['iterations_per_s']:.1f} iterations/s ({km_s:.1f} s); t-SNE "
+        f"{ts['ms_per_step']:.3f} ms a step, calibration {ts['calibration_s']:.1f} s "
+        f"({ts_s:.1f} s); Keras /fit {keras['mnist_cnn']['fit']['images_per_s']:.0f} "
+        f"images/s ({keras_s:.1f} s)  [{card}]")
     log(f"chip_smoke: every phase passed in {time.perf_counter() - t0:.1f} s  [{card}]")
     log(json.dumps(kernels))
     log(json.dumps({"ok": True, "device": {

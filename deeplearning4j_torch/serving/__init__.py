@@ -11,10 +11,10 @@ latency, slow-request exemplars, GET /debug/requests and /trace); the
 serving control loop (`autotuner`: windowed SLO verdicts and the auditable
 hill-climbing AutoTuner behind GET /debug/tuner); and the autoregressive
 decode plane (`decode`: token-granularity continuous batching over a paged
-KV cache, POST /generate).
-
-Not ported yet: the Keras backend server and the nearest-neighbour
-server."""
+KV cache, POST /generate); and the k-NN and Keras-backend REST facades
+(`nearest_neighbor`: brute-force top-k on the device or a VPTree on the
+host, POST /knn; `keras_server`: import a Keras .h5, train it on the
+device, predict through its handle)."""
 from . import autotuner, decode, federation, flight_recorder
 from .autotuner import AutoTuner, Knob, SLOMonitor
 from .breaker import BreakerOpenError, CircuitBreaker
@@ -25,5 +25,7 @@ from .federation import (FederationFrontEnd, ReplicaLostError, ReplicaServer,
                          serve_replica, spawn_replica)
 from .flight_recorder import RequestTrace
 from .gateway import ServingGateway
+from .keras_server import KerasBackendServer
 from .model_pool import FusedModelGroup, ModelEntry, ModelPool, SwapError
+from .nearest_neighbor import NearestNeighbor, NearestNeighborsServer
 from .scheduler import DeviceScheduler, TierShedError
