@@ -291,14 +291,33 @@ Phases, each of which fails the script (non-zero exit, no result line):
    HDF5 reader (against the recorded Keras outputs and the CPU port), the
    full-width mnist_cnn.h5 served against the JAX package's outputs and
    trained through KerasBackendServer over HTTP (/fit, /predict).
-19. One JSON line with every kernel's numbers, then the result line
+19. Training observability, streaming and the estimators
+   (`phase_training_ui`, `phase_streaming_route`, `phase_estimators`,
+   `phase_churn_and_locks`, at the end). Full-width AlexNet `fit` at batch
+   128 under a StatsListener (histograms, updates, memory) writing over HTTP
+   (RemoteStatsStorageRouter -> StatsReceiverServer -> FileStatsStorage),
+   a ConvolutionalIterationListener and a UIServer: every record held to
+   float64 numpy on the phase's own host copies (histograms count for
+   count against np.histogram), the pages answering, ms a step with the
+   listener and without, the bytes it brings to the host a record. A
+   ServeRoute over AlexNet behind an NDArrayStreamServer, 32 images from 2
+   HttpBrokerClient threads, each answer a direct output's, the first after
+   a subscribe delivered, a malformed message counted. MLNClassifier (a
+   784-1000-10 MLP, one epoch over 60,000 synthesized MNIST images) and
+   MLNRegressor against the same estimators on the CPU. The churn guard on
+   AlexNet's `output`, and the lock recorder around a batched
+   ParallelInference cross-checked against the static lock graph. K1 and K2
+   counted where AlexNet runs, every other count 0.
+20. One JSON line with every kernel's numbers, then the result line
    {"ok": true, "device": {...}}.
 
 Needs one CUDA GPU; exits non-zero without one.
 """
 import copy
 import json
+import logging
 import os
+import queue
 import re
 import subprocess
 import sys
@@ -8962,6 +8981,599 @@ def phase_keras_import(torch, card, device=None, size=None):
     return result
 
 
+# ------------------------------- training observability, streaming, estimators
+
+OBS_FULL = dict(alexnet=((224, 224, 3), 1000), batch=TRAIN_BATCH, steps=TRAIN_STEPS,
+                bins=20, conv_every=3, timed_fits=2, seed=2201)
+STATS_MEAN_RTOL = 1e-5     # a record's mean |w| against float64 numpy on a host copy
+STATS_UPDATE_RTOL = 1e-4   # a record's mean |w - w_prev| against float64 numpy
+STREAM_FULL = dict(alexnet=((224, 224, 3), 1000), images=32, clients=2, poll_s=0.5,
+                   wait_s=300, first_s=60, seed=2203)
+STREAM_RTOL = 1e-5         # a routed answer against a direct `output` of its image
+EST_FULL = dict(n_train=60000, hidden=1000, batch=128, epochs=1, lr=0.05,
+                reg_n=4096, reg_d=16, reg_hidden=64, reg_epochs=3, seed=2205)
+EST_ATOL = 1e-4            # card against CPU: predict_proba, regressor predictions
+EST_NEAR_TIE = 1e-4        # top-2 probabilities this close may rank otherwise
+CHURN_EXTRA = 2            # distinct batch sizes past the threshold
+LOCK_FULL = dict(alexnet=((224, 224, 3), 1000), clients=4, per_client=4, max_rows=4,
+                 batch_limit=16, join_s=600, seed=2207)
+
+
+def _dev_sync(torch, dev):
+    if torch.device(dev).type == "cuda":
+        torch.cuda.synchronize()
+
+
+class _HostSnapshots:
+    """Listener: after every step, a host copy of every leaf under the
+    StatsListener's names and the score, taken by the phase and not by the
+    listener under test."""
+
+    def __init__(self):
+        self.params, self.scores = {}, {}
+
+    def take(self, model, iteration):
+        self.params[iteration] = {
+            f"layer{i}/{k}": v.detach().cpu().numpy()
+            for i, layer in enumerate(model.params_tree) for k, v in layer.items()}
+        if model.score_value is not None:
+            self.scores[iteration] = float(model.score_value)
+
+    def iteration_done(self, model, iteration):
+        self.take(model, iteration)
+
+
+class _StepEnds:
+    """Listener: each step's end time, after a sync."""
+
+    def __init__(self, torch, dev):
+        self.torch, self.dev, self.ends = torch, dev, []
+
+    def iteration_done(self, model, iteration):
+        _dev_sync(self.torch, self.dev)
+        self.ends.append(time.perf_counter())
+
+
+def check_stats_records(records, snaps, bins):
+    """Each record against float64 numpy on the phase's own host copies: the
+    score exactly, mean magnitudes within STATS_MEAN_RTOL, update magnitudes
+    within STATS_UPDATE_RTOL, every histogram equal to `np.histogram`, count
+    for count. Returns the largest relative errors and the counts held."""
+    worst = {"mean": 0.0, "update": 0.0, "histograms": 0, "updates": 0}
+    for rec in records:
+        it = rec["iteration"]
+        host = snaps.params[it]
+        if it in snaps.scores and rec["score"] != snaps.scores[it]:
+            raise RuntimeError(f"stats record {it}: score {rec['score']} != "
+                               f"{snaps.scores[it]}")
+        if sorted(rec["param_mean_magnitudes"]) != sorted(host):
+            raise RuntimeError(f"stats record {it}: leaves {sorted(rec['param_mean_magnitudes'])}")
+        for name, a in host.items():
+            want = float(np.mean(np.abs(a.astype(np.float64))))
+            got = rec["param_mean_magnitudes"][name]
+            err = abs(got - want) / max(abs(want), 1e-30)
+            worst["mean"] = max(worst["mean"], err)
+            if err > STATS_MEAN_RTOL:
+                raise RuntimeError(f"stats record {it}: mean |{name}| {got} != {want}")
+            counts, edges = np.histogram(a, bins=bins)
+            h = rec["param_histograms"][name]
+            if h["counts"] != counts.tolist() or \
+                    (h["min"], h["max"]) != (float(edges[0]), float(edges[-1])):
+                raise RuntimeError(f"stats record {it}: histogram of {name} {h} != "
+                                   f"np.histogram {counts.tolist()} over "
+                                   f"[{edges[0]}, {edges[-1]}]")
+            worst["histograms"] += 1
+        prev = snaps.params.get(it - 1)
+        upd = rec.get("update_mean_magnitudes", {})
+        if prev is not None and sorted(upd) != sorted(host):
+            raise RuntimeError(f"stats record {it}: update leaves {sorted(upd)}")
+        for name, got in upd.items():
+            want = float(np.mean(np.abs(host[name].astype(np.float64)
+                                        - prev[name].astype(np.float64))))
+            err = abs(got - want) / max(abs(want), 1e-30)
+            worst["update"] = max(worst["update"], err)
+            if err > STATS_UPDATE_RTOL:
+                raise RuntimeError(f"stats record {it}: update |{name}| {got} != {want}")
+            worst["updates"] += 1
+    return worst
+
+
+class _Leaves:
+    """A model whose parameter tree is the given tensors, one layer."""
+
+    def __init__(self, tensors):
+        self.params_tree = ({f"p{i}": t for i, t in enumerate(tensors)},)
+        self.score_value = None
+
+
+def check_edge_histograms(torch, dev, bins, seed):
+    """The listener's histograms of leaves on `dev` built to sit on numpy's
+    edges, count for count against `np.histogram`: normal values with every
+    one of their edges planted among them (the max one of them), signed
+    zeros beside tiny values, constant leaves (edges min - 0.5 and max +
+    0.5), a span of 64 ulps (edges about 3 ulps apart, where the scaled
+    estimate needs its corrections), float64. Returns the number of
+    leaves."""
+    from deeplearning4j_torch.ui import InMemoryStatsStorage, StatsListener, \
+        StatsUpdateConfiguration
+    rng = np.random.default_rng(seed)
+    normal = rng.standard_normal(4099).astype(np.float32)
+    normal[:bins + 1] = np.histogram_bin_edges(normal, bins)
+    zeros = np.zeros(512, np.float32)
+    zeros[::3] = -0.0
+    zeros[1::5] = np.float32(1e-30)
+    arrays = [normal, zeros, np.zeros(64, np.float32), np.full(33, -2.5, np.float32),
+              (1 + (np.arange(300) % 65) * np.float32(2.0 ** -23)).astype(np.float32),
+              rng.standard_normal(1000)]
+    store = InMemoryStatsStorage()
+    StatsListener(store, session_id="edges", config=StatsUpdateConfiguration(
+        collect_histograms=True, histogram_bins=bins)).iteration_done(
+        _Leaves([torch.from_numpy(a).to(dev) for a in arrays]), 0)
+    hists = store.get_updates("edges")[0]["param_histograms"]
+    for i, a in enumerate(arrays):
+        counts, edges = np.histogram(a, bins)
+        h = hists[f"layer0/p{i}"]
+        if h["counts"] != counts.tolist() or \
+                (h["min"], h["max"]) != (float(edges[0]), float(edges[-1])):
+            raise RuntimeError(f"edge histogram {i}: {h['counts']} != np.histogram "
+                               f"{counts.tolist()}")
+    return len(arrays)
+
+
+def _median_warm_ms(ends, t0):
+    return float(np.median(np.diff([t0] + ends)[1:] * 1e3))
+
+
+def phase_training_ui(torch, card, device=None, size=None):
+    """Training observability (ui/) on a full-width zoo AlexNet `fit` in
+    float32 at batch TRAIN_BATCH for TRAIN_STEPS steps, synthetic data from
+    the seed:
+
+    1. The main path: a StatsListener (frequency 1, histograms, updates,
+       memory) writing through a RemoteStatsStorageRouter over HTTP into a
+       StatsReceiverServer whose FileStatsStorage a UIServer (with
+       `attach_model`) shows, and a ConvolutionalIterationListener with one
+       probe image. The K1-K7 counts are reset just before and read just
+       after: K1 2 x (steps + probe forwards), K2 2 x steps.
+    2. Every record (and one taken before the first step) against float64
+       numpy on host copies of the parameters taken by the phase
+       (`check_stats_records`), and leaves built to sit on numpy's edges
+       (`check_edge_histograms`); GET /, /model, /activations, /metrics,
+       /train/sessions and the receiver's /sessions answer 200;
+       `render_html_report` writes a file.
+    3. ms a step of `fit` with a StatsListener and without it, on the same
+       net and batch, in turns (plain, listener, listener, plain ...), the
+       bytes the listener brought to the host for each record, and one
+       record alone under the profiler."""
+    import tempfile
+    import urllib.request
+    from deeplearning4j_torch.models.zoo import AlexNet
+    from deeplearning4j_torch.ui import (ConvolutionalIterationListener, FileStatsStorage,
+                                         InMemoryStatsStorage, RemoteStatsStorageRouter,
+                                         StatsListener, StatsReceiverServer,
+                                         StatsUpdateConfiguration, UIServer,
+                                         render_html_report)
+    s = dict(OBS_FULL, **(size or {}))
+    dev = torch.device(device or "cuda")
+    shape, classes = s["alexnet"]
+    rng = np.random.default_rng(s["seed"])
+    n = s["steps"] * s["batch"]
+    x = rng.standard_normal((n,) + tuple(shape), dtype=np.float32)
+    y = np.eye(classes, dtype=np.float32)[rng.integers(0, classes, n)]
+    net = AlexNet(input_shape=shape, num_labels=classes).init(device=dev)
+    leaves = [t for layer in net.params_tree for t in layer.values()]
+    param_bytes = sum(t.numel() * t.element_size() for t in leaves)
+    cfg = dict(collect_histograms=True, histogram_bins=s["bins"], collect_updates=True,
+               collect_memory=True)
+    out_dir = os.path.join(ROOT, "build", "training_ui")
+    os.makedirs(out_dir, exist_ok=True)
+    path = tempfile.mkstemp(suffix=".jsonl", dir=out_dir)[1]
+    store = FileStatsStorage(path)
+    receiver = StatsReceiverServer(store).start()
+    ui = UIServer(port=0).start()
+    router = RemoteStatsStorageRouter(receiver.url)
+    t_phase = time.perf_counter()
+    try:
+        ui.attach(store).attach_model(net)
+        stats = StatsListener(router, frequency=1, session_id="alexnet",
+                              config=StatsUpdateConfiguration(**cfg))
+        conv = ConvolutionalIterationListener(x[:1], frequency=s["conv_every"], ui=ui)
+        snaps = _HostSnapshots()
+        snaps.take(net, 0)
+        stats.iteration_done(net, 0)   # the record before the first step
+        net.listeners[:] = [stats, conv, snaps]
+        zero_launches()   # the main path's run starts here
+        net.fit(x, y, epochs=1, batch_size=s["batch"])
+        launches = all_launches()   # ... and ends here
+        probes = s["steps"] // s["conv_every"]
+        check_launches("training UI", launches,
+                       dict(dict.fromkeys(launches, 0),
+                            lrn_fwd=2 * (s["steps"] + probes), lrn_bwd=2 * s["steps"]))
+        record_bytes, record_transfers = stats.last_host_bytes, stats.last_transfers
+        router.flush(timeout=120)
+        records = [r for r in store.get_updates("alexnet") if "epoch_end" not in r]
+        if router.dropped or [r["iteration"] for r in records] != list(range(s["steps"] + 1)):
+            raise RuntimeError(f"training UI: {router.dropped} records dropped, "
+                               f"iterations {[r['iteration'] for r in records]}")
+        held = check_stats_records(records, snaps, s["bins"])
+        held["edge_leaves"] = check_edge_histograms(torch, dev, s["bins"], s["seed"])
+        if dev.type == "cuda" and not all("device_bytes_in_use" in r for r in records):
+            raise RuntimeError("training UI: a record lacks device_bytes_in_use")
+        pages = {}
+        for url in (ui.url + "/", ui.url + "/model", ui.url + "/activations",
+                    ui.url + "/metrics", ui.url + "/train/sessions",
+                    receiver.url + "/sessions"):
+            with urllib.request.urlopen(url, timeout=60) as r:
+                pages[url.split("/", 3)[-1] or "/"] = (r.status, len(r.read()))
+        if any(code != 200 for code, _ in pages.values()):
+            raise RuntimeError(f"training UI pages: {pages}")
+        with urllib.request.urlopen(ui.url + "/activations", timeout=60) as r:
+            if b"layer0 (ConvolutionLayer)" not in r.read():
+                raise RuntimeError("training UI: /activations shows no conv grid")
+        report = render_html_report(store, os.path.join(out_dir, "report.html"))
+        if os.path.getsize(report) == 0:
+            raise RuntimeError("training UI: empty report")
+    finally:
+        router.shutdown()
+        ui.stop()
+        receiver.stop()
+    # 3. ms a step with and without the listener, in turns
+    timed = {"plain": [], "stats": []}
+    for kind in ["plain", "stats", "stats", "plain"] * s["timed_fits"]:
+        ends = _StepEnds(torch, dev)
+        lst = [StatsListener(InMemoryStatsStorage(), config=StatsUpdateConfiguration(**cfg))] \
+            if kind == "stats" else []
+        net.listeners[:] = lst + [ends]
+        _dev_sync(torch, dev)
+        t0 = time.perf_counter()
+        net.fit(x, y, epochs=1, batch_size=s["batch"])
+        timed[kind].append(_median_warm_ms(ends.ends, t0))
+    net.listeners.clear()
+    plain_ms, stats_ms = float(np.median(timed["plain"])), float(np.median(timed["stats"]))
+    profile = None
+    if dev.type == "cuda":   # one record alone: where the listener's time goes
+        lst = StatsListener(InMemoryStatsStorage(), config=StatsUpdateConfiguration(**cfg))
+        lst.iteration_done(net, 0)
+        profile = profile_call(torch, "stats record", lambda: lst.iteration_done(net, 0),
+                               {"leaves": len(leaves)})
+    result = {"card": card, "steps": s["steps"], "batch": s["batch"],
+              "launches": launches, "records": len(records), "held": held,
+              "record_host_bytes": record_bytes, "record_transfers": record_transfers,
+              "param_bytes": param_bytes, "pages": pages,
+              "step_ms": {"plain": plain_ms, "stats_listener": stats_ms,
+                          "runs": timed},
+              "listener_share": (stats_ms - plain_ms) / plain_ms,
+              "record_profile": profile, "seconds": time.perf_counter() - t_phase}
+    log(f"training UI: {json.dumps(result)}  [{card}]")
+    return result
+
+
+def phase_streaming_route(torch, card, device=None, size=None):
+    """streaming/ on the card: an NDArrayStreamServer on a local port runs a
+    ServeRoute over full-width zoo AlexNet (float32); an HttpBrokerClient
+    publishes `images` single images from `clients` threads and consumes the
+    predictions over HTTP.
+
+    - The first message after a subscribe is not lost: the client's
+      subscription is registered on the server and the first image served
+      into it before the client subscribes, so the registration consume
+      returns that prediction, which must be delivered.
+    - Every answer within STREAM_RTOL of a direct `output` of its image,
+      each image answered once (`match_answers`; the two threads' images
+      reach the route in no set order); `served` equals the images and
+      `errors` 0; K1 2 x served, every other count 0.
+    - A malformed message counts in `errors`, and the route serves the next
+      image."""
+    from deeplearning4j_torch.models.zoo import AlexNet
+    from deeplearning4j_torch.streaming import (HttpBrokerClient, InProcessBroker,
+                                                NDArrayConsumer, NDArrayPublisher,
+                                                NDArrayStreamServer, ServeRoute)
+    from deeplearning4j_torch.utils.http_server import json_request
+    s = dict(STREAM_FULL, **(size or {}))
+    dev = torch.device(device or "cuda")
+    shape, classes = s["alexnet"]
+    net = AlexNet(input_shape=shape, num_labels=classes).init(device=dev)
+    rng = np.random.default_rng(s["seed"])
+    images = rng.standard_normal((s["images"], 1) + tuple(shape), dtype=np.float32)
+    net.output(images[0])   # warm: cuDNN's choice at batch 1
+    broker = InProcessBroker()
+    t_phase = time.perf_counter()
+    with NDArrayStreamServer(broker=broker) as srv:
+        route = ServeRoute(net, "images", "preds", broker=broker)
+        client = HttpBrokerClient(srv.url, client_id="smoke", poll_timeout=s["poll_s"])
+        publisher = NDArrayPublisher("images", broker=client)
+        consumer = None
+        try:
+            zero_launches()   # the main path's run starts here
+            route.start()
+            # the subscription the client will register as "smoke-1", made
+            # first and fed the first prediction
+            json_request(srv.url + "/consume", {"topic": "preds", "client": "smoke-1",
+                                                "timeout": 0.0})
+            publisher.publish(images[0])
+            deadline = time.monotonic() + s["wait_s"]
+            while route.served + route.errors < 1 and time.monotonic() < deadline:
+                time.sleep(0.005)
+            consumer = NDArrayConsumer("preds", broker=client)
+            try:
+                first = consumer.get(timeout=s["first_s"])
+            except queue.Empty:
+                raise RuntimeError("streaming route: the first prediction after a "
+                                   "subscribe was lost") from None
+            rest, errors = images[1:], []
+
+            def client_thread(c):
+                try:
+                    for img in rest[c::s["clients"]]:
+                        publisher.publish(img)
+                except Exception as e:  # noqa: BLE001 - reported below
+                    errors.append(repr(e))
+
+            t0 = time.perf_counter()
+            threads = [threading.Thread(target=client_thread, args=(c,))
+                       for c in range(s["clients"])]
+            for t in threads:
+                t.start()
+            answers = [first] + [consumer.get(timeout=s["wait_s"]) for _ in rest]
+            wall_s = time.perf_counter() - t0
+            for t in threads:
+                t.join(s["wait_s"])
+            launches = all_launches()   # ... and ends here
+            if errors or any(t.is_alive() for t in threads):
+                raise RuntimeError(f"streaming route: client threads {errors or 'hung'}")
+            if (route.served, route.errors) != (s["images"], 0):
+                raise RuntimeError(f"streaming route: served {route.served}, "
+                                   f"errors {route.errors}")
+            check_launches("streaming route", launches,
+                           dict(dict.fromkeys(launches, 0), lrn_fwd=2 * s["images"]))
+            worst = match_answers(answers, [net.output(img) for img in images])
+            # a malformed message, then a good image
+            publisher.publish(np.ones((1, 7), np.float32))
+            publisher.publish(images[1])
+            after = consumer.get(timeout=s["wait_s"])
+            if route.errors != 1 or not np.allclose(after, net.output(images[1]),
+                                                    rtol=STREAM_RTOL, atol=0):
+                raise RuntimeError(f"streaming route: after a malformed message errors "
+                                   f"{route.errors}, served {route.served}")
+        finally:
+            if consumer is not None:
+                client.topic("preds").unsubscribe(consumer._queue)
+            route.stop()
+    result = {"card": card, "images": s["images"], "clients": s["clients"],
+              "launches": launches, "served": route.served, "errors": route.errors,
+              "images_per_s": (s["images"] - 1) / wall_s, "max_rel_err": worst,
+              "seconds": time.perf_counter() - t_phase}
+    log(f"streaming route: {json.dumps(result)}  [{card}]")
+    return result
+
+
+def match_answers(answers, direct):
+    """Pair each routed answer with the one direct output it equals within
+    STREAM_RTOL (relative to each value), every direct output used once;
+    returns the largest relative error of the pairs. Raises when an answer
+    has no such output left: a lost, doubled or wrong answer."""
+    left, worst = list(range(len(direct))), 0.0
+    for k, got in enumerate(answers):
+        errs = [float(np.max(np.abs(got - direct[j]) / np.maximum(np.abs(direct[j]), 1e-30)))
+                if got.shape == direct[j].shape else np.inf for j in left]
+        if not errs or min(errs) > STREAM_RTOL:
+            raise RuntimeError(f"streaming route: answer {k} is no image's direct output "
+                               f"(closest {min(errs, default=np.inf)}, rtol {STREAM_RTOL})")
+        worst = max(worst, min(errs))
+        left.pop(int(np.argmin(errs)))
+    if left:
+        raise RuntimeError(f"streaming route: images {left} were not answered")
+    return worst
+
+
+def _near_ties(proba, tol):
+    top2 = np.sort(proba, axis=1)[:, -2:]
+    return top2[:, 1] - top2[:, 0] < tol
+
+
+def phase_estimators(torch, card, device=None, size=None):
+    """ml/ on the card: MLNClassifier, a 784-1000-10 MLP (Sgd), on
+    synthesized MNIST (IDX files written from the seed under build/, no
+    fetch), batch 128, one epoch over n_train images, and MLNRegressor on a
+    synthetic linear problem; each beside the same estimator on the CPU from
+    the same initial parameters (the seed) on the same batches:
+    `predict_proba` and the regressor's predictions within EST_ATOL, the
+    accuracy the same but for near-ties (top-2 within EST_NEAR_TIE, counted),
+    R² within EST_ATOL; `get_params` round-trips `device`; images/s of the
+    card's fit. No hand-written kernel runs: every count 0."""
+    import deeplearning4j_torch as port
+    from deeplearning4j_torch.data.fetchers import MnistDataFetcher, synthesize_mnist_idx
+    from deeplearning4j_torch.ml import MLNClassifier, MLNRegressor
+    s = dict(EST_FULL, **(size or {}))
+    dev = device or "cuda"
+    path = os.path.join(ROOT, "build", "estimators_mnist")
+    synthesize_mnist_idx(path, n_train=s["n_train"], n_test=256, seed=s["seed"])
+    data = MnistDataFetcher(path=path).as_dataset()
+    X = data.features / np.float32(255.0)
+    y = np.argmax(data.labels, axis=1)
+
+    def clf_conf():
+        return (port.NeuralNetConfiguration.builder().seed(s["seed"])
+                .updater(port.Sgd(s["lr"])).list()
+                .layer(port.DenseLayer(n_out=s["hidden"], activation="relu"))
+                .layer(port.OutputLayer(n_out=10, activation="softmax", loss="mcxent"))
+                .set_input_type(port.InputType.feed_forward(X.shape[1])).build())
+
+    t_phase = time.perf_counter()
+    zero_launches()
+    clf = MLNClassifier(clf_conf, epochs=s["epochs"], batch_size=s["batch"],
+                        seed=s["seed"], device=dev)
+    _dev_sync(torch, dev)
+    t0 = time.perf_counter()
+    clf.fit(X, y)
+    _dev_sync(torch, dev)
+    fit_s = time.perf_counter() - t0
+    if clf.net_.device.type != torch.device(dev).type:
+        raise RuntimeError(f"estimators: the classifier trained on {clf.net_.device}")
+    params = clf.get_params()
+    clone = MLNClassifier(**params)
+    if params["device"] != dev or clone.get_params() != params:
+        raise RuntimeError(f"estimators: get_params {params} does not round-trip device")
+    cpu = MLNClassifier(**dict(params, device="cpu")).fit(X, y)
+    got, want = clf.predict_proba(X), cpu.predict_proba(X)
+    proba_err = float(np.abs(got - want).max())
+    if proba_err > EST_ATOL:
+        raise RuntimeError(f"estimators: predict_proba card vs CPU off by {proba_err}")
+    ties = _near_ties(want, EST_NEAR_TIE)
+    differ = clf.predict(X) != cpu.predict(X)
+    if np.any(differ & ~ties):
+        raise RuntimeError(f"estimators: {int(np.sum(differ & ~ties))} predictions differ "
+                           f"away from near-ties")
+    acc, acc_cpu = clf.score(X, y), cpu.score(X, y)
+    if abs(acc - acc_cpu) > np.sum(differ) / len(y) + 1e-12:
+        raise RuntimeError(f"estimators: accuracy {acc} vs {acc_cpu}")
+    # the regressor
+    rng = np.random.default_rng(s["seed"])
+    Xr = rng.standard_normal((s["reg_n"], s["reg_d"])).astype(np.float32)
+    yr = Xr @ rng.standard_normal(s["reg_d"]).astype(np.float32) \
+        + 0.1 * rng.standard_normal(s["reg_n"]).astype(np.float32)
+
+    def reg_conf():
+        return (port.NeuralNetConfiguration.builder().seed(s["seed"])
+                .updater(port.Sgd(0.01)).list()
+                .layer(port.DenseLayer(n_out=s["reg_hidden"], activation="tanh"))
+                .layer(port.OutputLayer(n_out=1, activation="identity", loss="mse"))
+                .set_input_type(port.InputType.feed_forward(s["reg_d"])).build())
+
+    reg = MLNRegressor(reg_conf, epochs=s["reg_epochs"], batch_size=s["batch"],
+                       seed=s["seed"], device=dev).fit(Xr, yr)
+    reg_cpu = MLNRegressor(**dict(reg.get_params(), device="cpu")).fit(Xr, yr)
+    reg_err = float(np.abs(reg.predict(Xr) - reg_cpu.predict(Xr)).max())
+    r2, r2_cpu = reg.score(Xr, yr), reg_cpu.score(Xr, yr)
+    if reg_err > EST_ATOL or abs(r2 - r2_cpu) > EST_ATOL:
+        raise RuntimeError(f"estimators: regressor card vs CPU off by {reg_err}, "
+                           f"R2 {r2} vs {r2_cpu}")
+    launches = all_launches()
+    check_launches("estimators", launches, dict.fromkeys(launches, 0))
+    result = {"card": card, "n_train": s["n_train"], "batch": s["batch"],
+              "fit_s": fit_s, "images_per_s": s["n_train"] * s["epochs"] / fit_s,
+              "accuracy": acc, "accuracy_cpu": acc_cpu,
+              "proba_max_abs_err": proba_err, "near_ties": int(np.sum(ties)),
+              "predictions_differing": int(np.sum(differ)),
+              "regressor": {"r2": r2, "r2_cpu": r2_cpu, "max_abs_err": reg_err},
+              "device_param": params["device"], "launches": launches,
+              "seconds": time.perf_counter() - t_phase}
+    log(f"estimators: {json.dumps(result)}  [{card}]")
+    return result
+
+
+class _WarningCount(logging.Handler):
+    def __init__(self):
+        super().__init__(logging.WARNING)
+        self.messages = []
+
+    def emit(self, record):
+        self.messages.append(record.getMessage())
+
+
+def phase_churn_and_locks(torch, card, device=None, size=None):
+    """The shape-churn guard and the lock recorder on the card.
+
+    1. `output` of full-width zoo AlexNet at threshold + CHURN_EXTRA distinct
+       batch sizes: exactly one warning, `recompile_churn_total{fn=
+       mln_output#<tag>}` up by CHURN_EXTRA, the label first in
+       `churn_offenders()`; K1 2 x calls.
+    2. `lockcheck.recording()` around a BATCHED ParallelInference serving that
+       net from `clients` threads, then `shutdown`: its locks adopted under
+       the static names, the observed lock-order edges cross-checked against
+       `lock_edges_from_source` of the port's parallel/inference.py (no
+       cycle, no edge the static graph does not explain); K1 2 x executed
+       forwards."""
+    import inspect
+    from deeplearning4j_torch.analysis import lockcheck
+    from deeplearning4j_torch.analysis.rules import lock_edges_from_source
+    from deeplearning4j_torch.models.zoo import AlexNet
+    from deeplearning4j_torch.optimize import metrics as metrics_mod
+    from deeplearning4j_torch.optimize import telemetry
+    from deeplearning4j_torch.parallel import inference as inf
+    s = dict(LOCK_FULL, **(size or {}))
+    dev = torch.device(device or "cuda")
+    shape, classes = s["alexnet"]
+    net = AlexNet(input_shape=shape, num_labels=classes).init(device=dev)
+    rng = np.random.default_rng(s["seed"])
+    t_phase = time.perf_counter()
+    # 1. the churn guard
+    label = f"mln_output#{net._probe_tag}"
+    counter = metrics_mod.registry().counter("recompile_churn_total")
+    telemetry.reset_churn()
+    before = counter.value(fn=label)
+    sizes = list(range(1, telemetry.churn_threshold() + CHURN_EXTRA + 1))
+    handler = _WarningCount()
+    tel_log = logging.getLogger(telemetry.__name__)
+    tel_log.addHandler(handler)
+    zero_launches()
+    try:
+        for b in sizes:
+            net.output(rng.standard_normal((b,) + tuple(shape), dtype=np.float32))
+    finally:
+        tel_log.removeHandler(handler)
+    churn_launches = all_launches()
+    churn = {"sizes": sizes, "warnings": len(handler.messages),
+             "counter": counter.value(fn=label) - before,
+             "offenders": telemetry.churn_offenders(), "launches": churn_launches}
+    if churn["warnings"] != 1 or churn["counter"] != CHURN_EXTRA or \
+            churn["offenders"][0] != (label, len(sizes)):
+        raise RuntimeError(f"churn guard on {label}: {churn}")
+    check_launches("churn guard", churn_launches,
+                   dict(dict.fromkeys(churn_launches, 0), lrn_fwd=2 * len(sizes)))
+    # 2. the lock recorder around a batched ParallelInference
+    reqs = [rng.standard_normal((int(rng.integers(1, s["max_rows"] + 1)),) + tuple(shape),
+                                dtype=np.float32)
+            for _ in range(s["clients"] * s["per_client"])]
+    answers, errors = [None] * len(reqs), []
+    with lockcheck.recording():
+        pi = inf.ParallelInference(net, inference_mode=inf.InferenceMode.BATCHED,
+                                   batch_limit=s["batch_limit"])
+        names = lockcheck.adopt(pi)
+        try:
+            def client(c):
+                try:
+                    for i in range(c, len(reqs), s["clients"]):
+                        answers[i] = pi.output(reqs[i])
+                except Exception as e:  # noqa: BLE001 - reported below
+                    errors.append(repr(e))
+
+            zero_launches()
+            threads = [threading.Thread(target=client, args=(c,)) for c in range(s["clients"])]
+            for t in threads:
+                t.start()
+            for t in threads:
+                t.join(s["join_s"])
+            forwards = pi.total_forwards
+            lock_launches = all_launches()
+        finally:
+            pi.shutdown()
+    observed = lockcheck.observed_edges()
+    if errors or any(a is None for a in answers):
+        raise RuntimeError(f"lock recorder: clients {errors or 'did not finish'}")
+    for a, r in zip(answers, reqs):
+        if a.shape != (len(r), classes) or not np.all(np.isfinite(a)):
+            raise RuntimeError(f"lock recorder: an answer of shape {a.shape}")
+    check_launches("lock recorder", lock_launches,
+                   dict(dict.fromkeys(lock_launches, 0), lrn_fwd=2 * forwards))
+    with open(inspect.getsourcefile(inf), encoding="utf-8") as fh:
+        static = lock_edges_from_source(fh.read())
+    report = lockcheck.cross_check(observed, static)
+    if not report.ok() or report.unexplained:
+        raise RuntimeError(f"lock recorder: cycles {report.cycles}, unexplained "
+                           f"{sorted(report.unexplained)}")
+    result = {"card": card, "churn": churn,
+              "locks": {"adopted": names, "observed": {f"{a} -> {b}": n
+                                                       for (a, b), n in sorted(observed.items())},
+                        "confirmed": sorted(f"{a} -> {b}" for a, b in report.confirmed),
+                        "unexercised": sorted(f"{a} -> {b}" for a, b in report.unexercised),
+                        "cycles": report.cycles, "forwards": forwards,
+                        "launches": lock_launches},
+              "seconds": time.perf_counter() - t_phase}
+    log(f"churn and locks: {json.dumps(result)}  [{card}]")
+    return result
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -9101,6 +9713,27 @@ def main() -> int:
         f"{ts['ms_per_step']:.3f} ms a step, calibration {ts['calibration_s']:.1f} s "
         f"({ts_s:.1f} s); Keras /fit {keras['mnist_cnn']['fit']['images_per_s']:.0f} "
         f"images/s ({keras_s:.1f} s)  [{card}]")
+    obs = {}
+    for name, phase in (("training_ui", phase_training_ui),
+                        ("streaming_route", phase_streaming_route),
+                        ("estimators", phase_estimators),
+                        ("churn_and_locks", phase_churn_and_locks)):
+        torch.cuda.empty_cache()
+        t1 = time.perf_counter()
+        obs[name] = (phase(torch, card), time.perf_counter() - t1)
+    (tui, tui_s), (route, route_s), (est, est_s), (cl, cl_s) = obs.values()
+    log(f"chip_smoke: training observability, streaming and the estimators: "
+        f"AlexNet fit {tui['step_ms']['plain']:.3f} ms a step plain, "
+        f"{tui['step_ms']['stats_listener']:.3f} ms with a StatsListener "
+        f"({tui['record_host_bytes']} bytes to the host a record in "
+        f"{tui['record_transfers']} transfers, launches {json.dumps(tui['launches'])}, "
+        f"{tui_s:.1f} s); ServeRoute {route['images_per_s']:.2f} images/s (launches "
+        f"{json.dumps(route['launches'])}, {route_s:.1f} s); MLNClassifier fit "
+        f"{est['images_per_s']:.0f} images/s (launches {json.dumps(est['launches'])}, "
+        f"{est_s:.1f} s); churn guard {cl['churn']['counter']:.0f} over the threshold "
+        f"(launches {json.dumps(cl['churn']['launches'])}), lock edges observed "
+        f"{json.dumps(cl['locks']['observed'])} (launches "
+        f"{json.dumps(cl['locks']['launches'])}, {cl_s:.1f} s)  [{card}]")
     log(f"chip_smoke: every phase passed in {time.perf_counter() - t0:.1f} s  [{card}]")
     log(json.dumps(kernels))
     log(json.dumps({"ok": True, "device": {

@@ -46,6 +46,7 @@ import torch
 
 from ...data.dataset import DataSet, MultiDataSet, SlicingMultiIterator
 from ...optimize import metrics as metrics_mod
+from ...optimize import telemetry as telemetry_mod
 from ...utils import params as param_utils
 from ..conf.builders import BackpropType
 from ..conf.graph_conf import ComputationGraphConfiguration
@@ -81,6 +82,8 @@ class ComputationGraph(_DeviceNetwork):
         #: truncated BPTT and rnn_time_step
         self._rnn_carry: Optional[Dict[str, dict]] = None
         self._initialized = False
+        #: the shape-churn guard's label suffix (optimize/telemetry.py)
+        self._probe_tag = telemetry_mod.probe_tag(self)
         self._layer_nodes = [n for n in conf.topo_order
                              if conf.nodes[n].is_layer()]
 
@@ -275,6 +278,10 @@ class ComputationGraph(_DeviceNetwork):
         with torch.inference_mode():
             inputs, fmasks = self._pack_inputs(self._features(features),
                                                features_masks)
+            telemetry_mod.note_step_signature(
+                f"graph_output#{self._probe_tag}",
+                telemetry_mod.shape_signature(*inputs.values(),
+                                              *fmasks.values()))
             acts, _, _ = self._walk(self.params_tree, self.state_tree, inputs,
                                     fmasks=fmasks)
             return [_to_numpy(acts[n]) for n in self.conf.network_outputs]
@@ -388,6 +395,11 @@ class ComputationGraph(_DeviceNetwork):
         node normalize -> update -> p - u; the new layer state (and carry)
         is committed with the new parameters. Returns the loss, a 0-d
         tensor on the device (no host sync)."""
+        telemetry_mod.note_step_signature(
+            f"graph_train_step#{self._probe_tag}",
+            telemetry_mod.shape_signature(
+                *inputs.values(), *labels.values(),
+                *fmasks.values(), *lmasks.values()))
         return self._apply_step(*self._value_and_grad(
             inputs, labels, fmasks, lmasks, True, self._dropout_gen,
             state=self._merged_state()))

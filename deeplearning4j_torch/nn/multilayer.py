@@ -64,6 +64,7 @@ import torch
 from ..data.dataset import DataSet
 from ..data.iterators import as_iterator
 from ..optimize import metrics as metrics_mod
+from ..optimize import telemetry as telemetry_mod
 from ..utils import params as param_utils
 from ..utils.device import DeviceLike, resolve_device
 from .conf.builders import BackpropType, MultiLayerConfiguration
@@ -305,6 +306,8 @@ class MultiLayerNetwork(_DeviceNetwork):
         #: or None outside truncated BPTT and rnn_time_step
         self._rnn_carry: Optional[Tuple[dict, ...]] = None
         self._initialized = False
+        #: the shape-churn guard's label suffix (optimize/telemetry.py)
+        self._probe_tag = telemetry_mod.probe_tag(self)
 
     # ------------------------------------------------------------------ init
     def _draw_params(self, gen: torch.Generator, dtype) -> Tuple[dict, ...]:
@@ -427,9 +430,12 @@ class MultiLayerNetwork(_DeviceNetwork):
         """Forward pass, inference mode (reference output())."""
         self._check_init()
         with torch.inference_mode():
-            out, _, _ = self._forward(self.params_tree, self.state_tree,
-                                      self._as_input(x),
-                                      fmask=self._as_mask(features_mask))
+            xa, fm = self._as_input(x), self._as_mask(features_mask)
+            telemetry_mod.note_step_signature(
+                f"mln_output#{self._probe_tag}",
+                telemetry_mod.shape_signature(xa, fm))
+            out, _, _ = self._forward(self.params_tree, self.state_tree, xa,
+                                      fmask=fm)
             return out.cpu().numpy()
 
     def feed_forward(self, x, train: bool = False) -> List[np.ndarray]:
@@ -552,9 +558,13 @@ class MultiLayerNetwork(_DeviceNetwork):
         normalize -> update -> p - u, skipping frozen layers; the new layer
         state (and carry) is committed with the new parameters. Returns the
         loss, a 0-d tensor on the device (no host sync)."""
+        x, y = self._as_input(x), self._as_labels(y)
+        fmask, lmask = self._as_mask(fmask), self._as_mask(lmask)
+        telemetry_mod.note_step_signature(
+            f"mln_train_step#{self._probe_tag}",
+            telemetry_mod.shape_signature(x, y, fmask, lmask))
         return self._apply_step(*self._value_and_grad(
-            self._as_input(x), self._as_labels(y), self._as_mask(fmask),
-            self._as_mask(lmask), True, self._dropout_gen,
+            x, y, fmask, lmask, True, self._dropout_gen,
             state=self._merged_state()))
 
     def _apply_step(self, loss: Tensor, grads, new_state) -> Tensor:

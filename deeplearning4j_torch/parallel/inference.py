@@ -294,7 +294,9 @@ class ParallelInference:
                             # no coalescing here: no queue or pack phases
                             trace.mark("sched_wait")
                             trace.mark("dispatch")
-                        out = self._forward(x)
+                        # swap-pause design: _lock held through the
+                        # forward so hot-swap can quiesce the device
+                        out = self._forward(x)  # jaxlint: disable=JL403
                         if trace is not None:
                             trace.mark("device")
                     self._require_finite(out)
@@ -417,7 +419,7 @@ class ParallelInference:
                 try:
                     first = self._queue.get(timeout=0.1)
                 except queue.Empty:
-                    if self._shutdown:
+                    if self._shutdown:  # jaxlint: atomic
                         return
                     continue
             if first is None:  # shutdown sentinel: serve stragglers, exit
@@ -599,7 +601,7 @@ class ParallelInference:
                 try:
                     first = self._queue.get(timeout=0.1)
                 except queue.Empty:
-                    if self._shutdown:
+                    if self._shutdown:  # jaxlint: atomic
                         return
                     continue
             if first is None:  # shutdown sentinel: serve stragglers, exit

@@ -1085,7 +1085,7 @@ class DecodeEngine:
                         self._fail_step(req, e)
                 # the loop thread is the only writer of _active; readers
                 # snapshot the rebound list
-                self._active = [r for r in self._active
+                self._active = [r for r in self._active  # jaxlint: atomic
                                 if not r.event.is_set()]
 
     def _take_admits_locked(self) -> List[_DecodeRequest]:
@@ -1122,7 +1122,7 @@ class DecodeEngine:
         live: List[_DecodeRequest] = []
         for req in admits:
             if req.expired(now):
-                self.total_shed += 1  # loop-thread stat
+                self.total_shed += 1  # jaxlint: atomic (loop-thread stat)
                 if self.on_shed is not None:
                     self.on_shed(req, "expired")
                 self._fail(req, DeadlineExceededError(
@@ -1144,7 +1144,7 @@ class DecodeEngine:
                     first, fails = self.adapter.prefill_group(group)
                     dur = time.perf_counter() - t0
             except Exception as e:  # noqa: BLE001 (typed wrapper below)
-                self.total_batch_failures += 1
+                self.total_batch_failures += 1  # jaxlint: atomic
                 if self.on_batch_error is not None:
                     self.on_batch_error(e, len(reqs))
                 for r in reqs:
@@ -1154,7 +1154,7 @@ class DecodeEngine:
                     err.__cause__ = e
                     self._fail(r, err)
                 continue
-            self.total_forwards += 1
+            self.total_forwards += 1  # jaxlint: atomic (loop-thread stat)
             self._prefills_c.inc()
             ok_reqs = [r for r in reqs if r.rid in first]
             if self.on_batch is not None and ok_reqs:
@@ -1177,7 +1177,7 @@ class DecodeEngine:
             for r in reqs:
                 err = fails.get(r.rid)
                 if err is not None and r not in kv_starved:
-                    self.total_batch_failures += 1
+                    self.total_batch_failures += 1  # jaxlint: atomic
                     if self.on_batch_error is not None:
                         self.on_batch_error(err, 1)
                     self._fail(r, err)
@@ -1194,7 +1194,7 @@ class DecodeEngine:
                 for r in reversed(reqs):
                     self._queue.appendleft(r)
         else:
-            self.total_shed += len(reqs)
+            self.total_shed += len(reqs)  # jaxlint: atomic (loop-thread stat)
             for r in reqs:
                 if self.on_shed is not None:
                     self.on_shed(r, "kv_exhausted")
@@ -1217,7 +1217,7 @@ class DecodeEngine:
         for req in list(self._active):
             if req.expired(now):
                 self._active.remove(req)
-                self.total_shed += 1
+                self.total_shed += 1  # jaxlint: atomic (loop-thread stat)
                 if self.on_shed is not None:
                     self.on_shed(req, "expired")
                 self._fail(req, DeadlineExceededError(
@@ -1237,18 +1237,18 @@ class DecodeEngine:
                 out, fails = self._isolate(reqs, e)
         dur = time.perf_counter() - t0
         # the loop thread is the only writer; estimate_wait_s reads a float
-        self._ewma_step_s = (dur if self._ewma_step_s == 0.0
+        self._ewma_step_s = (dur if self._ewma_step_s == 0.0  # jaxlint: atomic
                              else 0.8 * self._ewma_step_s + 0.2 * dur)
         for rid, err in fails.items():
             req = next((r for r in self._active if r.rid == rid), None)
             if req is None:
                 continue
-            self.total_batch_failures += 1
+            self.total_batch_failures += 1  # jaxlint: atomic
             if self.on_batch_error is not None:
                 self.on_batch_error(err, 1)
             self._fail_step(req, err)
         if out:
-            self.total_forwards += 1
+            self.total_forwards += 1  # jaxlint: atomic (loop-thread stat)
             self._steps_c.inc()
             if self.on_batch is not None:
                 survivors = [r for r in reqs if r.rid in out]

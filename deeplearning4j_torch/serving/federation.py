@@ -792,7 +792,7 @@ class ReplicaServer:
                 self.beat_once()
             except Exception as e:  # never kill the publisher
                 # single writer: only this beat thread ever bumps it
-                self.beat_failures += 1
+                self.beat_failures += 1  # jaxlint: atomic
                 log.debug("replica %d beat failed: %s",
                           self.replica_id, e)
             self._stop_evt.wait(self.interval_s)

@@ -372,7 +372,7 @@ class DeviceScheduler:
             try:
                 # deliberate unlocked read of a config int: depth
                 # sampling happens outside _cv by design (see above)
-                if int(o.depth_fn()) >= self.shed_depth:
+                if int(o.depth_fn()) >= self.shed_depth:  # jaxlint: atomic
                     return "tier_shed"
             except Exception:
                 continue  # a broken gauge must never shed traffic
