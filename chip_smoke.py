@@ -308,10 +308,29 @@ Phases, each of which fails the script (non-zero exit, no result line):
    AlexNet's `output`, and the lock recorder around a batched
    ParallelInference cross-checked against the static lock graph. K1 and K2
    counted where AlexNet runs, every other count 0.
-20. One JSON line with every kernel's numbers, then the result line
-   {"ok": true, "device": {...}}.
+20. Host syncs, and the port's analysis gate (`phase_host_syncs`): one
+   `fit` group of full-width AlexNet at batch 128, 8 steps of the
+   DecodeEngine at the decode phase's engine shape and 4 k-means iterations at 1M x 64,
+   k 256, under `tracecheck.sync_debug("warn")` (the card's count of
+   synchronizing CUDA operations, by call site) with each path's step
+   function wrapped by `tracecheck.wrap` (the values the host reads
+   implicitly): syncs per step for each site; `fenced_read` adds none to
+   either count; `python -m deeplearning4j_torch.analysis` exits 0.
+21. Across processes (`phase_word2vec_across_processes`,
+   `phase_sequence_parallel_output_across_processes`): `ShardedWord2Vec`
+   on a mesh of two gloo ranks on the one card (`chip_smoke.py
+   --word2vec-rank`), 1M ids, layer 100, 1M tokens, held to the
+   one-process two-shard mesh, words/s of both; `SequenceParallelWrapper.
+   output` of the char model at t 8192 cut over two gloo ranks of two seq
+   shards each (`multihost.main --mode sp --output`), held to the
+   one-process SP output and the plain output within 1e-4, K3 launched
+   layers x shards x hops times, output ms.
+22. One JSON line with every kernel's numbers (K3's launches on each path
+   it ran, the char model's and the SP output's across processes), then
+   the result line {"ok": true, "device": {...}}.
 
-Needs one CUDA GPU; exits non-zero without one.
+Needs one CUDA GPU; exits non-zero without one. ``chip_smoke.py
+--word2vec-rank ...`` is one rank of phase 21, which the script spawns.
 """
 import copy
 import json
@@ -9574,6 +9593,458 @@ def phase_churn_and_locks(torch, card, device=None, size=None):
     return result
 
 
+# ------------------------------------------------- host syncs and the gate
+
+HOST_SYNC_FULL = dict(alexnet=((224, 224, 3), 1000), batch=TRAIN_BATCH, group=FIT_GROUP,
+                      decode_rows=8, decode_steps=8, kmeans_iterations=4)
+ANALYSIS_GATE_S = 300   # `python -m deeplearning4j_torch.analysis` on the port's tree
+
+
+def _sync_sites(seen, per):
+    """{call site relative to the checkout: syncs per step} of
+    `tracecheck.sync_debug`'s counts, largest first."""
+    rel = lambda site: os.path.relpath(site, ROOT) if site.startswith(ROOT) else site
+    return dict(sorted(((rel(k), v / per) for k, v in seen.items()),
+                       key=lambda kv: -kv[1]))
+
+
+def phase_host_syncs(torch, card, device=None, size=None):
+    """Host syncs on three paths, counted two ways (analysis/tracecheck.py):
+    the card's own count, every synchronizing CUDA operation under
+    `sync_debug("warn")` by call site, and the spies' count of the values
+    the host reads implicitly (`wrap` on each path's step function, sites
+    `alexnet.train_step`, `decode.model_step`, `kmeans.step`):
+
+    1. one `fit` group of full-width zoo AlexNet (steps_per_dispatch
+       `group` batches of `batch`), after a warm group;
+    2. `decode_steps` steps of the DecodeEngine's adapter at the engine's
+       geometry (DECODE_GEOMETRY), `decode_rows` rows prefilled
+       from seeded prompts;
+    3. `kmeans_iterations` Lloyd iterations of KMeansClustering at
+       KMEANS_FULL's 1M x 64, k 256 (the fit's convergence test reads the
+       centroid shift every iteration, analysis finding JL101 at
+       clustering/kmeans.py).
+
+    Syncs per step for each site and call site. `fenced_read` adds none to
+    either count, while a plain `.cpu()` of the same tensor adds one to the
+    card's (the control that the count works). Nothing is fixed here. Then
+    the port's analysis gate, `python -m deeplearning4j_torch.analysis`,
+    must exit 0 (it runs in a process of its own meanwhile). No hand-written
+    kernel is counted: K1 and K2 launch in AlexNet's steps and K7 in the
+    decode steps, as their phases hold."""
+    s = dict(HOST_SYNC_FULL, **(size or {}))
+    dev = torch.device(device or "cuda")
+    result = {"card": card}
+    # the analysis gate on the port's tree, a process of its own meanwhile
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [ROOT, os.environ.get("PYTHONPATH", "")]))
+    t_gate = time.perf_counter()
+    gate = subprocess.Popen([sys.executable, "-m", "deeplearning4j_torch.analysis"],
+                            cwd=ROOT, env=env, stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True)
+    try:
+        _host_sync_paths(torch, s, dev, result)
+        gate_out = gate.communicate(timeout=ANALYSIS_GATE_S)[0]
+    finally:
+        if gate.poll() is None:
+            gate.kill()
+            gate.communicate()
+    result["analysis_gate"] = {"exit_code": gate.returncode,
+                               "summary": gate_out.strip().splitlines()[-1:],
+                               "s": time.perf_counter() - t_gate}
+    log(f"host syncs: {json.dumps(result)}  [{card}]")
+    if gate.returncode != 0:
+        raise RuntimeError(f"host syncs: the analysis gate exited {gate.returncode}:\n"
+                           f"{gate_out[-3000:]}")
+    return result
+
+
+def _host_sync_paths(torch, s, dev, result):
+    """phase_host_syncs' three paths and the fence's control, into
+    `result`."""
+    from deeplearning4j_torch.analysis import tracecheck as tc
+    from deeplearning4j_torch.clustering import KMeansClustering
+    from deeplearning4j_torch.models.zoo import AlexNet
+
+    # 1. AlexNet: one fit group
+    hwc, classes = s["alexnet"]
+    net = AlexNet(input_shape=hwc, num_labels=classes).init(device=dev)
+    x, y = alexnet_batches(np.random.default_rng(2301), s["group"], s["batch"], hwc,
+                           classes)
+    fit = lambda: net.fit(x, y, batch_size=s["batch"], steps_per_dispatch=s["group"])
+    fit()   # warm: cuDNN's algorithm choice, the allocator
+    _sync(torch, dev)
+    net._train_step = tc.wrap(net._train_step, site="alexnet.train_step")
+    tc.reset_counts()
+    with tc.sync_debug("warn") as seen:
+        fit()
+        _sync(torch, dev)
+    del net._train_step
+    steps = s["group"]
+    result["alexnet_fit_group"] = {
+        "steps": steps, "card_syncs_per_step": seen.total() / steps,
+        "spy_syncs_per_step": tc.sync_count("alexnet.train_step") / steps,
+        "by_call_site": _sync_sites(seen, steps)}
+    score = net.score_value
+    del net, x, y
+    # the fence's control: .cpu() of the score syncs, fenced_read does not
+    spied = tc.watch(score, site="fence.control")
+    with tc.sync_debug("warn") as fenced:
+        fenced_value = tc.fenced_read(spied)
+    with tc.sync_debug("warn") as plain:
+        plain_value = score.cpu()
+    result["fenced_read"] = {"card_syncs": fenced.total(), "spy_syncs": tc.sync_count(
+        "fence.control"), "plain_cpu_card_syncs": plain.total()}
+    if fenced.total() or tc.sync_count("fence.control") or \
+            float(fenced_value) != float(plain_value.item()):
+        raise RuntimeError(f"host syncs: fenced_read synced {fenced.total()} times on the "
+                           f"card, {tc.sync_count('fence.control')} by the spy")
+    if dev.type == "cuda" and not plain.total():
+        raise RuntimeError("host syncs: a plain .cpu() of a device value raised no sync "
+                           "warning: the card's count is not counting")
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+
+    # 2. the decode engine's steps
+    g = DECODE_GEOMETRY
+    eng, model, cache = decode_engine(g, "host_syncs", device=dev)
+    try:
+        rng = np.random.default_rng(2302)
+        rows, n_steps = s["decode_rows"], s["decode_steps"]
+        prompts = [rng.integers(0, g["vocab"], int(rng.integers(g["prompt_lo"],
+                                                                g["prompt_hi"])))
+                   for _ in range(rows)]
+        ad = eng.adapter
+        rids = [-2 - i for i in range(rows)]
+        last = {}
+        with eng.paused():
+            try:
+                for group in ad.pack_groups([(rid, np.asarray(p, np.int32))
+                                             for rid, p in zip(rids, prompts)]):
+                    first, fails = ad.prefill_group(group)
+                    if fails:
+                        raise RuntimeError(f"host syncs: prefill failed {fails!r}")
+                    last.update(first)
+                _sync(torch, dev)
+                step = model.step
+                model.step = tc.wrap(step, site="decode.model_step")
+                try:
+                    with tc.sync_debug("warn") as seen:
+                        for _ in range(n_steps):
+                            out, fails = ad.step(rids, [last[r] for r in rids])
+                            if fails:
+                                raise RuntimeError(f"host syncs: step failed {fails!r}")
+                            last.update(out)
+                        _sync(torch, dev)
+                finally:
+                    model.step = step
+            finally:
+                for rid in rids:
+                    cache.free(rid)
+    finally:
+        eng.shutdown()
+    result["decode_steps"] = {
+        "steps": n_steps, "rows": rows, "card_syncs_per_step": seen.total() / n_steps,
+        "spy_syncs_per_step": tc.sync_count("decode.model_step") / n_steps,
+        "by_call_site": _sync_sites(seen, n_steps)}
+    del eng, model, cache
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+
+    # 3. k-means iterations
+    k = KMEANS_FULL
+    pts = torch.as_tensor(kmeans_blobs(k["n"], k["d"], k["k"], k["spread"], k["seed"]),
+                          device=dev)
+    its = s["kmeans_iterations"]
+    km = KMeansClustering(k["k"], max_iterations=its, seed=k["seed"], device=dev)
+    km._step = tc.wrap(KMeansClustering._step, site="kmeans.step")
+    _sync(torch, dev)
+    with tc.sync_debug("warn") as seen:
+        km.fit(pts)
+        _sync(torch, dev)
+    ran = km.iterations_run
+    result["kmeans"] = {
+        "iterations": ran, "points": [k["n"], k["d"]], "k": k["k"],
+        "card_syncs_per_iteration": seen.total() / ran,
+        "spy_syncs_per_iteration": tc.sync_count("kmeans.step") / ran,
+        "by_call_site": _sync_sites(seen, ran)}
+    del pts, km
+
+
+# ------------------------------------- the embeddings and SP across processes
+
+# the device-corpus phase's geometry at 1M ids (bench.py bench_w2v's Zipf 1.05
+# corpus), layer 100, cut to 25,000 sentences of 40 tokens (1M tokens), two
+# epochs; two gloo ranks of one shard each on the one card
+W2V_MP_FULL = dict(vocab=1_000_000, sentences=25_000, sent_len=40, layer=100, window=5,
+                   negative=5, chunk=16384, steps=8, seed=1, epochs=2, device=None)
+W2V_MP_RUN_S = 900   # one two-rank run
+
+
+def w2v_epochs(torch, tr, toks, sids, epochs, dev):
+    """`epochs` epochs of `fit_corpus`, one call each, each timed from sync
+    to sync: the seconds of each."""
+    out = []
+    for _ in range(epochs):
+        _sync(torch, dev)
+        t0 = time.perf_counter()
+        tr.fit_corpus(toks, sids, epochs=1)
+        _sync(torch, dev)
+        out.append(time.perf_counter() - t0)
+    return out
+
+
+def make_mp_w2v(dist, cache, s, **kw):
+    return dist.ShardedWord2Vec(cache, layer_size=s["layer"], window=s["window"],
+                                negative=s["negative"], chunk=s["chunk"],
+                                steps_per_call=s["steps"], seed=s["seed"], **kw)
+
+
+def word2vec_rank(argv):
+    """One rank of phase_word2vec_across_processes (``chip_smoke.py
+    --word2vec-rank``): `torch.distributed.init_process_group` over gloo at
+    the given port, the corpus made from its seed, `ShardedWord2Vec` on a
+    mesh of one shard per rank, `epochs` timed epochs; writes the tables
+    (``<out>.rank<r>.npz``) and the epochs' seconds, losses and gather ms
+    (``.json``)."""
+    import argparse
+
+    import torch
+    from deeplearning4j_torch.nlp import distributed as dist
+    from deeplearning4j_torch.nn import shards
+    from deeplearning4j_torch.parallel.mesh import create_mesh
+    p = argparse.ArgumentParser(prog="chip_smoke.py --word2vec-rank")
+    p.add_argument("--rank", type=int, required=True)
+    p.add_argument("--world", type=int, required=True)
+    p.add_argument("--port", type=int, required=True)
+    p.add_argument("--device", required=True)
+    p.add_argument("--size", required=True, help="the phase's geometry, JSON")
+    p.add_argument("--out", required=True)
+    args = p.parse_args(argv)
+    s = json.loads(args.size)
+    torch.distributed.init_process_group(
+        "gloo", init_method=f"tcp://127.0.0.1:{args.port}", world_size=args.world,
+        rank=args.rank)
+    try:
+        cache, _, toks, sids = zipf_corpus(s["vocab"], s["sentences"], s["sent_len"])
+        dev = torch.device(args.device)
+        mesh = create_mesh(devices=[dev] * args.world, processes=list(range(args.world)))
+        tr = make_mp_w2v(dist, cache, s, mesh=mesh)
+        shards.cross_ms["word2vec"] = 0.0
+        epoch_s = w2v_epochs(torch, tr, toks, sids, s["epochs"], dev)
+        np.savez(f"{args.out}.rank{args.rank}.npz",
+                 **{k: v.float().cpu().numpy() for k, v in tr.tables.items()})
+        with open(f"{args.out}.rank{args.rank}.json", "w") as f:
+            json.dump({"epoch_s": epoch_s, "tokens": len(toks),
+                       "last_losses": tr.last_losses.float().cpu().numpy().tolist(),
+                       "gather_ms": shards.cross_ms["word2vec"],
+                       "positions": tr._positions}, f)
+        torch.distributed.barrier()
+    finally:
+        torch.distributed.destroy_process_group()
+    return 0
+
+
+def run_script_ranks(argv_of, n, run_s):
+    """`n` processes of this script, rank r with `argv_of(r)`: (outputs,
+    wall s). Raises unless every rank exits 0."""
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [ROOT, os.environ.get("PYTHONPATH", "")]))
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__)] + argv_of(r),
+                              env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                              text=True) for r in range(n)]
+    outs = [None] * n
+    try:
+        for r, proc in enumerate(procs):
+            outs[r] = proc.communicate(timeout=max(1.0, run_s - (time.perf_counter() - t0)))[0]
+    except subprocess.TimeoutExpired:
+        pass
+    finally:
+        stop_processes([p for p in procs if p.poll() is None], timeout=5)
+    rcs = [p.returncode for p in procs]
+    if rcs != [0] * n:
+        raise RuntimeError(f"ranks exited {rcs}:\n" + "\n".join(
+            (o or "")[-3000:] for o in outs))
+    return outs, time.perf_counter() - t0
+
+
+def phase_word2vec_across_processes(torch, card, device=None, size=None):
+    """`ShardedWord2Vec` on a mesh that spans two gloo ranks on the one card
+    (each rank one shard; `chip_smoke.py --word2vec-rank`, spawned as
+    phase_multihost spawns its ranks), at 1M ids and layer 100 over
+    W2V_MP_FULL's corpus: the counts all-reduced and every shard's rows and
+    contributions all-gathered over the group each chunk. Held: each rank's
+    tables after `epochs` epochs against the one-process two-shard mesh on
+    the card (`data_parallel_mesh(devices=[card, card])`) over the same
+    tokens, within the mesh's tolerance (rtol 2e-4, atol 2e-5; the card's
+    index_add_ sums in no fixed order), the two ranks against each other, and
+    every loss finite. Words/s of the last epoch, both ways. No hand-written
+    kernel runs here: every count stays 0."""
+    import tempfile
+
+    from deeplearning4j_torch.nlp import distributed as dist
+    from deeplearning4j_torch.parallel.mesh import data_parallel_mesh
+    s = dict(W2V_MP_FULL, **(size or {}))
+    dev = torch.device(device or "cuda:0")
+    rank_dev = s["device"] or str(dev)
+    result = {"card": card, "geometry": {k: s[k] for k in (
+        "vocab", "sentences", "sent_len", "layer", "window", "negative", "chunk",
+        "steps", "seed", "epochs")}}
+    cache, _, toks, sids = zipf_corpus(s["vocab"], s["sentences"], s["sent_len"])
+    zero_launches()
+    one = make_mp_w2v(dist, cache, s, mesh=data_parallel_mesh(devices=[dev, dev]))
+    one_s = w2v_epochs(torch, one, toks, sids, s["epochs"], dev)
+    launches = all_launches()
+    check_launches("word2vec across processes", launches, dict.fromkeys(launches, 0))
+    want = {k: v.float().cpu().numpy() for k, v in one.tables.items()}
+    one_losses = one.last_losses.float().cpu().numpy()
+    del one
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    tmp = tempfile.TemporaryDirectory(prefix="chip_smoke_w2v_mp_")
+    try:
+        prefix = os.path.join(tmp.name, "w2v")
+        port = free_port()
+        _, wall = run_script_ranks(lambda r: [
+            "--word2vec-rank", "--rank", str(r), "--world", "2", "--port", str(port),
+            "--device", rank_dev, "--size", json.dumps(s), "--out", prefix], 2, W2V_MP_RUN_S)
+        ranks, reports = [], []
+        for r in range(2):
+            with np.load(f"{prefix}.rank{r}.npz") as z:
+                ranks.append({k: z[k] for k in z.files})
+            with open(f"{prefix}.rank{r}.json") as f:
+                reports.append(json.load(f))
+    finally:
+        tmp.cleanup()
+    excess, rel = {}, {}
+    for name, w in want.items():
+        a = ranks[0][name]
+        excess[name] = float((np.abs(a - w) - (W2V_SHARD_ATOL + W2V_SHARD_RTOL
+                                                 * np.abs(w))).max())
+        rel[name] = float(np.abs(a - w).max() / max(np.abs(w).max(), 1e-30))
+    between = max(float(np.abs(ranks[0][k] - ranks[1][k]).max()) for k in want)
+    tokens = len(toks)
+    result.update(
+        tokens=tokens, vocab_size=len(cache),
+        one_process={"epoch_s": one_s, "words_per_s": tokens / one_s[-1]},
+        two_ranks={"epoch_s": [rep["epoch_s"] for rep in reports],
+                   "words_per_s": tokens / max(rep["epoch_s"][-1] for rep in reports),
+                   "gather_ms": [rep["gather_ms"] for rep in reports],
+                   "positions": [rep["positions"] for rep in reports], "wall_s": wall},
+        rel_vs_one_process=rel, excess_over_tolerance=excess,
+        ranks_max_abs_diff=between,
+        bitwise_vs_one_process=all(np.array_equal(ranks[0][k], want[k]) for k in want))
+    losses = [np.asarray(rep["last_losses"]) for rep in reports] + [one_losses]
+    log(f"word2vec across processes: {json.dumps(result)}  [{card}]")
+    log(f"word2vec across processes: one process (2 shards) "
+        f"{result['one_process']['words_per_s']:.0f} words/s, two gloo ranks "
+        f"{result['two_ranks']['words_per_s']:.0f} words/s over {tokens} tokens  [{card}]")
+    if max(excess.values()) > 0 or not all(np.isfinite(l).all() for l in losses):
+        raise RuntimeError(f"word2vec across processes: tables {json.dumps(excess)} beyond "
+                           f"rtol {W2V_SHARD_RTOL}, atol {W2V_SHARD_ATOL} of one process")
+    if between > W2V_SHARD_ATOL:
+        raise RuntimeError(f"word2vec across processes: the ranks differ by {between}")
+    return result
+
+
+SP_MP_FULL = dict(SP_FULL, layers=2, device=None)   # device None: cuda:0
+SP_OUTPUT_HOLD = 1e-4   # phase_sequence_parallel's output limit (max abs)
+
+
+def phase_sequence_parallel_output_across_processes(torch, card, device=None,
+                                                     size=None):
+    """`SequenceParallelWrapper.output` with time cut over two gloo ranks on
+    the one card (`multihost.main --mode sp --epochs 0 --output`, 2 seq
+    shards a rank, a seq axis of 4): the char model at phase_sequence_
+    parallel's width (2 causal SelfAttentionLayers of 512, 4 heads of 128,
+    vocabulary 96) at t 8192 and batch 4, every rank fed the whole batch,
+    every rank returning the whole output. Held within SP_OUTPUT_HOLD (max
+    abs) against the one-process SP `output` over 4 shards on the card and
+    against the plain `output`; the two ranks bitwise alike. K3 launches
+    layers x shards x hops (each rank its layers x 2 x 4) for the ranks'
+    forward, and as many for the one-process one (counts reset just before
+    and read just after); output ms of each, the second of two calls."""
+    import tempfile
+
+    from deeplearning4j_torch.nn.multilayer import MultiLayerNetwork
+    from deeplearning4j_torch.ops import flash_attention as fa
+    from deeplearning4j_torch.parallel import SequenceParallelWrapper, seq_parallel_mesh
+    s = dict(SP_MP_FULL, **(size or {}))
+    dev = device or "cuda:0"
+    rank_dev = s["device"] or dev
+    shards_per_rank, n_ranks = 2, 2
+    n = shards_per_rank * n_ranks
+    conf = sp_conf(s, layers=s["layers"])
+    ds = sp_data(s, s["batch"], s["t"], seed=2194)
+    x = ds.features
+    result = {"card": card, "t": s["t"], "batch": s["batch"], "seq_shards": n,
+              "layers": s["layers"]}
+    # on the CPU (the tests) the wrappers run the plain version: no launch
+    want_k3 = s["layers"] * n * n if torch.device(dev).type == "cuda" else 0
+    tmp = tempfile.TemporaryDirectory(prefix="chip_smoke_sp_mp_")
+    try:
+        conf_path = os.path.join(tmp.name, "sp.json")
+        with open(conf_path, "w") as f:
+            f.write(conf.to_json())
+        npz = os.path.join(tmp.name, "sp.npz")
+        np.savez(npz, x=x, y=ds.labels)
+        prefix = os.path.join(tmp.name, "run")
+        _, _, wall = run_ranks(["--conf", conf_path, "--data", npz, "--epochs", "0",
+                                "--batch-size", str(s["batch"]), "--device", rank_dev,
+                                "--backend", "gloo", "--exact-float32", "--mode", "sp",
+                                "--output", "--out", prefix], free_port())
+        outs, reports = [], []
+        for r in range(n_ranks):
+            outs.append(np.load(f"{prefix}.sp.rank{r}.output.npy"))
+            with open(f"{prefix}.sp.rank{r}.json") as f:
+                reports.append(json.load(f))
+    finally:
+        tmp.cleanup()
+    net = MultiLayerNetwork(conf).init(device=dev)
+    w = SequenceParallelWrapper(net, seq_parallel_mesh(devices=[dev] * n))
+    w.output(x), net.output(x)   # warm, as the ranks warm
+    _sync(torch, dev)
+    zero_launches()   # the one-process SP output starts here
+    t0 = time.perf_counter()
+    one = w.output(x)
+    one_ms = (time.perf_counter() - t0) * 1e3
+    launches = all_launches()   # ... and ends here
+    want = dict.fromkeys(launches, 0)
+    want["flash_fwd"] = want_k3
+    check_launches("sequence parallel output, one process", launches, want)
+    _sync(torch, dev)
+    t0 = time.perf_counter()
+    plain = net.output(x)
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    rank_k3 = [rep["output_launches"]["flash_fwd"] for rep in reports]
+    err_one = max(float(np.abs(o - one).max()) for o in outs)
+    err_plain = max(float(np.abs(o - plain).max()) for o in outs)
+    result.update(
+        ranks={"output_ms": [rep["output_ms"] for rep in reports],
+               "k3_launches": rank_k3,
+               "gather_ms": [rep["output_cross_ms"]["output"] for rep in reports],
+               "hop_ms": [rep["output_cross_ms"]["hop"] for rep in reports],
+               "wall_s": wall},
+        one_process={"output_ms": one_ms, "k3_launches": launches["flash_fwd"]},
+        plain_output_ms=plain_ms, k3_launches_total=sum(rank_k3),
+        k3_launches_expected=want_k3, max_abs_vs_one_process=err_one,
+        max_abs_vs_plain=err_plain, hold=SP_OUTPUT_HOLD,
+        ranks_bitwise=bool(np.array_equal(outs[0], outs[1])),
+        shape=list(outs[0].shape))
+    log(f"sequence parallel output across processes: {json.dumps(result)}  [{card}]")
+    if sum(rank_k3) != want_k3 or any(k != want_k3 // n_ranks for k in rank_k3):
+        raise RuntimeError(f"sequence parallel output across processes: K3 launches "
+                           f"{rank_k3}, expected {want_k3 // n_ranks} a rank")
+    if not (err_one <= SP_OUTPUT_HOLD and err_plain <= SP_OUTPUT_HOLD
+            and result["ranks_bitwise"] and np.isfinite(outs[0]).all()
+            and outs[0].shape == plain.shape):
+        raise RuntimeError(f"sequence parallel output across processes: off the "
+                           f"one-process output by {err_one}, the plain by {err_plain}, "
+                           f"ranks bitwise {result['ranks_bitwise']}")
+    return result
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -9734,6 +10205,31 @@ def main() -> int:
         f"(launches {json.dumps(cl['churn']['launches'])}), lock edges observed "
         f"{json.dumps(cl['locks']['observed'])} (launches "
         f"{json.dumps(cl['locks']['launches'])}, {cl_s:.1f} s)  [{card}]")
+    late = {}
+    for name, phase in (("host_syncs", phase_host_syncs),
+                        ("word2vec_across_processes", phase_word2vec_across_processes),
+                        ("sp_output_across_processes",
+                         phase_sequence_parallel_output_across_processes)):
+        torch.cuda.empty_cache()
+        t1 = time.perf_counter()
+        late[name] = (phase(torch, card), time.perf_counter() - t1)
+    (hs, hs_s), (w2v_mp, w2v_mp_s), (sp_mp, sp_mp_s) = late.values()
+    k3 = next(e for e in kernels["kernels"] if e["name"] == "flash_fwd")
+    k3["launches_by_path"] = {"char_model_bf16_fit": k3["launches"],
+                              "sp_output_across_processes": sp_mp["k3_launches_total"]}
+    log(f"chip_smoke: host syncs a step (card / spies): AlexNet fit "
+        f"{hs['alexnet_fit_group']['card_syncs_per_step']:g} / "
+        f"{hs['alexnet_fit_group']['spy_syncs_per_step']:g}, decode "
+        f"{hs['decode_steps']['card_syncs_per_step']:g} / "
+        f"{hs['decode_steps']['spy_syncs_per_step']:g}, k-means "
+        f"{hs['kmeans']['card_syncs_per_iteration']:g} / "
+        f"{hs['kmeans']['spy_syncs_per_iteration']:g}; analysis gate exit "
+        f"{hs['analysis_gate']['exit_code']} ({hs_s:.1f} s); word2vec across two ranks "
+        f"{w2v_mp['two_ranks']['words_per_s']:.0f} words/s against "
+        f"{w2v_mp['one_process']['words_per_s']:.0f} in one process ({w2v_mp_s:.1f} s); "
+        f"SP output across two ranks {max(sp_mp['ranks']['output_ms']):.1f} ms against "
+        f"{sp_mp['one_process']['output_ms']:.1f} in one process, K3 "
+        f"{sp_mp['k3_launches_total']} launches ({sp_mp_s:.1f} s)  [{card}]")
     log(f"chip_smoke: every phase passed in {time.perf_counter() - t0:.1f} s  [{card}]")
     log(json.dumps(kernels))
     log(json.dumps({"ok": True, "device": {
@@ -9743,4 +10239,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--word2vec-rank"]:
+        sys.exit(word2vec_rank(sys.argv[2:]))
     sys.exit(main())

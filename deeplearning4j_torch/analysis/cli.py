@@ -5,7 +5,7 @@
 
     python -m deeplearning4j_torch.analysis [paths...] \
         [--format text|json] [--baseline FILE] [--write-baseline] \
-        [--justify TEXT] [--no-baseline] [--rules [JL401,JL403]] \
+        [--justify TEXT] [--no-baseline] [--rules [JL101,JL401]] \
         [--list-rules]
 
 A bare ``--rules`` (no value) prints the rule catalog — id, severity,
@@ -32,7 +32,8 @@ from .rules import RULES_BY_ID, rule_catalog
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
         prog="python -m deeplearning4j_torch.analysis",
-        description="lock-discipline static analysis of the port")
+        description="host-sync, lock-discipline and serving-discipline "
+                    "static analysis of the port")
     p.add_argument("paths", nargs="*",
                    help="files or directories (default: the "
                         "deeplearning4j_torch package)")

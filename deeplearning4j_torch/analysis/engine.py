@@ -1,19 +1,22 @@
 """Per-file analysis orchestration.
 
 Port of `deeplearning4j_tpu/analysis/engine.py`, without the jit-boundary
-inference and hot-path classification that only the JAX package's tracing
-rules read. Parses each file once, builds a :class:`FileContext` (parent
-links, import aliases, suppression comments), runs every rule from
+inference that only the JAX package's tracing rules read. Parses each file
+once, builds a :class:`FileContext` (parent links, import aliases,
+hot-function classification, suppression comments), runs every rule from
 :mod:`.rules`, and emits :class:`~.findings.Finding` records sorted by
-location.
+location. Hotness is lexical, as in the JAX package: a function is hot if
+its name looks like a training/step/iterator path or a listener callback
+(`rules.HOT_NAME_RE`, `rules.CALLBACK_NAMES`), or if it is nested inside
+one.
 
 Suppression syntax (same line as the finding), the JAX analyzer's own, so
 one comment silences both::
 
     self._stopped = True  # jaxlint: disable=JL401
-    self.dropped += 1     # jaxlint: disable=JL401,JL404
+    self.dropped += 1     # jaxlint: disable=JL401,JL101
     self._flag = True     # jaxlint: atomic   (alias for disable=JL401,JL404)
-    x = f(y)              # jaxlint: disable=all
+    x = float(y)          # jaxlint: disable=all
 """
 from __future__ import annotations
 
@@ -23,7 +26,7 @@ import re
 from typing import Dict, Iterable, Iterator, List, Optional, Set
 
 from .findings import Finding, normalize_path
-from .rules import RULES
+from .rules import CALLBACK_NAMES, HOT_NAME_RE, RULES
 
 _SUPPRESS_RE = re.compile(
     r"#\s*jaxlint:\s*(?:disable=(?P<ids>[A-Za-z0-9_,\s*]+)|(?P<atomic>atomic))")
@@ -99,6 +102,21 @@ class FileContext:
         for node in ast.walk(tree):
             for child in ast.iter_child_nodes(node):
                 self._parents[child] = node
+        self._functions = [n for n in ast.walk(tree)
+                           if isinstance(n, _FUNC_NODES)]
+        self._hot: Set[ast.AST] = set()
+        for fn in self._functions:
+            name = getattr(fn, "name", "<lambda>")
+            if name in CALLBACK_NAMES or HOT_NAME_RE.search(name):
+                self._hot.add(fn)
+        # lexical hotness inheritance: a def nested inside a hot def is hot
+        for fn in self._functions:
+            cur = self._parents.get(fn)
+            while cur is not None:
+                if cur in self._hot:
+                    self._hot.add(fn)
+                    break
+                cur = self._parents.get(cur)
 
     # -- navigation -------------------------------------------------------
     def parent(self, node: ast.AST) -> Optional[ast.AST]:
@@ -136,9 +154,18 @@ class FileContext:
     def dotted(self, node: ast.AST) -> Optional[str]:
         return dotted_name(node, self.aliases)
 
+    def functions(self) -> List[ast.AST]:
+        return list(self._functions)
+
     def classes(self) -> List[ast.ClassDef]:
         return [n for n in ast.walk(self.tree)
                 if isinstance(n, ast.ClassDef)]
+
+    def is_hot(self, fn: ast.AST) -> bool:
+        return fn in self._hot
+
+    def hot_functions(self) -> List[ast.AST]:
+        return [fn for fn in self._functions if fn in self._hot]
 
     # -- suppression ------------------------------------------------------
     def suppressed(self, lineno: int, rule_id: str) -> bool:

@@ -1,34 +1,79 @@
-"""The lock rules of the port's analyzer.
+"""The rules of the port's analyzer.
 
-Port of the JL4xx family of `deeplearning4j_tpu/analysis/rules.py`, held to
-it finding for finding on the JAX package's tree. Each rule is a
-:class:`Rule` with a stable id, a severity, a one-line fix hint, and a
-``check(ctx)`` generator yielding ``(node, message)`` pairs. The engine
-turns those into findings, applies ``# jaxlint: disable=RULE``
-suppressions (the JAX analyzer's syntax, so one comment silences both), and
-matches them against the baseline.
+Port of the JL1xx, JL4xx and JL5xx families of
+`deeplearning4j_tpu/analysis/rules.py`, held to it finding for finding on
+the JAX package's tree. Each rule is a :class:`Rule` with a stable id, a
+severity, a one-line fix hint, and a ``check(ctx)`` generator yielding
+``(node, message)`` pairs. The engine turns those into findings, applies
+``# jaxlint: disable=RULE`` suppressions (the JAX analyzer's syntax, so one
+comment silences both), and matches them against the baseline.
 
-JL4xx  lock discipline in threaded subsystems (RacerD-style
-consistent-guard checking): JL401 consistent guards over thread entry
-points, JL402 lock-acquisition-order cycles (potential deadlocks), JL403
-blocking calls under a held lock, JL404 field-level atomicity (shared
-attributes written under a lock but read or read-modify-written outside
-it).
+Rule families
+-------------
+* JL1xx  hidden host syncs: implicit device->host transfers inside hot
+  paths (``fit`` / step loops / listener callbacks) that stall the host's
+  run-ahead of the device. JL101 ``float()``/``int()``/``bool()`` of a
+  value, JL102 ``.item()``/``.tolist()`` and torch's ``.cpu()``/``.numpy()``,
+  JL103 ``np.asarray``/``np.array``/``jax.device_get`` and torch's
+  ``.to("cpu")``. Only the torch spellings can find more than the JAX
+  analyzer does on the same tree.
+* JL4xx  lock discipline in threaded subsystems (RacerD-style
+  consistent-guard checking): JL401 consistent guards over thread entry
+  points, JL402 lock-acquisition-order cycles (potential deadlocks), JL403
+  blocking calls under a held lock, JL404 field-level atomicity (shared
+  attributes written under a lock but read or read-modify-written outside
+  it). JL403 counts a host fence as blocking: the JAX package's
+  ``.block_until_ready()``, and the port's ``torch.cuda.synchronize()`` and
+  ``.synchronize()`` on a stream or an event, each of which waits for the
+  device.
+* JL5xx  serving discipline: JL501 typed-error taxonomy at HTTP route
+  handlers, JL502 metrics-family discipline (hot-path construction,
+  unbounded label cardinality, serving families that no
+  ``register*metrics`` function pre-registers), JL503 fault-point coverage
+  (every ``faults.fire`` literal must be armed by a port test,
+  ``tests/test_torch_*.py``, and listed in the table of points of the
+  package's own ``utils/faults.py`` docstring).
 
-JL403 counts a host fence as blocking: the JAX package's
-``.block_until_ready()``, and the port's ``torch.cuda.synchronize()`` and
-``.synchronize()`` on a stream or an event, each of which waits for the
-device.
+Hotness is lexical: a function is *hot* if its name looks like a
+training/step/iterator path (or a listener callback), or if it is nested
+inside one.
 
-The trace-purity, recompile and donation rules (JL0xx, JL2xx, JL301) check
-jit tracing and have no meaning in eager torch.
+The trace-purity, recompile and donation rules (JL0xx, JL2xx, JL301) and
+the JAX package's jit-boundary inference (``boundaries.py``) check jit
+tracing, and have no meaning in eager torch, which traces nothing and
+donates nothing.
 """
 from __future__ import annotations
 
 import ast
+import os
 import re
 from dataclasses import dataclass
 from typing import Callable, Dict, Iterator, List, Optional, Set, Tuple
+
+# --------------------------------------------------------------------------
+# shared vocabularies
+# --------------------------------------------------------------------------
+
+#: function names considered hot paths for the host-sync rules
+HOT_NAME_RE = re.compile(
+    r"(^|_)(fit|train|step|batch|epoch|iterate|forward|backward|update|"
+    r"pump|producer|consumer|worker|prefetch)($|_)|"
+    r"^(__next__|__iter__)$")
+
+#: listener / callback entry points whose whole body is per-step hot
+CALLBACK_NAMES = {
+    "iteration_done", "on_epoch_start", "on_epoch_end",
+    "on_forward_pass", "on_backward_pass", "on_gradient_calculation",
+    "epoch_done",
+}
+
+#: loop-index-ish receivers that float()/int() legitimately touches
+_INDEXY = {
+    "iteration", "epoch", "i", "j", "k", "idx", "n", "step", "step_num",
+    "num_examples", "count", "batch_size", "num_batches", "total",
+    "iteration_count", "epoch_count", "seed", "size", "length",
+}
 
 _LOCKISH = re.compile(r"lock|mutex|cond|(^|_)cv($|_)|sem", re.IGNORECASE)
 
@@ -76,6 +121,133 @@ def _walk_no_nested(fn: ast.AST) -> Iterator[ast.AST]:
             continue
         stack.extend(ast.iter_child_nodes(node))
 
+
+
+# --------------------------------------------------------------------------
+# JL1xx — hidden host syncs (hot paths)
+# --------------------------------------------------------------------------
+
+def _indexy(node: ast.AST) -> bool:
+    name = _name_of(node)
+    return name in _INDEXY or name.endswith(("_count", "_idx", "_index"))
+
+
+def _in_loop(ctx, node: ast.AST, fn: ast.AST) -> bool:
+    cur = ctx.parent(node)
+    while cur is not None and cur is not fn:
+        if isinstance(cur, (ast.For, ast.While, ast.AsyncFor, ast.ListComp,
+                            ast.SetComp, ast.DictComp, ast.GeneratorExp)):
+            return True
+        cur = ctx.parent(cur)
+    return False
+
+
+def _hot_sites(ctx, fn) -> Iterator[ast.AST]:
+    """Per-step-hot nodes in a hot function: the whole body of a listener
+    callback / ``__next__`` (called once per iteration from outside), or
+    nodes under a loop for ordinary fit/step/train functions."""
+    whole_body = getattr(fn, "name", "") in CALLBACK_NAMES or \
+        getattr(fn, "name", "") in ("__next__",)
+    for node in _walk_no_nested(fn):
+        if whole_body or _in_loop(ctx, node, fn):
+            yield node
+
+
+#: value-producing calls that read host state, not device buffers
+_HOST_VALUE_METHODS = {"get", "pop", "integers", "randint", "choice",
+                       "random", "uniform", "normal"}
+_HOST_VALUE_FUNCS = {"len", "round", "min", "max", "sum", "abs", "ord",
+                     "time", "perf_counter", "monotonic", "getattr"}
+
+
+def _shape_read(arg: ast.AST) -> bool:
+    for sub in ast.walk(arg):
+        if isinstance(sub, ast.Attribute) and sub.attr in ("shape", "ndim"):
+            return True
+        if isinstance(sub, ast.Name) and sub.id == "shape":
+            return True
+    return False
+
+
+def _check_host_scalar_sync(ctx):
+    for fn in ctx.hot_functions():
+        params = {a.arg for a in fn.args.args} if \
+            isinstance(fn, (ast.FunctionDef, ast.AsyncFunctionDef)) else set()
+        for node in _hot_sites(ctx, fn):
+            if not (isinstance(node, ast.Call)
+                    and isinstance(node.func, ast.Name)
+                    and node.func.id in ("float", "int", "bool")
+                    and len(node.args) == 1 and not node.keywords):
+                continue
+            arg = node.args[0]
+            if isinstance(arg, ast.Constant) or _indexy(arg):
+                continue
+            if isinstance(arg, ast.Name) and arg.id in params:
+                continue  # coercing a host-side argument, not a device read
+            if isinstance(arg, ast.Call) and (
+                    _name_of(arg.func) in _HOST_VALUE_FUNCS or
+                    (isinstance(arg.func, ast.Attribute)
+                     and arg.func.attr in _HOST_VALUE_METHODS)):
+                continue
+            if isinstance(arg, (ast.BinOp, ast.BoolOp)):
+                continue  # arithmetic on host scalars, not a device read
+            if _shape_read(arg):
+                continue  # shapes are host metadata
+            desc = ast.unparse(arg) if hasattr(ast, "unparse") else "value"
+            yield node, (f"'{node.func.id}({desc})' in hot path may block "
+                         f"on device->host transfer every step")
+
+
+#: zero-argument methods that read a device value back to the host: the
+#: JAX package's two, and torch's copies to the host
+_SYNC_METHODS = ("item", "tolist", "cpu", "numpy")
+
+
+def _check_item_sync(ctx):
+    for fn in ctx.hot_functions():
+        for node in _hot_sites(ctx, fn):
+            if (isinstance(node, ast.Call)
+                    and isinstance(node.func, ast.Attribute)
+                    and node.func.attr in _SYNC_METHODS
+                    and not node.args and not node.keywords):
+                yield node, (f"'.{node.func.attr}()' in hot path forces a "
+                             f"device->host sync every step")
+
+
+_ASARRAY_CALLS = {"numpy.asarray", "numpy.array", "jax.device_get"}
+
+
+def _cpu_target(node: ast.AST) -> bool:
+    """``"cpu"``, or ``torch.device("cpu")``."""
+    if isinstance(node, ast.Constant):
+        return node.value == "cpu"
+    return (isinstance(node, ast.Call) and _name_of(node.func) == "device"
+            and bool(node.args) and isinstance(node.args[0], ast.Constant)
+            and node.args[0].value == "cpu")
+
+
+def _to_cpu_call(node: ast.AST) -> bool:
+    """``t.to("cpu", ...)``, ``t.to(device="cpu")``,
+    ``t.to(torch.device("cpu"))``: torch's copy to the host."""
+    if not (isinstance(node, ast.Call) and isinstance(node.func, ast.Attribute)
+            and node.func.attr == "to"):
+        return False
+    return (bool(node.args) and _cpu_target(node.args[0])) or any(
+        kw.arg == "device" and _cpu_target(kw.value) for kw in node.keywords)
+
+
+def _check_asarray_sync(ctx):
+    for fn in ctx.hot_functions():
+        for node in _hot_sites(ctx, fn):
+            if isinstance(node, ast.Call):
+                d = ctx.dotted(node.func)
+                if d in _ASARRAY_CALLS:
+                    yield node, (f"'{d}()' in hot path copies device memory "
+                                 f"to host; batch or fence it once per step")
+                elif _to_cpu_call(node):
+                    yield node, ("'.to(\"cpu\")' in hot path copies device "
+                                 "memory to host; batch or fence it once per "
+                                 "step")
 
 
 # --------------------------------------------------------------------------
@@ -602,6 +774,295 @@ def _check_field_atomicity(ctx):
 
 
 # --------------------------------------------------------------------------
+# JL5xx — serving discipline
+# --------------------------------------------------------------------------
+
+#: the typed serving-error taxonomy allowed to escape an HTTP handler (each
+#: name has a class in the port: parallel/inference.py,
+#: serving/{breaker,scheduler,model_pool,federation}.py, utils/faults.py)
+ERROR_TAXONOMY = {
+    "ServerClosedError", "BatchExecutionError", "NonFiniteOutputError",
+    "QueueFullError", "DeadlineExceededError", "DecodeStepError",
+    "KVCacheExhaustedError", "BreakerOpenError", "TierShedError",
+    "SwapError", "ReplicaLostError", "FaultInjected",
+}
+
+#: self.* calls that raise typed serving errors (must sit inside a try)
+_ROUTE_RAISING_CALLS = {"predict", "generate", "swap", "dispatch", "get",
+                        "reconfigure", "reconfigure_scheduler",
+                        "eject_member", "remove", "admit"}
+
+
+def _try_protected(ctx, node, fn) -> bool:
+    """Is this node inside the *body* of a try that has handlers (not in
+    a handler/else/finally, which run unprotected)?"""
+    child, cur = node, ctx.parent(node)
+    while cur is not None:
+        if isinstance(cur, ast.Try) and cur.handlers and child in cur.body:
+            return True
+        if cur is fn:
+            return False
+        child, cur = cur, ctx.parent(cur)
+    return False
+
+
+def _check_route_typed_errors(ctx):
+    for fn in ctx.functions():
+        name = getattr(fn, "name", "")
+        if not name.endswith("_route"):
+            continue
+        for node in _walk_no_nested(fn):
+            if isinstance(node, ast.Raise) and node.exc is not None:
+                exc = node.exc
+                if isinstance(exc, ast.Call):
+                    exc = exc.func
+                ename = _name_of(exc)
+                if ename and ename not in ERROR_TAXONOMY and \
+                        not _try_protected(ctx, node, fn):
+                    yield node, (
+                        f"raise of non-taxonomy '{ename}' escapes HTTP "
+                        f"handler '{name}' untyped — clients see a bare "
+                        f"500 instead of a typed serving error")
+            elif isinstance(node, ast.Call) and \
+                    isinstance(node.func, ast.Attribute):
+                attr = node.func.attr
+                if attr not in _ROUTE_RAISING_CALLS:
+                    continue
+                d = ctx.dotted(node.func) or ""
+                if not d.startswith("self."):
+                    continue
+                if attr == "get" and d != "self.pool.get":
+                    continue
+                if not _try_protected(ctx, node, fn):
+                    yield node, (
+                        f"call to '{d}' outside any try in HTTP handler "
+                        f"'{name}' — a typed serving error raised here "
+                        f"escapes as an untyped 500")
+
+
+# --- JL502: metrics discipline --------------------------------------------
+
+_METRIC_FACTORIES = {"counter", "gauge", "histogram"}
+_UNBOUNDED_LABELS = {"request_id", "rid", "uuid", "guid", "trace_id",
+                     "span_id", "correlation_id", "port", "pid", "tid"}
+_UNBOUNDED_VALUE_CALLS = {"uuid4", "uuid1", "getpid", "get_ident"}
+_REGISTER_FN_RE = re.compile(r"register.*metrics")
+
+#: the package directories a file may sit in, and the bench entry point
+#: beside each whose ``register*metrics`` functions pre-register families
+#: too (the port's own bench entry point joins here once it exists)
+_PACKAGE_DIRS = ("deeplearning4j_torch", "deeplearning4j_tpu")
+_BENCH_ENTRIES = {"deeplearning4j_tpu": "bench.py"}
+
+
+def _metric_family_call(ctx, node) -> Optional[str]:
+    """Family name if this call constructs a metric family on a
+    registry-ish receiver, else None."""
+    if not (isinstance(node, ast.Call)
+            and isinstance(node.func, ast.Attribute)
+            and node.func.attr in _METRIC_FACTORIES
+            and node.args and isinstance(node.args[0], ast.Constant)
+            and isinstance(node.args[0].value, str)):
+        return None
+    recv = node.func.value
+    if isinstance(recv, ast.Call):
+        recv = recv.func
+    if re.search(r"reg", _name_of(recv) or "", re.IGNORECASE):
+        return node.args[0].value
+    return None
+
+
+def _package_root(path: str) -> Optional[str]:
+    """Ascend from a file path to its package directory (None when
+    analyzing sources outside a checkout)."""
+    cur = os.path.abspath(path)
+    while True:
+        if os.path.basename(cur) in _PACKAGE_DIRS and os.path.isdir(cur):
+            return cur
+        parent = os.path.dirname(cur)
+        if parent == cur:
+            return None
+        cur = parent
+
+
+def _tree_files(root: str) -> List[str]:
+    out: List[str] = []
+    for dirpath, dirnames, filenames in os.walk(root):
+        dirnames[:] = sorted(d for d in dirnames if d != "__pycache__")
+        out.extend(os.path.join(dirpath, f) for f in sorted(filenames))
+    return out
+
+
+_PREREG_CACHE: Dict[str, frozenset] = {}
+
+
+def _preregistered_families(pkg_root: str) -> frozenset:
+    """Every string constant inside a ``register*metrics`` function in
+    the package (and its bench entry point, where it has one): the
+    families a scrape sees before any traffic."""
+    cached = _PREREG_CACHE.get(pkg_root)
+    if cached is not None:
+        return cached
+    names: Set[str] = set()
+    files = [f for f in _tree_files(pkg_root) if f.endswith(".py")]
+    entry = _BENCH_ENTRIES.get(os.path.basename(pkg_root))
+    if entry is not None:
+        bench = os.path.join(os.path.dirname(pkg_root), entry)
+        if os.path.isfile(bench):
+            files.append(bench)
+    for fname in files:
+        try:
+            with open(fname, "r", encoding="utf-8") as fh:
+                tree = ast.parse(fh.read())
+        except (OSError, SyntaxError, UnicodeDecodeError):
+            continue
+        for node in ast.walk(tree):
+            if isinstance(node, (ast.FunctionDef, ast.AsyncFunctionDef)) \
+                    and _REGISTER_FN_RE.search(node.name):
+                for sub in ast.walk(node):
+                    if isinstance(sub, ast.Constant) and \
+                            isinstance(sub.value, str):
+                        names.add(sub.value)
+    out = frozenset(names)
+    _PREREG_CACHE[pkg_root] = out
+    return out
+
+
+def _check_metrics_discipline(ctx):
+    # (a) family construction reachable from a hot path
+    for fn in ctx.hot_functions():
+        fname = getattr(fn, "name", "<lambda>")
+        if _REGISTER_FN_RE.search(fname):
+            continue
+        for node in _walk_no_nested(fn):
+            fam = _metric_family_call(ctx, node)
+            if fam:
+                yield node, (
+                    f"metric family '{fam}' constructed in hot function "
+                    f"'{fname}' — construct once in register_metrics() "
+                    f"and only .labels().inc() on the hot path")
+    # (b) unbounded-cardinality label sets
+    for node in ast.walk(ctx.tree):
+        if not (isinstance(node, ast.Call)
+                and isinstance(node.func, ast.Attribute)
+                and node.func.attr == "labels"):
+            continue
+        for kw in node.keywords:
+            if kw.arg and kw.arg.lower() in _UNBOUNDED_LABELS:
+                yield kw.value, (
+                    f"metric label '{kw.arg}' is unbounded-cardinality "
+                    f"(per-request identity) — every value mints a new "
+                    f"series and the scrape grows without bound")
+            elif isinstance(kw.value, ast.Call) and \
+                    _name_of(kw.value.func) in _UNBOUNDED_VALUE_CALLS:
+                yield kw.value, (
+                    f"metric label '{kw.arg}' is fed from "
+                    f"'{_name_of(kw.value.func)}()' — unbounded "
+                    f"cardinality mints a new series per value")
+    # (c) serving families absent from every pre-registration
+    if "serving" not in os.path.normpath(ctx.path).split(os.sep):
+        return
+    pkg = _package_root(ctx.path)
+    if pkg is None:
+        return
+    prereg = _preregistered_families(pkg)
+    if not prereg:
+        return
+    for node in ast.walk(ctx.tree):
+        fam = _metric_family_call(ctx, node)
+        if fam is None or fam in prereg:
+            continue
+        encl = ctx.enclosing_function(node)
+        if encl is not None and \
+                _REGISTER_FN_RE.search(getattr(encl, "name", "")):
+            continue
+        yield node, (
+            f"metric family '{fam}' used in serving/ but absent from "
+            f"every register_metrics() pre-registration — a bench "
+            f"--once scrape misses it until first use")
+
+
+# --- JL503: fault-point coverage ------------------------------------------
+
+_CORPUS_CACHE: Dict[Tuple[str, str], str] = {}
+
+
+def _test_corpus(repo_root: str) -> str:
+    """The port's tests, ``tests/test_torch_*.py``, as one string: a test
+    of the JAX package cannot cover a point of the port."""
+    key = (repo_root, "tests")
+    cached = _CORPUS_CACHE.get(key)
+    if cached is not None:
+        return cached
+    chunks: List[str] = []
+    root = os.path.join(repo_root, "tests")
+    if os.path.isdir(root):
+        for fname in _tree_files(root):
+            base = os.path.basename(fname)
+            if base.startswith("test_torch_") and base.endswith(".py"):
+                try:
+                    with open(fname, "r", encoding="utf-8") as fh:
+                        chunks.append(fh.read())
+                except (OSError, UnicodeDecodeError):
+                    continue
+    out = "\n".join(chunks)
+    _CORPUS_CACHE[key] = out
+    return out
+
+
+def _docs_corpus(pkg_root: str) -> str:
+    """The table of points: the docstring of the package's own
+    ``utils/faults.py``."""
+    key = (pkg_root, "docs")
+    cached = _CORPUS_CACHE.get(key)
+    if cached is not None:
+        return cached
+    out = ""
+    try:
+        with open(os.path.join(pkg_root, "utils", "faults.py"), "r",
+                  encoding="utf-8") as fh:
+            out = ast.get_docstring(ast.parse(fh.read())) or ""
+    except (OSError, SyntaxError, UnicodeDecodeError):
+        pass
+    _CORPUS_CACHE[key] = out
+    return out
+
+
+def _fault_env_var(point: str) -> str:
+    return "DL4JTPU_FAULT_" + point.upper().replace(".", "_").replace(
+        "-", "_")
+
+
+def _check_fault_coverage(ctx):
+    pkg = _package_root(ctx.path)
+    if pkg is None:
+        return
+    tests = _test_corpus(os.path.dirname(pkg))
+    docs = _docs_corpus(pkg)
+    if not tests or not docs:
+        return
+    for node in ast.walk(ctx.tree):
+        if not (isinstance(node, ast.Call)
+                and isinstance(node.func, ast.Attribute)
+                and node.func.attr in ("fire", "check")
+                and node.args and isinstance(node.args[0], ast.Constant)
+                and isinstance(node.args[0].value, str)):
+            continue
+        point = node.args[0].value
+        if "." not in point:
+            continue
+        if node.func.attr == "check" and not re.search(
+                r"fault", _name_of(node.func.value) or "", re.IGNORECASE):
+            continue          # '.check' is a common name; require faults.*
+        if point not in tests and _fault_env_var(point) not in tests:
+            yield node, (
+                f"fault point '{point}' is not exercised by any test "
+                f"under tests/test_torch_*.py — the chaos hook can "
+                f"silently rot")
+        if point not in docs:
+            yield node, (
+                f"fault point '{point}' is missing from the table of "
+                f"points in utils/faults.py")
 
 
 # --------------------------------------------------------------------------
@@ -609,6 +1070,17 @@ def _check_field_atomicity(ctx):
 # --------------------------------------------------------------------------
 
 RULES: Tuple[Rule, ...] = (
+    Rule("JL101", "warning", "host-scalar-sync",
+         "Fence once per step (tracecheck.fenced_read / "
+         "block_until_ready) or read asynchronously off the hot path.",
+         _check_host_scalar_sync),
+    Rule("JL102", "warning", "item-sync",
+         "Batch .item()/.tolist() reads behind an explicit per-step fence.",
+         _check_item_sync),
+    Rule("JL103", "info", "host-copy",
+         "np.asarray/device_get copies device memory; hoist out of the "
+         "per-step loop or fence deliberately.",
+         _check_asarray_sync),
     Rule("JL401", "warning", "lock-discipline",
          "Guard every write with the same self.<lock>, or annotate a "
          "documented atomic with '# jaxlint: atomic'.",
@@ -626,6 +1098,19 @@ RULES: Tuple[Rule, ...] = (
          "check-then-act on shared fields, or annotate a documented "
          "atomic with '# jaxlint: atomic'.",
          _check_field_atomicity),
+    Rule("JL501", "error", "untyped-route-error",
+         "Wrap handler work in try/except and map failures to the typed "
+         "serving taxonomy (QueueFullError, ServerClosedError, ...).",
+         _check_route_typed_errors),
+    Rule("JL502", "warning", "metrics-discipline",
+         "Construct metric families once in register_metrics(), keep "
+         "label sets bounded, and pre-register serving families so "
+         "bench --once scrapes see them.",
+         _check_metrics_discipline),
+    Rule("JL503", "error", "fault-coverage",
+         "Add a test that arms the point (faults.inject/injected) and a "
+         "row to the docs fault table.",
+         _check_fault_coverage),
 )
 
 RULES_BY_ID: Dict[str, Rule] = {r.id: r for r in RULES}

@@ -30,8 +30,17 @@ meet there); and every replica of the tables applies the same summed
 update, every shard's rows. The contributions to a row are summed before
 they reach the table (`embeddings.segment_sum`), so a frequent word's row
 takes one rounding a chunk, not one for each of its thousands of slots. A device may stand in the mesh more than once
-(several shards on one device share its replica). A mesh whose devices
-span processes is not supported.
+(several shards on one device share its replica).
+
+A mesh may span the processes of a `torch.distributed` group (gloo, or
+NCCL where each rank has its own GPU), as the JAX package's mesh spans
+hosts. Every process holds a replica of the tables on each of its devices,
+draws the whole chunk's numbers from the same seeded generator, and runs
+its own shards. The touch counts are all-reduced over the group (they are
+sums of whole numbers, so the sum is exact in any order), and each shard's
+(rows, contributions) are all-gathered before the segment sum, in mesh
+order, so every process applies to every replica the update the
+one-process mesh would: bitwise where the devices sum in a fixed order.
 """
 from __future__ import annotations
 
@@ -42,7 +51,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from ..parallel.mesh import Mesh, process_index
+from ..nn import shards as shards_lib
+from ..parallel.mesh import Mesh, is_multiprocess, process_index
 from ..utils.device import DeviceLike, canonical, resolve_device
 from . import embeddings
 from .vocab import VocabCache, unigram_table
@@ -118,43 +128,71 @@ def shard_grads(rep: Replica, idx: torch.Tensor, b, u, neg_pos, window: int):
             "loss": loss.float(), "pairs": valid.float().sum()}
 
 
-def meet_counts(parts: List[dict]) -> List[dict]:
+def meet_counts(parts: List[dict], group=None) -> List[dict]:
     """Each shard's view of the chunk's touch counts: the sum over every
     shard (the update averages a row over all the chunk's slots that touch
-    it, wherever they were computed)."""
+    it, wherever they were computed), of every process of `group` too."""
     out = []
     for p in parts:
         dev = p["syn0_counts"].device
         out.append({k: sum((q[k].to(dev) for q in parts[1:]), parts[0][k].to(dev))
                     for k in ("syn0_counts", "syn1_counts")})
+    if group is not None:
+        host = shards_lib._host_staged(group)
+        both = torch.cat([out[0]["syn0_counts"], out[0]["syn1_counts"]])
+        wire = shards_lib._wire(both, host)
+        group.allreduce([wire]).wait()
+        V = out[0]["syn0_counts"].shape[0]
+        for c in out:
+            whole = wire.to(c["syn0_counts"].device)
+            c["syn0_counts"], c["syn1_counts"] = whole[:V], whole[V:]
     return out
 
 
 def one_chunk(replicas: Dict[torch.device, Replica], shard_devices: Sequence,
-              start: int, lr, b, u, neg_pos, window: int) -> torch.Tensor:
+              start: int, lr, b, u, neg_pos, window: int, *,
+              positions: Optional[Sequence[int]] = None,
+              owners: Optional[Sequence[int]] = None,
+              group=None) -> torch.Tensor:
     """One chunk of `b.shape[0]` positions from `start`, split evenly over
-    `shard_devices` (one entry a shard, keys of `replicas`), applied in
-    place to every replica's tables; returns loss / valid pairs.
+    the mesh's shards, applied in place to every replica's tables; returns
+    loss / valid pairs.
+
+    `shard_devices` are this process's shards (one entry a shard, keys of
+    `replicas`), at mesh `positions` (default 0, 1, ...). Across processes
+    `owners` names the process of every mesh position and `group` is the
+    process group: the counts meet and the updates are gathered over it.
 
     Pure in the draws: b [chunk] (windows in 1..W), u [chunk, 2W+1] (keep
     uniforms), neg_pos [chunk, K] (unigram table positions), sliced per
     shard."""
     chunk = b.shape[0]
-    S = len(shard_devices)
-    per = chunk // S
+    positions = list(range(len(shard_devices))) if positions is None \
+        else list(positions)
+    total = len(positions) if owners is None else len(owners)
+    per = chunk // total
     parts = []
-    for s, dev in enumerate(shard_devices):
+    for s, dev in zip(positions, shard_devices):
         sl = slice(s * per, (s + 1) * per)
         idx = start + torch.arange(s * per, (s + 1) * per, device=dev)
         parts.append(shard_grads(replicas[dev], idx, b[sl].to(dev), u[sl].to(dev),
                                  neg_pos[sl].to(dev), window))
-    counts = meet_counts(parts)
+    counts = meet_counts(parts, group)
     updates = {"syn0": [], "syn1neg": []}
     for p, c in zip(parts, counts):
         gh = p["gh"].float() / c["syn0_counts"][p["centers"]].clamp_min(1.0)[:, None]
         g1 = p["g1"].float() / c["syn1_counts"][p["syn1_idx"]].clamp_min(1.0)[:, None]
         updates["syn0"].append((p["centers"], -lr * gh))
         updates["syn1neg"].append((p["syn1_idx"], -lr * g1))
+    first = shard_devices[0]
+    losses, pairs = [p["loss"] for p in parts], [p["pairs"] for p in parts]
+    if group is not None:   # every shard's part, in mesh order
+        gather = lambda ts: shards_lib.gather_positions(ts, group, owners, first,
+                                                        kind="word2vec")
+        for name, ups in updates.items():
+            updates[name] = list(zip(gather([i for i, _ in ups]),
+                                     gather([d for _, d in ups])))
+        losses, pairs = gather(losses), gather(pairs)
     for dev, rep in replicas.items():
         for name, ups in updates.items():
             table = rep.tables[name]
@@ -162,16 +200,17 @@ def one_chunk(replicas: Dict[torch.device, Replica], shard_devices: Sequence,
                 torch.cat([i.to(dev) for i, _ in ups]),
                 torch.cat([d.to(dev) for _, d in ups]), table.shape[0])
             table.index_add_(0, rows, sums.to(table.dtype))
-    first = shard_devices[0]
-    loss = sum(p["loss"].to(first) for p in parts)
-    pairs = sum(p["pairs"].to(first) for p in parts)
+    loss = sum(t.to(first) for t in losses)
+    pairs = sum(t.to(first) for t in pairs)
     return loss / pairs.clamp_min(1.0)
 
 
 class ShardedWord2Vec:
     """Device-corpus skip-gram/NS trainer, optionally sharded over a mesh
     (see the module docstring). `device` None means CUDA; with a mesh the
-    mesh's devices are used."""
+    mesh's devices are used, this process's own. A mesh that spans
+    processes meets over `process_group` (default: the whole
+    `torch.distributed` group)."""
 
     def __init__(self, cache: VocabCache, layer_size: int = 100,
                  window: int = 5, negative: int = 5,
@@ -179,7 +218,8 @@ class ShardedWord2Vec:
                  min_learning_rate: float = 1e-4, chunk: int = 2048,
                  steps_per_call: int = 8, sampling: float = 0.0,
                  seed: int = 42, mesh: Optional[Mesh] = None,
-                 dtype=torch.float32, device: DeviceLike = None):
+                 dtype=torch.float32, device: DeviceLike = None,
+                 process_group=None):
         if negative <= 0:
             raise NotImplementedError(
                 "ShardedWord2Vec trains negative sampling; use "
@@ -195,12 +235,27 @@ class ShardedWord2Vec:
         self.sampling = float(sampling)
         self.seed = int(seed)
         self.mesh = mesh
+        self._group, self._positions, self._owners = None, None, None
         if mesh is not None:
-            if set(mesh.processes) != {process_index()}:
-                raise NotImplementedError(
-                    "ShardedWord2Vec trains on a mesh within one process; a "
-                    "mesh whose devices span processes is not supported")
-            self._shard_devices = [canonical(d) for d in mesh.devices]
+            self._group = process_group if process_group is not None else (
+                torch.distributed.group.WORLD if is_multiprocess(mesh) else None)
+            rank = self._group.rank() if self._group is not None \
+                else process_index()
+            self._positions = [i for i, p in enumerate(mesh.processes)
+                               if p == rank]
+            if self._group is None and len(self._positions) != mesh.size:
+                raise ValueError(
+                    "the mesh's devices span processes: initialize "
+                    "torch.distributed or pass process_group")
+            if self._group is not None:
+                self._owners = list(mesh.processes)
+                per_rank = {self._owners.count(r) for r in range(self._group.size())}
+                if len(per_rank) != 1:
+                    raise ValueError(
+                        "every process must hold the same number of mesh "
+                        f"positions; the mesh's owners are {self._owners}")
+            self._shard_devices = [canonical(mesh.devices[i])
+                                   for i in self._positions]
         else:
             self._shard_devices = [canonical(resolve_device(device))]
         self.device = self._shard_devices[0]
@@ -282,7 +337,9 @@ class ShardedWord2Vec:
         for start, lr in zip(starts, lrs):
             b, u, neg_pos = self._draw()
             losses.append(one_chunk(self._replicas, self._shard_devices, int(start),
-                                    float(lr), b, u, neg_pos, self.window))
+                                    float(lr), b, u, neg_pos, self.window,
+                                    positions=self._positions, owners=self._owners,
+                                    group=self._group))
         return torch.stack(losses)
 
     def fit_corpus(self, token_ids: np.ndarray, sent_ids: np.ndarray,

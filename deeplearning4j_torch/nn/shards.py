@@ -312,9 +312,12 @@ def score(layer, params, a: Tensor, y: Tensor, lmask: Optional[Tensor]):
 #: Wall milliseconds spent in this process's cross-process transports:
 #: "hop" (the ring's blocks and their gradients), "score" (the score's
 #: all-gather and its backward), "param_gather" (tensor parallelism's
-#: all-gather of a leaf's blocks, parallel/tensor.py). Tests and the chip
-#: smoke reset and read them.
-cross_ms = {"hop": 0.0, "score": 0.0, "param_gather": 0.0}
+#: all-gather of a leaf's blocks, parallel/tensor.py), "output" (the
+#: all-gather of sequence-parallel inference's output blocks) and "word2vec"
+#: (the device-corpus engine's gather of its shards' updates,
+#: nlp/distributed.py). Tests and the chip smoke reset and read them.
+cross_ms = {"hop": 0.0, "score": 0.0, "param_gather": 0.0, "output": 0.0,
+            "word2vec": 0.0}
 _cross_lock = threading.Lock()
 
 
@@ -383,6 +386,27 @@ def _p2p_untimed(pg, sends, recvs):
     for w in works:
         w.wait()
     return [_unwire(b, dt, dev) for b, dt, dev in bufs]
+
+
+def gather_positions(values: List[Tensor], pg, owners, device,
+                     kind: str = "output") -> List[Tensor]:
+    """Every mesh position's tensor in mesh order, on `device`, no
+    gradient: `values` are this process's positions' (all of one shape, in
+    mesh order), `owners` the process of every position; every process
+    holds the same number of positions. One all-gather over `pg`,
+    host-staged for gloo, timed as `cross_ms[kind]`."""
+    with timed_transport(kind):
+        mine = torch.stack([v.detach() for v in values])
+        w = _wire(mine, _host_staged(pg))
+        outs = [torch.empty_like(w) for _ in range(pg.size())]
+        pg.allgather([outs], [w]).wait()
+        got = [_unwire(o, mine.dtype, device) for o in outs]
+    taken = [0] * pg.size()
+    ordered = []
+    for r in owners:
+        ordered.append(got[r][taken[r]])
+        taken[r] += 1
+    return ordered
 
 
 class _Exchange(torch.autograd.Function):

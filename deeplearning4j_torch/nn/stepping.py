@@ -96,6 +96,18 @@ def group_signature(ds):
             ds.features_mask is None, ds.labels_mask is None)
 
 
+def register_fit_metrics(reg) -> tuple:
+    """The fit loop's families on `reg`, constructed once a `fit` call:
+    (per-batch dispatch histogram, fence-wait gauge, epoch counter)."""
+    return (reg.histogram("train_step_dispatch_ms",
+                          "Host-side enqueue time per fit-loop batch "
+                          "(device time needs the fence)"),
+            reg.gauge("device_fence_wait_ms",
+                      "Queue drain at the last sampled fence "
+                      "(device-compute backlog)"),
+            reg.counter("train_epochs_total", "Completed fit epochs"))
+
+
 def run_fit(net, wrapped, *, epochs: int, step: Callable, spd: int,
             checkpoint, sentinel, skip_batches: int,
             coerce: Callable = lambda ds: ds):
@@ -114,6 +126,7 @@ def run_fit(net, wrapped, *, epochs: int, step: Callable, spd: int,
         group.clear()
 
     reg = metrics_mod.registry()
+    dispatch_ms, fence_wait_ms, epochs_total = register_fit_metrics(reg)
     fit_sp = tracing.begin("fit", epochs=epochs)
     try:
         for _ in range(epochs):
@@ -163,16 +176,10 @@ def run_fit(net, wrapped, *, epochs: int, step: Callable, spd: int,
                         group.append(ds)
                         if len(group) >= spd:
                             flush_group()
-                reg.histogram(
-                    "train_step_dispatch_ms",
-                    "Host-side enqueue time per fit-loop batch "
-                    "(device time needs the fence)").observe(
-                        (time.perf_counter() - t1) * 1000.0)
+                dispatch_ms.observe((time.perf_counter() - t1) * 1000.0)
                 w = tracing.fence(net.iteration, net.score_value)
                 if w is not None:
-                    reg.gauge("device_fence_wait_ms",
-                              "Queue drain at the last sampled fence "
-                              "(device-compute backlog)").set(w)
+                    fence_wait_ms.set(w)
                 if sentinel is not None:
                     sentinel.after_step(net)
                 batches_done += 1
@@ -183,7 +190,7 @@ def run_fit(net, wrapped, *, epochs: int, step: Callable, spd: int,
                 with tracing.span("dispatch", flush="epoch_tail"):
                     flush_group()
             net.epoch += 1
-            reg.counter("train_epochs_total", "Completed fit epochs").inc()
+            epochs_total.inc()
             for lst in net.listeners:
                 if hasattr(lst, "on_epoch_end"):
                     lst.on_epoch_end(net, net.epoch)

@@ -41,7 +41,7 @@ class ScoreIterationListener(IterationListener):
             self._printer(
                 f"Score at iteration {iteration} is "
                 # deliberate rate-limited sync: printing IS the read
-                f"{float(model.score_value):.6f}")
+                f"{float(model.score_value):.6f}")  # jaxlint: disable=JL101
 
 
 class PerformanceListener(IterationListener):
@@ -85,7 +85,7 @@ class PerformanceListener(IterationListener):
             # nothing else may sync the card's queue)
             reg.gauge("train_score",
                       "Loss at the last fenced report").set(
-                          float(model.score_value))
+                          float(model.score_value))  # jaxlint: disable=JL101
         now = time.perf_counter()
         if self._last_time is not None and iteration > self._last_iter:
             dt = now - self._last_time

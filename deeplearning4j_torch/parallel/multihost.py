@@ -707,7 +707,10 @@ def _model_parallel_rank(args, runner, conf, x, y) -> None:
     (parameters) and `.json` (iteration, step ms, the cross-process
     transports' ms, the shard report). In tp mode the trees are then
     gathered (`materialize_local`, every rank), the chief writes
-    `<out>.tp.zip`, and every rank restores it into `.restored.npz`."""
+    `<out>.tp.zip`, and every rank restores it into `.restored.npz`. With
+    `--output` (sp) every rank then answers `output` on the whole batch
+    twice, the second timed with its K3 launches and transports counted,
+    into `.output.npy`."""
     from ..data.dataset import DataSet
     from ..nn import shards
     from ..nn.multilayer import MultiLayerNetwork
@@ -738,12 +741,26 @@ def _model_parallel_rank(args, runner, conf, x, y) -> None:
     report = {"iteration": net.iteration, "step_ms": step_ms,
               "cross_ms": dict(shards.cross_ms), "backend": runner.backend,
               "device": str(runner.device), "mesh": list(mesh.dims)}
+    base = f"{args.out}.{args.mode}.rank{rank}" if args.out else None
+    if args.output:
+        from ..ops import flash_attention as fa
+        wrapper.output(x)   # warm: the process's first kernels and buffers
+        runner.barrier("output")
+        before = dict(shards.cross_ms)
+        k3 = fa.fwd_launches
+        t0 = time.perf_counter()
+        out = wrapper.output(x)
+        report["output_ms"] = (time.perf_counter() - t0) * 1000.0
+        report["output_launches"] = {"flash_fwd": fa.fwd_launches - k3}
+        report["output_cross_ms"] = {k: v - before[k]
+                                     for k, v in shards.cross_ms.items()}
+        if base:
+            np.save(base + ".output.npy", out)
     if args.mode == "tp":
         report["shards"] = {k: list(v) for k, v in
                             wrapper.param_shard_report().items()}
         report["shard_bytes"] = wrapper.shard_bytes()
         wrapper.materialize_local()
-    base = f"{args.out}.{args.mode}.rank{rank}" if args.out else None
     if base:
         np.savez(base + ".npz", **_leaves_npz(net))
     if args.mode == "tp" and args.out:
@@ -800,6 +817,12 @@ def main(argv: Optional[List[str]] = None) -> int:
                    help="dp: ParallelWrapper over a data axis of the ranks; tp "
                         "/ sp: one model axis / one seq ring across the ranks, "
                         "every rank fed the whole batch (--batch-size rows)")
+    p.add_argument("--output", action="store_true",
+                   help="sp: after the fit, answer `output` on the whole "
+                        "batch through the wrapper (every rank the whole "
+                        "output) into <out>.sp.rank<r>.output.npy; the "
+                        "second of two calls' wall ms and K3 launches go "
+                        "in the report")
     p.add_argument("--crash-at", type=int, default=-1)
     p.add_argument("--crash-rank", type=int, default=1)
     p.add_argument("--out", default=None)

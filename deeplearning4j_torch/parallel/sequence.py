@@ -27,7 +27,9 @@ every process feeds the identical global batch and runs its own shards;
 the ring's hops cross the processes over the group, host-staged
 (gloo carries no CUDA point-to-point; NCCL where each rank has its own
 GPU), the score all-gathers the outputs' blocks, and the gradients are
-summed over the processes. The model axis and the recurrent gather stay
+summed over the processes. Inference (`output`, `outputs`) runs each
+process's shards and all-gathers their output blocks, so every process
+returns the whole output. The model axis and the recurrent gather stay
 within a process there.
 
 Deliberate differences from the JAX package: BatchNormalization and the
@@ -423,11 +425,10 @@ class SequenceParallelWrapper:
     def _infer(self, rows: int, T: int, forward):
         """Every local shard's `forward(its view, its state, cut)` without
         gradients: {output key: whole output} assembled from the (d, 0, s)
-        shards' blocks (cut in time where they hold a time block)."""
+        shards' blocks (cut in time where they hold a time block). Across
+        processes the blocks are all-gathered over the group first, so
+        every process returns the whole output."""
         net = self.model
-        if self._pg is not None:
-            raise NotImplementedError("sequence-parallel inference runs in one "
-                                      "process")
         if rows % self.data_shards:
             raise ValueError(f"batch {rows} must divide the "
                              f"{self.data_shards}-way data axis")
@@ -445,16 +446,23 @@ class SequenceParallelWrapper:
 
         with self._ctx():
             outs = shards.run(len(ctxs), body, ctxs)
+        blocks = {key: dict(zip(self._coords, (o[key] for o in outs)))
+                  for key in outs[0]}
+        if self._pg is not None:
+            owners = [p for p, _ in self._all]
+            for key in blocks:
+                got = shards.gather_positions([o[key] for o in outs], self._pg,
+                                              owners, net.device)
+                blocks[key] = {coord: g for (_, coord), g in zip(self._all, got)}
         result = {}
-        for key in outs[0]:
+        for key, by_coord in blocks.items():
             rows_out = []
             for d in range(self._dims[0]):
-                blocks = [outs[self._coords.index((d, 0, s))][key]
-                          for s in range(self._dims[2])]
-                timed = tc and blocks[0].ndim == 3 and blocks[0].shape[1] == tc \
+                row = [by_coord[(d, 0, s)] for s in range(self._dims[2])]
+                timed = tc and row[0].ndim == 3 and row[0].shape[1] == tc \
                     and tc < T
-                rows_out.append(torch.cat([b.to(net.device) for b in blocks], 1)
-                                if timed else blocks[0].to(net.device))
+                rows_out.append(torch.cat([b.to(net.device) for b in row], 1)
+                                if timed else row[0].to(net.device))
             result[key] = torch.cat(rows_out, 0)
         return result
 

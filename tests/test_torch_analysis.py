@@ -1,5 +1,6 @@
-"""The port's analyzer (JL401-JL404, baseline, CLI) and lock recorder against
-the JAX package's.
+"""The port's lock rules (JL401-JL404), baseline, CLI and lock recorder
+against the JAX package's (the host-sync and serving rules are held in
+tests/test_torch_analysis_host_sync.py and test_torch_analysis_serving.py).
 
 - Every JL401-404 snippet of tests/test_analysis.py (the lock-rule classes
   and the JL4xx suppression cases) gives the same findings (rule, line,
@@ -42,6 +43,7 @@ PORT_PKG = os.path.join(ROOT, "deeplearning4j_torch")
 REF_PKG = os.path.join(ROOT, "deeplearning4j_tpu")
 LOCK_RULES = ("JL401", "JL402", "JL403", "JL404")
 REF_LOCK_RULES = [rrules.RULES_BY_ID[r] for r in LOCK_RULES]
+PORT_LOCK_RULES = [prules.RULES_BY_ID[r] for r in LOCK_RULES]
 SNIPPET_CLASSES = {"TestLockRule", "TestLockOrderRule", "TestBlockingUnderLockRule",
                    "TestFieldAtomicityRule", "TestSuppression"}
 
@@ -77,19 +79,20 @@ def _key(f):
 def test_snippets_cover_every_lock_rule():
     assert len(SNIPPETS) == 19
     fired = {f.rule for src in SNIPPETS.values()
-             for f in pengine.analyze_source(textwrap.dedent(src), "fixture.py")}
+             for f in pengine.analyze_source(textwrap.dedent(src), "fixture.py",
+                                             rules=PORT_LOCK_RULES)}
     assert fired == set(LOCK_RULES)
 
 
 @pytest.mark.parametrize("name", sorted(SNIPPETS))
 def test_snippet_findings_equal_reference(name):
     src = textwrap.dedent(SNIPPETS[name])
-    got = pengine.analyze_source(src, "fixture.py")
+    got = pengine.analyze_source(src, "fixture.py", rules=PORT_LOCK_RULES)
     want = rengine.analyze_source(src, "fixture.py", rules=REF_LOCK_RULES)
     assert [_key(f) for f in got] == [_key(f) for f in want]
     # and with the suppressions taken out
     naked = src.replace("# jaxlint:", "# lint:")
-    got = pengine.analyze_source(naked, "fixture.py")
+    got = pengine.analyze_source(naked, "fixture.py", rules=PORT_LOCK_RULES)
     want = rengine.analyze_source(naked, "fixture.py", rules=REF_LOCK_RULES)
     assert [_key(f) for f in got] == [_key(f) for f in want]
 
@@ -107,7 +110,7 @@ def test_reference_tree_findings_equal():
     got, want = [], []
     for fname, src in _tree_sources(REF_PKG):
         naked = src.replace("# jaxlint:", "# lint:")
-        got += pengine.analyze_source(naked, fname)
+        got += pengine.analyze_source(naked, fname, rules=PORT_LOCK_RULES)
         want += rengine.analyze_source(naked, fname, rules=REF_LOCK_RULES)
     fp = lambda fs: [(f.path, *_key(f), f.fingerprint) for f in fs]
     assert fp(got) == fp(want)
@@ -316,4 +319,4 @@ def test_cli_gates_a_new_finding(tmp_path, capsys):
     capsys.readouterr()
     assert pmain(["--rules"]) == 0
     assert [line.split()[0] for line in capsys.readouterr().out.splitlines()] == \
-        list(LOCK_RULES)
+        ["JL101", "JL102", "JL103", *LOCK_RULES, "JL501", "JL502", "JL503"]

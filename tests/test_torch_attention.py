@@ -22,6 +22,7 @@ import torch
 
 from deeplearning4j_torch.ops import attention as port_att
 from deeplearning4j_tpu.ops import attention as ref_att
+from test_torch_word2vec import one_torch_thread  # noqa: F401
 
 B, T, H, D = 2, 32, 2, 8
 FWD = dict(rtol=1e-5, atol=1e-6)

@@ -33,6 +33,7 @@ import deeplearning4j_tpu as ref
 from deeplearning4j_tpu.data.dataset import DataSet as RefDataSet
 from deeplearning4j_tpu.nn.conf.builders import \
     MultiLayerConfiguration as RefConfiguration
+from test_torch_word2vec import one_torch_thread  # noqa: F401
 
 WIDTH, HEADS, VOCAB, T, BATCH = 16, 4, 11, 32, 2
 TOL = dict(rtol=1e-5, atol=1e-6)

@@ -49,6 +49,7 @@ from deeplearning4j_torch.utils import faults as port_faults
 from deeplearning4j_torch.utils import model_serializer as port_ser
 from deeplearning4j_torch.utils import params as port_params
 from deeplearning4j_tpu.utils import model_serializer as ref_ser
+from test_torch_word2vec import one_torch_thread  # noqa: F401
 
 FIX = os.path.join(os.path.dirname(os.path.abspath(__file__)), "fixtures")
 LENET = os.path.join(FIX, "pretrained", "lenet_mnist.zip")

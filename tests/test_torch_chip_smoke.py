@@ -71,6 +71,21 @@ from deeplearning4j_torch.quantize import quantize as port_quant
 from deeplearning4j_torch.utils import params as port_params
 
 
+@pytest.fixture(autouse=True)
+def torch_threads(request):
+    """The phases cut to run here are many small ops: on a loaded machine
+    (the suite's parallel workers) torch's intra-op threads wait on each
+    other far longer than the ops take, so each test runs them on one
+    thread (test_torch_word2vec.py's `one_torch_thread`). AlexNet's fit
+    loop keeps torch's threads: its steps are a few element-wise passes
+    over 24M parameters, which the threads share well."""
+    n = torch.get_num_threads()
+    if "small_fit_loop_phase" not in request.fixturenames:
+        torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 @pytest.fixture(scope="module")
 def setup():
     net = port_zoo.AlexNet(input_shape=(60, 60, 3), num_labels=10).init(device="cpu")

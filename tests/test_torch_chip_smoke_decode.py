@@ -28,6 +28,7 @@ from deeplearning4j_torch.models import zoo as port_zoo
 from deeplearning4j_torch.ops import flash_attention as port_fa
 from deeplearning4j_torch.parallel.inference import ParallelInference
 from deeplearning4j_torch.serving import decode as port_decode
+from test_torch_word2vec import one_torch_thread  # noqa: F401
 
 
 def _counting_k7(monkeypatch, extra_key=0):

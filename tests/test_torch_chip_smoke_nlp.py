@@ -41,7 +41,7 @@ def test_device_corpus_phase_passes():
 
 
 def test_device_corpus_hold_fails_without_the_count_division(monkeypatch):
-    monkeypatch.setattr(port_dist, "meet_counts", lambda parts: [
+    monkeypatch.setattr(port_dist, "meet_counts", lambda parts, group=None: [
         {k: torch.zeros_like(p[k]) for k in ("syn0_counts", "syn1_counts")}
         for p in parts])
     with pytest.raises(RuntimeError, match="one chunk off by"):
@@ -49,7 +49,7 @@ def test_device_corpus_hold_fails_without_the_count_division(monkeypatch):
 
 
 def test_two_shard_check_fails_when_a_shard_counts_alone(monkeypatch):
-    monkeypatch.setattr(port_dist, "meet_counts", lambda parts: [
+    monkeypatch.setattr(port_dist, "meet_counts", lambda parts, group=None: [
         {k: p[k] for k in ("syn0_counts", "syn1_counts")} for p in parts])
     with pytest.raises(RuntimeError, match="two shards"):
         chip_smoke.phase_word2vec_device_corpus(torch, "cpu", device="cpu", size=DC_SMALL)

@@ -24,6 +24,7 @@ from deeplearning4j_torch.ops import flash_attention as port_fa
 
 from test_torch_chip_smoke_gateway import _NarrowAlexNet
 from test_torch_chip_smoke_parallel import counting_standins
+from test_torch_word2vec import one_torch_thread  # noqa: F401
 
 RING_SMALL = dict(b=2, t=64, h=2, d=8, shards=2)
 SP_SMALL = dict(t=32, batch=2, seq=2, bf16_steps=2, threed_t=16, width=16, heads=4,

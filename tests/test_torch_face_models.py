@@ -47,6 +47,7 @@ from deeplearning4j_tpu.models import zoo as ref_zoo
 from deeplearning4j_tpu.nn.layers import pretrain as ref_pretrain
 
 from test_torch_resnet import _carry, _hwc, _node_types
+from test_torch_word2vec import one_torch_thread  # noqa: F401
 
 
 def _rel(a, b):

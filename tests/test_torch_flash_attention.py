@@ -22,6 +22,7 @@ import pytest
 import torch
 
 from deeplearning4j_torch.ops import flash_attention as port_fa
+from test_torch_word2vec import one_torch_thread  # noqa: F401
 
 B, T, H, D = 2, 32, 2, 8
 FWD = dict(rtol=1e-5, atol=1e-6)

@@ -47,6 +47,7 @@ from deeplearning4j_tpu.nn.layers import convolution as ref_conv
 from deeplearning4j_tpu.utils import serde as ref_serde
 from deeplearning4j_torch.nn.conf import inputs as port_inputs
 from deeplearning4j_torch.utils import serde as port_serde
+from test_torch_word2vec import one_torch_thread  # noqa: F401
 
 FIX = os.path.join(os.path.dirname(os.path.abspath(__file__)), "fixtures")
 

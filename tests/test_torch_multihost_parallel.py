@@ -50,6 +50,7 @@ from deeplearning4j_torch.utils import params as port_params
 
 from test_torch_multihost import free_port, two_ranks_in_threads
 from test_torch_parallel_wrapper import assert_trees_close
+from test_torch_word2vec import one_torch_thread  # noqa: F401
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 TIMEOUT_S = 60

@@ -24,6 +24,7 @@ from deeplearning4j_torch.nn.conf.builders import BackpropType as PortBPT
 from deeplearning4j_tpu.nn.conf.builders import BackpropType as RefBPT
 from deeplearning4j_torch.parallel import ParallelWrapper, mesh as port_mesh
 from deeplearning4j_torch.utils import params as port_params
+from test_torch_word2vec import one_torch_thread  # noqa: F401
 
 SEQ, BATCH, NIN, NCLS = 12, 16, 6, 6
 

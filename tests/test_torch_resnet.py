@@ -35,6 +35,7 @@ from deeplearning4j_torch.models import zoo as port_zoo
 from deeplearning4j_torch.utils import params as port_params
 import deeplearning4j_tpu as ref
 from deeplearning4j_tpu.models import zoo as ref_zoo
+from test_torch_word2vec import one_torch_thread  # noqa: F401
 
 FIX = os.path.join(os.path.dirname(os.path.abspath(__file__)), "fixtures")
 

@@ -19,7 +19,7 @@ import torch
 
 from deeplearning4j_torch.nlp import distributed as port_dist
 from deeplearning4j_torch.nlp.vocab import VocabCache as PortVocabCache
-from deeplearning4j_torch.parallel.mesh import create_mesh, data_parallel_mesh
+from deeplearning4j_torch.parallel.mesh import data_parallel_mesh
 from deeplearning4j_tpu.nlp import distributed as ref_dist
 from deeplearning4j_tpu.nlp.vocab import VocabCache as RefVocabCache
 
@@ -164,7 +164,7 @@ def test_shards_that_count_alone_disagree(monkeypatch):
     toks, sids = port_dist.corpus_arrays(idx)
     kw = MESH_KW
     single = port_dist.ShardedWord2Vec(cache, **kw).fit_corpus(toks, sids, epochs=2)
-    monkeypatch.setattr(port_dist, "meet_counts", lambda parts: [
+    monkeypatch.setattr(port_dist, "meet_counts", lambda parts, group=None: [
         {k: p[k] for k in ("syn0_counts", "syn1_counts")} for p in parts])
     alone = port_dist.ShardedWord2Vec(
         cache, mesh=data_parallel_mesh(devices=["cpu"] * 2), **kw).fit_corpus(
@@ -182,13 +182,6 @@ def test_chunk_must_divide_evenly_word_for_word():
         port_dist.ShardedWord2Vec(port_cache, chunk=1001,
                                   mesh=data_parallel_mesh(devices=["cpu"] * 8))
     assert str(got.value) == str(want.value)
-
-
-def test_mesh_across_processes_is_not_supported():
-    cache, _ = cluster_corpus(PortVocabCache, n_sent=10)
-    mesh = create_mesh(devices=["cpu", "cpu"], processes=[0, 1])
-    with pytest.raises(NotImplementedError, match="span processes"):
-        port_dist.ShardedWord2Vec(cache, chunk=64, mesh=mesh)
 
 
 def test_hierarchical_softmax_is_refused():
