@@ -325,9 +325,26 @@ Phases, each of which fails the script (non-zero exit, no result line):
    shards each (`multihost.main --mode sp --output`), held to the
    one-process SP output and the plain output within 1e-4, K3 launched
    layers x shards x hops times, output ms.
-22. One JSON line with every kernel's numbers (K3's launches on each path
-   it ran, the char model's and the SP output's across processes), then
-   the result line {"ok": true, "device": {...}}.
+22. Heads wider than 128 and the bfloat16 backward accumulator
+   (`phase_wide_kernels` among the kernel phases, `phase_char_model_wide`
+   after the char model, `phase_decode_wide` after decode serving): the
+   sliced arms of K3-K5 at head_dim 256 (the wide char model's shape, timed
+   beside SDPA and the backend it took), 160, 300, 512 and 2688, in both
+   types, causal, with a key mask and with packed segments; K4's and K5's
+   bfloat16-accumulator arms at JAX blocks 128, 32 and 100 against the
+   plain accumulator, and its path through `flash_attention(...,
+   bwd_acc_dtype="bfloat16")`; K7's sliced arm at 256 and 2688. The char
+   model at width 1024 over 4 heads (t 8192, batch 4) served and trained in
+   float32 and as a bfloat16 network (the sliced K3 once a layer a forward,
+   K4 and K5 once a layer a backward), its gradients against the plain
+   versions and the card against the CPU; a decoder with Gemma 2B's widths
+   (8 heads of 256, ff 16384, 4 layers) behind the decode engine at
+   bench_serving_decode's load, K7's sliced arm once a layer a step, every
+   answer equal to a run on K7's plain version and to `naive_generate`.
+23. One JSON line with every kernel's numbers (K3's launches on each path
+   it ran, the char model's and the SP output's across processes; the
+   sliced and accumulator arms with their own), then the result line
+   {"ok": true, "device": {...}}.
 
 Needs one CUDA GPU; exits non-zero without one. ``chip_smoke.py
 --word2vec-rank ...`` is one rank of phase 21, which the script spawns.
@@ -3160,13 +3177,14 @@ STATE_RTOL = 1e-5
 
 
 def all_launches():
-    """Every hand-written kernel's launch count, K1-K7."""
+    """Every hand-written kernel's launch count: K1-K7 and the sliced and
+    bfloat16-accumulator arms of K3-K5 and K7."""
     from deeplearning4j_torch.ops import flash_attention as fa
     from deeplearning4j_torch.ops import lrn as lrn_ops
     from deeplearning4j_torch.ops import quant_matmul as qmm
     return {"lrn_fwd": lrn_ops.launches, "lrn_bwd": lrn_ops.bwd_launches,
             **_counts(fa), "int8_matmul": qmm.launches,
-            "decode_attention": fa.decode_launches}
+            "decode_attention": fa.decode_launches, **_wide_counts(fa)}
 
 
 def zero_launches():
@@ -3176,6 +3194,8 @@ def zero_launches():
     lrn_ops.launches = lrn_ops.bwd_launches = qmm.launches = 0
     fa.decode_launches = 0
     _zero_counts(fa)
+    fa.fwd_wide_launches = fa.bwd_dkv_wide_launches = fa.bwd_dq_wide_launches = 0
+    fa.bwd_dkv_acc16_launches = fa.bwd_dq_acc16_launches = fa.decode_wide_launches = 0
 
 
 def bn_nodes(net):
@@ -3777,12 +3797,12 @@ def _nbytes(*ts):
     return sum(t.numel() * t.element_size() for t in ts if t is not None)
 
 
-def _flash_inputs(torch, gen, b, tq, tk, h, d, dtype, opts):
-    mk = lambda *s: torch.randn(*s, device="cuda", generator=gen).to(dtype)
+def _flash_inputs(torch, gen, b, tq, tk, h, d, dtype, opts, device="cuda"):
+    mk = lambda *s: torch.randn(*s, device=device, generator=gen).to(dtype)
     q, k, v, do = mk(b, tq, h, d), mk(b, tk, h, d), mk(b, tk, h, d), mk(b, tq, h, d)
     km = qs = ks = None
     if opts.get("key_mask"):
-        km = (torch.rand(b, tk, device="cuda", generator=gen) > 0.3).float()
+        km = (torch.rand(b, tk, device=device, generator=gen) > 0.3).float()
         km[:, :5] = 0.0   # causal rows 0-4 see no key
         km[-1] = 0.0      # and the last batch row none at all
     if opts.get("segments"):
@@ -3793,10 +3813,10 @@ def _flash_inputs(torch, gen, b, tq, tk, h, d, dtype, opts):
             cuts = np.sort(rng.choice(np.arange(1, tq * 9 // 10), 3, replace=False))
             ids[r, :tq * 9 // 10] = np.searchsorted(cuts, np.arange(tq * 9 // 10),
                                                     side="right") + 1
-        qs = ks = torch.from_numpy(ids).cuda()
+        qs = ks = torch.from_numpy(ids).to(device)
         km = (qs > 0).float()
-    qp = torch.arange(tq, device="cuda", dtype=torch.int32) + opts.get("q_offset", 0)
-    kp = torch.arange(tk, device="cuda", dtype=torch.int32)
+    qp = torch.arange(tq, device=device, dtype=torch.int32) + opts.get("q_offset", 0)
+    kp = torch.arange(tk, device=device, dtype=torch.int32)
     return q, k, v, do, km, qs, ks, qp, kp
 
 
@@ -3950,14 +3970,15 @@ def phase_attention_dispatch(torch, card):
     return rows
 
 
-def char_conf(impl="auto", packed=False):
+def char_conf(impl="auto", packed=False, width=CHAR_WIDTH, heads=CHAR_HEADS):
     """bench.py's attention_longctx network: two causal SelfAttentionLayers
-    (512 wide, 4 heads, ReLU), an RnnOutputLayer (96-way softmax, MCXENT),
-    Sgd(0.1), one-hot input of 96 characters; with `packed`, the attention
-    layers read segment ids from the features mask (`packed_segments`)."""
+    (512 wide, 4 heads, ReLU, unless `width`/`heads` say otherwise), an
+    RnnOutputLayer (96-way softmax, MCXENT), Sgd(0.1), one-hot input of 96
+    characters; with `packed`, the attention layers read segment ids from the
+    features mask (`packed_segments`)."""
     from deeplearning4j_torch import (InputType, NeuralNetConfiguration,
                                       RnnOutputLayer, SelfAttentionLayer, Sgd)
-    attn = lambda: SelfAttentionLayer(n_out=CHAR_WIDTH, n_heads=CHAR_HEADS,
+    attn = lambda: SelfAttentionLayer(n_out=width, n_heads=heads,
                                       causal=True, activation="relu",
                                       attention_impl=impl,
                                       packed_segments=packed)
@@ -4157,6 +4178,596 @@ def phase_char_model(torch, card):
     np.testing.assert_allclose(card_net.output(small_ds.features),
                                cpu_net.output(small_ds.features),
                                rtol=1e-4, atol=1e-6)
+    return result
+
+
+# ------------------------- heads wider than 128 and the bfloat16 accumulator
+
+WIDE_CHAR_WIDTH, WIDE_CHAR_HEADS = 1024, 4   # 4 heads of 256: the sliced arms
+WIDE_HEAD = WIDE_CHAR_WIDTH // WIDE_CHAR_HEADS
+ACC16_REL = 2.0 ** -7   # the bfloat16 accumulator, kernel against plain: two
+# bfloat16 ulps of max|plain| (a block's float32 sum taken in another order
+# can tip one of its roundings, and a tipped rounding moves the sum an ulp)
+ACC16_SHARE = 0.05      # ... and at most this share of entries differing at all
+
+
+def flash_wide_rel(d, dtype):
+    """The sliced arms' limit against the plain version, of max|plain|:
+    FLASH_REL, in float32 times d / 128 from 128 up: the scores are float32
+    sums over head_dim (3xTF32 chunks in the kernel, another order in the
+    plain version), whose rounding grows with their length."""
+    return FLASH_REL[dtype] * (max(1.0, d / 128) if dtype == "float32" else 1.0)
+
+
+def _wide_flash_cases():
+    """(label, b, tq, tk, h, d, dtype, causal, options, timed): the wide char
+    model's shape in both types (timed), then head_dim 256, 160 and 300 (a
+    ragged last slice: 160 = 128 + 32, 300 = 128 + 128 + 44, and 600-byte
+    bfloat16 rows, which load element by element) and 512, each in both types
+    under a causal mask alone (timed at t 2048 but 256's, timed above), with
+    a key mask and with packed segments; the
+    gate's upper end, 2688 at t 128, and 2689 at t 64; a non-causal, a
+    position-offset and a one-query-row case."""
+    cases = [("wide_model_f32", CHAR_BATCH, CHAR_T, CHAR_T, WIDE_CHAR_HEADS, WIDE_HEAD,
+              "float32", True, {}, True),
+             ("wide_model_bf16", CHAR_BATCH, CHAR_T, CHAR_T, WIDE_CHAR_HEADS, WIDE_HEAD,
+              "bfloat16", True, {}, True)]
+    variants = (("causal", {}), ("key_mask", {"key_mask": True}),
+                ("segments", {"segments": True}))
+    for d in (256, 160, 300, 512):
+        for dtype in ("float32", "bfloat16"):
+            for name, opts in variants:   # the causal case timed at t 2048
+                timed = name == "causal" and d != 256
+                t = 2048 if timed else 320
+                cases.append((f"d{d}_{dtype}_{name}", 2, t, t, 4 if timed else 2, d,
+                              dtype, True, opts, timed))
+    for dtype in ("float32", "bfloat16"):
+        for name, opts in variants:
+            cases.append((f"d2688_{dtype}_{name}", 1, 128, 128, 2, 2688, dtype, True,
+                          opts, name == "causal"))
+    return cases + [
+        ("d300_float32_noncausal", 2, 256, 256, 2, 300, "float32", False, {}, False),
+        ("d300_float32_offsets", 2, 256, 512, 2, 300, "float32", True, {"q_offset": 256},
+         False),
+        # one query row against a masked cache, as K3 at q = 1
+        ("d256_float32_tq1", 4, 1, 777, 2, 256, "float32", False, {"key_mask": True},
+         False),
+        # the gate's 2689 at t 64: rows of 10,756 bytes load element by element,
+        # and the last slice is one column wide
+        ("d2689_float32", 1, 64, 64, 2, 2689, "float32", True, {}, False)]
+
+
+FLASH_WIDE_CASES = _wide_flash_cases()
+# (label, b, t, h, d, dtype, JAX block, options, timed): the bfloat16
+# accumulator's arms of K4 and K5 against its plain version, at the JAX
+# package's default block (128) and at 32, the wide model's shape timed; a
+# head_dim under 128 (the accumulator runs the sliced arm at any head_dim);
+# a block of 100, which the 32-row sweep tiles straddle
+ACC16_CASES = [
+    ("acc16_model_f32_128", CHAR_BATCH, CHAR_T, WIDE_CHAR_HEADS, WIDE_HEAD, "float32", 128,
+     {}, True),
+    ("acc16_d256_f32_32", 2, 1024, 2, 256, "float32", 32, {"key_mask": True}, False),
+    ("acc16_d256_bf16_128", 2, 1024, 2, 256, "bfloat16", 128, {"segments": True}, False),
+    ("acc16_d256_bf16_32", 2, 1024, 2, 256, "bfloat16", 32, {}, False),
+    ("acc16_d300_f32_32", 2, 512, 2, 300, "float32", 32, {"segments": True}, False),
+    ("acc16_d2688_f32_128", 1, 128, 2, 2688, "float32", 128, {}, False),
+    ("acc16_d2688_bf16_32", 1, 128, 2, 2688, "bfloat16", 32, {"key_mask": True}, False),
+    ("acc16_d64_bf16_128", 2, 512, 2, 64, "bfloat16", 128, {}, False),
+    ("acc16_d100_f32_100", 2, 400, 2, 100, "float32", 100, {"key_mask": True}, False),
+]
+# (label, b, t_kv, h, d, dtype, layers of the view (0: contiguous), timed):
+# K7's sliced arm at the wide decoder's shape (8 heads of 256 read in place
+# from a layer of its step's view, both types), at 2688, and at 300 in
+# bfloat16 (600-byte rows: one element a lane)
+DECODE_WIDE_CASES = [
+    ("wide_engine_f32", 8, 256, 8, 256, "float32", 4, True),
+    ("wide_engine_bf16", 8, 256, 8, 256, "bfloat16", 4, True),
+    ("d2688_f32", 4, 256, 2, 2688, "float32", 0, True),
+    ("d2688_bf16", 4, 256, 2, 2688, "bfloat16", 0, True),
+    ("d300_bf16", 3, 300, 2, 300, "bfloat16", 0, False),
+    ("d160_f32", 3, 100, 2, 160, "float32", 2, False),
+    ("d131_f32", 3, 90, 2, 131, "float32", 0, False),   # 524-byte rows: one element a lane
+]
+WIDE_COUNTS = ("flash_fwd_wide", "flash_bwd_dkv_wide", "flash_bwd_dq_wide",
+               "flash_bwd_dkv_acc16", "flash_bwd_dq_acc16", "decode_attention_wide")
+
+
+def _wide_counts(fa):
+    return dict(zip(WIDE_COUNTS, (fa.fwd_wide_launches, fa.bwd_dkv_wide_launches,
+                                  fa.bwd_dq_wide_launches, fa.bwd_dkv_acc16_launches,
+                                  fa.bwd_dq_acc16_launches, fa.decode_wide_launches)))
+
+
+def expect_launches(label, got, **want):
+    """`got` (all_launches') is 0 for every kernel but those named."""
+    check_launches(label, got, {**dict.fromkeys(got, 0), **want})
+
+
+def sdpa_backend(torch, q, k, v, causal):
+    """The backend torch's scaled_dot_product_attention takes for these
+    inputs ([b, h, t, d]), by its own choice function."""
+    try:
+        from torch.nn.attention import SDPBackend
+        return SDPBackend(torch._fused_sdp_choice(q, k, v, None, 0.0, causal)).name
+    except Exception as e:  # noqa: BLE001 (a private function: report, do not fail)
+        return f"unknown ({type(e).__name__})"
+
+
+def _check_wide_flash(torch, label, dtype, d, got, want, worst, key):
+    rel = _rel_err(got, want)
+    limit = flash_wide_rel(d, dtype)
+    if not rel <= limit or not torch.isfinite(got).all():
+        raise RuntimeError(f"{key} {label}: error {rel} of max|plain| (limit {limit})")
+    worst[key] = max(worst.get(key, 0.0), (got.float() - want.float()).abs().max().item())
+    return rel
+
+
+def _check_acc16(torch, label, got, want, worst, key):
+    """The bfloat16 accumulator's arm against its plain version: ACC16_REL of
+    max|plain| and at most ACC16_SHARE of the entries different."""
+    rel = _rel_err(got, want)
+    share = (got.float() != want.float()).float().mean().item()
+    if not rel <= ACC16_REL or not share <= ACC16_SHARE or not torch.isfinite(got).all():
+        raise RuntimeError(f"{key} {label}: error {rel} of max|plain| (limit "
+                           f"{ACC16_REL}), {share} of the entries differ (limit "
+                           f"{ACC16_SHARE})")
+    worst[key] = max(worst.get(key, 0.0), (got.float() - want.float()).abs().max().item())
+    return rel, share
+
+
+def phase_wide_kernels(torch, card, device=None):
+    """The sliced arms of K3, K4 and K5 (head_dim > 128) against their plain
+    versions at FLASH_WIDE_CASES, with a nonzero lse cotangent; the bfloat16
+    accumulator's arms of K4 and K5 against its plain version at ACC16_CASES;
+    K7's sliced arm at DECODE_WIDE_CASES (`check_decode`, rows with
+    cache_len 0 and past the bucket too). Timed cases: warm CUDA-event times
+    of each kernel, its plain version and SDPA (the yardstick only; the
+    backend torch took is named), beside the operations bound. Then the
+    bfloat16 accumulator's path through the public entry point: autograd of
+    `flash_attention(..., bwd_acc_dtype="bfloat16")` at the wide model's
+    shape, the counts reset just before and read just after (the sliced K3
+    and the accumulator's K4 and K5, once each). Returns the kernels-line
+    entries and the rows."""
+    import torch.nn.functional as F
+    from deeplearning4j_torch.ops import flash_attention as fa
+    dev = device or "cuda"
+    on_card = torch.device(dev).type == "cuda"
+    gen = torch.Generator(device=dev).manual_seed(24)
+    rng = np.random.default_rng(24)
+    worst, rows = {}, {}
+    t_ = lambda fn: cuda_time_ms(fn, iters=3, warm=1)
+    for label, b, tq, tk, h, d, dtype, causal, opts, timed in FLASH_WIDE_CASES:
+        dt = getattr(torch, dtype)
+        q, k, v, do, km, qs, ks, qp, kp = _flash_inputs(torch, gen, b, tq, tk, h, d, dt,
+                                                        opts, device=dev)
+        scale = d ** -0.5
+        o, lse = fa._launch_fwd(q, k, v, km, qs, ks, qp, kp, scale, causal)
+        torch.cuda.synchronize()
+        ow, lw = fa.flash_fwd_reference(q, k, v, km, qs, ks, qp, kp, scale, causal)
+        live = lw > fa.NEG / 2
+        if not torch.equal(lse <= fa.NEG / 2, ~live):
+            raise RuntimeError(f"flash_fwd_wide {label}: fully masked rows differ")
+        torch.testing.assert_close(lse[live], lw[live], rtol=LSE_TOL["rtol"] * d / 128,
+                                   atol=LSE_TOL["atol"] * d / 128)
+        if not live.all() and (o[~live] != 0).any():
+            raise RuntimeError(f"flash_fwd_wide {label}: a fully masked row is not 0")
+        gl = torch.where(live, torch.randn(lw.shape, device=dev, generator=gen),
+                         0.0).contiguous()
+        di = (ow.float() * do.float()).sum(-1)
+        args = (q, k, v, do, lw, di, gl, km, qs, ks, qp, kp, scale, causal)
+        dk, dv = fa._launch_bwd_dkv(*args)
+        dq = fa._launch_bwd_dq(*args)
+        torch.cuda.synchronize()
+        dkw, dvw = fa.flash_bwd_dkv_reference(*args)
+        dqw = fa.flash_bwd_dq_reference(*args)
+        row = {"case": label, "shape": [b, tq, tk, h, d], "dtype": dtype,
+               "causal": causal, **{k_: bool(v_) for k_, v_ in opts.items()},
+               "fully_masked_rows": int((~live).sum())}
+        for key, got, want in (("flash_fwd_wide", o, ow), ("flash_bwd_dkv_wide", dk, dkw),
+                               ("flash_bwd_dkv_wide", dv, dvw),
+                               ("flash_bwd_dq_wide", dq, dqw)):
+            row[f"{key}_rel_err"] = max(row.get(f"{key}_rel_err", 0.0), _check_wide_flash(
+                torch, label, dtype, d, got, want, worst, key))
+        if timed:
+            pairs = attention_pairs(torch, qp, kp, causal, b, h, km, qs, ks)
+            qh, kh, vh = (t.transpose(1, 2) for t in (q, k, v))
+            row["sdpa_backend"] = sdpa_backend(torch, qh, kh, vh, causal)
+            ql, kl, vl = (t.detach().transpose(1, 2).requires_grad_() for t in (q, k, v))
+            lo = F.scaled_dot_product_attention(ql, kl, vl, is_causal=causal)
+            gh = do.transpose(1, 2)
+            times = {
+                "flash_fwd_wide": (
+                    t_(lambda: fa._launch_fwd(q, k, v, km, qs, ks, qp, kp, scale, causal)),
+                    t_(lambda: fa.flash_fwd_reference(q, k, v, km, qs, ks, qp, kp, scale,
+                                                      causal)),
+                    t_(lambda: F.scaled_dot_product_attention(qh, kh, vh,
+                                                              is_causal=causal)),
+                    _nbytes(q, k, v, km, qs, ks, qp, kp, o, lse), "flash_fwd"),
+                "flash_bwd_dkv_wide": (
+                    t_(lambda: fa._launch_bwd_dkv(*args)),
+                    t_(lambda: fa.flash_bwd_dkv_reference(*args)),
+                    t_(lambda: torch.autograd.grad(lo, (kl, vl), gh, retain_graph=True)),
+                    _nbytes(q, k, v, do, lw, di, gl, km, qs, ks, qp, kp, dk, dv),
+                    "flash_bwd_dkv"),
+                "flash_bwd_dq_wide": (
+                    t_(lambda: fa._launch_bwd_dq(*args)),
+                    t_(lambda: fa.flash_bwd_dq_reference(*args)),
+                    t_(lambda: torch.autograd.grad(lo, (ql,), gh, retain_graph=True)),
+                    _nbytes(q, k, v, do, lw, di, gl, km, qs, ks, qp, kp, dq),
+                    "flash_bwd_dq"),
+            }
+            for name, (ms, plain_ms, lib_ms, nbytes, kernel) in times.items():
+                bound, by = attention_bound_ms(kernel, pairs, d, dtype, nbytes)
+                row[name] = {"ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
+                             "bound_ms": bound, "bound_by": by, "pairs": pairs}
+            del qh, kh, vh, ql, kl, vl, lo, gh
+        rows[label] = row
+        log(f"flash wide {label}: {json.dumps(row)}  [{card}]")
+        del q, k, v, do, o, lse, ow, lw, dk, dv, dq, dkw, dvw, dqw, args
+        if on_card:
+            torch.cuda.empty_cache()
+
+    for label, b, t, h, d, dtype, jb, opts, timed in ACC16_CASES:
+        dt = getattr(torch, dtype)
+        q, k, v, do, km, qs, ks, qp, kp = _flash_inputs(torch, gen, b, t, t, h, d, dt,
+                                                        opts, device=dev)
+        scale = d ** -0.5
+        ow, lw = fa.flash_fwd_reference(q, k, v, km, qs, ks, qp, kp, scale, True)
+        live = lw > fa.NEG / 2
+        gl = torch.where(live, torch.randn(lw.shape, device=dev, generator=gen),
+                         0.0).contiguous()
+        di = (ow.float() * do.float()).sum(-1)
+        args = (q, k, v, do, lw, di, gl, km, qs, ks, qp, kp, scale, True)
+        dk, dv = fa._launch_bwd_dkv(*args, acc_block=jb)
+        dq = fa._launch_bwd_dq(*args, acc_block=jb)
+        torch.cuda.synchronize()
+        dkw, dvw = fa.flash_bwd_dkv_reference(*args, acc_block=jb)
+        dqw = fa.flash_bwd_dq_reference(*args, acc_block=jb)
+        row = {"case": label, "shape": [b, t, t, h, d], "dtype": dtype, "jax_block": jb,
+               **{k_: bool(v_) for k_, v_ in opts.items()}}
+        for what, key, got, want in (("dk", "flash_bwd_dkv_acc16", dk, dkw),
+                                     ("dv", "flash_bwd_dkv_acc16", dv, dvw),
+                                     ("dq", "flash_bwd_dq_acc16", dq, dqw)):
+            row[f"{what}_rel_err"], row[f"{what}_differing_share"] = _check_acc16(
+                torch, label, got, want, worst, key)
+        if timed:
+            pairs = attention_pairs(torch, qp, kp, True, b, h, km, qs, ks)
+            ql, kl, vl = (x.detach().transpose(1, 2).requires_grad_() for x in (q, k, v))
+            lo = F.scaled_dot_product_attention(ql, kl, vl, is_causal=True)
+            gh = do.transpose(1, 2)
+            times = {
+                "flash_bwd_dkv_acc16": (
+                    t_(lambda: fa._launch_bwd_dkv(*args, acc_block=jb)),
+                    t_(lambda: fa.flash_bwd_dkv_reference(*args, acc_block=jb)),
+                    t_(lambda: torch.autograd.grad(lo, (kl, vl), gh, retain_graph=True)),
+                    _nbytes(q, k, v, do, lw, di, gl, km, qs, ks, qp, kp, dk, dv),
+                    "flash_bwd_dkv"),
+                "flash_bwd_dq_acc16": (
+                    t_(lambda: fa._launch_bwd_dq(*args, acc_block=jb)),
+                    t_(lambda: fa.flash_bwd_dq_reference(*args, acc_block=jb)),
+                    t_(lambda: torch.autograd.grad(lo, (ql,), gh, retain_graph=True)),
+                    _nbytes(q, k, v, do, lw, di, gl, km, qs, ks, qp, kp, dq),
+                    "flash_bwd_dq"),
+            }
+            for name, (ms, plain_ms, lib_ms, nbytes, kernel) in times.items():
+                bound, by = attention_bound_ms(kernel, pairs, d, dtype, nbytes)
+                row[name] = {"ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
+                             "bound_ms": bound, "bound_by": by, "pairs": pairs}
+            del ql, kl, vl, lo, gh
+        rows[label] = row
+        log(f"flash acc16 {label}: {json.dumps(row)}  [{card}]")
+        del q, k, v, do, ow, lw, dk, dv, dq, dkw, dvw, dqw, args
+        if on_card:
+            torch.cuda.empty_cache()
+
+    # the accumulator's path: the public entry point, forward and backward
+    b, t, h, d = CHAR_BATCH, CHAR_T, WIDE_CHAR_HEADS, WIDE_HEAD
+    q, k, v, g = (torch.randn(b, t, h, d, device=dev, generator=gen).requires_grad_()
+                  for _ in range(4))
+    torch.cuda.synchronize()
+    zero_launches()   # the path's run starts here
+    out = fa.flash_attention(q, k, v, causal=True, bwd_acc_dtype="bfloat16")
+    grads = torch.autograd.grad(out, (q, k, v), g)
+    acc16_launches = all_launches()   # ... and ends here
+    expect_launches("the bfloat16 accumulator's path", acc16_launches,
+                    flash_fwd_wide=1, flash_bwd_dkv_acc16=1, flash_bwd_dq_acc16=1)
+    if not all(torch.isfinite(x).all() for x in grads):
+        raise RuntimeError("the bfloat16 accumulator's path: gradients not finite")
+    rows["acc16_path"] = {"launches": acc16_launches, "shape": [b, t, h, d]}
+    del q, k, v, g, out, grads
+
+    for label, b, t, h, d, dtype, layers, timed in DECODE_WIDE_CASES:
+        q, k, v, lens = decode_inputs(torch, gen, rng, b, t, h, d, dtype, layers, dev)
+        got = fa._launch_decode(q, k, v, lens)
+        torch.cuda.synchronize()
+        err = check_decode(torch, fa, label, got, q, k, v, lens)
+        odd = lens.clone()
+        odd[0], odd[1] = 0, t + 5
+        got0 = fa._launch_decode(q, k, v, odd)
+        torch.cuda.synchronize()
+        if (got0[0] != 0).any():
+            raise RuntimeError(f"decode wide {label}: a row with cache_len 0 is not 0")
+        err = max(err, check_decode(torch, fa, label + " odd lens", got0, q, k, v, odd))
+        worst["decode_attention_wide"] = max(worst.get("decode_attention_wide", 0.0), err)
+        row = {"case": label, "shape": [b, t, h, d], "dtype": dtype,
+               "strided_view": bool(layers), "max_abs_err": err,
+               "splits": fa.decode_splits(torch.device(dev), b * h * -(-d // 256), t)
+               if on_card else None}
+        if timed:
+            km = torch.arange(t, device=dev)[None, :] < lens[:, None].long()
+            qh, kh, vh = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
+            mask = km[:, None, None, :]
+            sdpa = lambda: F.scaled_dot_product_attention(qh, kh, vh, attn_mask=mask)
+            row["sdpa_backend"] = sdpa_backend(torch, qh, kh, vh, False) + " (masked)"
+            row["ms"] = device_ms(torch, lambda: fa._launch_decode(q, k, v, lens))
+            row["plain_ms"] = device_ms(torch, lambda: fa.decode_attention_reference(
+                q, k, v, lens))
+            row["library_ms"] = device_ms(torch, sdpa)
+            row["bound_ms"], row["bound_by"] = decode_bound_ms(q, k, lens)
+            del km, qh, kh, vh, mask
+        rows[label] = row
+        log(f"decode wide {label}: {json.dumps(row)}  [{card}]")
+        del q, k, v, lens, got, got0
+        if on_card:
+            torch.cuda.empty_cache()
+
+    src = "deeplearning4j_torch/ops/csrc/flash_attention.cu"
+    tpu = "deeplearning4j_tpu/ops/flash_attention.py"
+    arms = [("flash_fwd_wide", f"{tpu}:139", "wide_model_f32"),
+            ("flash_bwd_dkv_wide", f"{tpu}:193", "wide_model_f32"),
+            ("flash_bwd_dq_wide", f"{tpu}:237", "wide_model_f32"),
+            ("flash_bwd_dkv_acc16", f"{tpu}:193", "acc16_model_f32_128"),
+            ("flash_bwd_dq_acc16", f"{tpu}:237", "acc16_model_f32_128")]
+    entries = []
+    for name, replaces, case in arms:
+        r = rows[case][name]
+        entries.append({"name": name, "route": "cuda", "source": src,
+                        "replaces": replaces, "launches": None,
+                        "max_abs_err": worst[name], "ms": r["ms"],
+                        "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+                        "bound_by": r["bound_by"], "library_ms": r["library_ms"],
+                        "case": case, "sdpa_backend": rows[case].get("sdpa_backend")})
+    r = rows["wide_engine_f32"]
+    entries.append({"name": "decode_attention_wide", "route": "cuda",
+                    "source": "deeplearning4j_torch/ops/csrc/decode_attention.cu",
+                    "replaces": f"{tpu}:573", "launches": None,
+                    "max_abs_err": worst["decode_attention_wide"],
+                    **{key: r[key] for key in ("ms", "plain_ms", "bound_ms", "bound_by",
+                                               "library_ms")},
+                    "case": "wide_engine_f32", "sdpa_backend": r["sdpa_backend"]})
+    for e in entries:
+        if e["name"] in ("flash_bwd_dkv_acc16", "flash_bwd_dq_acc16"):
+            e["launches"] = acc16_launches[e["name"]]
+    return entries, rows
+
+
+WIDE_CHAR_FULL = dict(width=WIDE_CHAR_WIDTH, heads=WIDE_CHAR_HEADS, t=CHAR_T,
+                      batch=CHAR_BATCH, steps=CHAR_STEPS, small_t=CHAR_SMALL_T)
+
+
+def _fit_counted(torch, net, data, label, card, s, want):
+    """`fit` over s["steps"] batches of s["batch"] rows with every count
+    reset just before and read just after (`all_launches`); the counts must
+    be `want` and every score finite. Returns (launches, scores, step ms,
+    median warm step ms)."""
+    steps = Steps()
+    net.listeners[:] = [steps]
+    torch.cuda.synchronize()
+    zero_launches()   # the main path's run starts here
+    t0 = time.perf_counter()
+    net.fit(data, epochs=1, batch_size=s["batch"])
+    launches = all_launches()   # ... and ends here
+    net.listeners.clear()
+    expect_launches(f"char model {label}", launches, **want)
+    if len(steps.scores) != s["steps"] or not all(np.isfinite(steps.scores)):
+        raise RuntimeError(f"char model {label}: scores {steps.scores}")
+    step_ms = (np.diff([t0] + steps.ends) * 1e3).tolist()
+    warm = float(np.median(step_ms[1:] or step_ms))
+    log(f"char model {label}: launches {json.dumps(launches)}, scores {steps.scores}, "
+        f"step ms {step_ms}, median warm {warm:.3f} ms, "
+        f"{s['batch'] * s['t'] / warm * 1e3:.1f} tokens/s  [{card}]")
+    return launches, steps.scores, step_ms, warm
+
+
+def phase_char_model_wide(torch, card, device=None, size=None):
+    """The char model with 256-wide heads: bench.py's attention_longctx stack
+    (two causal SelfAttentionLayers and an RnnOutputLayer, 96 characters) at
+    width 1024 over 4 heads, t 8192, batch 4, built with the config DSL and a
+    MultiLayerNetwork, every attention call on the sliced arms. In float32
+    and as a bfloat16 network: `output` (the sliced K3 once a layer, nothing
+    else), then `fit` for CHAR_STEPS steps (the sliced K3, K4 and K5 once a
+    layer a step), the counts reset just before and read just after each;
+    the median warm step, tokens/s and one profiled float32 step. Then the
+    float32 gradients with the kernels against the plain versions on the
+    card (`compare_pinned_grads`, as `phase_char_model` at width 512), and
+    the card against the CPU path at t CHAR_SMALL_T, the flash route forced
+    (gradients and output)."""
+    from deeplearning4j_torch.data.dataset import DataSet
+    from deeplearning4j_torch.nn.multilayer import MultiLayerNetwork
+    from deeplearning4j_torch.ops import attention as att
+    from deeplearning4j_torch.ops import flash_attention as fa
+    from deeplearning4j_torch.utils import params as param_utils
+    s = dict(WIDE_CHAR_FULL, **(size or {}))
+    dev = device or "cuda"
+    on_card = torch.device(dev).type == "cuda"
+    layers = 2
+    result = {"card": card, **s, "head_dim": s["width"] // s["heads"]}
+    if s["width"] // s["heads"] <= fa.MAX_HEAD_DIM:
+        raise RuntimeError(f"the wide char model's heads are {s['width'] // s['heads']} "
+                           f"wide: not the sliced arms")
+    choice = att.select_attention_impl(s["t"], s["width"] // s["heads"])
+    if s["t"] >= 2048 and choice != "pallas":
+        raise RuntimeError(f"the dispatch rule picked {choice} at t={s['t']}")
+    data = char_data(s["steps"] * s["batch"], s["t"], seed=2424)
+    batch = DataSet(data.features[:s["batch"]], data.labels[:s["batch"]], None,
+                    data.labels_mask[:s["batch"]])
+    # the rule's own choice at full length; a cut run forces the flash route
+    rule = "auto" if s["t"] >= 2048 else "pallas"
+    conf = lambda impl=rule: char_conf(impl=impl, width=s["width"], heads=s["heads"])
+    fwd = {"flash_fwd_wide": layers}
+    step = {"flash_fwd_wide": layers * s["steps"], "flash_bwd_dkv_wide": layers * s["steps"],
+            "flash_bwd_dq_wide": layers * s["steps"]}
+    for name, dtype in (("f32", torch.float32), ("bf16", torch.bfloat16)):
+        net = MultiLayerNetwork(conf()).init(dtype=dtype, device=dev)
+        torch.cuda.synchronize()
+        zero_launches()   # output's run starts here
+        t0 = time.perf_counter()
+        out = net.output(data.features[:s["batch"]])
+        out_ms = (time.perf_counter() - t0) * 1e3
+        out_launches = all_launches()   # ... and ends here
+        expect_launches(f"wide char model {name} output", out_launches, **fwd)
+        if out.shape != (s["batch"], s["t"], CHAR_VOCAB) or not np.isfinite(out).all():
+            raise RuntimeError(f"wide char model {name}: output {out.shape} not finite "
+                               f"or misshapen")
+        np.testing.assert_allclose(out.sum(-1), 1.0, rtol=1e-5)
+        launches, scores, step_ms, warm = _fit_counted(
+            torch, net, data, f"wide {name} fit", card, s, step)
+        result[name] = {"params": net.num_params(), "output_launches": out_launches,
+                        "output_ms": out_ms, "launches": launches, "scores": scores,
+                        "step_ms": step_ms, "median_warm_step_ms": warm,
+                        "tokens_per_s": s["batch"] * s["t"] / warm * 1e3}
+        if name == "f32":
+            def one_step():
+                net.fit(batch, batch_size=s["batch"])
+                torch.cuda.synchronize()
+            result["profile"] = profile_call(torch, "wide char model step (f32)",
+                                             one_step, {"batch": s["batch"], "t": s["t"]})
+            kept = net
+        else:
+            del net
+        if on_card:
+            torch.cuda.empty_cache()
+
+    def run(model, plain=False, checked=True):
+        """compute_gradient_and_score on the kernels (their launches held),
+        on the plain versions (none launched), or, unchecked, on the CPU."""
+        def grads(ds, record, flips):
+            before = all_launches()
+            with ExitStack() as stack:
+                stack.enter_context(pinned_kinks(torch, model, record, flips))
+                if plain:
+                    stack.enter_context(patched(fa, "flash_fwd", fa.flash_fwd_reference))
+                    stack.enter_context(patched(fa, "flash_bwd", fa.flash_bwd_reference))
+                out = model.compute_gradient_and_score(ds)
+            ran = {k: v - before[k] for k, v in all_launches().items()}
+            if checked:
+                expect_launches("compute_gradient_and_score", ran, **({} if plain else {
+                    "flash_fwd_wide": layers, "flash_bwd_dkv_wide": layers,
+                    "flash_bwd_dq_wide": layers}))
+            return out
+        return grads
+
+    result["grad_rel_vs_plain"] = compare_pinned_grads(
+        f"wide char model: kernels vs plain attention, f32, t {s['t']}, batch "
+        f"{s['batch']}", torch, param_utils, run(kept), run(kept, plain=True),
+        char_data(s["batch"], s["t"], seed=2425))
+    del kept
+    if on_card:
+        torch.cuda.empty_cache()
+
+    small = conf(impl="pallas")
+    card_net = MultiLayerNetwork(small).init(dtype=torch.float32, device=dev)
+    cpu_net = MultiLayerNetwork(small).init(device="cpu")
+    cpu_net.params_tree = tuple({k: v.cpu() for k, v in layer.items()}
+                                for layer in card_net.params_tree)
+    small_ds = char_data(2, s["small_t"], seed=2426)
+    result["grad_rel_vs_cpu"] = compare_pinned_grads(
+        f"wide char model: card vs CPU path, f32, t {s['small_t']}, batch 2", torch,
+        param_utils, run(card_net), run(cpu_net, checked=False), small_ds)
+    np.testing.assert_allclose(card_net.output(small_ds.features),
+                               cpu_net.output(small_ds.features), rtol=1e-4, atol=1e-6)
+    log(f"wide char model: {json.dumps({k: v for k, v in result.items() if k != 'profile'})}"
+        f"  [{card}]")
+    return result
+
+
+# the decoder with 256-wide heads: Gemma 2B's widths (8 heads of 256, d_model
+# 2048, ff 16384) on the port's decoder (multi-head, its own MLP: only the
+# widths are taken), depth cut to 4 layers; the rest bench_serving_decode's
+DECODE_WIDE_GEOMETRY = dict(vocab=256, layers=4, heads=8, head_dim=256, ff=16384,
+                            max_context=256, max_decode_batch=8, block_tokens=16,
+                            kv_max_blocks=256, pack_bucket=128, clients=6,
+                            prompts_per_client=4, max_new_tokens=48, prompt_lo=4,
+                            prompt_hi=33)
+
+
+def phase_decode_wide(torch, card, device=None, size=None):
+    """The decode engine on a decoder with 256-wide heads
+    (DECODE_WIDE_GEOMETRY: TransformerDecoder(seed=7) 4 layers x 8 heads of
+    256, ff 16384, vocab 256, max_context 256, behind DecodeEngine(max_decode_
+    batch 8) over a PagedKVCache; 6 clients x 4 prompts of 4-32 tokens x 48
+    new tokens). Every count is reset just before the clients start and read
+    just after: K7's sliced arm must have launched layers x the decode steps
+    taken, and nothing else. Then the same prompts again with K7 bound to its
+    plain version (`decode_attention_reference` standing in for the launch):
+    every answer must be the same, token for token, and so must
+    `naive_generate`'s (full recompute, no cache). Reports tokens/s and
+    inter-token p50/p99 of the kernel's run, and the plain run's tokens/s."""
+    from deeplearning4j_torch.optimize.metrics import registry
+    from deeplearning4j_torch.ops import flash_attention as fa
+    from deeplearning4j_torch.serving import decode as sd
+    g = dict(DECODE_WIDE_GEOMETRY, **(size or {}))
+    name = "chip_smoke_decode_wide"
+    on_card = torch.device(device or "cuda").type == "cuda"
+    eng, model, cache = decode_engine(g, name, device)
+    try:
+        n = g["clients"] * g["prompts_per_client"]
+        rng = np.random.default_rng(24)
+        prompts = [rng.integers(0, g["vocab"], size=ln).tolist()
+                   for ln in rng.integers(g["prompt_lo"], g["prompt_hi"], size=n)]
+        eng.generate(prompts[0], max_new_tokens=2)   # unmeasured seeding pass
+        reg = registry()
+        steps_c = reg.counter("serving_decode_steps_total").labels(model=name)
+        itl_h = reg.histogram("serving_inter_token_ms",
+                              buckets=sd.INTER_TOKEN_BUCKETS_MS).labels(model=name)
+        steps0, itl0 = steps_c.value(), len(itl_h.window_values())
+        torch.cuda.synchronize()
+        zero_launches()   # the main path's run starts here
+        results, wall = run_generate_clients(eng, prompts, g["prompts_per_client"],
+                                             g["max_new_tokens"])
+        launches = all_launches()   # ... and ends here
+        steps = int(steps_c.value() - steps0)
+        itl = np.asarray(itl_h.window_values()[itl0:], np.float64)
+        expect_launches("wide decode serving", launches,
+                        decode_attention_wide=g["layers"] * steps)
+        bad = {i: r for i, r in results.items() if not isinstance(r, list)}
+        if bad or len(results) != n:
+            raise RuntimeError(f"wide decode serving: failed requests {bad!r}")
+        plain = lambda q, k, v, cache_len, **kw: fa.decode_attention_reference(
+            q, k, v, cache_len)
+        with patched(fa, "_launch_decode", plain):
+            zero_launches()
+            plain_results, plain_wall = run_generate_clients(
+                eng, prompts, g["prompts_per_client"], g["max_new_tokens"])
+            if on_card:   # (the CPU's route is the plain version itself)
+                expect_launches("wide decode serving, K7 bound to its plain version",
+                                all_launches())
+        diverged = [i for i in range(n) if results[i] != plain_results.get(i)]
+        if diverged:
+            raise RuntimeError(f"wide decode serving: K7's answers differ from the plain "
+                               f"version's for prompts {diverged}")
+        naive = [sd.naive_generate(model, p, g["max_new_tokens"], pad_to=g["pack_bucket"])
+                 for p in prompts]
+        diverged = [i for i in range(n) if results[i] != naive[i]]
+        if diverged:
+            raise RuntimeError(f"wide decode serving: the engine's tokens differ from "
+                               f"naive_generate's for prompts {diverged}")
+        if cache.blocks_in_use() != 0:
+            raise RuntimeError(f"wide decode serving: {cache.blocks_in_use()} KV blocks "
+                               f"left after the last retire")
+    finally:
+        eng.shutdown()
+    tokens = n * g["max_new_tokens"]
+    result = {"geometry": {k: g[k] for k in ("layers", "heads", "head_dim", "ff", "vocab",
+                                             "max_context", "max_decode_batch")},
+              "requests": n, "tokens": tokens, "steps": steps, "launches": launches,
+              "wall_s": wall, "tokens_per_s": tokens / wall,
+              "plain_k7_tokens_per_s": tokens / plain_wall,
+              "inter_token_p50_ms": float(np.percentile(itl, 50)),
+              "inter_token_p99_ms": float(np.percentile(itl, 99)),
+              "inter_token_samples": int(itl.size), "all_equal_plain": True,
+              "all_equal_naive": True, "card": card}
+    log(f"wide decode serving: {json.dumps(result)}  [{card}]")
     return result
 
 
@@ -10060,6 +10671,10 @@ def main() -> int:
     int8_entry, _ = phase_int8(torch, card)
     decode_entry, _ = phase_decode_kernel(torch, card)
     torch.cuda.empty_cache()
+    t1 = time.perf_counter()
+    wide_entries, _ = phase_wide_kernels(torch, card)
+    wide_s = {"kernels": time.perf_counter() - t1}
+    torch.cuda.empty_cache()
     phase_embedding_guard(torch, card)
     phase_checkpoint_fixtures(torch, card)
     serving, net, reqs, answers, cpu_net = phase_serving(torch, card)
@@ -10100,9 +10715,18 @@ def main() -> int:
     phase_attention_dispatch(torch, card)
     char = phase_char_model(torch, card)
     torch.cuda.empty_cache()
+    t1 = time.perf_counter()
+    char_wide = phase_char_model_wide(torch, card)
+    wide_s["char_model"] = time.perf_counter() - t1
+    torch.cuda.empty_cache()
     fit_char = phase_fit_loop_char(torch, card)
     torch.cuda.empty_cache()
     decode = phase_decode_serving(torch, card)
+    torch.cuda.empty_cache()
+    t1 = time.perf_counter()
+    decode_wide = phase_decode_wide(torch, card)
+    wide_s["decode"] = time.perf_counter() - t1
+    torch.cuda.empty_cache()
     phase_decode_stream(torch, card)
     packed = phase_packed_admission(torch, card)
     torch.cuda.empty_cache()
@@ -10136,8 +10760,22 @@ def main() -> int:
         entry["launches"] = char["bf16"]["launches"][entry["name"]]
     int8_entry["launches"] = quant["int8"]["launches"]["int8_matmul"]
     decode_entry["launches"] = decode["launches"]["decode_attention"]
+    for entry in wide_entries:   # the accumulator's arms carry their path's counts
+        if entry["name"] in char_wide["f32"]["launches"] and entry["launches"] is None:
+            entry["launches"] = char_wide["f32"]["launches"][entry["name"]]
+        if entry["name"] == "decode_attention_wide":
+            entry["launches"] = decode_wide["launches"]["decode_attention_wide"]
     kernels = {"kernels": [lrn_entry, lrn_bwd_entry] + flash_entries
-               + [int8_entry, decode_entry]}
+               + [int8_entry, decode_entry] + wide_entries}
+    log(f"chip_smoke: heads wider than 128: the wide char model (4 heads of 256) "
+        f"{char_wide['f32']['tokens_per_s']:.0f} tokens/s f32, "
+        f"{char_wide['bf16']['tokens_per_s']:.0f} bf16, launches "
+        f"{json.dumps({k: v for k, v in char_wide['f32']['launches'].items() if v})} "
+        f"(f32 fit); the wide decoder {decode_wide['tokens_per_s']:.1f} tokens/s, "
+        f"inter-token p99 {decode_wide['inter_token_p99_ms']:.3f} ms, K7 wide "
+        f"{decode_wide['launches']['decode_attention_wide']} in {decode_wide['steps']} "
+        f"steps; phases {json.dumps({k: round(v, 1) for k, v in wide_s.items()})} s  "
+        f"[{card}]")
     log(f"chip_smoke: the image-directory AlexNet fit's launches: K1 "
         f"{images['launches']['lrn_fwd']}, K2 {images['launches']['lrn_bwd']} in "
         f"{images['steps']} steps, ETL calls {json.dumps(images['etl_calls'])}")

@@ -106,7 +106,7 @@ def _warn_pallas_unavailable_once(t: int, head_dim: int) -> None:
     if _warned_pallas:
         return
     logging.getLogger(__name__).warning(
-        "attention impl 'pallas' requested but the flash kernels do not take "
+        "attention impl 'pallas' requested but the flash geometry gate refuses "
         "t=%d head_dim=%d; falling back per the dispatch rule", t, head_dim)
     _warned_pallas = True
 
@@ -114,8 +114,7 @@ def _warn_pallas_unavailable_once(t: int, head_dim: int) -> None:
 def select_attention_impl(t_q: int, head_dim: int, *,
                           requested: Optional[str] = None,
                           block_size: int = 0,
-                          t_k: Optional[int] = None,
-                          device=None) -> str:
+                          t_k: Optional[int] = None) -> str:
     """Pick 'pallas' | 'blockwise' | 'dense' for a single-device attention
     call, count it in `attention_kernel_selected_total`, and return it.
 
@@ -123,14 +122,14 @@ def select_attention_impl(t_q: int, head_dim: int, *,
     t_q == t_k and block_size == 0, the flash route wherever its geometry is
     supported, else blockwise, else dense. An explicit block_size (> 0)
     keeps blockwise; -1 forces dense. `requested` overrides ('auto'/None =
-    the rule).
+    the rule); a requested 'pallas' whose geometry the gate refuses warns
+    once and falls through the rule, the JAX package's own fallback.
 
-    Where the flash route is requested, or the rule would take it, and the
-    kernels do not take head_dim (> MAX_HEAD_DIM, which the JAX package's
-    kernels do take): on a CUDA `device` this raises NotImplementedError,
-    because plain torch would stand in for kernels not yet ported; elsewhere
-    a requested 'pallas' warns once and falls through the rule, the JAX
-    package's own fallback."""
+    The gate is the JAX package's (`flash_attention_supported`), and the
+    port's kernels take every geometry it passes, so the choice is the JAX
+    package's (with `interpret=True`) at every head_dim. Where the gate
+    refuses, both packages take the blockwise or dense route, their
+    plain-tensor path, not a fallback from a kernel."""
     t_k = t_q if t_k is None else t_k
     req = None if requested in (None, "auto") else requested
     if req is not None and req not in ATTENTION_IMPLS:
@@ -141,13 +140,6 @@ def select_attention_impl(t_q: int, head_dim: int, *,
     else:
         blk = pick_block_size(t_q, block_size)
         ready = fa.flash_attention_supported(t_q, t_k, head_dim)
-        wanted = req == "pallas" or (req is None and block_size == 0
-                                     and t_q >= 2048 and t_q == t_k)
-        if wanted and not ready and device is not None \
-                and torch.device(device).type == "cuda":
-            raise NotImplementedError(
-                f"the flash attention kernels take head_dim 1..{fa.MAX_HEAD_DIM}, "
-                f"got {head_dim} at t={t_q}; wider heads are not ported yet")
         if req == "pallas" and not ready:
             _warn_pallas_unavailable_once(t_q, head_dim)
             req = None
@@ -174,8 +166,7 @@ def single_device_attention(q: Tensor, k: Tensor, v: Tensor, *,
     signature and semantics. `segment_ids` ([batch, time] int) enables
     packed-batch attention; every impl applies the same masks."""
     choice = select_attention_impl(q.shape[1], q.shape[-1], requested=impl,
-                                   block_size=block_size, t_k=k.shape[1],
-                                   device=q.device)
+                                   block_size=block_size, t_k=k.shape[1])
     if choice == "pallas":
         return fa.flash_attention(q, k, v, causal=causal, key_mask=key_mask,
                                   segment_ids=segment_ids)
@@ -415,7 +406,7 @@ def ring_self_attention(q: Tensor, k: Tensor, v: Tensor, mesh, *,
     output is whole again, on q's device. Differentiable through the hops.
 
     `use_flash`: None = the flash body wherever its geometry is supported
-    (head_dim <= 128 and any explicit blocks dividing the shard's time),
+    (the JAX package's gate at the shard's time and the explicit blocks),
     True/False force it (the JAX package's `flash_interpret`, its CPU
     tests' switch, has no counterpart: the CPU runs the kernels' plain
     versions)."""

@@ -76,6 +76,14 @@
 //   cluster size on the card.) S = 1 is the same kernel with a plain launch
 //   and no cluster barrier. There is no scratch in device memory and no
 //   second kernel.
+// * Heads wider than kMaxHeadDim (128) take the sliced arm (decode_wide_kernel,
+//   the JAX package's decode takes any head_dim its gate passes): the output
+//   columns are cut into slices of 256 over the grid (a (row, head, slice)
+//   has its S split blocks in a cluster, merged as above), a warp takes one
+//   key at a time with 8 columns a lane, and the dot product streams q and k
+//   through head_dim in 256-wide chunks, so nothing bounds head_dim but the
+//   grid. K is read once per slice (1x at head_dim <= 256, ceil(d / 256)x
+//   above), V once; plain 16-byte loads, no ring.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
@@ -488,6 +496,232 @@ cudaError_t launch_by_group(int G, bool wide, const void* q, const void* k,
 #undef DL4J_DECODE
 }
 
+// ------------------------------------------------------- the sliced arm, d > 128
+
+constexpr int kWideSlice = 256;  // output columns of a sliced block: 8 a lane
+constexpr int kWideWarps = 4;
+
+// One warp a key (a lane group of 32): lane r holds columns c0 + (p * 32 + r)
+// * VEC + x of a 256-wide chunk at c0 (P = 256 / (32 VEC) pieces of VEC).
+// The dot product of a key streams q and k through the chunks of head_dim
+// (q's first chunk kept in registers, the others read again from L1/L2 for
+// each key), so every slice of a (row, head) computes the same scores in the
+// same order and so the same softmax; V is read for the block's own slice
+// only. K is read once per slice: ceil(d / 256) times in all, once at
+// head_dim <= 256.
+template <typename T, int VEC>
+__global__ void __launch_bounds__(kWideWarps * 32)
+decode_wide_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                   const T* __restrict__ v, const int* __restrict__ cache_len,
+                   T* __restrict__ o, int h, int t, int d, long long k_sb, long long k_st,
+                   long long v_sb, long long v_st, int splits, int slices, float scale) {
+  constexpr int W = kWideWarps;
+  constexpr int P = kWideSlice / 32 / VEC;
+  constexpr int E = P * VEC;              // elements of a chunk a lane holds
+  constexpr int KG = kGroupKeys;
+  constexpr int U = W * KG;               // keys a block takes an iteration
+  constexpr int SLOT = kWideSlice + 2;    // a block's partial on rank 0: acc, m, l
+  extern __shared__ __align__(16) unsigned char smem[];
+  float* sm_acc = reinterpret_cast<float*>(smem);   // [W][kWideSlice]
+  float* sm_m = sm_acc + W * kWideSlice;
+  float* sm_l = sm_m + W;
+  float* sm_w = sm_l + W;
+  float* recv = sm_w + W;                 // rank 0: the cluster's partials
+
+  const bool cluster = splits > 1;
+  if (cluster) cluster_arrive_relaxed();  // this block has started; waited on below
+  const int cl = blockIdx.x / splits;
+  const int rank = blockIdx.x - cl * splits;   // = %cluster_ctarank
+  const int bh = cl / slices, slice = cl - bh * slices;
+  const int i = bh / h, hh = bh - i * h;
+  const int n = max(0, min(cache_len[i], t));
+  const int per = (n + splits - 1) / splits;
+  const int chunk = (per + U - 1) / U * U;
+  const int lo = min(rank * chunk, n);
+  const int hi = min(lo + chunk, n);
+  const int iters = (hi - lo + U - 1) / U;   // 0 for a block with no keys
+  const int lane = threadIdx.x & 31, grp = threadIdx.x >> 5;
+  const int nd = (d + kWideSlice - 1) / kWideSlice;   // chunks of head_dim
+  const int c_out = slice * kWideSlice;
+
+  // this lane's pieces of the chunk at c0 of a row, as float (0 past d)
+  auto row_piece = [&](const T* row, int c0, float* f) {
+#pragma unroll
+    for (int p = 0; p < P; ++p) {
+      const int col = c0 + (p * 32 + lane) * VEC;
+      if (col < d) {
+        load<T, VEC>(row + col, f + p * VEC);
+      } else {
+#pragma unroll
+        for (int x = 0; x < VEC; ++x) f[p * VEC + x] = 0.f;
+      }
+    }
+  };
+
+  const T* qb = q + (long long)bh * d;
+  float q0[E];
+  row_piece(qb, 0, q0);
+#pragma unroll
+  for (int e = 0; e < E; ++e) q0[e] *= scale;
+  const T* kb = k + i * k_sb + (long long)hh * d;
+  const T* vb = v + i * v_sb + (long long)hh * d;
+  float m = -INFINITY, l = 0.f, acc[E];
+#pragma unroll
+  for (int e = 0; e < E; ++e) acc[e] = 0.f;
+
+  for (int it = 0; it < iters; ++it) {
+    float s[KG];
+#pragma unroll
+    for (int u = 0; u < KG; ++u) s[u] = 0.f;
+    for (int cc = 0; cc < nd; ++cc) {
+      float qf[E];
+      if (cc == 0) {
+#pragma unroll
+        for (int e = 0; e < E; ++e) qf[e] = q0[e];
+      } else {
+        row_piece(qb, cc * kWideSlice, qf);
+#pragma unroll
+        for (int e = 0; e < E; ++e) qf[e] *= scale;
+      }
+      float kf[KG][E];
+#pragma unroll
+      for (int u = 0; u < KG; ++u) {
+        const int j = lo + it * U + u * W + grp;
+        if (j < hi) {
+          row_piece(kb + j * k_st, cc * kWideSlice, kf[u]);
+        } else {
+#pragma unroll
+          for (int e = 0; e < E; ++e) kf[u][e] = 0.f;
+        }
+      }
+#pragma unroll
+      for (int u = 0; u < KG; ++u)
+#pragma unroll
+        for (int e = 0; e < E; ++e) s[u] = fmaf(qf[e], kf[u][e], s[u]);
+    }
+    float vf[KG][E];
+    float m_new = m;
+#pragma unroll
+    for (int u = 0; u < KG; ++u) {
+      const int j = lo + it * U + u * W + grp;
+      float dot = s[u];
+#pragma unroll
+      for (int off = 16; off > 0; off >>= 1) dot += __shfl_xor_sync(0xffffffffu, dot, off);
+      s[u] = j < hi ? dot : -INFINITY;
+      m_new = fmaxf(m_new, s[u]);
+      if (j < hi) {
+        row_piece(vb + j * v_st, c_out, vf[u]);
+      } else {
+#pragma unroll
+        for (int e = 0; e < E; ++e) vf[u][e] = 0.f;
+      }
+    }
+    if (m_new != -INFINITY) {   // else no key of this warp yet
+      const float corr = expf(m - m_new);   // 0 on the warp's first key
+      l *= corr;
+#pragma unroll
+      for (int e = 0; e < E; ++e) acc[e] *= corr;
+#pragma unroll
+      for (int u = 0; u < KG; ++u) {
+        const float p = expf(s[u] - m_new);   // 0 for a key past hi (its v is 0)
+        l += p;
+#pragma unroll
+        for (int e = 0; e < E; ++e) acc[e] = fmaf(p, vf[u][e], acc[e]);
+      }
+      m = m_new;
+    }
+  }
+
+  // Merge the block's warps by their maxima into its slot on rank 0.
+#pragma unroll
+  for (int p = 0; p < P; ++p)
+#pragma unroll
+    for (int x = 0; x < VEC; ++x)
+      sm_acc[grp * kWideSlice + (p * 32 + lane) * VEC + x] = acc[p * VEC + x];
+  if (lane == 0) {
+    sm_m[grp] = m;
+    sm_l[grp] = l;
+  }
+  __syncthreads();
+  float mb = -INFINITY;
+  for (int g = 0; g < W; ++g) mb = fmaxf(mb, sm_m[g]);
+  if (threadIdx.x < W) {
+    const float mg = sm_m[threadIdx.x];
+    sm_w[threadIdx.x] = mg == -INFINITY ? 0.f : expf(mg - mb);
+  }
+  __syncthreads();
+  const int width = min(kWideSlice, d - c_out);
+  float* dst = recv + rank * SLOT;
+  if (cluster) {
+    cluster_wait();   // every block of the cluster has started: rank 0 is there
+    dst = rank_ptr(dst, 0);
+  }
+  for (int e = threadIdx.x; e < width; e += W * 32) {
+    float sum = 0.f;
+    for (int g = 0; g < W; ++g) sum = fmaf(sm_w[g], sm_acc[g * kWideSlice + e], sum);
+    dst[e] = sum;
+  }
+  if (threadIdx.x == 0) {
+    float lb = 0.f;
+    for (int g = 0; g < W; ++g) lb = fmaf(sm_w[g], sm_l[g], lb);
+    dst[kWideSlice] = mb;
+    dst[kWideSlice + 1] = lb;
+  }
+  if (cluster) cluster_sync();   // every partial has reached rank 0
+  else __syncthreads();
+  if (rank != 0) return;
+
+  // Rank 0: merge the cluster's partials by their maxima, divide, round once.
+  float w[kMaxSplits];
+  float mc = -INFINITY, lc = 0.f;
+#pragma unroll
+  for (int s = 0; s < kMaxSplits; ++s)
+    if (s < splits) mc = fmaxf(mc, recv[s * SLOT + kWideSlice]);
+#pragma unroll
+  for (int s = 0; s < kMaxSplits; ++s) {
+    const float ms = s < splits ? recv[s * SLOT + kWideSlice] : -INFINITY;
+    w[s] = ms == -INFINITY ? 0.f : expf(ms - mc);
+    if (s < splits) lc = fmaf(w[s], recv[s * SLOT + kWideSlice + 1], lc);
+  }
+  const float inv = lc > 0.f ? 1.f / lc : 0.f;   // lc = 0: no key, output 0
+  T* out = o + (long long)bh * d + c_out;
+  for (int e = threadIdx.x; e < width; e += W * 32) {
+    float sum = 0.f;
+#pragma unroll
+    for (int s = 0; s < kMaxSplits; ++s)
+      if (s < splits) sum = fmaf(w[s], recv[s * SLOT + e], sum);
+    store(out + e, sum * inv);
+  }
+}
+
+constexpr int wide_smem_bytes() {
+  return 4 * (kWideWarps * kWideSlice + 3 * kWideWarps + kMaxSplits * (kWideSlice + 2));
+}
+static_assert(wide_smem_bytes() <= 48 * 1024, "the sliced arm needs no opt-in shared memory");
+
+template <typename T, int VEC>
+cudaError_t launch_wide(const void* q, const void* k, const void* v, const int* len,
+                        void* o, int bh, int h, int t, int d, long long k_sb,
+                        long long k_st, long long v_sb, long long v_st, int splits,
+                        int slices, float scale, cudaStream_t s) {
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((unsigned)(bh * slices * splits), 1, 1);
+  cfg.blockDim = dim3(kWideWarps * 32, 1, 1);
+  cfg.dynamicSmemBytes = wide_smem_bytes();
+  cfg.stream = s;
+  cudaLaunchAttribute attr;
+  attr.id = cudaLaunchAttributeClusterDimension;
+  attr.val.clusterDim.x = splits;
+  attr.val.clusterDim.y = 1;
+  attr.val.clusterDim.z = 1;
+  cfg.attrs = &attr;
+  cfg.numAttrs = splits > 1 ? 1 : 0;
+  return cudaLaunchKernelEx(&cfg, decode_wide_kernel<T, VEC>, static_cast<const T*>(q),
+                            static_cast<const T*>(k), static_cast<const T*>(v), len,
+                            static_cast<T*>(o), h, t, d, k_sb, k_st, v_sb, v_st, splits,
+                            slices, scale);
+}
+
 bool aligned16(const void* p) { return (uintptr_t)p % 16 == 0; }
 
 template <typename T>
@@ -500,11 +734,18 @@ cudaError_t launch(const void* q, const void* k, const void* v, const int* len, 
   const bool vec = d % kVec == 0 && k_sb % kVec == 0 && k_st % kVec == 0 &&
                    v_sb % kVec == 0 && v_st % kVec == 0 && aligned16(q) &&
                    aligned16(k) && aligned16(v);
+  const float scale = 1.f / sqrtf((float)d);
+  if (d > kMaxHeadDim) {
+    const int slices = (d + kWideSlice - 1) / kWideSlice;
+    return vec ? launch_wide<T, kVec>(q, k, v, len, o, b * h, h, t, d, k_sb, k_st, v_sb,
+                                      v_st, splits, slices, scale, s)
+               : launch_wide<T, 1>(q, k, v, len, o, b * h, h, t, d, k_sb, k_st, v_sb, v_st,
+                                   splits, slices, scale, s);
+  }
   const int pieces_d = vec ? d / kVec : d;
   int G = 1;
   while (G < pieces_d && G < 32) G <<= 1;
   const bool wide = (t + splits - 1) / splits >= kWideKeys;
-  const float scale = 1.f / sqrtf((float)d);
   return vec ? launch_by_group<T, kVec>(G, wide, q, k, v, len, o, b * h, h, t, d, k_sb,
                                         k_st, v_sb, v_st, splits, scale, s)
              : launch_by_group<T, 1>(G, wide, q, k, v, len, o, b * h, h, t, d, k_sb,
@@ -515,7 +756,8 @@ cudaError_t launch(const void* q, const void* k, const void* v, const int* len, 
 
 // q, o: [b, 1, h, d] contiguous; k, v: [b, t, h, d] with batch strides k_sb,
 // v_sb and key strides k_st, v_st in elements (heads contiguous, d apart);
-// cache_len: [b] int32. splits: blocks a (row, head), 1..8, one cluster.
+// cache_len: [b] int32. splits: blocks a (row, head, slice), 1..8, one
+// cluster. d > 128 runs the sliced arm (256 output columns a block).
 // is_bf16: 0 for float32, 1 for bfloat16. One launch; returns its
 // cudaError_t (a refused cluster launch included).
 extern "C" int dl4j_decode_attention(const void* q, const void* k, const void* v,
@@ -523,8 +765,9 @@ extern "C" int dl4j_decode_attention(const void* q, const void* k, const void* v
                                      int t, int d, long long k_sb, long long k_st,
                                      long long v_sb, long long v_st, int splits,
                                      int is_bf16, void* stream) {
-  if (b < 0 || h < 1 || t < 1 || d < 1 || d > kMaxHeadDim || splits < 1 ||
-      splits > kMaxSplits || (long long)b * h * splits > 2147483647LL)
+  const long long slices = d > kMaxHeadDim ? (d + kWideSlice - 1) / kWideSlice : 1;
+  if (b < 0 || h < 1 || t < 1 || d < 1 || splits < 1 || splits > kMaxSplits ||
+      (long long)b * h * slices * splits > 2147483647LL)
     return (int)cudaErrorInvalidValue;
   if (b == 0) return (int)cudaSuccess;
   cudaStream_t s = (cudaStream_t)stream;

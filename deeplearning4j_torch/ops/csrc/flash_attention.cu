@@ -123,6 +123,10 @@
 // K5 101,760 bytes float32 (two blocks an SM), 105,984 bfloat16; K4 144,640
 // float32, 123,392 bfloat16. Every kernel's shared memory is set with
 // cudaFuncSetAttribute before each launch.
+//
+// These kernels take head_dim <= 128. Wider heads, and the backward with the
+// JAX package's bfloat16 accumulator, run the sliced arms at the end of this
+// file, built from the same pieces; their note is there.
 
 #include <climits>
 #include <cstdint>
@@ -1171,4 +1175,778 @@ extern "C" int dl4j_flash_bwd_dq(const void* q, const void* k, const void* v,
   if (!valid(a) || !dout || !lse || !di || !gl || !dq)
     return (int)cudaErrorInvalidValue;
   return (int)dispatch<Dq>(bf16, d, a, g, dq, (cudaStream_t)stream);
+}
+
+// ============================================================== the sliced arms
+//
+// The sliced arms, for Hopper: the forward (K3), dk/dv (K4) and
+// dq (K5) at any head_dim, and K4 and K5 with the bfloat16 backward
+// accumulator at any head_dim. They are built from the pieces of the
+// head_dim <= 128 kernels above and the note at the top of this file
+// describes those (the mask logic, the skip scan, the tensor-core products on
+// shared-memory tiles).
+//
+// They replace the same TPU kernels as K3-K5:
+// deeplearning4j_tpu/ops/flash_attention.py:_fwd_kernel, _bwd_dkv_kernel and
+// _bwd_dq_kernel, which take any head_dim their VMEM estimate passes (the
+// JAX package pads head_dim to a multiple of 128 lanes; at 128-row blocks its
+// gate passes up to 2,688, more at shorter t), and whose backward accumulates
+// in bfloat16 when asked (bwd_acc_dtype="bfloat16").
+//
+// Design: slices over the grid, chunks through shared memory. The output
+// columns (O in K3, dQ in K5, dK and dV in K4) are cut into slices of kChunk
+// = 128; a block owns one slice of its tile (grid x = tile * slices + slice),
+// so its accumulators are the d = 128 kernels' (a warp's 16 rows x 128
+// columns in float32 fragments) whatever head_dim is, and nothing limits
+// head_dim but the grid. The contractions over head_dim, S = Q K^T and dP =
+// dO V^T, are summed over the whole head_dim: Q and K (dO and V) stream
+// through shared memory in 128-wide chunks, and each chunk's product adds into
+// the S (dP) fragments. A block computes S for itself, so every slice of a
+// tile computes the same S (bit for bit: the same chunks in the same order,
+// the same instructions), the same m, l and skip states, and only slice 0
+// writes the lse. At head_dim 256 that is 1.5x the least work in K3 (S twice,
+// P V once per slice); sharing S across the slices of a tile (a thread-block
+// cluster and distributed shared memory) is later work.
+//
+// Each block walks the live tiles of the other side (K3's skip scan, K4's
+// mirror of it) and, per tile, a sequence of steps, each one load into a
+// two-slot ring in shared memory (16-byte cp.async.cg, zero-filled past t and
+// past head_dim, or element by element where head_dim or the pointers are not
+// 16-byte multiples) computed while the next step's load is in flight:
+//   K3: Q and K chunk c (c < nc) -> S += Q_c K_c^T; then V's slice ->
+//       the online softmax (K3's, on the fragments) and O += P V.
+//   K5: Q and K chunk c -> S; dO and V chunk c -> dP; then K's slice ->
+//       dS = P (dP + g - di) and dQ += dS K.
+//   K4: K, Q, V and dO chunk c -> S^T (the first warp of a pair) and dP^T
+//       (the second); then Q's and dO's slices -> P^T (handed to the partner
+//       through shared memory, as K4's pairs do), dV += P^T dO, dS^T and
+//       dK += dS^T Q.
+// So Q (K3, K5) and K, V (K4) are read again for every tile of the other side:
+// from L2, where one head's rows stay while its tiles run together. Key tiles
+// are 32 rows in K3's float32 (64 in bfloat16, as in K3) and 32 in K5; query
+// tiles 32 in K4. Dynamic shared memory: K3 102,144 bytes float32 (two blocks
+// an SM), 71,168 bfloat16; K5 102,144 and 52,992; K4 212,224 and 113,920.
+//
+// The bfloat16 accumulator (ACC16; the wrapper passes the JAX block size jb):
+// the JAX kernels keep dk, dv and dq in a bfloat16 scratch and, once for each
+// block of their sequential sweep (jb query rows for K4, jb keys for K5), add
+// that block's product: dv = bf16(dv + bf16(P_blk^T dO_blk)), dk = bf16(dk +
+// bf16(bf16(dS_blk^T Q_blk) * bf16(scale))), dq likewise with dS_blk K_blk. So
+// the result depends on jb. Here a warp sums its tiles' products within one
+// JAX block in float32 (the float32 accumulator of the other arm, which starts
+// each block at zero), and at the block's edge rounds it, scales it and adds
+// it into its bfloat16 accumulator, kept as bfloat16 pairs in registers (32 a
+// thread), so every rounding falls where the JAX kernels' does. A tile that
+// straddles two JAX blocks (jb not a multiple of the tile) is multiplied once
+// per block with the other block's columns zeroed. A skipped or fully masked
+// block adds bf16(0), which leaves the sum as it was, as in the JAX kernels.
+//
+// Bound: operations, as K3-K5 (4d, 8d and 6d flops per allowed pair).
+
+namespace {
+
+constexpr int kChunk = 128;  // head_dim columns of a streamed chunk and of an output slice
+constexpr int kSweepKeys = 32;     // K5's key tiles
+constexpr int kSweepQueries = 32;  // K4's query tiles
+
+__host__ __device__ inline int chunks(int d) { return (d + kChunk - 1) / kChunk; }
+
+// dst[r * LD + c] = src(head (bi, hi), row row0 + r, column c0 + c) for r < rows
+// and c < kChunk, zero past t and past d, by the block's NT threads: 16-byte
+// cp.async copies with `vec` (zero-filled, reading nothing, past t and d; the
+// caller commits and waits), else element by element.
+template <typename T, int NT>
+__device__ void stage_chunk(T* dst, const T* src, int bi, int hi, int row0, int rows, int t,
+                            int h, int d, int c0, bool vec) {
+  constexpr int LD = tile_ld<T>(kChunk);
+  if (vec) {
+    constexpr int kPer = 16 / sizeof(T);        // elements a copy
+    constexpr int kCopies = kChunk / kPer;      // copies a chunk row: 32 or 16
+    constexpr int kStep = NT / kCopies;
+    const int c = (threadIdx.x % kCopies) * kPer;
+    const bool col_in = c0 + c < d;             // d is a whole number of copies
+    const long long stride = (long long)h * d;  // from one row of the head to the next
+    const T* p = src + row_offset(bi, hi, row0, t, h, d) + c0 + c;
+    for (int r = threadIdx.x / kCopies; r < rows; r += kStep) {
+      const bool in = col_in && row0 + r < t;
+      cp_async16(dst + r * LD + c, in ? p + r * stride : src, in ? 16 : 0);
+    }
+  } else {
+    for (int i = threadIdx.x; i < rows * kChunk; i += NT) {
+      const int r = i / kChunk, c = i - r * kChunk, row = row0 + r;
+      dst[r * LD + c] = row < t && c0 + c < d
+                            ? src[row_offset(bi, hi, row, t, h, d) + c0 + c]
+                            : from_f<T>(0.f);
+    }
+  }
+}
+
+// The mask data of a key tile's keys (cp.async, zero past tk)
+template <int BK>
+__device__ __forceinline__ void stage_key_info(KeyTile<BK>* info, const Attn& a, int bi,
+                                               int k0) {
+  const int j = threadIdx.x, k = k0 + j;
+  if (j < BK) {
+    const int in = k < a.tk ? 4 : 0, at = k < a.tk ? k : 0;
+    const long long row = (long long)bi * a.tk + at;
+    if (a.causal) cp_async4(&info->pos[j], a.kp + at, in);
+    if (a.qs) cp_async4(&info->seg[j], a.ks + row, in);
+    if (a.km) cp_async4(&info->km[j], a.km + row, in);
+  }
+}
+
+// What a query tile's queries bring to K4 (cp.async, zero past tq)
+template <int BQ>
+__device__ __forceinline__ void stage_query_info(QueryTile<BQ>* info, const Attn& a,
+                                                 const Bwd& bw, int bi, int hi, int q0) {
+  const int j = threadIdx.x, q = q0 + j;
+  if (j < BQ) {
+    const int in = q < a.tq ? 4 : 0, at = q < a.tq ? q : 0;
+    const long long row = (long long)bi * a.tq + at, lrow = row * a.h + hi;
+    if (a.causal) cp_async4(&info->pos[j], a.qp + at, in);
+    if (a.qs) cp_async4(&info->seg[j], a.qs + row, in);
+    cp_async4(&info->lse[j], bw.lse + lrow, in);
+    cp_async4(&info->gl[j], bw.gl + lrow, in);
+    cp_async4(&info->di[j], bw.di + lrow, in);
+  }
+}
+
+// x rounded to bfloat16 (to nearest, ties to even) and back
+__device__ __forceinline__ float bf16r(float x) {
+  return __bfloat162float(__float2bfloat16_rn(x));
+}
+
+// Element e (0, 1) of a bfloat16 pair
+__device__ __forceinline__ float bf16_at(unsigned pair, int e) {
+  return __uint_as_float(e ? pair & 0xffff0000u : pair << 16);
+}
+
+// The bfloat16 accumulator's step at a JAX block's edge, for every element of
+// a thread's fragments: acc = bf16(acc + bf16(bf16(part) * mul)), part = 0.
+// acc[n][r] holds fragment elements 2r and 2r + 1 (one row) as a pair.
+__device__ __forceinline__ void flush_acc16(unsigned (&acc)[kChunk / 8][2],
+                                            float (&part)[kChunk / 8][4], float mul) {
+#pragma unroll
+  for (int n = 0; n < kChunk / 8; ++n)
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const float x0 = bf16r(bf16r(part[n][2 * r]) * mul);
+      const float x1 = bf16r(bf16r(part[n][2 * r + 1]) * mul);
+      acc[n][r] = pack_bf16(bf16_at(acc[n][r], 0) + x0, bf16_at(acc[n][r], 1) + x1);
+      part[n][2 * r] = part[n][2 * r + 1] = 0.f;
+    }
+}
+
+// acc += x V over one tile of the swept axis (keys in K5, queries in K4): x
+// holds this warp's rows against the tile's N columns x0 .. x0 + N (of t), V
+// the tile's N rows of this block's slice. With the bfloat16 accumulator, acc
+// is the running float32 sum of the current JAX block (blk, of jb columns),
+// flushed into acc16 whenever a tile reaches into a new block; a tile that
+// straddles two blocks is multiplied once for each, the other's columns zeroed.
+template <typename T, int N, bool ACC16>
+__device__ __forceinline__ void swept_product(float (&acc)[kChunk / 8][4],
+                                              unsigned (&acc16)[kChunk / 8][2], int& blk,
+                                              const float (&x)[N / 8][4], const T* vt,
+                                              int lane, int x0, int t, int jb, float mul) {
+  if constexpr (!ACC16) {
+    tile_pv<kChunk, N>(acc, x, vt, lane);
+  } else {
+    const int c = lane & 3;
+    const int lo = x0 / jb, hi = (min(x0 + N, t) - 1) / jb;
+    for (int b = lo; b <= hi; ++b) {
+      if (b != blk) {
+        flush_acc16(acc16, acc, mul);
+        blk = b;
+      }
+      if (lo == hi) {
+        tile_pv<kChunk, N>(acc, x, vt, lane);
+      } else {
+        float y[N / 8][4];
+#pragma unroll
+        for (int n = 0; n < N / 8; ++n)
+#pragma unroll
+          for (int j = 0; j < 4; ++j)
+            y[n][j] = (x0 + n * 8 + 2 * c + (j & 1)) / jb == b ? x[n][j] : 0.f;
+        tile_pv<kChunk, N>(acc, y, vt, lane);
+      }
+    }
+  }
+}
+
+// A thread's output value (row half r, column e of fragment n): the bfloat16
+// accumulator, or the float32 one times mul.
+template <bool ACC16>
+__device__ __forceinline__ float out_value(const float (&acc)[kChunk / 8][4],
+                                           const unsigned (&acc16)[kChunk / 8][2], int n,
+                                           int r, int e, float mul) {
+  if constexpr (ACC16) return bf16_at(acc16[n][r], e);
+  else return acc[n][2 * r + e] * mul;
+}
+
+// ---------------------------------------------------------------- K3, sliced
+
+template <typename T>
+size_t fwd_wide_smem() {
+  constexpr int BK = fwd_keys<T>();
+  return 2 * (kTile + BK) * tile_ld<T>(kChunk) * sizeof(T) + 2 * sizeof(KeyTile<BK>);
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kThreads, 2)
+flash_fwd_wide_kernel(Attn a, int vec, int slices, T* __restrict__ o, float* __restrict__ lse) {
+  constexpr int DP = kChunk;
+  constexpr int LD = tile_ld<T>(DP);
+  constexpr int BK = fwd_keys<T>();
+  constexpr int SLOT = (kTile + BK) * LD;  // a ring slot: Q and K chunks, or V's slice
+  extern __shared__ __align__(16) unsigned char fwdw_raw[];
+  T* ring = reinterpret_cast<T*>(fwdw_raw);                                   // [2][SLOT]
+  KeyTile<BK>* kinfo = reinterpret_cast<KeyTile<BK>*>(ring + 2 * SLOT);      // [2]
+  const int lane = threadIdx.x & 31, r0 = (threadIdx.x >> 5) * 16;
+  const int g = lane >> 2, c = lane & 3;
+  const int bi = blockIdx.y / a.h, hi = blockIdx.y - bi * a.h;
+  const int qtile_i = blockIdx.x / slices, slice = blockIdx.x - qtile_i * slices;
+  const int q0 = (gridDim.x / slices - 1 - qtile_i) * kTile;  // longest tiles first
+  const int c_out = slice * kChunk, nc = chunks(a.d);
+  const float scale2 = a.scale * kLog2e;
+  const T* Q = static_cast<const T*>(a.q);
+  const T* K = static_cast<const T*>(a.k);
+  const T* V = static_cast<const T*>(a.v);
+
+  // step s of key tile kt: chunk s of Q and K (s < nc), or V's slice (s = nc)
+  auto load = [&](T* slot, int kt, int s, int par) {
+    const int k0 = kt * BK;
+    if (s < nc) {
+      stage_chunk<T, kThreads>(slot, Q, bi, hi, q0, kTile, a.tq, a.h, a.d, s * kChunk, vec);
+      stage_chunk<T, kThreads>(slot + kTile * LD, K, bi, hi, k0, BK, a.tk, a.h, a.d,
+                               s * kChunk, vec);
+      if (s == 0) stage_key_info<BK>(kinfo + par, a, bi, k0);
+    } else {
+      stage_chunk<T, kThreads>(slot + kTile * LD, V, bi, hi, k0, BK, a.tk, a.h, a.d, c_out,
+                               vec);
+    }
+  };
+
+  const TileSpan qtile = query_tile(a, bi, q0);
+  TileScan<BK> scan;
+  const int tiles = (a.tk + BK - 1) / BK;
+  int state;
+  int tile = scan.next(a, bi, qtile, 0, state);
+  if (tile < tiles) load(ring, tile, 0, 0);
+  cp_async_commit();
+
+  const Info qi[2] = {query_info(a, bi, q0 + r0 + g), query_info(a, bi, q0 + r0 + g + 8)};
+  float m[2] = {kNeg, kNeg}, l[2] = {0.f, 0.f};  // l: this thread's columns only
+  float acc[DP / 8][4];
+#pragma unroll
+  for (int n = 0; n < DP / 8; ++n) acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
+
+  int slot = 0, par = 0;
+  while (tile < tiles) {
+    int next_state;
+    const int next = scan.next(a, bi, qtile, tile + 1, next_state);
+    const KeyTile<BK>& ki = kinfo[par];
+    const int k0 = tile * BK;
+    float s[BK / 8][4];
+#pragma unroll
+    for (int n = 0; n < BK / 8; ++n) s[n][0] = s[n][1] = s[n][2] = s[n][3] = 0.f;
+    for (int st = 0; st <= nc; ++st) {
+      cp_async_wait_all();
+      __syncthreads();  // this step landed; every warp is done with the other slot
+      const T* cur = ring + slot * SLOT;
+      T* nxt = ring + (slot ^ 1) * SLOT;
+      if (st < nc) load(nxt, tile, st + 1, par);
+      else if (next < tiles) load(nxt, next, 0, par ^ 1);
+      cp_async_commit();
+      slot ^= 1;
+      if (st < nc) {
+        tile_scores<DP, BK>(s, cur, cur + kTile * LD, r0, lane);
+        continue;
+      }
+      // s[n][2r + e] is row g + 8r, key n * 8 + 2c + e of the tile
+      float mt[2] = {kNeg, kNeg};
+#pragma unroll
+      for (int n = 0; n < BK / 8; ++n)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          float& x = s[n][j];
+          const int col = n * 8 + 2 * c + (j & 1);
+          x = state == 2 || allowed(a, qi[j >> 1],
+                                    {ki.pos[col], ki.seg[col],
+                                     k0 + col < a.tk && (!a.km || ki.km[col] > 0.f)})
+                  ? x * scale2 : kNeg;
+          mt[j >> 1] = fmaxf(mt[j >> 1], x);
+        }
+      float alpha[2];
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const float mn = fmaxf(m[r], quad_max(mt[r]));
+        alpha[r] = exp2_approx(m[r] - mn);
+        m[r] = mn;
+      }
+      float rs[2] = {0.f, 0.f};
+#pragma unroll
+      for (int n = 0; n < BK / 8; ++n)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const int r = j >> 1;
+          const float p = m[r] <= kNeg / 2 ? 0.f : exp2_approx(s[n][j] - m[r]);
+          s[n][j] = p;
+          rs[r] += p;
+        }
+#pragma unroll
+      for (int r = 0; r < 2; ++r) l[r] = alpha[r] * l[r] + rs[r];
+#pragma unroll
+      for (int n = 0; n < DP / 8; ++n) {
+        acc[n][0] *= alpha[0];
+        acc[n][1] *= alpha[0];
+        acc[n][2] *= alpha[1];
+        acc[n][3] *= alpha[1];
+      }
+      tile_pv<DP, BK>(acc, s, cur + kTile * LD, lane);
+    }
+    tile = next;
+    state = next_state;
+    par ^= 1;
+  }
+  cp_async_wait_all();  // nothing in flight at exit
+
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const float sum = quad_sum(l[r]);
+    const int row = q0 + r0 + g + 8 * r;
+    if (row >= a.tq) continue;
+    const float inv = sum > 0.f ? 1.f / sum : 0.f;
+    const long long at = row_offset(bi, hi, row, a.tq, a.h, a.d) + c_out;
+#pragma unroll
+    for (int n = 0; n < DP / 8; ++n)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int col = n * 8 + 2 * c + e;
+        if (c_out + col < a.d) o[at + col] = from_f<T>(acc[n][2 * r + e] * inv);
+      }
+    if (c == 0 && slice == 0)  // m is in log2 units
+      lse[((long long)bi * a.tq + row) * a.h + hi] =
+          sum > 0.f ? (m[r] + log2f(sum)) / kLog2e : kNeg;
+  }
+}
+
+// ---------------------------------------------------------------- K5, sliced
+
+template <typename T>
+size_t dq_wide_smem() {
+  return 2 * (kTile + kSweepKeys) * tile_ld<T>(kChunk) * sizeof(T) +
+         2 * sizeof(KeyTile<kSweepKeys>);
+}
+
+template <typename T, bool ACC16>
+__global__ void __launch_bounds__(kThreads, 2)
+flash_bwd_dq_wide_kernel(Attn a, Bwd bw, int vec, int slices, int jb, T* __restrict__ dq) {
+  constexpr int DP = kChunk;
+  constexpr int LD = tile_ld<T>(DP);
+  constexpr int BK = kSweepKeys;
+  constexpr int SLOT = (kTile + BK) * LD;  // Q and K, or dO and V chunks, or K's slice
+  extern __shared__ __align__(16) unsigned char dqw_raw[];
+  T* ring = reinterpret_cast<T*>(dqw_raw);
+  KeyTile<BK>* kinfo = reinterpret_cast<KeyTile<BK>*>(ring + 2 * SLOT);
+  const int lane = threadIdx.x & 31, r0 = (threadIdx.x >> 5) * 16;
+  const int g = lane >> 2, c = lane & 3;
+  const int bi = blockIdx.y / a.h, hi = blockIdx.y - bi * a.h;
+  const int qtile_i = blockIdx.x / slices, slice = blockIdx.x - qtile_i * slices;
+  const int q0 = (gridDim.x / slices - 1 - qtile_i) * kTile;
+  const int c_out = slice * kChunk, nc = chunks(a.d);
+  const float scale2 = a.scale * kLog2e;
+  const T* Q = static_cast<const T*>(a.q);
+  const T* K = static_cast<const T*>(a.k);
+  const T* V = static_cast<const T*>(a.v);
+  const T* DO = static_cast<const T*>(bw.dout);
+
+  // step s of key tile kt: Q and K chunk s (s < nc), dO and V chunk s - nc
+  // (s < 2 nc), K's slice (s = 2 nc)
+  auto load = [&](T* slot, int kt, int s, int par) {
+    const int k0 = kt * BK;
+    if (s < 2 * nc) {
+      const bool scores = s < nc;
+      const int c0 = (scores ? s : s - nc) * kChunk;
+      stage_chunk<T, kThreads>(slot, scores ? Q : DO, bi, hi, q0, kTile, a.tq, a.h, a.d, c0,
+                               vec);
+      stage_chunk<T, kThreads>(slot + kTile * LD, scores ? K : V, bi, hi, k0, BK, a.tk, a.h,
+                               a.d, c0, vec);
+      if (s == 0) stage_key_info<BK>(kinfo + par, a, bi, k0);
+    } else {
+      stage_chunk<T, kThreads>(slot + kTile * LD, K, bi, hi, k0, BK, a.tk, a.h, a.d, c_out,
+                               vec);
+    }
+  };
+
+  const TileSpan qtile = query_tile(a, bi, q0);
+  TileScan<BK> scan;
+  const int tiles = (a.tk + BK - 1) / BK;
+  int state;
+  int tile = scan.next(a, bi, qtile, 0, state);
+  if (tile < tiles) load(ring, tile, 0, 0);
+  cp_async_commit();
+
+  // this thread's rows g and g + 8: mask data, lse (log2 units), g - di
+  Info qi[2];
+  float lse2[2], dg[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = q0 + r0 + g + 8 * r;
+    qi[r] = query_info(a, bi, row);
+    const long long at = ((long long)bi * a.tq + row) * a.h + hi;
+    lse2[r] = lse_log2(qi[r].ok ? bw.lse[at] : kNeg);
+    dg[r] = qi[r].ok ? bw.gl[at] - bw.di[at] : 0.f;
+  }
+  float acc[DP / 8][4];      // dQ, or (ACC16) the current JAX block's sum
+  unsigned acc16[DP / 8][2];  // ACC16: dQ as bfloat16 pairs
+#pragma unroll
+  for (int n = 0; n < DP / 8; ++n) {
+    acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
+    acc16[n][0] = acc16[n][1] = 0u;
+  }
+  const float mul16 = bf16r(a.scale);  // the JAX kernel's scale, a bfloat16 there
+  int blk = -1;
+
+  int slot = 0, par = 0;
+  while (tile < tiles) {
+    int next_state;
+    const int next = scan.next(a, bi, qtile, tile + 1, next_state);
+    const KeyTile<BK>& ki = kinfo[par];
+    const int k0 = tile * BK;
+    float s[BK / 8][4], dp[BK / 8][4];
+#pragma unroll
+    for (int n = 0; n < BK / 8; ++n)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) s[n][j] = dp[n][j] = 0.f;
+    for (int st = 0; st <= 2 * nc; ++st) {
+      cp_async_wait_all();
+      __syncthreads();
+      const T* cur = ring + slot * SLOT;
+      T* nxt = ring + (slot ^ 1) * SLOT;
+      if (st < 2 * nc) load(nxt, tile, st + 1, par);
+      else if (next < tiles) load(nxt, next, 0, par ^ 1);
+      cp_async_commit();
+      slot ^= 1;
+      if (st < nc) {
+        tile_scores<DP, BK>(s, cur, cur + kTile * LD, r0, lane);
+        continue;
+      }
+      if (st < 2 * nc) {
+        tile_scores<DP, BK>(dp, cur, cur + kTile * LD, r0, lane);
+        continue;
+      }
+      // s[n][2r + e] is row g + 8r, key n * 8 + 2c + e of the tile: it becomes ds
+#pragma unroll
+      for (int n = 0; n < BK / 8; ++n)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const int col = n * 8 + 2 * c + (j & 1), r = j >> 1;
+          const bool ok =
+              state == 2 || allowed(a, qi[r],
+                                    {ki.pos[col], ki.seg[col],
+                                     k0 + col < a.tk && (!a.km || ki.km[col] > 0.f)});
+          const float p = ok ? exp2_approx(fmaf(s[n][j], scale2, -lse2[r])) : 0.f;
+          s[n][j] = p * (dp[n][j] + dg[r]);
+        }
+      swept_product<T, BK, ACC16>(acc, acc16, blk, s, cur + kTile * LD, lane, k0, a.tk, jb,
+                                  mul16);
+    }
+    tile = next;
+    state = next_state;
+    par ^= 1;
+  }
+  cp_async_wait_all();
+  if constexpr (ACC16) flush_acc16(acc16, acc, mul16);
+
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = q0 + r0 + g + 8 * r;
+    if (row >= a.tq) continue;
+    const long long at = row_offset(bi, hi, row, a.tq, a.h, a.d) + c_out;
+#pragma unroll
+    for (int n = 0; n < DP / 8; ++n)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int col = n * 8 + 2 * c + e;
+        if (c_out + col < a.d)
+          dq[at + col] = from_f<T>(out_value<ACC16>(acc, acc16, n, r, e, a.scale));
+      }
+  }
+}
+
+// ---------------------------------------------------------------- K4, sliced
+
+// a ring slot: K, Q, V and dO chunks (kTile, BQ, kTile, BQ rows); then P^T's
+// fragments of the four warp pairs and two query tiles' data
+template <typename T>
+size_t dkv_wide_smem() {
+  constexpr int BQ = kSweepQueries;
+  return 2 * (2 * kTile + 2 * BQ) * tile_ld<T>(kChunk) * sizeof(T) +
+         4 * 16 * BQ * sizeof(float) + 2 * sizeof(QueryTile<BQ>);
+}
+
+template <typename T, bool ACC16>
+__global__ void __launch_bounds__(kPairThreads, 1)
+flash_bwd_dkv_wide_kernel(Attn a, Bwd bw, int vec, int slices, int jb, T* __restrict__ dk,
+                          T* __restrict__ dv) {
+  constexpr int DP = kChunk;
+  constexpr int LD = tile_ld<T>(DP);
+  constexpr int BQ = kSweepQueries;
+  constexpr int SLOT = (2 * kTile + 2 * BQ) * LD;
+  constexpr int Q_AT = kTile * LD, V_AT = (kTile + BQ) * LD, DO_AT = (2 * kTile + BQ) * LD;
+  extern __shared__ __align__(16) unsigned char dkvw_raw[];
+  T* ring = reinterpret_cast<T*>(dkvw_raw);
+  float* pt = reinterpret_cast<float*>(ring + 2 * SLOT);  // [4][BQ / 8][32][4] P^T
+  QueryTile<BQ>* qinfo = reinterpret_cast<QueryTile<BQ>*>(pt + 4 * 16 * BQ);  // [2]
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int pair = warp & 3, r0 = pair * 16;
+  const bool dk_warp = warp >= 4;  // warps 0-3 own dV, 4-7 dK
+  const int g = lane >> 2, c = lane & 3;
+  const int bi = blockIdx.y / a.h, hi = blockIdx.y - bi * a.h;
+  const int ktile_i = blockIdx.x / slices, slice = blockIdx.x - ktile_i * slices;
+  const int k0 = ktile_i * kTile;  // key tile 0, the longest under a causal mask, first
+  const int c_out = slice * kChunk, nc = chunks(a.d);
+  const float scale2 = a.scale * kLog2e;
+  float4* pf = reinterpret_cast<float4*>(pt) + pair * (BQ / 8) * 32 + lane;
+  const T* Q = static_cast<const T*>(a.q);
+  const T* K = static_cast<const T*>(a.k);
+  const T* V = static_cast<const T*>(a.v);
+  const T* DO = static_cast<const T*>(bw.dout);
+
+  // step s of query tile qt: K, Q, V and dO chunk s (s < nc), or Q's and dO's
+  // slices (s = nc)
+  auto load = [&](T* slot, int qt, int s, int par) {
+    const int q0 = qt * BQ;
+    const int c0 = s < nc ? s * kChunk : c_out;
+    if (s < nc) {
+      stage_chunk<T, kPairThreads>(slot, K, bi, hi, k0, kTile, a.tk, a.h, a.d, c0, vec);
+      stage_chunk<T, kPairThreads>(slot + V_AT, V, bi, hi, k0, kTile, a.tk, a.h, a.d, c0,
+                                   vec);
+      if (s == 0) stage_query_info<BQ>(qinfo + par, a, bw, bi, hi, q0);
+    }
+    stage_chunk<T, kPairThreads>(slot + Q_AT, Q, bi, hi, q0, BQ, a.tq, a.h, a.d, c0, vec);
+    stage_chunk<T, kPairThreads>(slot + DO_AT, DO, bi, hi, q0, BQ, a.tq, a.h, a.d, c0, vec);
+  };
+
+  const TileSpan ktile = key_tile(a, bi, k0);
+  TileScan<BQ, false> scan;
+  const int tiles = (a.tq + BQ - 1) / BQ;
+  int state;
+  int tile = scan.next(a, bi, ktile, 0, state);
+  if (tile < tiles) load(ring, tile, 0, 0);
+  cp_async_commit();
+
+  // this thread's key rows g and g + 8
+  const Info ki[2] = {key_info(a, bi, k0 + r0 + g), key_info(a, bi, k0 + r0 + g + 8)};
+  float acc[DP / 8][4];      // dV or dK, or (ACC16) the current JAX block's sum
+  unsigned acc16[DP / 8][2];  // ACC16: dV or dK as bfloat16 pairs
+#pragma unroll
+  for (int n = 0; n < DP / 8; ++n) {
+    acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
+    acc16[n][0] = acc16[n][1] = 0u;
+  }
+  const float mul16 = dk_warp ? bf16r(a.scale) : 1.f;
+  int blk = -1;
+
+  int slot = 0, par = 0;
+  while (tile < tiles) {
+    int next_state;
+    const int next = scan.next(a, bi, ktile, tile + 1, next_state);
+    const QueryTile<BQ>& qi = qinfo[par];
+    const int q0 = tile * BQ;
+    // s[n][2r + e] is key row g + 8r, query n * 8 + 2c + e of the tile
+    float s[BQ / 8][4];
+#pragma unroll
+    for (int n = 0; n < BQ / 8; ++n) s[n][0] = s[n][1] = s[n][2] = s[n][3] = 0.f;
+    for (int st = 0; st <= nc; ++st) {
+      cp_async_wait_all();
+      // this step landed; every warp is done with the other slot and with the
+      // last tile's P^T
+      __syncthreads();
+      const T* cur = ring + slot * SLOT;
+      T* nxt = ring + (slot ^ 1) * SLOT;
+      if (st < nc) load(nxt, tile, st + 1, par);
+      else if (next < tiles) load(nxt, next, 0, par ^ 1);
+      cp_async_commit();
+      slot ^= 1;
+      if (st < nc) {
+        if (!dk_warp) tile_scores<DP, BQ>(s, cur, cur + Q_AT, r0, lane);   // S^T
+        else tile_scores<DP, BQ>(s, cur + V_AT, cur + DO_AT, r0, lane);    // dP^T
+        continue;
+      }
+      if (!dk_warp) {
+#pragma unroll
+        for (int n = 0; n < BQ / 8; ++n) {
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const int col = n * 8 + 2 * c + e;
+            const float lse2 = lse_log2(qi.lse[col]);
+            const Info q{qi.pos[col], qi.seg[col], q0 + col < a.tq};
+#pragma unroll
+            for (int r = 0; r < 2; ++r) {
+              const bool ok = state == 2 || allowed(a, q, ki[r]);
+              float& x = s[n][2 * r + e];
+              x = ok ? exp2_approx(fmaf(x, scale2, -lse2)) : 0.f;
+            }
+          }
+          pf[n * 32] = make_float4(s[n][0], s[n][1], s[n][2], s[n][3]);
+        }
+        bar_arrive(1 + pair, 64);
+        // dV += P^T dO: dO's slice in V's place
+        swept_product<T, BQ, ACC16>(acc, acc16, blk, s, cur + DO_AT, lane, q0, a.tq, jb,
+                                    mul16);
+      } else {
+        bar_sync(1 + pair, 64);
+#pragma unroll
+        for (int n = 0; n < BQ / 8; ++n) {
+          const float4 p = pf[n * 32];
+          const int col = n * 8 + 2 * c;
+          const float dg0 = qi.gl[col] - qi.di[col], dg1 = qi.gl[col + 1] - qi.di[col + 1];
+          s[n][0] = p.x * (s[n][0] + dg0);
+          s[n][1] = p.y * (s[n][1] + dg1);
+          s[n][2] = p.z * (s[n][2] + dg0);
+          s[n][3] = p.w * (s[n][3] + dg1);
+        }
+        // dK += dS^T Q
+        swept_product<T, BQ, ACC16>(acc, acc16, blk, s, cur + Q_AT, lane, q0, a.tq, jb,
+                                    mul16);
+      }
+    }
+    tile = next;
+    state = next_state;
+    par ^= 1;
+  }
+  cp_async_wait_all();
+  if constexpr (ACC16) flush_acc16(acc16, acc, mul16);
+
+  T* out = dk_warp ? dk : dv;
+  const float mul = dk_warp ? a.scale : 1.f;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = k0 + r0 + g + 8 * r;
+    if (row >= a.tk) continue;
+    const long long at = row_offset(bi, hi, row, a.tk, a.h, a.d) + c_out;
+#pragma unroll
+    for (int n = 0; n < DP / 8; ++n)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int col = n * 8 + 2 * c + e;
+        if (c_out + col < a.d)
+          out[at + col] = from_f<T>(out_value<ACC16>(acc, acc16, n, r, e, mul));
+      }
+  }
+}
+
+// ------------------------------------------------------------------ launching
+
+// the arms take any head_dim; the grid bounds b * h (y) and tiles * slices (x)
+bool valid_wide(const Attn& a) {
+  const long long slices = chunks(a.d);
+  return a.q && a.k && a.v && a.qp && a.kp && (!a.qs == !a.ks) && a.b >= 1 && a.h >= 1 &&
+         a.tq >= 1 && a.tk >= 1 && a.d >= 1 && (long long)a.b * a.h <= 65535 &&
+         ((long long)a.tq + kTile - 1) / kTile * slices <= INT_MAX &&
+         ((long long)a.tk + kTile - 1) / kTile * slices <= INT_MAX;
+}
+
+// a tile's slices run together (its data stay in L2), then the head's next tile
+dim3 grid_wide(int t, const Attn& a) {
+  return dim3((unsigned)(((t + kTile - 1) / kTile) * chunks(a.d)), a.b * a.h);
+}
+
+template <typename T>
+cudaError_t fwd_wide(const Attn& a, void* o, float* lse, cudaStream_t s) {
+  const size_t smem = fwd_wide_smem<T>();
+  cudaError_t e = prepare(flash_fwd_wide_kernel<T>, smem);
+  if (e != cudaSuccess) return e;
+  flash_fwd_wide_kernel<T><<<grid_wide(a.tq, a), kThreads, smem, s>>>(
+      a, vec_copies<T>(a, nullptr), chunks(a.d), static_cast<T*>(o), lse);
+  return cudaGetLastError();
+}
+
+template <typename T, bool ACC16>
+cudaError_t dq_wide(const Attn& a, const Bwd& g, int jb, void* dq, cudaStream_t s) {
+  const size_t smem = dq_wide_smem<T>();
+  cudaError_t e = prepare(flash_bwd_dq_wide_kernel<T, ACC16>, smem);
+  if (e != cudaSuccess) return e;
+  flash_bwd_dq_wide_kernel<T, ACC16><<<grid_wide(a.tq, a), kThreads, smem, s>>>(
+      a, g, vec_copies<T>(a, g.dout), chunks(a.d), jb, static_cast<T*>(dq));
+  return cudaGetLastError();
+}
+
+template <typename T, bool ACC16>
+cudaError_t dkv_wide(const Attn& a, const Bwd& g, int jb, void* dk, void* dv,
+                     cudaStream_t s) {
+  const size_t smem = dkv_wide_smem<T>();
+  cudaError_t e = prepare(flash_bwd_dkv_wide_kernel<T, ACC16>, smem);
+  if (e != cudaSuccess) return e;
+  flash_bwd_dkv_wide_kernel<T, ACC16><<<grid_wide(a.tk, a), kPairThreads, smem, s>>>(
+      a, g, vec_copies<T>(a, g.dout), chunks(a.d), jb, static_cast<T*>(dk),
+      static_cast<T*>(dv));
+  return cudaGetLastError();
+}
+
+}  // namespace
+
+// As dl4j_flash_fwd, at any head_dim.
+extern "C" int dl4j_flash_wide_fwd(const void* q, const void* k, const void* v,
+                                   const void* km, const void* qs, const void* ks,
+                                   const void* qp, const void* kp, void* o, void* lse,
+                                   int b, int h, int tq, int tk, int d, float scale,
+                                   int causal, int bf16, void* stream) {
+  const Attn a = make_attn(q, k, v, km, qs, ks, qp, kp, b, h, tq, tk, d, scale, causal);
+  if (!valid_wide(a) || !o || !lse) return (int)cudaErrorInvalidValue;
+  float* l = static_cast<float*>(lse);
+  cudaStream_t s = (cudaStream_t)stream;
+  return (int)(bf16 ? fwd_wide<__nv_bfloat16>(a, o, l, s) : fwd_wide<float>(a, o, l, s));
+}
+
+// As dl4j_flash_bwd_dkv, at any head_dim; acc_block > 0: the bfloat16
+// accumulator over JAX query blocks of acc_block rows (0: float32 sums).
+extern "C" int dl4j_flash_wide_bwd_dkv(const void* q, const void* k, const void* v,
+                                       const void* dout, const void* lse, const void* di,
+                                       const void* gl, const void* km, const void* qs,
+                                       const void* ks, const void* qp, const void* kp,
+                                       void* dk, void* dv, int b, int h, int tq, int tk,
+                                       int d, float scale, int causal, int bf16,
+                                       int acc_block, void* stream) {
+  const Attn a = make_attn(q, k, v, km, qs, ks, qp, kp, b, h, tq, tk, d, scale, causal);
+  const Bwd g = {dout, static_cast<const float*>(lse), static_cast<const float*>(di),
+                 static_cast<const float*>(gl)};
+  if (!valid_wide(a) || !dout || !lse || !di || !gl || !dk || !dv || acc_block < 0)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = (cudaStream_t)stream;
+  const int jb = acc_block;
+  cudaError_t e;
+  if (bf16)
+    e = jb ? dkv_wide<__nv_bfloat16, true>(a, g, jb, dk, dv, s)
+           : dkv_wide<__nv_bfloat16, false>(a, g, 1, dk, dv, s);
+  else
+    e = jb ? dkv_wide<float, true>(a, g, jb, dk, dv, s)
+           : dkv_wide<float, false>(a, g, 1, dk, dv, s);
+  return (int)e;
+}
+
+// As dl4j_flash_bwd_dq, at any head_dim; acc_block > 0: the bfloat16
+// accumulator over JAX key blocks of acc_block keys (0: float32 sums).
+extern "C" int dl4j_flash_wide_bwd_dq(const void* q, const void* k, const void* v,
+                                      const void* dout, const void* lse, const void* di,
+                                      const void* gl, const void* km, const void* qs,
+                                      const void* ks, const void* qp, const void* kp,
+                                      void* dq, int b, int h, int tq, int tk, int d,
+                                      float scale, int causal, int bf16, int acc_block,
+                                      void* stream) {
+  const Attn a = make_attn(q, k, v, km, qs, ks, qp, kp, b, h, tq, tk, d, scale, causal);
+  const Bwd g = {dout, static_cast<const float*>(lse), static_cast<const float*>(di),
+                 static_cast<const float*>(gl)};
+  if (!valid_wide(a) || !dout || !lse || !di || !gl || !dq || acc_block < 0)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = (cudaStream_t)stream;
+  const int jb = acc_block;
+  cudaError_t e;
+  if (bf16)
+    e = jb ? dq_wide<__nv_bfloat16, true>(a, g, jb, dq, s)
+           : dq_wide<__nv_bfloat16, false>(a, g, 1, dq, s);
+  else
+    e = jb ? dq_wide<float, true>(a, g, jb, dq, s) : dq_wide<float, false>(a, g, 1, dq, s);
+  return (int)e;
 }

@@ -17,19 +17,48 @@ ds as the JAX package's does.
 On CUDA tensors `FlashAttentionFunction` launches the hand-written kernels of
 ``csrc/flash_attention.cu``: K3 (`dl4j_flash_fwd`) forward, K4
 (`dl4j_flash_bwd_dkv`) and K5 (`dl4j_flash_bwd_dq`) backward, float32 or
-bfloat16 with float32 sums. All three run their products on the tensor
-cores (`mma.sync`: bfloat16 products for bfloat16, and for float32 three
-TF32 products per float32 one, the 3xTF32 split, which keeps float32
-accuracy). The note there says what bounds them and how they are laid out.
-On CPU tensors it runs `flash_fwd_reference` and `flash_bwd_reference`.
-There is no fallback from one to the other: a CUDA tensor the kernels do
-not take raises.
+bfloat16 with float32 sums, at head_dim up to MAX_HEAD_DIM. Wider heads, and
+the backward with a bfloat16 accumulator at any head_dim, run the sliced arms
+at the end of the same file (`dl4j_flash_wide_fwd`,
+`dl4j_flash_wide_bwd_dkv`, `dl4j_flash_wide_bwd_dq`): the output columns are
+cut into slices of 128 over the grid and the contractions over head_dim are
+streamed through shared memory in 128-wide chunks, so they have no head_dim
+limit of their own. All of them run their products on the tensor cores
+(`mma.sync`: bfloat16 products for bfloat16, and for float32 three TF32
+products per float32 one, the 3xTF32 split, which keeps float32 accuracy).
+The notes there say what bounds them and how they are laid out. On CPU
+tensors it runs `flash_fwd_reference` and `flash_bwd_reference`. There is no
+fallback from one to the other: a CUDA tensor the kernels do not take raises.
+
+`bwd_acc_dtype="bfloat16"` is the JAX package's backward accumulator knob.
+Its kernels (`_bwd_dkv_kernel`, `_bwd_dq_kernel`) keep dk, dv and dq in a
+bfloat16 scratch across their sequential sweep and, for each block of the
+sweep (`q_block` query rows for dk and dv, `kv_block` keys for dq), add
+that block's product into it: the dot carries `preferred_element_type=
+bfloat16`, which XLA's CPU dot computes as a float32 sum rounded once to
+bfloat16; for dk and dq that rounded product is multiplied by the softmax
+scale, itself a bfloat16 there (a Python float against a bfloat16 array is
+weakly typed), and rounded again; then the bfloat16 add rounds the running
+sum:
+
+    dv = bf16(dv + bf16(p_blk^T do_blk))
+    dk = bf16(dk + bf16(bf16(ds_blk^T q_blk) * bf16(scale)))
+    dq = bf16(dq + bf16(bf16(ds_blk k_blk) * bf16(scale)))
+
+(a probe against the JAX kernels in interpret mode matched this bitwise in
+bfloat16 and to the odd float32 rounding of the block product otherwise, and
+no other placement of the roundings did). So the result depends on the block
+size, and the plain version (`_bwd_reference` with `acc_blocks`) loops over
+the JAX package's blocks and rounds where it rounds; the kernels take the
+block size as an argument, sum their own tiles within one block in float32
+and round at its edges.
 
 `decode_attention` is the port of the JAX package's single-query decode
 attention (`decode_attention`, which there runs `_fwd_kernel` with one query
 row). On CUDA tensors it launches K7 (`dl4j_decode_attention` of
 ``csrc/decode_attention.cu``), a split-KV kernel that reads only the valid
-prefix of the cache; on CPU tensors it runs `decode_attention_reference`.
+prefix of the cache, with a sliced arm for head_dim > 128; on CPU tensors it
+runs `decode_attention_reference`.
 """
 from __future__ import annotations
 
@@ -47,22 +76,46 @@ Tensor = torch.Tensor
 
 NEG = -1e30  # mask sentinel; matches ops/attention.py (finite: -inf NaNs grads)
 
-#: What the kernels take: head_dim up to MAX_HEAD_DIM (they tile by 64 query
-#: or key rows and mask the ragged edge, so any t >= 1).
+#: The widest head the d <= 128 kernels (K3-K5 of ``flash_attention.cu``,
+#: K7's first arm) take; wider heads go to the sliced arms, which take any
+#: head_dim. Both tile by 64 query or key rows and mask the ragged edge, so
+#: any t >= 1.
 MAX_HEAD_DIM = 128
 
-#: Kernel launches made in this process: `fwd_launches` counts K3,
-#: `bwd_dkv_launches` K4 and `bwd_dq_launches` K5. Tests and the chip smoke
-#: reset them to 0 and read them to show a path ran through the kernels.
+#: The JAX package's blocks (`DEFAULT_BLOCK_Q`, `DEFAULT_BLOCK_KV`), its
+#: lane width and VMEM budget: the gate below is its rule, and the bfloat16
+#: accumulator rounds at its block edges.
+DEFAULT_BLOCK_Q = 128
+DEFAULT_BLOCK_KV = 128
+_LANE = 128
+_VMEM_BUDGET = 8 * 1024 * 1024
+
+#: Kernel launches made in this process, one count a kernel: `fwd_launches`
+#: K3, `bwd_dkv_launches` K4 and `bwd_dq_launches` K5 (head_dim <= 128, float32
+#: sums); `fwd_wide_launches`, `bwd_dkv_wide_launches` and
+#: `bwd_dq_wide_launches` their sliced arms (head_dim > 128);
+#: `bwd_dkv_acc16_launches` and `bwd_dq_acc16_launches` the sliced K4 and K5
+#: with the bfloat16 accumulator (any head_dim). Tests and the chip smoke reset
+#: them to 0 and read them to show a path ran through the kernels.
 fwd_launches = 0
 bwd_dkv_launches = 0
 bwd_dq_launches = 0
-#: K7 launches, one for each `decode_attention` call on CUDA tensors
+fwd_wide_launches = 0
+bwd_dkv_wide_launches = 0
+bwd_dq_wide_launches = 0
+bwd_dkv_acc16_launches = 0
+bwd_dq_acc16_launches = 0
+#: K7 launches, one for each `decode_attention` call on CUDA tensors:
+#: `decode_launches` at head_dim <= 128, `decode_wide_launches` above
 decode_launches = 0
+decode_wide_launches = 0
 _launches_lock = threading.Lock()
 
 _POINTERS = {"dl4j_flash_fwd": 10, "dl4j_flash_bwd_dkv": 14,
-             "dl4j_flash_bwd_dq": 13}
+             "dl4j_flash_bwd_dq": 13, "dl4j_flash_wide_fwd": 10,
+             "dl4j_flash_wide_bwd_dkv": 14, "dl4j_flash_wide_bwd_dq": 13}
+#: the wide entry points take the bfloat16 accumulator's block (0: float32)
+_ACC_BLOCK = ("dl4j_flash_wide_bwd_dkv", "dl4j_flash_wide_bwd_dq")
 _fns = {}
 
 
@@ -71,13 +124,32 @@ def _blocks_divide(t_q: int, t_k: int, q_block: int, kv_block: int) -> bool:
     return not (q_block and t_q % q_block) and not (kv_block and t_k % kv_block)
 
 
+def pick_kernel_block(t: int, want: int) -> int:
+    """Largest divisor of t that is <= want (t >= 1): the JAX package's
+    block rule (`pick_kernel_block`), copied."""
+    b = max(1, min(want, t))
+    while t % b:
+        b -= 1
+    return b
+
+
 def flash_attention_supported(t_q: int, t_k: int, head_dim: int, *,
                               q_block: int = 0, kv_block: int = 0) -> bool:
-    """Geometry gate of the port's kernels: head_dim within MAX_HEAD_DIM, and
-    explicit blocks that divide the time axes (the JAX package's contract;
-    the kernels themselves tile by 64 rows and mask the ragged edge)."""
-    return (t_q >= 1 and t_k >= 1 and 1 <= head_dim <= MAX_HEAD_DIM
-            and _blocks_divide(t_q, t_k, q_block, kv_block))
+    """The JAX package's geometry gate (`flash_attention_supported`): exact
+    block tiling, with blocks from `pick_kernel_block(t, 128)` or the
+    caller's, and its VMEM estimate of the dk/dv kernel, 4 ((2 qb + 4 kb) dp
+    + 2 qb kb) bytes within 8 MiB, head_dim padded to dp, a multiple of 128.
+    The port's kernels take every geometry it passes (and more: they tile by
+    64 rows and need no exact tiling), so the card and the CPU choose the
+    JAX package's route."""
+    if t_q < 1 or t_k < 1 or head_dim < 1:
+        return False
+    qb = q_block or pick_kernel_block(t_q, DEFAULT_BLOCK_Q)
+    kb = kv_block or pick_kernel_block(t_k, DEFAULT_BLOCK_KV)
+    if t_q % qb or t_k % kb:
+        return False
+    dp = head_dim + ((-head_dim) % _LANE)
+    return 4 * ((2 * qb + 4 * kb) * dp + 2 * qb * kb) <= _VMEM_BUDGET
 
 
 # ---------------------------------------------------------------------------
@@ -144,11 +216,37 @@ def flash_fwd_reference(q, k, v, km, qs, ks, qp, kp, scale, causal):
     return _unfold(o3, b, h, q.dtype), _unfold(lse3, b, h, acc)
 
 
+def _bf16_round(x: Tensor) -> Tensor:
+    return x.to(torch.bfloat16).to(x.dtype)
+
+
+def _bf16_sweep(parts, scale):
+    """The JAX package's bfloat16 accumulator over one sweep: for each block's
+    float32 product, acc = bf16(acc + bf16(bf16(product) * scale)), the
+    scale a bfloat16 (None: dv, no scale). Returns acc (bfloat16 values)."""
+    acc = None
+    sb = None if scale is None else float(torch.tensor(scale, dtype=torch.bfloat16))
+    for part in parts:
+        x = _bf16_round(part)
+        if sb is not None:
+            x = _bf16_round(x * sb)
+        acc = x if acc is None else _bf16_round(acc + x)
+    return acc
+
+
 def _bwd_reference(q, k, v, do, lse, di, gl, km, qs, ks, qp, kp, scale, causal,
-                   want_dq, want_dkv):
-    """dq and/or (dk, dv), each recomputing p and ds (as K5 and K4 do)."""
+                   want_dq, want_dkv, acc_blocks=(0, 0)):
+    """dq and/or (dk, dv), each recomputing p and ds (as K5 and K4 do). With
+    `acc_blocks` (qb, kb) nonzero, the bfloat16 accumulator: dk and dv summed
+    over query blocks of qb rows, dq over key blocks of kb keys, each block's
+    product rounded into a bfloat16 sum as the JAX kernels do
+    (`_bf16_sweep`)."""
     b, tq, h, d = q.shape
     tk = k.shape[1]
+    qb, kb = acc_blocks
+    if qb and (tq % qb or tk % kb):
+        raise ValueError(f"time ({tq}, {tk}) must divide the accumulator's blocks "
+                         f"({qb}, {kb})")
     acc = _acc_dtype(q)
     q3, k3, v3, do3 = (_fold(t, acc) for t in (q, k, v, do))
     row = lambda t: t.transpose(1, 2).reshape(b * h, tq, 1).to(acc)
@@ -161,40 +259,66 @@ def _bwd_reference(q, k, v, do, lse, di, gl, km, qs, ks, qp, kp, scale, causal,
         p = torch.where(keep, torch.exp(s - lse3[sl]), 0.0)
         dp = torch.matmul(do3[sl], v3[sl].transpose(1, 2))
         ds = p * (dp - di3[sl] + gl3[sl])
+        pt = lambda: p.to(do.dtype).to(acc).transpose(1, 2)
+        dst = lambda: ds.to(q.dtype).to(acc).transpose(1, 2)
+        dsk = lambda: ds.to(k.dtype).to(acc)
+        if qb:   # the bfloat16 accumulator, block by block
+            rows = [slice(j, j + qb) for j in range(0, tq, qb)]
+            cols = [slice(j, j + kb) for j in range(0, tk, kb)]
+            if want_dkv:
+                pt_, dst_ = pt(), dst()
+                dv3[sl] = _bf16_sweep((torch.matmul(pt_[:, :, r], do3[sl][:, r])
+                                       for r in rows), None)
+                dk3[sl] = _bf16_sweep((torch.matmul(dst_[:, :, r], q3[sl][:, r])
+                                       for r in rows), scale)
+            if want_dq:
+                dsk_ = dsk()
+                dq3[sl] = _bf16_sweep((torch.matmul(dsk_[:, :, c], k3[sl][:, c])
+                                       for c in cols), scale)
+            continue
         if want_dkv:
-            dv3[sl] = torch.matmul(p.to(do.dtype).to(acc).transpose(1, 2), do3[sl])
-            dk3[sl] = torch.matmul(ds.to(q.dtype).to(acc).transpose(1, 2),
-                                   q3[sl]) * scale
+            dv3[sl] = torch.matmul(pt(), do3[sl])
+            dk3[sl] = torch.matmul(dst(), q3[sl]) * scale
         if want_dq:
-            dq3[sl] = torch.matmul(ds.to(k.dtype).to(acc), k3[sl]) * scale
+            dq3[sl] = torch.matmul(dsk(), k3[sl]) * scale
     out = (_unfold(dq3, b, h, q.dtype),) if want_dq else ()
     if want_dkv:
         out += (_unfold(dk3, b, h, k.dtype), _unfold(dv3, b, h, v.dtype))
     return out
 
 
-def flash_bwd_dkv_reference(*args):
+def flash_bwd_dkv_reference(*args, acc_block: int = 0):
     """Plain torch (dk, dv), the function of K4: p recomputed from lse,
     ds = p (dp - di + g_lse), dv = p^T do, dk = scale ds^T q. In bfloat16, p
     and ds are rounded to the input type before the products, as
-    `_bwd_dkv_kernel` does. Arguments as `flash_bwd_reference`'s."""
-    return _bwd_reference(*args, want_dq=False, want_dkv=True)
+    `_bwd_dkv_kernel` does. Arguments as `flash_bwd_reference`'s;
+    `acc_block` > 0: the bfloat16 accumulator over query blocks of that
+    many rows."""
+    return _bwd_reference(*args, want_dq=False, want_dkv=True,
+                          acc_blocks=(acc_block, acc_block and args[1].shape[1]))
 
 
-def flash_bwd_dq_reference(*args):
-    """Plain torch dq = scale ds k, the function of K5 (`_bwd_dq_kernel`)."""
-    dq, = _bwd_reference(*args, want_dq=True, want_dkv=False)
+def flash_bwd_dq_reference(*args, acc_block: int = 0):
+    """Plain torch dq = scale ds k, the function of K5 (`_bwd_dq_kernel`);
+    `acc_block` > 0: the bfloat16 accumulator over key blocks of that many
+    keys."""
+    dq, = _bwd_reference(*args, want_dq=True, want_dkv=False,
+                         acc_blocks=(acc_block and args[0].shape[1], acc_block))
     return dq
 
 
 def flash_bwd_reference(q, k, v, do, lse, di, gl, km, qs, ks, qp, kp, scale,
-                        causal):
+                        causal, acc_blocks=(0, 0)):
     """Plain torch backward: (dq, dk, dv) in the inputs' dtypes from p
     recomputed from lse and ds = p (dp - di + g_lse), dq and dk scaled by
     `scale`. In bfloat16, p and ds are rounded to the input type before the
-    dv and dk/dq products, as `_bwd_dkv_kernel` and `_bwd_dq_kernel` do."""
+    dv and dk/dq products, as `_bwd_dkv_kernel` and `_bwd_dq_kernel` do.
+    `acc_blocks` (qb, kb), nonzero: the bfloat16 accumulator, rounding at
+    the edges of query blocks of qb rows (dk, dv) and key blocks of kb keys
+    (dq)."""
     return _bwd_reference(q, k, v, do, lse, di, gl, km, qs, ks, qp, kp, scale,
-                          causal, want_dq=True, want_dkv=True)
+                          causal, want_dq=True, want_dkv=True,
+                          acc_blocks=acc_blocks)
 
 
 # ---------------------------------------------------------------------------
@@ -208,8 +332,8 @@ def _kernel_fn(name: str):
     if fn is None:
         fn = getattr(cuda_build.load("flash_attention"), name)
         fn.argtypes = [ctypes.c_void_p] * _POINTERS[name] + [
-            ctypes.c_int] * 5 + [ctypes.c_float, ctypes.c_int, ctypes.c_int,
-                                 ctypes.c_void_p]
+            ctypes.c_int] * 5 + [ctypes.c_float, ctypes.c_int, ctypes.c_int] + (
+            [ctypes.c_int] if name in _ACC_BLOCK else []) + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
         _fns[name] = fn
     return fn
@@ -231,9 +355,9 @@ def _check_kernel_inputs(q, k, v, km, qs, ks, qp, kp):
     if k.shape != (b, tk, h, d) or v.shape != k.shape:
         raise ValueError(f"q {tuple(q.shape)}, k {tuple(k.shape)}, v "
                          f"{tuple(v.shape)} are not [b, t, h, d] alike")
-    if not 1 <= d <= MAX_HEAD_DIM or b * h > 65535:
-        raise ValueError(f"flash attention kernels take head_dim 1..{MAX_HEAD_DIM} "
-                         f"and batch * heads <= 65535, got {d} and {b * h}")
+    if d < 1 or b * h > 65535:
+        raise ValueError(f"flash attention kernels take head_dim >= 1 and batch * "
+                         f"heads <= 65535 (a grid dimension), got {d} and {b * h}")
     want = [(km, torch.float32, (b, tk)), (qs, torch.int32, (b, tq)),
             (ks, torch.int32, (b, tk)), (qp, torch.int32, (tq,)),
             (kp, torch.int32, (tk,))]
@@ -248,25 +372,31 @@ def _check_kernel_inputs(q, k, v, km, qs, ks, qp, kp):
     return b, h, tq, tk, d
 
 
-def _launch(name: str, ptrs, dims, scale, causal, bf16, device):
+def _launch(name: str, ptrs, dims, scale, causal, bf16, device, acc_block=None):
     fn = _kernel_fn(name)
+    extra = () if acc_block is None else (int(acc_block),)
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
-        err = fn(*ptrs, *dims, float(scale), int(causal), int(bf16), stream)
+        err = fn(*ptrs, *dims, float(scale), int(causal), int(bf16), *extra, stream)
     if err != 0:
         raise RuntimeError(f"{name} launch failed: CUDA error {err}")
 
 
+def _count(name: str):
+    with _launches_lock:
+        globals()[name] += 1
+
+
 def _launch_fwd(q, k, v, km, qs, ks, qp, kp, scale, causal):
-    global fwd_launches
+    """K3 (head_dim <= MAX_HEAD_DIM) or its sliced arm: (o, lse)."""
     b, h, tq, tk, d = _check_kernel_inputs(q, k, v, km, qs, ks, qp, kp)
     o = torch.empty_like(q)
     lse = torch.empty(b, tq, h, dtype=torch.float32, device=q.device)
-    _launch("dl4j_flash_fwd",
+    wide = d > MAX_HEAD_DIM
+    _launch("dl4j_flash_wide_fwd" if wide else "dl4j_flash_fwd",
             [_ptr(t) for t in (q, k, v, km, qs, ks, qp, kp, o, lse)],
             (b, h, tq, tk, d), scale, causal, q.dtype == torch.bfloat16, q.device)
-    with _launches_lock:
-        fwd_launches += 1
+    _count("fwd_wide_launches" if wide else "fwd_launches")
     return o, lse
 
 
@@ -285,25 +415,43 @@ def _bwd_args(q, k, v, do, lse, di, gl, km, qs, ks, qp, kp):
     return [_ptr(t) for t in (q, k, v, do, lse, di, gl, km, qs, ks, qp, kp)], dims
 
 
-def _launch_bwd_dkv(q, k, v, do, lse, di, gl, km, qs, ks, qp, kp, scale, causal):
-    global bwd_dkv_launches
+def _bwd_arm(kernel: str, d: int, acc_block: int, t: int):
+    """(entry point, launch counter, the block passed) of K4 ("dkv") or K5
+    ("dq"): the d <= 128 kernel for float32 sums, else the sliced arm;
+    acc_block > 0 (the bfloat16 accumulator) must divide t, the swept axis."""
+    if acc_block < 0 or (acc_block and t % acc_block):
+        raise ValueError(f"the bfloat16 accumulator's block {acc_block} must "
+                         f"divide the swept axis ({t})")
+    if acc_block:
+        return f"dl4j_flash_wide_bwd_{kernel}", f"bwd_{kernel}_acc16_launches", acc_block
+    if d > MAX_HEAD_DIM:
+        return f"dl4j_flash_wide_bwd_{kernel}", f"bwd_{kernel}_wide_launches", 0
+    return f"dl4j_flash_bwd_{kernel}", f"bwd_{kernel}_launches", None
+
+
+def _launch_bwd_dkv(q, k, v, do, lse, di, gl, km, qs, ks, qp, kp, scale, causal,
+                    acc_block: int = 0):
+    """K4 or its sliced arm: (dk, dv); `acc_block` > 0 the bfloat16
+    accumulator over query blocks of that many rows."""
     ptrs, dims = _bwd_args(q, k, v, do, lse, di, gl, km, qs, ks, qp, kp)
+    name, counter, block = _bwd_arm("dkv", dims[4], acc_block, dims[2])
     dk, dv = torch.empty_like(k), torch.empty_like(v)
-    _launch("dl4j_flash_bwd_dkv", ptrs + [_ptr(dk), _ptr(dv)], dims, scale,
-            causal, q.dtype == torch.bfloat16, q.device)
-    with _launches_lock:
-        bwd_dkv_launches += 1
+    _launch(name, ptrs + [_ptr(dk), _ptr(dv)], dims, scale, causal,
+            q.dtype == torch.bfloat16, q.device, block)
+    _count(counter)
     return dk, dv
 
 
-def _launch_bwd_dq(q, k, v, do, lse, di, gl, km, qs, ks, qp, kp, scale, causal):
-    global bwd_dq_launches
+def _launch_bwd_dq(q, k, v, do, lse, di, gl, km, qs, ks, qp, kp, scale, causal,
+                   acc_block: int = 0):
+    """K5 or its sliced arm: dq; `acc_block` > 0 the bfloat16 accumulator
+    over key blocks of that many keys."""
     ptrs, dims = _bwd_args(q, k, v, do, lse, di, gl, km, qs, ks, qp, kp)
+    name, counter, block = _bwd_arm("dq", dims[4], acc_block, dims[3])
     dq = torch.empty_like(q)
-    _launch("dl4j_flash_bwd_dq", ptrs + [_ptr(dq)], dims, scale, causal,
-            q.dtype == torch.bfloat16, q.device)
-    with _launches_lock:
-        bwd_dq_launches += 1
+    _launch(name, ptrs + [_ptr(dq)], dims, scale, causal,
+            q.dtype == torch.bfloat16, q.device, block)
+    _count(counter)
     return dq
 
 
@@ -321,30 +469,33 @@ def flash_fwd(q, k, v, km, qs, ks, qp, kp, scale, causal):
     return flash_fwd_reference(q, k, v, km, qs, ks, qp, kp, scale, causal)
 
 
-def flash_bwd(q, k, v, do, lse, di, gl, km, qs, ks, qp, kp, scale, causal):
+def flash_bwd(q, k, v, do, lse, di, gl, km, qs, ks, qp, kp, scale, causal,
+              acc_blocks=(0, 0)):
     """(dq, dk, dv): K4 then K5 for CUDA tensors, `flash_bwd_reference` for
-    CPU tensors."""
+    CPU tensors; `acc_blocks` (qb, kb) nonzero: the bfloat16 accumulator."""
     _check_device(q)
     args = (q, k, v, do, lse, di, gl, km, qs, ks, qp, kp, scale, causal)
     if q.device.type == "cuda":
-        dk, dv = _launch_bwd_dkv(*args)
-        return _launch_bwd_dq(*args), dk, dv
-    return flash_bwd_reference(*args)
+        dk, dv = _launch_bwd_dkv(*args, acc_block=acc_blocks[0])
+        return _launch_bwd_dq(*args, acc_block=acc_blocks[1]), dk, dv
+    return flash_bwd_reference(*args, acc_blocks=acc_blocks)
 
 
 class FlashAttentionFunction(torch.autograd.Function):
     """(o, lse) with their backward. Saves q, k, v, o and lse, as
     `_flash_fwd` does; the backward takes di = rowsum(o do) in float32 with
-    a torch op, then runs `flash_bwd`. Autograd hands a cotangent of zeros
-    for an output the caller did not use (lse, usually), so g_lse = 0 then.
-    The masks, segment ids and positions get no gradient."""
+    a torch op, then runs `flash_bwd` (with `acc_blocks`, the bfloat16
+    accumulator's blocks, (0, 0) for float32 sums). Autograd hands a
+    cotangent of zeros for an output the caller did not use (lse, usually),
+    so g_lse = 0 then. The masks, segment ids and positions get no
+    gradient."""
 
     @staticmethod
-    def forward(ctx, q, k, v, km, qs, ks, qp, kp, scale, causal):
+    def forward(ctx, q, k, v, km, qs, ks, qp, kp, scale, causal, acc_blocks=(0, 0)):
         q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
         o, lse = flash_fwd(q, k, v, km, qs, ks, qp, kp, scale, causal)
         ctx.save_for_backward(q, k, v, o, lse, km, qs, ks, qp, kp)
-        ctx.scale, ctx.causal = scale, causal
+        ctx.scale, ctx.causal, ctx.acc_blocks = scale, causal, acc_blocks
         return o, lse
 
     @staticmethod
@@ -353,9 +504,10 @@ class FlashAttentionFunction(torch.autograd.Function):
         q, k, v, o, lse, km, qs, ks, qp, kp = ctx.saved_tensors
         do = do.contiguous()
         di = (o.to(lse.dtype) * do.to(lse.dtype)).sum(-1)
+        kw = {"acc_blocks": ctx.acc_blocks} if any(ctx.acc_blocks) else {}
         dq, dk, dv = flash_bwd(q, k, v, do, lse, di, g_lse.to(lse.dtype).contiguous(),
-                               km, qs, ks, qp, kp, ctx.scale, ctx.causal)
-        return dq, dk, dv, None, None, None, None, None, None, None
+                               km, qs, ks, qp, kp, ctx.scale, ctx.causal, **kw)
+        return dq, dk, dv, None, None, None, None, None, None, None, None
 
 
 def flash_attention(q: Tensor, k: Tensor, v: Tensor, *, causal: bool = False,
@@ -377,20 +529,23 @@ def flash_attention(q: Tensor, k: Tensor, v: Tensor, *, causal: bool = False,
     key to see outputs 0 (and lse NEG). `with_lse=True` also returns the lse,
     [batch, t_q, heads] float32, whose cotangent is taken. `q_block` and
     `kv_block` keep the JAX package's contract (explicit blocks must divide
-    the time axes, else ValueError); the CUDA kernels tile by 64 rows and
-    mask the ragged edge themselves. `bwd_acc_dtype="bfloat16"` is not ported
-    (NotImplementedError)."""
-    if bwd_acc_dtype != "float32":
-        if str(bwd_acc_dtype) == "bfloat16":
-            raise NotImplementedError(
-                "bwd_acc_dtype='bfloat16' is not ported: the backward kernels "
-                "accumulate in float32")
-        raise ValueError(f"bwd_acc_dtype must be 'float32', got {bwd_acc_dtype!r}")
+    the time axes, else ValueError; 0 picks `pick_kernel_block(t, 128)`); the
+    CUDA kernels tile by 64 rows and mask the ragged edge themselves, and
+    the blocks matter only to `bwd_acc_dtype="bfloat16"`, the JAX package's
+    bfloat16 backward accumulator, which rounds at their edges (module
+    docstring)."""
+    if str(bwd_acc_dtype) not in ("float32", "bfloat16"):
+        raise ValueError(f"bwd_acc_dtype must be 'float32' or 'bfloat16', got "
+                         f"{bwd_acc_dtype!r}")
     b, tq, hh, d = q.shape
     tk = k.shape[1]
     if not _blocks_divide(tq, tk, q_block, kv_block):
         raise ValueError(f"time ({tq}, {tk}) must divide blocks ({q_block}, "
                          f"{kv_block})")
+    acc_blocks = (0, 0)
+    if str(bwd_acc_dtype) == "bfloat16":
+        acc_blocks = (q_block or pick_kernel_block(tq, DEFAULT_BLOCK_Q),
+                      kv_block or pick_kernel_block(tk, DEFAULT_BLOCK_KV))
     dev = q.device
     as_int = lambda t: torch.as_tensor(t, device=dev).to(torch.int32)
     km = None if key_mask is None else \
@@ -408,8 +563,10 @@ def flash_attention(q: Tensor, k: Tensor, v: Tensor, *, causal: bool = False,
             return (seg.expand(b, t) if seg.ndim == 1 else seg).contiguous()
         qs = seg_rows(segment_ids, tq)
         ks = seg_rows(segment_ids if kv_segment_ids is None else kv_segment_ids, tk)
+    # the softmax scale uses the true head_dim (the JAX package pads it to 128)
     o, lse = FlashAttentionFunction.apply(q, k, v, km, qs, ks, qp, kp,
-                                          1.0 / math.sqrt(d), bool(causal))
+                                          1.0 / math.sqrt(d), bool(causal),
+                                          acc_blocks)
     return (o, lse) if with_lse else o
 
 
@@ -431,6 +588,8 @@ DECODE_IMPLS = ("auto", "flash", "dense")
 DECODE_MIN_CHUNK = 128
 DECODE_BLOCKS_PER_SM = 4
 DECODE_MAX_SPLITS = 8
+#: Output columns a block of K7's sliced arm (head_dim > 128) takes
+DECODE_WIDE_SLICE = 256
 
 
 def _decode_valid(cache_len: Tensor, tk: int, device) -> Tensor:
@@ -493,8 +652,10 @@ def decode_splits(device: torch.device, bh: int, t_kv: int) -> int:
 def _launch_decode(q: Tensor, k: Tensor, v: Tensor, cache_len: Tensor, *,
                    splits: Optional[int] = None) -> Tensor:
     """K7 on CUDA tensors, one launch; raises on anything it does not take.
-    `splits` overrides `decode_splits` (for measuring the rule)."""
-    global decode_launches
+    `splits` overrides `decode_splits` (for measuring the rule). Above
+    MAX_HEAD_DIM the kernel's sliced arm runs: a block takes
+    DECODE_WIDE_SLICE output columns, and the splits are counted over
+    (row, head, slice) blocks."""
     if q.dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(f"the decode kernel takes float32 or bfloat16, got {q.dtype}")
     b, _, h, d = q.shape
@@ -504,9 +665,8 @@ def _launch_decode(q: Tensor, k: Tensor, v: Tensor, cache_len: Tensor, *,
     if k.shape != (b, tk, h, d) or v.shape != k.shape:
         raise ValueError(f"q {tuple(q.shape)}, k {tuple(k.shape)}, v "
                          f"{tuple(v.shape)}: expected [b, 1, h, d] and [b, t, h, d]")
-    if not 1 <= d <= MAX_HEAD_DIM:
-        raise ValueError(f"the decode kernel takes head_dim 1..{MAX_HEAD_DIM}, "
-                         f"got {d}")
+    if d < 1:
+        raise ValueError(f"the decode kernel takes head_dim >= 1, got {d}")
     for t in (k, v):   # any batch and key strides; heads and rows contiguous
         if t.device != q.device or t.stride(3) != 1 or t.stride(2) != d:
             raise ValueError("k and v must lie on q's device with each key's "
@@ -515,11 +675,17 @@ def _launch_decode(q: Tensor, k: Tensor, v: Tensor, cache_len: Tensor, *,
     lens = cache_len.to(device=q.device, dtype=torch.int32).contiguous()
     if lens.shape != (b,):
         raise ValueError(f"cache_len {tuple(lens.shape)}: expected ({b},)")
+    wide = d > MAX_HEAD_DIM
+    slices = -(-d // DECODE_WIDE_SLICE) if wide else 1
     if splits is None:
-        splits = decode_splits(q.device, b * h, tk)
+        splits = decode_splits(q.device, b * h * slices, tk)
     elif not 1 <= splits <= DECODE_MAX_SPLITS:
         raise ValueError(f"splits {splits}: the decode kernel takes 1.."
                          f"{DECODE_MAX_SPLITS}")
+    if b * h * slices * splits > 2 ** 31 - 1:
+        raise ValueError(f"the decode kernel takes batch * heads * ceil(head_dim / "
+                         f"{DECODE_WIDE_SLICE}) * splits <= 2**31 - 1 (its grid), "
+                         f"got {b} * {h} * {slices} * {splits}")
     o = torch.empty_like(q)
     fn = _fns.get("dl4j_decode_attention")
     if fn is None:
@@ -535,8 +701,7 @@ def _launch_decode(q: Tensor, k: Tensor, v: Tensor, cache_len: Tensor, *,
                  v.stride(1), splits, int(q.dtype == torch.bfloat16), stream)
     if err != 0:
         raise RuntimeError(f"dl4j_decode_attention launch failed: CUDA error {err}")
-    with _launches_lock:
-        decode_launches += 1
+    _count("decode_wide_launches" if wide else "decode_launches")
     return o
 
 
@@ -551,10 +716,12 @@ def decode_attention(q: Tensor, k: Tensor, v: Tensor, cache_len, *,
     each row including the current token. Returns [batch, 1, heads,
     head_dim] in q's dtype.
 
-    `impl="auto"` and `"flash"` launch K7 on CUDA tensors (a geometry K7
-    does not take raises there) and run `decode_attention_reference` on CPU
-    tensors; `"dense"` is the JAX function's einsum arm. No backward: decode
-    is inference only."""
+    `impl="flash"` launches K7 on CUDA tensors (a geometry K7 does not take
+    raises there) and runs `decode_attention_reference` on CPU tensors;
+    `"dense"` is the JAX function's einsum arm; `"auto"` is "flash" where the
+    JAX package's gate (`flash_attention_supported(1, t_kv, head_dim)`)
+    passes and "dense" where it refuses, as the JAX function chooses. No
+    backward: decode is inference only."""
     b, tq, hh, d = q.shape
     if tq != 1:
         raise ValueError(f"decode_attention takes one query row, got {tq}")
@@ -562,7 +729,8 @@ def decode_attention(q: Tensor, k: Tensor, v: Tensor, cache_len, *,
         raise ValueError(f"unknown decode_attention impl {impl!r}")
     _check_device(q)
     cache_len = torch.as_tensor(cache_len, device=q.device)
-    if impl == "dense":
+    if impl == "dense" or (impl == "auto" and not flash_attention_supported(
+            1, k.shape[1], d)):
         return _decode_dense(q, k, v, cache_len)
     if q.device.type == "cuda":
         return _launch_decode(q, k, v, cache_len)

@@ -135,43 +135,49 @@ def test_select_makes_the_reference_choice():
 
 def test_head_dim_beyond_the_kernels_warns_once_and_follows_the_rule(
         monkeypatch, caplog):
-    """head_dim 256 fits the JAX package's TPU VMEM budget but not the port's
-    kernels (MAX_HEAD_DIM 128): a requested "pallas" warns once and follows
-    the rule, the JAX package's own fallback semantics (a known difference
-    in which geometries take the flash route; ROADMAP Queue C)."""
+    """The gate is the JAX package's and the port's kernels take every
+    head_dim it passes: head_dim 256 takes the flash route as the JAX
+    package's does (a difference until the sliced arms). Only where the gate
+    refuses (2689 at 128-row blocks) does a requested "pallas" warn, once,
+    and follow the rule, the JAX package's own fallback semantics."""
     monkeypatch.setattr(port_att, "_warned_pallas", False)
-    assert ref_att.select_attention_impl(4096, 256, requested="pallas",
-                                         interpret=True) == "pallas"
+    for t, hd in ((4096, 256), (64, 256), (128, 2688)):
+        want = ref_att.select_attention_impl(t, hd, requested="pallas", interpret=True)
+        assert want == "pallas"
+        assert port_att.select_attention_impl(t, hd, requested="pallas") == want
     with caplog.at_level(logging.WARNING, logger=port_att.__name__):
-        assert port_att.select_attention_impl(4096, 256, requested="pallas") \
-            == "blockwise"
-        assert port_att.select_attention_impl(64, 256, requested="pallas") \
-            == "dense"
-    assert sum("requested" in r.message for r in caplog.records) == 1
+        for t in (128, 256):
+            want = ref_att.select_attention_impl(t, 2689, requested="pallas",
+                                                 interpret=True)
+            assert port_att.select_attention_impl(t, 2689, requested="pallas") \
+                == want == "dense"
+    assert sum("requested" in r.message for r in caplog.records
+               if r.name == port_att.__name__) == 1
 
 
-@pytest.mark.parametrize("t,req,raises", [
-    (4096, "pallas", True), (64, "pallas", True), (4096, None, True),
-    (4096, "auto", True), (64, None, False), (4096, "blockwise", False),
-    (4096, "dense", False)])
-def test_head_dim_beyond_the_kernels_raises_on_cuda(monkeypatch, t, req, raises):
-    """On a CUDA device no plain route stands in for the flash kernels: where
-    the flash route is requested or the rule would take it at a head_dim the
-    kernels do not take, the choice raises; other choices are made as on the
-    CPU. Nothing is counted for a choice that raised."""
+# the widest head of the d <= 128 kernels, one past it, the wide char
+# model's, the gate's upper end at 128-row blocks and one past it
+WIDE_HEAD_DIMS = (128, 129, 256, 2688, 2689)
+
+
+@pytest.mark.parametrize("t", [64, 2048, 4096])
+@pytest.mark.parametrize("req", [None, "auto", "pallas", "blockwise", "dense"])
+def test_head_dim_beyond_the_kernels_raises_on_cuda(monkeypatch, t, req):
+    """Route parity at heads wider than 128: every choice is the JAX
+    package's with `interpret=True` (its gate; the sliced arms take whatever
+    it passes), none raises NotImplementedError, and each call counts once.
+    The choice takes no device: before the sliced arms, a CUDA device raised
+    wherever the flash route was wanted above head_dim 128."""
+    monkeypatch.setattr(port_att, "_warned_pallas", True)
     counts = {impl: 0 for impl in port_att.ATTENTION_IMPLS}
     monkeypatch.setattr(port_att, "attention_kernel_selected_total", counts)
-    if raises:
-        with pytest.raises(NotImplementedError, match="head_dim 1..128"):
-            port_att.select_attention_impl(t, 256, requested=req, device="cuda")
-        assert sum(counts.values()) == 0
-    else:
-        want = port_att.select_attention_impl(t, 256, requested=req)
-        assert port_att.select_attention_impl(
-            t, 256, requested=req, device=torch.device("cuda")) == want
-    # a head_dim the kernels take is chosen as on the CPU
-    assert port_att.select_attention_impl(t, 128, requested=req, device="cuda") \
-        == port_att.select_attention_impl(t, 128, requested=req, device="cpu")
+    for hd in WIDE_HEAD_DIMS:
+        want = ref_att.select_attention_impl(t, hd, requested=req, interpret=True)
+        assert port_att.select_attention_impl(t, hd, requested=req) == want, hd
+    assert sum(counts.values()) == len(WIDE_HEAD_DIMS)
+    # t 4096 takes the flash route at every head_dim the gate passes
+    if t == 4096 and req in (None, "auto", "pallas"):
+        assert port_att.select_attention_impl(t, 2688, requested=req) == "pallas"
 
 
 def test_counter_counts_every_call(monkeypatch):

@@ -72,16 +72,16 @@ from deeplearning4j_torch.utils import params as port_params
 
 
 @pytest.fixture(autouse=True)
-def torch_threads(request):
+def torch_threads():
     """The phases cut to run here are many small ops: on a loaded machine
     (the suite's parallel workers) torch's intra-op threads wait on each
     other far longer than the ops take, so each test runs them on one
     thread (test_torch_word2vec.py's `one_torch_thread`). AlexNet's fit
-    loop keeps torch's threads: its steps are a few element-wise passes
-    over 24M parameters, which the threads share well."""
+    loop too: on an 8-core CPU its four cases took 76 s alone on 8 threads
+    (232 s of CPU) and 84 s on one, but among the suite's workers its first
+    case took 200 to 365 s on 8 threads."""
     n = torch.get_num_threads()
-    if "small_fit_loop_phase" not in request.fixturenames:
-        torch.set_num_threads(1)
+    torch.set_num_threads(1)
     yield
     torch.set_num_threads(n)
 

@@ -1,0 +1,241 @@
+"""chip_smoke.py's phases for heads wider than 128 and the bfloat16 backward
+accumulator, run on the CPU at a small size.
+
+The three phases run here end to end, cut in size, with counting stand-ins
+for the kernels (the plain versions, each call counting one launch in the
+counter of the arm the wrapper would take: the sliced arms above head_dim
+128, the accumulator's arms where a JAX block is given):
+
+- `phase_wide_kernels` (head_dim 160 and 300, the accumulator at blocks 32
+  and 16, K7 at 160 and 300) passes, and fails on a stand-in accumulator
+  that sums in float32 or rounds at the wrong block edges, and on a stand-in
+  sliced K3 that drops the ragged last slice.
+- `phase_char_model_wide` (2 heads of 136, t 32, batch 2, 2 steps) passes:
+  the sliced K3 twice an `output`, K3-K5 twice a step, gradients equal to
+  the plain versions' and to the CPU's.
+- `phase_decode_wide` (2 layers x 2 heads of 136) passes: K7's sliced arm
+  once a layer a step, every answer the plain version's and
+  `naive_generate`'s.
+"""
+import numpy as np
+import pytest
+import torch
+
+import chip_smoke
+from deeplearning4j_torch.ops import flash_attention as port_fa
+from test_torch_word2vec import one_torch_thread  # noqa: F401
+
+
+def _bump(name):
+    setattr(port_fa, name, getattr(port_fa, name) + 1)
+
+
+def _arm(kernel, d, acc_block):
+    if acc_block:
+        return f"bwd_{kernel}_acc16_launches"
+    return f"bwd_{kernel}_wide_launches" if d > port_fa.MAX_HEAD_DIM \
+        else f"bwd_{kernel}_launches"
+
+
+@pytest.fixture
+def kernels(monkeypatch):
+    """Counting stand-ins for every launch wrapper and for the CPU routes the
+    networks and the engine take (the plain versions, counted as the
+    wrappers count). Returns the plain versions, for stand-ins of faults."""
+    plain = {"fwd": port_fa.flash_fwd_reference, "dkv": port_fa.flash_bwd_dkv_reference,
+             "dq": port_fa.flash_bwd_dq_reference, "bwd": port_fa.flash_bwd_reference,
+             "decode": port_fa.decode_attention_reference}
+
+    def launch_fwd(q, *a):
+        _bump("fwd_wide_launches" if q.shape[-1] > port_fa.MAX_HEAD_DIM else "fwd_launches")
+        return plain["fwd"](q, *a)
+
+    def launch_dkv(*a, acc_block=0):
+        _bump(_arm("dkv", a[0].shape[-1], acc_block))
+        return plain["dkv"](*a, acc_block=acc_block)
+
+    def launch_dq(*a, acc_block=0):
+        _bump(_arm("dq", a[0].shape[-1], acc_block))
+        return plain["dq"](*a, acc_block=acc_block)
+
+    def bwd(*a, acc_blocks=(0, 0)):
+        _bump(_arm("dkv", a[0].shape[-1], acc_blocks[0]))
+        _bump(_arm("dq", a[0].shape[-1], acc_blocks[1]))
+        return plain["bwd"](*a, acc_blocks=acc_blocks)
+
+    def k7(q, k, v, cache_len, splits=None):
+        _bump("decode_wide_launches" if q.shape[-1] > port_fa.MAX_HEAD_DIM
+              else "decode_launches")
+        return plain["decode"](q, k, v, cache_len)
+
+    for name, fn in (("_launch_fwd", launch_fwd), ("_launch_bwd_dkv", launch_dkv),
+                     ("_launch_bwd_dq", launch_dq), ("flash_fwd", launch_fwd),
+                     ("flash_bwd", bwd), ("_launch_decode", k7),
+                     ("decode_attention_reference", k7)):
+        monkeypatch.setattr(port_fa, name, fn)
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda *a: None)
+    monkeypatch.setattr(chip_smoke, "device_ms", lambda torch, fn, iters=20: 0.0)
+    monkeypatch.setattr(chip_smoke, "cuda_time_ms", lambda fn, iters=20, warm=3:
+                        (fn(), 0.0)[1])
+    monkeypatch.setattr(chip_smoke, "profile_call", lambda torch, label, fn, info,
+                        count=None: (fn(), dict(info))[1])
+    return plain
+
+
+# ------------------------------------------------------------ the kernels
+
+#: every key of a kernel's entry in the `kernels` line
+KERNEL_KEYS = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
+               "plain_ms", "bound_ms", "bound_by", "library_ms")
+
+SMALL_FLASH = [
+    ("wide_model_f32", 1, 40, 40, 2, 160, "float32", True, {}, True),
+    ("d300_bfloat16_segments", 1, 48, 48, 1, 300, "bfloat16", True, {"segments": True},
+     False),
+    ("d300_float32_key_mask", 2, 24, 24, 1, 300, "float32", True, {"key_mask": True},
+     False),
+]
+SMALL_ACC16 = [
+    ("acc16_model_f32_128", 1, 64, 2, 160, "float32", 32, {}, True),
+    ("acc16_d130_bf16_16", 2, 48, 1, 130, "bfloat16", 16, {"key_mask": True}, False),
+]
+SMALL_DECODE = [
+    ("wide_engine_f32", 3, 16, 2, 160, "float32", 2, True),
+    ("d300_bf16", 2, 20, 1, 300, "bfloat16", 0, False),
+]
+
+
+@pytest.fixture
+def small_kernels(kernels, monkeypatch):
+    for name, value in (("FLASH_WIDE_CASES", SMALL_FLASH), ("ACC16_CASES", SMALL_ACC16),
+                        ("DECODE_WIDE_CASES", SMALL_DECODE), ("CHAR_T", 32),
+                        ("CHAR_BATCH", 1), ("WIDE_CHAR_HEADS", 2), ("WIDE_HEAD", 136)):
+        monkeypatch.setattr(chip_smoke, name, value)
+    return kernels
+
+
+def test_wide_kernels_phase(small_kernels):
+    entries, rows = chip_smoke.phase_wide_kernels(torch, "cpu", device="cpu")
+    assert [e["name"] for e in entries] == list(chip_smoke.WIDE_COUNTS)
+    for e in entries:
+        assert e["route"] == "cuda" and e["bound_ms"] > 0 and e["max_abs_err"] == 0
+        assert set(KERNEL_KEYS) <= set(e)
+    assert {e["source"] for e in entries} == {
+        "deeplearning4j_torch/ops/csrc/flash_attention.cu",
+        "deeplearning4j_torch/ops/csrc/decode_attention.cu"}
+    path = rows["acc16_path"]["launches"]
+    assert {k: v for k, v in path.items() if v} == {
+        "flash_fwd_wide": 1, "flash_bwd_dkv_acc16": 1, "flash_bwd_dq_acc16": 1}
+    assert [e["launches"] for e in entries if "acc16" in e["name"]] == [1, 1]
+    assert rows["acc16_d130_bf16_16"]["jax_block"] == 16
+    assert rows["wide_model_f32"]["fully_masked_rows"] == 0
+    assert rows["d300_float32_key_mask"]["fully_masked_rows"] > 0
+
+
+@pytest.mark.parametrize("fault", ["float32_sums", "twice_the_block"])
+def test_wide_kernels_phase_fails_on_a_wrong_accumulator(small_kernels, monkeypatch,
+                                                         fault):
+    """A dq arm that ignores the bfloat16 accumulator, or rounds at the edges
+    of blocks twice the JAX package's, differs in far more than
+    ACC16_SHARE of its entries."""
+    plain = small_kernels["dq"]
+
+    def wrong(*a, acc_block=0):
+        _bump(_arm("dq", a[0].shape[-1], acc_block))
+        block = 0 if fault == "float32_sums" else 2 * acc_block
+        return plain(*a, acc_block=block)
+
+    monkeypatch.setattr(port_fa, "_launch_bwd_dq", wrong)
+    with pytest.raises(RuntimeError, match="flash_bwd_dq_acc16 acc16_model_f32_128"):
+        chip_smoke.phase_wide_kernels(torch, "cpu", device="cpu")
+
+
+def test_wide_kernels_phase_fails_on_a_dropped_slice(small_kernels, monkeypatch):
+    plain = small_kernels["fwd"]
+
+    def dropped(q, *a):
+        _bump("fwd_wide_launches")
+        o, lse = plain(q, *a)
+        o = o.clone()
+        o[..., 128:] = 0
+        return o, lse
+
+    monkeypatch.setattr(port_fa, "_launch_fwd", dropped)
+    with pytest.raises(RuntimeError, match="flash_fwd_wide wide_model_f32"):
+        chip_smoke.phase_wide_kernels(torch, "cpu", device="cpu")
+
+
+def test_wide_tolerances():
+    """float32 grows with head_dim from 128 up; bfloat16 stays FLASH_REL's."""
+    assert chip_smoke.flash_wide_rel(64, "float32") == 1e-5
+    assert chip_smoke.flash_wide_rel(2688, "float32") == pytest.approx(21e-5)
+    assert chip_smoke.flash_wide_rel(2688, "bfloat16") == 1e-2
+    assert chip_smoke.ACC16_REL == 2.0 ** -7
+
+
+def test_wide_cases_cover_the_issue_shapes():
+    """Every head_dim of the sliced arms' checks, each in both types with a
+    causal mask, a key mask and segments; the accumulator at blocks 128 and
+    32; K7 at 256 and 2688."""
+    cases = chip_smoke.FLASH_WIDE_CASES
+    for d in (256, 160, 300, 512, 2688):
+        for dtype in ("float32", "bfloat16"):
+            opts = [c[8] for c in cases if c[5] == d and c[6] == dtype]
+            assert {} in opts and {"key_mask": True} in opts and \
+                {"segments": True} in opts, (d, dtype)
+    model = next(c for c in cases if c[0] == "wide_model_f32")
+    assert model[1:7] == (4, 8192, 8192, 4, 256, "float32") and model[-1]
+    assert next(c for c in cases if c[5] == 2688)[2] == 128
+    assert {c[6] for c in chip_smoke.ACC16_CASES} >= {128, 32}
+    assert {c[4] for c in chip_smoke.DECODE_WIDE_CASES} >= {256, 2688}
+    # the wide decoder is bench_serving_decode's engine with Gemma 2B's widths
+    wide, base = chip_smoke.DECODE_WIDE_GEOMETRY, chip_smoke.DECODE_GEOMETRY
+    assert {k for k in base if wide[k] != base[k]} == {"heads", "head_dim", "ff"}
+    assert (wide["heads"], wide["head_dim"], wide["ff"]) == (8, 256, 16384)
+
+
+def test_sdpa_backend_names_a_backend_or_says_unknown():
+    q = torch.zeros(1, 2, 8, 256)
+    name = chip_smoke.sdpa_backend(torch, q, q, q, True)
+    assert isinstance(name, str) and name
+
+
+# ------------------------------------------------------------ the char model
+
+SMALL_CHAR = dict(width=272, heads=2, t=32, batch=2, steps=2, small_t=16)
+
+
+def test_char_model_wide_phase(kernels):
+    result = chip_smoke.phase_char_model_wide(torch, "cpu", device="cpu", size=SMALL_CHAR)
+    assert result["head_dim"] == 136
+    for name in ("f32", "bf16"):
+        r = result[name]
+        assert {k: v for k, v in r["output_launches"].items() if v} == {"flash_fwd_wide": 2}
+        assert {k: v for k, v in r["launches"].items() if v} == {
+            "flash_fwd_wide": 4, "flash_bwd_dkv_wide": 4, "flash_bwd_dq_wide": 4}
+        assert len(r["scores"]) == 2 and r["tokens_per_s"] > 0
+    assert result["grad_rel_vs_plain"]["worst_rel"] == 0
+    assert result["grad_rel_vs_cpu"]["worst_rel"] == 0
+
+
+def test_char_model_wide_phase_refuses_narrow_heads(kernels):
+    with pytest.raises(RuntimeError, match="not the sliced arms"):
+        chip_smoke.phase_char_model_wide(torch, "cpu", device="cpu",
+                                         size=dict(SMALL_CHAR, width=256))
+
+
+# ------------------------------------------------------------ the decoder
+
+SMALL_DECODER = dict(vocab=64, layers=2, heads=2, head_dim=136, ff=32, max_context=64,
+                     max_decode_batch=4, block_tokens=8, kv_max_blocks=64,
+                     pack_bucket=32, clients=2, prompts_per_client=2, max_new_tokens=6,
+                     prompt_lo=3, prompt_hi=10)
+
+
+def test_decode_wide_phase(kernels):
+    result = chip_smoke.phase_decode_wide(torch, "cpu", device="cpu", size=SMALL_DECODER)
+    assert result["requests"] == 4 and result["tokens"] == 24
+    assert {k: v for k, v in result["launches"].items() if v} == {
+        "decode_attention_wide": 2 * result["steps"]}
+    assert result["all_equal_plain"] and result["all_equal_naive"]
+    assert np.isfinite(result["inter_token_p99_ms"])

@@ -178,8 +178,8 @@ def test_kernel_matches_plain_on_card(dtype):
     max|plain| (sums in another order), bfloat16 within 1e-2 (the output
     rounded once); a strided layer view, head_dim 19 (one element a lane)
     and 128, cache_len 0 and past the bucket, and lengths on the edges of
-    the per-row split (`chip_smoke.decode_edge_lens`) at 1-8 splits. Each
-    call counts one launch."""
+    the per-row split (`chip_smoke.decode_edge_lens`) at 1-8 splits, and
+    head_dim 160 on the sliced arm. Each call counts one launch."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the kernel has no CPU mode")
     dt = getattr(torch, dtype)
@@ -216,6 +216,13 @@ def test_kernel_matches_plain_on_card(dtype):
                                                       lens)
             err = (got.float() - want).abs().max().item()
             assert err <= rel * want.abs().max().item(), (splits, lens.tolist())
-    with pytest.raises(ValueError, match="head_dim"):
-        z = torch.zeros(1, 1, 1, 160, device="cuda")
-        port_fa.decode_attention(z, z, z, torch.ones(1, dtype=torch.int32, device="cuda"))
+    # head_dim 160 (once refused with ValueError) takes K7's sliced arm
+    q, k, v = (torch.randn(2, n, 2, 160, device="cuda", generator=gen).to(dt)
+               for n in (1, 40, 40))
+    lens = torch.tensor([7, 40], dtype=torch.int32, device="cuda")
+    before = port_fa.decode_wide_launches
+    got = port_fa.decode_attention(q, k, v, lens)
+    torch.cuda.synchronize()
+    assert port_fa.decode_wide_launches == before + 1
+    want = port_fa.decode_attention_reference(q.float(), k.float(), v.float(), lens)
+    assert (got.float() - want).abs().max().item() <= rel * want.abs().max().item()

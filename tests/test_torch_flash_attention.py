@@ -171,25 +171,51 @@ def test_indivisible_blocks_raise(ref):
         port_fa.flash_attention(*(torch.from_numpy(q),) * 3, q_block=24)
     with pytest.raises(ValueError, match="must divide"):
         port_fa.flash_attention(*(torch.from_numpy(q),) * 3, kv_block=5)
-    with pytest.raises(NotImplementedError, match="bfloat16"):
+    # the bfloat16 accumulator (once refused with NotImplementedError): the
+    # port's plain version against the JAX kernels, both rounding at blocks
+    # of 16; within two bfloat16 ulps of max|grad| (a block's float32 sum in
+    # another order can tip a rounding), most entries equal
+    q_, k_, v_, g_o, _ = _inputs(seed=31)
+    zeros = np.zeros((B, T, H), np.float32)
+    got = _port(q_, k_, v_, g_o, zeros, causal=True, q_block=16, kv_block=16,
+                bwd_acc_dtype="bfloat16")
+    want = _jax_flash(ref, q_, k_, v_, g_o, zeros, causal=True,
+                      bwd_acc_dtype="bfloat16")
+    f32 = _port(q_, k_, v_, g_o, zeros, causal=True)
+    for what, g, w, f in zip(("dq", "dk", "dv"), got[2:], want[2:], f32[2:]):
+        np.testing.assert_allclose(g, w, rtol=0, atol=2 ** -7 * np.abs(w).max(),
+                                   err_msg=what)
+        assert np.mean(g != w) <= 0.05, what
+        assert np.array_equal(g, g.astype(jnp.bfloat16).astype(np.float32)), what
+        assert np.mean(f != w) > 0.5, what   # float32 sums would not pass
+    with pytest.raises(ValueError, match="bwd_acc_dtype"):
         port_fa.flash_attention(*(torch.from_numpy(q),) * 3,
-                                bwd_acc_dtype="bfloat16")
+                                bwd_acc_dtype="float16")
     with pytest.raises(ValueError, match="requires segment_ids"):
         port_fa.flash_attention(*(torch.from_numpy(q),) * 3,
                                 kv_segment_ids=np.zeros(32, np.int32))
 
 
-def test_supported_checks_the_ports_kernel_limits():
-    assert port_fa.flash_attention_supported(8192, 8192, 128)
-    assert port_fa.flash_attention_supported(1, 300, 8)
-    assert not port_fa.flash_attention_supported(64, 64, 129)
-    assert not port_fa.flash_attention_supported(0, 64, 64)
-    assert not port_fa.flash_attention_supported(64, 64, 64, q_block=48)
-    assert not port_fa.flash_attention_supported(64, 64, 64, kv_block=48)
-    assert port_fa.flash_attention_supported(64, 96, 64, q_block=32, kv_block=48)
-    # the kernels tile by 64 rows and mask the ragged edge: any t is taken
-    assert port_fa.flash_attention_supported(1000, 1000, 128)
-    assert port_fa.flash_attention_supported(8191, 1, 1)
+def test_supported_checks_the_ports_kernel_limits(ref):
+    """The port's gate is the JAX package's rule (exact tiling of its
+    blocks, the VMEM estimate at head_dim padded to 128): head_dim 129 now
+    passes (the sliced arms take it), 2688 is the last at 128-row blocks and
+    2689 passes at shorter t."""
+    _, _, _, fa = ref
+    table = [((8192, 8192, 128), {}, True), ((1, 300, 8), {}, True),
+             ((64, 64, 129), {}, True), ((0, 64, 64), {}, False),
+             ((64, 64, 64), {"q_block": 48}, False),
+             ((64, 64, 64), {"kv_block": 48}, False),
+             ((64, 96, 64), {"q_block": 32, "kv_block": 48}, True),
+             # no exact tiling needed by the port's kernels, but the rule's
+             # own blocks always tile: 125 rows at t 1000, 1 at a prime t
+             ((1000, 1000, 128), {}, True), ((8191, 1, 1), {}, True),
+             ((128, 128, 2688), {}, True), ((128, 128, 2689), {}, False),
+             ((64, 64, 2689), {}, True), ((4096, 4096, 512), {}, True),
+             ((4096, 4096, 64), {"q_block": 4096, "kv_block": 4096}, False)]
+    for args, kw, want in table:
+        assert fa.flash_attention_supported(*args, **kw) is want, (args, kw)
+        assert port_fa.flash_attention_supported(*args, **kw) is want, (args, kw)
 
 
 def test_function_gradcheck_float64():
@@ -448,3 +474,54 @@ def test_one_tf32_pass_would_fail_the_backward_check(t):
     check, which is why K4 and K5 take three products per float32 one."""
     (one, _, _), limit = _tf32_bwd_errors(t, seed=t + 3)
     assert all(e > 10 * limit for e in one)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_sliced_arms_match_plain_on_card(dtype):
+    """The sliced arms (head_dim > 128) and the bfloat16 accumulator's arms
+    against the plain versions, each launch counted in its own arm's count.
+    f32: 1e-5 of the largest entry per 128 of head_dim (sums over head_dim in
+    another order); bf16 1e-2; the accumulator two bfloat16 ulps (2^-7) of
+    the largest entry, at most 5% of entries different, each entry a
+    bfloat16 value. K7's sliced arm: 1e-5 in float32, 1e-2 in bfloat16."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    dt = getattr(torch, dtype)
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    for b, tq, tk, h, d, causal, kw in [(2, 130, 130, 2, 160, True, dict()),
+                                        (2, 96, 96, 1, 300, True, dict(key_mask=True)),
+                                        (1, 128, 128, 2, 512, True, dict(segs=True)),
+                                        (1, 64, 64, 1, 2688, False, dict())]:
+        rel = (1e-5 * d / 128) if dtype == "float32" else 1e-2
+        q, k, v, do, km, qs, ks, qp, kp = _card_case(gen, b, tq, tk, h, d, dt, **kw)
+        scale = d ** -0.5
+        before = (port_fa.fwd_wide_launches, port_fa.bwd_dkv_wide_launches,
+                  port_fa.bwd_dq_wide_launches)
+        o, lse = port_fa.flash_fwd(q, k, v, km, qs, ks, qp, kp, scale, causal)
+        ow, lw = port_fa.flash_fwd_reference(q, k, v, km, qs, ks, qp, kp, scale, causal)
+        _close(o, ow, rel)
+        live = lw > port_fa.NEG / 2
+        di = (ow.float() * do.float()).sum(-1)
+        gl = torch.zeros_like(lw)
+        args = (q, k, v, do, lw, di, gl, km, qs, ks, qp, kp, scale, causal)
+        for g, w in zip(port_fa.flash_bwd(*args), port_fa.flash_bwd_reference(*args)):
+            _close(g, w, rel)
+        assert (port_fa.fwd_wide_launches, port_fa.bwd_dkv_wide_launches,
+                port_fa.bwd_dq_wide_launches) == tuple(n + 1 for n in before)
+        assert torch.equal(lse <= port_fa.NEG / 2, ~live)
+        blk = 32 if tq % 32 == 0 else tq
+        for g, w in zip(port_fa.flash_bwd(*args, acc_blocks=(blk, blk)),
+                        port_fa.flash_bwd_reference(*args, acc_blocks=(blk, blk))):
+            _close(g, w, 2 ** -7)
+            # a kernel summing in float32, or rounding at other blocks,
+            # differs in most entries by much less than 2^-7 of the largest
+            assert (g != w).float().mean().item() <= 0.05
+            gf = g.float()
+            assert torch.equal(gf, gf.to(torch.bfloat16).float())
+        qd = torch.randn(b, 1, h, d, device="cuda", generator=gen).to(dt)
+        lens = torch.randint(1, tk + 1, (b,), device="cuda", generator=gen)
+        _close(port_fa.decode_attention(qd, k, v, lens),
+               port_fa.decode_attention_reference(qd, k, v, lens),
+               1e-5 if dtype == "float32" else 1e-2)
+    torch.cuda.synchronize()
