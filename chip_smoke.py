@@ -3815,6 +3815,14 @@ def _flash_inputs(torch, gen, b, tq, tk, h, d, dtype, opts, device="cuda"):
                                                     side="right") + 1
         qs = ks = torch.from_numpy(ids).to(device)
         km = (qs > 0).float()
+    if opts.get("offset"):
+        # q, k, v, do each opts["offset"] elements into a storage of their own:
+        # contiguous tensors whose pointers are only so far aligned
+        def shifted(x, n=opts["offset"]):
+            flat = torch.empty(x.numel() + n, device=device, dtype=x.dtype)
+            flat[n:].copy_(x.reshape(-1))
+            return flat[n:].view(x.shape)
+        q, k, v, do = (shifted(x) for x in (q, k, v, do))
     qp = torch.arange(tq, device=device, dtype=torch.int32) + opts.get("q_offset", 0)
     kp = torch.arange(tk, device=device, dtype=torch.int32)
     return q, k, v, do, km, qs, ks, qp, kp
@@ -4203,11 +4211,14 @@ def _wide_flash_cases():
     """(label, b, tq, tk, h, d, dtype, causal, options, timed): the wide char
     model's shape in both types (timed), then head_dim 256, 160 and 300 (a
     ragged last slice: 160 = 128 + 32, 300 = 128 + 128 + 44, and 600-byte
-    bfloat16 rows, which load element by element) and 512, each in both types
+    bfloat16 rows, which load 8 bytes a copy) and 512, each in both types
     under a causal mask alone (timed at t 2048 but 256's, timed above), with
     a key mask and with packed segments; the
     gate's upper end, 2688 at t 128, and 2689 at t 64; a non-causal, a
-    position-offset and a one-query-row case."""
+    position-offset and a one-query-row case; the clustered arms' edges in
+    both types, 1024 (8 chunks: the portable cluster) and 1152 (9 chunks:
+    the first head_dim in two passes); and bfloat16 300 with q, k, v and do
+    8 bytes into their storage (8-byte but not 16-byte aligned)."""
     cases = [("wide_model_f32", CHAR_BATCH, CHAR_T, CHAR_T, WIDE_CHAR_HEADS, WIDE_HEAD,
               "float32", True, {}, True),
              ("wide_model_bf16", CHAR_BATCH, CHAR_T, CHAR_T, WIDE_CHAR_HEADS, WIDE_HEAD,
@@ -4234,7 +4245,13 @@ def _wide_flash_cases():
          False),
         # the gate's 2689 at t 64: rows of 10,756 bytes load element by element,
         # and the last slice is one column wide
-        ("d2689_float32", 1, 64, 64, 2, 2689, "float32", True, {}, False)]
+        ("d2689_float32", 1, 64, 64, 2, 2689, "float32", True, {}, False)] + [
+        (f"d{d}_{dtype}_{name}", 1, 256, 256, 2, d, dtype, True, opts, False)
+        for d, name, opts in ((1024, "segments", {"segments": True}),
+                              (1152, "key_mask", {"key_mask": True}))
+        for dtype in ("float32", "bfloat16")] + [
+        ("d300_bfloat16_offset8", 2, 320, 320, 2, 300, "bfloat16", True, {"offset": 4},
+         False)]
 
 
 FLASH_WIDE_CASES = _wide_flash_cases()
@@ -4254,6 +4271,11 @@ ACC16_CASES = [
     ("acc16_d2688_bf16_32", 1, 128, 2, 2688, "bfloat16", 32, {"key_mask": True}, False),
     ("acc16_d64_bf16_128", 2, 512, 2, 64, "bfloat16", 128, {}, False),
     ("acc16_d100_f32_100", 2, 400, 2, 100, "float32", 100, {"key_mask": True}, False),
+    # the clustered K4's edges: 8 chunks (one cluster of 8), 9 (two passes)
+    ("acc16_d1024_f32_32", 1, 256, 2, 1024, "float32", 32, {}, False),
+    ("acc16_d1024_bf16_128", 1, 256, 2, 1024, "bfloat16", 128, {"segments": True}, False),
+    ("acc16_d1152_f32_128", 1, 256, 1, 1152, "float32", 128, {"key_mask": True}, False),
+    ("acc16_d1152_bf16_32", 1, 256, 1, 1152, "bfloat16", 32, {}, False),
 ]
 # (label, b, t_kv, h, d, dtype, layers of the view (0: contiguous), timed):
 # K7's sliced arm at the wide decoder's shape (8 heads of 256 read in place
@@ -4315,6 +4337,13 @@ def _check_acc16(torch, label, got, want, worst, key):
     return rel, share
 
 
+def _wide_row_geometry(fa, d, q, k, v, do):
+    """The clustered arms' cut of head_dim d and the bytes a load moves for
+    these tensors."""
+    return {**fa.wide_geometry(d), "load_width": fa.load_width(
+        d, q.element_size(), [t.data_ptr() for t in (q, k, v, do)])}
+
+
 def phase_wide_kernels(torch, card, device=None):
     """The sliced arms of K3, K4 and K5 (head_dim > 128) against their plain
     versions at FLASH_WIDE_CASES, with a nonzero lse cotangent; the bfloat16
@@ -4322,7 +4351,11 @@ def phase_wide_kernels(torch, card, device=None):
     K7's sliced arm at DECODE_WIDE_CASES (`check_decode`, rows with
     cache_len 0 and past the bucket too). Timed cases: warm CUDA-event times
     of each kernel, its plain version and SDPA (the yardstick only; the
-    backend torch took is named), beside the operations bound. Then the
+    backend torch took is named), beside the operations bound. Each row
+    names its cluster geometry and the bytes its loads move (`wide_geometry`,
+    `load_width`); on the card the CUDA source's geometry is held to the
+    wrapper's at every head_dim 129-2689, in both types, and the arms'
+    ptxas records (registers, spills) are reported. Then the
     bfloat16 accumulator's path through the public entry point: autograd of
     `flash_attention(..., bwd_acc_dtype="bfloat16")` at the wide model's
     shape, the counts reset just before and read just after (the sliced K3
@@ -4336,6 +4369,20 @@ def phase_wide_kernels(torch, card, device=None):
     rng = np.random.default_rng(24)
     worst, rows = {}, {}
     t_ = lambda fn: cuda_time_ms(fn, iters=3, warm=1)
+    if on_card:
+        from deeplearning4j_torch.ops import cuda_build
+        for dt in (torch.float32, torch.bfloat16):
+            for d in range(129, 2690):
+                want = {**fa.wide_geometry(d), **fa.wide_smem(d, dt)}
+                got = fa.kernel_wide_geometry(d, dt)
+                if got != want or max(got["fwd"], got["dkv_acc16"]) > fa.SMEM_LIMIT:
+                    raise RuntimeError(f"wide geometry {dt} d {d}: kernel {got}, "
+                                       f"wrapper {want} (limit {fa.SMEM_LIMIT} bytes)")
+        rows["ptxas"] = [k for k in ptxas_report(cuda_build.build_logs.get(
+            "flash_attention", "")) if "cluster_kernel" in k["kernel"]
+            or "dq_wide_kernel" in k["kernel"]]
+        for k in rows["ptxas"]:
+            log(f"ptxas sliced arm: {json.dumps(k)}")
     for label, b, tq, tk, h, d, dtype, causal, opts, timed in FLASH_WIDE_CASES:
         dt = getattr(torch, dtype)
         q, k, v, do, km, qs, ks, qp, kp = _flash_inputs(torch, gen, b, tq, tk, h, d, dt,
@@ -4362,7 +4409,11 @@ def phase_wide_kernels(torch, card, device=None):
         dqw = fa.flash_bwd_dq_reference(*args)
         row = {"case": label, "shape": [b, tq, tk, h, d], "dtype": dtype,
                "causal": causal, **{k_: bool(v_) for k_, v_ in opts.items()},
-               "fully_masked_rows": int((~live).sum())}
+               "fully_masked_rows": int((~live).sum()),
+               "geometry": _wide_row_geometry(fa, d, q, k, v, do)}
+        if opts.get("offset") and row["geometry"]["load_width"] != 2 * opts["offset"]:
+            raise RuntimeError(f"flash wide {label}: loads of "
+                               f"{row['geometry']['load_width']} bytes")
         for key, got, want in (("flash_fwd_wide", o, ow), ("flash_bwd_dkv_wide", dk, dkw),
                                ("flash_bwd_dkv_wide", dv, dvw),
                                ("flash_bwd_dq_wide", dq, dqw)):
@@ -4424,7 +4475,8 @@ def phase_wide_kernels(torch, card, device=None):
         dkw, dvw = fa.flash_bwd_dkv_reference(*args, acc_block=jb)
         dqw = fa.flash_bwd_dq_reference(*args, acc_block=jb)
         row = {"case": label, "shape": [b, t, t, h, d], "dtype": dtype, "jax_block": jb,
-               **{k_: bool(v_) for k_, v_ in opts.items()}}
+               **{k_: bool(v_) for k_, v_ in opts.items()},
+               "geometry": _wide_row_geometry(fa, d, q, k, v, do)}
         for what, key, got, want in (("dk", "flash_bwd_dkv_acc16", dk, dkw),
                                      ("dv", "flash_bwd_dkv_acc16", dv, dvw),
                                      ("dq", "flash_bwd_dq_acc16", dq, dqw)):
@@ -4526,7 +4578,9 @@ def phase_wide_kernels(torch, card, device=None):
                         "max_abs_err": worst[name], "ms": r["ms"],
                         "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                         "bound_by": r["bound_by"], "library_ms": r["library_ms"],
-                        "case": case, "sdpa_backend": rows[case].get("sdpa_backend")})
+                        "case": case, "sdpa_backend": rows[case].get("sdpa_backend"),
+                        "cluster": None if "dq" in name
+                        else rows[case]["geometry"]["cluster"]})
     r = rows["wide_engine_f32"]
     entries.append({"name": "decode_attention_wide", "route": "cuda",
                     "source": "deeplearning4j_torch/ops/csrc/decode_attention.cu",
@@ -4577,7 +4631,7 @@ def phase_char_model_wide(torch, card, device=None, size=None):
     and as a bfloat16 network: `output` (the sliced K3 once a layer, nothing
     else), then `fit` for CHAR_STEPS steps (the sliced K3, K4 and K5 once a
     layer a step), the counts reset just before and read just after each;
-    the median warm step, tokens/s and one profiled float32 step. Then the
+    the median warm step, tokens/s and one profiled step in each type. Then the
     float32 gradients with the kernels against the plain versions on the
     card (`compare_pinned_grads`, as `phase_char_model` at width 512), and
     the card against the CPU path at t CHAR_SMALL_T, the flash route forced
@@ -4626,12 +4680,13 @@ def phase_char_model_wide(torch, card, device=None, size=None):
                         "output_ms": out_ms, "launches": launches, "scores": scores,
                         "step_ms": step_ms, "median_warm_step_ms": warm,
                         "tokens_per_s": s["batch"] * s["t"] / warm * 1e3}
+        def one_step():
+            net.fit(batch, batch_size=s["batch"])
+            torch.cuda.synchronize()
+        result["profile" if name == "f32" else "profile_bf16"] = profile_call(
+            torch, f"wide char model step ({name})", one_step,
+            {"batch": s["batch"], "t": s["t"]})
         if name == "f32":
-            def one_step():
-                net.fit(batch, batch_size=s["batch"])
-                torch.cuda.synchronize()
-            result["profile"] = profile_call(torch, "wide char model step (f32)",
-                                             one_step, {"batch": s["batch"], "t": s["t"]})
             kept = net
         else:
             del net
@@ -4676,7 +4731,8 @@ def phase_char_model_wide(torch, card, device=None, size=None):
         param_utils, run(card_net), run(cpu_net, checked=False), small_ds)
     np.testing.assert_allclose(card_net.output(small_ds.features),
                                cpu_net.output(small_ds.features), rtol=1e-4, atol=1e-6)
-    log(f"wide char model: {json.dumps({k: v for k, v in result.items() if k != 'profile'})}"
+    log(f"wide char model: "
+        f"{json.dumps({k: v for k, v in result.items() if not k.startswith('profile')})}"
         f"  [{card}]")
     return result
 

@@ -130,6 +130,7 @@
 
 #include <climits>
 #include <cstdint>
+#include <initializer_list>
 #include <type_traits>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -1177,107 +1178,213 @@ extern "C" int dl4j_flash_bwd_dq(const void* q, const void* k, const void* v,
   return (int)dispatch<Dq>(bf16, d, a, g, dq, (cudaStream_t)stream);
 }
 
+
 // ============================================================== the sliced arms
 //
-// The sliced arms, for Hopper: the forward (K3), dk/dv (K4) and
-// dq (K5) at any head_dim, and K4 and K5 with the bfloat16 backward
-// accumulator at any head_dim. They are built from the pieces of the
-// head_dim <= 128 kernels above and the note at the top of this file
-// describes those (the mask logic, the skip scan, the tensor-core products on
-// shared-memory tiles).
+// The sliced arms, for Hopper: the forward (K3w) and dk/dv (K4w) at head_dim
+// > 128, K4 with the JAX package's bfloat16 backward accumulator at any
+// head_dim (K4a), and dq at head_dim > 128 (K5w) and with the accumulator
+// (K5a). They reuse the mask logic, the skip scan and the mma.sync products of
+// the head_dim <= 128 kernels above, whose note describes those.
 //
 // They replace the same TPU kernels as K3-K5:
-// deeplearning4j_tpu/ops/flash_attention.py:_fwd_kernel, _bwd_dkv_kernel and
-// _bwd_dq_kernel, which take any head_dim their VMEM estimate passes (the
-// JAX package pads head_dim to a multiple of 128 lanes; at 128-row blocks its
-// gate passes up to 2,688, more at shorter t), and whose backward accumulates
-// in bfloat16 when asked (bwd_acc_dtype="bfloat16").
+// deeplearning4j_tpu/ops/flash_attention.py:_fwd_kernel (K3w), _bwd_dkv_kernel
+// (K4w, K4a) and _bwd_dq_kernel (K5w, K5a), which take any head_dim their VMEM
+// estimate passes (the JAX package pads head_dim to a multiple of 128 lanes;
+// at 128-row blocks its gate passes up to 2,688, more at shorter t), and whose
+// backward accumulates in bfloat16 when asked (bwd_acc_dtype="bfloat16").
 //
-// Design: slices over the grid, chunks through shared memory. The output
-// columns (O in K3, dQ in K5, dK and dV in K4) are cut into slices of kChunk
-// = 128; a block owns one slice of its tile (grid x = tile * slices + slice),
-// so its accumulators are the d = 128 kernels' (a warp's 16 rows x 128
-// columns in float32 fragments) whatever head_dim is, and nothing limits
-// head_dim but the grid. The contractions over head_dim, S = Q K^T and dP =
-// dO V^T, are summed over the whole head_dim: Q and K (dO and V) stream
-// through shared memory in 128-wide chunks, and each chunk's product adds into
-// the S (dP) fragments. A block computes S for itself, so every slice of a
-// tile computes the same S (bit for bit: the same chunks in the same order,
-// the same instructions), the same m, l and skip states, and only slice 0
-// writes the lse. At head_dim 256 that is 1.5x the least work in K3 (S twice,
-// P V once per slice); sharing S across the slices of a tile (a thread-block
-// cluster and distributed shared memory) is later work.
+// Bound: operations, as K3-K5: per allowed (i, j) pair 4d flops in K3w (S and
+// P V), 8d in K4w (S^T, dP^T, dV, dK) and 6d in K5w, against inputs read once
+// (at the wide char model's shape, b 4, t 8192, 4 heads of 256, causal: K3w
+// 5.5e11 flops over 0.54 GB of float32 data, some 1,000 flops a byte, far above
+// the card's 49 flops a byte at its float32-accurate tensor-core rate and 295
+// in bfloat16).
 //
-// Each block walks the live tiles of the other side (K3's skip scan, K4's
-// mirror of it) and, per tile, a sequence of steps, each one load into a
-// two-slot ring in shared memory (16-byte cp.async.cg, zero-filled past t and
-// past head_dim, or element by element where head_dim or the pointers are not
-// 16-byte multiples) computed while the next step's load is in flight:
-//   K3: Q and K chunk c (c < nc) -> S += Q_c K_c^T; then V's slice ->
-//       the online softmax (K3's, on the fragments) and O += P V.
-//   K5: Q and K chunk c -> S; dO and V chunk c -> dP; then K's slice ->
-//       dS = P (dP + g - di) and dQ += dS K.
-//   K4: K, Q, V and dO chunk c -> S^T (the first warp of a pair) and dP^T
-//       (the second); then Q's and dO's slices -> P^T (handed to the partner
-//       through shared memory, as K4's pairs do), dV += P^T dO, dS^T and
-//       dK += dS^T Q.
-// So Q (K3, K5) and K, V (K4) are read again for every tile of the other side:
-// from L2, where one head's rows stay while its tiles run together. Key tiles
-// are 32 rows in K3's float32 (64 in bfloat16, as in K3) and 32 in K5; query
-// tiles 32 in K4. Dynamic shared memory: K3 102,144 bytes float32 (two blocks
-// an SM), 71,168 bfloat16; K5 102,144 and 52,992; K4 212,224 and 113,920.
+// K3w and K4w: a tile's S computed once, shared across a thread-block cluster.
+// Head_dim is cut into nc = ceil(d / 128) chunks of kChunk = 128 columns. A
+// tile of the block's own side (64 query rows in K3w, 64 key rows in K4w) is
+// one cluster of C blocks, one block for each chunk up to the portable
+// cluster size of 8 (head_dim <= 1024). Block j (its rank) owns chunk j of
+// every operand and the output slice j (columns 128 j ..):
+//   K3w: S_j = Q_j K_j^T over its own 128 columns; then O_j += P V_j.
+//   K4w: S^T_j = K_j Q_j^T (warps 0-3) and dP^T_j = V_j dO_j^T (warps 4-7);
+//        then dV_j += P^T dO_j and dK_j += dS^T Q_j.
+// The blocks then sum the C partials through distributed shared memory in
+// rank order 0 .. C - 1: a pair (C = 2, head_dim <= 256) pushes its partial
+// into the peer's shared memory by st.async, which counts its bytes on the
+// peer's mbarrier, and adds the one it received once its own mbarrier's
+// phase completes (a + b is b + a): no cluster barrier a tile, each block
+// waits for its peer's data only. A larger cluster leaves each partial in
+// its own block and, after a cluster barrier, every block reads its peers'
+// (mapa + ld.shared::cluster). So every block holds the same S (S^T, dP^T)
+// bit for bit, and the same m, l, P and skip states; rank 0 alone writes
+// the lse. The partial buffers are double-buffered: a block writes a
+// buffer (its own, or the peer's) again two tiles later, after every block
+// has moved past reading it (a block's tile i + 1 partial, which the others
+// wait for, follows its reads of tile i's). A last cluster barrier keeps
+// every block resident until its peers are done with it. This is the least work, 4d flops a
+// pair in K3w and 8d in K4w, and each element of Q, K, V and dO is loaded once
+// per pair of tiles: the resident operand, Q_j in K3w and K_j, V_j in K4w,
+// stays in shared memory for the block's whole sweep, and only the other side
+// streams, through a two-slot cp.async ring (the next tile loads while this
+// one is computed).
+//
+// Above 1024 (nc > 8: the JAX gate admits these only at short t, 2,688 at t
+// 128, 2,689 at t 64, more below) the passes P = ceil(nc / 8) and the cluster
+// C = ceil(nc / P): block j owns the contraction chunks j, j + C, ... (at most
+// P) and sums its partial over them, chunk by chunk through the ring, and in
+// pass p (one cluster each) owns output slice p C + j. Every pass recomputes
+// S: P times the least work in S, for shapes that are rare and short. The
+// resident operand is then streamed with the other side (K3w's ring slot
+// carries Q's chunk beside K's; K4w reloads its K and V chunks at each step,
+// behind a barrier), so shared memory does not grow with head_dim. The steps
+// of a tile visit the block's chunks so that its output chunk comes last, and
+// the ring slot of the last step still holds what the products need.
+//
+// bfloat16 products on wgmma, float32 on mma.sync. In bfloat16, K3w's block
+// is one warpgroup (128 threads, 64 query rows: wgmma's M of 64): S_j is
+// m64n32k16 over the chunk's 128 columns, A (Q_j) and B (K_j) from shared
+// memory, and O_j += P V_j is m64n128k16 with P in registers and V_j from
+// shared memory read transposed (MN-major). K4w's 256 threads are two
+// warpgroups: the first computes S^T_j (m64n64k16) and owns dV_j, the second
+// dP^T_j and owns dK_j, each a 64 x 128 float32 accumulator (64 registers a
+// thread); P^T passes from the first to the second through shared memory (a
+// named barrier of each pair of warps w, w + 4), as in K4. The accumulator
+// fragments of wgmma are mma.sync's, so the online softmax, the masks and the
+// hand-over run on them unchanged. bfloat16 tiles are laid out as wgmma reads
+// them: a [rows x 128] tile is two 64-column halves, each rows x 128 bytes
+// with the 128-byte swizzle (16-byte granule g of row r at g ^ (r % 8)), from
+// 1024-byte aligned offsets; the same tile is a K-major operand (S's B) and an
+// MN-major one (the P V product's B). In float32 the products are K3-K5's
+// 3xTF32 m16n8k8 (tf32 wgmma cannot read B transposed), on tiles padded 16
+// bytes a row.
+//
+// What bounds them now: per-tile latency, not the tensor cores. Variants of
+// K3w probed on an H100 at the wide char model's shape (b 4, t 8192, 4 heads
+// of 256, bfloat16) lost about as much time with every wgmma taken out as
+// with the exchange or the tile loads taken out: the chain of a tile (the
+// barriers, the exchange, the softmax) at few warps an SM sets the pace. So
+// tiles are sized for blocks an SM: K3w's key tiles are 32 rows in bfloat16,
+// three blocks an SM (67,344 bytes of shared memory, 168 registers), faster
+// there than 48 rows at two blocks or 96 at one, and 24 in float32, two
+// blocks (98,384 bytes); K4w's query tiles are 64 and 32 rows, one block of
+// 8 warps an SM (183,824 and 178,448 bytes; 216,592 and 211,216 with the
+// accumulator). A software pipeline that issued the next tile's S beside
+// this tile's P V, with the exchange in between, needed a third ring slot
+// and smaller K4w tiles, and lost more than it hid.
+//
+// Loads: rows of head_dim elements, h d apart. A tile loads by cp.async at the
+// widest width that d * element size and every pointer allow: 16 bytes, 8 (a
+// 600-byte bfloat16 row of 300), 4, or element by element (odd d in
+// bfloat16); zero-filled (reading nothing) past t and past d. K5w uses the
+// same helper on its padded tiles.
 //
 // The bfloat16 accumulator (ACC16; the wrapper passes the JAX block size jb):
 // the JAX kernels keep dk, dv and dq in a bfloat16 scratch and, once for each
 // block of their sequential sweep (jb query rows for K4, jb keys for K5), add
 // that block's product: dv = bf16(dv + bf16(P_blk^T dO_blk)), dk = bf16(dk +
 // bf16(bf16(dS_blk^T Q_blk) * bf16(scale))), dq likewise with dS_blk K_blk. So
-// the result depends on jb. Here a warp sums its tiles' products within one
-// JAX block in float32 (the float32 accumulator of the other arm, which starts
-// each block at zero), and at the block's edge rounds it, scales it and adds
-// it into its bfloat16 accumulator, kept as bfloat16 pairs in registers (32 a
-// thread), so every rounding falls where the JAX kernels' does. A tile that
-// straddles two JAX blocks (jb not a multiple of the tile) is multiplied once
-// per block with the other block's columns zeroed. A skipped or fully masked
-// block adds bf16(0), which leaves the sum as it was, as in the JAX kernels.
+// the result depends on jb. Here a thread sums its tiles' products within one
+// JAX block in float32 (the float32 accumulator, which starts each block at
+// zero), and at the block's edge rounds it, scales it and adds it into its
+// bfloat16 accumulator, so every rounding falls where the JAX kernels' does;
+// each cluster block owns its own columns of dK and dV, so the accumulator
+// needs nothing across the cluster. K4a keeps that accumulator as bfloat16
+// pairs in shared memory (32 words a thread, a column of its own), K5a in
+// registers. A tile that straddles two JAX blocks (jb not a multiple of the
+// tile) is multiplied once per block with the other block's columns zeroed.
+// A skipped or fully masked block adds bf16(0), which leaves the sum as it
+// was, as in the JAX kernels.
 //
-// Bound: operations, as K3-K5 (4d, 8d and 6d flops per allowed pair).
+// K5w: the output columns are cut into slices of 128 over the grid (x = tile
+// * slices + slice); a block computes S = Q K^T and dP = dO V^T over the whole
+// head_dim, streaming Q and K (dO and V) through the ring in 128-wide chunks,
+// then K's slice -> dS = P (dP + g - di) and dQ += dS K. Every slice of a tile
+// computes the same S; sharing it as K3w and K4w do is later work. Key tiles
+// 32 rows; dynamic shared memory 102,144 bytes float32, 52,992 bfloat16.
 
 namespace {
 
-constexpr int kChunk = 128;  // head_dim columns of a streamed chunk and of an output slice
-constexpr int kSweepKeys = 32;     // K5's key tiles
-constexpr int kSweepQueries = 32;  // K4's query tiles
+constexpr int kChunk = 128;      // head_dim columns of a chunk and of an output slice
+constexpr int kMaxCluster = 8;   // the portable cluster size
+constexpr int kSweepKeys = 32;   // K5w's key tiles
 
 __host__ __device__ inline int chunks(int d) { return (d + kChunk - 1) / kChunk; }
 
-// dst[r * LD + c] = src(head (bi, hi), row row0 + r, column c0 + c) for r < rows
-// and c < kChunk, zero past t and past d, by the block's NT threads: 16-byte
-// cp.async copies with `vec` (zero-filled, reading nothing, past t and d; the
-// caller commits and waits), else element by element.
-template <typename T, int NT>
-__device__ void stage_chunk(T* dst, const T* src, int bi, int hi, int row0, int rows, int t,
-                            int h, int d, int c0, bool vec) {
-  constexpr int LD = tile_ld<T>(kChunk);
-  if (vec) {
-    constexpr int kPer = 16 / sizeof(T);        // elements a copy
-    constexpr int kCopies = kChunk / kPer;      // copies a chunk row: 32 or 16
-    constexpr int kStep = NT / kCopies;
-    const int c = (threadIdx.x % kCopies) * kPer;
-    const bool col_in = c0 + c < d;             // d is a whole number of copies
-    const long long stride = (long long)h * d;  // from one row of the head to the next
-    const T* p = src + row_offset(bi, hi, row0, t, h, d) + c0 + c;
-    for (int r = threadIdx.x / kCopies; r < rows; r += kStep) {
-      const bool in = col_in && row0 + r < t;
-      cp_async16(dst + r * LD + c, in ? p + r * stride : src, in ? 16 : 0);
-    }
+// How K3w and K4w cut head_dim: nc chunks over `passes` clusters of `cluster`
+// blocks; `width` the bytes of a load (16, 8, 4, or the element size); `jb`
+// the bfloat16 accumulator's JAX block.
+struct Wide {
+  int nc, passes, cluster, width, jb;
+};
+
+Wide wide_geometry(int d) {
+  const int nc = chunks(d), passes = (nc + kMaxCluster - 1) / kMaxCluster;
+  return {nc, passes, (nc + passes - 1) / passes, 0, 0};
+}
+
+// 8 or 4 bytes from global to shared memory, asynchronously (bytes = 0: zeros)
+__device__ __forceinline__ void cp_async8(void* dst, const void* src, int bytes) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n" ::"r"(smem_u32(dst)),
+               "l"(src), "r"(bytes));
+}
+
+// Where column c (< 128) of row r of a [rows x kChunk] tile lies: padded rows
+// (tile_ld) or, with SWZ, the swizzled bfloat16 layout of wgmma (see above).
+template <typename T, bool SWZ>
+__device__ __forceinline__ int tile_at(int r, int c, int rows) {
+  if constexpr (SWZ) {
+    const int w = c & 63;
+    return (c >> 6) * rows * 64 + r * 64 + ((((w >> 3) ^ r) & 7) << 3) + (w & 7);
   } else {
-    for (int i = threadIdx.x; i < rows * kChunk; i += NT) {
-      const int r = i / kChunk, c = i - r * kChunk, row = row0 + r;
-      dst[r * LD + c] = row < t && c0 + c < d
-                            ? src[row_offset(bi, hi, row, t, h, d) + c0 + c]
-                            : from_f<T>(0.f);
-    }
+    return r * tile_ld<T>(kChunk) + c;
+  }
+}
+
+// Elements of a [rows x kChunk] tile in shared memory
+template <typename T, bool SWZ>
+__host__ __device__ constexpr int tile_elems(int rows) {
+  return SWZ ? rows * kChunk : rows * tile_ld<T>(kChunk);
+}
+
+// A thread copies one column of W bytes of every (NT / copies a row)-th row.
+// The loop is kept rolled: unrolled, its addresses are loop-invariant across
+// the callers' tile loops and would be hoisted into registers.
+template <typename T, int NT, bool SWZ, int W>
+__device__ __forceinline__ void stage_w(T* dst, const T* src, int bi, int hi, int row0,
+                                        int rows, int t, int h, int d, int c0) {
+  constexpr int E = W / sizeof(T);  // elements a copy
+  constexpr int PER = kChunk / E;    // copies a tile row (<= NT)
+  const int c = (threadIdx.x % PER) * E;
+  const bool col_in = c0 + c < d;  // d is a whole number of copies
+  const long long stride = (long long)h * d;  // from one row of the head to the next
+  const T* p = src + row_offset(bi, hi, row0, t, h, d) + c0 + c;
+#pragma unroll 1
+  for (int r = threadIdx.x / PER; r < rows; r += NT / PER) {
+    const bool in = col_in && row0 + r < t;
+    T* to = dst + tile_at<T, SWZ>(r, c, rows);
+    const T* from = in ? p + r * stride : src;
+    if constexpr (W == 16) cp_async16(to, from, in ? 16 : 0);
+    else if constexpr (W == 8) cp_async8(to, from, in ? 8 : 0);
+    else if constexpr (W == 4) cp_async4(to, from, in ? 4 : 0);
+    else *to = in ? *from : from_f<T>(0.f);
+  }
+}
+
+// dst(r, c) = src(head (bi, hi), row row0 + r, column c0 + c) for r < rows and
+// c < kChunk, zero past t and past d, by the block's NT threads, `width`
+// bytes a copy (cp.async: the caller commits and waits; element by element
+// below 4 bytes).
+template <typename T, int NT, bool SWZ>
+__device__ void stage_chunk(T* dst, const T* src, int bi, int hi, int row0, int rows, int t,
+                            int h, int d, int c0, int width) {
+  switch (width) {
+    case 16: stage_w<T, NT, SWZ, 16>(dst, src, bi, hi, row0, rows, t, h, d, c0); break;
+    case 8: stage_w<T, NT, SWZ, 8>(dst, src, bi, hi, row0, rows, t, h, d, c0); break;
+    case 4: stage_w<T, NT, SWZ, 4>(dst, src, bi, hi, row0, rows, t, h, d, c0); break;
+    default:
+      stage_w<T, NT, SWZ, sizeof(T)>(dst, src, bi, hi, row0, rows, t, h, d, c0);
   }
 }
 
@@ -1295,7 +1402,7 @@ __device__ __forceinline__ void stage_key_info(KeyTile<BK>* info, const Attn& a,
   }
 }
 
-// What a query tile's queries bring to K4 (cp.async, zero past tq)
+// What a query tile's queries bring to K4w (cp.async, zero past tq)
 template <int BQ>
 __device__ __forceinline__ void stage_query_info(QueryTile<BQ>* info, const Attn& a,
                                                  const Bwd& bw, int bi, int hi, int q0) {
@@ -1311,6 +1418,281 @@ __device__ __forceinline__ void stage_query_info(QueryTile<BQ>* info, const Attn
   }
 }
 
+// --------------------------------------------------------- clusters, wgmma
+
+// A cluster-wide barrier that also orders every block's shared-memory stores
+// before the loads (its peers' too) after it.
+__device__ __forceinline__ void cluster_sync() {
+  asm volatile("barrier.cluster.arrive.release.aligned;\n"
+               "barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+
+// `local`'s counterpart in the shared memory of the cluster's block `rank`
+__device__ __forceinline__ unsigned rank_addr(const void* local, int rank) {
+  unsigned r;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n" : "=r"(r) : "r"(smem_u32(local)),
+               "r"(rank));
+  return r;
+}
+
+__device__ __forceinline__ float4 ld_cluster(unsigned addr) {
+  float4 v;
+  asm volatile("ld.shared::cluster.v4.f32 {%0, %1, %2, %3}, [%4];\n"
+               : "=f"(v.x), "=f"(v.y), "=f"(v.z), "=f"(v.w) : "r"(addr) : "memory");
+  return v;
+}
+
+// An mbarrier in shared memory, for the pair's exchange: initialised with one
+// arrival a phase; its phase completes when that arrival and the bytes it
+// expects (complete_tx) have both come in.
+__device__ __forceinline__ void mbar_init(uint64_t* bar) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(smem_u32(bar)) : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect(uint64_t* bar, unsigned bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
+                   smem_u32(bar)),
+               "r"(bytes)
+               : "memory");
+}
+
+// until the phase of parity `parity` has completed; acquires, at cluster
+// scope, what the peer's st.async wrote
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, unsigned parity) {
+  unsigned done = 0;
+  while (!done)
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.acquire.cluster.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(smem_u32(bar)), "r"(parity)
+        : "memory");
+}
+
+// 16 bytes into the peer's shared memory (addr), asynchronously, counted
+// on the peer's mbarrier (bar) when they land
+__device__ __forceinline__ void st_async(unsigned addr, float4 v, unsigned bar) {
+  asm volatile(
+      "st.async.shared::cluster.mbarrier::complete_tx::bytes.v4.f32 [%0], {%1, %2, %3, %4}, "
+      "[%5];\n" ::"r"(addr),
+      "f"(v.x), "f"(v.y), "f"(v.z), "f"(v.w), "r"(bar)
+      : "memory");
+}
+
+// The pair's mbarriers, one for each exchange buffer, set up before either
+// block pushes into the other (the cluster barrier after)
+__device__ __forceinline__ void pair_init(uint64_t* bars) {
+  if (threadIdx.x == 0) {
+    mbar_init(bars);
+    mbar_init(bars + 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  cluster_sync();
+}
+
+// s, this thread's fragments of a partial product over its block's chunks,
+// becomes the sum over the cluster's C blocks, in rank order, so that every
+// block holds the same sum bit for bit. buf: this exchange's buffer (NT
+// threads' fragments, one float4 each a fragment), of two that exchanges
+// take in turn (e counts them). A pair (PAIR, C = 2) pushes its partial into
+// the peer's buffer with st.async, counted on the peer's mbarrier of that
+// buffer, and waits on its own for the peer's: no cluster barrier, and a + b
+// is b + a, so both hold the same sum. The peer writes a buffer again two
+// exchanges later, only after this block's next push, which follows its
+// reads of this one. Other clusters publish each block's partial and, after
+// a cluster barrier, pull the peers' through distributed shared memory.
+// Each path is its own instance of the kernels: compiled together, the
+// other path's registers made the pair's instances spill more.
+template <int NF, int NT, bool PAIR>
+__device__ __forceinline__ void cluster_sum(float (&s)[NF][4], float4* buf, uint64_t* bars,
+                                            int C, int rank, int e) {
+  float4* mine = buf + threadIdx.x;
+  if constexpr (PAIR) {
+    const unsigned peer = rank_addr(mine, rank ^ 1), bar = rank_addr(bars + (e & 1), rank ^ 1);
+#pragma unroll
+    for (int n = 0; n < NF; ++n)
+      st_async(peer + n * NT * 16, make_float4(s[n][0], s[n][1], s[n][2], s[n][3]), bar);
+    if (threadIdx.x == 0) mbar_expect(bars + (e & 1), NF * NT * 16);
+    mbar_wait(bars + (e & 1), (e >> 1) & 1);
+#pragma unroll
+    for (int n = 0; n < NF; ++n) {
+      const float4 v = mine[n * NT];
+      s[n][0] += v.x, s[n][1] += v.y, s[n][2] += v.z, s[n][3] += v.w;
+    }
+    return;
+  }
+  if (C == 1) return;
+#pragma unroll
+  for (int n = 0; n < NF; ++n) mine[n * NT] = make_float4(s[n][0], s[n][1], s[n][2], s[n][3]);
+  cluster_sync();
+  for (int r = 0; r < C; ++r) {
+    const unsigned at = rank_addr(mine, r);
+#pragma unroll
+    for (int n = 0; n < NF; ++n) {
+      const float4 v = r == rank ? mine[n * NT] : ld_cluster(at + n * NT * 16);
+      if (r == 0) {
+        s[n][0] = v.x, s[n][1] = v.y, s[n][2] = v.z, s[n][3] = v.w;
+      } else {
+        s[n][0] += v.x, s[n][1] += v.y, s[n][2] += v.z, s[n][3] += v.w;
+      }
+    }
+  }
+}
+
+// wgmma's shared-memory matrix descriptor, 128-byte swizzle: lbo and sbo in
+// bytes (K-major: sbo from one 8-row group to the next, lbo unused; MN-major:
+// lbo from one 64-column half to the next, sbo from one 8-row group to the
+// next along K)
+__device__ __forceinline__ uint64_t gmma_desc(const void* p, int lbo, int sbo) {
+  return (uint64_t)((smem_u32(p) & 0x3ffff) >> 4) | ((uint64_t)(lbo >> 4) << 16) |
+         ((uint64_t)(sbo >> 4) << 32) | (1ull << 62);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_commit_wait() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n"
+               "wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+
+// Orders the compiler's uses of wgmma's registers around the asynchronous
+// product (its issue and its wait)
+template <int NF>
+__device__ __forceinline__ void fence_regs(float (&d)[NF][4]) {
+#pragma unroll
+  for (int n = 0; n < NF; ++n)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) asm volatile("" : "+f"(d[n][j])::"memory");
+}
+
+// shared-memory writes of the generic proxy (cp.async, plain stores) made
+// visible to wgmma's reads
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// d += A B^T, m64nNk16, A and B from shared memory, both K-major
+__device__ __forceinline__ void wgmma_ss(float (&d)[8][4], uint64_t da,
+                                         uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]),
+        "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]),
+        "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]),
+        "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3]),
+        "+f"(d[4][0]), "+f"(d[4][1]), "+f"(d[4][2]), "+f"(d[4][3]),
+        "+f"(d[5][0]), "+f"(d[5][1]), "+f"(d[5][2]), "+f"(d[5][3]),
+        "+f"(d[6][0]), "+f"(d[6][1]), "+f"(d[6][2]), "+f"(d[6][3]),
+        "+f"(d[7][0]), "+f"(d[7][1]), "+f"(d[7][2]), "+f"(d[7][3])
+      : "l"(da), "l"(db), "r"(1));
+}
+
+__device__ __forceinline__ void wgmma_ss(float (&d)[4][4], uint64_t da,
+                                         uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, %16, %17, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]),
+        "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]),
+        "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]),
+        "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3])
+      : "l"(da), "l"(db), "r"(1));
+}
+
+__device__ __forceinline__ void wgmma_rs_t(float (&d)[16][4], const unsigned (&a)[4],
+                                           uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]),
+        "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]),
+        "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]),
+        "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3]),
+        "+f"(d[4][0]), "+f"(d[4][1]), "+f"(d[4][2]), "+f"(d[4][3]),
+        "+f"(d[5][0]), "+f"(d[5][1]), "+f"(d[5][2]), "+f"(d[5][3]),
+        "+f"(d[6][0]), "+f"(d[6][1]), "+f"(d[6][2]), "+f"(d[6][3]),
+        "+f"(d[7][0]), "+f"(d[7][1]), "+f"(d[7][2]), "+f"(d[7][3]),
+        "+f"(d[8][0]), "+f"(d[8][1]), "+f"(d[8][2]), "+f"(d[8][3]),
+        "+f"(d[9][0]), "+f"(d[9][1]), "+f"(d[9][2]), "+f"(d[9][3]),
+        "+f"(d[10][0]), "+f"(d[10][1]), "+f"(d[10][2]), "+f"(d[10][3]),
+        "+f"(d[11][0]), "+f"(d[11][1]), "+f"(d[11][2]), "+f"(d[11][3]),
+        "+f"(d[12][0]), "+f"(d[12][1]), "+f"(d[12][2]), "+f"(d[12][3]),
+        "+f"(d[13][0]), "+f"(d[13][1]), "+f"(d[13][2]), "+f"(d[13][3]),
+        "+f"(d[14][0]), "+f"(d[14][1]), "+f"(d[14][2]), "+f"(d[14][3]),
+        "+f"(d[15][0]), "+f"(d[15][1]), "+f"(d[15][2]), "+f"(d[15][3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+
+// s[NF][.] += A B^T over one 128-column chunk: A the block's (warpgroup's) 64
+// rows, B N rows, both [rows x 128] tiles of the type's layout. float32:
+// 3xTF32 mma.sync, each warp its 16 rows r0 .. r0 + 15 of A. bfloat16: one
+// wgmma a 16-column k-step, the warpgroup's 64 rows (warp w holds rows 16 w ..
+// in mma.sync's fragment order), the k-step 32 bytes into the swizzled row.
+template <int N>
+__device__ __forceinline__ void chunk_scores(float (&s)[N / 8][4], const float* a,
+                                             const float* b, int r0, int lane) {
+  tile_scores<kChunk, N>(s, a, b, r0, lane);
+}
+
+template <int N>
+__device__ __forceinline__ void chunk_scores(float (&s)[N / 8][4], const __nv_bfloat16* a,
+                                             const __nv_bfloat16* b, int, int) {
+  fence_regs(s);
+  wgmma_fence();
+#pragma unroll
+  for (int ks = 0; ks < kChunk / 16; ++ks) {
+    const int half = ks >> 2, at = (ks & 3) * 16;
+    wgmma_ss(s, gmma_desc(a + half * kTile * 64 + at, 16, 1024),
+             gmma_desc(b + half * N * 64 + at, 16, 1024));
+  }
+  wgmma_commit_wait();
+  fence_regs(s);
+}
+
+// acc[16][.] += x B over N rows of the swept axis: x the rows' fragments
+// against B's N rows, B an [N x 128] tile. float32: K3-K5's tile_pv. bfloat16
+// (WG): one wgmma a k-step of 16 rows, x rounded to bfloat16 pairs in
+// registers (A), B read MN-major (its 128 columns contiguous).
+template <int N, bool WG>
+__device__ __forceinline__ void chunk_product(float (&acc)[kChunk / 8][4],
+                                              const float (&x)[N / 8][4], const float* b,
+                                              int lane) {
+  tile_pv<kChunk, N>(acc, x, b, lane);
+}
+
+template <int N, bool WG>
+__device__ __forceinline__ void chunk_product(float (&acc)[kChunk / 8][4],
+                                              const float (&x)[N / 8][4],
+                                              const __nv_bfloat16* b, int lane) {
+  if constexpr (!WG) {
+    tile_pv<kChunk, N>(acc, x, b, lane);
+  } else {
+    unsigned pa[N / 16][4];
+#pragma unroll
+    for (int kk = 0; kk < N / 16; ++kk) {
+      pa[kk][0] = pack_bf16(x[2 * kk][0], x[2 * kk][1]);
+      pa[kk][1] = pack_bf16(x[2 * kk][2], x[2 * kk][3]);
+      pa[kk][2] = pack_bf16(x[2 * kk + 1][0], x[2 * kk + 1][1]);
+      pa[kk][3] = pack_bf16(x[2 * kk + 1][2], x[2 * kk + 1][3]);
+    }
+    fence_regs(acc);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < N / 16; ++kk)
+      wgmma_rs_t(acc, pa[kk], gmma_desc(b + kk * 16 * 64, N * 128, 1024));
+    wgmma_commit_wait();
+    fence_regs(acc);
+  }
+}
+
 // x rounded to bfloat16 (to nearest, ties to even) and back
 __device__ __forceinline__ float bf16r(float x) {
   return __bfloat162float(__float2bfloat16_rn(x));
@@ -1321,18 +1703,35 @@ __device__ __forceinline__ float bf16_at(unsigned pair, int e) {
   return __uint_as_float(e ? pair & 0xffff0000u : pair << 16);
 }
 
+// A thread's bfloat16 accumulator: element (n, r) holds fragment n's elements
+// 2r and 2r + 1 (one row) as a pair. In registers (K5a) or in shared memory
+// (K4a: a column of NT words for each (n, r), one word a thread).
+struct Acc16Regs {
+  unsigned (&a)[kChunk / 8][2];
+  __device__ __forceinline__ unsigned& at(int n, int r) const { return a[n][r]; }
+};
+
+template <int NT>
+struct Acc16Smem {
+  unsigned* p;
+  __device__ __forceinline__ unsigned& at(int n, int r) const {
+    return p[(2 * n + r) * NT + threadIdx.x];
+  }
+};
+
 // The bfloat16 accumulator's step at a JAX block's edge, for every element of
 // a thread's fragments: acc = bf16(acc + bf16(bf16(part) * mul)), part = 0.
-// acc[n][r] holds fragment elements 2r and 2r + 1 (one row) as a pair.
-__device__ __forceinline__ void flush_acc16(unsigned (&acc)[kChunk / 8][2],
-                                            float (&part)[kChunk / 8][4], float mul) {
+template <typename A>
+__device__ __forceinline__ void flush_acc16(const A& acc, float (&part)[kChunk / 8][4],
+                                            float mul) {
 #pragma unroll
   for (int n = 0; n < kChunk / 8; ++n)
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
       const float x0 = bf16r(bf16r(part[n][2 * r]) * mul);
       const float x1 = bf16r(bf16r(part[n][2 * r + 1]) * mul);
-      acc[n][r] = pack_bf16(bf16_at(acc[n][r], 0) + x0, bf16_at(acc[n][r], 1) + x1);
+      unsigned& a = acc.at(n, r);
+      a = pack_bf16(bf16_at(a, 0) + x0, bf16_at(a, 1) + x1);
       part[n][2 * r] = part[n][2 * r + 1] = 0.f;
     }
 }
@@ -1343,13 +1742,13 @@ __device__ __forceinline__ void flush_acc16(unsigned (&acc)[kChunk / 8][2],
 // is the running float32 sum of the current JAX block (blk, of jb columns),
 // flushed into acc16 whenever a tile reaches into a new block; a tile that
 // straddles two blocks is multiplied once for each, the other's columns zeroed.
-template <typename T, int N, bool ACC16>
-__device__ __forceinline__ void swept_product(float (&acc)[kChunk / 8][4],
-                                              unsigned (&acc16)[kChunk / 8][2], int& blk,
-                                              const float (&x)[N / 8][4], const T* vt,
-                                              int lane, int x0, int t, int jb, float mul) {
+template <typename T, int N, bool ACC16, bool WG, typename A>
+__device__ __forceinline__ void swept_product(float (&acc)[kChunk / 8][4], const A& acc16,
+                                              int& blk, const float (&x)[N / 8][4],
+                                              const T* vt, int lane, int x0, int t, int jb,
+                                              float mul) {
   if constexpr (!ACC16) {
-    tile_pv<kChunk, N>(acc, x, vt, lane);
+    chunk_product<N, WG>(acc, x, vt, lane);
   } else {
     const int c = lane & 3;
     const int lo = x0 / jb, hi = (min(x0 + N, t) - 1) / jb;
@@ -1359,7 +1758,7 @@ __device__ __forceinline__ void swept_product(float (&acc)[kChunk / 8][4],
         blk = b;
       }
       if (lo == hi) {
-        tile_pv<kChunk, N>(acc, x, vt, lane);
+        chunk_product<N, WG>(acc, x, vt, lane);
       } else {
         float y[N / 8][4];
 #pragma unroll
@@ -1367,7 +1766,7 @@ __device__ __forceinline__ void swept_product(float (&acc)[kChunk / 8][4],
 #pragma unroll
           for (int j = 0; j < 4; ++j)
             y[n][j] = (x0 + n * 8 + 2 * c + (j & 1)) / jb == b ? x[n][j] : 0.f;
-        tile_pv<kChunk, N>(acc, y, vt, lane);
+        chunk_product<N, WG>(acc, y, vt, lane);
       }
     }
   }
@@ -1375,55 +1774,95 @@ __device__ __forceinline__ void swept_product(float (&acc)[kChunk / 8][4],
 
 // A thread's output value (row half r, column e of fragment n): the bfloat16
 // accumulator, or the float32 one times mul.
-template <bool ACC16>
-__device__ __forceinline__ float out_value(const float (&acc)[kChunk / 8][4],
-                                           const unsigned (&acc16)[kChunk / 8][2], int n,
-                                           int r, int e, float mul) {
-  if constexpr (ACC16) return bf16_at(acc16[n][r], e);
+template <bool ACC16, typename A>
+__device__ __forceinline__ float out_value(const float (&acc)[kChunk / 8][4], const A& acc16,
+                                           int n, int r, int e, float mul) {
+  if constexpr (ACC16) return bf16_at(acc16.at(n, r), e);
   else return acc[n][2 * r + e] * mul;
 }
 
-// ---------------------------------------------------------------- K3, sliced
+// The dynamic shared memory, from its first 1024-byte boundary (the swizzled
+// tiles' alignment; the kernels ask for 1024 bytes more)
+__device__ __forceinline__ unsigned char* align1024(unsigned char* raw) {
+  return raw + ((1024 - (smem_u32(raw) & 1023)) & 1023);
+}
 
+// The chunk a block takes at step k (< steps) of a tile: its chunks are rank,
+// rank + C, ...; the one of its output slice (index pass) comes last.
+__device__ __forceinline__ int chunk_at(int k, int steps, int rank, int pass, int C) {
+  return rank + C * ((pass + 1 + k) % steps);
+}
+
+// ------------------------------------------------------------- K3w, clustered
+
+// Key rows of a K3w key tile: 32 in bfloat16 (wgmma's N), 24 in float32; and
+// its blocks an SM: three in bfloat16 (67,344 bytes of shared memory, 168
+// registers a thread), two in float32
 template <typename T>
-size_t fwd_wide_smem() {
-  constexpr int BK = fwd_keys<T>();
-  return 2 * (kTile + BK) * tile_ld<T>(kChunk) * sizeof(T) + 2 * sizeof(KeyTile<BK>);
+__host__ __device__ constexpr int cl_keys() {
+  return std::is_same<T, float>::value ? 24 : 32;
 }
 
 template <typename T>
-__global__ void __launch_bounds__(kThreads, 2)
-flash_fwd_wide_kernel(Attn a, int vec, int slices, T* __restrict__ o, float* __restrict__ lse) {
-  constexpr int DP = kChunk;
-  constexpr int LD = tile_ld<T>(DP);
-  constexpr int BK = fwd_keys<T>();
-  constexpr int SLOT = (kTile + BK) * LD;  // a ring slot: Q and K chunks, or V's slice
-  extern __shared__ __align__(16) unsigned char fwdw_raw[];
-  T* ring = reinterpret_cast<T*>(fwdw_raw);                                   // [2][SLOT]
-  KeyTile<BK>* kinfo = reinterpret_cast<KeyTile<BK>*>(ring + 2 * SLOT);      // [2]
+__host__ __device__ constexpr int fwd_blocks() {
+  return std::is_same<T, float>::value ? 2 : 3;
+}
+
+// the resident query chunk (one pass), a two-slot ring of [Q chunk (passes >
+// 1),] K chunk and V slice, two exchange buffers, two key tiles' mask data
+template <typename T>
+size_t fwd_cluster_smem(int passes) {
+  constexpr bool SWZ = !std::is_same<T, float>::value;
+  constexpr int BK = cl_keys<T>();
+  const size_t q = tile_elems<T, SWZ>(kTile) * sizeof(T);
+  const size_t kv = 2 * tile_elems<T, SWZ>(BK) * sizeof(T);
+  return 1024 + (passes == 1 ? q : 0) + 2 * ((passes == 1 ? 0 : q) + kv) +
+         2 * (BK / 8) * kThreads * sizeof(float4) + 2 * sizeof(KeyTile<BK>) +
+         2 * sizeof(uint64_t);
+}
+
+// PAIR: a cluster of two, which exchanges by st.async (cluster_sum)
+template <typename T, bool PAIR>
+__global__ void __launch_bounds__(kThreads, fwd_blocks<T>())
+flash_fwd_cluster_kernel(Attn a, Wide w, T* __restrict__ o, float* __restrict__ lse) {
+  constexpr bool WG = !std::is_same<T, float>::value;  // bfloat16: wgmma, swizzled tiles
+  constexpr int BK = cl_keys<T>();
+  constexpr int NF = BK / 8;
+  constexpr int QE = tile_elems<T, WG>(kTile), KE = tile_elems<T, WG>(BK);
+  extern __shared__ unsigned char fc_raw[];
+  const bool resident = w.passes == 1;  // Q's chunk loads once
+  T* qres = reinterpret_cast<T*>(align1024(fc_raw));
+  T* ring = qres + (resident ? QE : 0);
+  const int slot_elems = (resident ? 0 : QE) + 2 * KE;  // [Q,] K, V
+  float4* xbuf = reinterpret_cast<float4*>(ring + 2 * slot_elems);  // [2][NF][kThreads]
+  KeyTile<BK>* kinfo = reinterpret_cast<KeyTile<BK>*>(xbuf + 2 * NF * kThreads);  // [2]
+  uint64_t* bars = reinterpret_cast<uint64_t*>(kinfo + 2);  // [2] the pair's exchange
   const int lane = threadIdx.x & 31, r0 = (threadIdx.x >> 5) * 16;
   const int g = lane >> 2, c = lane & 3;
   const int bi = blockIdx.y / a.h, hi = blockIdx.y - bi * a.h;
-  const int qtile_i = blockIdx.x / slices, slice = blockIdx.x - qtile_i * slices;
-  const int q0 = (gridDim.x / slices - 1 - qtile_i) * kTile;  // longest tiles first
-  const int c_out = slice * kChunk, nc = chunks(a.d);
+  const int C = w.cluster, rank = blockIdx.x % C, unit = blockIdx.x / C;
+  const int pass = unit % w.passes, tile_i = unit / w.passes;
+  const int q0 = ((a.tq + kTile - 1) / kTile - 1 - tile_i) * kTile;  // longest tiles first
+  const int slice = pass * C + rank;  // the output slice (none past nc)
+  const bool has_out = slice < w.nc;
+  const int steps = (w.nc - rank + C - 1) / C;  // this block's chunks
   const float scale2 = a.scale * kLog2e;
   const T* Q = static_cast<const T*>(a.q);
   const T* K = static_cast<const T*>(a.k);
   const T* V = static_cast<const T*>(a.v);
 
-  // step s of key tile kt: chunk s of Q and K (s < nc), or V's slice (s = nc)
-  auto load = [&](T* slot, int kt, int s, int par) {
-    const int k0 = kt * BK;
-    if (s < nc) {
-      stage_chunk<T, kThreads>(slot, Q, bi, hi, q0, kTile, a.tq, a.h, a.d, s * kChunk, vec);
-      stage_chunk<T, kThreads>(slot + kTile * LD, K, bi, hi, k0, BK, a.tk, a.h, a.d,
-                               s * kChunk, vec);
-      if (s == 0) stage_key_info<BK>(kinfo + par, a, bi, k0);
-    } else {
-      stage_chunk<T, kThreads>(slot + kTile * LD, V, bi, hi, k0, BK, a.tk, a.h, a.d, c_out,
-                               vec);
-    }
+  // step k of key tile kt into a ring slot: [Q's and] K's chunk, and with the
+  // last step V's slice
+  auto load = [&](T* slot, int kt, int k, int par) {
+    const int k0 = kt * BK, c0 = chunk_at(k, steps, rank, pass, C) * kChunk;
+    T* kdst = slot + (resident ? 0 : QE);
+    if (!resident)
+      stage_chunk<T, kThreads, WG>(slot, Q, bi, hi, q0, kTile, a.tq, a.h, a.d, c0, w.width);
+    stage_chunk<T, kThreads, WG>(kdst, K, bi, hi, k0, BK, a.tk, a.h, a.d, c0, w.width);
+    if (k == steps - 1 && has_out)
+      stage_chunk<T, kThreads, WG>(kdst + KE, V, bi, hi, k0, BK, a.tk, a.h, a.d,
+                                   slice * kChunk, w.width);
+    if (k == 0) stage_key_info<BK>(kinfo + par, a, bi, k0);
   };
 
   const TileSpan qtile = query_tile(a, bi, q0);
@@ -1431,84 +1870,96 @@ flash_fwd_wide_kernel(Attn a, int vec, int slices, T* __restrict__ o, float* __r
   const int tiles = (a.tk + BK - 1) / BK;
   int state;
   int tile = scan.next(a, bi, qtile, 0, state);
+  if (resident)
+    stage_chunk<T, kThreads, WG>(qres, Q, bi, hi, q0, kTile, a.tq, a.h, a.d, rank * kChunk,
+                                 w.width);
   if (tile < tiles) load(ring, tile, 0, 0);
   cp_async_commit();
 
   const Info qi[2] = {query_info(a, bi, q0 + r0 + g), query_info(a, bi, q0 + r0 + g + 8)};
   float m[2] = {kNeg, kNeg}, l[2] = {0.f, 0.f};  // l: this thread's columns only
-  float acc[DP / 8][4];
+  float acc[kChunk / 8][4];
 #pragma unroll
-  for (int n = 0; n < DP / 8; ++n) acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
+  for (int n = 0; n < kChunk / 8; ++n) acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
 
-  int slot = 0, par = 0;
+  if constexpr (PAIR) pair_init(bars);
+  int slot = 0, par = 0, xchg = 0;
   while (tile < tiles) {
     int next_state;
     const int next = scan.next(a, bi, qtile, tile + 1, next_state);
     const KeyTile<BK>& ki = kinfo[par];
     const int k0 = tile * BK;
-    float s[BK / 8][4];
+    float s[NF][4];
 #pragma unroll
-    for (int n = 0; n < BK / 8; ++n) s[n][0] = s[n][1] = s[n][2] = s[n][3] = 0.f;
-    for (int st = 0; st <= nc; ++st) {
+    for (int n = 0; n < NF; ++n) s[n][0] = s[n][1] = s[n][2] = s[n][3] = 0.f;
+    const T* kv = ring;
+    for (int k = 0; k < steps; ++k) {
       cp_async_wait_all();
+      if constexpr (WG) fence_proxy_async();
       __syncthreads();  // this step landed; every warp is done with the other slot
-      const T* cur = ring + slot * SLOT;
-      T* nxt = ring + (slot ^ 1) * SLOT;
-      if (st < nc) load(nxt, tile, st + 1, par);
+      const T* cur = ring + slot * slot_elems;
+      T* nxt = ring + (slot ^ 1) * slot_elems;
+      if (k + 1 < steps) load(nxt, tile, k + 1, par);
       else if (next < tiles) load(nxt, next, 0, par ^ 1);
       cp_async_commit();
       slot ^= 1;
-      if (st < nc) {
-        tile_scores<DP, BK>(s, cur, cur + kTile * LD, r0, lane);
-        continue;
+      kv = cur + (resident ? 0 : QE);
+      chunk_scores<BK>(s, resident ? qres : cur, kv, r0, lane);  // S_j += Q_c K_c^T
+    }
+    cluster_sum<NF, kThreads, PAIR>(s, xbuf + (xchg & 1) * NF * kThreads, bars, C, rank,
+                                    xchg);  // S, the cluster's sum
+    ++xchg;
+
+    // s[n][2r + e] is row g + 8r, key n * 8 + 2c + e of the tile
+    float mt[2] = {kNeg, kNeg};
+#pragma unroll
+    for (int n = 0; n < NF; ++n)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        float& x = s[n][j];
+        const int col = n * 8 + 2 * c + (j & 1);
+        x = state == 2 || allowed(a, qi[j >> 1],
+                                  {ki.pos[col], ki.seg[col],
+                                   k0 + col < a.tk && (!a.km || ki.km[col] > 0.f)})
+                ? x * scale2 : kNeg;
+        mt[j >> 1] = fmaxf(mt[j >> 1], x);
       }
-      // s[n][2r + e] is row g + 8r, key n * 8 + 2c + e of the tile
-      float mt[2] = {kNeg, kNeg};
+    float alpha[2];
 #pragma unroll
-      for (int n = 0; n < BK / 8; ++n)
+    for (int r = 0; r < 2; ++r) {
+      const float mn = fmaxf(m[r], quad_max(mt[r]));
+      alpha[r] = exp2_approx(m[r] - mn);
+      m[r] = mn;
+    }
+    float rs[2] = {0.f, 0.f};
 #pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          float& x = s[n][j];
-          const int col = n * 8 + 2 * c + (j & 1);
-          x = state == 2 || allowed(a, qi[j >> 1],
-                                    {ki.pos[col], ki.seg[col],
-                                     k0 + col < a.tk && (!a.km || ki.km[col] > 0.f)})
-                  ? x * scale2 : kNeg;
-          mt[j >> 1] = fmaxf(mt[j >> 1], x);
-        }
-      float alpha[2];
+    for (int n = 0; n < NF; ++n)
 #pragma unroll
-      for (int r = 0; r < 2; ++r) {
-        const float mn = fmaxf(m[r], quad_max(mt[r]));
-        alpha[r] = exp2_approx(m[r] - mn);
-        m[r] = mn;
+      for (int j = 0; j < 4; ++j) {
+        const int r = j >> 1;
+        // a row with nothing allowed so far keeps p = 0 (exp(0) would be 1)
+        const float p = m[r] <= kNeg / 2 ? 0.f : exp2_approx(s[n][j] - m[r]);
+        s[n][j] = p;
+        rs[r] += p;
       }
-      float rs[2] = {0.f, 0.f};
 #pragma unroll
-      for (int n = 0; n < BK / 8; ++n)
+    for (int r = 0; r < 2; ++r) l[r] = alpha[r] * l[r] + rs[r];
+    if (has_out) {
 #pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          const int r = j >> 1;
-          const float p = m[r] <= kNeg / 2 ? 0.f : exp2_approx(s[n][j] - m[r]);
-          s[n][j] = p;
-          rs[r] += p;
-        }
-#pragma unroll
-      for (int r = 0; r < 2; ++r) l[r] = alpha[r] * l[r] + rs[r];
-#pragma unroll
-      for (int n = 0; n < DP / 8; ++n) {
+      for (int n = 0; n < kChunk / 8; ++n) {
         acc[n][0] *= alpha[0];
         acc[n][1] *= alpha[0];
         acc[n][2] *= alpha[1];
         acc[n][3] *= alpha[1];
       }
-      tile_pv<DP, BK>(acc, s, cur + kTile * LD, lane);
+      chunk_product<BK, WG>(acc, s, kv + KE, lane);  // O_j += P V_j
     }
     tile = next;
     state = next_state;
     par ^= 1;
   }
   cp_async_wait_all();  // nothing in flight at exit
+  if (C > 1) cluster_sync();  // no block leaves while a peer may read its partials
 
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
@@ -1516,21 +1967,23 @@ flash_fwd_wide_kernel(Attn a, int vec, int slices, T* __restrict__ o, float* __r
     const int row = q0 + r0 + g + 8 * r;
     if (row >= a.tq) continue;
     const float inv = sum > 0.f ? 1.f / sum : 0.f;
-    const long long at = row_offset(bi, hi, row, a.tq, a.h, a.d) + c_out;
+    const long long at = row_offset(bi, hi, row, a.tq, a.h, a.d) + slice * kChunk;
+    if (has_out) {
 #pragma unroll
-    for (int n = 0; n < DP / 8; ++n)
+      for (int n = 0; n < kChunk / 8; ++n)
 #pragma unroll
-      for (int e = 0; e < 2; ++e) {
-        const int col = n * 8 + 2 * c + e;
-        if (c_out + col < a.d) o[at + col] = from_f<T>(acc[n][2 * r + e] * inv);
-      }
+        for (int e = 0; e < 2; ++e) {
+          const int col = n * 8 + 2 * c + e;
+          if (slice * kChunk + col < a.d) o[at + col] = from_f<T>(acc[n][2 * r + e] * inv);
+        }
+    }
     if (c == 0 && slice == 0)  // m is in log2 units
       lse[((long long)bi * a.tq + row) * a.h + hi] =
           sum > 0.f ? (m[r] + log2f(sum)) / kLog2e : kNeg;
   }
 }
 
-// ---------------------------------------------------------------- K5, sliced
+// ---------------------------------------------------------------- K5w, sliced
 
 template <typename T>
 size_t dq_wide_smem() {
@@ -1540,7 +1993,8 @@ size_t dq_wide_smem() {
 
 template <typename T, bool ACC16>
 __global__ void __launch_bounds__(kThreads, 2)
-flash_bwd_dq_wide_kernel(Attn a, Bwd bw, int vec, int slices, int jb, T* __restrict__ dq) {
+flash_bwd_dq_wide_kernel(Attn a, Bwd bw, int width, int slices, int jb,
+                         T* __restrict__ dq) {
   constexpr int DP = kChunk;
   constexpr int LD = tile_ld<T>(DP);
   constexpr int BK = kSweepKeys;
@@ -1567,14 +2021,14 @@ flash_bwd_dq_wide_kernel(Attn a, Bwd bw, int vec, int slices, int jb, T* __restr
     if (s < 2 * nc) {
       const bool scores = s < nc;
       const int c0 = (scores ? s : s - nc) * kChunk;
-      stage_chunk<T, kThreads>(slot, scores ? Q : DO, bi, hi, q0, kTile, a.tq, a.h, a.d, c0,
-                               vec);
-      stage_chunk<T, kThreads>(slot + kTile * LD, scores ? K : V, bi, hi, k0, BK, a.tk, a.h,
-                               a.d, c0, vec);
+      stage_chunk<T, kThreads, false>(slot, scores ? Q : DO, bi, hi, q0, kTile, a.tq, a.h, a.d,
+                                      c0, width);
+      stage_chunk<T, kThreads, false>(slot + kTile * LD, scores ? K : V, bi, hi, k0, BK, a.tk,
+                                      a.h, a.d, c0, width);
       if (s == 0) stage_key_info<BK>(kinfo + par, a, bi, k0);
     } else {
-      stage_chunk<T, kThreads>(slot + kTile * LD, K, bi, hi, k0, BK, a.tk, a.h, a.d, c_out,
-                               vec);
+      stage_chunk<T, kThreads, false>(slot + kTile * LD, K, bi, hi, k0, BK, a.tk, a.h, a.d,
+                                      c_out, width);
     }
   };
 
@@ -1648,15 +2102,15 @@ flash_bwd_dq_wide_kernel(Attn a, Bwd bw, int vec, int slices, int jb, T* __restr
           const float p = ok ? exp2_approx(fmaf(s[n][j], scale2, -lse2[r])) : 0.f;
           s[n][j] = p * (dp[n][j] + dg[r]);
         }
-      swept_product<T, BK, ACC16>(acc, acc16, blk, s, cur + kTile * LD, lane, k0, a.tk, jb,
-                                  mul16);
+      swept_product<T, BK, ACC16, false>(acc, Acc16Regs{acc16}, blk, s, cur + kTile * LD, lane,
+                                         k0, a.tk, jb, mul16);
     }
     tile = next;
     state = next_state;
     par ^= 1;
   }
   cp_async_wait_all();
-  if constexpr (ACC16) flush_acc16(acc16, acc, mul16);
+  if constexpr (ACC16) flush_acc16(Acc16Regs{acc16}, acc, mul16);
 
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
@@ -1669,63 +2123,89 @@ flash_bwd_dq_wide_kernel(Attn a, Bwd bw, int vec, int slices, int jb, T* __restr
       for (int e = 0; e < 2; ++e) {
         const int col = n * 8 + 2 * c + e;
         if (c_out + col < a.d)
-          dq[at + col] = from_f<T>(out_value<ACC16>(acc, acc16, n, r, e, a.scale));
+          dq[at + col] = from_f<T>(out_value<ACC16>(acc, Acc16Regs{acc16}, n, r, e, a.scale));
       }
   }
 }
 
-// ---------------------------------------------------------------- K4, sliced
+// ------------------------------------------------------------- K4w, clustered
 
-// a ring slot: K, Q, V and dO chunks (kTile, BQ, kTile, BQ rows); then P^T's
-// fragments of the four warp pairs and two query tiles' data
+// Query rows of a K4w query tile: 64 in bfloat16 (wgmma's N), 32 in float32
 template <typename T>
-size_t dkv_wide_smem() {
-  constexpr int BQ = kSweepQueries;
-  return 2 * (2 * kTile + 2 * BQ) * tile_ld<T>(kChunk) * sizeof(T) +
-         4 * 16 * BQ * sizeof(float) + 2 * sizeof(QueryTile<BQ>);
+__host__ __device__ constexpr int cl_queries() {
+  return std::is_same<T, float>::value ? 32 : 64;
 }
 
-template <typename T, bool ACC16>
+// K's and V's chunks, a two-slot ring of Q's and dO's chunks, two exchange
+// buffers (S^T's and dP^T's partials), P^T's fragments of the four warp
+// pairs, two query tiles' data, and (ACC16) the bfloat16 accumulator
+template <typename T>
+size_t dkv_cluster_smem(bool acc16) {
+  constexpr bool SWZ = !std::is_same<T, float>::value;
+  constexpr int BQ = cl_queries<T>();
+  return 1024 + 2 * tile_elems<T, SWZ>(kTile) * sizeof(T) +
+         4 * tile_elems<T, SWZ>(BQ) * sizeof(T) +
+         2 * (BQ / 8) * kPairThreads * sizeof(float4) + 4 * (BQ / 8) * 32 * sizeof(float4) +
+         2 * sizeof(QueryTile<BQ>) + (acc16 ? kChunk / 4 * kPairThreads * 4 : 0) +
+         2 * sizeof(uint64_t);
+}
+
+// K4's four products over the cluster, split between a pair of warps on the
+// same 16 key rows (FA2's split; in bfloat16 a warpgroup each): per live
+// query tile, the first computes S^T_j = K_j Q_j^T, the second dP^T_j = V_j
+// dO_j^T; the cluster sums them; the first takes P^T from each column's
+// (query's) lse, hands it to its partner through shared memory and adds
+// P^T dO_j to dV_j; the second computes dS^T = P^T (dP^T + g - di) and adds
+// dS^T Q_j to dK_j.
+template <typename T, bool ACC16, bool PAIR>
 __global__ void __launch_bounds__(kPairThreads, 1)
-flash_bwd_dkv_wide_kernel(Attn a, Bwd bw, int vec, int slices, int jb, T* __restrict__ dk,
-                          T* __restrict__ dv) {
-  constexpr int DP = kChunk;
-  constexpr int LD = tile_ld<T>(DP);
-  constexpr int BQ = kSweepQueries;
-  constexpr int SLOT = (2 * kTile + 2 * BQ) * LD;
-  constexpr int Q_AT = kTile * LD, V_AT = (kTile + BQ) * LD, DO_AT = (2 * kTile + BQ) * LD;
-  extern __shared__ __align__(16) unsigned char dkvw_raw[];
-  T* ring = reinterpret_cast<T*>(dkvw_raw);
-  float* pt = reinterpret_cast<float*>(ring + 2 * SLOT);  // [4][BQ / 8][32][4] P^T
-  QueryTile<BQ>* qinfo = reinterpret_cast<QueryTile<BQ>*>(pt + 4 * 16 * BQ);  // [2]
+flash_bwd_dkv_cluster_kernel(Attn a, Bwd bw, Wide w, T* __restrict__ dk,
+                             T* __restrict__ dv) {
+  constexpr bool WG = !std::is_same<T, float>::value;  // bfloat16: wgmma, swizzled tiles
+  constexpr int BQ = cl_queries<T>();
+  constexpr int NF = BQ / 8;
+  constexpr int KE = tile_elems<T, WG>(kTile), QE = tile_elems<T, WG>(BQ);
+  extern __shared__ unsigned char dc_raw[];
+  T* kv = reinterpret_cast<T*>(align1024(dc_raw));  // K's chunk, then V's
+  T* ring = kv + 2 * KE;                            // [2][Q, dO]
+  float4* xbuf = reinterpret_cast<float4*>(ring + 4 * QE);  // [2][NF][kPairThreads]
+  float4* pt = xbuf + 2 * NF * kPairThreads;                // [4][NF][32] P^T
+  QueryTile<BQ>* qinfo = reinterpret_cast<QueryTile<BQ>*>(pt + 4 * NF * 32);  // [2]
+  const Acc16Smem<kPairThreads> acc16{reinterpret_cast<unsigned*>(qinfo + 2)};
+  uint64_t* bars =  // [2] the pair's exchange
+      reinterpret_cast<uint64_t*>(acc16.p + (ACC16 ? kChunk / 4 * kPairThreads : 0));
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int pair = warp & 3, r0 = pair * 16;
   const bool dk_warp = warp >= 4;  // warps 0-3 own dV, 4-7 dK
   const int g = lane >> 2, c = lane & 3;
   const int bi = blockIdx.y / a.h, hi = blockIdx.y - bi * a.h;
-  const int ktile_i = blockIdx.x / slices, slice = blockIdx.x - ktile_i * slices;
-  const int k0 = ktile_i * kTile;  // key tile 0, the longest under a causal mask, first
-  const int c_out = slice * kChunk, nc = chunks(a.d);
+  const int C = w.cluster, rank = blockIdx.x % C, unit = blockIdx.x / C;
+  const int pass = unit % w.passes;
+  const int k0 = unit / w.passes * kTile;  // key tile 0, the longest under a causal mask, first
+  const int slice = pass * C + rank;       // the output slice (none past nc)
+  const bool has_out = slice < w.nc;
+  const int steps = (w.nc - rank + C - 1) / C;  // this block's chunks
+  const bool resident = steps == 1;  // K's and V's chunks load once
   const float scale2 = a.scale * kLog2e;
-  float4* pf = reinterpret_cast<float4*>(pt) + pair * (BQ / 8) * 32 + lane;
+  float4* pf = pt + pair * NF * 32 + lane;
   const T* Q = static_cast<const T*>(a.q);
   const T* K = static_cast<const T*>(a.k);
   const T* V = static_cast<const T*>(a.v);
   const T* DO = static_cast<const T*>(bw.dout);
 
-  // step s of query tile qt: K, Q, V and dO chunk s (s < nc), or Q's and dO's
-  // slices (s = nc)
-  auto load = [&](T* slot, int qt, int s, int par) {
-    const int q0 = qt * BQ;
-    const int c0 = s < nc ? s * kChunk : c_out;
-    if (s < nc) {
-      stage_chunk<T, kPairThreads>(slot, K, bi, hi, k0, kTile, a.tk, a.h, a.d, c0, vec);
-      stage_chunk<T, kPairThreads>(slot + V_AT, V, bi, hi, k0, kTile, a.tk, a.h, a.d, c0,
-                                   vec);
-      if (s == 0) stage_query_info<BQ>(qinfo + par, a, bw, bi, hi, q0);
-    }
-    stage_chunk<T, kPairThreads>(slot + Q_AT, Q, bi, hi, q0, BQ, a.tq, a.h, a.d, c0, vec);
-    stage_chunk<T, kPairThreads>(slot + DO_AT, DO, bi, hi, q0, BQ, a.tq, a.h, a.d, c0, vec);
+  auto load_kv = [&](int k) {
+    const int c0 = chunk_at(k, steps, rank, pass, C) * kChunk;
+    stage_chunk<T, kPairThreads, WG>(kv, K, bi, hi, k0, kTile, a.tk, a.h, a.d, c0, w.width);
+    stage_chunk<T, kPairThreads, WG>(kv + KE, V, bi, hi, k0, kTile, a.tk, a.h, a.d, c0,
+                                     w.width);
+  };
+  // step k of query tile qt into a ring slot: Q's and dO's chunk
+  auto load_q = [&](T* slot, int qt, int k, int par) {
+    const int q0 = qt * BQ, c0 = chunk_at(k, steps, rank, pass, C) * kChunk;
+    stage_chunk<T, kPairThreads, WG>(slot, Q, bi, hi, q0, BQ, a.tq, a.h, a.d, c0, w.width);
+    stage_chunk<T, kPairThreads, WG>(slot + QE, DO, bi, hi, q0, BQ, a.tq, a.h, a.d, c0,
+                                     w.width);
+    if (k == 0) stage_query_info<BQ>(qinfo + par, a, bw, bi, hi, q0);
   };
 
   const TileSpan ktile = key_tile(a, bi, k0);
@@ -1733,90 +2213,99 @@ flash_bwd_dkv_wide_kernel(Attn a, Bwd bw, int vec, int slices, int jb, T* __rest
   const int tiles = (a.tq + BQ - 1) / BQ;
   int state;
   int tile = scan.next(a, bi, ktile, 0, state);
-  if (tile < tiles) load(ring, tile, 0, 0);
+  load_kv(0);
+  if (tile < tiles) load_q(ring, tile, 0, 0);
   cp_async_commit();
 
   // this thread's key rows g and g + 8
   const Info ki[2] = {key_info(a, bi, k0 + r0 + g), key_info(a, bi, k0 + r0 + g + 8)};
-  float acc[DP / 8][4];      // dV or dK, or (ACC16) the current JAX block's sum
-  unsigned acc16[DP / 8][2];  // ACC16: dV or dK as bfloat16 pairs
+  float acc[kChunk / 8][4];  // dV or dK, or (ACC16) the current JAX block's sum
 #pragma unroll
-  for (int n = 0; n < DP / 8; ++n) {
+  for (int n = 0; n < kChunk / 8; ++n) {
     acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
-    acc16[n][0] = acc16[n][1] = 0u;
+    if constexpr (ACC16) acc16.at(n, 0) = acc16.at(n, 1) = 0u;
   }
   const float mul16 = dk_warp ? bf16r(a.scale) : 1.f;
   int blk = -1;
 
-  int slot = 0, par = 0;
+  if constexpr (PAIR) pair_init(bars);
+  int slot = 0, par = 0, xchg = 0;
   while (tile < tiles) {
     int next_state;
     const int next = scan.next(a, bi, ktile, tile + 1, next_state);
     const QueryTile<BQ>& qi = qinfo[par];
     const int q0 = tile * BQ;
     // s[n][2r + e] is key row g + 8r, query n * 8 + 2c + e of the tile
-    float s[BQ / 8][4];
+    float s[NF][4];
 #pragma unroll
-    for (int n = 0; n < BQ / 8; ++n) s[n][0] = s[n][1] = s[n][2] = s[n][3] = 0.f;
-    for (int st = 0; st <= nc; ++st) {
+    for (int n = 0; n < NF; ++n) s[n][0] = s[n][1] = s[n][2] = s[n][3] = 0.f;
+    const T* cur = ring;
+    for (int k = 0; k < steps; ++k) {
       cp_async_wait_all();
+      if constexpr (WG) fence_proxy_async();
       // this step landed; every warp is done with the other slot and with the
       // last tile's P^T
       __syncthreads();
-      const T* cur = ring + slot * SLOT;
-      T* nxt = ring + (slot ^ 1) * SLOT;
-      if (st < nc) load(nxt, tile, st + 1, par);
-      else if (next < tiles) load(nxt, next, 0, par ^ 1);
+      cur = ring + slot * 2 * QE;
+      T* nxt = ring + (slot ^ 1) * 2 * QE;
+      if (k + 1 < steps) load_q(nxt, tile, k + 1, par);
+      else if (next < tiles) load_q(nxt, next, 0, par ^ 1);
       cp_async_commit();
       slot ^= 1;
-      if (st < nc) {
-        if (!dk_warp) tile_scores<DP, BQ>(s, cur, cur + Q_AT, r0, lane);   // S^T
-        else tile_scores<DP, BQ>(s, cur + V_AT, cur + DO_AT, r0, lane);    // dP^T
-        continue;
+      if (!dk_warp) chunk_scores<BQ>(s, kv, cur, r0, lane);  // S^T_j += K_c Q_c^T
+      else chunk_scores<BQ>(s, kv + KE, cur + QE, r0, lane);  // dP^T_j += V_c dO_c^T
+      if (!resident && (k + 1 < steps || next < tiles)) {
+        __syncthreads();  // every warp is done with this step's K and V chunks
+        load_kv(k + 1 < steps ? k + 1 : 0);
+        cp_async_commit();
       }
-      if (!dk_warp) {
+    }
+    cluster_sum<NF, kPairThreads, PAIR>(s, xbuf + (xchg & 1) * NF * kPairThreads, bars, C,
+                                        rank, xchg);
+    ++xchg;
+    if (!dk_warp) {
 #pragma unroll
-        for (int n = 0; n < BQ / 8; ++n) {
+      for (int n = 0; n < NF; ++n) {
 #pragma unroll
-          for (int e = 0; e < 2; ++e) {
-            const int col = n * 8 + 2 * c + e;
-            const float lse2 = lse_log2(qi.lse[col]);
-            const Info q{qi.pos[col], qi.seg[col], q0 + col < a.tq};
+        for (int e = 0; e < 2; ++e) {
+          const int col = n * 8 + 2 * c + e;
+          const float lse2 = lse_log2(qi.lse[col]);
+          const Info q{qi.pos[col], qi.seg[col], q0 + col < a.tq};
 #pragma unroll
-            for (int r = 0; r < 2; ++r) {
-              const bool ok = state == 2 || allowed(a, q, ki[r]);
-              float& x = s[n][2 * r + e];
-              x = ok ? exp2_approx(fmaf(x, scale2, -lse2)) : 0.f;
-            }
+          for (int r = 0; r < 2; ++r) {
+            const bool ok = state == 2 || allowed(a, q, ki[r]);
+            float& x = s[n][2 * r + e];
+            x = ok ? exp2_approx(fmaf(x, scale2, -lse2)) : 0.f;
           }
-          pf[n * 32] = make_float4(s[n][0], s[n][1], s[n][2], s[n][3]);
         }
-        bar_arrive(1 + pair, 64);
-        // dV += P^T dO: dO's slice in V's place
-        swept_product<T, BQ, ACC16>(acc, acc16, blk, s, cur + DO_AT, lane, q0, a.tq, jb,
-                                    mul16);
-      } else {
-        bar_sync(1 + pair, 64);
-#pragma unroll
-        for (int n = 0; n < BQ / 8; ++n) {
-          const float4 p = pf[n * 32];
-          const int col = n * 8 + 2 * c;
-          const float dg0 = qi.gl[col] - qi.di[col], dg1 = qi.gl[col + 1] - qi.di[col + 1];
-          s[n][0] = p.x * (s[n][0] + dg0);
-          s[n][1] = p.y * (s[n][1] + dg1);
-          s[n][2] = p.z * (s[n][2] + dg0);
-          s[n][3] = p.w * (s[n][3] + dg1);
-        }
-        // dK += dS^T Q
-        swept_product<T, BQ, ACC16>(acc, acc16, blk, s, cur + Q_AT, lane, q0, a.tq, jb,
-                                    mul16);
+        pf[n * 32] = make_float4(s[n][0], s[n][1], s[n][2], s[n][3]);
       }
+      bar_arrive(1 + pair, 64);
+      if (has_out)  // dV_j += P^T dO_j
+        swept_product<T, BQ, ACC16, WG>(acc, acc16, blk, s, cur + QE, lane, q0, a.tq, w.jb,
+                                        mul16);
+    } else {
+      bar_sync(1 + pair, 64);
+#pragma unroll
+      for (int n = 0; n < NF; ++n) {
+        const float4 p = pf[n * 32];
+        const int col = n * 8 + 2 * c;
+        const float dg0 = qi.gl[col] - qi.di[col], dg1 = qi.gl[col + 1] - qi.di[col + 1];
+        s[n][0] = p.x * (s[n][0] + dg0);
+        s[n][1] = p.y * (s[n][1] + dg1);
+        s[n][2] = p.z * (s[n][2] + dg0);
+        s[n][3] = p.w * (s[n][3] + dg1);
+      }
+      if (has_out)  // dK_j += dS^T Q_j
+        swept_product<T, BQ, ACC16, WG>(acc, acc16, blk, s, cur, lane, q0, a.tq, w.jb, mul16);
     }
     tile = next;
     state = next_state;
     par ^= 1;
   }
   cp_async_wait_all();
+  if (C > 1) cluster_sync();  // no block leaves while a peer may read its partials
+  if (!has_out) return;
   if constexpr (ACC16) flush_acc16(acc16, acc, mul16);
 
   T* out = dk_warp ? dk : dv;
@@ -1825,13 +2314,13 @@ flash_bwd_dkv_wide_kernel(Attn a, Bwd bw, int vec, int slices, int jb, T* __rest
   for (int r = 0; r < 2; ++r) {
     const int row = k0 + r0 + g + 8 * r;
     if (row >= a.tk) continue;
-    const long long at = row_offset(bi, hi, row, a.tk, a.h, a.d) + c_out;
+    const long long at = row_offset(bi, hi, row, a.tk, a.h, a.d) + slice * kChunk;
 #pragma unroll
-    for (int n = 0; n < DP / 8; ++n)
+    for (int n = 0; n < kChunk / 8; ++n)
 #pragma unroll
       for (int e = 0; e < 2; ++e) {
         const int col = n * 8 + 2 * c + e;
-        if (c_out + col < a.d)
+        if (slice * kChunk + col < a.d)
           out[at + col] = from_f<T>(out_value<ACC16>(acc, acc16, n, r, e, mul));
       }
   }
@@ -1839,28 +2328,65 @@ flash_bwd_dkv_wide_kernel(Attn a, Bwd bw, int vec, int slices, int jb, T* __rest
 
 // ------------------------------------------------------------------ launching
 
-// the arms take any head_dim; the grid bounds b * h (y) and tiles * slices (x)
+// the arms take any head_dim; the grid bounds b * h (y) and tiles * passes *
+// cluster (x)
 bool valid_wide(const Attn& a) {
-  const long long slices = chunks(a.d);
+  const Wide w = wide_geometry(a.d);
+  const long long per_tile = (long long)w.passes * w.cluster;
   return a.q && a.k && a.v && a.qp && a.kp && (!a.qs == !a.ks) && a.b >= 1 && a.h >= 1 &&
          a.tq >= 1 && a.tk >= 1 && a.d >= 1 && (long long)a.b * a.h <= 65535 &&
-         ((long long)a.tq + kTile - 1) / kTile * slices <= INT_MAX &&
-         ((long long)a.tk + kTile - 1) / kTile * slices <= INT_MAX;
+         ((long long)a.tq + kTile - 1) / kTile * per_tile <= INT_MAX &&
+         ((long long)a.tk + kTile - 1) / kTile * per_tile <= INT_MAX;
 }
 
-// a tile's slices run together (its data stay in L2), then the head's next tile
+// The widest load (16, 8 or 4 bytes, else one element) that rows of d
+// elements of T and every pointer given allow
+template <typename T>
+int load_width(int d, std::initializer_list<const void*> ptrs) {
+  for (int w : {16, 8, 4}) {
+    bool ok = d * sizeof(T) % w == 0;
+    for (const void* p : ptrs) ok = ok && reinterpret_cast<uintptr_t>(p) % w == 0;
+    if (ok) return w;
+  }
+  return sizeof(T);
+}
+
+// K5w: a tile's slices run together (its data stay in L2), then the head's next tile
 dim3 grid_wide(int t, const Attn& a) {
   return dim3((unsigned)(((t + kTile - 1) / kTile) * chunks(a.d)), a.b * a.h);
 }
 
+// K3w, K4w: one cluster of w.cluster blocks for each (tile, pass); a
+// cluster of 1 launches plainly
+template <typename... P, typename... Args>
+cudaError_t launch_cluster(void (*kernel)(P...), int t, const Attn& a, const Wide& w,
+                           int threads, size_t smem, cudaStream_t s, Args... args) {
+  cudaError_t e = prepare(kernel, smem);
+  if (e != cudaSuccess) return e;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((unsigned)(((t + kTile - 1) / kTile) * w.passes * w.cluster), a.b * a.h);
+  cfg.blockDim = dim3(threads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = s;
+  cudaLaunchAttribute attr;
+  attr.id = cudaLaunchAttributeClusterDimension;
+  attr.val.clusterDim.x = w.cluster;
+  attr.val.clusterDim.y = 1;
+  attr.val.clusterDim.z = 1;
+  cfg.attrs = &attr;
+  cfg.numAttrs = w.cluster > 1 ? 1 : 0;
+  e = cudaLaunchKernelEx(&cfg, kernel, args...);
+  return e != cudaSuccess ? e : cudaGetLastError();
+}
+
 template <typename T>
 cudaError_t fwd_wide(const Attn& a, void* o, float* lse, cudaStream_t s) {
-  const size_t smem = fwd_wide_smem<T>();
-  cudaError_t e = prepare(flash_fwd_wide_kernel<T>, smem);
-  if (e != cudaSuccess) return e;
-  flash_fwd_wide_kernel<T><<<grid_wide(a.tq, a), kThreads, smem, s>>>(
-      a, vec_copies<T>(a, nullptr), chunks(a.d), static_cast<T*>(o), lse);
-  return cudaGetLastError();
+  Wide w = wide_geometry(a.d);
+  w.width = load_width<T>(a.d, {a.q, a.k, a.v});
+  const auto kernel = w.cluster == 2 ? flash_fwd_cluster_kernel<T, true>
+                                     : flash_fwd_cluster_kernel<T, false>;
+  return launch_cluster(kernel, a.tq, a, w, kThreads, fwd_cluster_smem<T>(w.passes), s, a, w,
+                        static_cast<T*>(o), lse);
 }
 
 template <typename T, bool ACC16>
@@ -1869,23 +2395,42 @@ cudaError_t dq_wide(const Attn& a, const Bwd& g, int jb, void* dq, cudaStream_t 
   cudaError_t e = prepare(flash_bwd_dq_wide_kernel<T, ACC16>, smem);
   if (e != cudaSuccess) return e;
   flash_bwd_dq_wide_kernel<T, ACC16><<<grid_wide(a.tq, a), kThreads, smem, s>>>(
-      a, g, vec_copies<T>(a, g.dout), chunks(a.d), jb, static_cast<T*>(dq));
+      a, g, load_width<T>(a.d, {a.q, a.k, a.v, g.dout}), chunks(a.d), jb,
+      static_cast<T*>(dq));
   return cudaGetLastError();
 }
 
 template <typename T, bool ACC16>
 cudaError_t dkv_wide(const Attn& a, const Bwd& g, int jb, void* dk, void* dv,
                      cudaStream_t s) {
-  const size_t smem = dkv_wide_smem<T>();
-  cudaError_t e = prepare(flash_bwd_dkv_wide_kernel<T, ACC16>, smem);
-  if (e != cudaSuccess) return e;
-  flash_bwd_dkv_wide_kernel<T, ACC16><<<grid_wide(a.tk, a), kPairThreads, smem, s>>>(
-      a, g, vec_copies<T>(a, g.dout), chunks(a.d), jb, static_cast<T*>(dk),
-      static_cast<T*>(dv));
-  return cudaGetLastError();
+  Wide w = wide_geometry(a.d);
+  w.width = load_width<T>(a.d, {a.q, a.k, a.v, g.dout});
+  w.jb = jb;
+  const auto kernel = w.cluster == 2 ? flash_bwd_dkv_cluster_kernel<T, ACC16, true>
+                                     : flash_bwd_dkv_cluster_kernel<T, ACC16, false>;
+  return launch_cluster(kernel, a.tk, a, w, kPairThreads, dkv_cluster_smem<T>(ACC16), s, a, g,
+                        w, static_cast<T*>(dk), static_cast<T*>(dv));
 }
 
 }  // namespace
+
+// The sliced arms' geometry at head_dim d (bf16: bfloat16 inputs), as the
+// launches take it: out = {chunks, passes, cluster, K3w's dynamic shared
+// bytes, K4w's, K4a's}.
+extern "C" int dl4j_flash_wide_geometry(int d, int bf16, long long* out) {
+  if (d < 1 || !out) return (int)cudaErrorInvalidValue;
+  const Wide w = wide_geometry(d);
+  out[0] = w.nc;
+  out[1] = w.passes;
+  out[2] = w.cluster;
+  out[3] = (long long)(bf16 ? fwd_cluster_smem<__nv_bfloat16>(w.passes)
+                            : fwd_cluster_smem<float>(w.passes));
+  out[4] = (long long)(bf16 ? dkv_cluster_smem<__nv_bfloat16>(false)
+                            : dkv_cluster_smem<float>(false));
+  out[5] = (long long)(bf16 ? dkv_cluster_smem<__nv_bfloat16>(true)
+                            : dkv_cluster_smem<float>(true));
+  return 0;
+}
 
 // As dl4j_flash_fwd, at any head_dim.
 extern "C" int dl4j_flash_wide_fwd(const void* q, const void* k, const void* v,

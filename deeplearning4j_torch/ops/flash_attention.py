@@ -20,13 +20,15 @@ On CUDA tensors `FlashAttentionFunction` launches the hand-written kernels of
 bfloat16 with float32 sums, at head_dim up to MAX_HEAD_DIM. Wider heads, and
 the backward with a bfloat16 accumulator at any head_dim, run the sliced arms
 at the end of the same file (`dl4j_flash_wide_fwd`,
-`dl4j_flash_wide_bwd_dkv`, `dl4j_flash_wide_bwd_dq`): the output columns are
-cut into slices of 128 over the grid and the contractions over head_dim are
-streamed through shared memory in 128-wide chunks, so they have no head_dim
-limit of their own. All of them run their products on the tensor cores
-(`mma.sync`: bfloat16 products for bfloat16, and for float32 three TF32
-products per float32 one, the 3xTF32 split, which keeps float32 accuracy).
-The notes there say what bounds them and how they are laid out. On CPU
+`dl4j_flash_wide_bwd_dkv`, `dl4j_flash_wide_bwd_dq`), which cut head_dim
+into chunks of 128 columns and have no head_dim limit of their own. The
+forward and dk/dv arms run one thread-block cluster a tile, a block for each
+chunk (up to 8; `wide_geometry`), which compute the tile's scores once,
+summed across the cluster; the dq arm slices its output over the grid. The
+products run on the tensor cores: bfloat16 on `wgmma` in the clustered arms
+and on `mma.sync` elsewhere, float32 as three TF32 `mma.sync` products per
+float32 one (the 3xTF32 split, which keeps float32 accuracy). The notes
+there say what bounds them and how they are laid out. On CPU
 tensors it runs `flash_fwd_reference` and `flash_bwd_reference`. There is no
 fallback from one to the other: a CUDA tensor the kernels do not take raises.
 
@@ -117,6 +119,86 @@ _POINTERS = {"dl4j_flash_fwd": 10, "dl4j_flash_bwd_dkv": 14,
 #: the wide entry points take the bfloat16 accumulator's block (0: float32)
 _ACC_BLOCK = ("dl4j_flash_wide_bwd_dkv", "dl4j_flash_wide_bwd_dq")
 _fns = {}
+
+#: The sliced arms cut head_dim into chunks of WIDE_CHUNK columns. The
+#: forward and dk/dv arms (K3w, K4w) launch one thread-block cluster a tile,
+#: one block a chunk up to the portable cluster of MAX_CLUSTER; above that a
+#: block owns several chunks and the tile runs in passes (`wide_geometry`).
+WIDE_CHUNK = 128
+MAX_CLUSTER = 8
+#: Shared memory a block may take on the H100 (227 KB)
+SMEM_LIMIT = 232_448
+#: K3w's key tiles and K4w's query tiles, by input type; K3w's blocks an SM
+_CLUSTER_KEYS = {torch.float32: 24, torch.bfloat16: 32}
+FWD_BLOCKS_PER_SM = {torch.float32: 2, torch.bfloat16: 3}
+_CLUSTER_QUERIES = {torch.float32: 32, torch.bfloat16: 64}
+
+
+def wide_geometry(head_dim: int) -> dict:
+    """How K3w and K4w cut head_dim (as the kernels' launch does): `chunks`
+    of 128 columns; `passes`, the clusters a tile runs in (1 up to 8
+    chunks); `cluster`, the blocks of one. Block `rank` owns the chunks
+    rank, rank + cluster, ... of every operand and, in pass p, the output
+    slice p * cluster + rank (none past the last chunk)."""
+    nc = -(-head_dim // WIDE_CHUNK)
+    passes = -(-nc // MAX_CLUSTER)
+    return {"chunks": nc, "passes": passes, "cluster": -(-nc // passes)}
+
+
+def wide_block_chunks(head_dim: int, rank: int, pass_: int) -> list:
+    """The chunks block `rank` of pass `pass_` takes, in the order of its
+    steps: its own chunks, the one of its output slice last (its ring slot
+    then still holds what the products need)."""
+    g = wide_geometry(head_dim)
+    c = g["cluster"]
+    steps = -(-(g["chunks"] - rank) // c)
+    return [rank + c * ((pass_ + 1 + k) % steps) for k in range(steps)]
+
+
+def load_width(head_dim: int, itemsize: int, ptrs) -> int:
+    """Bytes a load of the sliced arms moves: the widest of 16, 8 and 4 that
+    a row (head_dim * itemsize bytes) and every pointer divide, else one
+    element."""
+    for w in (16, 8, 4):
+        if head_dim * itemsize % w == 0 and all(p % w == 0 for p in ptrs if p):
+            return w
+    return itemsize
+
+
+def wide_smem(head_dim: int, dtype: torch.dtype) -> dict:
+    """Dynamic shared memory (bytes) of K3w (`fwd`) and K4w (`dkv`, and
+    `dkv_acc16` with the bfloat16 accumulator) at this head_dim: 1024 bytes
+    of alignment slack; [rows x 128] tiles, padded 16 bytes a row in
+    float32 and swizzled without padding in bfloat16 (K3w: Q's chunk, and a
+    two-slot ring of K and V tiles, which also carries Q's chunks above one
+    pass; K4w: K's and V's chunks and a two-slot ring of Q's and dO's); the
+    cluster's exchange buffers (a float4 a fragment a thread, two) and a
+    pair's two mbarriers; K4w's P^T hand-over; the mask data."""
+    size = 4 if dtype == torch.float32 else 2
+    tile = lambda rows: rows * (WIDE_CHUNK + (16 // size if size == 4 else 0)) * size
+    bk, bq = _CLUSTER_KEYS[dtype], _CLUSTER_QUERIES[dtype]
+    one = wide_geometry(head_dim)["passes"] == 1
+    fwd = (1024 + (tile(64) if one else 0) + 2 * ((0 if one else tile(64)) + 2 * tile(bk))
+           + 2 * (bk // 8) * 128 * 16 + 2 * 12 * bk + 16)
+    dkv = (1024 + 2 * tile(64) + 4 * tile(bq) + 2 * (bq // 8) * 256 * 16
+           + 4 * (bq // 8) * 32 * 16 + 2 * 20 * bq + 16)
+    return {"fwd": fwd, "dkv": dkv, "dkv_acc16": dkv + 32 * 256 * 4}
+
+
+def kernel_wide_geometry(head_dim: int, dtype: torch.dtype) -> dict:
+    """`wide_geometry` and `wide_smem` as the CUDA source computes them
+    (`dl4j_flash_wide_geometry`; builds the library)."""
+    fn = _fns.get("dl4j_flash_wide_geometry")
+    if fn is None:
+        fn = getattr(cuda_build.load("flash_attention"), "dl4j_flash_wide_geometry")
+        fn.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.POINTER(ctypes.c_longlong)]
+        fn.restype = ctypes.c_int
+        _fns["dl4j_flash_wide_geometry"] = fn
+    out = (ctypes.c_longlong * 6)()
+    if fn(head_dim, int(dtype == torch.bfloat16), out) != 0:
+        raise ValueError(f"dl4j_flash_wide_geometry refused head_dim {head_dim}")
+    return {"chunks": out[0], "passes": out[1], "cluster": out[2], "fwd": out[3],
+            "dkv": out[4], "dkv_acc16": out[5]}
 
 
 def _blocks_divide(t_q: int, t_k: int, q_block: int, kv_block: int) -> bool:

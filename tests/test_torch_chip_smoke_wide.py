@@ -194,6 +194,47 @@ def test_wide_cases_cover_the_issue_shapes():
     assert (wide["heads"], wide["head_dim"], wide["ff"]) == (8, 256, 16384)
 
 
+#: PR 24's cases, which every later case list keeps
+PR24_FLASH = {"wide_model_f32", "wide_model_bf16", "d300_float32_noncausal",
+              "d300_float32_offsets", "d256_float32_tq1", "d2689_float32"} | {
+    f"d{d}_{dtype}_{name}" for d in (256, 160, 300, 512, 2688)
+    for dtype in ("float32", "bfloat16") for name in ("causal", "key_mask", "segments")}
+PR24_ACC16 = {"acc16_model_f32_128", "acc16_d256_f32_32", "acc16_d256_bf16_128",
+              "acc16_d256_bf16_32", "acc16_d300_f32_32", "acc16_d2688_f32_128",
+              "acc16_d2688_bf16_32", "acc16_d64_bf16_128", "acc16_d100_f32_100"}
+
+
+def test_wide_cases_keep_pr24_and_hold_the_cluster_edges():
+    """Every PR 24 case stays; the clustered arms' edges are added in both
+    types, for the sliced arms and the accumulator: head_dim 1024 (one
+    cluster of 8, the portable size) and 1152 (9 chunks, two passes), and a
+    bfloat16 head_dim 300 whose tensors sit 8 bytes into their storage."""
+    flash = {c[0]: c for c in chip_smoke.FLASH_WIDE_CASES}
+    acc16 = {c[0]: c for c in chip_smoke.ACC16_CASES}
+    assert PR24_FLASH <= set(flash) and PR24_ACC16 <= set(acc16)
+    for d, want in ((1024, (1, 8)), (1152, (2, 5))):
+        g = port_fa.wide_geometry(d)
+        assert (g["passes"], g["cluster"]) == want
+        for dtype in ("float32", "bfloat16"):
+            assert any(c[5] == d and c[6] == dtype for c in flash.values()), (d, dtype)
+            assert any(c[4] == d and c[5] == dtype for c in acc16.values()), (d, dtype)
+    off = flash["d300_bfloat16_offset8"]
+    assert off[5:7] == (300, "bfloat16") and off[8] == {"offset": 4}
+
+
+def test_offset_inputs_are_8_byte_aligned_views():
+    """The offset option shifts q, k, v and do 4 bfloat16 elements into
+    storages of their own: contiguous, 8-byte but not 16-byte aligned, so
+    the arms' loads take 8 bytes a copy at head_dim 300."""
+    gen = torch.Generator().manual_seed(0)
+    ins = chip_smoke._flash_inputs(torch, gen, 1, 8, 8, 2, 300, torch.bfloat16,
+                                   {"offset": 4}, device="cpu")
+    for x in ins[:4]:
+        assert x.is_contiguous() and x.data_ptr() % 8 == 0 and x.data_ptr() % 16 == 8
+    geom = chip_smoke._wide_row_geometry(port_fa, 300, *ins[:4])
+    assert geom == {"chunks": 3, "passes": 1, "cluster": 3, "load_width": 8}
+
+
 def test_sdpa_backend_names_a_backend_or_says_unknown():
     q = torch.zeros(1, 2, 8, 256)
     name = chip_smoke.sdpa_backend(torch, q, q, q, True)

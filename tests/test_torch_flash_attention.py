@@ -492,7 +492,13 @@ def test_sliced_arms_match_plain_on_card(dtype):
     for b, tq, tk, h, d, causal, kw in [(2, 130, 130, 2, 160, True, dict()),
                                         (2, 96, 96, 1, 300, True, dict(key_mask=True)),
                                         (1, 128, 128, 2, 512, True, dict(segs=True)),
-                                        (1, 64, 64, 1, 2688, False, dict())]:
+                                        (1, 64, 64, 1, 2688, False, dict()),
+                                        # the clustered arms' edges: one cluster
+                                        # of 8 blocks; two passes of 5 (at t 64
+                                        # a segment's first row, whose dq is
+                                        # rounding noise, is 1/21 of the rows)
+                                        (1, 128, 128, 1, 1024, True, dict(segs=True)),
+                                        (2, 64, 64, 1, 1152, True, dict(key_mask=True))]:
         rel = (1e-5 * d / 128) if dtype == "float32" else 1e-2
         q, k, v, do, km, qs, ks, qp, kp = _card_case(gen, b, tq, tk, h, d, dt, **kw)
         scale = d ** -0.5

@@ -343,3 +343,61 @@ def test_route_parity_reaches_every_head_dim_of_the_gate():
         assert port_fa.flash_attention_supported(t, t, hd) is want
     assert ref_att.select_attention_impl(4096, 2688, interpret=True) == \
         port_att.select_attention_impl(4096, 2688)
+
+
+# ------------------------------------------------- the clustered arms' geometry
+# (host-side arithmetic of K3w and K4w; the CUDA source computes the same
+# and chip_smoke.py holds it to these functions on the card)
+
+def test_wide_cluster_geometry_covers_every_chunk_once():
+    """At every head_dim 129-2689: a cluster of at most 8 blocks, one block a
+    chunk up to 8 chunks (one pass); above that passes x cluster covers the
+    chunks. Block rank takes its chunks rank, rank + cluster, ... with its
+    output slice last, and every output slice has one block in one pass."""
+    for d in range(129, 2690):
+        g = port_fa.wide_geometry(d)
+        nc, c, p = g["chunks"], g["cluster"], g["passes"]
+        assert nc == -(-d // 128) and 1 <= c <= port_fa.MAX_CLUSTER and p * c >= nc
+        assert (p == 1) == (d <= 1024) and (p > 1 or c == nc)
+        slices = []
+        for rank in range(c):
+            for pass_ in range(p):
+                order = port_fa.wide_block_chunks(d, rank, pass_)
+                assert sorted(order) == list(range(rank, nc, c)) and len(order) <= p
+                if pass_ * c + rank < nc:
+                    assert order[-1] == pass_ * c + rank
+                    slices.append(order[-1])
+        assert sorted(slices) == list(range(nc))
+    assert port_fa.wide_geometry(1024) == {"chunks": 8, "passes": 1, "cluster": 8}
+    assert port_fa.wide_geometry(1152) == {"chunks": 9, "passes": 2, "cluster": 5}
+    assert port_fa.wide_geometry(2689) == {"chunks": 22, "passes": 3, "cluster": 8}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_wide_shared_memory_fits_a_block(dtype):
+    """K3w and K4w (with and without the bfloat16 accumulator) within a
+    block's 232,448 bytes at every head_dim 129-2689; K3w in one pass small
+    enough for its blocks an SM, two in float32 and three in bfloat16 (228
+    KB, 1 KB reserved a block)."""
+    blocks = port_fa.FWD_BLOCKS_PER_SM[dtype]
+    for d in range(129, 2690):
+        smem = port_fa.wide_smem(d, dtype)
+        assert max(smem.values()) <= port_fa.SMEM_LIMIT, (d, smem)
+        if d <= 1024:
+            assert blocks * (smem["fwd"] + 1024) <= 233_472, (d, smem)
+
+
+@pytest.mark.parametrize("d, itemsize, offset, want", [
+    (256, 2, 0, 16), (300, 2, 0, 8), (300, 2, 8, 8), (256, 2, 8, 8), (302, 2, 0, 4),
+    (301, 2, 0, 2), (256, 2, 2, 2), (256, 4, 0, 16), (2689, 4, 0, 4), (258, 4, 0, 8),
+    (256, 4, 4, 4)])
+def test_wide_load_width(d, itemsize, offset, want):
+    """The widest copy a row of d elements and every pointer allow: a
+    bfloat16 row of 300 (600 bytes) 8 bytes a copy, an odd one element by
+    element, one pointer off 16 bytes enough to narrow every load."""
+    base = 1 << 20
+    assert port_fa.load_width(d, itemsize, [base, base + offset, base, base]) == want
+    x = torch.zeros(d + 8, dtype=torch.bfloat16 if itemsize == 2 else torch.float32)
+    view = x[offset // itemsize:][:d]
+    assert port_fa.load_width(d, itemsize, [view.data_ptr()]) == \
+        port_fa.load_width(d, itemsize, [x.data_ptr() + offset])
