@@ -332,7 +332,8 @@ Phases, each of which fails the script (non-zero exit, no result line):
    beside SDPA and the backend it took), 160, 300, 512 and 2688, in both
    types, causal, with a key mask and with packed segments; K4's and K5's
    bfloat16-accumulator arms at JAX blocks 128, 32 and 100 against the
-   plain accumulator, and its path through `flash_attention(...,
+   plain accumulator (at head_dim 1024, t 64 with segments within the plain
+   version's own spread), and its path through `flash_attention(...,
    bwd_acc_dtype="bfloat16")`; K7's sliced arm at 256 and 2688. The char
    model at width 1024 over 4 heads (t 8192, batch 4) served and trained in
    float32 and as a bfloat16 network (the sliced K3 once a layer a forward,
@@ -4259,7 +4260,9 @@ FLASH_WIDE_CASES = _wide_flash_cases()
 # accumulator's arms of K4 and K5 against its plain version, at the JAX
 # package's default block (128) and at 32, the wide model's shape timed; a
 # head_dim under 128 (the accumulator runs the sliced arm at any head_dim);
-# a block of 100, which the 32-row sweep tiles straddle
+# a block of 100, which the 32-row sweep tiles straddle. Options as
+# `_flash_inputs`', and plain_bound: held to `acc16_plain_bound`, not to
+# ACC16_SHARE
 ACC16_CASES = [
     ("acc16_model_f32_128", CHAR_BATCH, CHAR_T, WIDE_CHAR_HEADS, WIDE_HEAD, "float32", 128,
      {}, True),
@@ -4276,6 +4279,13 @@ ACC16_CASES = [
     ("acc16_d1024_bf16_128", 1, 256, 2, 1024, "bfloat16", 128, {"segments": True}, False),
     ("acc16_d1152_f32_128", 1, 256, 1, 1152, "float32", 128, {"key_mask": True}, False),
     ("acc16_d1152_bf16_32", 1, 256, 1, 1152, "bfloat16", 32, {}, False),
+    # t 64 with segments: a segment's first rows see a key or two and their
+    # dq is rounding noise, so the share of entries a sum in another order
+    # tips says little; held to the plain version's own spread (plain_bound)
+    ("acc16_d1024_f32_32_t64", 1, 64, 2, 1024, "float32", 32,
+     {"segments": True, "plain_bound": True}, False),
+    ("acc16_d1024_bf16_32_t64", 1, 64, 2, 1024, "bfloat16", 32,
+     {"segments": True, "plain_bound": True}, False),
 ]
 # (label, b, t_kv, h, d, dtype, layers of the view (0: contiguous), timed):
 # K7's sliced arm at the wide decoder's shape (8 heads of 256 read in place
@@ -4324,17 +4334,74 @@ def _check_wide_flash(torch, label, dtype, d, got, want, worst, key):
     return rel
 
 
-def _check_acc16(torch, label, got, want, worst, key):
+def acc16_plain_bound(fa, args, jb, kernel):
+    """Limits on the mean |kernel - plain| for the bfloat16 accumulator's arm
+    `kernel` ("dq", or "dkv": dk then dv) at JAX block jb, one an output
+    from the plain version's own spread, as tests/test_torch_wide_heads.py
+    takes its bound from the JAX package's: a tenth of the smaller mean of
+    |plain at jb - plain at the other block| and |plain summed in float32 -
+    plain at jb|. The other block is the JAX package's default at this t
+    (`pick_kernel_block(t, 128)`), or jb / 2 where that is jb. That bound's
+    largest-difference half (a quarter of the spread's largest) is left to
+    ACC16_REL: at head_dim 1024, t 64 it is a fraction of one bfloat16 ulp of
+    the largest entries, which one rounding tipped by another order of a
+    float32 sum exceeds; a wrong accumulator differs in many entries, which
+    the mean sees."""
+    ref = fa.flash_bwd_dq_reference if kernel == "dq" else fa.flash_bwd_dkv_reference
+    other = fa.pick_kernel_block(args[0].shape[1], fa.DEFAULT_BLOCK_KV)
+    other = other if other != jb else jb // 2
+    runs = [ref(*args, acc_block=blk) for blk in (jb, other, 0)]
+    runs = [r if isinstance(r, tuple) else (r,) for r in runs]
+    return [0.1 * min((mine.float() - blocks.float()).abs().mean().item(),
+                      (f32.float() - mine.float()).abs().mean().item())
+            for mine, blocks, f32 in zip(*runs)]
+
+
+def _check_acc16(torch, label, got, want, worst, key, bound=None):
     """The bfloat16 accumulator's arm against its plain version: ACC16_REL of
-    max|plain| and at most ACC16_SHARE of the entries different."""
+    max|plain| and at most ACC16_SHARE of the entries different; with
+    `bound` (`acc16_plain_bound`'s) no share limit, the mean |got - want|
+    within the bound. Returns (rel, share)."""
     rel = _rel_err(got, want)
-    share = (got.float() != want.float()).float().mean().item()
-    if not rel <= ACC16_REL or not share <= ACC16_SHARE or not torch.isfinite(got).all():
+    err = (got.float() - want.float()).abs()
+    share = (err != 0).float().mean().item()
+    if bound is None:
+        held = share <= ACC16_SHARE
+        what = f"{share} of the entries differ (limit {ACC16_SHARE})"
+    else:
+        held = err.mean().item() <= bound
+        what = (f"mean difference {err.mean().item()} (the plain version's spread "
+                f"allows {bound})")
+    if not rel <= ACC16_REL or not held or not torch.isfinite(got).all():
         raise RuntimeError(f"{key} {label}: error {rel} of max|plain| (limit "
-                           f"{ACC16_REL}), {share} of the entries differ (limit "
-                           f"{ACC16_SHARE})")
-    worst[key] = max(worst.get(key, 0.0), (got.float() - want.float()).abs().max().item())
+                           f"{ACC16_REL}), {what}")
+    worst[key] = max(worst.get(key, 0.0), err.max().item())
     return rel, share
+
+
+def check_dq_ring(fa, d):
+    """K5w's ring steps as the kernel takes them (`fa.kernel_dq_ring`), for
+    every block of every pass at head_dim d, against the design: in one pass
+    one step, K's and V's chunk of the block's rank (Q's and dO's resident);
+    above, each of the block's chunks in `wide_block_chunks`' order, dO's
+    and V's, then Q's and K's, so that the last step holds K's chunk of the
+    block's output slice, which the dS K product reads from that slot."""
+    g = fa.wide_geometry(d)
+    for rank in range(g["cluster"]):
+        for pass_ in range(g["passes"]):
+            got = fa.kernel_dq_ring(d, rank, pass_)
+            if g["passes"] == 1:
+                want = [(rank, "K V")]
+            else:
+                want = [(c, ops) for c in fa.wide_block_chunks(d, rank, pass_)
+                        for ops in ("dO V", "Q K")]
+                slice_ = pass_ * g["cluster"] + rank
+                if slice_ < g["chunks"] and want[-1] != (slice_, "Q K"):
+                    raise RuntimeError(f"dq ring d {d} rank {rank} pass {pass_}: the design "
+                                       f"{want} ends off the output slice {slice_}")
+            if got != want:
+                raise RuntimeError(f"dq ring d {d} rank {rank} pass {pass_}: kernel {got}, "
+                                   f"design {want}")
 
 
 def _wide_row_geometry(fa, d, q, k, v, do):
@@ -4347,15 +4414,17 @@ def _wide_row_geometry(fa, d, q, k, v, do):
 def phase_wide_kernels(torch, card, device=None):
     """The sliced arms of K3, K4 and K5 (head_dim > 128) against their plain
     versions at FLASH_WIDE_CASES, with a nonzero lse cotangent; the bfloat16
-    accumulator's arms of K4 and K5 against its plain version at ACC16_CASES;
+    accumulator's arms of K4 and K5 against its plain version at ACC16_CASES
+    (`_check_acc16`; the cases marked plain_bound within the plain version's
+    own spread, `acc16_plain_bound`);
     K7's sliced arm at DECODE_WIDE_CASES (`check_decode`, rows with
     cache_len 0 and past the bucket too). Timed cases: warm CUDA-event times
     of each kernel, its plain version and SDPA (the yardstick only; the
     backend torch took is named), beside the operations bound. Each row
     names its cluster geometry and the bytes its loads move (`wide_geometry`,
     `load_width`); on the card the CUDA source's geometry is held to the
-    wrapper's at every head_dim 129-2689, in both types, and the arms'
-    ptxas records (registers, spills) are reported. Then the
+    wrapper's at every head_dim 129-2689, in both types, K5w's ring order
+    to `check_dq_ring`'s at the same head_dims, and the arms' ptxas records (registers, spills) are reported. Then the
     bfloat16 accumulator's path through the public entry point: autograd of
     `flash_attention(..., bwd_acc_dtype="bfloat16")` at the wide model's
     shape, the counts reset just before and read just after (the sliced K3
@@ -4375,12 +4444,14 @@ def phase_wide_kernels(torch, card, device=None):
             for d in range(129, 2690):
                 want = {**fa.wide_geometry(d), **fa.wide_smem(d, dt)}
                 got = fa.kernel_wide_geometry(d, dt)
-                if got != want or max(got["fwd"], got["dkv_acc16"]) > fa.SMEM_LIMIT:
+                if got != want or max(got[k] for k in ("fwd", "dkv", "dkv_acc16", "dq",
+                                                       "dq_acc16")) > fa.SMEM_LIMIT:
                     raise RuntimeError(f"wide geometry {dt} d {d}: kernel {got}, "
                                        f"wrapper {want} (limit {fa.SMEM_LIMIT} bytes)")
+        for d in range(129, 2690):
+            check_dq_ring(fa, d)
         rows["ptxas"] = [k for k in ptxas_report(cuda_build.build_logs.get(
-            "flash_attention", "")) if "cluster_kernel" in k["kernel"]
-            or "dq_wide_kernel" in k["kernel"]]
+            "flash_attention", "")) if "cluster_kernel" in k["kernel"]]
         for k in rows["ptxas"]:
             log(f"ptxas sliced arm: {json.dumps(k)}")
     for label, b, tq, tk, h, d, dtype, causal, opts, timed in FLASH_WIDE_CASES:
@@ -4477,11 +4548,17 @@ def phase_wide_kernels(torch, card, device=None):
         row = {"case": label, "shape": [b, t, t, h, d], "dtype": dtype, "jax_block": jb,
                **{k_: bool(v_) for k_, v_ in opts.items()},
                "geometry": _wide_row_geometry(fa, d, q, k, v, do)}
-        for what, key, got, want in (("dk", "flash_bwd_dkv_acc16", dk, dkw),
-                                     ("dv", "flash_bwd_dkv_acc16", dv, dvw),
-                                     ("dq", "flash_bwd_dq_acc16", dq, dqw)):
+        bounds = [None] * 3
+        if opts.get("plain_bound"):
+            bounds = acc16_plain_bound(fa, args, jb, "dkv") + acc16_plain_bound(fa, args, jb,
+                                                                               "dq")
+            row["plain_bound"] = bounds
+        for (what, key, got, want), bound in zip((("dk", "flash_bwd_dkv_acc16", dk, dkw),
+                                                  ("dv", "flash_bwd_dkv_acc16", dv, dvw),
+                                                  ("dq", "flash_bwd_dq_acc16", dq, dqw)),
+                                                 bounds):
             row[f"{what}_rel_err"], row[f"{what}_differing_share"] = _check_acc16(
-                torch, label, got, want, worst, key)
+                torch, label, got, want, worst, key, bound)
         if timed:
             pairs = attention_pairs(torch, qp, kp, True, b, h, km, qs, ks)
             ql, kl, vl = (x.detach().transpose(1, 2).requires_grad_() for x in (q, k, v))
@@ -4579,8 +4656,7 @@ def phase_wide_kernels(torch, card, device=None):
                         "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                         "bound_by": r["bound_by"], "library_ms": r["library_ms"],
                         "case": case, "sdpa_backend": rows[case].get("sdpa_backend"),
-                        "cluster": None if "dq" in name
-                        else rows[case]["geometry"]["cluster"]})
+                        "cluster": rows[case]["geometry"]["cluster"]})
     r = rows["wide_engine_f32"]
     entries.append({"name": "decode_attention_wide", "route": "cuda",
                     "source": "deeplearning4j_torch/ops/csrc/decode_attention.cu",
@@ -8869,6 +8945,22 @@ def two_topic_text(n, seed):
             for i in range(n)], animals, foods
 
 
+def skip_window_scale(score):
+    """The factor on syn1 that takes about half of these |scores| out of
+    word2vec.c's |score| < 6 window: 6 falls at the middle of the widest
+    relative gap between neighbouring scores within 5% (of the count) of
+    the median, so no score sits on the window's edge, where the card and
+    the CPU, summing in other orders, could decide it either way (with
+    the median scaled to 6, the median's own bit sat on the edge, and in
+    one run the card decided some bit otherwise than the CPU)."""
+    srt = score.double().sort().values
+    n = srt.numel()
+    lo = max(0, min(int(0.45 * n), n - 2))
+    window = srt[lo:max(int(0.55 * n), lo + 1) + 1]
+    i = int((window[1:] / window[:-1].clamp(min=1e-30)).argmax())
+    return 12.0 / max(float(window[i] + window[i + 1]), 1e-12)
+
+
 def phase_word2vec_builder(torch, card, device=None, size=None):
     """`Word2Vec.builder()` at its defaults (layer 100, hierarchical softmax,
     batch 1024) with negative 5 too, skip-gram, on bench_w2v's default
@@ -8949,7 +9041,7 @@ def phase_word2vec_builder(torch, card, device=None, size=None):
              * trained["syn1"][points.clamp(min=0).long()]).sum(-1)[codes >= 0].abs()
     # the trained tables, then syn1 scaled so that about half the batch's
     # code bits leave the |score| < 6 window
-    scale = 6.0 / max(float(score.median()), 1e-12)
+    scale = skip_window_scale(score)
     lr = float(np.float32(tr.lr))
     hold = {"limit": W2V_HOLD_REL, "syn1_scale": scale}
     for variant, factor in (("trained", 1.0), ("syn1_scaled", scale)):

@@ -519,15 +519,15 @@ __device__ __forceinline__ void tile_scores(float (&s)[BK / 8][4],
   }
 }
 
-// acc[n][.] += p v over the key tile, for the output columns n (< DP / 8).
-// The tensor cores' float32 sums drop low bits, so in float32 each output
+// acc[n][.] += p v over the key tile, for the output columns n (< DP / 8) of
+// rows LD apart (float32: of a wider tile's, from where vt points). The
+// tensor cores' float32 sums drop low bits, so in float32 each output
 // column's tile sum starts from zero and joins acc with a rounded float add,
 // rather than running on through every key of the row.
-template <int DP, int BK>
+template <int DP, int BK, int LD = tile_ld<float>(DP)>
 __device__ __forceinline__ void tile_pv(float (&acc)[DP / 8][4],
                                         const float (&p)[BK / 8][4],
                                         const float* vt, int lane) {
-  constexpr int LD = tile_ld<float>(DP);
   const int g = lane >> 2, c = lane & 3;
   // A column c is key 2c, column c + 4 key 2c + 1 of each 8-key step
   unsigned ab[BK / 8][4], as[BK / 8][4];
@@ -1201,15 +1201,18 @@ extern "C" int dl4j_flash_bwd_dq(const void* q, const void* k, const void* v,
 // the card's 49 flops a byte at its float32-accurate tensor-core rate and 295
 // in bfloat16).
 //
-// K3w and K4w: a tile's S computed once, shared across a thread-block cluster.
-// Head_dim is cut into nc = ceil(d / 128) chunks of kChunk = 128 columns. A
-// tile of the block's own side (64 query rows in K3w, 64 key rows in K4w) is
-// one cluster of C blocks, one block for each chunk up to the portable
-// cluster size of 8 (head_dim <= 1024). Block j (its rank) owns chunk j of
-// every operand and the output slice j (columns 128 j ..):
+// K3w, K4w and K5w: a tile's S computed once, shared across a thread-block
+// cluster. Head_dim is cut into nc = ceil(d / 128) chunks of kChunk = 128
+// columns. A tile of the block's own side (64 query rows in K3w and K5w, 64
+// key rows in K4w) is one cluster of C blocks, one block for each chunk up
+// to the portable cluster size of 8 (head_dim <= 1024). Block j (its rank)
+// owns chunk j of every operand and the output slice j (columns 128 j ..):
 //   K3w: S_j = Q_j K_j^T over its own 128 columns; then O_j += P V_j.
 //   K4w: S^T_j = K_j Q_j^T (warps 0-3) and dP^T_j = V_j dO_j^T (warps 4-7);
 //        then dV_j += P^T dO_j and dK_j += dS^T Q_j.
+//   K5w: S_j = Q_j K_j^T and dP_j = dO_j V_j^T, both in one exchange; then
+//        dS = P (dP + g - di) and dQ_j += dS K_j, K_j still in the ring slot
+//        of the S step, so K's output slice needs no load of its own.
 // The blocks then sum the C partials through distributed shared memory in
 // rank order 0 .. C - 1: a pair (C = 2, head_dim <= 256) pushes its partial
 // into the peer's shared memory by st.async, which counts its bytes on the
@@ -1218,17 +1221,17 @@ extern "C" int dl4j_flash_bwd_dq(const void* q, const void* k, const void* v,
 // waits for its peer's data only. A larger cluster leaves each partial in
 // its own block and, after a cluster barrier, every block reads its peers'
 // (mapa + ld.shared::cluster). So every block holds the same S (S^T, dP^T)
-// bit for bit, and the same m, l, P and skip states; rank 0 alone writes
-// the lse. The partial buffers are double-buffered: a block writes a
+// bit for bit (K5w also dP), and the same m, l, P and skip states; rank 0
+// alone writes the lse. The partial buffers are double-buffered: a block writes a
 // buffer (its own, or the peer's) again two tiles later, after every block
 // has moved past reading it (a block's tile i + 1 partial, which the others
 // wait for, follows its reads of tile i's). A last cluster barrier keeps
-// every block resident until its peers are done with it. This is the least work, 4d flops a
-// pair in K3w and 8d in K4w, and each element of Q, K, V and dO is loaded once
-// per pair of tiles: the resident operand, Q_j in K3w and K_j, V_j in K4w,
-// stays in shared memory for the block's whole sweep, and only the other side
-// streams, through a two-slot cp.async ring (the next tile loads while this
-// one is computed).
+// every block resident until its peers are done with it. This is the least
+// work, 4d flops a pair in K3w, 8d in K4w and 6d in K5w, and each element of
+// Q, K, V and dO is loaded once per pair of tiles: the resident operand, Q_j
+// in K3w, K_j and V_j in K4w, Q_j and dO_j in K5w, stays in shared memory
+// for the block's whole sweep, and only the other side streams, through a
+// two-slot cp.async ring (the next tile loads while this one is computed).
 //
 // Above 1024 (nc > 8: the JAX gate admits these only at short t, 2,688 at t
 // 128, 2,689 at t 64, more below) the passes P = ceil(nc / 8) and the cluster
@@ -1238,9 +1241,11 @@ extern "C" int dl4j_flash_bwd_dq(const void* q, const void* k, const void* v,
 // S: P times the least work in S, for shapes that are rare and short. The
 // resident operand is then streamed with the other side (K3w's ring slot
 // carries Q's chunk beside K's; K4w reloads its K and V chunks at each step,
-// behind a barrier), so shared memory does not grow with head_dim. The steps
-// of a tile visit the block's chunks so that its output chunk comes last, and
-// the ring slot of the last step still holds what the products need.
+// behind a barrier; K5w takes two ring steps a chunk, dO's beside V's and
+// then Q's beside K's), so shared memory does not grow with head_dim. The
+// steps of a tile visit the block's chunks so that its output chunk comes
+// last, and the ring slot of the last step still holds what the products
+// need.
 //
 // bfloat16 products on wgmma, float32 on mma.sync. In bfloat16, K3w's block
 // is one warpgroup (128 threads, 64 query rows: wgmma's M of 64): S_j is
@@ -1252,13 +1257,19 @@ extern "C" int dl4j_flash_bwd_dq(const void* q, const void* k, const void* v,
 // thread); P^T passes from the first to the second through shared memory (a
 // named barrier of each pair of warps w, w + 4), as in K4. The accumulator
 // fragments of wgmma are mma.sync's, so the online softmax, the masks and the
-// hand-over run on them unchanged. bfloat16 tiles are laid out as wgmma reads
-// them: a [rows x 128] tile is two 64-column halves, each rows x 128 bytes
-// with the 128-byte swizzle (16-byte granule g of row r at g ^ (r % 8)), from
-// 1024-byte aligned offsets; the same tile is a K-major operand (S's B) and an
-// MN-major one (the P V product's B). In float32 the products are K3-K5's
-// 3xTF32 m16n8k8 (tf32 wgmma cannot read B transposed), on tiles padded 16
-// bytes a row.
+// hand-over run on them unchanged. K5w's bfloat16 block is one warpgroup: S_j
+// and dP_j are m64n32k16 (A Q_j or dO_j, B K_j or V_j, from shared memory),
+// dQ_j += dS K_j is m64n128k16 with dS in registers and K_j read MN-major;
+// its float32 block is two warpgroups (SPLIT): the first computes S_j and p,
+// the second dP_j, they swap p and dP through shared memory (a named barrier
+// of each pair of warps w, w + 4), both form the same dS, and each adds dS
+// K_j to its own 64 of the 128 columns (32 accumulator registers a thread).
+// bfloat16 tiles are laid out as wgmma reads them: a [rows x 128] tile is two
+// 64-column halves, each rows x 128 bytes with the 128-byte swizzle (16-byte
+// granule g of row r at g ^ (r % 8)), from 1024-byte aligned offsets; the
+// same tile is a K-major operand (S's B) and an MN-major one (the P V
+// product's B). In float32 the products are K3-K5's 3xTF32 m16n8k8 (tf32
+// wgmma cannot read B transposed), on tiles padded 16 bytes a row.
 //
 // What bounds them now: per-tile latency, not the tensor cores. Variants of
 // K3w probed on an H100 at the wide char model's shape (b 4, t 8192, 4 heads
@@ -1272,13 +1283,22 @@ extern "C" int dl4j_flash_bwd_dq(const void* q, const void* k, const void* v,
 // 8 warps an SM (183,824 and 178,448 bytes; 216,592 and 211,216 with the
 // accumulator). A software pipeline that issued the next tile's S beside
 // this tile's P V, with the exchange in between, needed a third ring slot
-// and smaller K4w tiles, and lost more than it hid.
+// and smaller K4w tiles, and lost more than it hid. K5w's key tiles are 32
+// rows in both types; both layouts were measured in both types at the wide
+// char model's shape (b 4, t 8192, 4 heads of 256, causal; dq_split set to
+// one layout for both types in turn, an H100 SXM at 700 W): in bfloat16 one
+// warpgroup, two
+// blocks an SM (100,112 bytes, 216 registers), took 6.80 ms against 12.39
+// for two warpgroups at one block (116,496 bytes); in float32 two
+// warpgroups (186,128 bytes, 181 registers) took 24.56 against 27.42 for one
+// (242 registers, 4 warps an SM), and 26.20 against 30.38 with the
+// accumulator, which two warpgroups keep in registers (16 words a thread,
+// 225 registers) and one in shared memory.
 //
 // Loads: rows of head_dim elements, h d apart. A tile loads by cp.async at the
 // widest width that d * element size and every pointer allow: 16 bytes, 8 (a
 // 600-byte bfloat16 row of 300), 4, or element by element (odd d in
-// bfloat16); zero-filled (reading nothing) past t and past d. K5w uses the
-// same helper on its padded tiles.
+// bfloat16); zero-filled (reading nothing) past t and past d.
 //
 // The bfloat16 accumulator (ACC16; the wrapper passes the JAX block size jb):
 // the JAX kernels keep dk, dv and dq in a bfloat16 scratch and, once for each
@@ -1289,30 +1309,23 @@ extern "C" int dl4j_flash_bwd_dq(const void* q, const void* k, const void* v,
 // JAX block in float32 (the float32 accumulator, which starts each block at
 // zero), and at the block's edge rounds it, scales it and adds it into its
 // bfloat16 accumulator, so every rounding falls where the JAX kernels' does;
-// each cluster block owns its own columns of dK and dV, so the accumulator
+// each cluster block owns its own columns of dK, dV and dQ, so the accumulator
 // needs nothing across the cluster. K4a keeps that accumulator as bfloat16
-// pairs in shared memory (32 words a thread, a column of its own), K5a in
+// pairs in shared memory (32 words a thread, a column of its own), as does
+// K5a in bfloat16 (one warpgroup); K5a in float32 keeps its 16 words in
 // registers. A tile that straddles two JAX blocks (jb not a multiple of the
 // tile) is multiplied once per block with the other block's columns zeroed.
 // A skipped or fully masked block adds bf16(0), which leaves the sum as it
 // was, as in the JAX kernels.
 //
-// K5w: the output columns are cut into slices of 128 over the grid (x = tile
-// * slices + slice); a block computes S = Q K^T and dP = dO V^T over the whole
-// head_dim, streaming Q and K (dO and V) through the ring in 128-wide chunks,
-// then K's slice -> dS = P (dP + g - di) and dQ += dS K. Every slice of a tile
-// computes the same S; sharing it as K3w and K4w do is later work. Key tiles
-// 32 rows; dynamic shared memory 102,144 bytes float32, 52,992 bfloat16.
-
 namespace {
 
 constexpr int kChunk = 128;      // head_dim columns of a chunk and of an output slice
 constexpr int kMaxCluster = 8;   // the portable cluster size
-constexpr int kSweepKeys = 32;   // K5w's key tiles
 
 __host__ __device__ inline int chunks(int d) { return (d + kChunk - 1) / kChunk; }
 
-// How K3w and K4w cut head_dim: nc chunks over `passes` clusters of `cluster`
+// How K3w, K4w and K5w cut head_dim: nc chunks over `passes` clusters of `cluster`
 // blocks; `width` the bytes of a load (16, 8, 4, or the element size); `jb`
 // the bfloat16 accumulator's JAX block.
 struct Wide {
@@ -1630,6 +1643,22 @@ __device__ __forceinline__ void wgmma_rs_t(float (&d)[16][4], const unsigned (&a
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
 }
 
+__device__ __forceinline__ void wgmma_rs_t(float (&d)[8][4], const unsigned (&a)[4],
+                                           uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]),
+        "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]),
+        "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]),
+        "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3]),
+        "+f"(d[4][0]), "+f"(d[4][1]), "+f"(d[4][2]), "+f"(d[4][3]),
+        "+f"(d[5][0]), "+f"(d[5][1]), "+f"(d[5][2]), "+f"(d[5][3]),
+        "+f"(d[6][0]), "+f"(d[6][1]), "+f"(d[6][2]), "+f"(d[6][3]),
+        "+f"(d[7][0]), "+f"(d[7][1]), "+f"(d[7][2]), "+f"(d[7][3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
 
 // s[NF][.] += A B^T over one 128-column chunk: A the block's (warpgroup's) 64
 // rows, B N rows, both [rows x 128] tiles of the type's layout. float32:
@@ -1657,40 +1686,38 @@ __device__ __forceinline__ void chunk_scores(float (&s)[N / 8][4], const __nv_bf
   fence_regs(s);
 }
 
-// acc[16][.] += x B over N rows of the swept axis: x the rows' fragments
-// against B's N rows, B an [N x 128] tile. float32: K3-K5's tile_pv. bfloat16
-// (WG): one wgmma a k-step of 16 rows, x rounded to bfloat16 pairs in
-// registers (A), B read MN-major (its 128 columns contiguous).
-template <int N, bool WG>
-__device__ __forceinline__ void chunk_product(float (&acc)[kChunk / 8][4],
+// acc[NO][.] += x B over N rows of the swept axis: x the rows' fragments
+// against B's N rows, B an [N x 128] tile of which acc covers NO * 8 columns
+// from where b points (all 128, or one 64-column half). float32: K3-K5's
+// tile_pv on the padded rows. bfloat16: one wgmma a k-step of 16 rows, x
+// rounded to bfloat16 pairs in registers (A), B read MN-major (its columns
+// contiguous; a half is its own 64-column block of the swizzled tile).
+template <int N, int NO>
+__device__ __forceinline__ void chunk_product(float (&acc)[NO][4],
                                               const float (&x)[N / 8][4], const float* b,
                                               int lane) {
-  tile_pv<kChunk, N>(acc, x, b, lane);
+  tile_pv<NO * 8, N, tile_ld<float>(kChunk)>(acc, x, b, lane);
 }
 
-template <int N, bool WG>
-__device__ __forceinline__ void chunk_product(float (&acc)[kChunk / 8][4],
+template <int N, int NO>
+__device__ __forceinline__ void chunk_product(float (&acc)[NO][4],
                                               const float (&x)[N / 8][4],
-                                              const __nv_bfloat16* b, int lane) {
-  if constexpr (!WG) {
-    tile_pv<kChunk, N>(acc, x, b, lane);
-  } else {
-    unsigned pa[N / 16][4];
+                                              const __nv_bfloat16* b, int) {
+  unsigned pa[N / 16][4];
 #pragma unroll
-    for (int kk = 0; kk < N / 16; ++kk) {
-      pa[kk][0] = pack_bf16(x[2 * kk][0], x[2 * kk][1]);
-      pa[kk][1] = pack_bf16(x[2 * kk][2], x[2 * kk][3]);
-      pa[kk][2] = pack_bf16(x[2 * kk + 1][0], x[2 * kk + 1][1]);
-      pa[kk][3] = pack_bf16(x[2 * kk + 1][2], x[2 * kk + 1][3]);
-    }
-    fence_regs(acc);
-    wgmma_fence();
-#pragma unroll
-    for (int kk = 0; kk < N / 16; ++kk)
-      wgmma_rs_t(acc, pa[kk], gmma_desc(b + kk * 16 * 64, N * 128, 1024));
-    wgmma_commit_wait();
-    fence_regs(acc);
+  for (int kk = 0; kk < N / 16; ++kk) {
+    pa[kk][0] = pack_bf16(x[2 * kk][0], x[2 * kk][1]);
+    pa[kk][1] = pack_bf16(x[2 * kk][2], x[2 * kk][3]);
+    pa[kk][2] = pack_bf16(x[2 * kk + 1][0], x[2 * kk + 1][1]);
+    pa[kk][3] = pack_bf16(x[2 * kk + 1][2], x[2 * kk + 1][3]);
   }
+  fence_regs(acc);
+  wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < N / 16; ++kk)
+    wgmma_rs_t(acc, pa[kk], gmma_desc(b + kk * 16 * 64, N * 128, 1024));
+  wgmma_commit_wait();
+  fence_regs(acc);
 }
 
 // x rounded to bfloat16 (to nearest, ties to even) and back
@@ -1703,11 +1730,13 @@ __device__ __forceinline__ float bf16_at(unsigned pair, int e) {
   return __uint_as_float(e ? pair & 0xffff0000u : pair << 16);
 }
 
-// A thread's bfloat16 accumulator: element (n, r) holds fragment n's elements
-// 2r and 2r + 1 (one row) as a pair. In registers (K5a) or in shared memory
-// (K4a: a column of NT words for each (n, r), one word a thread).
+// A thread's bfloat16 accumulator over its NO fragments: element (n, r)
+// holds fragment n's elements 2r and 2r + 1 (one row) as a pair. In
+// registers (K5a) or in shared memory (K4a: a column of NT words for each
+// (n, r), one word a thread).
+template <int NO>
 struct Acc16Regs {
-  unsigned (&a)[kChunk / 8][2];
+  unsigned (&a)[NO][2];
   __device__ __forceinline__ unsigned& at(int n, int r) const { return a[n][r]; }
 };
 
@@ -1721,11 +1750,10 @@ struct Acc16Smem {
 
 // The bfloat16 accumulator's step at a JAX block's edge, for every element of
 // a thread's fragments: acc = bf16(acc + bf16(bf16(part) * mul)), part = 0.
-template <typename A>
-__device__ __forceinline__ void flush_acc16(const A& acc, float (&part)[kChunk / 8][4],
-                                            float mul) {
+template <int NO, typename A>
+__device__ __forceinline__ void flush_acc16(const A& acc, float (&part)[NO][4], float mul) {
 #pragma unroll
-  for (int n = 0; n < kChunk / 8; ++n)
+  for (int n = 0; n < NO; ++n)
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
       const float x0 = bf16r(bf16r(part[n][2 * r]) * mul);
@@ -1738,17 +1766,17 @@ __device__ __forceinline__ void flush_acc16(const A& acc, float (&part)[kChunk /
 
 // acc += x V over one tile of the swept axis (keys in K5, queries in K4): x
 // holds this warp's rows against the tile's N columns x0 .. x0 + N (of t), V
-// the tile's N rows of this block's slice. With the bfloat16 accumulator, acc
-// is the running float32 sum of the current JAX block (blk, of jb columns),
-// flushed into acc16 whenever a tile reaches into a new block; a tile that
-// straddles two blocks is multiplied once for each, the other's columns zeroed.
-template <typename T, int N, bool ACC16, bool WG, typename A>
-__device__ __forceinline__ void swept_product(float (&acc)[kChunk / 8][4], const A& acc16,
-                                              int& blk, const float (&x)[N / 8][4],
-                                              const T* vt, int lane, int x0, int t, int jb,
-                                              float mul) {
+// the tile's N rows of this block's slice (acc's columns of it). With the
+// bfloat16 accumulator, acc is the running float32 sum of the current JAX
+// block (blk, of jb columns), flushed into acc16 whenever a tile reaches into
+// a new block; a tile that straddles two blocks is multiplied once for each,
+// the other's columns zeroed.
+template <typename T, int N, bool ACC16, int NO, typename A>
+__device__ __forceinline__ void swept_product(float (&acc)[NO][4], const A& acc16, int& blk,
+                                              const float (&x)[N / 8][4], const T* vt,
+                                              int lane, int x0, int t, int jb, float mul) {
   if constexpr (!ACC16) {
-    chunk_product<N, WG>(acc, x, vt, lane);
+    chunk_product<N>(acc, x, vt, lane);
   } else {
     const int c = lane & 3;
     const int lo = x0 / jb, hi = (min(x0 + N, t) - 1) / jb;
@@ -1758,7 +1786,7 @@ __device__ __forceinline__ void swept_product(float (&acc)[kChunk / 8][4], const
         blk = b;
       }
       if (lo == hi) {
-        chunk_product<N, WG>(acc, x, vt, lane);
+        chunk_product<N>(acc, x, vt, lane);
       } else {
         float y[N / 8][4];
 #pragma unroll
@@ -1766,7 +1794,7 @@ __device__ __forceinline__ void swept_product(float (&acc)[kChunk / 8][4], const
 #pragma unroll
           for (int j = 0; j < 4; ++j)
             y[n][j] = (x0 + n * 8 + 2 * c + (j & 1)) / jb == b ? x[n][j] : 0.f;
-        chunk_product<N, WG>(acc, y, vt, lane);
+        chunk_product<N>(acc, y, vt, lane);
       }
     }
   }
@@ -1774,9 +1802,9 @@ __device__ __forceinline__ void swept_product(float (&acc)[kChunk / 8][4], const
 
 // A thread's output value (row half r, column e of fragment n): the bfloat16
 // accumulator, or the float32 one times mul.
-template <bool ACC16, typename A>
-__device__ __forceinline__ float out_value(const float (&acc)[kChunk / 8][4], const A& acc16,
-                                           int n, int r, int e, float mul) {
+template <bool ACC16, int NO, typename A>
+__device__ __forceinline__ float out_value(const float (&acc)[NO][4], const A& acc16, int n,
+                                           int r, int e, float mul) {
   if constexpr (ACC16) return bf16_at(acc16.at(n, r), e);
   else return acc[n][2 * r + e] * mul;
 }
@@ -1789,7 +1817,7 @@ __device__ __forceinline__ unsigned char* align1024(unsigned char* raw) {
 
 // The chunk a block takes at step k (< steps) of a tile: its chunks are rank,
 // rank + C, ...; the one of its output slice (index pass) comes last.
-__device__ __forceinline__ int chunk_at(int k, int steps, int rank, int pass, int C) {
+__host__ __device__ __forceinline__ int chunk_at(int k, int steps, int rank, int pass, int C) {
   return rank + C * ((pass + 1 + k) % steps);
 }
 
@@ -1952,7 +1980,7 @@ flash_fwd_cluster_kernel(Attn a, Wide w, T* __restrict__ o, float* __restrict__ 
         acc[n][2] *= alpha[1];
         acc[n][3] *= alpha[1];
       }
-      chunk_product<BK, WG>(acc, s, kv + KE, lane);  // O_j += P V_j
+      chunk_product<BK>(acc, s, kv + KE, lane);  // O_j += P V_j
     }
     tile = next;
     state = next_state;
@@ -1980,151 +2008,6 @@ flash_fwd_cluster_kernel(Attn a, Wide w, T* __restrict__ o, float* __restrict__ 
     if (c == 0 && slice == 0)  // m is in log2 units
       lse[((long long)bi * a.tq + row) * a.h + hi] =
           sum > 0.f ? (m[r] + log2f(sum)) / kLog2e : kNeg;
-  }
-}
-
-// ---------------------------------------------------------------- K5w, sliced
-
-template <typename T>
-size_t dq_wide_smem() {
-  return 2 * (kTile + kSweepKeys) * tile_ld<T>(kChunk) * sizeof(T) +
-         2 * sizeof(KeyTile<kSweepKeys>);
-}
-
-template <typename T, bool ACC16>
-__global__ void __launch_bounds__(kThreads, 2)
-flash_bwd_dq_wide_kernel(Attn a, Bwd bw, int width, int slices, int jb,
-                         T* __restrict__ dq) {
-  constexpr int DP = kChunk;
-  constexpr int LD = tile_ld<T>(DP);
-  constexpr int BK = kSweepKeys;
-  constexpr int SLOT = (kTile + BK) * LD;  // Q and K, or dO and V chunks, or K's slice
-  extern __shared__ __align__(16) unsigned char dqw_raw[];
-  T* ring = reinterpret_cast<T*>(dqw_raw);
-  KeyTile<BK>* kinfo = reinterpret_cast<KeyTile<BK>*>(ring + 2 * SLOT);
-  const int lane = threadIdx.x & 31, r0 = (threadIdx.x >> 5) * 16;
-  const int g = lane >> 2, c = lane & 3;
-  const int bi = blockIdx.y / a.h, hi = blockIdx.y - bi * a.h;
-  const int qtile_i = blockIdx.x / slices, slice = blockIdx.x - qtile_i * slices;
-  const int q0 = (gridDim.x / slices - 1 - qtile_i) * kTile;
-  const int c_out = slice * kChunk, nc = chunks(a.d);
-  const float scale2 = a.scale * kLog2e;
-  const T* Q = static_cast<const T*>(a.q);
-  const T* K = static_cast<const T*>(a.k);
-  const T* V = static_cast<const T*>(a.v);
-  const T* DO = static_cast<const T*>(bw.dout);
-
-  // step s of key tile kt: Q and K chunk s (s < nc), dO and V chunk s - nc
-  // (s < 2 nc), K's slice (s = 2 nc)
-  auto load = [&](T* slot, int kt, int s, int par) {
-    const int k0 = kt * BK;
-    if (s < 2 * nc) {
-      const bool scores = s < nc;
-      const int c0 = (scores ? s : s - nc) * kChunk;
-      stage_chunk<T, kThreads, false>(slot, scores ? Q : DO, bi, hi, q0, kTile, a.tq, a.h, a.d,
-                                      c0, width);
-      stage_chunk<T, kThreads, false>(slot + kTile * LD, scores ? K : V, bi, hi, k0, BK, a.tk,
-                                      a.h, a.d, c0, width);
-      if (s == 0) stage_key_info<BK>(kinfo + par, a, bi, k0);
-    } else {
-      stage_chunk<T, kThreads, false>(slot + kTile * LD, K, bi, hi, k0, BK, a.tk, a.h, a.d,
-                                      c_out, width);
-    }
-  };
-
-  const TileSpan qtile = query_tile(a, bi, q0);
-  TileScan<BK> scan;
-  const int tiles = (a.tk + BK - 1) / BK;
-  int state;
-  int tile = scan.next(a, bi, qtile, 0, state);
-  if (tile < tiles) load(ring, tile, 0, 0);
-  cp_async_commit();
-
-  // this thread's rows g and g + 8: mask data, lse (log2 units), g - di
-  Info qi[2];
-  float lse2[2], dg[2];
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const int row = q0 + r0 + g + 8 * r;
-    qi[r] = query_info(a, bi, row);
-    const long long at = ((long long)bi * a.tq + row) * a.h + hi;
-    lse2[r] = lse_log2(qi[r].ok ? bw.lse[at] : kNeg);
-    dg[r] = qi[r].ok ? bw.gl[at] - bw.di[at] : 0.f;
-  }
-  float acc[DP / 8][4];      // dQ, or (ACC16) the current JAX block's sum
-  unsigned acc16[DP / 8][2];  // ACC16: dQ as bfloat16 pairs
-#pragma unroll
-  for (int n = 0; n < DP / 8; ++n) {
-    acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
-    acc16[n][0] = acc16[n][1] = 0u;
-  }
-  const float mul16 = bf16r(a.scale);  // the JAX kernel's scale, a bfloat16 there
-  int blk = -1;
-
-  int slot = 0, par = 0;
-  while (tile < tiles) {
-    int next_state;
-    const int next = scan.next(a, bi, qtile, tile + 1, next_state);
-    const KeyTile<BK>& ki = kinfo[par];
-    const int k0 = tile * BK;
-    float s[BK / 8][4], dp[BK / 8][4];
-#pragma unroll
-    for (int n = 0; n < BK / 8; ++n)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) s[n][j] = dp[n][j] = 0.f;
-    for (int st = 0; st <= 2 * nc; ++st) {
-      cp_async_wait_all();
-      __syncthreads();
-      const T* cur = ring + slot * SLOT;
-      T* nxt = ring + (slot ^ 1) * SLOT;
-      if (st < 2 * nc) load(nxt, tile, st + 1, par);
-      else if (next < tiles) load(nxt, next, 0, par ^ 1);
-      cp_async_commit();
-      slot ^= 1;
-      if (st < nc) {
-        tile_scores<DP, BK>(s, cur, cur + kTile * LD, r0, lane);
-        continue;
-      }
-      if (st < 2 * nc) {
-        tile_scores<DP, BK>(dp, cur, cur + kTile * LD, r0, lane);
-        continue;
-      }
-      // s[n][2r + e] is row g + 8r, key n * 8 + 2c + e of the tile: it becomes ds
-#pragma unroll
-      for (int n = 0; n < BK / 8; ++n)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          const int col = n * 8 + 2 * c + (j & 1), r = j >> 1;
-          const bool ok =
-              state == 2 || allowed(a, qi[r],
-                                    {ki.pos[col], ki.seg[col],
-                                     k0 + col < a.tk && (!a.km || ki.km[col] > 0.f)});
-          const float p = ok ? exp2_approx(fmaf(s[n][j], scale2, -lse2[r])) : 0.f;
-          s[n][j] = p * (dp[n][j] + dg[r]);
-        }
-      swept_product<T, BK, ACC16, false>(acc, Acc16Regs{acc16}, blk, s, cur + kTile * LD, lane,
-                                         k0, a.tk, jb, mul16);
-    }
-    tile = next;
-    state = next_state;
-    par ^= 1;
-  }
-  cp_async_wait_all();
-  if constexpr (ACC16) flush_acc16(Acc16Regs{acc16}, acc, mul16);
-
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const int row = q0 + r0 + g + 8 * r;
-    if (row >= a.tq) continue;
-    const long long at = row_offset(bi, hi, row, a.tq, a.h, a.d) + c_out;
-#pragma unroll
-    for (int n = 0; n < DP / 8; ++n)
-#pragma unroll
-      for (int e = 0; e < 2; ++e) {
-        const int col = n * 8 + 2 * c + e;
-        if (c_out + col < a.d)
-          dq[at + col] = from_f<T>(out_value<ACC16>(acc, Acc16Regs{acc16}, n, r, e, a.scale));
-      }
   }
 }
 
@@ -2282,8 +2165,8 @@ flash_bwd_dkv_cluster_kernel(Attn a, Bwd bw, Wide w, T* __restrict__ dk,
       }
       bar_arrive(1 + pair, 64);
       if (has_out)  // dV_j += P^T dO_j
-        swept_product<T, BQ, ACC16, WG>(acc, acc16, blk, s, cur + QE, lane, q0, a.tq, w.jb,
-                                        mul16);
+        swept_product<T, BQ, ACC16>(acc, acc16, blk, s, cur + QE, lane, q0, a.tq, w.jb,
+                                    mul16);
     } else {
       bar_sync(1 + pair, 64);
 #pragma unroll
@@ -2297,7 +2180,7 @@ flash_bwd_dkv_cluster_kernel(Attn a, Bwd bw, Wide w, T* __restrict__ dk,
         s[n][3] = p.w * (s[n][3] + dg1);
       }
       if (has_out)  // dK_j += dS^T Q_j
-        swept_product<T, BQ, ACC16, WG>(acc, acc16, blk, s, cur, lane, q0, a.tq, w.jb, mul16);
+        swept_product<T, BQ, ACC16>(acc, acc16, blk, s, cur, lane, q0, a.tq, w.jb, mul16);
     }
     tile = next;
     state = next_state;
@@ -2322,6 +2205,275 @@ flash_bwd_dkv_cluster_kernel(Attn a, Bwd bw, Wide w, T* __restrict__ dk,
         const int col = n * 8 + 2 * c + e;
         if (slice * kChunk + col < a.d)
           out[at + col] = from_f<T>(out_value<ACC16>(acc, acc16, n, r, e, mul));
+      }
+  }
+}
+
+// ------------------------------------------------------------- K5w, clustered
+
+// K5w's layout (the faster of the two, by type; see the note): in float32
+// two warpgroups (SPLIT: the first computes S and its half of dQ_j's columns,
+// the second dP and the other half), one block an SM; in bfloat16 one
+// warpgroup for all three products, two blocks an SM. Key tiles of 32 keys
+// (wgmma's N in bfloat16).
+template <typename T>
+__host__ __device__ constexpr bool dq_split() {
+  return std::is_same<T, float>::value;
+}
+
+constexpr int kDqKeys = 32;
+
+// K5w's ring steps a key tile, for block `rank`: one in one pass; above, two
+// for each of its chunks
+__host__ __device__ inline int dq_ring_steps(Wide w, int rank) {
+  return w.passes == 1 ? 1 : 2 * ((w.nc - rank + w.cluster - 1) / w.cluster);
+}
+
+// Ring step k of a K5w key tile, block `rank` of pass `pass`: the chunk it
+// loads, and which operands (`scores`: Q's and K's, `dots`: dO's and V's).
+// In one pass K's and V's chunk `rank` (Q's and dO's stay resident); above,
+// each of the block's chunks in chunk_at's order, dO's and V's, then Q's
+// and K's, so that the last step holds K's chunk of the output slice.
+struct DqStep {
+  int chunk;
+  bool scores, dots;
+};
+
+__host__ __device__ inline DqStep dq_ring_step(Wide w, int k, int rank, int pass) {
+  if (w.passes == 1) return {rank, true, true};
+  const int steps = dq_ring_steps(w, rank) / 2;
+  return {chunk_at(k >> 1, steps, rank, pass, w.cluster), (k & 1) != 0, (k & 1) == 0};
+}
+
+template <typename T>
+__host__ __device__ constexpr int dq_threads() {
+  return dq_split<T>() ? kPairThreads : kThreads;
+}
+
+template <typename T>
+__host__ __device__ constexpr int dq_blocks() {
+  return dq_split<T>() ? 1 : 2;
+}
+
+// Q's and dO's chunks (one pass), a two-slot ring of K's and V's chunks
+// (one pass) or of a Q or dO chunk beside a K or V chunk (passes > 1), two
+// exchange buffers, (SPLIT) P's and dP's hand-over of the four warp pairs,
+// two key tiles' mask data, (ACC16, one warpgroup) the bfloat16 accumulator
+template <typename T>
+size_t dq_cluster_smem(int passes, bool acc16) {
+  constexpr bool SWZ = !std::is_same<T, float>::value, SPLIT = dq_split<T>();
+  constexpr int NF = kDqKeys / 8;
+  const size_t q = tile_elems<T, SWZ>(kTile) * sizeof(T);
+  const size_t k = tile_elems<T, SWZ>(kDqKeys) * sizeof(T);
+  const bool one = passes == 1;
+  return 1024 + (one ? 2 * q : 0) + 2 * (one ? 2 * k : q + k) +
+         2 * 2 * NF * kThreads * sizeof(float4) + (SPLIT ? 2 * 4 * NF * 32 * sizeof(float4) : 0) +
+         2 * sizeof(KeyTile<kDqKeys>) + (acc16 && !SPLIT ? kChunk / 4 * kThreads * 4 : 0) +
+         2 * sizeof(uint64_t);
+}
+
+// K5's products over the cluster: per live key tile, S_j = Q_j K_j^T and
+// dP_j = dO_j V_j^T over the block's own columns, summed across the cluster
+// (both in one exchange); p from the saved lse, dS = p (dP + g - di), and
+// dQ_j += dS K_j over the block's own output columns, K_j read from the ring
+// slot of the tile's last step. SPLIT: the first warpgroup computes S and
+// p, the second dP; they swap p and dP through shared memory (a named
+// barrier of each pair of warps w, w + 4), both form the same dS, and each
+// adds dS K_j to its 64 of the 128 columns.
+template <typename T, bool ACC16, bool PAIR>
+__global__ void __launch_bounds__(dq_threads<T>(), dq_blocks<T>())
+flash_bwd_dq_cluster_kernel(Attn a, Bwd bw, Wide w, T* __restrict__ dq) {
+  constexpr bool WG = !std::is_same<T, float>::value;  // bfloat16: wgmma, swizzled tiles
+  constexpr bool SPLIT = dq_split<T>();
+  constexpr int NT = dq_threads<T>();
+  constexpr int BK = kDqKeys;
+  constexpr int NF = BK / 8;
+  constexpr int NX = SPLIT ? NF : 2 * NF;              // fragments a thread exchanges
+  constexpr int NO = SPLIT ? kChunk / 16 : kChunk / 8;  // output fragments a thread
+  constexpr int QE = tile_elems<T, WG>(kTile), KE = tile_elems<T, WG>(BK);
+  extern __shared__ unsigned char dqc_raw[];
+  const bool resident = w.passes == 1;  // Q's and dO's chunks load once
+  T* qres = reinterpret_cast<T*>(align1024(dqc_raw));  // [Q, dO] (one pass)
+  T* ring = qres + (resident ? 2 * QE : 0);
+  const int slot_elems = resident ? 2 * KE : QE + KE;  // [K, V], or [Q or dO, K or V]
+  float4* xbuf = reinterpret_cast<float4*>(ring + 2 * slot_elems);  // [2][NX][NT]
+  float4* hand = xbuf + 2 * NX * NT;  // SPLIT: [2][4][NF][32], p then dP
+  KeyTile<BK>* kinfo = reinterpret_cast<KeyTile<BK>*>(hand + (SPLIT ? 2 * 4 * NF * 32 : 0));
+  unsigned* acc16_smem = reinterpret_cast<unsigned*>(kinfo + 2);
+  uint64_t* bars =  // [2] the pair's exchange
+      reinterpret_cast<uint64_t*>(acc16_smem + (ACC16 && !SPLIT ? kChunk / 4 * NT : 0));
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int wg = SPLIT ? warp >> 2 : 0;  // SPLIT: 0 computes S, 1 dP
+  const int r0 = (warp & 3) * 16;
+  const int g = lane >> 2, c = lane & 3;
+  const int bi = blockIdx.y / a.h, hi = blockIdx.y - bi * a.h;
+  const int C = w.cluster, rank = blockIdx.x % C, unit = blockIdx.x / C;
+  const int pass = unit % w.passes, tile_i = unit / w.passes;
+  const int q0 = ((a.tq + kTile - 1) / kTile - 1 - tile_i) * kTile;  // longest tiles first
+  const int slice = pass * C + rank;  // the output slice (none past nc)
+  const bool has_out = slice < w.nc;
+  const int ring_steps = dq_ring_steps(w, rank);
+  const float scale2 = a.scale * kLog2e;
+  const T* Q = static_cast<const T*>(a.q);
+  const T* K = static_cast<const T*>(a.k);
+  const T* V = static_cast<const T*>(a.v);
+  const T* DO = static_cast<const T*>(bw.dout);
+
+  // ring step k of key tile kt (dq_ring_step): K's and V's chunks (one
+  // pass), else a Q or dO chunk beside a K or V chunk
+  auto load = [&](T* slot, int kt, int k, int par) {
+    const int k0 = kt * BK;
+    const DqStep st = dq_ring_step(w, k, rank, pass);
+    const int c0 = st.chunk * kChunk;
+    if (resident) {
+      stage_chunk<T, NT, WG>(slot, K, bi, hi, k0, BK, a.tk, a.h, a.d, c0, w.width);
+      stage_chunk<T, NT, WG>(slot + KE, V, bi, hi, k0, BK, a.tk, a.h, a.d, c0, w.width);
+    } else {
+      stage_chunk<T, NT, WG>(slot, st.scores ? Q : DO, bi, hi, q0, kTile, a.tq, a.h, a.d, c0,
+                             w.width);
+      stage_chunk<T, NT, WG>(slot + QE, st.scores ? K : V, bi, hi, k0, BK, a.tk, a.h, a.d, c0,
+                             w.width);
+    }
+    if (k == 0) stage_key_info<BK>(kinfo + par, a, bi, k0);
+  };
+
+  const TileSpan qtile = query_tile(a, bi, q0);
+  TileScan<BK> scan;
+  const int tiles = (a.tk + BK - 1) / BK;
+  int state;
+  int tile = scan.next(a, bi, qtile, 0, state);
+  if (resident) {
+    stage_chunk<T, NT, WG>(qres, Q, bi, hi, q0, kTile, a.tq, a.h, a.d, rank * kChunk, w.width);
+    stage_chunk<T, NT, WG>(qres + QE, DO, bi, hi, q0, kTile, a.tq, a.h, a.d, rank * kChunk,
+                           w.width);
+  }
+  if (tile < tiles) load(ring, tile, 0, 0);
+  cp_async_commit();
+
+  // this thread's rows g and g + 8: mask data, lse (log2 units), g - di
+  Info qi[2];
+  float lse2[2], dg[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = q0 + r0 + g + 8 * r;
+    qi[r] = query_info(a, bi, row);
+    const long long at = ((long long)bi * a.tq + row) * a.h + hi;
+    lse2[r] = lse_log2(qi[r].ok ? bw.lse[at] : kNeg);
+    dg[r] = qi[r].ok ? bw.gl[at] - bw.di[at] : 0.f;
+  }
+  float acc[NO][4];  // dQ_j (this warpgroup's columns), or (ACC16) the JAX block's sum
+  unsigned acc16r[NO][2];
+  const auto acc16 = [&] {
+    if constexpr (SPLIT) return Acc16Regs<NO>{acc16r};
+    else return Acc16Smem<NT>{acc16_smem};
+  }();
+#pragma unroll
+  for (int n = 0; n < NO; ++n) {
+    acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
+    if constexpr (ACC16) acc16.at(n, 0) = acc16.at(n, 1) = 0u;
+  }
+  const float mul16 = bf16r(a.scale);  // the JAX kernel's scale, a bfloat16 there
+  int blk = -1;
+
+  if constexpr (PAIR) pair_init(bars);
+  int slot = 0, par = 0, xchg = 0;
+  while (tile < tiles) {
+    int next_state;
+    const int next = scan.next(a, bi, qtile, tile + 1, next_state);
+    const KeyTile<BK>& ki = kinfo[par];
+    const int k0 = tile * BK;
+    // sd[n][2r + e] is row g + 8r, key n * 8 + 2c + e of the tile: S in
+    // fragments 0 .. NF - 1 and dP after them, or (SPLIT) this warpgroup's one
+    float sd[NX][4];
+#pragma unroll
+    for (int n = 0; n < NX; ++n) sd[n][0] = sd[n][1] = sd[n][2] = sd[n][3] = 0.f;
+    float (&s)[NF][4] = *reinterpret_cast<float (*)[NF][4]>(&sd[0]);
+    float (&dp)[NF][4] = *reinterpret_cast<float (*)[NF][4]>(&sd[NX - NF]);
+    const T* cur = ring;
+    for (int k = 0; k < ring_steps; ++k) {
+      cp_async_wait_all();
+      if constexpr (WG) fence_proxy_async();
+      // this step landed; every warp is done with the other slot and with the
+      // last tile's hand-over
+      __syncthreads();
+      cur = ring + slot * slot_elems;
+      T* nxt = ring + (slot ^ 1) * slot_elems;
+      if (k + 1 < ring_steps) load(nxt, tile, k + 1, par);
+      else if (next < tiles) load(nxt, next, 0, par ^ 1);
+      cp_async_commit();
+      slot ^= 1;
+      const DqStep st = dq_ring_step(w, k, rank, pass);
+      if (st.scores && wg == 0)  // S_j += Q_c K_c^T
+        chunk_scores<BK>(s, resident ? qres : cur, resident ? cur : cur + QE, r0, lane);
+      if (st.dots && wg == (SPLIT ? 1 : 0))  // dP_j += dO_c V_c^T
+        chunk_scores<BK>(dp, resident ? qres + QE : cur, cur + (resident ? KE : QE), r0,
+                         lane);
+    }
+    cluster_sum<NX, NT, PAIR>(sd, xbuf + (xchg & 1) * NX * NT, bars, C, rank, xchg);
+    ++xchg;
+
+    // p, masked, from S (the first warpgroup's fragments)
+    auto prob = [&](int n, int j) {
+      const int col = n * 8 + 2 * c + (j & 1), r = j >> 1;
+      const bool ok = state == 2 || allowed(a, qi[r],
+                                            {ki.pos[col], ki.seg[col],
+                                             k0 + col < a.tk && (!a.km || ki.km[col] > 0.f)});
+      return ok ? exp2_approx(fmaf(s[n][j], scale2, -lse2[r])) : 0.f;
+    };
+    if constexpr (SPLIT) {
+      // the pair swaps p and dP, and both form dS = p (dP + g - di) alike
+      float4* mine = hand + (wg * 4 + (warp & 3)) * NF * 32 + lane;
+      const float4* theirs = hand + ((wg ^ 1) * 4 + (warp & 3)) * NF * 32 + lane;
+#pragma unroll
+      for (int n = 0; n < NF; ++n) {
+        if (wg == 0)
+#pragma unroll
+          for (int j = 0; j < 4; ++j) s[n][j] = prob(n, j);
+        mine[n * 32] = make_float4(s[n][0], s[n][1], s[n][2], s[n][3]);
+      }
+      bar_sync(1 + (warp & 3), 64);
+#pragma unroll
+      for (int n = 0; n < NF; ++n) {
+        const float4 o = theirs[n * 32];
+        const float other[4] = {o.x, o.y, o.z, o.w};
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const float p = wg == 0 ? s[n][j] : other[j], d = wg == 0 ? other[j] : s[n][j];
+          s[n][j] = p * (d + dg[j >> 1]);
+        }
+      }
+    } else {
+#pragma unroll
+      for (int n = 0; n < NF; ++n)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) s[n][j] = prob(n, j) * (dp[n][j] + dg[j >> 1]);
+    }
+    if (has_out)  // dQ_j += dS K_j, K_j (K's output chunk) in the last step's slot
+      swept_product<T, BK, ACC16>(acc, acc16, blk, s,
+                                  (resident ? cur : cur + QE) + tile_at<T, WG>(0, 64 * wg, BK),
+                                  lane, k0, a.tk, w.jb, mul16);
+    tile = next;
+    state = next_state;
+    par ^= 1;
+  }
+  cp_async_wait_all();  // nothing in flight at exit
+  if (C > 1) cluster_sync();  // no block leaves while a peer may read its partials
+  if (!has_out) return;
+  if constexpr (ACC16) flush_acc16(acc16, acc, mul16);
+
+  const int c_out = slice * kChunk + 64 * wg;  // this warpgroup's first column
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = q0 + r0 + g + 8 * r;
+    if (row >= a.tq) continue;
+    const long long at = row_offset(bi, hi, row, a.tq, a.h, a.d) + c_out;
+#pragma unroll
+    for (int n = 0; n < NO; ++n)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int col = n * 8 + 2 * c + e;
+        if (c_out + col < a.d)
+          dq[at + col] = from_f<T>(out_value<ACC16>(acc, acc16, n, r, e, a.scale));
       }
   }
 }
@@ -2351,12 +2503,7 @@ int load_width(int d, std::initializer_list<const void*> ptrs) {
   return sizeof(T);
 }
 
-// K5w: a tile's slices run together (its data stay in L2), then the head's next tile
-dim3 grid_wide(int t, const Attn& a) {
-  return dim3((unsigned)(((t + kTile - 1) / kTile) * chunks(a.d)), a.b * a.h);
-}
-
-// K3w, K4w: one cluster of w.cluster blocks for each (tile, pass); a
+// K3w, K4w, K5w: one cluster of w.cluster blocks for each (tile, pass); a
 // cluster of 1 launches plainly
 template <typename... P, typename... Args>
 cudaError_t launch_cluster(void (*kernel)(P...), int t, const Attn& a, const Wide& w,
@@ -2391,13 +2538,13 @@ cudaError_t fwd_wide(const Attn& a, void* o, float* lse, cudaStream_t s) {
 
 template <typename T, bool ACC16>
 cudaError_t dq_wide(const Attn& a, const Bwd& g, int jb, void* dq, cudaStream_t s) {
-  const size_t smem = dq_wide_smem<T>();
-  cudaError_t e = prepare(flash_bwd_dq_wide_kernel<T, ACC16>, smem);
-  if (e != cudaSuccess) return e;
-  flash_bwd_dq_wide_kernel<T, ACC16><<<grid_wide(a.tq, a), kThreads, smem, s>>>(
-      a, g, load_width<T>(a.d, {a.q, a.k, a.v, g.dout}), chunks(a.d), jb,
-      static_cast<T*>(dq));
-  return cudaGetLastError();
+  Wide w = wide_geometry(a.d);
+  w.width = load_width<T>(a.d, {a.q, a.k, a.v, g.dout});
+  w.jb = jb;
+  const auto kernel = w.cluster == 2 ? flash_bwd_dq_cluster_kernel<T, ACC16, true>
+                                     : flash_bwd_dq_cluster_kernel<T, ACC16, false>;
+  return launch_cluster(kernel, a.tq, a, w, dq_threads<T>(), dq_cluster_smem<T>(w.passes, ACC16),
+                        s, a, g, w, static_cast<T*>(dq));
 }
 
 template <typename T, bool ACC16>
@@ -2416,7 +2563,7 @@ cudaError_t dkv_wide(const Attn& a, const Bwd& g, int jb, void* dk, void* dv,
 
 // The sliced arms' geometry at head_dim d (bf16: bfloat16 inputs), as the
 // launches take it: out = {chunks, passes, cluster, K3w's dynamic shared
-// bytes, K4w's, K4a's}.
+// bytes, K4w's, K4a's, K5w's, K5a's}.
 extern "C" int dl4j_flash_wide_geometry(int d, int bf16, long long* out) {
   if (d < 1 || !out) return (int)cudaErrorInvalidValue;
   const Wide w = wide_geometry(d);
@@ -2429,7 +2576,29 @@ extern "C" int dl4j_flash_wide_geometry(int d, int bf16, long long* out) {
                             : dkv_cluster_smem<float>(false));
   out[5] = (long long)(bf16 ? dkv_cluster_smem<__nv_bfloat16>(true)
                             : dkv_cluster_smem<float>(true));
+  for (int acc16 = 0; acc16 < 2; ++acc16)
+    out[6 + acc16] =
+        (long long)(bf16 ? dq_cluster_smem<__nv_bfloat16>(w.passes, acc16)
+                         : dq_cluster_smem<float>(w.passes, acc16));
   return 0;
+}
+
+// K5w's ring steps of one key tile at head_dim d, as block `rank` of pass
+// `pass` takes them (dq_ring_step): out[2i] the chunk of step i, out[2i + 1]
+// its operands (0: K's and V's, 1: dO's and V's, 2: Q's and K's). Returns
+// the number of steps, or -1 (rank or pass out of range, or more than cap).
+extern "C" int dl4j_flash_wide_dq_ring(int d, int rank, int pass, int* out, int cap) {
+  if (d < 1 || !out) return -1;
+  const Wide w = wide_geometry(d);
+  if (rank < 0 || rank >= w.cluster || pass < 0 || pass >= w.passes) return -1;
+  const int n = dq_ring_steps(w, rank);
+  if (n > cap) return -1;
+  for (int k = 0; k < n; ++k) {
+    const DqStep st = dq_ring_step(w, k, rank, pass);
+    out[2 * k] = st.chunk;
+    out[2 * k + 1] = st.scores && st.dots ? 0 : st.dots ? 1 : 2;
+  }
+  return n;
 }
 
 // As dl4j_flash_fwd, at any head_dim.

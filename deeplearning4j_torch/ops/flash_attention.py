@@ -21,12 +21,12 @@ bfloat16 with float32 sums, at head_dim up to MAX_HEAD_DIM. Wider heads, and
 the backward with a bfloat16 accumulator at any head_dim, run the sliced arms
 at the end of the same file (`dl4j_flash_wide_fwd`,
 `dl4j_flash_wide_bwd_dkv`, `dl4j_flash_wide_bwd_dq`), which cut head_dim
-into chunks of 128 columns and have no head_dim limit of their own. The
-forward and dk/dv arms run one thread-block cluster a tile, a block for each
-chunk (up to 8; `wide_geometry`), which compute the tile's scores once,
-summed across the cluster; the dq arm slices its output over the grid. The
-products run on the tensor cores: bfloat16 on `wgmma` in the clustered arms
-and on `mma.sync` elsewhere, float32 as three TF32 `mma.sync` products per
+into chunks of 128 columns and have no head_dim limit of their own. They run
+one thread-block cluster a tile, a block for each chunk (up to 8;
+`wide_geometry`), which compute the tile's scores once, summed across the
+cluster, and each write their own chunk of the output. The products run on
+the tensor cores: bfloat16 on `wgmma` in the sliced arms and on `mma.sync`
+elsewhere, float32 as three TF32 `mma.sync` products per
 float32 one (the 3xTF32 split, which keeps float32 accuracy). The notes
 there say what bounds them and how they are laid out. On CPU
 tensors it runs `flash_fwd_reference` and `flash_bwd_reference`. There is no
@@ -120,10 +120,10 @@ _POINTERS = {"dl4j_flash_fwd": 10, "dl4j_flash_bwd_dkv": 14,
 _ACC_BLOCK = ("dl4j_flash_wide_bwd_dkv", "dl4j_flash_wide_bwd_dq")
 _fns = {}
 
-#: The sliced arms cut head_dim into chunks of WIDE_CHUNK columns. The
-#: forward and dk/dv arms (K3w, K4w) launch one thread-block cluster a tile,
-#: one block a chunk up to the portable cluster of MAX_CLUSTER; above that a
-#: block owns several chunks and the tile runs in passes (`wide_geometry`).
+#: The sliced arms cut head_dim into chunks of WIDE_CHUNK columns. They (K3w,
+#: K4w, K5w) launch one thread-block cluster a tile, one block a chunk up to
+#: the portable cluster of MAX_CLUSTER; above that a block owns several
+#: chunks and the tile runs in passes (`wide_geometry`).
 WIDE_CHUNK = 128
 MAX_CLUSTER = 8
 #: Shared memory a block may take on the H100 (227 KB)
@@ -132,10 +132,15 @@ SMEM_LIMIT = 232_448
 _CLUSTER_KEYS = {torch.float32: 24, torch.bfloat16: 32}
 FWD_BLOCKS_PER_SM = {torch.float32: 2, torch.bfloat16: 3}
 _CLUSTER_QUERIES = {torch.float32: 32, torch.bfloat16: 64}
+#: K5w's key tiles, and its layout by input type: two warpgroups (one S, one
+#: dP, each half of dq's 128 columns; True) or one (False), whose bfloat16
+#: accumulator then lives in shared memory
+_DQ_KEYS = 32
+DQ_SPLIT = {torch.float32: True, torch.bfloat16: False}
 
 
 def wide_geometry(head_dim: int) -> dict:
-    """How K3w and K4w cut head_dim (as the kernels' launch does): `chunks`
+    """How K3w, K4w and K5w cut head_dim (as the kernels' launch does): `chunks`
     of 128 columns; `passes`, the clusters a tile runs in (1 up to 8
     chunks); `cluster`, the blocks of one. Block `rank` owns the chunks
     rank, rank + cluster, ... of every operand and, in pass p, the output
@@ -166,23 +171,31 @@ def load_width(head_dim: int, itemsize: int, ptrs) -> int:
 
 
 def wide_smem(head_dim: int, dtype: torch.dtype) -> dict:
-    """Dynamic shared memory (bytes) of K3w (`fwd`) and K4w (`dkv`, and
-    `dkv_acc16` with the bfloat16 accumulator) at this head_dim: 1024 bytes
-    of alignment slack; [rows x 128] tiles, padded 16 bytes a row in
-    float32 and swizzled without padding in bfloat16 (K3w: Q's chunk, and a
-    two-slot ring of K and V tiles, which also carries Q's chunks above one
-    pass; K4w: K's and V's chunks and a two-slot ring of Q's and dO's); the
+    """Dynamic shared memory (bytes) of K3w (`fwd`), K4w (`dkv`, and
+    `dkv_acc16` with the bfloat16 accumulator) and K5w (`dq`, `dq_acc16`) at
+    this head_dim: 1024 bytes of alignment slack; [rows x 128] tiles, padded
+    16 bytes a row in float32 and swizzled without padding in bfloat16 (K3w:
+    Q's chunk, and a two-slot ring of K and V tiles, which also carries Q's
+    chunks above one pass; K4w: K's and V's chunks and a two-slot ring of Q's
+    and dO's; K5w: Q's and dO's chunks and a two-slot ring of K's and V's,
+    above one pass a ring of a Q or dO chunk beside a K or V chunk); the
     cluster's exchange buffers (a float4 a fragment a thread, two) and a
-    pair's two mbarriers; K4w's P^T hand-over; the mask data."""
+    pair's two mbarriers; K4w's P^T hand-over and K5w's p and dP hand-over
+    (two warpgroups); the mask data; K5w's accumulator (one warpgroup)."""
     size = 4 if dtype == torch.float32 else 2
     tile = lambda rows: rows * (WIDE_CHUNK + (16 // size if size == 4 else 0)) * size
-    bk, bq = _CLUSTER_KEYS[dtype], _CLUSTER_QUERIES[dtype]
+    bk, bq, dk = _CLUSTER_KEYS[dtype], _CLUSTER_QUERIES[dtype], _DQ_KEYS
     one = wide_geometry(head_dim)["passes"] == 1
     fwd = (1024 + (tile(64) if one else 0) + 2 * ((0 if one else tile(64)) + 2 * tile(bk))
            + 2 * (bk // 8) * 128 * 16 + 2 * 12 * bk + 16)
     dkv = (1024 + 2 * tile(64) + 4 * tile(bq) + 2 * (bq // 8) * 256 * 16
            + 4 * (bq // 8) * 32 * 16 + 2 * 20 * bq + 16)
-    return {"fwd": fwd, "dkv": dkv, "dkv_acc16": dkv + 32 * 256 * 4}
+    split = DQ_SPLIT[dtype]
+    dq = (1024 + (2 * tile(64) if one else 0) + 2 * (2 * tile(dk) if one else tile(64) + tile(dk))
+          + 2 * 2 * (dk // 8) * 128 * 16 + (2 * 4 * (dk // 8) * 32 * 16 if split else 0)
+          + 2 * 12 * dk + 16)
+    return {"fwd": fwd, "dkv": dkv, "dkv_acc16": dkv + 32 * 256 * 4, "dq": dq,
+            "dq_acc16": dq + (0 if split else 32 * 128 * 4)}
 
 
 def kernel_wide_geometry(head_dim: int, dtype: torch.dtype) -> dict:
@@ -194,11 +207,36 @@ def kernel_wide_geometry(head_dim: int, dtype: torch.dtype) -> dict:
         fn.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.POINTER(ctypes.c_longlong)]
         fn.restype = ctypes.c_int
         _fns["dl4j_flash_wide_geometry"] = fn
-    out = (ctypes.c_longlong * 6)()
+    out = (ctypes.c_longlong * 8)()
     if fn(head_dim, int(dtype == torch.bfloat16), out) != 0:
         raise ValueError(f"dl4j_flash_wide_geometry refused head_dim {head_dim}")
     return {"chunks": out[0], "passes": out[1], "cluster": out[2], "fwd": out[3],
-            "dkv": out[4], "dkv_acc16": out[5]}
+            "dkv": out[4], "dkv_acc16": out[5], "dq": out[6], "dq_acc16": out[7]}
+
+
+#: `kernel_dq_ring`'s names of the operands a K5w ring step loads
+DQ_RING_OPERANDS = ("K V", "dO V", "Q K")
+
+
+def kernel_dq_ring(head_dim: int, rank: int, pass_: int) -> list:
+    """K5w's ring steps for each key tile, as the kernel takes them
+    (`dl4j_flash_wide_dq_ring` reads the `dq_ring_step` that the kernel's
+    loads and products call): [(chunk, operands)] for block `rank` of pass
+    `pass_`. Builds the library; the card's check holds it against
+    `wide_block_chunks`."""
+    fn = _fns.get("dl4j_flash_wide_dq_ring")
+    if fn is None:
+        fn = cuda_build.load("flash_attention").dl4j_flash_wide_dq_ring
+        fn.argtypes = [ctypes.c_int] * 3 + [ctypes.POINTER(ctypes.c_int), ctypes.c_int]
+        fn.restype = ctypes.c_int
+        _fns["dl4j_flash_wide_dq_ring"] = fn
+    cap = 2 * wide_geometry(head_dim)["chunks"]
+    out = (ctypes.c_int * (2 * cap))()
+    n = fn(head_dim, rank, pass_, out, cap)
+    if n < 0:
+        raise ValueError(f"dl4j_flash_wide_dq_ring refused head_dim {head_dim}, rank {rank}, "
+                         f"pass {pass_}")
+    return [(out[2 * i], DQ_RING_OPERANDS[out[2 * i + 1]]) for i in range(n)]
 
 
 def _blocks_divide(t_q: int, t_k: int, q_block: int, kv_block: int) -> bool:

@@ -62,6 +62,20 @@ def test_builder_phase_passes():
     assert all(r["round_trips_bitwise"].values())
 
 
+def test_skip_window_scale_keeps_every_score_off_the_edge():
+    """Scores whose median is a tie (a pair seen twice in a batch, or two
+    bits within a rounding of each other): 6 / median puts both on the
+    |score| < 6 window's edge; the scale used puts every score at least half
+    the widest gap near the median from it, and about half outside."""
+    gen = torch.Generator().manual_seed(20)
+    score = torch.rand(1001, generator=gen) * 4 + 0.5
+    score[500:502] = score.median()   # the median twice
+    assert ((score * (6.0 / float(score.median())) - 6).abs() < 1e-6).sum() >= 2
+    scaled = score.double() * chip_smoke.skip_window_scale(score)
+    assert ((scaled - 6).abs() / 6).min() > 1e-5
+    assert 0.4 < (scaled >= 6).double().mean() < 0.6
+
+
 def test_builder_hold_fails_without_the_count_division(monkeypatch):
     monkeypatch.setattr(port_emb, "row_counts",
                         lambda n, idx, w=None: torch.zeros(n, device=idx.device))

@@ -98,6 +98,8 @@ SMALL_FLASH = [
 SMALL_ACC16 = [
     ("acc16_model_f32_128", 1, 64, 2, 160, "float32", 32, {}, True),
     ("acc16_d130_bf16_16", 2, 48, 1, 130, "bfloat16", 16, {"key_mask": True}, False),
+    ("acc16_d136_f32_16_t32", 1, 32, 1, 136, "float32", 16,
+     {"segments": True, "plain_bound": True}, False),
 ]
 SMALL_DECODE = [
     ("wide_engine_f32", 3, 16, 2, 160, "float32", 2, True),
@@ -128,6 +130,8 @@ def test_wide_kernels_phase(small_kernels):
         "flash_fwd_wide": 1, "flash_bwd_dkv_acc16": 1, "flash_bwd_dq_acc16": 1}
     assert [e["launches"] for e in entries if "acc16" in e["name"]] == [1, 1]
     assert rows["acc16_d130_bf16_16"]["jax_block"] == 16
+    held = rows["acc16_d136_f32_16_t32"]
+    assert len(held["plain_bound"]) == 3 and all(m > 0 for m in held["plain_bound"])
     assert rows["wide_model_f32"]["fully_masked_rows"] == 0
     assert rows["d300_float32_key_mask"]["fully_masked_rows"] > 0
 
@@ -220,6 +224,99 @@ def test_wide_cases_keep_pr24_and_hold_the_cluster_edges():
             assert any(c[4] == d and c[5] == dtype for c in acc16.values()), (d, dtype)
     off = flash["d300_bfloat16_offset8"]
     assert off[5:7] == (300, "bfloat16") and off[8] == {"offset": 4}
+
+
+#: PR 25's cases, which every later case list keeps
+PR25_FLASH = {"d1024_float32_segments", "d1024_bfloat16_segments",
+              "d1152_float32_key_mask", "d1152_bfloat16_key_mask", "d300_bfloat16_offset8"}
+PR25_ACC16 = {"acc16_d1024_f32_32", "acc16_d1024_bf16_128", "acc16_d1152_f32_128",
+              "acc16_d1152_bf16_32"}
+
+
+def test_wide_cases_keep_pr25_and_hold_k5a_at_t64_with_segments():
+    """Every PR 24 and PR 25 case stays, each ACC16 case but the new one
+    still held to ACC16_SHARE; the accumulator at head_dim 1024, b 1, t 64
+    with segments joins in both types, held to the plain version's own
+    spread (plain_bound)."""
+    flash = {c[0] for c in chip_smoke.FLASH_WIDE_CASES}
+    acc16 = {c[0]: c for c in chip_smoke.ACC16_CASES}
+    assert PR24_FLASH | PR25_FLASH <= flash and PR24_ACC16 | PR25_ACC16 <= set(acc16)
+    held = {name for name, c in acc16.items() if c[7].get("plain_bound")}
+    assert held == {"acc16_d1024_f32_32_t64", "acc16_d1024_bf16_32_t64"}
+    for name in held:
+        label, b, t, h, d, dtype, jb, opts, timed = acc16[name]
+        assert (b, t, d, jb, opts["segments"], timed) == (1, 64, 1024, 32, True, False)
+    assert {acc16[n][5] for n in held} == {"float32", "bfloat16"}
+
+
+def _t64_segments_case(dtype=torch.float32):
+    """The new accumulator case's inputs on the CPU (b 1, t 64, 2 heads of
+    1024, segments) and its backward's arguments."""
+    gen = torch.Generator().manual_seed(26)
+    q, k, v, do, km, qs, ks, qp, kp = chip_smoke._flash_inputs(
+        torch, gen, 1, 64, 64, 2, 1024, dtype, {"segments": True}, device="cpu")
+    scale = 1024 ** -0.5
+    ow, lw = port_fa.flash_fwd_reference(q, k, v, km, qs, ks, qp, kp, scale, True)
+    gl = torch.where(lw > port_fa.NEG / 2, torch.randn(lw.shape, generator=gen), 0.0)
+    di = (ow.float() * do.float()).sum(-1)
+    return (q, k, v, do, lw, di, gl, km, qs, ks, qp, kp, scale, True)
+
+
+@pytest.mark.parametrize("fault", ["float32_sums", "other_block", "block_8"])
+def test_acc16_plain_bound_refuses_a_wrong_accumulator(fault):
+    """The plain-spread bound of the t-64 case passes the plain version at
+    the case's block (32) and refuses a dq summed in float32, one rounded at
+    the JAX package's default block there (64), and one rounded at 8: all
+    within ACC16_REL of it, so the bound is what refuses them."""
+    args = _t64_segments_case()
+    bound, = chip_smoke.acc16_plain_bound(port_fa, args, 32, "dq")
+    assert bound > 0
+    want = port_fa.flash_bwd_dq_reference(*args, acc_block=32)
+    chip_smoke._check_acc16(torch, "t64", want.clone(), want, {}, "dq", bound)
+    got = port_fa.flash_bwd_dq_reference(
+        *args, acc_block={"float32_sums": 0, "other_block": 64, "block_8": 8}[fault])
+    assert chip_smoke._rel_err(got, want) <= chip_smoke.ACC16_REL
+    assert (got - want).abs().mean().item() > 3 * bound
+    with pytest.raises(RuntimeError, match="the plain version's spread"):
+        chip_smoke._check_acc16(torch, "t64", got, want, {}, "dq", bound)
+
+
+def _dq_ring_1152(rank, pass_):
+    """The K5w ring order of the design at head_dim 1152 (9 chunks, two
+    passes of 5 blocks): block r owns chunks r and r + 5 (block 4 only 4),
+    the one of its output slice (r in pass 0, r + 5 in pass 1) last, each
+    chunk dO's and V's, then Q's and K's."""
+    order = [4] if rank == 4 else [rank + 5, rank] if pass_ == 0 else [rank, rank + 5]
+    return [(c, ops) for c in order for ops in ("dO V", "Q K")]
+
+
+@pytest.mark.parametrize("fault", [None, "chunks_reversed", "operands_swapped",
+                                   "other_chunk", "one_pass_operands"])
+def test_dq_ring_hold_refuses_a_wrong_order(monkeypatch, fault):
+    """`check_dq_ring` (the card's hold of the order K5w's kernel reports)
+    passes the design's order at head_dim 256 (one pass) and 1152 (two), and
+    refuses a block that takes its chunks in the other order, dO's and V's
+    after Q's and K's, another chunk, or Q's and K's in one pass."""
+    def ring(d, rank, pass_):
+        if d == 256:
+            return [(rank, "Q K" if fault == "one_pass_operands" else "K V")]
+        steps = _dq_ring_1152(rank, pass_)
+        if (rank, pass_) == (1, 1):
+            if fault == "chunks_reversed":
+                steps = steps[2:] + steps[:2]
+            elif fault == "operands_swapped":
+                steps = [steps[1], steps[0], steps[3], steps[2]]
+            elif fault == "other_chunk":
+                steps = [(2, ops) for _, ops in steps[:2]] + steps[2:]
+        return steps
+
+    monkeypatch.setattr(port_fa, "kernel_dq_ring", ring)
+    if fault is None:
+        for d in (256, 1152):
+            chip_smoke.check_dq_ring(port_fa, d)
+        return
+    with pytest.raises(RuntimeError, match="dq ring"):
+        chip_smoke.check_dq_ring(port_fa, 256 if fault == "one_pass_operands" else 1152)
 
 
 def test_offset_inputs_are_8_byte_aligned_views():

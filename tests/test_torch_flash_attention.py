@@ -476,6 +476,23 @@ def test_one_tf32_pass_would_fail_the_backward_check(t):
     assert all(e > 10 * limit for e in one)
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_dq_arm_fits_its_blocks_an_sm(dtype):
+    """K5w (`dq`, `dq_acc16`) within a block's 232,448 bytes at every
+    head_dim 129-2689; in bfloat16 (one warpgroup a block) two blocks an SM
+    fit in one pass (228 KB, 1 KB reserved a block), without the
+    accumulator, which one warpgroup keeps in shared memory; float32 (two
+    warpgroups) keeps it in registers."""
+    split = port_fa.DQ_SPLIT[dtype]
+    assert split == (dtype == torch.float32)
+    for d in range(129, 2690):
+        smem = port_fa.wide_smem(d, dtype)
+        assert max(smem["dq"], smem["dq_acc16"]) <= port_fa.SMEM_LIMIT, (d, smem)
+        assert (smem["dq_acc16"] == smem["dq"]) == split
+        if not split and d <= 1024:
+            assert 2 * (smem["dq"] + 1024) <= 233_472, (d, smem)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_sliced_arms_match_plain_on_card(dtype):
@@ -483,8 +500,10 @@ def test_sliced_arms_match_plain_on_card(dtype):
     against the plain versions, each launch counted in its own arm's count.
     f32: 1e-5 of the largest entry per 128 of head_dim (sums over head_dim in
     another order); bf16 1e-2; the accumulator two bfloat16 ulps (2^-7) of
-    the largest entry, at most 5% of entries different, each entry a
-    bfloat16 value. K7's sliced arm: 1e-5 in float32, 1e-2 in bfloat16."""
+    the largest entry, at most 5% of entries different (at head_dim 1024, t
+    64 with segments instead the mean difference within the plain version's
+    own spread, `chip_smoke.acc16_plain_bound`), each entry a bfloat16
+    value. K7's sliced arm: 1e-5 in float32, 1e-2 in bfloat16."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the kernels have no CPU mode")
     dt = getattr(torch, dtype)
@@ -498,7 +517,13 @@ def test_sliced_arms_match_plain_on_card(dtype):
                                         # a segment's first row, whose dq is
                                         # rounding noise, is 1/21 of the rows)
                                         (1, 128, 128, 1, 1024, True, dict(segs=True)),
-                                        (2, 64, 64, 1, 1152, True, dict(key_mask=True))]:
+                                        (2, 64, 64, 1, 1152, True, dict(key_mask=True)),
+                                        # K5a at t 64 with segments: held to the
+                                        # plain version's own spread
+                                        (1, 64, 64, 2, 1024, True,
+                                         dict(segs=True, plain_bound=True))]:
+        kw = dict(kw)
+        plain_bound = kw.pop("plain_bound", False)
         rel = (1e-5 * d / 128) if dtype == "float32" else 1e-2
         q, k, v, do, km, qs, ks, qp, kp = _card_case(gen, b, tq, tk, h, d, dt, **kw)
         scale = d ** -0.5
@@ -517,12 +542,21 @@ def test_sliced_arms_match_plain_on_card(dtype):
                 port_fa.bwd_dq_wide_launches) == tuple(n + 1 for n in before)
         assert torch.equal(lse <= port_fa.NEG / 2, ~live)
         blk = 32 if tq % 32 == 0 else tq
-        for g, w in zip(port_fa.flash_bwd(*args, acc_blocks=(blk, blk)),
-                        port_fa.flash_bwd_reference(*args, acc_blocks=(blk, blk))):
+        bounds = [None] * 3
+        if plain_bound:  # (dq, dk, dv), chip_smoke.acc16_plain_bound's
+            import chip_smoke
+            bounds = chip_smoke.acc16_plain_bound(port_fa, args, blk, "dq") + \
+                chip_smoke.acc16_plain_bound(port_fa, args, blk, "dkv")
+        for g, w, bound in zip(port_fa.flash_bwd(*args, acc_blocks=(blk, blk)),
+                               port_fa.flash_bwd_reference(*args, acc_blocks=(blk, blk)),
+                               bounds):
             _close(g, w, 2 ** -7)
             # a kernel summing in float32, or rounding at other blocks,
             # differs in most entries by much less than 2^-7 of the largest
-            assert (g != w).float().mean().item() <= 0.05
+            if bound is None:
+                assert (g != w).float().mean().item() <= 0.05
+            else:
+                assert (g.float() - w.float()).abs().mean().item() <= bound
             gf = g.float()
             assert torch.equal(gf, gf.to(torch.bfloat16).float())
         qd = torch.randn(b, 1, h, d, device="cuda", generator=gen).to(dt)
