@@ -334,13 +334,15 @@ Phases, each of which fails the script (non-zero exit, no result line):
    bfloat16-accumulator arms at JAX blocks 128, 32 and 100 against the
    plain accumulator (at head_dim 1024, t 64 with segments within the plain
    version's own spread), and its path through `flash_attention(...,
-   bwd_acc_dtype="bfloat16")`; K7's sliced arm at 256 and 2688. The char
+   bwd_acc_dtype="bfloat16")`; K7's wide arm (K7w) at 256 (also at the wide
+   decoder's own lengths), 300 and 2688, warm and cold, at 1-8 splits, its
+   geometry held to the wrapper's and its ptxas record to no spill. The char
    model at width 1024 over 4 heads (t 8192, batch 4) served and trained in
    float32 and as a bfloat16 network (the sliced K3 once a layer a forward,
    K4 and K5 once a layer a backward), its gradients against the plain
    versions and the card against the CPU; a decoder with Gemma 2B's widths
    (8 heads of 256, ff 16384, 4 layers) behind the decode engine at
-   bench_serving_decode's load, K7's sliced arm once a layer a step, every
+   bench_serving_decode's load, K7w once a layer a step, one step profiled, every
    answer equal to a run on K7's plain version and to `naive_generate`.
 23. One JSON line with every kernel's numbers (K3's launches on each path
    it ran, the char model's and the SP output's across processes; the
@@ -361,6 +363,7 @@ import sys
 import threading
 import time
 import types
+import zlib
 from contextlib import ExitStack, contextmanager
 
 import numpy as np
@@ -978,8 +981,8 @@ def profile_call(torch, label, fn, info, count=None):
     same call, the host-to-device copies' time and share of it, the five
     largest device items, the device time by kernel group
     (`profile_groups`), and the LRN kernels' (K1, K2) time and calls,
-    which the five rarely include; with `count`, the calls of the device
-    kernels whose names hold it (`counted_calls`). The median wall time of 5
+    which the five rarely include; with `count`, the calls and device ms of
+    the device kernels whose names hold it (`counted_calls`, `counted_ms`). The median wall time of 5
     unprofiled calls is reported beside it; the idle share is taken within
     the profiled call only, as busy and wall time from two different calls
     can give a share below 0."""
@@ -1011,6 +1014,7 @@ def profile_call(torch, label, fn, info, count=None):
                            for e in dev if "lrn_" in e.key]}
     if count is not None:
         out["counted_calls"] = sum(e.count for e in dev if count in e.key)
+        out["counted_ms"] = sum(e.self_device_time_total for e in dev if count in e.key) / 1e3
     log(f"profile {label}: {json.dumps(out)}")
     return out
 
@@ -4288,9 +4292,10 @@ ACC16_CASES = [
      {"segments": True, "plain_bound": True}, False),
 ]
 # (label, b, t_kv, h, d, dtype, layers of the view (0: contiguous), timed):
-# K7's sliced arm at the wide decoder's shape (8 heads of 256 read in place
-# from a layer of its step's view, both types), at 2688, and at 300 in
-# bfloat16 (600-byte rows: one element a lane)
+# K7w at the wide decoder's shape (8 heads of 256 read in place from a layer
+# of its step's view, both types), at 2688, at 300 in bfloat16 (600-byte
+# rows: one element a lane), and at the wide decoder's own lengths (a
+# 128-key bucket, cache_len from DECODE_WIDE_LENS)
 DECODE_WIDE_CASES = [
     ("wide_engine_f32", 8, 256, 8, 256, "float32", 4, True),
     ("wide_engine_bf16", 8, 256, 8, 256, "bfloat16", 4, True),
@@ -4299,7 +4304,13 @@ DECODE_WIDE_CASES = [
     ("d300_bf16", 3, 300, 2, 300, "bfloat16", 0, False),
     ("d160_f32", 3, 100, 2, 160, "float32", 2, False),
     ("d131_f32", 3, 90, 2, 131, "float32", 0, False),   # 524-byte rows: one element a lane
+    ("wide_engine_short_f32", 8, 128, 8, 256, "float32", 4, True),
+    ("wide_engine_short_bf16", 8, 128, 8, 256, "bfloat16", 4, True),
 ]
+# cache_len drawn from a seed in [lo, hi] for these cases (the wide decoder's
+# steps: prompts of 4-32 tokens plus up to 48 new ones), else `decode_lens`
+DECODE_WIDE_LENS = {"wide_engine_short_f32": (5, 80), "wide_engine_short_bf16": (5, 80)}
+L2_BYTES = 50 * 2 ** 20   # the H100's L2 (data sheet); the card's own where torch reports it
 WIDE_COUNTS = ("flash_fwd_wide", "flash_bwd_dkv_wide", "flash_bwd_dq_wide",
                "flash_bwd_dkv_acc16", "flash_bwd_dq_acc16", "decode_attention_wide")
 
@@ -4411,20 +4422,151 @@ def _wide_row_geometry(fa, d, q, k, v, do):
         d, q.element_size(), [t.data_ptr() for t in (q, k, v, do)])}
 
 
+def decode_wide_inputs(torch, label, b, t, h, d, dtype, layers, device):
+    """K7w's inputs for the DECODE_WIDE_CASES case `label`, from seeds of
+    its own (the label's crc32), so that `phase_wide_kernels` and
+    tools/decode_wide_compare.py draw the same ones: cache_len in
+    DECODE_WIDE_LENS' span where the case has one, else `decode_lens`."""
+    seed = zlib.crc32(label.encode())
+    gen = torch.Generator(device=device).manual_seed(seed)
+    rng = np.random.default_rng(seed)
+    span = DECODE_WIDE_LENS.get(label)
+    lens = rng.integers(span[0], span[1] + 1, b).astype(np.int32) if span else None
+    return decode_inputs(torch, gen, rng, b, t, h, d, dtype, layers, device, lens)
+
+
+def check_decode_wide_geometry(fa, d):
+    """K7w's geometry as the CUDA source computes it
+    (`fa.kernel_decode_wide_geometry`) against the wrapper's mirror
+    (`fa.decode_wide_geometry`) at head_dim d, both types, both routes (the
+    element route always, the 16-byte one where d is whole pieces), and its
+    shared memory within SMEM_LIMIT."""
+    import torch
+    for dt in (torch.float32, torch.bfloat16):
+        for vec in {False, d % (16 // (4 if dt == torch.float32 else 2)) == 0}:
+            want = fa.decode_wide_geometry(d, dt, vec)
+            got = fa.kernel_decode_wide_geometry(d, dt, vec)
+            if got != want or not 0 < got["smem"] <= fa.SMEM_LIMIT:
+                raise RuntimeError(f"decode wide geometry {dt} d {d} vec {vec}: kernel "
+                                   f"{got}, wrapper {want} (limit {fa.SMEM_LIMIT} bytes)")
+
+
+def check_no_spill(records, kernel):
+    """The ptxas records of the instances of `kernel` (by name): fails if
+    there is none, or if any spills or keeps a stack frame."""
+    mine = [k for k in records if kernel in k["kernel"]]
+    bad = [k for k in mine if k.get("spill_stores") or k.get("spill_loads") or k.get("stack")]
+    if not mine or bad:
+        raise RuntimeError(f"ptxas {kernel}: {bad or 'no record'}")
+    return mine
+
+
+def rotation(torch, tensors, copies):
+    """`copies` sets of `tensors`, the first the tensors themselves, the
+    others copies with the same sizes and strides in memory of their own."""
+    out = [tuple(tensors)]
+    for _ in range(copies - 1):
+        out.append(tuple(torch.empty_strided(x.size(), x.stride(), dtype=x.dtype,
+                                             device=x.device).copy_(x) for x in tensors))
+    return out
+
+
+def cold_ms(torch, fn, sets):
+    """`device_ms` of fn(*set) over a rotation of input sets (`rotation`),
+    each call on the set after the last one's: with sets whose bytes exceed
+    twice the L2, every call reads its inputs from device memory."""
+    turn = iter(range(1 << 30))
+    call = lambda: fn(*sets[next(turn) % len(sets)])
+    return device_ms(torch, call, iters=max(20, len(sets)))
+
+
+def cold_copies(torch, nbytes, on_card):
+    """Input sets a cold rotation takes: enough that `nbytes` a set exceed
+    twice the L2 together (the card's L2 where torch reports it), at least
+    2, at most 64."""
+    l2 = L2_BYTES
+    if on_card:
+        l2 = getattr(torch.cuda.get_device_properties(0), "L2_cache_size", l2) or l2
+    return max(2, min(64, -(-2 * l2 // max(1, nbytes)) + 1))
+
+
+def time_decode_wide(torch, fa, label, q, k, v, lens, timed, on_card):
+    """K7w (`fa._launch_decode`, head_dim > 128) on one case: checked
+    against the plain version (`check_decode`), then again with a row at
+    cache_len 0 (output 0) and one past the bucket. Timed cases: warm
+    (`device_ms`, back to back) and cold (`cold_ms` over a rotation whose
+    valid K and V exceed twice the L2) times of K7w, its plain version and
+    SDPA with a boolean mask from cache_len (the yardstick only, its
+    backend named), beside the bytes bound; on the card, K7w at each split
+    count of DECODE_SPLITS_SWEPT, warm and cold, each held to the plain
+    version. Returns the row."""
+    import torch.nn.functional as F
+    b, t, h, d = k.shape
+    got = fa._launch_decode(q, k, v, lens)
+    torch.cuda.synchronize()
+    err = check_decode(torch, fa, label, got, q, k, v, lens)
+    odd = lens.clone()
+    odd[0], odd[1] = 0, t + 5
+    got0 = fa._launch_decode(q, k, v, odd)
+    torch.cuda.synchronize()
+    if (got0[0] != 0).any():
+        raise RuntimeError(f"decode wide {label}: a row with cache_len 0 is not 0")
+    err = max(err, check_decode(torch, fa, label + " odd lens", got0, q, k, v, odd))
+    vw = 16 // q.element_size()
+    vec = all(x % vw == 0 for x in (d, *k.stride()[:2], *v.stride()[:2])) and all(
+        x.data_ptr() % 16 == 0 for x in (q, k, v))
+    row = {"case": label, "shape": [b, t, h, d], "dtype": str(q.dtype).split(".")[-1],
+           "strided_view": not k.is_contiguous(), "max_abs_err": err,
+           "lens": [int(x) for x in lens[:4]],
+           "geometry": fa.decode_wide_geometry(d, q.dtype, vec),
+           "splits": fa.decode_wide_splits(q.device, b * h, t, d, q.element_size())
+           if on_card else None}
+    if not timed:
+        return row
+    km = torch.arange(t, device=q.device)[None, :] < lens[:, None].long()
+    mask = km[:, None, None, :]
+    tr = lambda x: x.transpose(1, 2)
+    sdpa = lambda q_, k_, v_: F.scaled_dot_product_attention(tr(q_), tr(k_), tr(v_),
+                                                             attn_mask=mask)
+    row["sdpa_backend"] = sdpa_backend(torch, tr(q), tr(k), tr(v), False) + " (masked)"
+    row["bound_ms"], row["bound_by"] = decode_bound_ms(q, k, lens)
+    valid = int(row["bound_ms"] * HBM_BYTES_PER_S / 1e3)
+    sets = rotation(torch, (q, k, v, lens), cold_copies(torch, valid, on_card))
+    row["cold_sets"] = len(sets)
+    for key, fn in (("", lambda q_, k_, v_, l_: fa._launch_decode(q_, k_, v_, l_)),
+                    ("plain_", fa.decode_attention_reference),
+                    ("library_", lambda q_, k_, v_, l_: sdpa(q_, k_, v_))):
+        row[f"{key}ms"] = device_ms(torch, lambda: fn(q, k, v, lens))
+        row[f"{key}ms_cold"] = cold_ms(torch, fn, sets)
+    if on_card:   # the split rule's alternatives, each checked
+        row["ms_by_splits"], row["ms_cold_by_splits"] = {}, {}
+        for s_ in DECODE_SPLITS_SWEPT:
+            run = lambda q_, k_, v_, l_: fa._launch_decode(q_, k_, v_, l_, splits=s_)
+            check_decode(torch, fa, f"{label} at {s_} splits", run(q, k, v, lens), q, k, v,
+                         lens)
+            row["ms_by_splits"][s_] = device_ms(torch, lambda: run(q, k, v, lens))
+            row["ms_cold_by_splits"][s_] = cold_ms(torch, run, sets)
+    del sets, km, mask
+    return row
+
+
 def phase_wide_kernels(torch, card, device=None):
     """The sliced arms of K3, K4 and K5 (head_dim > 128) against their plain
     versions at FLASH_WIDE_CASES, with a nonzero lse cotangent; the bfloat16
     accumulator's arms of K4 and K5 against its plain version at ACC16_CASES
     (`_check_acc16`; the cases marked plain_bound within the plain version's
     own spread, `acc16_plain_bound`);
-    K7's sliced arm at DECODE_WIDE_CASES (`check_decode`, rows with
-    cache_len 0 and past the bucket too). Timed cases: warm CUDA-event times
+    K7w at DECODE_WIDE_CASES (`time_decode_wide`: rows with cache_len 0 and
+    past the bucket too; warm and cold times, and the split sweep). Timed
+    flash cases: warm CUDA-event times
     of each kernel, its plain version and SDPA (the yardstick only; the
     backend torch took is named), beside the operations bound. Each row
     names its cluster geometry and the bytes its loads move (`wide_geometry`,
     `load_width`); on the card the CUDA source's geometry is held to the
     wrapper's at every head_dim 129-2689, in both types, K5w's ring order
-    to `check_dq_ring`'s at the same head_dims, and the arms' ptxas records (registers, spills) are reported. Then the
+    to `check_dq_ring`'s and K7w's geometry to `check_decode_wide_geometry`'s
+    at the same head_dims, and the arms' ptxas records (registers, spills)
+    are reported, K7w's held to no spill (`check_no_spill`). Then the
     bfloat16 accumulator's path through the public entry point: autograd of
     `flash_attention(..., bwd_acc_dtype="bfloat16")` at the wide model's
     shape, the counts reset just before and read just after (the sliced K3
@@ -4435,7 +4577,6 @@ def phase_wide_kernels(torch, card, device=None):
     dev = device or "cuda"
     on_card = torch.device(dev).type == "cuda"
     gen = torch.Generator(device=dev).manual_seed(24)
-    rng = np.random.default_rng(24)
     worst, rows = {}, {}
     t_ = lambda fn: cuda_time_ms(fn, iters=3, warm=1)
     if on_card:
@@ -4450,8 +4591,11 @@ def phase_wide_kernels(torch, card, device=None):
                                        f"wrapper {want} (limit {fa.SMEM_LIMIT} bytes)")
         for d in range(129, 2690):
             check_dq_ring(fa, d)
+            check_decode_wide_geometry(fa, d)
         rows["ptxas"] = [k for k in ptxas_report(cuda_build.build_logs.get(
             "flash_attention", "")) if "cluster_kernel" in k["kernel"]]
+        rows["ptxas"] += check_no_spill(ptxas_report(cuda_build.build_logs.get(
+            "decode_attention", "")), K7W_KERNEL)
         for k in rows["ptxas"]:
             log(f"ptxas sliced arm: {json.dumps(k)}")
     for label, b, tq, tk, h, d, dtype, causal, opts, timed in FLASH_WIDE_CASES:
@@ -4605,38 +4749,15 @@ def phase_wide_kernels(torch, card, device=None):
     rows["acc16_path"] = {"launches": acc16_launches, "shape": [b, t, h, d]}
     del q, k, v, g, out, grads
 
+    decode_rows = {}
     for label, b, t, h, d, dtype, layers, timed in DECODE_WIDE_CASES:
-        q, k, v, lens = decode_inputs(torch, gen, rng, b, t, h, d, dtype, layers, dev)
-        got = fa._launch_decode(q, k, v, lens)
-        torch.cuda.synchronize()
-        err = check_decode(torch, fa, label, got, q, k, v, lens)
-        odd = lens.clone()
-        odd[0], odd[1] = 0, t + 5
-        got0 = fa._launch_decode(q, k, v, odd)
-        torch.cuda.synchronize()
-        if (got0[0] != 0).any():
-            raise RuntimeError(f"decode wide {label}: a row with cache_len 0 is not 0")
-        err = max(err, check_decode(torch, fa, label + " odd lens", got0, q, k, v, odd))
-        worst["decode_attention_wide"] = max(worst.get("decode_attention_wide", 0.0), err)
-        row = {"case": label, "shape": [b, t, h, d], "dtype": dtype,
-               "strided_view": bool(layers), "max_abs_err": err,
-               "splits": fa.decode_splits(torch.device(dev), b * h * -(-d // 256), t)
-               if on_card else None}
-        if timed:
-            km = torch.arange(t, device=dev)[None, :] < lens[:, None].long()
-            qh, kh, vh = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
-            mask = km[:, None, None, :]
-            sdpa = lambda: F.scaled_dot_product_attention(qh, kh, vh, attn_mask=mask)
-            row["sdpa_backend"] = sdpa_backend(torch, qh, kh, vh, False) + " (masked)"
-            row["ms"] = device_ms(torch, lambda: fa._launch_decode(q, k, v, lens))
-            row["plain_ms"] = device_ms(torch, lambda: fa.decode_attention_reference(
-                q, k, v, lens))
-            row["library_ms"] = device_ms(torch, sdpa)
-            row["bound_ms"], row["bound_by"] = decode_bound_ms(q, k, lens)
-            del km, qh, kh, vh, mask
-        rows[label] = row
+        q, k, v, lens = decode_wide_inputs(torch, label, b, t, h, d, dtype, layers, dev)
+        row = time_decode_wide(torch, fa, label, q, k, v, lens, timed, on_card)
+        worst["decode_attention_wide"] = max(worst.get("decode_attention_wide", 0.0),
+                                             row["max_abs_err"])
+        rows[label] = decode_rows[label] = row
         log(f"decode wide {label}: {json.dumps(row)}  [{card}]")
-        del q, k, v, lens, got, got0
+        del q, k, v, lens
         if on_card:
             torch.cuda.empty_cache()
 
@@ -4662,9 +4783,11 @@ def phase_wide_kernels(torch, card, device=None):
                     "source": "deeplearning4j_torch/ops/csrc/decode_attention.cu",
                     "replaces": f"{tpu}:573", "launches": None,
                     "max_abs_err": worst["decode_attention_wide"],
-                    **{key: r[key] for key in ("ms", "plain_ms", "bound_ms", "bound_by",
-                                               "library_ms")},
-                    "case": "wide_engine_f32", "sdpa_backend": r["sdpa_backend"]})
+                    **{key: r[key] for key in ("ms", "ms_cold", "plain_ms", "bound_ms",
+                                               "bound_by", "library_ms")},
+                    "case": "wide_engine_f32", "sdpa_backend": r["sdpa_backend"],
+                    "cases": {lab: {key: row[key] for key in ("ms", "ms_cold", "bound_ms")}
+                              for lab, row in decode_rows.items() if "ms" in row}})
     for e in entries:
         if e["name"] in ("flash_bwd_dkv_acc16", "flash_bwd_dq_acc16"):
             e["launches"] = acc16_launches[e["name"]]
@@ -4829,12 +4952,14 @@ def phase_decode_wide(torch, card, device=None, size=None):
     256, ff 16384, vocab 256, max_context 256, behind DecodeEngine(max_decode_
     batch 8) over a PagedKVCache; 6 clients x 4 prompts of 4-32 tokens x 48
     new tokens). Every count is reset just before the clients start and read
-    just after: K7's sliced arm must have launched layers x the decode steps
+    just after: K7w must have launched layers x the decode steps
     taken, and nothing else. Then the same prompts again with K7 bound to its
     plain version (`decode_attention_reference` standing in for the launch):
     every answer must be the same, token for token, and so must
     `naive_generate`'s (full recompute, no cache). Reports tokens/s and
-    inter-token p50/p99 of the kernel's run, and the plain run's tokens/s."""
+    inter-token p50/p99 of the kernel's run, the plain run's tokens/s, and
+    one step of 8 rows under the profiler (`profile_decode_step`: device
+    busy time, idle share, K7w's share of the busy time)."""
     from deeplearning4j_torch.optimize.metrics import registry
     from deeplearning4j_torch.ops import flash_attention as fa
     from deeplearning4j_torch.serving import decode as sd
@@ -4887,6 +5012,8 @@ def phase_decode_wide(torch, card, device=None, size=None):
         if cache.blocks_in_use() != 0:
             raise RuntimeError(f"wide decode serving: {cache.blocks_in_use()} KV blocks "
                                f"left after the last retire")
+        profile = profile_decode_step(torch, eng, cache, prompts, g["max_decode_batch"],
+                                      g["layers"], kernel=K7W_KERNEL)
     finally:
         eng.shutdown()
     tokens = n * g["max_new_tokens"]
@@ -4898,7 +5025,7 @@ def phase_decode_wide(torch, card, device=None, size=None):
               "inter_token_p50_ms": float(np.percentile(itl, 50)),
               "inter_token_p99_ms": float(np.percentile(itl, 99)),
               "inter_token_samples": int(itl.size), "all_equal_plain": True,
-              "all_equal_naive": True, "card": card}
+              "all_equal_naive": True, "step_profile": profile, "card": card}
     log(f"wide decode serving: {json.dumps(result)}  [{card}]")
     return result
 
@@ -5920,14 +6047,17 @@ def check_step_logits(eng, model, cache, prompt, steps, pack_bucket):
 
 
 K7_KERNEL = "decode_attention_kernel"   # K7's device kernel, by name
+K7W_KERNEL = "decode_wide_ring_kernel"  # K7w's (head_dim > 128)
 
 
-def profile_decode_step(torch, eng, cache, prompts, rows, layers):
+def profile_decode_step(torch, eng, cache, prompts, rows, layers, kernel=K7_KERNEL):
     """One engine step of `rows` requests (prefilled from `prompts`, the
     engine paused) under torch.profiler (`profile_call`): its device busy
     time against its wall, where a step's time goes. Fails unless the step
-    ran K7's device kernel once a layer (`layers` calls): one kernel a
-    decode_attention call."""
+    ran the decode kernel (`kernel`, by name: K7's, or K7w's) once a layer
+    (`layers` calls): one kernel a decode_attention call. Adds the
+    kernel's share of the busy time (`kernel_share_of_busy`, where the
+    profile has device times)."""
     ad = eng.adapter
     rids = [-2 - i for i in range(rows)]
     items = [(rid, np.asarray(p, np.int32)) for rid, p in zip(rids, prompts)]
@@ -5948,10 +6078,12 @@ def profile_decode_step(torch, eng, cache, prompts, rows, layers):
                 torch.cuda.synchronize()
 
             prof = profile_call(torch, f"decode step of {rows} rows", one_step,
-                                {"rows": rows}, count=K7_KERNEL)
+                                {"rows": rows}, count=kernel)
             if prof["counted_calls"] != layers:
                 raise RuntimeError(f"decode step profile: {prof['counted_calls']} "
-                                   f"K7 kernels in a step of {layers} layers")
+                                   f"{kernel} kernels in a step of {layers} layers")
+            if prof.get("device_busy_ms"):
+                prof["kernel_share_of_busy"] = prof["counted_ms"] / prof["device_busy_ms"]
             return prof
         finally:
             for rid in rids:
@@ -10920,7 +11052,9 @@ def main() -> int:
         f"{char_wide['bf16']['tokens_per_s']:.0f} bf16, launches "
         f"{json.dumps({k: v for k, v in char_wide['f32']['launches'].items() if v})} "
         f"(f32 fit); the wide decoder {decode_wide['tokens_per_s']:.1f} tokens/s, "
-        f"inter-token p99 {decode_wide['inter_token_p99_ms']:.3f} ms, K7 wide "
+        f"inter-token p99 {decode_wide['inter_token_p99_ms']:.3f} ms, a profiled step busy "
+        f"{decode_wide['step_profile'].get('device_busy_ms')} ms, K7w's share "
+        f"{decode_wide['step_profile'].get('kernel_share_of_busy')}, K7w "
         f"{decode_wide['launches']['decode_attention_wide']} in {decode_wide['steps']} "
         f"steps; phases {json.dumps({k: round(v, 1) for k, v in wide_s.items()})} s  "
         f"[{card}]")

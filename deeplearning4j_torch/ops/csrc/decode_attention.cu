@@ -76,14 +76,68 @@
 //   cluster size on the card.) S = 1 is the same kernel with a plain launch
 //   and no cluster barrier. There is no scratch in device memory and no
 //   second kernel.
-// * Heads wider than kMaxHeadDim (128) take the sliced arm (decode_wide_kernel,
-//   the JAX package's decode takes any head_dim its gate passes): the output
-//   columns are cut into slices of 256 over the grid (a (row, head, slice)
-//   has its S split blocks in a cluster, merged as above), a warp takes one
-//   key at a time with 8 columns a lane, and the dot product streams q and k
-//   through head_dim in 256-wide chunks, so nothing bounds head_dim but the
-//   grid. K is read once per slice (1x at head_dim <= 256, ceil(d / 256)x
-//   above), V once; plain 16-byte loads, no ring.
+// * Heads wider than kMaxHeadDim (128), up to kWideMaxHeadDim (4096), take
+//   the wide arm (K7w, decode_wide_ring_kernel; the JAX package's decode
+//   takes any head_dim its gate passes, and the wrapper raises past 4096).
+//   Its rows are 0.5-16 KB. The design:
+//   - Scores once, K and V once. One block a (row, head, split), 256
+//     threads, covers the whole head_dim. Its threads form groups of
+//     `group` lanes (8 up to 256, the fewest that hold a row in at most 32
+//     floats a lane: 8 lanes at head_dim 256, 128 at 2688); lane r of a
+//     group holds pieces r, r + group, ... of q (in registers), of its
+//     accumulator and of every row it reads: the same output columns
+//     throughout. A tile gives each group one key; the group sums its score
+//     over the whole head_dim once (shuffles, and across its warps through
+//     shared memory, one barrier a tile, where a group spans warps), updates
+//     its running max, sum and accumulator once (online softmax), and each
+//     lane adds p V to its own columns. K and V are read once at every
+//     head_dim. Few lanes a key and many floats a lane matter most: the
+//     work is about 1 flop a byte, so what a tile costs is instructions and
+//     shared-memory traffic, not arithmetic (an earlier cut with 32 lanes a
+//     key and 8 floats a lane took 16.3 us where this one takes 10.0 at the
+//     wide engine's shape on one split). A cluster over column chunks, summing partial dots through
+//     distributed shared memory as K3w does, was the other layout; it loses
+//     here: the cluster already carries the splits (chunks x splits <= 8
+//     would take the splits from the rows that need them) and every tile
+//     would wait on a cluster exchange where this layout sums within a
+//     warp, or a block at 2688.
+//   - Keys in flight. K and V pass through a ring of 2-6 stages in shared
+//     memory (up to 192 KB: one block an SM), filled by 16-byte cp.async.cg
+//     copies, one commit group a stage: a tile's V is issued with its K, and
+//     the next stages - 1 tiles are in flight while a thread computes one.
+//     Each thread copies exactly the pieces it later reads, zero-filling
+//     (src-size 0, nothing read) a key past the block's range or a piece
+//     past the row, so the ring needs no barrier and the loops no tests.
+//     cp.async and not cp.async.bulk (TMA): both were measured on the card
+//     (an H100 at 700 W). TMA with one bulk copy a row, issued by each
+//     group's first lane and counted on an mbarrier a stage, was slower
+//     (20.4 against 16.3 us at the wide engine's shape on one split, an
+//     earlier cut of this kernel): a row is 0.5-10.5 KB, every copy is one
+//     more serialized issue on a lane the whole warp waits for, and the
+//     ring's shared-memory writes cost the same either way. What a tile
+//     costs on the card is the copies' issue (about 45% at head_dim 256)
+//     and the scores' chain; see PERF.md.
+//   - Splits. The wrapper's rule for the wide arm counts bytes (K and V of
+//     a key row times the bucket) against the SM count
+//     (flash_attention.decode_wide_splits); each row's keys are split by
+//     its own length on the device, as above.
+//   - bfloat16 copies 16 bytes (8 elements) a piece and converts in
+//     registers; a lane then holds twice the elements in the same pieces.
+//   - The merge: the groups of a block by their maxima (one warp's
+//     shuffles), then, on several splits, block b of the cluster takes
+//     output columns [b slice, (b + 1) slice): every block pushes its
+//     partial of those columns and its m and l into block b's shared memory
+//     through distributed shared memory (a barrier arrival at the kernel's
+//     start, waited on just before the stores, makes sure every block has
+//     started), one cluster barrier, and each block merges and writes its
+//     slice. One split writes its output directly. There is no scratch in
+//     device memory and no second kernel. (K7's merge on rank 0 needs room
+//     for eight d-wide partials beside the ring, 86 KB at head_dim 2688, or
+//     a second cluster barrier to reuse the ring for them; on the card that
+//     cut cost 1-4 us more a call than the slices.)
+//   - No spill: every instance keeps its pieces in registers (ptxas, in
+//     chip_smoke.py's build log, is held to no spill).
+//   - wide_geometry computes the cut; dl4j_decode_wide_geometry exports it.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
@@ -496,218 +550,389 @@ cudaError_t launch_by_group(int G, bool wide, const void* q, const void* k,
 #undef DL4J_DECODE
 }
 
-// ------------------------------------------------------- the sliced arm, d > 128
+// --------------------------------------------------------- the wide arm, d > 128
 
-constexpr int kWideSlice = 256;  // output columns of a sliced block: 8 a lane
-constexpr int kWideWarps = 4;
+constexpr int kRingThreads = 256;           // a block: 8 warps
+constexpr int kRingWarps = kRingThreads / 32;
+constexpr int kRingMinGroup = 8;            // lanes a key at least
+constexpr int kRingMaxGroups = kRingThreads / kRingMinGroup;
+constexpr int kWideMaxHeadDim = 4096;
+constexpr int kRingMaxStages = 6;
+constexpr int kRingBytes = 192 * 1024;      // the ring's aim: one block an SM
+constexpr int kRingTwoKeyStage = 64 * 1024; // a group takes two keys a tile up to this stage
 
-// One warp a key (a lane group of 32): lane r holds columns c0 + (p * 32 + r)
-// * VEC + x of a 256-wide chunk at c0 (P = 256 / (32 VEC) pieces of VEC).
-// The dot product of a key streams q and k through the chunks of head_dim
-// (q's first chunk kept in registers, the others read again from L1/L2 for
-// each key), so every slice of a (row, head) computes the same scores in the
-// same order and so the same softmax; V is read for the block's own slice
-// only. K is read once per slice: ceil(d / 256) times in all, once at
-// head_dim <= 256.
-template <typename T, int VEC>
-__global__ void __launch_bounds__(kWideWarps * 32)
-decode_wide_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                   const T* __restrict__ v, const int* __restrict__ cache_len,
-                   T* __restrict__ o, int h, int t, int d, long long k_sb, long long k_st,
-                   long long v_sb, long long v_st, int splits, int slices, float scale) {
-  constexpr int W = kWideWarps;
-  constexpr int P = kWideSlice / 32 / VEC;
-  constexpr int E = P * VEC;              // elements of a chunk a lane holds
-  constexpr int KG = kGroupKeys;
-  constexpr int U = W * KG;               // keys a block takes an iteration
-  constexpr int SLOT = kWideSlice + 2;    // a block's partial on rank 0: acc, m, l
+// 16-byte pieces (vec) or elements a thread holds at most: 32 floats.
+__host__ __device__ constexpr int wide_most(int elem, bool vec_route) {
+  return vec_route ? (elem == 4 ? 8 : 4) : 16;
+}
+
+// The pieces a thread holds, as instantiated, for `need` of them.
+__host__ __device__ constexpr int wide_per(int need, int elem, bool vec_route) {
+  if (!vec_route) return need <= 8 ? 8 : 16;
+  if (elem == 2) return need <= 2 ? 2 : need;
+  return need <= 2 ? 2 : need <= 4 ? 4 : need <= 6 ? 6 : 8;
+}
+
+// The wide arm's cut of a row and of its ring, for head_dim d, elements of
+// `elem` bytes, on the 16-byte route or the element route. smem 0: refused.
+struct WideGeometry {
+  int vec;      // elements a piece: 16 bytes' worth (4 float32, 8 bfloat16), or 1
+  int pieces;   // pieces of a row: ceil(d / vec)
+  int group;    // threads that share a key (a power of two, kRingMinGroup..kRingThreads)
+  int per;      // pieces a thread holds (the kernel's P)
+  int keys;     // keys a group takes a tile (the kernel's KG: 1 or 2)
+  int tile;     // keys a tile: groups x keys
+  int stages;   // the ring's depth
+  int row;      // ring bytes of one key's K (or V) row: per x group pieces
+  int area;     // bytes of the ring, which the merge reuses after the key loop
+  int smem;     // dynamic shared memory bytes
+};
+
+__host__ __device__ constexpr int round16(int bytes) { return (bytes + 15) / 16 * 16; }
+
+// Bytes after the area: the warps' partial scores [2][warps][2], the groups' m,
+// l and merge weights, the block's merged m and l, the cluster's partials of
+// this block's output slice (cols + kMaxSplits floats) and their m and l.
+__host__ __device__ constexpr int wide_tail_bytes(int cols) {
+  return 2 * kRingWarps * 2 * 4 + 3 * kRingMaxGroups * 4 + 16 +
+         round16((cols + 3 * kMaxSplits) * 4);
+}
+
+__host__ __device__ constexpr WideGeometry wide_geometry(int d, int elem, bool vec_route) {
+  WideGeometry g{};
+  g.vec = vec_route ? 16 / elem : 1;
+  const int most = wide_most(elem, vec_route);
+  g.pieces = (d + g.vec - 1) / g.vec;
+  g.group = kRingMinGroup;
+  while (g.group < kRingThreads && (g.pieces + g.group - 1) / g.group > most) g.group *= 2;
+  const int need = (g.pieces + g.group - 1) / g.group;
+  if (d <= kMaxHeadDim || d > kWideMaxHeadDim || need > most) return g;
+  g.per = wide_per(need, elem, vec_route);
+  const int groups = kRingThreads / g.group;
+  g.row = round16(g.per * g.group * g.vec * elem);
+  g.keys = groups * 2 * 2 * g.row <= kRingTwoKeyStage ? 2 : 1;
+  g.tile = groups * g.keys;
+  const int stage = g.tile * 2 * g.row;
+  const int stages = kRingBytes / stage;
+  g.stages = stages < 2 ? 2 : stages > kRingMaxStages ? kRingMaxStages : stages;
+  const int cols = g.pieces * g.vec;
+  const int ring = g.stages * stage;
+  const int merge = round16(groups * cols * 4);
+  g.area = ring > merge ? ring : merge;
+  g.smem = g.area + wide_tail_bytes(cols);
+  return g;
+}
+static_assert(wide_geometry(kWideMaxHeadDim, 4, true).smem <= 232448 &&
+              wide_geometry(kWideMaxHeadDim, 4, false).smem <= 232448 &&
+              wide_geometry(kWideMaxHeadDim, 2, true).smem <= 232448 &&
+              wide_geometry(kWideMaxHeadDim, 2, false).smem <= 232448,
+              "a block's shared memory is at most 227 KB");
+
+// Until this thread's copies of the oldest stage in flight have landed: at
+// most stages - 2 newer commit groups still in flight.
+__device__ __forceinline__ void cp_async_wait_ring(int stages) {
+  if (stages >= 4) cp_async_wait<2>();
+  else if (stages == 3) cp_async_wait<1>();
+  else cp_async_wait<0>();
+}
+
+// One element from global src to shared dst (the element route), or zero
+// (nothing read) where !ok.
+__device__ __forceinline__ void copy_elem(float* dst, const float* src, bool ok) {
+  *dst = ok ? *src : 0.f;
+}
+__device__ __forceinline__ void copy_elem(bf16* dst, const bf16* src, bool ok) {
+  *reinterpret_cast<unsigned short*>(dst) =
+      ok ? *reinterpret_cast<const unsigned short*>(src) : (unsigned short)0;
+}
+
+// K7w: one block a (row, head, split), kRingThreads threads in groups of
+// geo.group; thread r of a group holds pieces r, r + group, ... (P of them)
+// of q (in registers), of its accumulator and of every ring row: its output
+// columns. A tile gives each group KG keys: the group sums their scores over
+// the whole head_dim once (its lanes' partial dots by shuffles, across its
+// warps through shared memory, one barrier a tile), keeps a running max, sum
+// and accumulator (online softmax) and adds p V to its columns. Every
+// thread copies into the ring exactly the pieces it reads (zeros for a key
+// past the range or a piece past the row), so the ring needs no barrier and
+// the loops no tests.
+template <typename T, int VEC, int P, int KG>
+__global__ void __launch_bounds__(kRingThreads, 1)
+decode_wide_ring_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                        const T* __restrict__ v, const int* __restrict__ cache_len,
+                        T* __restrict__ o, int h, int t, int d, long long k_sb,
+                        long long k_st, long long v_sb, long long v_st, int splits,
+                        float scale, WideGeometry geo) {
+  const int G = geo.group, KT = geo.tile, NS = geo.stages;
+  const int NG = kRingThreads / G;   // groups
+  const int pieces = geo.pieces;
+  const int cols = pieces * VEC;
   extern __shared__ __align__(16) unsigned char smem[];
-  float* sm_acc = reinterpret_cast<float*>(smem);   // [W][kWideSlice]
-  float* sm_m = sm_acc + W * kWideSlice;
-  float* sm_l = sm_m + W;
-  float* sm_w = sm_l + W;
-  float* recv = sm_w + W;                 // rank 0: the cluster's partials
+  unsigned char* ring = smem;
+  float* sm_acc = reinterpret_cast<float*>(smem);       // after the key loop
+  float* red = reinterpret_cast<float*>(smem + geo.area);   // [2][warps][2] partial scores
+  float* sm_m = red + 2 * kRingWarps * 2;               // [groups]
+  float* sm_l = sm_m + kRingMaxGroups;
+  float* sm_w = sm_l + kRingMaxGroups;
+  float* sm_ml = sm_w + kRingMaxGroups;                 // the block's m and l
+  float* recv = sm_ml + 4;                              // [splits][slice] partials
+  float* recv_ml = recv + cols + kMaxSplits;            // [splits][2] their m, l
 
   const bool cluster = splits > 1;
   if (cluster) cluster_arrive_relaxed();  // this block has started; waited on below
-  const int cl = blockIdx.x / splits;
-  const int rank = blockIdx.x - cl * splits;   // = %cluster_ctarank
-  const int bh = cl / slices, slice = cl - bh * slices;
+  const int bh = blockIdx.x / splits;
+  const int rank = blockIdx.x - bh * splits;   // = %cluster_ctarank
   const int i = bh / h, hh = bh - i * h;
-  const int n = max(0, min(cache_len[i], t));
-  const int per = (n + splits - 1) / splits;
-  const int chunk = (per + U - 1) / U * U;
-  const int lo = min(rank * chunk, n);
-  const int hi = min(lo + chunk, n);
-  const int iters = (hi - lo + U - 1) / U;   // 0 for a block with no keys
-  const int lane = threadIdx.x & 31, grp = threadIdx.x >> 5;
-  const int nd = (d + kWideSlice - 1) / kWideSlice;   // chunks of head_dim
-  const int c_out = slice * kWideSlice;
-
-  // this lane's pieces of the chunk at c0 of a row, as float (0 past d)
-  auto row_piece = [&](const T* row, int c0, float* f) {
-#pragma unroll
-    for (int p = 0; p < P; ++p) {
-      const int col = c0 + (p * 32 + lane) * VEC;
-      if (col < d) {
-        load<T, VEC>(row + col, f + p * VEC);
-      } else {
-#pragma unroll
-        for (int x = 0; x < VEC; ++x) f[p * VEC + x] = 0.f;
-      }
-    }
-  };
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int grp = tid / G, r = tid - grp * G;
+  const int n = max(0, min(cache_len[i], t));   // first: the copies wait on it
 
   const T* qb = q + (long long)bh * d;
-  float q0[E];
-  row_piece(qb, 0, q0);
+  float qf[P * VEC];
 #pragma unroll
-  for (int e = 0; e < E; ++e) q0[e] *= scale;
+  for (int p = 0; p < P; ++p) {
+    const int pc = p * G + r;
+    if (pc < pieces) {
+      load<T, VEC>(qb + pc * VEC, qf + p * VEC);
+    } else {
+#pragma unroll
+      for (int x = 0; x < VEC; ++x) qf[p * VEC + x] = 0.f;
+    }
+  }
+
+  const int per_split = (n + splits - 1) / splits;
+  const int chunk = (per_split + KT - 1) / KT * KT;
+  const int lo = min(rank * chunk, n);
+  const int hi = min(lo + chunk, n);
+  const int iters = (hi - lo + KT - 1) / KT;   // 0 for a block with no keys
   const T* kb = k + i * k_sb + (long long)hh * d;
   const T* vb = v + i * v_sb + (long long)hh * d;
-  float m = -INFINITY, l = 0.f, acc[E];
-#pragma unroll
-  for (int e = 0; e < E; ++e) acc[e] = 0.f;
+  const int stage_bytes = KT * 2 * geo.row;
+  // This thread's first piece in its group's first K row of stage 0 (V is a
+  // row on, the next key two rows on).
+  T* mine = reinterpret_cast<T*>(ring + grp * KG * 2 * geo.row) + r * VEC;
+  const int v_off = geo.row / (int)sizeof(T);
 
-  for (int it = 0; it < iters; ++it) {
-    float s[KG];
+  // Tile it's keys of this group, this thread's pieces, into its stage.
+  auto issue = [&](int it) {
+    const int j0 = lo + it * KT + grp * KG;
 #pragma unroll
-    for (int u = 0; u < KG; ++u) s[u] = 0.f;
-    for (int cc = 0; cc < nd; ++cc) {
-      float qf[E];
-      if (cc == 0) {
+    for (int u = 0; u < KG; ++u) {
+      T* dst = reinterpret_cast<T*>(reinterpret_cast<unsigned char*>(mine) +
+                                    (it % NS) * stage_bytes) + u * 2 * v_off;
+      const int j = j0 + u;
+      const bool ok = j < hi;
+      const T* ks = kb + (ok ? j * k_st : 0);
+      const T* vs = vb + (ok ? j * v_st : 0);
 #pragma unroll
-        for (int e = 0; e < E; ++e) qf[e] = q0[e];
-      } else {
-        row_piece(qb, cc * kWideSlice, qf);
-#pragma unroll
-        for (int e = 0; e < E; ++e) qf[e] *= scale;
-      }
-      float kf[KG][E];
-#pragma unroll
-      for (int u = 0; u < KG; ++u) {
-        const int j = lo + it * U + u * W + grp;
-        if (j < hi) {
-          row_piece(kb + j * k_st, cc * kWideSlice, kf[u]);
+      for (int p = 0; p < P; ++p) {
+        const int pc = p * G + r;
+        const bool in = ok && pc < pieces;
+        if constexpr (VEC > 1) {
+          cp_async16(dst + p * G * VEC, in ? ks + pc * VEC : qb, in);
+          cp_async16(dst + v_off + p * G * VEC, in ? vs + pc * VEC : qb, in);
         } else {
-#pragma unroll
-          for (int e = 0; e < E; ++e) kf[u][e] = 0.f;
+          copy_elem(dst + p * G, ks + (in ? pc : 0), in);
+          copy_elem(dst + v_off + p * G, vs + (in ? pc : 0), in);
         }
       }
-#pragma unroll
-      for (int u = 0; u < KG; ++u)
-#pragma unroll
-        for (int e = 0; e < E; ++e) s[u] = fmaf(qf[e], kf[u][e], s[u]);
     }
-    float vf[KG][E];
+    if constexpr (VEC > 1) cp_async_commit();
+  };
+  for (int s = 0; s < NS - 1; ++s) {
+    if (s < iters) issue(s);
+    else if constexpr (VEC > 1) cp_async_commit();
+  }
+
+  float m = -INFINITY, l = 0.f, acc[P * VEC];
+#pragma unroll
+  for (int e = 0; e < P * VEC; ++e) acc[e] = 0.f;
+  for (int it = 0; it < iters; ++it) {
+    if constexpr (VEC > 1) cp_async_wait_ring(NS);   // this thread's copies of tile it
+    if (it + NS - 1 < iters) issue(it + NS - 1);     // the stage it read at it - 1
+    else if constexpr (VEC > 1) cp_async_commit();
+    const T* ks = reinterpret_cast<const T*>(reinterpret_cast<const unsigned char*>(mine) +
+                                             (it % NS) * stage_bytes);
+
+    // This group's keys' scores, over the whole head_dim.
+    float part[KG][2];
+#pragma unroll
+    for (int u = 0; u < KG; ++u) part[u][0] = part[u][1] = 0.f;
+#pragma unroll
+    for (int u = 0; u < KG; ++u) {
+#pragma unroll
+      for (int p = 0; p < P; ++p) {
+        float kf[VEC];
+        load<T, VEC>(ks + u * 2 * v_off + p * G * VEC, kf);
+#pragma unroll
+        for (int x = 0; x < VEC; ++x)
+          part[u][x & 1] = fmaf(qf[p * VEC + x], kf[x], part[u][x & 1]);
+      }
+    }
+    float dot[KG];
+#pragma unroll
+    for (int u = 0; u < KG; ++u) dot[u] = (part[u][0] + part[u][1]) * scale;
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1)
+      if (off < G) {
+#pragma unroll
+        for (int u = 0; u < KG; ++u) dot[u] += __shfl_xor_sync(0xffffffffu, dot[u], off);
+      }
+    if (G > 32) {   // a group of several warps: sum their partials, in warp order
+      float* rd = red + (it & 1) * kRingWarps * 2;   // two buffers: one barrier a tile
+      if (lane == 0) {
+#pragma unroll
+        for (int u = 0; u < KG; ++u) rd[warp * 2 + u] = dot[u];
+      }
+      __syncthreads();
+      const int w0 = grp * (G / 32);
+#pragma unroll
+      for (int u = 0; u < KG; ++u) {
+        dot[u] = 0.f;
+#pragma unroll
+        for (int w = 0; w < kRingWarps; ++w)
+          if (w < G / 32) dot[u] += rd[(w0 + w) * 2 + u];
+      }
+    }
+
+    // Online softmax over the group's keys, then p V into its columns.
     float m_new = m;
 #pragma unroll
     for (int u = 0; u < KG; ++u) {
-      const int j = lo + it * U + u * W + grp;
-      float dot = s[u];
-#pragma unroll
-      for (int off = 16; off > 0; off >>= 1) dot += __shfl_xor_sync(0xffffffffu, dot, off);
-      s[u] = j < hi ? dot : -INFINITY;
-      m_new = fmaxf(m_new, s[u]);
-      if (j < hi) {
-        row_piece(vb + j * v_st, c_out, vf[u]);
-      } else {
-#pragma unroll
-        for (int e = 0; e < E; ++e) vf[u][e] = 0.f;
-      }
+      dot[u] = lo + it * KT + grp * KG + u < hi ? dot[u] : -INFINITY;
+      m_new = fmaxf(m_new, dot[u]);
     }
-    if (m_new != -INFINITY) {   // else no key of this warp yet
-      const float corr = expf(m - m_new);   // 0 on the warp's first key
+    if (m_new != -INFINITY) {   // else no key of this group yet
+      const float corr = expf(m - m_new);   // 0 on the group's first key
+      float pj[KG];
       l *= corr;
 #pragma unroll
-      for (int e = 0; e < E; ++e) acc[e] *= corr;
-#pragma unroll
       for (int u = 0; u < KG; ++u) {
-        const float p = expf(s[u] - m_new);   // 0 for a key past hi (its v is 0)
-        l += p;
+        pj[u] = expf(dot[u] - m_new);   // 0 for a key past hi (its V is 0)
+        l += pj[u];
+      }
 #pragma unroll
-        for (int e = 0; e < E; ++e) acc[e] = fmaf(p, vf[u][e], acc[e]);
+      for (int p = 0; p < P; ++p) {
+        float vf[KG][VEC];
+#pragma unroll
+        for (int u = 0; u < KG; ++u) load<T, VEC>(ks + (u * 2 + 1) * v_off + p * G * VEC, vf[u]);
+#pragma unroll
+        for (int x = 0; x < VEC; ++x) {
+          float a = acc[p * VEC + x] * corr;
+#pragma unroll
+          for (int u = 0; u < KG; ++u) a = fmaf(pj[u], vf[u][x], a);
+          acc[p * VEC + x] = a;
+        }
       }
       m = m_new;
     }
   }
+  if constexpr (VEC > 1) cp_async_wait<0>();   // only empty groups are left
+  __syncthreads();   // the ring is read: its area takes the merge
 
-  // Merge the block's warps by their maxima into its slot on rank 0.
+  // Merge the block's groups by their maxima (m = -inf, l = 0, acc = 0 for a
+  // group with no keys).
 #pragma unroll
-  for (int p = 0; p < P; ++p)
+  for (int p = 0; p < P; ++p) {
+    const int pc = p * G + r;
+    if (pc < pieces) {
 #pragma unroll
-    for (int x = 0; x < VEC; ++x)
-      sm_acc[grp * kWideSlice + (p * 32 + lane) * VEC + x] = acc[p * VEC + x];
-  if (lane == 0) {
+      for (int x = 0; x < VEC; ++x) sm_acc[grp * cols + pc * VEC + x] = acc[p * VEC + x];
+    }
+  }
+  if (r == 0) {
     sm_m[grp] = m;
     sm_l[grp] = l;
   }
   __syncthreads();
-  float mb = -INFINITY;
-  for (int g = 0; g < W; ++g) mb = fmaxf(mb, sm_m[g]);
-  if (threadIdx.x < W) {
-    const float mg = sm_m[threadIdx.x];
-    sm_w[threadIdx.x] = mg == -INFINITY ? 0.f : expf(mg - mb);
+  if (warp == 0) {   // lane g: group g's weight exp(m_g - mb), by warp shuffles
+    const float mg = lane < NG ? sm_m[lane] : -INFINITY;
+    float mx = mg;
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1) mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
+    const float wg = mg == -INFINITY ? 0.f : expf(mg - mx);
+    float sl = lane < NG ? wg * sm_l[lane] : 0.f;
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1) sl += __shfl_xor_sync(0xffffffffu, sl, off);
+    if (lane < NG) sm_w[lane] = wg;
+    if (lane == 0) {
+      sm_ml[0] = mx;
+      sm_ml[1] = sl;
+    }
   }
   __syncthreads();
-  const int width = min(kWideSlice, d - c_out);
-  float* dst = recv + rank * SLOT;
-  if (cluster) {
-    cluster_wait();   // every block of the cluster has started: rank 0 is there
-    dst = rank_ptr(dst, 0);
+  const float mb = sm_ml[0], lb = sm_ml[1];
+  T* out = o + (long long)bh * d;
+  if (!cluster) {   // one block: divide and round once
+    const float inv = lb > 0.f ? 1.f / lb : 0.f;   // lb = 0: no key, output 0
+    for (int e = tid; e < d; e += kRingThreads) {
+      float sum = 0.f;
+      for (int g = 0; g < NG; ++g) sum = fmaf(sm_w[g], sm_acc[g * cols + e], sum);
+      store(out + e, sum * inv);
+    }
+    return;
   }
-  for (int e = threadIdx.x; e < width; e += W * 32) {
+  // Block b of the cluster merges and writes columns [b slice, (b + 1) slice):
+  // every block pushes its partial of those columns, and its m and l, into
+  // block b's shared memory (distributed shared memory; a store does not wait
+  // on the peer), then one cluster barrier.
+  const int slice = (d + splits - 1) / splits;
+  cluster_wait();   // every block of the cluster has started: its recv is there
+  for (int e = tid; e < d; e += kRingThreads) {
     float sum = 0.f;
-    for (int g = 0; g < W; ++g) sum = fmaf(sm_w[g], sm_acc[g * kWideSlice + e], sum);
-    dst[e] = sum;
+    for (int g = 0; g < NG; ++g) sum = fmaf(sm_w[g], sm_acc[g * cols + e], sum);
+    const int b = e / slice;
+    *rank_ptr(recv + rank * slice + (e - b * slice), b) = sum;
   }
-  if (threadIdx.x == 0) {
-    float lb = 0.f;
-    for (int g = 0; g < W; ++g) lb = fmaf(sm_w[g], sm_l[g], lb);
-    dst[kWideSlice] = mb;
-    dst[kWideSlice + 1] = lb;
+  if (tid < splits) {
+    float* ml = rank_ptr(recv_ml + 2 * rank, tid);
+    ml[0] = mb;
+    ml[1] = lb;
   }
-  if (cluster) cluster_sync();   // every partial has reached rank 0
-  else __syncthreads();
-  if (rank != 0) return;
+  cluster_sync();   // every partial has reached its block
 
-  // Rank 0: merge the cluster's partials by their maxima, divide, round once.
-  float w[kMaxSplits];
+  float ws[kMaxSplits];
   float mc = -INFINITY, lc = 0.f;
 #pragma unroll
   for (int s = 0; s < kMaxSplits; ++s)
-    if (s < splits) mc = fmaxf(mc, recv[s * SLOT + kWideSlice]);
+    if (s < splits) mc = fmaxf(mc, recv_ml[2 * s]);
 #pragma unroll
   for (int s = 0; s < kMaxSplits; ++s) {
-    const float ms = s < splits ? recv[s * SLOT + kWideSlice] : -INFINITY;
-    w[s] = ms == -INFINITY ? 0.f : expf(ms - mc);
-    if (s < splits) lc = fmaf(w[s], recv[s * SLOT + kWideSlice + 1], lc);
+    const float ms = s < splits ? recv_ml[2 * s] : -INFINITY;
+    ws[s] = ms == -INFINITY ? 0.f : expf(ms - mc);
+    if (s < splits) lc = fmaf(ws[s], recv_ml[2 * s + 1], lc);
   }
   const float inv = lc > 0.f ? 1.f / lc : 0.f;   // lc = 0: no key, output 0
-  T* out = o + (long long)bh * d + c_out;
-  for (int e = threadIdx.x; e < width; e += W * 32) {
+  const int c0 = rank * slice, c1 = min(d, c0 + slice);
+  for (int e = c0 + tid; e < c1; e += kRingThreads) {
     float sum = 0.f;
 #pragma unroll
     for (int s = 0; s < kMaxSplits; ++s)
-      if (s < splits) sum = fmaf(w[s], recv[s * SLOT + e], sum);
+      if (s < splits) sum = fmaf(ws[s], recv[s * slice + e - c0], sum);
     store(out + e, sum * inv);
   }
 }
 
-constexpr int wide_smem_bytes() {
-  return 4 * (kWideWarps * kWideSlice + 3 * kWideWarps + kMaxSplits * (kWideSlice + 2));
-}
-static_assert(wide_smem_bytes() <= 48 * 1024, "the sliced arm needs no opt-in shared memory");
-
-template <typename T, int VEC>
-cudaError_t launch_wide(const void* q, const void* k, const void* v, const int* len,
-                        void* o, int bh, int h, int t, int d, long long k_sb,
-                        long long k_st, long long v_sb, long long v_st, int splits,
-                        int slices, float scale, cudaStream_t s) {
+template <typename T, int VEC, int P, int KG>
+cudaError_t launch_ring_as(const WideGeometry& geo, const void* q, const void* k,
+                           const void* v, const int* len, void* o, int bh, int h, int t,
+                           int d, long long k_sb, long long k_st, long long v_sb,
+                           long long v_st, int splits, float scale, cudaStream_t s) {
+  static bool allowed[kMaxDevices];   // the most any head_dim needs, once a device
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return e;
+  if (dev >= kMaxDevices) return cudaErrorInvalidDevice;
+  if (!allowed[dev]) {
+    e = cudaFuncSetAttribute(decode_wide_ring_kernel<T, VEC, P, KG>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize, 232448);
+    if (e != cudaSuccess) return e;
+    allowed[dev] = true;
+  }
   cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3((unsigned)(bh * slices * splits), 1, 1);
-  cfg.blockDim = dim3(kWideWarps * 32, 1, 1);
-  cfg.dynamicSmemBytes = wide_smem_bytes();
+  cfg.gridDim = dim3((unsigned)(bh * splits), 1, 1);
+  cfg.blockDim = dim3(kRingThreads, 1, 1);
+  cfg.dynamicSmemBytes = geo.smem;
   cfg.stream = s;
   cudaLaunchAttribute attr;
   attr.id = cudaLaunchAttributeClusterDimension;
@@ -716,10 +941,42 @@ cudaError_t launch_wide(const void* q, const void* k, const void* v, const int* 
   attr.val.clusterDim.z = 1;
   cfg.attrs = &attr;
   cfg.numAttrs = splits > 1 ? 1 : 0;
-  return cudaLaunchKernelEx(&cfg, decode_wide_kernel<T, VEC>, static_cast<const T*>(q),
-                            static_cast<const T*>(k), static_cast<const T*>(v), len,
-                            static_cast<T*>(o), h, t, d, k_sb, k_st, v_sb, v_st, splits,
-                            slices, scale);
+  return cudaLaunchKernelEx(&cfg, decode_wide_ring_kernel<T, VEC, P, KG>,
+                            static_cast<const T*>(q), static_cast<const T*>(k),
+                            static_cast<const T*>(v), len, static_cast<T*>(o), h, t, d, k_sb,
+                            k_st, v_sb, v_st, splits, scale, geo);
+}
+
+// The instance for the geometry's pieces a thread.
+template <typename T, int VEC>
+cudaError_t launch_ring(const void* q, const void* k, const void* v, const int* len,
+                        void* o, int bh, int h, int t, int d, long long k_sb,
+                        long long k_st, long long v_sb, long long v_st, int splits,
+                        float scale, cudaStream_t s) {
+  const WideGeometry geo = wide_geometry(d, sizeof(T), VEC > 1);
+  if (geo.smem == 0) return cudaErrorInvalidValue;
+#define DL4J_WIDE(p)                                                                    \
+  if (geo.per == p)                                                                      \
+    return geo.keys == 2                                                                 \
+        ? launch_ring_as<T, VEC, p, 2>(geo, q, k, v, len, o, bh, h, t, d, k_sb, k_st,    \
+                                       v_sb, v_st, splits, scale, s)                     \
+        : launch_ring_as<T, VEC, p, 1>(geo, q, k, v, len, o, bh, h, t, d, k_sb, k_st,    \
+                                       v_sb, v_st, splits, scale, s)
+  if constexpr (VEC == 1) {
+    DL4J_WIDE(8);
+    DL4J_WIDE(16);
+  } else if constexpr (sizeof(T) == 2) {
+    DL4J_WIDE(2);
+    DL4J_WIDE(3);
+    DL4J_WIDE(4);
+  } else {
+    DL4J_WIDE(2);
+    DL4J_WIDE(4);
+    DL4J_WIDE(6);
+    DL4J_WIDE(8);
+  }
+#undef DL4J_WIDE
+  return cudaErrorInvalidValue;
 }
 
 bool aligned16(const void* p) { return (uintptr_t)p % 16 == 0; }
@@ -735,13 +992,11 @@ cudaError_t launch(const void* q, const void* k, const void* v, const int* len, 
                    v_sb % kVec == 0 && v_st % kVec == 0 && aligned16(q) &&
                    aligned16(k) && aligned16(v);
   const float scale = 1.f / sqrtf((float)d);
-  if (d > kMaxHeadDim) {
-    const int slices = (d + kWideSlice - 1) / kWideSlice;
-    return vec ? launch_wide<T, kVec>(q, k, v, len, o, b * h, h, t, d, k_sb, k_st, v_sb,
-                                      v_st, splits, slices, scale, s)
-               : launch_wide<T, 1>(q, k, v, len, o, b * h, h, t, d, k_sb, k_st, v_sb, v_st,
-                                   splits, slices, scale, s);
-  }
+  if (d > kMaxHeadDim)
+    return vec ? launch_ring<T, kVec>(q, k, v, len, o, b * h, h, t, d, k_sb, k_st, v_sb,
+                                      v_st, splits, scale, s)
+               : launch_ring<T, 1>(q, k, v, len, o, b * h, h, t, d, k_sb, k_st, v_sb, v_st,
+                                   splits, scale, s);
   const int pieces_d = vec ? d / kVec : d;
   int G = 1;
   while (G < pieces_d && G < 32) G <<= 1;
@@ -756,18 +1011,17 @@ cudaError_t launch(const void* q, const void* k, const void* v, const int* len, 
 
 // q, o: [b, 1, h, d] contiguous; k, v: [b, t, h, d] with batch strides k_sb,
 // v_sb and key strides k_st, v_st in elements (heads contiguous, d apart);
-// cache_len: [b] int32. splits: blocks a (row, head, slice), 1..8, one
-// cluster. d > 128 runs the sliced arm (256 output columns a block).
-// is_bf16: 0 for float32, 1 for bfloat16. One launch; returns its
-// cudaError_t (a refused cluster launch included).
+// cache_len: [b] int32. splits: blocks a (row, head), 1..8, one cluster.
+// 128 < d <= 4096 runs the wide arm (K7w). is_bf16: 0 for float32, 1 for
+// bfloat16. One launch; returns its cudaError_t (a refused cluster launch
+// included).
 extern "C" int dl4j_decode_attention(const void* q, const void* k, const void* v,
                                      const void* cache_len, void* o, int b, int h,
                                      int t, int d, long long k_sb, long long k_st,
                                      long long v_sb, long long v_st, int splits,
                                      int is_bf16, void* stream) {
-  const long long slices = d > kMaxHeadDim ? (d + kWideSlice - 1) / kWideSlice : 1;
   if (b < 0 || h < 1 || t < 1 || d < 1 || splits < 1 || splits > kMaxSplits ||
-      (long long)b * h * slices * splits > 2147483647LL)
+      (long long)b * h * splits > 2147483647LL)
     return (int)cudaErrorInvalidValue;
   if (b == 0) return (int)cudaSuccess;
   cudaStream_t s = (cudaStream_t)stream;
@@ -778,4 +1032,16 @@ extern "C" int dl4j_decode_attention(const void* q, const void* k, const void* v
                                           v_st, splits, s);
   if (e != cudaSuccess) return (int)e;
   return (int)cudaGetLastError();
+}
+
+// K7w's geometry at head_dim d, bfloat16 or float32, on the 16-byte route
+// (vec 1) or the element route (vec 0), as the launch takes it: out[0..6] =
+// threads a block, threads a key (a group), pieces a thread, keys a group a
+// tile, keys a tile, ring stages, dynamic shared memory bytes. Returns 0,
+// or cudaErrorInvalidValue where the wide arm does not take d.
+extern "C" int dl4j_decode_wide_geometry(int d, int is_bf16, int vec, long long* out) {
+  const WideGeometry g = wide_geometry(d, is_bf16 ? 2 : 4, vec != 0);
+  const long long vals[7] = {kRingThreads, g.group, g.per, g.keys, g.tile, g.stages, g.smem};
+  for (int x = 0; x < 7; ++x) out[x] = vals[x];
+  return g.smem > 0 ? 0 : (int)cudaErrorInvalidValue;
 }

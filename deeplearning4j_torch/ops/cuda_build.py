@@ -28,7 +28,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}
-#: ptxas report (registers, shared memory, spills) of each build this process ran
+#: ptxas report (registers, shared memory, spills) of each library this
+#: process built or found built (kept beside the library as ``.log``)
 build_logs: Dict[str, str] = {}
 
 
@@ -62,6 +63,9 @@ def build(names: Iterable[str]) -> List[Path]:
         src, lib = _target(name)
         out.append(lib)
         if lib.exists():
+            log = lib.with_suffix(".log")
+            if name not in build_logs and log.exists():
+                build_logs[name] = log.read_text()
             continue
         tmp = lib.with_suffix(f".{os.getpid()}.tmp")
         cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp), str(src)]
@@ -74,6 +78,8 @@ def build(names: Iterable[str]) -> List[Path]:
         if proc.returncode != 0:
             failed.append(f"{name}: nvcc exited {proc.returncode}\n{log}")
             continue
+        lib.with_suffix(f".{os.getpid()}.logtmp").write_text(log)
+        os.replace(lib.with_suffix(f".{os.getpid()}.logtmp"), lib.with_suffix(".log"))
         os.replace(tmp, lib)  # atomic: a concurrent loader sees all or nothing
     if failed:
         raise RuntimeError("CUDA kernel build failed:\n" + "\n".join(failed))

@@ -59,8 +59,8 @@ and round at its edges.
 attention (`decode_attention`, which there runs `_fwd_kernel` with one query
 row). On CUDA tensors it launches K7 (`dl4j_decode_attention` of
 ``csrc/decode_attention.cu``), a split-KV kernel that reads only the valid
-prefix of the cache, with a sliced arm for head_dim > 128; on CPU tensors it
-runs `decode_attention_reference`.
+prefix of the cache, with a wide arm (K7w) for head_dim 129-4096; on CPU
+tensors it runs `decode_attention_reference`.
 """
 from __future__ import annotations
 
@@ -80,8 +80,9 @@ NEG = -1e30  # mask sentinel; matches ops/attention.py (finite: -inf NaNs grads)
 
 #: The widest head the d <= 128 kernels (K3-K5 of ``flash_attention.cu``,
 #: K7's first arm) take; wider heads go to the sliced arms, which take any
-#: head_dim. Both tile by 64 query or key rows and mask the ragged edge, so
-#: any t >= 1.
+#: head_dim, and to K7's wide arm, up to DECODE_WIDE_MAX_HEAD_DIM. The flash
+#: kernels tile by 64 query or key rows and mask the ragged edge, so any
+#: t >= 1.
 MAX_HEAD_DIM = 128
 
 #: The JAX package's blocks (`DEFAULT_BLOCK_Q`, `DEFAULT_BLOCK_KV`), its
@@ -708,8 +709,30 @@ DECODE_IMPLS = ("auto", "flash", "dense")
 DECODE_MIN_CHUNK = 128
 DECODE_BLOCKS_PER_SM = 4
 DECODE_MAX_SPLITS = 8
-#: Output columns a block of K7's sliced arm (head_dim > 128) takes
-DECODE_WIDE_SLICE = 256
+#: K7w's split rule (`decode_wide_splits`, head_dim > 128): at most
+#: DECODE_WIDE_BLOCKS_PER_SM blocks an SM in all (its ring takes most of an
+#: SM's shared memory, so more blocks wait for a second wave), each taking at
+#: least DECODE_WIDE_MIN_BYTES of K and V of the bucket, at most
+#: DECODE_MAX_SPLITS blocks a (row, head). Set from chip_smoke.py's cold
+#: `ms_cold_by_splits` at DECODE_WIDE_CASES on an H100 (what the engine sees:
+#: K and V from device memory): 64 (row, head) pairs of 256-wide heads take
+#: two blocks each at 512 KB of bucket a (row, head) (a float32 256-key
+#: bucket), one at 256 KB or less (the wide decoder's 128-key bucket, or
+#: bfloat16), where a second block's merge costs more than it saves; the 8
+#: pairs at head_dim 2688 take eight.
+DECODE_WIDE_BLOCKS_PER_SM = 1
+DECODE_WIDE_MIN_BYTES = 256 * 1024
+#: The widest head K7w takes; past it the wrapper raises
+DECODE_WIDE_MAX_HEAD_DIM = 4096
+#: K7w's cut of a row and its ring (`decode_wide_geometry`, as
+#: csrc/decode_attention.cu's `wide_geometry`)
+_DW_THREADS = 256
+_DW_WARPS = _DW_THREADS // 32
+_DW_MIN_GROUP = 8
+_DW_MAX_GROUPS = _DW_THREADS // _DW_MIN_GROUP
+_DW_MAX_STAGES = 6
+_DW_RING = 192 * 1024
+_DW_TWO_KEY_STAGE = 64 * 1024   # a group takes two keys a tile up to this stage
 
 
 def _decode_valid(cache_len: Tensor, tk: int, device) -> Tensor:
@@ -761,21 +784,96 @@ def decode_splits(device: torch.device, bh: int, t_kv: int) -> int:
     DECODE_BLOCKS_PER_SM an SM, each taking at least DECODE_MIN_CHUNK keys
     of the bucket. Reads no device tensor: the same (SM count, bh, t_kv)
     always give the same count."""
+    want = -(-DECODE_BLOCKS_PER_SM * _sms(device) // max(1, bh))
+    return max(1, min(want, -(-t_kv // DECODE_MIN_CHUNK), DECODE_MAX_SPLITS))
+
+
+def _sms(device: torch.device) -> int:
     sms = _sm_count.get(device.index)
     if sms is None:
         sms = _sm_count[device.index] = \
             torch.cuda.get_device_properties(device).multi_processor_count
-    want = -(-DECODE_BLOCKS_PER_SM * sms // max(1, bh))
-    return max(1, min(want, -(-t_kv // DECODE_MIN_CHUNK), DECODE_MAX_SPLITS))
+    return sms
+
+
+def decode_wide_splits(device: torch.device, bh: int, t_kv: int, head_dim: int,
+                       itemsize: int) -> int:
+    """K7w's blocks a (row, head), 1..DECODE_MAX_SPLITS: no more than
+    DECODE_WIDE_BLOCKS_PER_SM an SM in all, each taking at least
+    DECODE_WIDE_MIN_BYTES of the bucket's K and V (2 head_dim itemsize bytes
+    a key). Reads no device tensor: the same arguments always give the same
+    count."""
+    want = DECODE_WIDE_BLOCKS_PER_SM * _sms(device) // max(1, bh)
+    by_bytes = -(-t_kv * 2 * head_dim * itemsize // DECODE_WIDE_MIN_BYTES)
+    return max(1, min(want, by_bytes, DECODE_MAX_SPLITS))
+
+
+def _round16(n: int) -> int:
+    return -(-n // 16) * 16
+
+
+def decode_wide_geometry(head_dim: int, dtype: torch.dtype, vec: bool = True) -> dict:
+    """K7w's cut at this head_dim, on the 16-byte route (`vec`) or the
+    element route, as csrc/decode_attention.cu's `wide_geometry` computes
+    it: a block of `threads` in groups of `group` threads that share a key,
+    each thread holding `per` pieces (16 bytes, or one element) of a row, at
+    most 32 floats; `keys` keys a group (1 or 2) and `tile` keys a block a
+    tile; a ring of `stages` tiles of K and V; `smem` bytes of dynamic shared
+    memory (0 where the arm refuses the head_dim)."""
+    elem = 2 if dtype == torch.bfloat16 else 4
+    vw = 16 // elem if vec else 1
+    most = (8 if elem == 4 else 4) if vec else 16
+    pieces = -(-head_dim // vw)
+    group = _DW_MIN_GROUP
+    while group < _DW_THREADS and -(-pieces // group) > most:
+        group *= 2
+    need = -(-pieces // group)
+    out = {"threads": _DW_THREADS, "group": group, "per": 0, "keys": 0, "tile": 0,
+           "stages": 0, "smem": 0}
+    if head_dim <= MAX_HEAD_DIM or head_dim > DECODE_WIDE_MAX_HEAD_DIM or need > most:
+        return out
+    if not vec:
+        per = 8 if need <= 8 else 16
+    elif elem == 2:
+        per = max(2, need)
+    else:
+        per = next(p for p in (2, 4, 6, 8) if need <= p)
+    groups = _DW_THREADS // group
+    row = _round16(per * group * vw * elem)
+    keys = 2 if groups * 2 * 2 * row <= _DW_TWO_KEY_STAGE else 1
+    tile = groups * keys
+    stage = tile * 2 * row
+    stages = min(max(_DW_RING // stage, 2), _DW_MAX_STAGES)
+    cols = pieces * vw
+    area = max(stages * stage, _round16(groups * cols * 4))
+    tail = (2 * _DW_WARPS * 2 * 4 + 3 * _DW_MAX_GROUPS * 4 + 16
+            + _round16((cols + 3 * DECODE_MAX_SPLITS) * 4))
+    out.update(per=per, keys=keys, tile=tile, stages=stages, smem=area + tail)
+    return out
+
+
+def kernel_decode_wide_geometry(head_dim: int, dtype: torch.dtype, vec: bool = True) -> dict:
+    """`decode_wide_geometry` as the CUDA source computes it
+    (`dl4j_decode_wide_geometry`; builds the library). Raises where the
+    arm refuses the head_dim."""
+    fn = _fns.get("dl4j_decode_wide_geometry")
+    if fn is None:
+        fn = cuda_build.load("decode_attention").dl4j_decode_wide_geometry
+        fn.argtypes = [ctypes.c_int] * 3 + [ctypes.POINTER(ctypes.c_longlong)]
+        fn.restype = ctypes.c_int
+        _fns["dl4j_decode_wide_geometry"] = fn
+    out = (ctypes.c_longlong * 7)()
+    if fn(head_dim, int(dtype == torch.bfloat16), int(vec), out) != 0:
+        raise ValueError(f"dl4j_decode_wide_geometry refused head_dim {head_dim}")
+    return dict(zip(("threads", "group", "per", "keys", "tile", "stages", "smem"), out))
 
 
 def _launch_decode(q: Tensor, k: Tensor, v: Tensor, cache_len: Tensor, *,
                    splits: Optional[int] = None) -> Tensor:
     """K7 on CUDA tensors, one launch; raises on anything it does not take.
     `splits` overrides `decode_splits` (for measuring the rule). Above
-    MAX_HEAD_DIM the kernel's sliced arm runs: a block takes
-    DECODE_WIDE_SLICE output columns, and the splits are counted over
-    (row, head, slice) blocks."""
+    MAX_HEAD_DIM, up to DECODE_WIDE_MAX_HEAD_DIM, the kernel's wide arm
+    (K7w) runs, its splits from `decode_wide_splits`."""
     if q.dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(f"the decode kernel takes float32 or bfloat16, got {q.dtype}")
     b, _, h, d = q.shape
@@ -796,16 +894,18 @@ def _launch_decode(q: Tensor, k: Tensor, v: Tensor, cache_len: Tensor, *,
     if lens.shape != (b,):
         raise ValueError(f"cache_len {tuple(lens.shape)}: expected ({b},)")
     wide = d > MAX_HEAD_DIM
-    slices = -(-d // DECODE_WIDE_SLICE) if wide else 1
+    if d > DECODE_WIDE_MAX_HEAD_DIM:
+        raise ValueError(f"the decode kernel takes head_dim <= "
+                         f"{DECODE_WIDE_MAX_HEAD_DIM}, got {d}")
     if splits is None:
-        splits = decode_splits(q.device, b * h * slices, tk)
+        splits = (decode_wide_splits(q.device, b * h, tk, d, q.element_size()) if wide
+                  else decode_splits(q.device, b * h, tk))
     elif not 1 <= splits <= DECODE_MAX_SPLITS:
         raise ValueError(f"splits {splits}: the decode kernel takes 1.."
                          f"{DECODE_MAX_SPLITS}")
-    if b * h * slices * splits > 2 ** 31 - 1:
-        raise ValueError(f"the decode kernel takes batch * heads * ceil(head_dim / "
-                         f"{DECODE_WIDE_SLICE}) * splits <= 2**31 - 1 (its grid), "
-                         f"got {b} * {h} * {slices} * {splits}")
+    if b * h * splits > 2 ** 31 - 1:
+        raise ValueError(f"the decode kernel takes batch * heads * splits <= 2**31 - 1 "
+                         f"(its grid), got {b} * {h} * {splits}")
     o = torch.empty_like(q)
     fn = _fns.get("dl4j_decode_attention")
     if fn is None:

@@ -77,9 +77,16 @@ def kernels(monkeypatch):
     monkeypatch.setattr(chip_smoke, "device_ms", lambda torch, fn, iters=20: 0.0)
     monkeypatch.setattr(chip_smoke, "cuda_time_ms", lambda fn, iters=20, warm=3:
                         (fn(), 0.0)[1])
-    monkeypatch.setattr(chip_smoke, "profile_call", lambda torch, label, fn, info,
-                        count=None: (fn(), dict(info))[1])
+    monkeypatch.setattr(chip_smoke, "profile_call", _profiled)
     return plain
+
+
+def _profiled(torch, label, fn, info, count=None):
+    """profile_call on the CPU: one call of `fn`; the counted kernel calls
+    are the stand-in K7w's launches in it."""
+    before = port_fa.decode_wide_launches
+    fn()
+    return {**info, "counted_calls": port_fa.decode_wide_launches - before}
 
 
 # ------------------------------------------------------------ the kernels
@@ -104,6 +111,7 @@ SMALL_ACC16 = [
 SMALL_DECODE = [
     ("wide_engine_f32", 3, 16, 2, 160, "float32", 2, True),
     ("d300_bf16", 2, 20, 1, 300, "bfloat16", 0, False),
+    ("wide_engine_short_bf16", 3, 16, 2, 136, "bfloat16", 2, True),
 ]
 
 
@@ -134,6 +142,17 @@ def test_wide_kernels_phase(small_kernels):
     assert len(held["plain_bound"]) == 3 and all(m > 0 for m in held["plain_bound"])
     assert rows["wide_model_f32"]["fully_masked_rows"] == 0
     assert rows["d300_float32_key_mask"]["fully_masked_rows"] > 0
+    # K7w: warm and cold times of the kernel, its plain version and SDPA;
+    # the short case's lengths drawn in DECODE_WIDE_LENS' span
+    k7w = next(e for e in entries if e["name"] == "decode_attention_wide")
+    assert "ms_cold" in k7w and set(k7w["cases"]) == {"wide_engine_f32",
+                                                      "wide_engine_short_bf16"}
+    for label in k7w["cases"]:
+        row = rows[label]
+        assert {"ms_cold", "plain_ms_cold", "library_ms_cold"} <= set(row)
+        assert row["cold_sets"] >= 2 and row["geometry"]["smem"] > 0
+    lo, hi = chip_smoke.DECODE_WIDE_LENS["wide_engine_short_bf16"]
+    assert all(lo <= n <= hi for n in rows["wide_engine_short_bf16"]["lens"][2:])
 
 
 @pytest.mark.parametrize("fault", ["float32_sums", "twice_the_block"])
@@ -377,3 +396,51 @@ def test_decode_wide_phase(kernels):
         "decode_attention_wide": 2 * result["steps"]}
     assert result["all_equal_plain"] and result["all_equal_naive"]
     assert np.isfinite(result["inter_token_p99_ms"])
+    assert result["step_profile"] == {"rows": 4, "counted_calls": 2}   # one a layer
+
+
+# ------------------------------------------------------------ K7w's holds
+
+def test_no_spill_hold():
+    """`check_no_spill` keeps the records of the named kernel and fails on
+    a spill, a stack frame, or no record at all."""
+    ok = {"kernel": "decode_wide_ring_kernel<float, 4, 8>", "registers": 149,
+          "spill_stores": 0, "spill_loads": 0, "stack": 0}
+    other = {"kernel": "decode_attention_kernel<float, 4, 8, 4>", "spill_stores": 8}
+    assert chip_smoke.check_no_spill([ok, other], chip_smoke.K7W_KERNEL) == [ok]
+    for bad in ({**ok, "spill_loads": 4}, {**ok, "stack": 16}):
+        with pytest.raises(RuntimeError, match="ptxas"):
+            chip_smoke.check_no_spill([ok, bad], chip_smoke.K7W_KERNEL)
+    with pytest.raises(RuntimeError, match="no record"):
+        chip_smoke.check_no_spill([other], chip_smoke.K7W_KERNEL)
+
+
+def test_decode_wide_geometry_hold_refuses_a_wrong_cut(monkeypatch):
+    """`check_decode_wide_geometry` holds the CUDA source's cut (here a
+    stand-in reading the wrapper's) to `decode_wide_geometry`, and fails
+    where one field differs."""
+    monkeypatch.setattr(port_fa, "kernel_decode_wide_geometry",
+                        port_fa.decode_wide_geometry)
+    chip_smoke.check_decode_wide_geometry(port_fa, 2688)
+    monkeypatch.setattr(port_fa, "kernel_decode_wide_geometry",
+                        lambda d, dt, vec: {**port_fa.decode_wide_geometry(d, dt, vec),
+                                            "stages": 1})
+    with pytest.raises(RuntimeError, match="decode wide geometry"):
+        chip_smoke.check_decode_wide_geometry(port_fa, 2688)
+
+
+def test_cold_rotation_copies_in_memory_of_their_own():
+    """A cold rotation's sets are the first tensors themselves and copies
+    with the same sizes, strides and values in storage of their own, enough
+    of them that their bytes exceed twice the L2 (2..64)."""
+    base = torch.randn(2, 5, 3, 2, 8)
+    k = base[:, :, 1]
+    sets = chip_smoke.rotation(torch, (k,), 3)
+    assert len(sets) == 3 and sets[0][0] is k
+    for x, in sets[1:]:
+        assert x.stride() == k.stride() and torch.equal(x, k)
+        assert x.untyped_storage().data_ptr() != k.untyped_storage().data_ptr()
+    l2 = chip_smoke.L2_BYTES
+    assert chip_smoke.cold_copies(torch, l2, False) == 3
+    assert chip_smoke.cold_copies(torch, 10 * l2, False) == 2
+    assert chip_smoke.cold_copies(torch, 1, False) == 64

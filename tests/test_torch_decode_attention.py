@@ -171,6 +171,70 @@ def test_decode_splits_follow_the_rule(monkeypatch):
     assert port_fa.decode_splits(dev, 4096, 8192) == 1
 
 
+@pytest.mark.parametrize("sms", [1, 78, 132, 144])
+def test_decode_wide_splits_between_one_and_eight(monkeypatch, sms):
+    """K7w's split count is 1..8 (a portable cluster) at any SM count, b * h,
+    bucket and head_dim, and the same for the same arguments (it reads no
+    device tensor); it never gives a block less than DECODE_WIDE_MIN_BYTES
+    of the bucket's K and V where more than one block takes a (row, head)."""
+    dev = torch.device("cuda", 0)
+    monkeypatch.setitem(port_fa._sm_count, 0, sms)
+    for bh in (1, 3, 8, 64, 500, 10_000):
+        for t_kv in (1, 16, 128, 256, 8192, 1 << 20):
+            for d in (129, 256, 2688, 4096):
+                for item in (2, 4):
+                    s = port_fa.decode_wide_splits(dev, bh, t_kv, d, item)
+                    assert 1 <= s <= port_fa.DECODE_MAX_SPLITS == 8
+                    assert s == port_fa.decode_wide_splits(dev, bh, t_kv, d, item)
+                    if s > 1:
+                        assert t_kv * 2 * d * item > (s - 1) * port_fa.DECODE_WIDE_MIN_BYTES
+                        assert s * bh <= port_fa.DECODE_WIDE_BLOCKS_PER_SM * sms
+
+
+def test_decode_wide_splits_follow_the_rule(monkeypatch):
+    """At 132 SMs: the wide engine's 64 (row, head) pairs of 256-wide heads
+    at a 256-key bucket take 2 blocks each in float32 and 1 in bfloat16; its
+    128-key bucket takes 1 in both types; 8 pairs at head_dim 2688 take the
+    8 of a full cluster; b * h past the card's SMs takes one."""
+    dev = torch.device("cuda", 0)
+    monkeypatch.setitem(port_fa._sm_count, 0, 132)
+    split = port_fa.decode_wide_splits
+    assert split(dev, 64, 256, 256, 4) == 2 and split(dev, 64, 256, 256, 2) == 1
+    assert split(dev, 64, 128, 256, 4) == split(dev, 64, 128, 256, 2) == 1
+    assert split(dev, 8, 256, 2688, 4) == split(dev, 8, 256, 2688, 2) == 8
+    assert split(dev, 256, 8192, 256, 4) == 1
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_decode_wide_geometry_fits_shared_memory(dtype):
+    """K7w's cut (`decode_wide_geometry`, the CUDA source's `wide_geometry`)
+    at every head_dim 129-4096 on both routes (the 16-byte one where head_dim
+    is whole pieces): shared memory within SMEM_LIMIT, groups of 8-256 lanes,
+    a lane's pieces covering the row in at most 32 floats, one or two keys a
+    group a tile, a ring of 2-6 stages; head_dim 128 and 4097 refused."""
+    vw = 16 // (4 if dtype == torch.float32 else 2)
+    for d in range(129, 4097):
+        for vec in {False, d % vw == 0}:
+            g = port_fa.decode_wide_geometry(d, dtype, vec)
+            assert 0 < g["smem"] <= port_fa.SMEM_LIMIT, (d, vec, g)
+            assert g["group"] in (8, 16, 32, 64, 128, 256) and g["threads"] == 256
+            pieces = -(-d // (vw if vec else 1))
+            assert g["per"] * g["group"] >= pieces and g["per"] * (vw if vec else 1) <= 32
+            assert g["keys"] in (1, 2) and g["tile"] * g["group"] == 256 * g["keys"]
+            assert 2 <= g["stages"] <= 6
+    for d in (128, 4097):
+        assert port_fa.decode_wide_geometry(d, dtype)["smem"] == 0
+
+
+def test_wide_launch_refuses_head_dim_past_4096():
+    """Past DECODE_WIDE_MAX_HEAD_DIM the launch wrapper raises before it
+    reaches the kernel (checked on CPU tensors: nothing is launched)."""
+    q = torch.zeros(1, 1, 1, 4100)
+    k = torch.zeros(1, 4, 1, 4100)
+    with pytest.raises(ValueError, match="head_dim <= 4096"):
+        port_fa._launch_decode(q, k, k, torch.tensor([2]))
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_kernel_matches_plain_on_card(dtype):
@@ -178,8 +242,11 @@ def test_kernel_matches_plain_on_card(dtype):
     max|plain| (sums in another order), bfloat16 within 1e-2 (the output
     rounded once); a strided layer view, head_dim 19 (one element a lane)
     and 128, cache_len 0 and past the bucket, and lengths on the edges of
-    the per-row split (`chip_smoke.decode_edge_lens`) at 1-8 splits, and
-    head_dim 160 on the sliced arm. Each call counts one launch."""
+    the per-row split (`chip_smoke.decode_edge_lens`) at 1-8 splits; on the
+    wide arm (K7w) head_dim 160, 300 in bfloat16 (600-byte rows: the element
+    route), 2688, and the wide decoder's own lengths (a 128-key bucket,
+    cache_len 5-80, 8 heads of 256 from a layer of the step's view), at
+    every split count. Each call counts one launch."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the kernel has no CPU mode")
     dt = getattr(torch, dtype)
@@ -216,13 +283,25 @@ def test_kernel_matches_plain_on_card(dtype):
                                                       lens)
             err = (got.float() - want).abs().max().item()
             assert err <= rel * want.abs().max().item(), (splits, lens.tolist())
-    # head_dim 160 (once refused with ValueError) takes K7's sliced arm
-    q, k, v = (torch.randn(2, n, 2, 160, device="cuda", generator=gen).to(dt)
-               for n in (1, 40, 40))
-    lens = torch.tensor([7, 40], dtype=torch.int32, device="cuda")
-    before = port_fa.decode_wide_launches
-    got = port_fa.decode_attention(q, k, v, lens)
-    torch.cuda.synchronize()
-    assert port_fa.decode_wide_launches == before + 1
-    want = port_fa.decode_attention_reference(q.float(), k.float(), v.float(), lens)
-    assert (got.float() - want).abs().max().item() <= rel * want.abs().max().item()
+    # head_dim above 128 takes the wide arm, K7w (one launch a call)
+    rng = np.random.default_rng(0)
+    for b, t, h, d, layers, lens in (
+            (2, 40, 2, 160, 0, [7, 40]),
+            (3, 300, 2, 300, 0, [0, 305, 150]),
+            (3, 256, 2, 2688, 0, [0, 256, 97]),
+            (8, 128, 8, 256, 4, rng.integers(5, 81, 8).tolist())):
+        mk = lambda *s: torch.randn(*s, device="cuda", generator=gen).to(dt)
+        q = mk(b, 1, h, d)
+        k, v = ((mk(b, t, layers, h, d)[:, :, 1], mk(b, t, layers, h, d)[:, :, 1])
+                if layers else (mk(b, t, h, d), mk(b, t, h, d)))
+        lens = torch.tensor(lens, dtype=torch.int32, device="cuda")
+        want = port_fa.decode_attention_reference(q.float(), k.float(), v.float(), lens)
+        for splits in (None, 1, 2, 3, 8):
+            before = port_fa.decode_wide_launches
+            got = (port_fa.decode_attention(q, k, v, lens) if splits is None
+                   else port_fa._launch_decode(q, k, v, lens, splits=splits))
+            torch.cuda.synchronize()
+            assert port_fa.decode_wide_launches == before + 1
+            assert torch.isfinite(got).all() and ((got[lens == 0] == 0).all())
+            err = (got.float() - want).abs().max().item()
+            assert err <= rel * want.abs().max().item(), (d, splits, err)

@@ -14,7 +14,9 @@ arms of ``csrc/flash_attention.cu`` and K7's sliced arm).
   rtol 1e-5 / atol 3e-5 (sums of 64 products over 256-300 terms each, taken
   in another order).
 - `decode_attention` at head_dim 256 against the JAX function's dense arm:
-  rtol 1e-5 / atol 1e-6.
+  rtol 1e-5 / atol 1e-6; at 131, 300 and 2688 (ragged lengths, a row at
+  cache_len 0) against its dense arm and its flash arm in interpret mode:
+  rtol 1e-5, atol 1e-6 for each 128 of head_dim.
 - A 2-layer SelfAttentionLayer network, 512 wide over 2 heads, t 32: the
   JAX network holds the port's parameters (params_to_numpy) and runs dense
   attention (its Pallas probe fails off-TPU); the port runs the flash route
@@ -150,6 +152,32 @@ def test_decode_attention_matches_jax_dense_at_head_dim_256():
     for impl in ("auto", "flash", "dense"):
         got = port_fa.decode_attention(*args, impl=impl).numpy()
         np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-6, err_msg=impl)
+
+
+@pytest.mark.parametrize("d", [131, 300, 2688])
+def test_decode_attention_matches_jax_at_wide_heads(d):
+    """`decode_attention` at head_dims K7w takes (131 and 300: rows that are
+    not whole 16-byte pieces in bfloat16, the element route; 2688: a group
+    of 128 lanes a key) with ragged lengths and a row at cache_len 0,
+    against the JAX function's dense arm (the rows it defines: cache_len >=
+    1) and its flash arm, the Pallas kernel in interpret mode (every row:
+    the one at cache_len 0 is 0 under its key mask). rtol 1e-5, atol 1e-6
+    for each 128 of head_dim (a score sums head_dim products, in another
+    order)."""
+    rng = np.random.default_rng(d)
+    b, t, h = 4, 24, 2
+    q = rng.standard_normal((b, 1, h, d)).astype(np.float32)
+    k, v = (rng.standard_normal((b, t, h, d)).astype(np.float32) for _ in range(2))
+    lens = np.array([0, 1, 13, t], np.int32)
+    args = [torch.from_numpy(x) for x in (q, k, v, lens)]
+    got = port_fa.decode_attention(*args, impl="flash").numpy()
+    jq, jk, jv, jl = (jnp.asarray(x) for x in (q, k, v, lens))
+    flash = np.asarray(ref_fa.decode_attention(jq, jk, jv, jl, impl="flash", interpret=True))
+    dense = np.asarray(ref_fa.decode_attention(jq, jk, jv, jl, impl="dense"))
+    tol = dict(rtol=1e-5, atol=1e-6 * d / 128)
+    np.testing.assert_allclose(got, flash, err_msg="flash", **tol)
+    np.testing.assert_allclose(got[1:], dense[1:], err_msg="dense", **tol)
+    assert np.all(got[0] == 0.0)
 
 
 # ------------------------------------------------ a network with wide heads
